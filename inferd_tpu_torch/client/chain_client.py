@@ -1,0 +1,85 @@
+"""Chain generation client: the client drives a FIXED chain of stage nodes
+(port of inferd_tpu/client/chain_client.py).
+
+Hub-and-spoke over each node's `/forward` with `relay: false`: stage 0
+gets the token chunk and every later stage gets the previous stage's
+`hidden`, carried by the client untouched (bf16 stays its raw bytes); the
+last stage returns last-token logits and the client samples. No DHT.
+`server_addrs[i]` serves stage i.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import uuid
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from inferd_tpu_torch.client.base import GenerationClient
+from inferd_tpu_torch.config import SamplingConfig
+
+
+class ChainClient(GenerationClient):
+    """Drives each stage node in fixed order, carrying activations."""
+
+    def __init__(
+        self,
+        server_addrs: Sequence[Tuple[str, int]],  # [(host, port)] per stage, in order
+        sampling: Optional[SamplingConfig] = None,
+        timeout_s: float = 300.0,
+        prefill_chunk: int = 512,
+    ):
+        if not server_addrs:
+            raise ValueError("need at least one stage server address")
+        super().__init__(sampling, timeout_s, prefill_chunk)
+        self.server_addrs = [tuple(a) for a in server_addrs]
+
+    async def _post(self, addr: Tuple[str, int], path: str, body: Dict[str, Any]) -> Dict[str, Any]:
+        host, port = addr
+        return await self._post_url(f"http://{host}:{port}{path}", body)
+
+    async def _forward_through_chain(
+        self, session_id: str, tokens: List[int], start_pos: int
+    ) -> np.ndarray:
+        """One pipeline pass, client-carried: tokens -> ... -> last-token logits."""
+        payload: Dict[str, Any] = {
+            "tokens": np.asarray([tokens], dtype=np.int32),
+            "start_pos": start_pos,
+            "real_len": len(tokens),
+        }
+        for stage, addr in enumerate(self.server_addrs):
+            env = {
+                "task_id": str(uuid.uuid4()),
+                "session_id": session_id,
+                "stage": stage,
+                "relay": False,
+                "payload": payload,
+            }
+            result = (await self._post(addr, "/forward", env))["result"]
+            if "logits" in result:
+                return np.asarray(result["logits"])[0]
+            payload = {
+                "hidden": result["hidden"],
+                "start_pos": int(result.get("start_pos", start_pos)),
+                "real_len": int(result.get("real_len", len(tokens))),
+            }
+        raise RuntimeError("last stage returned no logits: is the chain complete?")
+
+    async def _step(self, session_id: str, tokens: List[int], start_pos: int) -> np.ndarray:
+        return await self._forward_through_chain(session_id, tokens, start_pos)
+
+    async def _end_session(self, session_id: str) -> None:
+        """Drop the session's KV on every stage node, concurrently."""
+        async def one(stage: int, addr: Tuple[str, int]) -> None:
+            await self._post(
+                addr, "/end_session", {"session_id": session_id, "stage": stage, "relay": False}
+            )
+
+        await asyncio.gather(
+            *(one(s, a) for s, a in enumerate(self.server_addrs)),
+            return_exceptions=True,  # best effort: nodes TTL-sweep orphans
+        )
+
+    async def end_session(self, session_id: str) -> None:
+        await self._end_session(session_id)

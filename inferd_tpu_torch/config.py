@@ -1,0 +1,589 @@
+"""Model hyperparameter configs for the Qwen3 family (port of inferd_tpu/config.py).
+
+Field for field the same frozen dataclasses and presets as the JAX package,
+so one preset name means one architecture in both packages. The JAX
+`jnp_dtype`/`kv_jnp_dtype` properties become `torch_dtype`/`kv_torch_dtype`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+_TORCH_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "float8_e4m3fn": torch.float8_e4m3fn,
+}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """The torch dtype for a config dtype string (the names numpy/JAX use)."""
+    try:
+        return _TORCH_DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unsupported dtype name {name!r}; have {sorted(_TORCH_DTYPES)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters for a Qwen3-family causal LM."""
+
+    name: str = "qwen3-0.6b"
+    vocab_size: int = 151936
+    hidden_size: int = 1024
+    intermediate_size: int = 3072
+    num_layers: int = 28
+    num_heads: int = 16
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 1_000_000.0
+    max_position_embeddings: int = 40960
+    tie_word_embeddings: bool = True
+    dtype: str = "bfloat16"
+
+    # KV cache storage dtype: "model" stores cache entries in `dtype`;
+    # "float8_e4m3fn" halves long-context decode's dominant HBM read (the
+    # KV buffer: 28 layers x T x 8 heads x 128 dims x 2 for Qwen3-0.6B
+    # already outweighs the weights past ~8K tokens). Writes SATURATE to
+    # the dtype's range (e4m3 has no inf — an unclamped V outlier would
+    # poison the cache with NaN); the attention kernel upcasts fp8 K/V
+    # in registers after the load.
+    kv_dtype: str = "model"
+
+    # Attention implementation. Carried for parity with the JAX package;
+    # the port honours only "xla", which selects the composite
+    # (models/qwen3.gqa_attention). Every other value runs ops.attention.
+    # flash_gqa: the CUDA kernel on a CUDA tensor, its plain version on CPU.
+    attn_impl: str = "auto"
+
+    # Family knobs: Qwen3 uses per-head q/k RMSNorm and no attention bias;
+    # Qwen2 (the upstream InferD swarm path's model, Qwen2-0.5B) is the
+    # reverse. Llama-3 uses neither knob and (3.1+) frequency-dependent
+    # "llama3" RoPE scaling.
+    qk_norm: bool = True
+    attn_bias: bool = False
+
+    # RoPE scaling: "none", "llama3" (Llama-3.1+ long-context scheme:
+    # low-frequency bands divided by `rope_scaling_factor`, high-frequency
+    # bands untouched, smooth ramp between), or "yarn" (NTK-by-parts
+    # interpolation with an attention-temperature factor on cos/sin —
+    # GPT-OSS) — both matching HF rope_utils exactly.
+    rope_scaling: str = "none"
+    rope_scaling_factor: float = 8.0
+    rope_low_freq_factor: float = 1.0
+    rope_high_freq_factor: float = 4.0
+    rope_original_max_position: int = 8192
+    # yarn-only: ramp boundaries in rotations, correction-range truncation,
+    # and the cos/sin attention factor (0 = derive 0.1*ln(factor)+1)
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_truncate: bool = True
+    rope_attention_factor: float = 0.0
+
+    # MoE (Qwen3-MoE family); num_experts == 0 means dense MLP.
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    norm_topk_prob: bool = True
+
+    # GPT-OSS family knobs (all off elsewhere):
+    #   moe_router_mode — "softmax_topk" (Qwen/Mixtral: probs over ALL
+    #                     experts, then top-k) or "topk_softmax" (GPT-OSS:
+    #                     top-k over LOGITS, softmax over the k values)
+    #   router_bias / moe_bias — biases on the router / expert projections
+    #   swiglu_limit  — >0: clamped GLU experts (gate<=limit, |up|<=limit,
+    #                   glu = gate*sigmoid(1.702*gate), out = (up+1)*glu)
+    #   attn_sinks    — per-head learned sink logit joining the softmax
+    #                   denominator (an always-attendable virtual slot)
+    #   o_bias        — bias on the attention output projection too
+    moe_router_mode: str = "softmax_topk"
+    router_bias: bool = False
+    moe_bias: bool = False
+    swiglu_limit: float = 0.0
+    attn_sinks: bool = False
+    o_bias: bool = False
+
+    # Gemma-2 family knobs (all off for Qwen/Llama):
+    #   sandwich_norm  — norms BOTH before and after each sublayer (the
+    #                    post-norms apply to the sublayer output pre-residual)
+    #   rms_norm_plus_one — RMSNorm scales by (1 + w); weights init to zero
+    #   hidden_act     — MLP gate activation: "silu" or "gelu_tanh"
+    #   scale_embedding — multiply embeddings by sqrt(hidden_size)
+    #   attn_logit_softcap / final_logit_softcap — cap*tanh(x/cap), 0 = off
+    #   query_pre_attn_scalar — attention scores scale by this**-0.5
+    #                    instead of head_dim**-0.5 (0 = use head_dim)
+    #   sliding_window — local attention window on EVEN layer indices
+    #                    (odd layers stay global); 0 = all layers global
+    sandwich_norm: bool = False
+    rms_norm_plus_one: bool = False
+    hidden_act: str = "silu"
+    scale_embedding: bool = False
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    query_pre_attn_scalar: float = 0.0
+    sliding_window: int = 0
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return dtype_of(self.dtype)
+
+    @property
+    def kv_torch_dtype(self) -> torch.dtype:
+        return dtype_of(self.dtype if self.kv_dtype == "model" else self.kv_dtype)
+
+    @property
+    def attn_scale(self) -> float:
+        base = self.query_pre_attn_scalar or self.head_dim
+        return float(base) ** -0.5
+
+    def with_layers(self, num_layers: int) -> "ModelConfig":
+        return dataclasses.replace(self, num_layers=num_layers)
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingConfig:
+    """Generation-time sampling knobs."""
+
+    temperature: float = 0.6
+    top_k: int = 20
+    top_p: float = 0.95
+    # min-p filtering (HF MinPLogitsWarper, applied after top-p): drop
+    # tokens whose probability is below min_p * max-prob; 0 = off
+    min_p: float = 0.0
+    max_new_tokens: int = 512
+
+
+# ---------------------------------------------------------------------------
+# Presets. Sizes cross-checked against the HF model cards for the Qwen3
+# family; 0.6B matches the upstream InferD constants.
+# ---------------------------------------------------------------------------
+
+QWEN3_0_6B = ModelConfig(
+    name="qwen3-0.6b",
+    hidden_size=1024,
+    intermediate_size=3072,
+    num_layers=28,
+    num_heads=16,
+    num_kv_heads=8,
+)
+
+QWEN3_1_7B = ModelConfig(
+    name="qwen3-1.7b",
+    hidden_size=2048,
+    intermediate_size=6144,
+    num_layers=28,
+    num_heads=16,
+    num_kv_heads=8,
+    tie_word_embeddings=True,
+)
+
+QWEN3_4B = ModelConfig(
+    name="qwen3-4b",
+    hidden_size=2560,
+    intermediate_size=9728,
+    num_layers=36,
+    num_heads=32,
+    num_kv_heads=8,
+    tie_word_embeddings=True,
+)
+
+QWEN3_8B = ModelConfig(
+    name="qwen3-8b",
+    hidden_size=4096,
+    intermediate_size=12288,
+    num_layers=36,
+    num_heads=32,
+    num_kv_heads=8,
+    tie_word_embeddings=False,
+)
+
+QWEN3_14B = ModelConfig(
+    name="qwen3-14b",
+    hidden_size=5120,
+    intermediate_size=17408,
+    num_layers=40,
+    num_heads=40,
+    num_kv_heads=8,
+    tie_word_embeddings=False,
+)
+
+QWEN3_32B = ModelConfig(
+    name="qwen3-32b",
+    hidden_size=5120,
+    intermediate_size=25600,
+    num_layers=64,
+    num_heads=64,
+    num_kv_heads=8,
+    tie_word_embeddings=False,
+)
+
+# Qwen2 family (the upstream InferD swarm path serves Qwen2-0.5B; sizes
+# from the HF model cards).
+QWEN2_0_5B = ModelConfig(
+    name="qwen2-0.5b",
+    hidden_size=896,
+    intermediate_size=4864,
+    num_layers=24,
+    num_heads=14,
+    num_kv_heads=2,
+    head_dim=64,
+    max_position_embeddings=32768,
+    tie_word_embeddings=True,
+    qk_norm=False,
+    attn_bias=True,
+)
+
+QWEN2_1_5B = ModelConfig(
+    name="qwen2-1.5b",
+    hidden_size=1536,
+    intermediate_size=8960,
+    num_layers=28,
+    num_heads=12,
+    num_kv_heads=2,
+    head_dim=128,
+    max_position_embeddings=32768,
+    tie_word_embeddings=True,
+    qk_norm=False,
+    attn_bias=True,
+)
+
+QWEN2_7B = ModelConfig(
+    name="qwen2-7b",
+    vocab_size=152064,  # 7B uses the larger vocab (0.5B/1.5B: 151936)
+    hidden_size=3584,
+    intermediate_size=18944,
+    num_layers=28,
+    num_heads=28,
+    num_kv_heads=4,
+    head_dim=128,
+    max_position_embeddings=32768,
+    tie_word_embeddings=False,
+    qk_norm=False,
+    attn_bias=True,
+)
+
+# Llama family (scope beyond upstream InferD's Qwen2/Qwen3:
+# the decoder is fully config-driven, so Llama = knob settings + presets).
+# Sizes per the HF model cards.
+
+LLAMA32_1B = ModelConfig(
+    name="llama3.2-1b",
+    vocab_size=128256,
+    hidden_size=2048,
+    intermediate_size=8192,
+    num_layers=16,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=64,
+    rope_theta=500_000.0,
+    max_position_embeddings=131072,
+    tie_word_embeddings=True,
+    qk_norm=False,
+    attn_bias=False,
+    rope_scaling="llama3",
+    rope_scaling_factor=32.0,
+    rope_low_freq_factor=1.0,
+    rope_high_freq_factor=4.0,
+    rope_original_max_position=8192,
+)
+
+LLAMA31_8B = ModelConfig(
+    name="llama3.1-8b",
+    vocab_size=128256,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    rope_theta=500_000.0,
+    max_position_embeddings=131072,
+    tie_word_embeddings=False,
+    qk_norm=False,
+    attn_bias=False,
+    rope_scaling="llama3",
+    rope_scaling_factor=8.0,
+    rope_low_freq_factor=1.0,
+    rope_high_freq_factor=4.0,
+    rope_original_max_position=8192,
+)
+
+# Gemma-2 family (Google; sizes per the HF model cards). Architecturally
+# the most distinct family in the zoo: sandwich norms, (1+w) RMSNorm,
+# GeGLU, scaled embeddings, attention/final logit softcapping, and sliding-
+# window attention on alternating layers — all config-driven in the shared
+# decoder (models/qwen3.py).
+
+GEMMA2_2B = ModelConfig(
+    name="gemma2-2b",
+    vocab_size=256000,
+    hidden_size=2304,
+    intermediate_size=9216,
+    num_layers=26,
+    num_heads=8,
+    num_kv_heads=4,
+    head_dim=256,
+    rope_theta=10_000.0,
+    max_position_embeddings=8192,
+    tie_word_embeddings=True,
+    qk_norm=False,
+    attn_bias=False,
+    sandwich_norm=True,
+    rms_norm_plus_one=True,
+    hidden_act="gelu_tanh",
+    scale_embedding=True,
+    attn_logit_softcap=50.0,
+    final_logit_softcap=30.0,
+    query_pre_attn_scalar=256.0,
+    sliding_window=4096,
+)
+
+GEMMA2_9B = dataclasses.replace(
+    GEMMA2_2B,
+    name="gemma2-9b",
+    hidden_size=3584,
+    intermediate_size=14336,
+    num_layers=42,
+    num_heads=16,
+    num_kv_heads=8,
+)
+
+GEMMA2_27B = dataclasses.replace(
+    GEMMA2_2B,
+    name="gemma2-27b",
+    hidden_size=4608,
+    intermediate_size=36864,
+    num_layers=46,
+    num_heads=32,
+    num_kv_heads=16,
+    head_dim=128,
+    query_pre_attn_scalar=144.0,
+)
+
+# Mixtral (Mistral's MoE family; sizes per the HF model card). Routing is
+# the same softmax-all → top-k → renormalize our moe_mlp implements for
+# Qwen3-MoE (norm_topk_prob=True); arch is Llama-like (no q/k-norm, no
+# attention bias, untied head).
+MIXTRAL_8X7B = ModelConfig(
+    name="mixtral-8x7b",
+    vocab_size=32000,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    rope_theta=1_000_000.0,
+    max_position_embeddings=32768,
+    rms_norm_eps=1e-5,
+    tie_word_embeddings=False,
+    qk_norm=False,
+    attn_bias=False,
+    num_experts=8,
+    num_experts_per_tok=2,
+    moe_intermediate_size=14336,
+    norm_topk_prob=True,
+)
+
+# GPT-OSS (OpenAI's open-weights MoE family; sizes per the HF configs).
+# Every layer is MoE (top-4 of 32/128 clamped-GLU experts with biases,
+# top-k-then-softmax routing), attention has per-head sink logits and
+# biases on all four projections, sliding window 128 on even layers, and
+# YaRN rope scaling (factor 32 over a 4096 pretraining window).
+GPT_OSS_20B = ModelConfig(
+    name="gpt-oss-20b",
+    vocab_size=201088,
+    hidden_size=2880,
+    intermediate_size=2880,
+    num_layers=24,
+    num_heads=64,
+    num_kv_heads=8,
+    head_dim=64,
+    rope_theta=150_000.0,
+    max_position_embeddings=131072,
+    rms_norm_eps=1e-5,
+    tie_word_embeddings=False,
+    qk_norm=False,
+    attn_bias=True,
+    o_bias=True,
+    attn_sinks=True,
+    sliding_window=128,
+    rope_scaling="yarn",
+    rope_scaling_factor=32.0,
+    rope_original_max_position=4096,
+    rope_beta_fast=32.0,
+    rope_beta_slow=1.0,
+    rope_truncate=False,
+    num_experts=32,
+    num_experts_per_tok=4,
+    moe_intermediate_size=2880,
+    moe_router_mode="topk_softmax",
+    router_bias=True,
+    moe_bias=True,
+    swiglu_limit=7.0,
+)
+
+GPT_OSS_120B = dataclasses.replace(
+    GPT_OSS_20B,
+    name="gpt-oss-120b",
+    num_layers=36,
+    num_experts=128,
+)
+
+QWEN3_MOE_30B_A3B = ModelConfig(
+    name="qwen3-moe-30b-a3b",
+    hidden_size=2048,
+    intermediate_size=6144,
+    num_layers=48,
+    num_heads=32,
+    num_kv_heads=4,
+    tie_word_embeddings=False,
+    num_experts=128,
+    num_experts_per_tok=8,
+    moe_intermediate_size=768,
+)
+
+# Synthetic mid-size config for the default bench's paired pipeline leg
+# (bench.py): big enough that a decode step's compute dominates the
+# inter-stage hop (the regime the north-star ratio grades), small enough
+# that interleaved paired trials finish in seconds on a 1-core CPU host.
+# Qwen3 topology at reduced width — NOT a real checkpoint shape.
+BENCH_PIPE = ModelConfig(
+    name="bench-pipe",
+    vocab_size=8192,
+    hidden_size=512,
+    intermediate_size=1536,
+    num_layers=8,
+    num_heads=8,
+    num_kv_heads=4,
+    head_dim=64,
+    max_position_embeddings=2048,
+    dtype="float32",
+)
+
+# Tiny configs for tests — same topology, toy widths.
+TINY = ModelConfig(
+    name="tiny",
+    vocab_size=256,
+    hidden_size=64,
+    intermediate_size=128,
+    num_layers=4,
+    num_heads=4,
+    num_kv_heads=2,
+    head_dim=16,
+    max_position_embeddings=512,
+    dtype="float32",
+)
+
+TINY_MOE = dataclasses.replace(
+    TINY,
+    name="tiny-moe",
+    num_experts=8,
+    num_experts_per_tok=2,
+    moe_intermediate_size=32,
+)
+
+TINY_QWEN2 = dataclasses.replace(
+    TINY, name="tiny-qwen2", qk_norm=False, attn_bias=True
+)
+
+TINY_LLAMA = dataclasses.replace(
+    TINY, name="tiny-llama", qk_norm=False, attn_bias=False,
+    rope_scaling="llama3", rope_scaling_factor=8.0,
+    rope_original_max_position=128, rope_theta=500_000.0,
+)
+
+TINY_GPT_OSS = dataclasses.replace(
+    TINY, name="tiny-gptoss", qk_norm=False, attn_bias=True, o_bias=True,
+    tie_word_embeddings=False,
+    attn_sinks=True, sliding_window=8, rope_theta=150_000.0, rms_norm_eps=1e-5,
+    rope_scaling="yarn", rope_scaling_factor=32.0,
+    rope_original_max_position=64, rope_truncate=False,
+    num_experts=8, num_experts_per_tok=2, moe_intermediate_size=32,
+    moe_router_mode="topk_softmax", router_bias=True, moe_bias=True,
+    swiglu_limit=7.0,
+)
+
+TINY_GEMMA2 = dataclasses.replace(
+    TINY, name="tiny-gemma2", qk_norm=False, attn_bias=False,
+    rope_theta=10_000.0,
+    sandwich_norm=True, rms_norm_plus_one=True, hidden_act="gelu_tanh",
+    scale_embedding=True, attn_logit_softcap=50.0, final_logit_softcap=30.0,
+    query_pre_attn_scalar=32.0, sliding_window=8,
+)
+
+PRESETS = {
+    c.name: c
+    for c in [
+        QWEN3_0_6B,
+        QWEN3_1_7B,
+        QWEN3_4B,
+        QWEN3_8B,
+        QWEN3_14B,
+        QWEN3_32B,
+        QWEN2_0_5B,
+        QWEN2_1_5B,
+        QWEN2_7B,
+        LLAMA32_1B,
+        LLAMA31_8B,
+        GEMMA2_2B,
+        GEMMA2_9B,
+        GEMMA2_27B,
+        MIXTRAL_8X7B,
+        GPT_OSS_20B,
+        GPT_OSS_120B,
+        QWEN3_MOE_30B_A3B,
+        BENCH_PIPE,
+        TINY,
+        TINY_MOE,
+        TINY_QWEN2,
+        TINY_LLAMA,
+        TINY_GEMMA2,
+        TINY_GPT_OSS,
+    ]
+}
+
+# HF hub repos for weight loading (the JAX package's models/loader.py).
+HF_REPOS = {
+    "qwen3-0.6b": "Qwen/Qwen3-0.6B",
+    "qwen3-1.7b": "Qwen/Qwen3-1.7B",
+    "qwen3-4b": "Qwen/Qwen3-4B",
+    "qwen3-8b": "Qwen/Qwen3-8B",
+    "qwen3-14b": "Qwen/Qwen3-14B",
+    "qwen3-32b": "Qwen/Qwen3-32B",
+    "qwen3-moe-30b-a3b": "Qwen/Qwen3-30B-A3B",
+    "qwen2-0.5b": "Qwen/Qwen2-0.5B",
+    "qwen2-1.5b": "Qwen/Qwen2-1.5B",
+    "qwen2-7b": "Qwen/Qwen2-7B",
+    "llama3.2-1b": "meta-llama/Llama-3.2-1B",
+    "llama3.1-8b": "meta-llama/Llama-3.1-8B",
+    "gemma2-2b": "google/gemma-2-2b",
+    "gemma2-9b": "google/gemma-2-9b",
+    "gemma2-27b": "google/gemma-2-27b",
+    "mixtral-8x7b": "mistralai/Mixtral-8x7B-v0.1",
+    "gpt-oss-20b": "openai/gpt-oss-20b",
+    "gpt-oss-120b": "openai/gpt-oss-120b",
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    try:
+        return PRESETS[name.lower()]
+    except KeyError:
+        raise KeyError(f"unknown model preset {name!r}; have {sorted(PRESETS)}")

@@ -1,0 +1,195 @@
+# jaxlint: file-disable=J003 -- test code: these loops read each step's logits to ASSERT parity; they are verification loops, not serving hot paths
+"""Port Qwen3 model vs the JAX package's on the same TINY weights.
+
+Weights come from the JAX `init_params` and cross through
+models/convert.params_from_numpy. The JAX side runs its XLA path (on the
+CPU its `auto` attention dispatch is the composite); the port runs
+flash_gqa, whose CPU version is the plain masked softmax.
+
+Tolerances: f32 logits atol 1e-4 (the same math, other summation orders,
+through 4 layers). bf16: 3% of the largest |logit| (bf16 rounds after
+every projection and norm, at different points in XLA and PyTorch, and the
+differences compound over the layers)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from inferd_tpu import config as jcfg
+from inferd_tpu.core.cache import KVCache as JKVCache
+from inferd_tpu.models import qwen3 as jq
+from inferd_tpu_torch import config as tcfg
+from inferd_tpu_torch.core.cache import KVCache, grow
+from inferd_tpu_torch.core.generate import bucket_len
+from inferd_tpu_torch.models import convert
+from inferd_tpu_torch.models import qwen3 as tq
+
+torch.set_num_threads(2)
+
+
+def _params(cfg_j, seed=0):
+    p = jq.init_params(cfg_j, jax.random.PRNGKey(seed))
+    # randomize the norms so a mis-applied norm weight cannot hide behind ones
+    rng = np.random.default_rng(seed)
+    p["layers"]["q_norm"] = jnp.asarray(
+        1.0 + 0.1 * rng.standard_normal(p["layers"]["q_norm"].shape), p["layers"]["q_norm"].dtype)
+    p["final_norm"] = jnp.asarray(
+        1.0 + 0.1 * rng.standard_normal(p["final_norm"].shape), p["final_norm"].dtype)
+    return p, convert.params_from_numpy(jax.tree.map(np.asarray, p), None)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    return _params(jcfg.TINY)
+
+
+def _tokens(seed, b, s, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(np.int32)
+
+
+@pytest.mark.parametrize("b,s", [(1, 20), (2, 13)])
+def test_forward_logits_match_jax(tiny, b, s):
+    jp, tp = tiny
+    toks = _tokens(b * 100 + s, b, s, jcfg.TINY.vocab_size)
+    ref, _, _ = jq.forward(jp, jcfg.TINY, jnp.asarray(toks))
+    got, nk, nv = tq.forward(tp, tcfg.TINY, torch.from_numpy(toks).long())
+    assert nk is None and nv is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-4)
+
+
+def test_forward_composite_path_matches_jax(tiny):
+    """attn_impl="xla" runs the port's composite instead of flash_gqa."""
+    jp, tp = tiny
+    toks = _tokens(7, 1, 18, jcfg.TINY.vocab_size)
+    ref, _, _ = jq.forward(jp, jcfg.TINY, jnp.asarray(toks))
+    got, _, _ = tq.forward(tp, dataclasses.replace(tcfg.TINY, attn_impl="xla"),
+                           torch.from_numpy(toks).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-4)
+
+
+def test_forward_cached_prefill_then_decode_matches_jax(tiny):
+    """A bucket-padded 17-token prefill (32 rows written), then 8 decode
+    steps feeding back the JAX greedy token: logits match at every step."""
+    jp, tp = tiny
+    cfg_j, cfg_t = jcfg.TINY, tcfg.TINY
+    n, steps, max_len = 17, 8, 64
+    prompt = _tokens(11, 1, n, cfg_j.vocab_size)
+    padded = np.zeros((1, bucket_len(n)), np.int32)
+    padded[:, :n] = prompt
+
+    jc = JKVCache.create(cfg_j, cfg_j.num_layers, 1, max_len, ring=False)
+    jl, jc = jq.forward_cached(jp, cfg_j, jnp.asarray(padded), None, jc, jnp.int32(0),
+                               real_end=jnp.int32(n))
+    jc = dataclasses.replace(jc, length=jnp.int32(n))
+    tc = KVCache.create(cfg_t, cfg_t.num_layers, 1, max_len)
+    tl, tc = tq.forward_cached(tp, cfg_t, torch.from_numpy(padded).long(), None, tc, 0)
+    tc.length = n
+    np.testing.assert_allclose(tl[:, n - 1].numpy(), np.asarray(jl[:, n - 1]), rtol=0, atol=1e-4)
+
+    tok = int(np.argmax(np.asarray(jl[0, n - 1])))
+    for i in range(steps):
+        pos = n + i
+        jl, jc = jq.forward_cached(jp, cfg_j, jnp.asarray([[tok]], jnp.int32), None, jc,
+                                   jc.length, real_end=jc.length + 1)
+        jc = dataclasses.replace(jc, length=jc.length + 1)
+        tl, tc = tq.forward_cached(tp, cfg_t, torch.tensor([[tok]]), None, tc, tc.length)
+        tc.length += 1
+        np.testing.assert_allclose(tl[:, 0].numpy(), np.asarray(jl[:, 0]), rtol=0, atol=1e-4,
+                                   err_msg=f"decode step {i} (position {pos})")
+        tok = int(np.argmax(np.asarray(jl[0, 0])))
+    # the KV buffers themselves agree on every populated slot
+    np.testing.assert_allclose(tc.k[:, :, : n + steps].numpy(),
+                               np.asarray(jc.k[:, :, : n + steps]), rtol=0, atol=1e-5)
+
+
+def test_forward_bf16_close_to_jax(tiny):
+    cfg_j = dataclasses.replace(jcfg.TINY, dtype="bfloat16")
+    cfg_t = dataclasses.replace(tcfg.TINY, dtype="bfloat16")
+    jp, tp = _params(cfg_j, seed=1)
+    assert tp["embed"].dtype == torch.bfloat16
+    toks = _tokens(3, 1, 24, cfg_j.vocab_size)
+    ref = np.asarray(jq.forward(jp, cfg_j, jnp.asarray(toks))[0], np.float32)
+    got = tq.forward(tp, cfg_t, torch.from_numpy(toks).long())[0].float().numpy()
+    scale = np.abs(ref).max()
+    assert np.abs(got - ref).max() <= 0.03 * scale, (np.abs(got - ref).max(), scale)
+
+
+def test_bf16_params_cross_bit_exact():
+    cfg_j = dataclasses.replace(jcfg.TINY, dtype="bfloat16")
+    p = jq.init_params(cfg_j, jax.random.PRNGKey(2))
+    pn = jax.tree.map(np.asarray, p)
+    tp = convert.params_from_numpy(pn, tcfg.TINY)
+    back = convert.params_to_numpy(tp, bf16_dtype=jnp.bfloat16)
+    for a, b in zip(jax.tree.leaves(pn), jax.tree.leaves(back)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.view(np.uint16).tobytes() == b.view(np.uint16).tobytes()
+
+
+def test_qwen2_style_biases_match_jax():
+    cfg_j, cfg_t = jcfg.TINY_QWEN2, tcfg.TINY_QWEN2
+    jp = jq.init_params(cfg_j, jax.random.PRNGKey(3))
+    rng = np.random.default_rng(3)
+    for name in ("q_bias", "k_bias", "v_bias"):
+        jp["layers"][name] = jnp.asarray(0.1 * rng.standard_normal(jp["layers"][name].shape),
+                                         jnp.float32)
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), cfg_t)
+    toks = _tokens(5, 1, 10, cfg_j.vocab_size)
+    ref, _, _ = jq.forward(jp, cfg_j, jnp.asarray(toks))
+    got, _, _ = tq.forward(tp, cfg_t, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-4)
+
+
+def test_rope_and_norm_match_jax():
+    pos = np.arange(0, 700, 7, dtype=np.int32).reshape(2, 50)
+    jc, js = jq.rope_cos_sin(jnp.asarray(pos), 128, 1_000_000.0)
+    tc, ts = tq.rope_cos_sin(torch.from_numpy(pos), 128, 1_000_000.0)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=2e-5)
+    x = np.random.default_rng(0).standard_normal((3, 5, 64)).astype(np.float32)
+    w = np.random.default_rng(1).standard_normal(64).astype(np.float32)
+    np.testing.assert_allclose(
+        tq.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-6).numpy(),
+        np.asarray(jq.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-6)), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["tiny-moe", "tiny-gemma2", "tiny-llama", "tiny-gptoss"])
+def test_unported_architectures_raise(name):
+    cfg = tcfg.get_config(name)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tq.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def test_init_params_layout_matches_jax():
+    jp = jq.init_params(jcfg.TINY, jax.random.PRNGKey(0))
+    tp = tq.init_params(tcfg.TINY, torch.Generator().manual_seed(0))
+    jshapes = {k: tuple(v.shape) for k, v in jp["layers"].items()}
+    tshapes = {k: tuple(v.shape) for k, v in tp["layers"].items()}
+    assert list(jshapes.items()) == list(tshapes.items())
+    assert list(jp) == list(tp)
+    assert tuple(tp["embed"].shape) == tuple(jp["embed"].shape)
+    # same seed, same draw: the init is reproducible
+    tp2 = tq.init_params(tcfg.TINY, torch.Generator().manual_seed(0))
+    assert torch.equal(tp["layers"]["q_proj"], tp2["layers"]["q_proj"])
+
+
+def test_cache_overflow_and_grow():
+    c = KVCache.create(tcfg.TINY, 2, 1, 16)
+    c.k[:, :, :10] = 1.0
+    c.length = 10
+    c.ensure_room(6)
+    with pytest.raises(BufferError, match="overflow"):
+        c.ensure_room(7, owner="s1")
+    g = grow(c, 64)
+    assert g.max_len == 64 and g.length == 10
+    assert torch.equal(g.k[:, :, :16], c.k) and float(g.k[:, :, 16:].abs().max()) == 0.0
+    assert grow(g, 32) is g
+    with pytest.raises(BufferError):  # a write past the buffer raises, never clamps
+        tq.forward_cached(
+            tq.init_params(tcfg.TINY, torch.Generator().manual_seed(0)), tcfg.TINY,
+            torch.zeros((1, 8), dtype=torch.long), None,
+            KVCache.create(tcfg.TINY, 4, 1, 16), 12,
+        )
