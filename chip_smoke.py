@@ -3,24 +3,36 @@
 
 Phases, one or more lines each; any failure raises and the exit code is 1:
 
-  gpu      the card's name and power limit (nvidia-smi), torch and CUDA
-           versions; TF32 off for every comparison
-  build    build the CUDA kernels from the sources in this checkout
-  kernels  every kernel against its plain PyTorch version on the card, at
-           the main path's shapes (Qwen3-0.6B: bf16, Nq 16, Nkv 8, D 128)
-           and feature cases; the per-row error against a stated tolerance,
-           beside the readings of planted faults that it must catch;
-           kernel / plain / library (SDPA, yardstick only) times from CUDA
-           events, and the bound for the work
-  serve    split Qwen3-0.6B (seeded random weights, full width, 28 layers)
-           into 2 stages with tools/split_model, start two tools/run_node
-           --device cuda processes on loopback, drive 4 greedy requests
-           through the port's ChainClient, and check: every request
-           completes; each node's flash_gqa launches = 14 x its forward
-           passes; the streams equal the same two stage executors driven
-           in-process; over teacher-forced prefill and decode steps the
-           kernel path's hidden states and logits are near the plain
-           attention path's, and planted attention faults are not
+  gpu         the card's name and power limit (nvidia-smi), torch and CUDA
+              versions; TF32 off for every comparison
+  build       build every CUDA kernel from the sources in this checkout, all
+              at once (one nvcc each), with ptxas's registers and spills
+  kernels     every kernel against its plain PyTorch version on the card, at
+              the main path's shapes (Qwen3-0.6B: bf16, Nq 16, Nkv 8, D 128)
+              and feature cases; the per-row error against a stated
+              tolerance, beside the readings of planted faults that it must
+              catch; kernel / plain / library (or yardstick) times from CUDA
+              events, and the bound for the work. flash_gqa's cases, then
+              paged_decode_gqa's
+  serve       split Qwen3-0.6B (seeded random weights, full width, 28 layers)
+              into 2 stages with tools/split_model, start two tools/run_node
+              --device cuda processes on loopback, drive 4 greedy requests
+              one after another through the port's ChainClient, and check:
+              every request completes; each node's flash_gqa launches = 14 x
+              its forward passes; the streams equal the same two stage
+              executors driven in-process; over teacher-forced prefill and
+              decode steps the kernel path's hidden states and logits are
+              near the plain attention path's, and planted attention faults
+              are not
+  serve_lanes the same parts behind two run_node --stage-lanes 8 --paged-kv 32
+              processes; 8 ChainClient sessions run CONCURRENTLY, greedy.
+              Checks: every stream completes; per node, paged_decode_gqa
+              launches = 14 x its decode dispatches, flash_gqa launches = 14 x
+              its prefill dispatches, and the mean co-batch is above 1; the
+              streams equal two in-process lane executors' over the same
+              parts; teacher-forced, the kernel path stays near the plain
+              attention path on the paged and on the dense lane layout, and
+              planted paged-attention faults do not; TTFT and tok/s
 
 Then one JSON line listing every kernel, the nvidia-smi line, and last:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -48,6 +60,8 @@ import urllib.parse
 from typing import Any, Callable, Dict, List
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"  # main() runs only on the card
+MODEL = "qwen3-0.6b"
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
@@ -108,6 +122,39 @@ MAX_LEN = 4096
 DECODE_CHECKED = 8
 HIDDEN_TOL, LOGIT_TOL = 0.5, 0.05
 E2E_FAULTS = ("kv_heads_rolled", "last_tile_skipped", "causal_off_by_one")
+
+# paged_decode_gqa against its plain version: the same per-row rule and
+# limits as flash_gqa (ATTN_TOL). Pools [NB, 32, 8, 128] with each lane's
+# chain shuffled through them, garbage in the scratch block 0, the table
+# stamped at the chain_clamp width (the power-of-two bucket of the longest
+# chain), and each lane's query at position kv_len - 1 (a decode step).
+# Planted faults, each the kernel run on inputs that reproduce what a wrong
+# kernel would compute: the table read one chain slot late, the walk run
+# one block past the chain into the scratch block, the last chain block
+# skipped, K/V of the wrong kv head.
+PAGED_FAULTS = ("table_shifted", "scratch_scored", "last_block_skipped", "kv_heads_rolled")
+PAGED_BS = 32
+PAGED_CASES: List[Dict[str, Any]] = [
+    dict(name="paged_main_b8_bs32", kv_len=[17, 60, 101, 230, 301, 480, 701, 1000], nb=1025),
+    # the chain fills the whole table, so there is no block past it to score
+    dict(name="paged_long_b1_4096", kv_len=[4096], nb=129, blind=("scratch_scored",)),
+    dict(name="paged_zero_lane", kv_len=[0, 300], nb=64),
+    dict(name="paged_window_128", kv_len=[230, 701], window=128, nb=64),
+    dict(name="paged_softcap_scale", kv_len=[230, 701], softcap=50.0, scale=1.0 / 16.0, nb=64),
+    dict(name="paged_sinks", kv_len=[230, 701], sinks=True, nb=64),
+    dict(name="paged_fp8", kv_len=[230, 701], fp8=True, nb=64),
+    dict(name="paged_f32", kv_len=[230, 701], dtype="float32", nb=64),
+]
+PAGED_MAIN_CASE = "paged_main_b8_bs32"
+
+# serve_lanes: 8 concurrent sessions through two --stage-lanes nodes
+LANES = 8
+LANE_PROMPT_LENS = (16, 60, 100, 200, 300, 450, 700, 1000)
+LANE_PREFILL_CHUNK = 256  # server-side chunks of the client's 512-token chunks
+LANE_NODE_ARGS = ["--stage-lanes", str(LANES), "--paged-kv", str(PAGED_BS),
+                  "--prefill-chunk", str(LANE_PREFILL_CHUNK), "--window-ms", "2"]
+DENSE_LANE_PROMPTS = (16, 100, 300, 700)  # the dense-lane layout's teacher-forced prompts
+LANE_E2E_FAULTS = ("table_shifted", "last_block_skipped")
 
 
 def say(phase: str, msg: str) -> None:
@@ -221,7 +268,7 @@ def run_kernel_cases() -> List[Dict[str, Any]]:
 
     from inferd_tpu_torch.ops import attention as A
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     nq, nkv, d = 16, 8, 128
     gen = torch.Generator(device=dev).manual_seed(0)
     results, failures = [], []
@@ -309,6 +356,159 @@ def run_kernel_cases() -> List[Dict[str, Any]]:
     return results
 
 
+def paged_work(kv_len, window: int, b: int, nq: int, nkv: int, d: int, q_item: int,
+               kv_item: int) -> Dict[str, float]:
+    """Bytes and flops one paged decode step needs: Q read and O written,
+    each K/V row a query attends read once; 4 * D flops per (query head,
+    attended slot). Each lane's query sits at kv_len - 1."""
+    slots = 0
+    for n in kv_len:
+        qpos = max(n - 1, 0)
+        lo = max(qpos - window + 1, 0) if window > 0 else 0
+        slots += max(min(n, qpos + 1) - lo, 0)
+    return {"bytes": 2 * b * nq * d * q_item + 2 * slots * nkv * d * kv_item,
+            "flops": 4.0 * d * nq * slots}
+
+
+def plant_paged_fault(fault: str, k_pool, v_pool, table, q_positions, kv_len):
+    """(pools, table, q_positions, kv_len) on which the sound kernel computes
+    what a kernel with `fault` computes on the given ones (PAGED_FAULTS)."""
+    import torch
+
+    bs, mb = k_pool.shape[1], table.shape[1]
+    kv_len = torch.as_tensor(kv_len, device=table.device).expand(table.shape[0])
+    if fault == "table_shifted":  # chain slot j read from table slot j + 1
+        table = torch.cat([table[:, 1:], torch.zeros_like(table[:, :1])], dim=1).contiguous()
+    elif fault == "scratch_scored":  # one block past the chain, masks open to its end
+        nblk = (kv_len + bs - 1) // bs
+        room = nblk < mb
+        kv_len = torch.where(room, (nblk + 1) * bs, kv_len)
+        q_positions = torch.where(room[:, None], kv_len[:, None] - 1, q_positions)
+    elif fault == "last_block_skipped":
+        kv_len = ((kv_len - 1).div(bs, rounding_mode="floor") * bs).clamp(min=0)
+    elif fault == "kv_heads_rolled":  # kv head h reads kv head h - 1's K/V
+        k_pool, v_pool = (x.view(torch.uint8).roll(1, dims=2).view(x.dtype).contiguous()
+                          for x in (k_pool, v_pool))
+    else:
+        raise ValueError(f"unknown fault {fault}")
+    return k_pool, v_pool, table, q_positions, kv_len
+
+
+def paged_inputs(c: Dict[str, Any], nq: int, nkv: int, d: int, gen, dev):
+    """One paged case's inputs: pools with garbage in the scratch block 0,
+    chains shuffled through the pool, the table stamped at the chain_clamp
+    width, each lane's query at kv_len - 1."""
+    import torch
+
+    dt = torch.float32 if c.get("dtype") == "float32" else torch.bfloat16
+    kv_len = c["kv_len"]
+    b, nb = len(kv_len), c["nb"]
+    chains = [-(-n // PAGED_BS) for n in kv_len]
+    mb = 1
+    while mb < max(chains):
+        mb <<= 1
+    perm = (torch.randperm(nb - 1, generator=gen, device=dev) + 1).to(torch.int32)
+    table = torch.zeros((b, mb), dtype=torch.int32, device=dev)
+    used = 0
+    for lane, n in enumerate(chains):
+        table[lane, :n] = perm[used:used + n]
+        used += n
+    k_pool = torch.randn((nb, PAGED_BS, nkv, d), generator=gen, device=dev)
+    v_pool = torch.randn((nb, PAGED_BS, nkv, d), generator=gen, device=dev)
+    k_pool[0] = k_pool[0] * 4.0 + 3.0  # scratch garbage: visible if ever scored
+    v_pool[0] = v_pool[0] * 4.0 - 3.0
+    pool_dt = torch.float8_e4m3fn if c.get("fp8") else dt
+    k_pool, v_pool = k_pool.to(pool_dt), v_pool.to(pool_dt)
+    q = torch.randn((b, 1, nq, d), generator=gen, device=dev).to(dt)
+    kl = torch.tensor(kv_len, device=dev)
+    qpos = (kl - 1).clamp(min=0)[:, None]
+    sinks = torch.randn((nq,), generator=gen, device=dev) * 2.0 if c.get("sinks") else None
+    kw = dict(scale=c.get("scale"), softcap=c.get("softcap", 0.0), window=c.get("window"),
+              sinks=sinks)
+    return q, k_pool, v_pool, table, qpos, kl, kw
+
+
+def run_paged_cases() -> List[Dict[str, Any]]:
+    import torch
+    import torch.nn.functional as F
+
+    from inferd_tpu_torch.ops import attention as A
+
+    dev = torch.device(DEVICE)
+    nq, nkv, d = 16, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(1)
+    results, failures = [], []
+    for c in PAGED_CASES:
+        q, k_pool, v_pool, table, qpos, kl, kw = paged_inputs(c, nq, nkv, d, gen, dev)
+        dt = q.dtype
+
+        def kernel():
+            return A.paged_decode_gqa(q, k_pool, v_pool, table, qpos, kl, **kw)
+
+        def plain():
+            return A.paged_decode_gqa_reference(q, k_pool, v_pool, table, qpos, kl, **kw)
+
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{c['name']}: kernel output is not finite")
+        err = (got.float() - ref.float()).abs().max().item()
+        rel = row_rel_err(got, ref, d)
+        tol = ATTN_TOL["float32" if dt == torch.float32 else "bfloat16"]
+        faults = {f: row_rel_err(A.paged_decode_gqa(
+            q, *plant_paged_fault(f, k_pool, v_pool, table, qpos, kl), **kw), ref, d)
+            for f in PAGED_FAULTS}
+        if not rel <= tol:
+            failures.append(f"{c['name']}: row error {rel} > tol {tol}")
+        for f, reading in faults.items():
+            if f not in c.get("blind", ()) and not reading > tol:
+                failures.append(f"{c['name']}: planted fault {f} reads {reading} <= tol {tol}")
+
+        yardstick_ms = None
+        if kw["sinks"] is None and not kw["softcap"]:
+            # gather + SDPA with the kv heads expanded: a yardstick only, no
+            # single PyTorch call computes paged attention
+            g = nq // nkv
+            t = table.shape[1] * PAGED_BS
+            kpos = torch.arange(t, device=dev)[None, None, None, :]
+            mask = (kpos < kl[:, None, None, None]) & (kpos <= qpos[:, :, None, None])
+            if kw["window"]:
+                mask &= kpos > qpos[:, :, None, None] - kw["window"]
+            qh = q.transpose(1, 2)
+
+            def yardstick():
+                kd, vd = A.gather_block_kv(k_pool, v_pool, table)
+                kh = kd.to(dt).repeat_interleave(g, dim=2).transpose(1, 2)
+                vh = vd.to(dt).repeat_interleave(g, dim=2).transpose(1, 2)
+                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                      scale=kw["scale"])
+
+            yardstick_ms = time_ms(yardstick)
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, iters=10)
+        q_item = 4 if dt == torch.float32 else 2
+        w = paged_work(c["kv_len"], c.get("window") or 0, len(c["kv_len"]), nq, nkv, d, q_item,
+                       k_pool.element_size())
+        peak = PEAK_FLOPS["float32" if dt == torch.float32 else "bfloat16"]
+        t_bytes, t_ops = w["bytes"] / HBM_BYTES_PER_S, w["flops"] / peak
+        row = {
+            "case": c["name"], "B": len(c["kv_len"]), "MB": table.shape[1], "bs": PAGED_BS,
+            "kv_len": c["kv_len"],
+            "dtype": str(dt).replace("torch.", "") + ("/fp8-pools" if c.get("fp8") else ""),
+            "max_abs_err": err, "row_err": rel, "tol": tol, "faults": faults,
+            "blind": list(c.get("blind", ())), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "gather_sdpa_yardstick_ms": yardstick_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": w["bytes"], "flops": w["flops"],
+        }
+        say("kernels", json.dumps(row))
+        results.append(row)
+    if failures:
+        raise AssertionError("paged kernel cases failed:\n  " + "\n  ".join(failures))
+    return results
+
+
 # -- serve phase ----------------------------------------------------------------
 
 
@@ -334,13 +534,13 @@ def http_get_json(url: str, timeout: float = 10.0) -> Dict[str, Any]:
         conn.close()
 
 
-def start_node(parts: str, stage: int, log_dir: str) -> Dict[str, Any]:
+def start_node(parts: str, stage: int, log_dir: str, extra=()) -> Dict[str, Any]:
     port = free_port()
-    log = open(os.path.join(log_dir, f"node{stage}.log"), "w")
+    log = open(os.path.join(log_dir, f"node{stage}{'_'.join(extra)}.log"), "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "inferd_tpu_torch.tools.run_node", "--parts", parts,
-         "--stage", str(stage), "--port", str(port), "--device", "cuda",
-         "--max-len", str(MAX_LEN)],
+         "--stage", str(stage), "--port", str(port), "--device", DEVICE,
+         "--max-len", str(MAX_LEN), *extra],
         cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
     )
     return {"proc": proc, "port": port, "log": log, "stage": stage}
@@ -472,30 +672,37 @@ def planted_attention_fault(fault: str):
         A._launch = launch
 
 
-def run_serve(card: str) -> Dict[str, Any]:
-    import numpy as np
+def split_parts(work: str) -> str:
+    """Qwen3-0.6B at full width from a seeded random init, split into two
+    14-layer stage files by tools/split_model; returns the parts directory."""
     import torch
+
+    from inferd_tpu_torch.tools import split_model
+
+    parts = os.path.join(work, "parts")
+    t0 = time.perf_counter()
+    split_model.main(["--model", MODEL, "--stages", "2", "--random-init", "--seed", "0",
+                      "--out", parts, "--device", DEVICE])
+    torch.cuda.empty_cache()
+    say("serve", f"split {MODEL} into 2 stages (seeded random init) in "
+                 f"{time.perf_counter() - t0:.1f}s")
+    return parts
+
+
+def run_serve(card: str, parts: str, work: str) -> Dict[str, Any]:
+    import numpy as np
 
     from inferd_tpu_torch.client.chain_client import ChainClient
     from inferd_tpu_torch.config import SamplingConfig, get_config
     from inferd_tpu_torch.parallel.stages import load_stage_checkpoint, stage_checkpoint_path
     from inferd_tpu_torch.runtime.executor import Qwen3StageExecutor
-    from inferd_tpu_torch.tools import split_model
 
     LastStageProbe = _last_stage_probe_class()
 
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(MODEL)
     greedy = SamplingConfig(temperature=0.0)
-    work = tempfile.mkdtemp(prefix="chip_smoke_")
     nodes: List[Dict[str, Any]] = []
     try:
-        parts = os.path.join(work, "parts")
-        t0 = time.perf_counter()
-        split_model.main(["--model", cfg.name, "--stages", "2", "--random-init", "--seed", "0",
-                          "--out", parts, "--device", "cuda"])
-        torch.cuda.empty_cache()
-        say("serve", f"split {cfg.name} into 2 stages (14 + 14 layers, bf16) in "
-                     f"{time.perf_counter() - t0:.1f}s")
         nodes = [start_node(parts, s, work) for s in range(2)]
         t0 = time.perf_counter()
         for n in nodes:
@@ -552,7 +759,7 @@ def run_serve(card: str) -> Dict[str, Any]:
         nodes = []
 
         # the same stage executors in this process, over the same parts
-        loaded = [load_stage_checkpoint(stage_checkpoint_path(parts, s), device="cuda")
+        loaded = [load_stage_checkpoint(stage_checkpoint_path(parts, s), device=DEVICE)
                   for s in range(2)]
         kernel_ex = [Qwen3StageExecutor(cfg, spec, params, max_len=MAX_LEN)
                      for params, spec, _ in loaded]
@@ -600,7 +807,298 @@ def run_serve(card: str) -> Dict[str, Any]:
         raise
     finally:
         stop_nodes(nodes)
-        shutil.rmtree(work, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def planted_paged_fault(fault: str):
+    """Every paged_decode_gqa kernel launch runs on inputs that reproduce
+    `fault` (see plant_paged_fault), until the block ends."""
+    from inferd_tpu_torch.ops import attention as A
+
+    launch = A._paged_launch
+
+    def faulty(q, k_pool, v_pool, table, q_positions, kv_len, *rest):
+        return launch(q, *plant_paged_fault(fault, k_pool, v_pool, table, q_positions, kv_len),
+                      *rest)
+
+    A._paged_launch = faulty
+    try:
+        yield
+    finally:
+        A._paged_launch = launch
+
+
+class LaneProbe:
+    """The last stage's lane executor, run as an inner stage so that it
+    returns its hidden state on every real row; the last real token's
+    logits are computed beside it from the same stage params."""
+
+    def __init__(self, cfg, spec, params, **kw):
+        from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor
+
+        inner = dataclasses.replace(spec, num_stages=spec.num_stages + 1)
+        self.ex = BatchedStageExecutor(cfg, inner, params, **kw)
+        self.cfg, self.params = cfg, params
+
+    def process(self, session_id, payload):
+        import torch
+
+        from inferd_tpu_torch.models import qwen3
+
+        out = self.ex.process(session_id, payload)
+        last = out["hidden"][:, -1:].to(self.ex.device)
+        with torch.no_grad():
+            out["logits"] = qwen3.unembed(self.params, self.cfg, last)[:, 0].cpu()
+        return out
+
+    def process_batch(self, items):
+        import torch
+
+        from inferd_tpu_torch.models import qwen3
+
+        outs = self.ex.process_batch(items)
+        for out in outs:
+            if isinstance(out, Exception):
+                raise out
+            with torch.no_grad():
+                out["logits"] = qwen3.unembed(self.params, self.cfg,
+                                              out["hidden"][:, -1:].to(self.ex.device))[:, 0].cpu()
+        return outs
+
+    def end_session(self, session_id):
+        self.ex.end_session(session_id)
+
+
+def teacher_forced_lanes(executors, prompts, streams) -> List[List[Any]]:
+    """Per prompt, (last-stage hidden of the real rows, last logits) per
+    step through the lane executors in this process: each prompt's
+    512-token chunks one session at a time (prefill), then the first
+    DECODE_CHECKED decode steps of EVERY stream co-batched, one
+    process_batch per stage per step, so each step runs all sessions'
+    lanes live at their ragged lengths."""
+    import numpy as np
+
+    steps: List[List[Any]] = [[] for _ in prompts]
+    sids = [f"forced-{i}" for i in range(len(prompts))]
+    for i, p in enumerate(prompts):
+        for c in range(0, len(p), 512):
+            out = {"tokens": np.asarray([p[c:c + 512]], np.int32), "start_pos": c,
+                   "real_len": len(p[c:c + 512])}
+            for ex in executors:
+                out = ex.process(sids[i], out)
+            steps[i].append((out["hidden"].float(), out["logits"].float()))
+    for j in range(DECODE_CHECKED):
+        items = [(sid, {"tokens": [[ids[j]]], "start_pos": len(p) + j, "real_len": 1})
+                 for sid, p, ids in zip(sids, prompts, streams)]
+        for ex in executors:
+            outs = ex.process_batch(items)
+            for o in outs:
+                if isinstance(o, Exception):
+                    raise o
+            items = [(sid, {"hidden": o["hidden"], "start_pos": o["start_pos"],
+                            "real_len": o["real_len"]}) for (sid, _), o in zip(items, outs)]
+        for i, o in enumerate(outs):
+            steps[i].append((o["hidden"].float(), o["logits"].float()))
+    for ex in executors:
+        for sid in sids:
+            ex.end_session(sid)
+    return steps
+
+
+def lane_executors(cfg, loaded, block_size: int, probe: bool):
+    """The two stages' lane executors as the serve_lanes nodes build them;
+    with `probe` the last one is a LaneProbe."""
+    from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor
+
+    kw = dict(lanes=LANES, max_len=MAX_LEN, block_size=block_size,
+              prefill_chunk=LANE_PREFILL_CHUNK)
+    (p0, s0, _), (p1, s1, _) = loaded
+    last = LaneProbe(cfg, s1, p1, **kw) if probe else BatchedStageExecutor(cfg, s1, p1, **kw)
+    return [BatchedStageExecutor(cfg, s0, p0, **kw), last]
+
+
+def check_teacher_forced(tag: str, cfg, loaded, block_size: int, prompts, streams,
+                         faults=()) -> Dict[str, Any]:
+    """The lane executors' kernel path against their plain-attention path
+    (attn_impl="xla"), teacher-forced over every prompt chunk and the first
+    DECODE_CHECKED co-batched decode steps of the streams, held to
+    HIDDEN_TOL and LOGIT_TOL on every prompt. Each planted paged fault must
+    break one of them on the lanes whose chain spans more than one block
+    (a one-block lane under either fault reads only the zeroed scratch
+    block or nothing, so its attention is exactly zero and shows nothing
+    of a multi-block walk); the per-prompt readings are printed."""
+    import torch
+
+    plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
+    plain = teacher_forced_lanes(lane_executors(plain_cfg, loaded, block_size, True), prompts,
+                                 streams)
+    torch.cuda.empty_cache()
+    kernel_ex = lane_executors(cfg, loaded, block_size, True)
+
+    def per_prompt():
+        got = teacher_forced_lanes(kernel_ex, prompts, streams)
+        return [compare_steps(g, r, cfg.hidden_size) for g, r in zip(got, plain)]
+
+    readings = {"sound": per_prompt()}
+    for f in faults:
+        with planted_paged_fault(f):
+            readings[f] = per_prompt()
+    del kernel_ex
+    torch.cuda.empty_cache()
+    bs = block_size or PAGED_BS
+    multi = [i for i, p in enumerate(prompts) if len(p) + DECODE_CHECKED > bs]
+    n_steps = sum(len(r) for r in plain)
+    for name, per in readings.items():
+        rows = ", ".join(f"{len(p)}: {h:.4g} / {l:.3%}" for p, (h, l) in zip(prompts, per))
+        say("serve_lanes", f"{tag}: kernel path {'' if name == 'sound' else 'with fault ' + name + ' '}"
+                           f"vs plain attention over {n_steps} teacher-forced steps "
+                           f"({DECODE_CHECKED} co-batched decode steps of {len(prompts)} lanes); "
+                           f"per prompt, hidden row error / logits share of max |logit| (tol "
+                           f"{HIDDEN_TOL} / {LOGIT_TOL:.0%}): {rows}")
+    h_err = max(h for h, _ in readings["sound"])
+    l_err = max(l for _, l in readings["sound"])
+    if not (h_err <= HIDDEN_TOL and l_err <= LOGIT_TOL):
+        raise AssertionError(f"{tag}: kernel path vs plain attention: hidden {h_err}, "
+                             f"logits {l_err}")
+    for f in faults:
+        tripped = [i for i in multi
+                   if readings[f][i][0] > HIDDEN_TOL or readings[f][i][1] > LOGIT_TOL]
+        say("serve_lanes", f"{tag}: fault {f} exceeds the limits on {len(tripped)} of "
+                           f"{len(multi)} multi-block lanes")
+        if not tripped:
+            raise AssertionError(f"{tag}: planted fault {f} passes the checks on every "
+                                 f"multi-block lane: {readings[f]}")
+    return {name: [list(r) for r in per] for name, per in readings.items()}
+
+
+def run_serve_lanes(card: str, parts: str, work: str) -> Dict[str, Any]:
+    import numpy as np
+    import torch
+
+    from inferd_tpu_torch.client.chain_client import ChainClient
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.parallel.stages import load_stage_checkpoint, stage_checkpoint_path
+
+    cfg = get_config(MODEL)
+    greedy = SamplingConfig(temperature=0.0)
+    nodes: List[Dict[str, Any]] = []
+    try:
+        nodes = [start_node(parts, s, work, LANE_NODE_ARGS) for s in range(2)]
+        t0 = time.perf_counter()
+        for n in nodes:
+            wait_ready(n)
+        say("serve_lanes", f"2 run_node --device {DEVICE} {' '.join(LANE_NODE_ARGS)} processes "
+                           f"ready in {time.perf_counter() - t0:.1f}s")
+
+        def stats():
+            return [http_get_json(f"http://127.0.0.1:{n['port']}/stats") for n in nodes]
+
+        before = stats()  # fresh processes: every count starts at 0
+        for st in before:
+            ex = st["executor"]
+            if (any(k["launches"] for k in st["kernels"].values()) or st["forward_passes"]
+                    or ex["batched_steps"] or ex["prefill_steps"]):
+                raise AssertionError(f"nodes did work before the main path: {before}")
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in LANE_PROMPT_LENS]
+
+        async def drive():
+            async with ChainClient([("127.0.0.1", n["port"]) for n in nodes],
+                                   sampling=greedy, prefill_chunk=512) as client:
+                async def one(p):
+                    stamps: List[float] = []
+                    t_req = time.perf_counter()
+                    ids = await client.generate_ids(
+                        p, max_new_tokens=NEW_TOKENS,
+                        on_token=lambda _tok: stamps.append(time.perf_counter()))
+                    return ids, t_req, stamps
+
+                return await asyncio.gather(*(one(p) for p in prompts))
+
+        t_all = time.perf_counter()
+        served = asyncio.run(drive())
+        wall = time.perf_counter() - t_all
+        after = stats()
+        streams = [ids for ids, _, _ in served]
+        for p, (ids, t_req, stamps) in zip(prompts, served):
+            if len(ids) != NEW_TOKENS:
+                raise AssertionError(f"prompt {len(p)}: {len(ids)} tokens, want {NEW_TOKENS}")
+            ttft = (stamps[0] - t_req) * 1e3
+            tps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+            say("serve_lanes", f"session, prompt {len(p)} tokens: TTFT {ttft:.1f} ms, decode "
+                               f"{tps:.1f} tok/s over {len(stamps) - 1} steps ({card})")
+        total = sum(len(ids) for ids in streams)
+        say("serve_lanes", f"aggregate: {total} tokens from {len(prompts)} concurrent sessions in "
+                           f"{wall:.2f} s = {total / wall:.1f} tok/s ({card})")
+
+        # prefill dispatches: the client's 512-token chunks, each split into
+        # LANE_PREFILL_CHUNK-token dispatches on the node
+        want_prefill = sum(math.ceil(len(p[c:c + 512]) / LANE_PREFILL_CHUNK)
+                           for p in prompts for c in range(0, len(p), 512))
+        want_decode_tokens = len(prompts) * (NEW_TOKENS - 1)
+        launches = {"flash_gqa": 0, "paged_decode_gqa": 0}
+        mean_batches = []
+        for st in after:
+            ex = st["executor"]
+            layers = st["end_layer"] - st["start_layer"] + 1
+            paged = st["kernels"]["paged_decode_gqa"]["launches"]
+            flash = st["kernels"]["flash_gqa"]["launches"]
+            steps, toks = ex["batched_steps"], ex["batched_tokens"]
+            mean = toks / steps if steps else 0.0
+            mean_batches.append(mean)
+            say("serve_lanes", f"node stage {st['stage']} on {st['device']}: {steps} decode "
+                               f"dispatches serving {toks} session steps (mean co-batch "
+                               f"{mean:.3f}), {ex['prefill_steps']} prefill dispatches; "
+                               f"paged_decode_gqa launches {paged} (= {layers} x {steps}: "
+                               f"{paged == layers * steps}), flash_gqa launches {flash} (= "
+                               f"{layers} x {ex['prefill_steps']}: "
+                               f"{flash == layers * ex['prefill_steps']}); blocks "
+                               f"{ex['paged']['blocks_used']} used after the run")
+            if (paged != layers * steps or flash != layers * ex["prefill_steps"] or paged == 0
+                    or toks != want_decode_tokens or ex["prefill_steps"] != want_prefill
+                    or not mean > 1.0 or st["errors"]):
+                raise AssertionError(
+                    f"stage {st['stage']}: paged {paged} / flash {flash} launches, {steps} decode "
+                    f"dispatches for {toks} steps (want {want_decode_tokens}), "
+                    f"{ex['prefill_steps']} prefill dispatches (want {want_prefill}), "
+                    f"mean co-batch {mean}, {st['errors']} errors")
+            launches["flash_gqa"] += flash
+            launches["paged_decode_gqa"] += paged
+        stop_nodes(nodes)
+        nodes = []
+
+        loaded = [load_stage_checkpoint(stage_checkpoint_path(parts, s), device=DEVICE)
+                  for s in range(2)]
+
+        async def local(executors):
+            client = make_local_client(executors, greedy)
+            return [await client.generate_ids(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+
+        local_streams = asyncio.run(local(lane_executors(cfg, loaded, PAGED_BS, False)))
+        torch.cuda.empty_cache()
+        for p, a_, b_ in zip(prompts, streams, local_streams):
+            if a_ != b_:
+                diverge = next(i for i, (x, y) in enumerate(zip(a_, b_)) if x != y)
+                raise AssertionError(f"prompt {len(p)}: served stream != in-process lane "
+                                     f"executors' stream from token {diverge}")
+        say("serve_lanes", "served streams equal the in-process lane executors' streams "
+                           f"(sessions one at a time), token for token ({len(prompts)} x "
+                           f"{NEW_TOKENS} tokens)")
+
+        paged_readings = check_teacher_forced("paged lanes", cfg, loaded, PAGED_BS, prompts,
+                                              streams, LANE_E2E_FAULTS)
+        pick = [LANE_PROMPT_LENS.index(n) for n in DENSE_LANE_PROMPTS]
+        dense_readings = check_teacher_forced(
+            "dense lanes", cfg, loaded, 0, [prompts[i] for i in pick], [streams[i] for i in pick])
+        return {"launches": launches, "mean_batch": mean_batches,
+                "tokens_per_s": total / wall, "paged_e2e": paged_readings,
+                "dense_e2e": dense_readings}
+    except BaseException:
+        stop_nodes(nodes, show_logs=True)
+        nodes = []
+        raise
+    finally:
+        stop_nodes(nodes)
 
 
 # -- main -----------------------------------------------------------------------
@@ -626,25 +1124,39 @@ def main() -> int:
     say("gpu", f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
                f"{torch.cuda.device_count()} device(s): {torch.cuda.get_device_name(0)}")
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from inferd_tpu_torch.ops import build
 
-    info = build.build("flash_gqa")
-    regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
-    say("build", f"flash_gqa: {os.path.relpath(info['path'], REPO)} "
-                 f"({'built' if info['built'] else 'cached'} in {info['seconds']:.1f}s); "
-                 f"ptxas: {regs[:2]}")
+    with ThreadPoolExecutor(len(build.KERNELS)) as pool:  # one nvcc per source, all at once
+        infos = dict(zip(build.KERNELS, pool.map(build.build, build.KERNELS)))
+    for name, info in infos.items():
+        regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
+        say("build", f"{name}: {os.path.relpath(info['path'], REPO)} "
+                     f"({'built' if info['built'] else 'cached'} in {info['seconds']:.1f}s); "
+                     f"ptxas ({len(regs) // 2} kernels): {regs}")
 
     cases = run_kernel_cases()
+    paged_cases = run_paged_cases()
 
-    serve = run_serve(card)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        parts = split_parts(work)
+        serve = run_serve(card, parts, work)
+        lanes = run_serve_lanes(card, parts, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     main_case = next(c for c in cases if c["case"] == MAIN_CASE)
+    paged_main = next(c for c in paged_cases if c["case"] == PAGED_MAIN_CASE)
     kernels = {"kernels": [{
         "name": "flash_gqa",
         "route": "cuda",
         "source": "inferd_tpu_torch/csrc/flash_gqa.cu",
         "replaces": "inferd_tpu/ops/attention.py:131",
         "also_replaces": "inferd_tpu/ops/attention.py:218",
-        "launches": serve["launches"],
+        "launches": lanes["launches"]["flash_gqa"],
+        "launches_by_path": {"serve": serve["launches"],
+                             "serve_lanes": lanes["launches"]["flash_gqa"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_row_err": max(c["row_err"] for c in cases if c["dtype"].startswith("bfloat16")),
         "ms": main_case["ms"],
@@ -653,6 +1165,23 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "shape": f"{MAIN_CASE}: B 1, S 1, T 1024, Nq 16, Nkv 8, D 128, bf16",
+    }, {
+        "name": "paged_decode_gqa",
+        "route": "cuda",
+        "source": "inferd_tpu_torch/csrc/paged_decode.cu",
+        "replaces": "inferd_tpu/ops/attention.py:460",
+        "launches": lanes["launches"]["paged_decode_gqa"],
+        "launches_by_path": {"serve": 0, "serve_lanes": lanes["launches"]["paged_decode_gqa"]},
+        "max_abs_err": max(c["max_abs_err"] for c in paged_cases),
+        "max_row_err": max(c["row_err"] for c in paged_cases
+                           if c["dtype"].startswith("bfloat16")),
+        "ms": paged_main["ms"],
+        "plain_ms": paged_main["plain_ms"],
+        "bound_ms": paged_main["bound_ms"],
+        "bound_by": paged_main["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes paged attention
+        "shape": f"{PAGED_MAIN_CASE}: B 8, bs 32, MB 32, kv_len {paged_main['kv_len']}, "
+                 "Nq 16, Nkv 8, D 128, bf16",
     }]}
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels))

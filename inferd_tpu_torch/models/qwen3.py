@@ -15,13 +15,18 @@ Python int, meaning every row runs contiguously from that position, which
 lets the attention kernel take its per-row metadata as scalars.
 
 Every contiguous-position attention call goes to ops.attention.flash_gqa
-(the CUDA kernel on the card); `attn_impl="xla"` selects the composite
-`gqa_attention` instead, as in the JAX package.
+(the CUDA kernel on the card), and a decode step over a paged pool to
+ops.attention.paged_decode_gqa (its own kernel); `attn_impl="xla"` selects
+the composite `gqa_attention` instead, as in the JAX package.
 
-This slice covers the dense Qwen3/Qwen2-style decoder with a uniform KV
-cache. MoE, sandwich norms, sliding windows, scaled RoPE, paged KV, LoRA,
-quantization, tensor/expert parallelism and fused K-step decode wait for
-later slices and raise NotImplementedError here.
+Caches: the uniform dense KVCache, written from one start position or from
+a per-row start [B] (lanes at ragged fill levels decoding in one step), and
+the paged PagedKVCache, whose writes scatter through the block table.
+
+This slice covers the dense Qwen3/Qwen2-style decoder. MoE, sandwich norms,
+sliding windows, scaled RoPE, LoRA, quantization, tensor/expert parallelism
+and fused K-step decode wait for later slices and raise
+NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -207,12 +213,20 @@ def gqa_attention(
     softcap: float = 0.0,
     window=None,
     sinks: Optional[torch.Tensor] = None,  # [Nq]
+    block_table: Optional[torch.Tensor] = None,  # [B, MB]: k/v are then
+    #   paged POOLS [NB, bs, Nkv, D], gathered through the table
 ) -> torch.Tensor:
     """Composite grouped-query attention with causal masking over a
     (possibly oversized) KV buffer: slot j attends iff j < kv_valid_len AND
     its absolute position <= the query's. Softmax in float32, matmuls in
     the input dtype. A fully masked row gets the mean of V (the flash
-    contract gives zeros there)."""
+    contract gives zeros there).
+
+    With `block_table`, k/v are paged pools gathered through the table
+    first (ops.attention.gather_block_kv); the gathered view is position-
+    contiguous, so the math below is the dense layout's."""
+    if block_table is not None:
+        k, v = attention_ops.gather_block_kv(k, v, block_table)
     b, s, nq, d = q.shape
     if s == 1:
         return attention_ops.decode_gqa(
@@ -302,19 +316,34 @@ def decoder_layer(
     cos: torch.Tensor,
     sin: torch.Tensor,
     q_positions: torch.Tensor,  # [B, S]
-    k_buf: Optional[torch.Tensor],  # [B, T, Nkv, D] or None (no cache: T == S)
+    k_buf: Optional[torch.Tensor],  # [B, T, Nkv, D], a pool [NB, bs, Nkv, D], or None
     v_buf: Optional[torch.Tensor],
-    cache_write_pos: Optional[int],  # slot where the chunk's k/v go
+    cache_write_pos,  # int, or [B] int64 on the device: where each row's chunk goes
     window=None,
     q_start=None,  # int or [B]: first query position (see _attend)
+    block_table: Optional[torch.Tensor] = None,  # [B, MB] int32: PAGED mode
+    paged_write=None,  # PagedWrite: the committing rows and their pool slots
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """One pre-norm residual decoder block with GQA and Qwen3's per-head
     q/k RMSNorm. Returns (hidden', k_buf, v_buf); the chunk's K/V are
     written into k_buf/v_buf IN PLACE. With k_buf None the layer runs
     cache-free over the chunk itself.
 
-    Caller contract: cache_write_pos + S <= T (the runtime checks room
-    before dispatch; an overlong write raises here instead of clamping)."""
+    Dense caches take the chunk at one start slot (an int) or at a start
+    per batch row ([B], continuous batching: lanes at ragged fill levels).
+    PAGED mode (`block_table`): k_buf/v_buf are one layer's block pools;
+    the rows in `paged_write` (computed once per forward on the host by
+    paged_write_plan) scatter into their pool slots, and every other row
+    (bucket padding past real_end, lanes with write_mask False) writes
+    NOTHING: blocks are shared property. The reference drops those writes
+    with an out-of-range scatter index; torch would raise on it, so the
+    committing rows are selected first. Then attention reads through the
+    table: the paged decode kernel at S == 1, and for a chunk (S > 1)
+    flash_gqa over the gathered view (the reference runs its composite
+    there), so no attention on the card runs outside a hand-written kernel.
+
+    Caller contract: every write lands inside the buffer (the runtime and
+    forward_layers_cached check room on the host before dispatch)."""
     b, s, _ = hidden.shape
     d = cfg.head_dim
     p1 = cfg.rms_norm_plus_one
@@ -342,14 +371,48 @@ def decoder_layer(
             cfg, q, k, v.contiguous(), q_positions, s, kv_positions=q_positions,
             window=window, sinks=sinks, q_start=q_start,
         )
+    elif block_table is not None:
+        if paged_write is not None:
+            kf = k_buf.view(-1, *k_buf.shape[2:])  # [NB * bs, Nkv, D]: slot = block * bs + off
+            vf = v_buf.view(-1, *v_buf.shape[2:])
+            kf[paged_write.dest] = _to_cache_dtype(k[paged_write.rows, paged_write.cols], kf.dtype)
+            vf[paged_write.dest] = _to_cache_dtype(v[paged_write.rows, paged_write.cols], vf.dtype)
+        end = cache_write_pos + s
+        if cfg.attn_impl == "xla":
+            attn = gqa_attention(
+                q, k_buf, v_buf, q_positions, end, scale=cfg.attn_scale,
+                softcap=cfg.attn_logit_softcap, window=window, sinks=sinks,
+                block_table=block_table,
+            )
+        elif s == 1:
+            attn = attention_ops.decode_gqa(
+                q, k_buf, v_buf, q_positions, end, scale=cfg.attn_scale,
+                softcap=cfg.attn_logit_softcap, window=window, sinks=sinks,
+                block_table=block_table,
+            )
+        else:
+            kd, vd = attention_ops.gather_block_kv(k_buf, v_buf, block_table)
+            attn = attention_ops.flash_gqa(
+                q, kd, vd, q_start=q_start, kv_len=end, kv_start=0,
+                scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap,
+                window=window, sinks=sinks,
+            )
     else:
         end = cache_write_pos + s
-        if end > k_buf.shape[1]:
-            raise BufferError(
-                f"KV write [{cache_write_pos}, {end}) past the buffer ({k_buf.shape[1]})"
-            )
-        k_buf[:, cache_write_pos:end] = _to_cache_dtype(k, k_buf.dtype)
-        v_buf[:, cache_write_pos:end] = _to_cache_dtype(v, v_buf.dtype)
+        kc = _to_cache_dtype(k, k_buf.dtype)
+        vc = _to_cache_dtype(v, v_buf.dtype)
+        if isinstance(cache_write_pos, int):
+            if end > k_buf.shape[1]:
+                raise BufferError(
+                    f"KV write [{cache_write_pos}, {end}) past the buffer ({k_buf.shape[1]})"
+                )
+            k_buf[:, cache_write_pos:end] = kc
+            v_buf[:, cache_write_pos:end] = vc
+        else:  # per-row start [B]: one indexed write per buffer
+            rows = torch.arange(b, device=k_buf.device)[:, None]
+            cols = cache_write_pos[:, None] + torch.arange(s, device=k_buf.device)[None, :]
+            k_buf[rows, cols] = kc
+            v_buf[rows, cols] = vc
         attn = _attend(
             cfg, q, k_buf, v_buf, q_positions, end, window=window, sinks=sinks,
             q_start=q_start,
@@ -394,14 +457,18 @@ def forward_layers(
     cfg: ModelConfig,
     hidden: torch.Tensor,  # [B, S, H]
     positions: Positions,  # [B, S], or an int start
-    k_cache: Optional[torch.Tensor] = None,  # [L, B, T, Nkv, D]
+    k_cache: Optional[torch.Tensor] = None,  # [L, B, T, Nkv, D] or pools [L, NB, bs, Nkv, D]
     v_cache: Optional[torch.Tensor] = None,
-    cache_write_pos: Optional[int] = None,
+    cache_write_pos=None,  # int, or [B] int64 on the device
     layer_offset: int = 0,
+    block_table: Optional[torch.Tensor] = None,  # [B, MB] int32: paged pools
+    paged_write=None,  # PagedWrite (paged only)
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Run a stack of decoder layers (a Python loop over the stacked
     params). With caches, each layer writes its chunk K/V into
-    k_cache[i]/v_cache[i] in place; the buffers are returned as given."""
+    k_cache[i]/v_cache[i] in place; the buffers are returned as given.
+    With `block_table` the caches are paged pools (one table for every
+    layer: a lane's chain covers all of them)."""
     check_supported(cfg)
     del layer_offset  # selects the sliding-window pattern, which waits
     b, s = hidden.shape[:2]
@@ -413,31 +480,115 @@ def forward_layers(
             lp, cfg, hidden, cos, sin, pos,
             None if k_cache is None else k_cache[i],
             None if v_cache is None else v_cache[i],
-            cache_write_pos, q_start=q_start,
+            cache_write_pos, q_start=q_start, block_table=block_table,
+            paged_write=paged_write,
         )
     return hidden, k_cache, v_cache
+
+
+class PagedWrite:
+    """The rows of a chunk that commit to a paged pool, and their slots:
+    row (rows[n], cols[n]) of the chunk's K/V goes to flat pool slot
+    dest[n] = block * bs + offset. All three are int64 on the device."""
+
+    __slots__ = ("rows", "cols", "dest")
+
+    def __init__(self, rows: torch.Tensor, cols: torch.Tensor, dest: torch.Tensor):
+        self.rows, self.cols, self.dest = rows, cols, dest
+
+
+def _host_rows(x, b: int) -> Optional[np.ndarray]:
+    """int or [B] host values (list, numpy, CPU tensor) -> int64 numpy [B];
+    None stays None. No device value is read here."""
+    if x is None:
+        return None
+    a = np.asarray(x, dtype=np.int64)
+    return np.broadcast_to(a, (b,)) if a.ndim == 0 else a
+
+
+def paged_write_plan(
+    table: torch.Tensor,  # [B, MB] int32 on the pools' device
+    block_size: int,
+    write_pos: np.ndarray,  # [B] host: first position of each row's chunk
+    s: int,
+    real_end: Optional[np.ndarray] = None,  # [B] host: first padding position
+    write_mask: Optional[np.ndarray] = None,  # [B] host bool: rows that commit
+) -> Optional[PagedWrite]:
+    """Select on the host the chunk rows that commit (position < real_end,
+    write_mask True), then look their blocks up in the device table; None
+    when no row commits. One upload per forward, whatever the depth."""
+    pos = write_pos[:, None] + np.arange(s)[None, :]  # [B, S]
+    ok = np.ones(pos.shape, bool)
+    if real_end is not None:
+        ok &= pos < real_end[:, None]
+    if write_mask is not None:
+        ok &= np.asarray(write_mask, bool)[:, None]
+    rows, cols = np.nonzero(ok)
+    if rows.size == 0:
+        return None
+    p = pos[rows, cols]
+    chain = p // block_size
+    if chain.max() >= table.shape[1]:
+        raise BufferError(
+            f"paged KV write at position {int(p.max())} past the table "
+            f"({table.shape[1]} blocks of {block_size})"
+        )
+    from inferd_tpu_torch.core.cache import host_to_device
+
+    idx = host_to_device(np.stack([rows, cols, chain, p % block_size]).astype(np.int64),
+                         table.device)
+    blk = table[idx[0], idx[2]].long()
+    return PagedWrite(idx[0], idx[1], blk * block_size + idx[3])
 
 
 def forward_layers_cached(
     layers: Params,
     cfg: ModelConfig,
     hidden: torch.Tensor,
-    positions: Positions,
-    cache,  # core.cache.KVCache (uniform layout)
-    cache_write_pos: int,
-    real_end=None,
+    positions: Positions,  # [B, S], an int start, or None: from cache_write_pos
+    cache,  # core.cache.KVCache (uniform layout) or core.cache.PagedKVCache
+    cache_write_pos,  # int, or [B] (host array or tensor): per-row start
+    real_end=None,  # int or [B]: first bucket-padding position (paged only)
     layer_offset: int = 0,
+    write_mask=None,  # [B] bool (paged only): rows whose KV writes commit
 ):
-    """Cached stage/model forward over a uniform KVCache. Returns (hidden,
-    the same cache, written in place, with its length unchanged: the caller
-    advances it). `real_end` matters only to ring and paged layouts, which
-    wait for later slices."""
-    del real_end
-    if not isinstance(cache_write_pos, int):
-        raise TypeError("per-row cache write positions wait for the batching slice")
+    """Cached stage/model forward, dispatching on the cache's layout: paged
+    block pools (writes scatter and reads go through the lanes' block
+    table) or the uniform dense buffers. Returns (hidden, the same cache,
+    written in place, with its length unchanged: the caller advances it).
+
+    A per-row `cache_write_pos` (lanes at ragged fill levels) is checked
+    against the buffer on the host and uploaded once; with `positions`
+    None each row's queries run contiguously from its write position."""
+    from inferd_tpu_torch.core.cache import PagedKVCache, host_to_device
+
+    b, s = hidden.shape[:2]
+    paged = isinstance(cache, PagedKVCache)
+    wp = cache_write_pos
+    if not isinstance(wp, int):
+        wp_host = _host_rows(wp, b)
+        if not paged and int(wp_host.max(initial=0)) + s > cache.max_len:
+            raise BufferError(
+                f"KV write at {int(wp_host.max())} + {s} past the buffer ({cache.max_len})"
+            )
+        wp = host_to_device(wp_host, hidden.device)
+    if positions is None:
+        positions = wp if isinstance(wp, int) else (
+            wp[:, None] + torch.arange(s, device=hidden.device)[None, :])
+    if not paged:
+        h, _, _ = forward_layers(
+            layers, cfg, hidden, positions, cache.k, cache.v, wp, layer_offset=layer_offset,
+        )
+        return h, cache
+    wp_host = _host_rows(cache_write_pos, b)
+    plan = paged_write_plan(
+        cache.table, cache.block_size, wp_host, s,
+        wp_host + s if real_end is None else _host_rows(real_end, b),
+        _host_rows(write_mask, b),
+    )
     h, _, _ = forward_layers(
-        layers, cfg, hidden, positions, cache.k, cache.v, cache_write_pos,
-        layer_offset=layer_offset,
+        layers, cfg, hidden, positions, cache.k, cache.v, wp, layer_offset=layer_offset,
+        block_table=cache.table, paged_write=plan,
     )
     return h, cache
 
@@ -448,16 +599,16 @@ def forward_cached(
     tokens: torch.Tensor,  # [B, S]
     positions: Positions,
     cache,
-    cache_write_pos: int,
+    cache_write_pos,
     real_end=None,
+    write_mask=None,
 ):
     """Whole-model cached forward -> (logits [B, S, V] float32, cache). With
     positions None they run contiguously from cache_write_pos."""
-    if positions is None:
-        positions = cache_write_pos
     hidden = embed(params, tokens, cfg)
     hidden, cache = forward_layers_cached(
         params["layers"], cfg, hidden, positions, cache, cache_write_pos, real_end,
+        write_mask=write_mask,
     )
     return unembed(params, cfg, hidden), cache
 

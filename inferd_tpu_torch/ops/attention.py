@@ -1,26 +1,29 @@
-"""Flash GQA attention: the CUDA kernel's wrapper and its plain version
-(port of inferd_tpu/ops/attention.py).
+"""Attention kernels' wrappers and their plain versions (port of
+inferd_tpu/ops/attention.py).
 
-`flash_gqa` is the attention hot op of every prefill chunk and decode step.
-On a CUDA tensor it launches the hand-written kernel in
-`csrc/flash_gqa.cu`, or raises on anything the kernel does not take; on a
-CPU tensor it runs `flash_gqa_reference`, the plain masked-softmax version
-with the same contract. There is no other route: no fallback on the card.
+`flash_gqa` is the attention hot op of every prefill chunk and of decode
+over a dense cache; `paged_decode_gqa` is the decode step over a paged
+block pool. On a CUDA tensor each launches its hand-written kernel
+(`csrc/flash_gqa.cu`, `csrc/paged_decode.cu`), or raises on anything the
+kernel does not take; on a CPU tensor each runs its plain version
+(`flash_gqa_reference`, `paged_decode_gqa_reference`) with the same
+contract. There is no other route: no fallback on the card.
 
 Layout contract (the KV cache's): kv slot `j` holds absolute position
 `kv_start + j`; queries are contiguous from `q_start`, per batch row.
 Scattered positions take the composite in models/qwen3.gqa_attention.
+A paged pool's chain slot j covers positions [j*bs, (j+1)*bs).
 
 Also here, as in the JAX module: `NEG_INF`, `apply_softcap`,
-`apply_window_mask` and the S == 1 composite `decode_gqa` (without the paged
-block table, which waits for the paged-KV slice).
+`apply_window_mask`, `gather_block_kv` and the S == 1 composite
+`decode_gqa`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -56,6 +59,28 @@ def apply_window_mask(
     return mask & ((win <= 0) | in_win)
 
 
+def gather_block_kv(
+    k_pool: torch.Tensor,  # [NB, bs, Nkv, D]: one layer's paged block pool
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,  # [B, MB] int32: lane -> block chain
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Position-contiguous K/V views [B, MB*bs, Nkv, D] gathered through a
+    block table (the paged-KV read path). Chain slot j of lane b covers
+    positions [j*bs, (j+1)*bs), so slot index == absolute position, the
+    dense cache layout; unallocated entries (0, the scratch block) are only
+    read at slots a query cannot attend. The storage dtype is kept. A plain
+    index op: a copy, not a view."""
+    b, mb = block_table.shape
+    bs = k_pool.shape[1]
+    idx = block_table.long()
+    kd = k_pool[idx]  # [B, MB, bs, Nkv, D]
+    vd = v_pool[idx]
+    return (
+        kd.reshape(b, mb * bs, *k_pool.shape[2:]),
+        vd.reshape(b, mb * bs, *v_pool.shape[2:]),
+    )
+
+
 def decode_gqa(
     q: torch.Tensor,  # [B, 1, Nq, D]
     k: torch.Tensor,  # [B, T, Nkv, D], possibly a narrower dtype
@@ -67,9 +92,24 @@ def decode_gqa(
     softcap: float = 0.0,
     window=None,
     sinks: Optional[torch.Tensor] = None,  # [Nq]
+    block_table: Optional[torch.Tensor] = None,  # [B, MB]: k/v are then
+    #   paged POOLS [NB, bs, Nkv, D] read through the table
 ) -> torch.Tensor:
     """Single-query (S == 1) GQA composite: models/qwen3.gqa_attention at
-    S == 1 with the query axis dropped. Returns [B, 1, Nq*D] in q.dtype."""
+    S == 1 with the query axis dropped. Returns [B, 1, Nq*D] in q.dtype.
+
+    With `block_table`, k/v are paged pools and the call goes to
+    paged_decode_gqa: the CUDA kernel for CUDA tensors, its plain version
+    for CPU tensors (the port's rule in place of the reference's autotune
+    registry). `models/qwen3.gqa_attention(block_table=...)` is the
+    gather + composite path that `attn_impl="xla"` selects."""
+    if block_table is not None:
+        if kv_positions is not None:
+            raise ValueError("decode_gqa: kv_positions do not apply to a paged pool")
+        return paged_decode_gqa(
+            q, k, v, block_table, q_positions, kv_valid_len,
+            scale=scale, softcap=softcap, window=window, sinks=sinks,
+        )
     b, s, nq, d = q.shape
     t, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
@@ -275,4 +315,145 @@ def _launch(q, k, v, q_start, kv_len, kv_start, scale, softcap, window, sinks):
         )
     if rc != 0:
         raise RuntimeError(f"flash_gqa kernel launch failed: cudaError_t {rc}")
+    return out
+
+
+# -- paged decode attention ----------------------------------------------------
+
+
+def paged_decode_gqa_reference(
+    q: torch.Tensor,  # [B, 1, Nq, D]
+    k_pool: torch.Tensor,  # [NB, bs, Nkv, D]: one layer's paged block pool
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,  # [B, MB] int32
+    q_positions: torch.Tensor,  # [B, 1]
+    kv_valid_len: Scalar,  # int or [B]
+    *,
+    scale: Optional[float] = None,
+    softcap: float = 0.0,
+    window: Optional[Scalar] = None,
+    sinks: Optional[torch.Tensor] = None,  # [Nq]
+) -> torch.Tensor:
+    """The plain version of paged_decode_gqa: gather_block_kv, then
+    flash_gqa_reference over the position-contiguous view. The reference's
+    own XLA sibling is gather + the decode_gqa composite; this one takes
+    flash_gqa_reference instead because it holds the kernel's contract,
+    where the composite does not: a lane with nothing to attend (kv_len 0)
+    gives zeros, as the Pallas kernel's does (the composite gives the mean
+    of V there), and p is rounded to q.dtype before p @ v with the sum
+    normalised after. Returns [B, 1, Nq*D] in q.dtype."""
+    k, v = gather_block_kv(k_pool, v_pool, block_table)
+    return flash_gqa_reference(
+        q, k, v, q_positions[:, 0], kv_valid_len, 0,
+        scale=scale, softcap=softcap, window=window, sinks=sinks,
+    )
+
+
+def _paged_kernel_lib() -> ctypes.CDLL:
+    lib = build.load("paged_decode")
+    fn = lib.paged_decode_launch
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, i, i, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def paged_decode_gqa(
+    q: torch.Tensor,  # [B, 1, Nq, D]: one decode query per lane
+    k_pool: torch.Tensor,  # [NB, bs, Nkv, D]: one layer's paged block pool
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,  # [B, MB] int32: lane -> block chain
+    q_positions: torch.Tensor,  # [B, 1]
+    kv_valid_len: Scalar,  # int or [B]
+    *,
+    scale: Optional[float] = None,
+    softcap: float = 0.0,
+    window: Optional[Scalar] = None,
+    sinks: Optional[torch.Tensor] = None,  # [Nq]
+) -> torch.Tensor:
+    """S == 1 attention that walks each lane's block chain through the
+    table, with no dense gather; returns [B, 1, Nq*D] in q.dtype.
+
+    CUDA tensors launch the kernel of csrc/paged_decode.cu (which replaces
+    the Pallas `_paged_decode_kernel`); CPU tensors run
+    paged_decode_gqa_reference. The Pallas-only `interpret` knob has no
+    counterpart. Table entries must index the pool (core.cache.BlockPool
+    hands out nothing else); the kernel does not check them. Each kernel
+    launch adds one to `paged_decode_gqa.launches`."""
+    if q.device.type == "cpu":
+        return paged_decode_gqa_reference(
+            q, k_pool, v_pool, block_table, q_positions, kv_valid_len,
+            scale=scale, softcap=softcap, window=window, sinks=sinks,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_gqa: unsupported device {q.device}")
+    out = _paged_launch(q, k_pool, v_pool, block_table, q_positions, kv_valid_len,
+                        scale, softcap, window, sinks)
+    paged_decode_gqa.launches += 1
+    return out
+
+
+paged_decode_gqa.launches = 0
+
+
+def _paged_launch(q, k_pool, v_pool, block_table, q_positions, kv_valid_len,
+                  scale, softcap, window, sinks):
+    dev = q.device
+    if q.ndim != 4 or k_pool.ndim != 4 or v_pool.ndim != 4 or block_table.ndim != 2:
+        raise ValueError(
+            f"paged_decode_gqa: want q [B,1,Nq,D], pools [NB,bs,Nkv,D], table [B,MB]; got "
+            f"{tuple(q.shape)} {tuple(k_pool.shape)} {tuple(v_pool.shape)} "
+            f"{tuple(block_table.shape)}")
+    b, s, nq, d = q.shape
+    _nb, bs, nkv, _ = k_pool.shape
+    mb = block_table.shape[1]
+    if s != 1:
+        raise ValueError(f"paged_decode_gqa is S == 1 only, got S={s}")
+    if k_pool.shape != v_pool.shape or k_pool.shape[3] != d or block_table.shape[0] != b:
+        raise ValueError(
+            f"paged_decode_gqa: shapes q {tuple(q.shape)} pools {tuple(k_pool.shape)} "
+            f"{tuple(v_pool.shape)} table {tuple(block_table.shape)}")
+    if any(x.device != dev for x in (k_pool, v_pool, block_table)):
+        raise ValueError("paged_decode_gqa: q, pools and table must be on one device")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"paged_decode_gqa kernel takes f32 or bf16 queries, got {q.dtype}")
+    if k_pool.dtype != v_pool.dtype or k_pool.dtype not in (q.dtype, torch.float8_e4m3fn):
+        raise TypeError(
+            f"paged_decode_gqa kernel: pool dtype {k_pool.dtype}/{v_pool.dtype} with q {q.dtype}")
+    if block_table.dtype != torch.int32:
+        raise TypeError(f"paged_decode_gqa kernel: table must be int32, got {block_table.dtype}")
+    if d not in (64, 128):
+        raise ValueError(f"paged_decode_gqa kernel: head_dim {d} not in (64, 128)")
+    if nkv == 0 or nq % nkv or nq // nkv > 8:
+        raise ValueError(f"paged_decode_gqa kernel: Nq {nq} / Nkv {nkv} groups not supported")
+    if b > _MAX_GRID_YZ or bs < 1:
+        raise ValueError(f"paged_decode_gqa kernel: B {b} over the grid limit or block size {bs}")
+    for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool), ("table", block_table)):
+        if not x.is_contiguous():
+            raise ValueError(f"paged_decode_gqa kernel: {name} must be contiguous")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_decode_gqa kernel: pools must be 16-byte aligned")
+    out = torch.empty((b, 1, nq * d), dtype=q.dtype, device=dev)
+    if b == 0:
+        return out
+    sink_t = None
+    if sinks is not None:
+        if sinks.shape != (nq,):
+            raise ValueError(f"paged_decode_gqa: sinks shape {tuple(sinks.shape)} != ({nq},)")
+        sink_t = sinks.to(device=dev, dtype=torch.float32).contiguous()
+    meta = torch.stack([_per_batch(x, b, dev) for x in (q_positions[:, 0], kv_valid_len, window)],
+                       dim=1).to(torch.int32).contiguous()
+    eff_scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    lib = _paged_kernel_lib()
+    with torch.cuda.device(dev):
+        rc = lib.paged_decode_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
+            meta.data_ptr(), None if sink_t is None else sink_t.data_ptr(), out.data_ptr(),
+            b, nq, nkv, d, bs, mb, eff_scale, float(softcap),
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_gqa kernel launch failed: cudaError_t {rc}")
     return out

@@ -93,6 +93,9 @@ def build(name: str) -> dict:
     return {"path": path, "seconds": time.perf_counter() - t0, "built": True, "log": log}
 
 
+KERNELS = ("flash_gqa", "paged_decode")  # every csrc/<name>.cu the port builds
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed."""
     with _lock:

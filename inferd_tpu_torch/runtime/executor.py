@@ -19,9 +19,11 @@ step for the same effect), so a step that fails midway leaves its partial
 KV writes behind; the session frontier only advances on success, and the
 slots past it are rewritten by the next step.
 
-Not ported in this slice: fused K-step decode (`decode_steps`, which the
-JAX package serves on single-stage topologies only), ring high-water
-marks, session fork/export/import and the counter backend.
+`make_executor` routes `--stage-lanes` to the lane-slotted executor of
+runtime/stage_batch.py. Not ported in this slice: fused K-step decode
+(`decode_steps`, which the JAX package serves on single-stage topologies
+only), ring high-water marks, session fork/export/import and the counter
+backend.
 """
 
 from __future__ import annotations
@@ -234,10 +236,29 @@ def make_executor(
     spec: StageSpec,
     stage_params: Optional[Dict[str, Any]] = None,
     backend: str = "qwen3",
+    stage_lanes: int = 0,
+    block_size: int = 0,
+    kv_blocks: int = 0,
+    prefill_chunk: int = 0,
     **kw,
-) -> Qwen3StageExecutor:
+):
+    """The stage's executor: with `stage_lanes` > 0 the lane-slotted
+    continuous-batching executor (runtime/stage_batch; `block_size` > 0
+    pages its KV), else the one-cache-per-session Qwen3StageExecutor.
+    Refuses the flag combinations the reference node refuses."""
     if backend != "qwen3":
         raise ValueError(f"executor backend {backend!r} is not ported yet (qwen3 only)")
     if stage_params is None:
         raise ValueError("qwen3 backend needs stage params")
+    if block_size > 0 and stage_lanes <= 0:
+        raise ValueError(
+            "--paged-kv runs on the lane executors: pair it with --stage-lanes"
+        )
+    if stage_lanes > 0:
+        from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor
+
+        return BatchedStageExecutor(
+            cfg, spec, stage_params, lanes=stage_lanes, block_size=block_size,
+            kv_blocks=kv_blocks, prefill_chunk=prefill_chunk, **kw,
+        )
     return Qwen3StageExecutor(cfg, spec, stage_params, **kw)

@@ -11,21 +11,29 @@ the JAX node for this topology:
                      "session_id", "stage", "result", "served_by"}
   POST /end_session  {"session_id", ...} -> {"ok": true}
   GET  /health       JSON: status, stage, device
-  GET  /stats        JSON: counters, the device's name and the flash_gqa
-                     kernel's launch count in this process
+  GET  /stats        JSON: counters, the device's name, each kernel's
+                     launch count in this process, the executor's stats
 
 Errors are wire-packed {"error", "code"} bodies with the JAX node's codes:
 409 "wrong_stage" (the chain's address list is stale), 409 "overflow" (KV
-budget), 409 "session_state" (out-of-order chunk), 500 on a compute
-failure. A relaying envelope (`relay` true or absent) gets 409
-"relay_unsupported": the swarm plane (gossip, routing, relay) is not ported.
+budget), 409 "session_state" (out-of-order chunk), 503 "busy" (every lane
+held by an in-flight request), 500 on a compute failure. A relaying
+envelope (`relay` true or absent) gets 409 "relay_unsupported": the swarm
+plane (gossip, routing, relay) is not ported.
 
-Requests are served on threads (ThreadingHTTPServer); compute is
-serialized under one lock, since one device runs one stream.
+Requests are served on threads (ThreadingHTTPServer). With the one-cache-
+per-session executor, compute is serialized under one node lock. With the
+lane executor (runtime/stage_batch, `--stage-lanes`), the node holds no
+lock around compute (the executor has its own) and attaches an arrival
+window (runtime/window): single-token decode steps of concurrent sessions
+join it and run as ONE device step, whose results all return locally
+(chain mode: every envelope has `relay: false`). Prefill chunks go
+straight to the executor's `process`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import threading
@@ -36,7 +44,8 @@ from typing import Any, Dict, Optional, Tuple
 
 from inferd_tpu_torch.ops import attention as attention_ops
 from inferd_tpu_torch.runtime import wire
-from inferd_tpu_torch.runtime.executor import Qwen3StageExecutor
+from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor, CapacityError
+from inferd_tpu_torch.runtime.window import WindowedBatcher
 from inferd_tpu_torch.utils.platform import device_name
 
 log = logging.getLogger(__name__)
@@ -49,19 +58,41 @@ _WIRE = "application/octet-stream"
 SWEEP_INTERVAL_S = 30.0  # how often /forward drops sessions idle past their TTL
 
 
+def _is_decode_step(payload) -> bool:
+    """True when a /forward payload is a single-token decode step at an
+    established frontier: the only shape the window co-batches (prefill
+    chunks and new sessions keep the per-session path)."""
+    if not isinstance(payload, dict):
+        return False
+    try:
+        if int(payload.get("start_pos", 0)) <= 0:
+            return False
+        n = payload.get("real_len")
+        if n is None:
+            x = payload.get("tokens")
+            n = (x if x is not None else payload.get("hidden")).shape[1]
+        return int(n) == 1
+    except (TypeError, ValueError, AttributeError, IndexError):
+        return False  # malformed payloads fail in the guarded compute
+
+
 class ChainNode:
     """One stage of a chain: an executor behind a small HTTP server."""
 
     def __init__(
         self,
-        executor: Qwen3StageExecutor,
+        executor,  # Qwen3StageExecutor, or BatchedStageExecutor (lanes)
         host: str = "127.0.0.1",
         port: int = 0,
+        window_ms: float = 2.0,
     ):
         self.executor = executor
         self.spec = executor.spec
         self.device = device_name(executor.device)
-        self._compute_lock = threading.Lock()
+        self.window: Optional[WindowedBatcher] = None
+        if isinstance(executor, BatchedStageExecutor):
+            self._attach_window(executor, window_ms)
+        self._compute_lock = threading.Lock()  # around the per-session executor only
         self._stats_lock = threading.Lock()
         self.forward_passes = 0
         self.errors = 0
@@ -71,6 +102,58 @@ class ChainNode:
         self.host, self.port = self._server.server_address[:2]
         self.node_id = f"{self.host}:{self.port}"
         self._thread: Optional[threading.Thread] = None
+
+    def _attach_window(self, executor: BatchedStageExecutor, window_ms: float) -> None:
+        """Give the lane executor its arrival window: co-arriving decode
+        steps of different sessions become ONE process_batch step."""
+        self.window = WindowedBatcher(
+            window_ms / 1e3,
+            self._run_stage_window,
+            # lock-free live-session count: a solo session must not pay the
+            # window (and co_possible runs under the batcher's lock: taking
+            # the executor's lock there would invert on_drop -> invalidate)
+            co_possible=executor.co_possible,
+            # gang formation: wait (up to window_ms) for every live idle
+            # session's step, which merges phase-offset cohorts
+            gang_target=executor.gang_target,
+        )
+        executor.on_drop = lambda sid: self.window.invalidate(
+            lambda payload, _sid=sid: payload[0] == _sid,
+            ValueError(f"session {sid} ended mid-request"),
+        )
+
+    def _run_stage_window(self) -> None:
+        """WindowedBatcher flush callback (worker thread, no locks held):
+        ONE co-batched device step for every co-arrived decode entry. The
+        batch is drained once the executor holds the device (continuous
+        batching: it forms when the step takes the device, not when the
+        flusher wakes); the drained entries are ours to deliver, results and
+        events. Per-entry failures set entry.error (one stale session must
+        not fail its co-batch). Chain mode only: every result returns to its
+        own request."""
+        drained: list = []
+
+        def drain():
+            extra = self.window.drain_pending()
+            drained.extend(extra)
+            return [(e.payload[0], e.payload[1]) for e in extra]
+
+        try:
+            outs = self.executor.process_batch([], drain=drain)
+            for e, out in zip(drained, outs):
+                if isinstance(out, Exception):
+                    e.error = out
+                else:
+                    e.result = out
+        except Exception as exc:
+            for e in drained:
+                e.error = exc
+            raise
+        finally:
+            for e in drained:
+                if e.error is None and e.result is None:
+                    e.error = RuntimeError("window flush dropped an entry")
+                e.event.set()
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -124,13 +207,22 @@ class ChainNode:
                 "(relay: false); the swarm relay plane is not ported",
                 code="relay_unsupported",
             )
+        payload = env.get("payload") or {}
         try:
-            with self._compute_lock:
-                result = self.executor.process(session_id, env.get("payload") or {})
+            if self.window is None:
+                with self._compute_lock:
+                    result = self.executor.process(session_id, payload)
+            elif _is_decode_step(payload):
+                result = self.window.submit((session_id, payload))
+            else:
+                result = self.executor.process(session_id, payload)
+            with self._stats_lock:
                 self.forward_passes += 1
-                self._maybe_sweep()
+            self._maybe_sweep()
         except BufferError as e:
             return self._error(409, str(e), code="overflow")
+        except CapacityError as e:
+            return self._error(503, str(e), code="busy")
         except ValueError as e:
             return self._error(409, str(e), code="session_state")
         except Exception as e:  # compute failure: report it, keep serving
@@ -154,10 +246,12 @@ class ChainNode:
         return 200, _WIRE, wire.pack({"ok": True})
 
     def _maybe_sweep(self) -> None:
-        now = time.monotonic()
-        if now - self._last_sweep >= SWEEP_INTERVAL_S:
+        with self._stats_lock:
+            now = time.monotonic()
+            if now - self._last_sweep < SWEEP_INTERVAL_S:
+                return
             self._last_sweep = now
-            self.executor.sessions.sweep()
+        self.executor.sessions.sweep()
 
     def health(self) -> Dict[str, Any]:
         return {
@@ -169,11 +263,19 @@ class ChainNode:
         }
 
     def stats(self) -> Dict[str, Any]:
-        with self._compute_lock:
-            passes = self.forward_passes
-            launches = attention_ops.flash_gqa.launches
+        """Counters, the device's name, each kernel's launch count in this
+        process and the executor's stats (for the lane executor: co-batched
+        steps and tokens, mean co-batch, prefill dispatches and tokens, and
+        the block pool's gauges when paged)."""
+        lock = self._compute_lock if self.window is None else contextlib.nullcontext()
+        with lock:
             executor = self.executor.stats()
+            kernels = {
+                "flash_gqa": {"launches": attention_ops.flash_gqa.launches},
+                "paged_decode_gqa": {"launches": attention_ops.paged_decode_gqa.launches},
+            }
         with self._stats_lock:
+            passes = self.forward_passes
             errors = self.errors
         return {
             "node_id": self.node_id,
@@ -184,7 +286,7 @@ class ChainNode:
             "device": self.device,
             "forward_passes": passes,
             "errors": errors,
-            "kernels": {"flash_gqa": {"launches": launches}},
+            "kernels": kernels,
             "executor": executor,
         }
 

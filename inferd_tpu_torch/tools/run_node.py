@@ -9,7 +9,13 @@ and /stats until SIGINT or SIGTERM. Prints one JSON line
 
 Usage:
   python -m inferd_tpu_torch.tools.run_node --parts parts/ --stage 0 \\
-      --port 6050 [--device cuda|cpu] [--max-len 4096]
+      --port 6050 [--device cuda|cpu] [--max-len 4096] \\
+      [--stage-lanes N [--window-ms W] [--paged-kv BS [--kv-blocks K]] \\
+       [--prefill-chunk C]]
+
+With --stage-lanes the stage serves its sessions from lanes of one shared
+KV cache, and co-arriving decode steps of concurrent sessions run as one
+device step (stage-level continuous batching); --paged-kv pages that cache.
 """
 
 from __future__ import annotations
@@ -39,6 +45,36 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=DEVICE_CHOICES,
                     help="device that runs the stage (default cuda)")
     ap.add_argument("--max-len", type=int, default=4096, help="per-session KV budget (tokens)")
+    ap.add_argument(
+        "--stage-lanes", type=int, default=0,
+        help="stage-level continuous batching: serve this node's pipeline stage "
+        "with this many session lanes; co-arriving decode steps of concurrent "
+        "sessions run as ONE device step per arrival window (0 = off)",
+    )
+    ap.add_argument(
+        "--window-ms", type=float, default=2.0,
+        help="arrival-window length for --stage-lanes decode co-batching; a solo "
+        "session never pays it",
+    )
+    ap.add_argument(
+        "--paged-kv", type=int, default=0,
+        help="paged KV block size in tokens (0 = dense lane slab). Lanes map to "
+        "chains of fixed-size pool blocks through a block table: allocation and "
+        "eviction become per-block, and sessions sharing a cached prompt prefix "
+        "map its blocks read-only (copy-on-write). Needs --stage-lanes",
+    )
+    ap.add_argument(
+        "--kv-blocks", type=int, default=0,
+        help="paged KV pool size in blocks (0 = full provisioning: lanes x "
+        "ceil(max_len/block)). Lower overcommits device memory on mixed-length "
+        "traffic; overflow surfaces as per-session KV errors, not OOM",
+    )
+    ap.add_argument(
+        "--prefill-chunk", type=int, default=0,
+        help="server-side chunked prefill: ingest prompts in dispatches of at "
+        "most this many tokens, releasing the device between chunks so "
+        "co-batched decode windows interleave (0 = whole-prompt dispatches)",
+    )
     return ap
 
 
@@ -49,12 +85,19 @@ def make_node(args: argparse.Namespace) -> ChainNode:
     )
     if spec.stage != args.stage:
         raise ValueError(f"{args.parts}: checkpoint holds stage {spec.stage}, not {args.stage}")
-    executor = make_executor(get_config(model_name), spec, params, max_len=args.max_len)
+    executor = make_executor(
+        get_config(model_name), spec, params, max_len=args.max_len,
+        stage_lanes=args.stage_lanes, block_size=args.paged_kv, kv_blocks=args.kv_blocks,
+        prefill_chunk=args.prefill_chunk,
+    )
     if device.type == "cuda":
         from inferd_tpu_torch.ops import build
 
-        build.load("flash_gqa")  # a kernel that cannot build fails the node now
-    return ChainNode(executor, host=args.host, port=args.port)
+        # a kernel that cannot build fails the node now
+        build.load("flash_gqa")
+        if args.paged_kv > 0:
+            build.load("paged_decode")
+    return ChainNode(executor, host=args.host, port=args.port, window_ms=args.window_ms)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -1,5 +1,5 @@
-"""The flash_gqa wrapper's contract, and on a card the CUDA kernel against
-its plain version.
+"""The flash_gqa and paged_decode_gqa wrappers' contracts, and on a card
+each CUDA kernel against its plain version.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with a CUDA card and no JAX: there, skip the JAX-pinning conftest
@@ -167,3 +167,97 @@ def test_cuda_kernel_rejects_mixed_devices_and_fp16(cuda_device):
         A.flash_gqa(q, k.cpu(), v.cpu(), 0, 4)
     with pytest.raises(TypeError):
         A.flash_gqa(q.half(), k.half(), v.half(), 0, 4)
+
+
+# -- paged decode attention ------------------------------------------------------
+
+
+def _paged_case(seed, b, nq, nkv, d, bs, mb, kv_len, device="cpu", dtype=torch.float32,
+                pool_dtype=None, nb=None):
+    """Pools with garbage in the scratch block 0 and in unchained blocks,
+    chains shuffled through the pool, each lane's query at kv_len - 1."""
+    g = torch.Generator().manual_seed(seed)
+    nb = nb or 1 + b * mb + 3
+    kp = torch.randn(nb, bs, nkv, d, generator=g)
+    vp = torch.randn(nb, bs, nkv, d, generator=g)
+    kp[0], vp[0] = 300.0, -300.0  # scratch: any read of it would show (finite in fp8)
+    table = (torch.randperm(nb - 1, generator=g)[: b * mb] + 1).reshape(b, mb).to(torch.int32)
+    for lane, n in enumerate(kv_len):
+        table[lane, -(-n // bs):] = 0  # unallocated chain slots point at scratch
+    q = torch.randn(b, 1, nq, d, generator=g)
+    kl = torch.tensor(kv_len)
+    qpos = (kl - 1).clamp(min=0)[:, None]
+    pd = pool_dtype or dtype
+    return (q.to(device, dtype), kp.to(device, pd), vp.to(device, pd), table.to(device),
+            qpos.to(device), kl.to(device))
+
+
+def test_paged_plain_version_equals_dense_gather_and_zero_lanes():
+    """The plain paged version over a shuffled chain equals flash_gqa's
+    plain version over the gathered dense view, and a kv_len 0 lane gives
+    exact zeros."""
+    q, kp, vp, table, qpos, kl = _paged_case(7, 3, 4, 2, 16, 4, 5, [13, 0, 20])
+    got = A.paged_decode_gqa(q, kp, vp, table, qpos, kl)
+    kd, vd = A.gather_block_kv(kp, vp, table)
+    want = A.flash_gqa_reference(q, kd, vd, qpos[:, 0], kl)
+    assert torch.equal(got, want)
+    assert got[1].abs().max() == 0 and got[0].abs().max() > 0
+    assert torch.isfinite(got).all()  # scratch's 1e4 garbage is never attended
+
+
+@pytest.mark.parametrize(
+    "kw,err",
+    [
+        (dict(s=2), "S == 1"),
+        (dict(d=32), "head_dim"),
+        (dict(table_dtype=torch.int64), "int32"),
+        (dict(nq=18, nkv=2), "groups"),
+        (dict(pool_dtype=torch.float16), "pool dtype"),
+        (dict(noncontig=True), "contiguous"),
+    ],
+)
+def test_paged_kernel_path_rejects_what_the_kernel_does_not_take(kw, err):
+    nq, nkv, d = kw.get("nq", 4), kw.get("nkv", 2), kw.get("d", 64)
+    q, kp, vp, table, qpos, kl = _paged_case(8, 2, nq, nkv, d, 8, 3, [10, 20],
+                                             pool_dtype=kw.get("pool_dtype"))
+    if kw.get("s"):
+        q = q.expand(2, kw["s"], nq, d).contiguous()
+    if "table_dtype" in kw:
+        table = table.to(kw["table_dtype"])
+    if kw.get("noncontig"):
+        kp = kp.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises((ValueError, TypeError), match=err):
+        A._paged_launch(q, kp, vp, table, qpos, kl, None, 0.0, None, None)
+
+
+PAGED_CUDA_CASES = {
+    # (b, nq, nkv, d, bs, mb, kv_len, extra)
+    "qwen_b8_bs32": (8, 16, 8, 128, 32, 32, [17, 60, 101, 230, 301, 480, 701, 1000], {}),
+    "bs16_group4": (3, 16, 4, 128, 16, 9, [1, 70, 144], {}),
+    "d64_group8_zero_lane": (4, 16, 2, 64, 32, 4, [0, 31, 33, 128], {}),
+    "window_softcap_sinks": (2, 16, 8, 128, 32, 8, [200, 256],
+                             {"window": 70, "softcap": 30.0, "sinks": True, "scale": 0.05}),
+    "fp8_pools": (2, 16, 8, 128, 32, 6, [100, 190], {"fp8": True}),
+    "f32": (2, 8, 4, 64, 16, 6, [40, 96], {"dtype": torch.float32}),
+    "f32_fp8": (2, 8, 4, 128, 16, 6, [40, 96], {"dtype": torch.float32, "fp8": True}),
+}
+
+
+@requires_cuda
+@pytest.mark.parametrize("name", sorted(PAGED_CUDA_CASES))
+def test_cuda_paged_kernel_matches_plain(cuda_device, name):
+    b, nq, nkv, d, bs, mb, kv_len, ex = PAGED_CUDA_CASES[name]
+    dt = ex.get("dtype", torch.bfloat16)
+    q, kp, vp, table, qpos, kl = _paged_case(
+        9, b, nq, nkv, d, bs, mb, kv_len, device=cuda_device, dtype=dt,
+        pool_dtype=torch.float8_e4m3fn if ex.get("fp8") else None)
+    kw = dict(scale=ex.get("scale"), softcap=ex.get("softcap", 0.0), window=ex.get("window"),
+              sinks=torch.randn(nq, device=cuda_device) if ex.get("sinks") else None)
+    before = A.paged_decode_gqa.launches
+    got = A.decode_gqa(q, kp, vp, qpos, kl, block_table=table, **kw)
+    want = A.paged_decode_gqa_reference(q, kp, vp, table, qpos, kl, **kw)
+    torch.cuda.synchronize()
+    assert A.paged_decode_gqa.launches == before + 1
+    assert got.dtype == dt and got.shape == (b, 1, nq * d)
+    tol = ATTN_TOL["float32" if dt == torch.float32 else "bfloat16"]
+    assert row_rel_err(got, want, d) <= tol
