@@ -14,6 +14,13 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               catch; kernel / plain / library (or yardstick) times from CUDA
               events, and the bound for the work. flash_gqa's cases, then
               paged_decode_gqa's
+  qmatmul     the same for the decode GEMVs (w8a16_matmul, w4a16_matvec
+              under both int4 schemes) at Qwen3-0.6B's projection and head
+              shapes at 1, 8 and 64 rows, plus f32, ragged-N and odd-K cases,
+              timed with every input cold in L2; the library call is
+              torch._weight_int8pack_mm / torch._weight_int4pack_mm on the
+              same quantized weight, and a yardstick torch.matmul against
+              the dequantized bf16 weight
   serve       split Qwen3-0.6B (seeded random weights, full width, 28 layers)
               into 2 stages with tools/split_model, start two tools/run_node
               --device cuda processes on loopback, drive 4 greedy requests
@@ -33,6 +40,17 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               parts; teacher-forced, the kernel path stays near the plain
               attention path on the paged and on the dense lane layout, and
               planted paged-attention faults do not; TTFT and tok/s
+  serve_quant_int8, serve_quant_int4
+              the serve traffic on two run_node --quant int8 (then int4)
+              processes: streams equal in-process quantized executors'; the
+              GEMV kernels' launches exact on both nodes (7 per layer on
+              every pass of at most 64 rows, plus the head on the last
+              stage); teacher-forced, the kernel path near the plain-GEMV
+              path and planted GEMV faults not; TTFT and tok/s beside serve's
+  serve_lanes_quant
+              the serve_lanes traffic on --quant int8 lane nodes (every
+              decode GEMV at 8 rows), with the same checks on the paged
+              lanes
 
 Then one JSON line listing every kernel, the nvidia-smi line, and last:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -66,6 +84,7 @@ MODEL = "qwen3-0.6b"
 # H100 SXM published peaks (NVIDIA data sheet; dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+L2_FLUSH_BYTES = 128 << 20  # read before each cold timed call: > 2x the H100's 50 MB L2
 
 # flash_gqa against its plain version, on the same inputs. The error of a
 # case is read per output row (one query head at one position: D values),
@@ -156,6 +175,44 @@ LANE_NODE_ARGS = ["--stage-lanes", str(LANES), "--paged-kv", str(PAGED_BS),
 DENSE_LANE_PROMPTS = (16, 100, 300, 700)  # the dense-lane layout's teacher-forced prompts
 LANE_E2E_FAULTS = ("table_shifted", "last_block_skipped")
 
+# The decode GEMVs (csrc/qmatmul.cu) against their plain versions: the same
+# per-row rule as attention (row_rel_err over an output row of N values),
+# with the same limits. Cases: Qwen3-0.6B's projections [K, N] at the main
+# path's row counts (1: one session; 8: the lanes; 64: the largest that
+# takes the kernel), the tied head's shadow at 1 and 8 rows, an f32 case, a
+# ragged N (a partial last tile; and N % 8 != 0, the single-byte loads) and
+# an odd K (int4 one value per byte). Each case runs w8a16 and w4a16 under
+# both schemes. Planted faults, each what a wrong kernel would compute:
+# the scale of the neighbouring column, the nibbles of each byte swapped
+# (packed int4 only), the weight bytes zero-extended instead of sign-
+# extended, the last K chunk (QMM_CHUNK_K values) skipped, the last column
+# tile (QMM_BLOCK_N columns) skipped, the group index one too high (int4
+# with more than one group). A fault that cannot apply to a case reads
+# null.
+QMM_TOL = ATTN_TOL
+QMM_CHUNK_K, QMM_BLOCK_N = 256, 64  # kChunkK and kBlockN in csrc/qmatmul.cu
+QMM_FAULTS = ("scale_neighbour_column", "nibbles_swapped", "zero_extended",
+              "last_k_chunk_skipped", "n_tail_skipped", "group_off_by_one")
+QMM_SHAPES = {  # Qwen3-0.6B, hidden 1024, q 2048, kv 1024, intermediate 3072
+    "q_proj": (1024, 2048), "k_v_proj": (1024, 1024), "o_proj": (2048, 1024),
+    "gate_up_proj": (1024, 3072), "down_proj": (3072, 1024), "lm_head_q": (1024, 151936),
+}
+QMM_KERNELS = ("w8a16", "w4a16_grouped", "w4a16_dequant")
+QMM_CASES: List[Dict[str, Any]] = (
+    [dict(name=f"{s}_m{m}", shape=s, m=m) for s in QMM_SHAPES if s != "lm_head_q"
+     for m in (1, 8, 64)]
+    + [dict(name=f"lm_head_q_m{m}", shape="lm_head_q", m=m) for m in (1, 8)]
+    + [dict(name="gate_up_proj_m8_f32", shape="gate_up_proj", m=8, dtype="float32"),
+       dict(name="ragged_n1000_m8", k=1024, n=1000, m=8),
+       dict(name="ragged_n333_m3", k=1024, n=333, m=3),
+       dict(name="odd_k1023_m8", k=1023, n=1024, m=8)]
+)
+QMM_MAIN_CASE, QMM_LANE_CASE = "lm_head_q_m1", "gate_up_proj_m8"
+# The quantized serve phases: the kernel path against the plain-GEMV path
+# (the same executors with each GEMV wrapper's plain version), by the
+# HIDDEN_TOL / LOGIT_TOL rule, and planted GEMV faults that must break it.
+QUANT_E2E_FAULTS = ("last_k_chunk_skipped", "scale_neighbour_column")
+
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
@@ -172,16 +229,26 @@ def nvidia_smi_line() -> str:
 # -- timing -------------------------------------------------------------------
 
 
-def time_ms(fn: Callable[[], Any], iters: int = 20) -> float:
+def time_ms(fn: Callable[[], Any], iters: int = 20, cold: bool = False) -> float:
     """Median device time of one call, from CUDA events around each call.
     The calls are enqueued behind a sleep kernel long enough to cover the
     host's enqueue time, so the device runs them back to back and the
-    events bracket device work, not host launch gaps."""
+    events bracket device work, not host launch gaps. With `cold`, a read
+    of L2_FLUSH_BYTES runs before each call, outside its events, so the
+    call finds none of its inputs in L2."""
     import torch
 
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda") if cold else None
+
+    def evict():
+        if flush is not None:
+            flush.sum()
+
+    evict()
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    evict()
     fn()
     torch.cuda.synchronize()
     per_call = time.perf_counter() - t0
@@ -189,6 +256,7 @@ def time_ms(fn: Callable[[], Any], iters: int = 20) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     torch.cuda._sleep(int(2e9 * max(0.02, 3 * per_call * iters)))
     for a, b in zip(starts, ends):
+        evict()
         a.record()
         fn()
         b.record()
@@ -509,6 +577,196 @@ def run_paged_cases() -> List[Dict[str, Any]]:
     return results
 
 
+# -- decode GEMV cases ------------------------------------------------------------
+
+
+def qmm_call(kernel: str, x, q8, q4):
+    """One GEMV wrapper call: the kernel on CUDA tensors."""
+    from inferd_tpu_torch.ops import qmatmul as Q
+
+    if kernel == "w8a16":
+        return Q.w8a16_matmul(x, q8.q, q8.scale)
+    return Q.w4a16_matvec(x, q4, kernel.split("_")[1])
+
+
+def qmm_plain(kernel: str, x, q8, q4):
+    """The same call's plain version."""
+    from inferd_tpu_torch.ops import qmatmul as Q
+
+    if kernel == "w8a16":
+        return Q.w8a16_matmul_reference(x, q8.q, q8.scale)
+    return Q.w4a16_matvec_reference(x, q4, kernel.split("_")[1])
+
+
+def qmm_fault_inputs(fault: str, x, scale, k: int):
+    """(x, scale) on which the sound kernel computes what a kernel with
+    `fault` computes, for the faults that live in the inputs: the scale of
+    the neighbouring column, the last K chunk skipped."""
+    if fault == "scale_neighbour_column":
+        return x, scale.roll(1, dims=-1).contiguous()
+    if fault == "last_k_chunk_skipped":
+        x = x.clone()
+        x[:, (k - 1) // QMM_CHUNK_K * QMM_CHUNK_K:] = 0
+        return x, scale
+    raise ValueError(f"unknown fault {fault}")
+
+
+def qmm_fault(fault: str, kernel: str, x, q8, q4):
+    """What a GEMV kernel with `fault` computes on the case (QMM_FAULTS),
+    or None where the fault cannot apply."""
+    import torch
+
+    from inferd_tpu_torch.ops import quant
+
+    int4 = kernel != "w8a16"
+    k = x.shape[1]
+    if fault in ("scale_neighbour_column", "last_k_chunk_skipped"):
+        xf, sf = qmm_fault_inputs(fault, x, q4.scale if int4 else q8.scale, k)
+        if int4:
+            return qmm_call(kernel, xf, q8, dataclasses.replace(q4, scale=sf))
+        return qmm_call(kernel, xf, quant.QuantWeight(q8.q, sf), q4)
+    if fault == "nibbles_swapped":
+        if not (int4 and q4.packed):
+            return None
+        b = q4.q.view(torch.uint8)
+        return qmm_call(kernel, x, q8, dataclasses.replace(q4, q=((b << 4) | (b >> 4)).view(torch.int8)))
+    if fault == "zero_extended":  # each byte read as 0..255, each nibble as 0..15
+        if not int4:
+            return qmm_plain(kernel, x, quant.QuantWeight(q8.q.view(torch.uint8).float(), q8.scale), q4)
+        b = q4.q.view(torch.uint8).int()
+        if q4.packed:
+            vals = torch.stack([b & 0xF, b >> 4], dim=1).reshape(-1, b.shape[1])
+        else:
+            vals = b
+        return qmm_plain(kernel, x, q8, quant.Int4Weight(vals.float(), q4.scale, packed=False))
+    if fault == "n_tail_skipped":
+        out = qmm_call(kernel, x, q8, q4).clone()
+        out[:, (out.shape[1] - 1) // QMM_BLOCK_N * QMM_BLOCK_N:] = 0
+        return out
+    if fault == "group_off_by_one":
+        if not int4 or q4.scale.shape[0] < 2:
+            return None
+        return qmm_call(kernel, x, q8,
+                        dataclasses.replace(q4, scale=q4.scale.roll(-1, dims=0).contiguous()))
+    raise ValueError(f"unknown fault {fault}")
+
+
+def qmm_library(kernel: str, x, q8, q4):
+    """One PyTorch call that computes the case's product from the same
+    quantized weight, its repacking done here, outside any timing: for
+    w8a16 torch._weight_int8pack_mm (int8 [N, K], scales in x's dtype), for
+    w4a16 torch._weight_int4pack_mm (bf16 only, groups of 32-256; the
+    values biased to 0..15, two per byte with the even K index in the high
+    nibble, repacked by torch._convert_weight_to_int4pack; scale and a zero
+    point of 0 per group). Returns (call, None), or (None, why) where this
+    torch has no such call for the case. Timed beside the kernel only: the
+    port never calls either."""
+    import torch
+
+    try:
+        if kernel == "w8a16":
+            wt, s = q8.q.t().contiguous(), q8.scale.to(x.dtype)
+            call = lambda: torch._weight_int8pack_mm(x, wt, s)  # noqa: E731
+        else:
+            k, n = q4.shape
+            gs = k // q4.scale.shape[0]
+            if x.dtype != torch.bfloat16 or gs not in (32, 64, 128, 256) or n % 8 or k % 128:
+                return None, f"_weight_int4pack_mm takes bf16, groups of 32-256, N % 8 == 0 " \
+                             f"and K % 128 == 0 (here {x.dtype}, group {gs}, N {n}, K {k})"
+            u = (q4.unpacked().int() + 8).t()  # [N, K] in 0..15
+            wp = torch._convert_weight_to_int4pack(
+                ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8).contiguous(), 8)
+            sz = torch.stack([q4.scale, torch.zeros_like(q4.scale)], dim=-1).to(
+                torch.bfloat16).contiguous()  # [G, N, 2]
+            call = lambda: torch._weight_int4pack_mm(x, wp, gs, sz)  # noqa: E731
+        call()
+        torch.cuda.synchronize()
+        return call, None
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+
+
+def qmm_work(m: int, k: int, n: int, x_item: int, q_bytes: int, groups: int) -> Dict[str, float]:
+    """Bytes and flops of one GEMV: the weight as stored and its f32 scales
+    read once, x read once, the output written once; 2*M*K*N flops."""
+    return {"bytes": q_bytes + 4 * n * groups + (m * k + m * n) * x_item,
+            "flops": 2.0 * m * k * n}
+
+
+def run_qmm_cases() -> List[Dict[str, Any]]:
+    import torch
+
+    from inferd_tpu_torch.ops import quant
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    results, failures = [], []
+    for c in QMM_CASES:
+        k, n = QMM_SHAPES[c["shape"]] if "shape" in c else (c["k"], c["n"])
+        dt = torch.float32 if c.get("dtype") == "float32" else torch.bfloat16
+        # N(0, 0.02) weights as the seeded init draws them, quantized as a
+        # node quantizes at load
+        w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(dt)
+        q8, q4 = quant.quantize(w), quant.quantize_int4(w)
+        del w
+        x = torch.randn((c["m"], k), generator=gen, device=dev).to(dt)
+        tol = QMM_TOL["float32" if dt == torch.float32 else "bfloat16"]
+        for kernel in QMM_KERNELS:
+            got, ref = qmm_call(kernel, x, q8, q4), qmm_plain(kernel, x, q8, q4)
+            torch.cuda.synchronize()
+            name = f"{c['name']}/{kernel}"
+            if not bool(torch.isfinite(got.float()).all()):
+                raise AssertionError(f"{name}: kernel output is not finite")
+            err = (got.float() - ref.float()).abs().max().item()
+            rel = row_rel_err(got, ref, n)
+            faults = {}
+            for f in QMM_FAULTS:
+                out = qmm_fault(f, kernel, x, q8, q4)
+                faults[f] = None if out is None else row_rel_err(out, ref, n)
+            if not rel <= tol:
+                failures.append(f"{name}: row error {rel} > tol {tol}")
+            for f, reading in faults.items():
+                if reading is not None and not reading > tol:
+                    failures.append(f"{name}: planted fault {f} reads {reading} <= tol {tol}")
+            wq = q8 if kernel == "w8a16" else q4
+            w_deq = wq.dequantize(dt)  # what --quant none reads: a yardstick
+            yardstick_ms = time_ms(lambda: torch.matmul(x, w_deq), cold=True)
+            del w_deq
+            lib, lib_note = qmm_library(kernel, x, q8, q4)
+            library_ms = library_err = None
+            if lib is not None:
+                library_ms = time_ms(lib, cold=True)
+                library_err = row_rel_err(lib(), ref, n)
+            del lib
+            ms = time_ms(lambda: qmm_call(kernel, x, q8, q4), cold=True)
+            plain_ms = time_ms(lambda: qmm_plain(kernel, x, q8, q4), iters=10, cold=True)
+            groups = 1 if kernel == "w8a16" else q4.scale.shape[0]
+            w_ = qmm_work(c["m"], k, n, x.element_size(), wq.q.numel(), groups)
+            t_bytes = w_["bytes"] / HBM_BYTES_PER_S
+            t_ops = w_["flops"] / PEAK_FLOPS["float32" if dt == torch.float32 else "bfloat16"]
+            row = {
+                "case": c["name"], "kernel": kernel, "M": c["m"], "K": k, "N": n,
+                "dtype": str(dt).replace("torch.", ""),
+                "int4_layout": None if kernel == "w8a16" else ("packed" if q4.packed else "bytes"),
+                "max_abs_err": err, "row_err": rel, "tol": tol, "faults": faults,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "library_call": "torch._weight_int8pack_mm" if kernel == "w8a16"
+                else "torch._weight_int4pack_mm",
+                "library_row_err": library_err, "library_note": lib_note,
+                "dequant_matmul_yardstick_ms": yardstick_ms,
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": w_["bytes"], "flops": w_["flops"],
+            }
+            say("qmatmul", json.dumps(row))
+            results.append(row)
+        del q8, q4, x
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("qmatmul cases failed:\n  " + "\n  ".join(failures))
+    return results
+
+
 # -- serve phase ----------------------------------------------------------------
 
 
@@ -689,32 +947,101 @@ def split_parts(work: str) -> str:
     return parts
 
 
-def run_serve(card: str, parts: str, work: str) -> Dict[str, Any]:
+@contextlib.contextmanager
+def plain_gemvs():
+    """Every decode-GEMV wrapper call runs its plain version, until the
+    block ends: the plain-GEMV path the quantized phases hold the kernel
+    path to."""
+    from inferd_tpu_torch.ops import qmatmul as Q
+
+    saved = Q.w8a16_matmul, Q.w4a16_matvec
+    Q.w8a16_matmul, Q.w4a16_matvec = Q.w8a16_matmul_reference, Q.w4a16_matvec_reference
+    try:
+        yield
+    finally:
+        Q.w8a16_matmul, Q.w4a16_matvec = saved
+
+
+@contextlib.contextmanager
+def planted_gemv_fault(fault: str):
+    """Every decode-GEMV kernel launch runs on inputs that reproduce `fault`
+    (see qmm_fault_inputs), until the block ends."""
+    from inferd_tpu_torch.ops import qmatmul as Q
+
+    launch = Q._launch
+
+    def faulty(x, q, scale, k, *rest):
+        x, scale = qmm_fault_inputs(fault, x, scale, k)
+        return launch(x, q, scale, k, *rest)
+
+    Q._launch = faulty
+    try:
+        yield
+    finally:
+        Q._launch = launch
+
+
+QMM_KERNEL_OF = {"int8": "w8a16_matmul", "int4": "w4a16_matvec"}  # --quant -> its kernel
+GEMVS_PER_LAYER = 7  # q, k, v, o, gate, up, down
+
+
+def gemv_launches(layers: int, last: bool, small_dispatches: int, dispatches: int) -> int:
+    """GEMV kernel launches of one quantized stage: 7 per layer on every
+    dispatch of at most MAX_KERNEL_ROWS rows, and on the last stage one for
+    the head on every dispatch (its logits are one row per lane)."""
+    return GEMVS_PER_LAYER * layers * small_dispatches + (dispatches if last else 0)
+
+
+def quantize_loaded(loaded, quant_flag):
+    """The stage checkpoints as a --quant node holds them."""
+    if quant_flag is None:
+        return loaded
+    from inferd_tpu_torch.config import get_config
+    from inferd_tpu_torch.ops import quant
+
+    cfg = get_config(MODEL)
+    return [(quant.apply_quant_mode(quant_flag, params, cfg.tie_word_embeddings, spec.is_last),
+             spec, name) for params, spec, name in loaded]
+
+
+def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) -> Dict[str, Any]:
+    """The `serve` phase, or with quant_flag its `serve_quant` run on
+    --quant nodes (the GEMV kernel path then held to the plain-GEMV path,
+    and `baseline`'s bf16 rates printed beside its own)."""
     import numpy as np
+    import torch
 
     from inferd_tpu_torch.client.chain_client import ChainClient
     from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.core.generate import bucket_len
+    from inferd_tpu_torch.ops.qmatmul import MAX_KERNEL_ROWS
     from inferd_tpu_torch.parallel.stages import load_stage_checkpoint, stage_checkpoint_path
     from inferd_tpu_torch.runtime.executor import Qwen3StageExecutor
 
     LastStageProbe = _last_stage_probe_class()
 
+    phase = "serve" if quant_flag is None else f"serve_quant_{quant_flag}"
+    extra = [] if quant_flag is None else ["--quant", quant_flag]
     cfg = get_config(MODEL)
     greedy = SamplingConfig(temperature=0.0)
     nodes: List[Dict[str, Any]] = []
     try:
-        nodes = [start_node(parts, s, work) for s in range(2)]
+        nodes = [start_node(parts, s, work, extra) for s in range(2)]
         t0 = time.perf_counter()
         for n in nodes:
             wait_ready(n)
-        say("serve", f"2 run_node --device cuda processes ready in {time.perf_counter() - t0:.1f}s")
+        say(phase, f"2 run_node --device {DEVICE} {' '.join(extra)} processes ready in "
+                   f"{time.perf_counter() - t0:.1f}s")
 
         def stats():
             return [http_get_json(f"http://127.0.0.1:{n['port']}/stats") for n in nodes]
 
         before = stats()  # fresh processes: every count starts at 0
-        if any(s["kernels"]["flash_gqa"]["launches"] or s["forward_passes"] for s in before):
-            raise AssertionError(f"nodes did work before the main path: {before}")
+        for st in before:
+            if any(k["launches"] for k in st["kernels"].values()) or st["forward_passes"]:
+                raise AssertionError(f"nodes did work before the main path: {before}")
+            if st["quant"] != (quant_flag or "none"):
+                raise AssertionError(f"node serves quant {st['quant']}, want {quant_flag}")
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
         streams, timing = [], []
@@ -733,39 +1060,53 @@ def run_serve(card: str, parts: str, work: str) -> Dict[str, Any]:
 
         asyncio.run(drive())
         after = stats()
-        for p, ids, (t_req, stamps) in zip(prompts, streams, timing):
+        rates = []
+        for i, (p, ids, (t_req, stamps)) in enumerate(zip(prompts, streams, timing)):
             if len(ids) != NEW_TOKENS:
                 raise AssertionError(f"prompt {len(p)}: {len(ids)} tokens, want {NEW_TOKENS}")
             ttft = (stamps[0] - t_req) * 1e3
             tps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
-            say("serve", f"prompt {len(p)} tokens: TTFT {ttft:.1f} ms, decode "
-                         f"{tps:.1f} tok/s over {len(stamps) - 1} steps ({card})")
+            rates.append((ttft, tps))
+            beside = ""
+            if baseline is not None:
+                b_ttft, b_tps = baseline["rates"][i]
+                beside = f"; bf16 serve in this run: TTFT {b_ttft:.1f} ms, {b_tps:.1f} tok/s"
+            say(phase, f"prompt {len(p)} tokens: TTFT {ttft:.1f} ms, decode "
+                       f"{tps:.1f} tok/s over {len(stamps) - 1} steps ({card}){beside}")
 
-        expected_passes = sum(math.ceil(len(p) / 512) + NEW_TOKENS - 1 for p in prompts)
-        launches = 0
-        for b_, a_ in zip(before, after):
-            passes = a_["forward_passes"] - b_["forward_passes"]
-            n_launch = a_["kernels"]["flash_gqa"]["launches"] - b_["kernels"]["flash_gqa"]["launches"]
+        # every forward pass of a prompt chunk pads to its bucket; decode is 1 row
+        rows = [bucket_len(len(p[c:c + 512])) for p in prompts for c in range(0, len(p), 512)]
+        rows += [1] * (len(prompts) * (NEW_TOKENS - 1))
+        expected_passes = len(rows)
+        small = sum(r <= MAX_KERNEL_ROWS for r in rows)
+        launches = dict.fromkeys(after[0]["kernels"], 0)
+        for a_ in after:
+            passes = a_["forward_passes"]
+            kern = {name: k["launches"] for name, k in a_["kernels"].items()}
             layers = a_["end_layer"] - a_["start_layer"] + 1
-            say("serve", f"node stage {a_['stage']} on {a_['device']}: {passes} forward passes, "
-                         f"flash_gqa launches {n_launch} (= {layers} x {passes}: "
-                         f"{n_launch == layers * passes})")
-            if passes != expected_passes or n_launch != layers * passes or n_launch == 0:
-                raise AssertionError(
-                    f"stage {a_['stage']}: {passes} passes (want {expected_passes}), "
-                    f"{n_launch} launches (want {layers * passes})")
-            launches += n_launch
+            last = a_["stage"] == a_["num_stages"] - 1
+            want = {"flash_gqa": layers * passes, "paged_decode_gqa": 0,
+                    "w8a16_matmul": 0, "w4a16_matvec": 0}
+            if quant_flag is not None:
+                want[QMM_KERNEL_OF[quant_flag]] = gemv_launches(layers, last, small, passes)
+            say(phase, f"node stage {a_['stage']} on {a_['device']} (quant {a_['quant']}, "
+                       f"{a_['quantized_bytes']} parameter bytes): {passes} forward passes "
+                       f"({small} of at most {MAX_KERNEL_ROWS} rows); launches {kern} "
+                       f"(want {want}: {kern == want})")
+            if passes != expected_passes or kern != want or kern["flash_gqa"] == 0:
+                raise AssertionError(f"stage {a_['stage']}: {passes} passes (want "
+                                     f"{expected_passes}), launches {kern} (want {want})")
+            for name, v in kern.items():
+                launches[name] += v
         stop_nodes(nodes)
         nodes = []
 
         # the same stage executors in this process, over the same parts
-        loaded = [load_stage_checkpoint(stage_checkpoint_path(parts, s), device=DEVICE)
-                  for s in range(2)]
+        loaded = quantize_loaded([load_stage_checkpoint(stage_checkpoint_path(parts, s),
+                                                        device=DEVICE) for s in range(2)],
+                                 quant_flag)
         kernel_ex = [Qwen3StageExecutor(cfg, spec, params, max_len=MAX_LEN)
                      for params, spec, _ in loaded]
-        plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
-        plain_ex = [Qwen3StageExecutor(plain_cfg, spec, params, max_len=MAX_LEN)
-                    for params, spec, _ in loaded]
 
         async def local(executors):
             client = make_local_client(executors, greedy)
@@ -775,32 +1116,43 @@ def run_serve(card: str, parts: str, work: str) -> Dict[str, Any]:
         for p, a_, b_ in zip(prompts, streams, local_streams):
             if a_ != b_:
                 raise AssertionError(f"prompt {len(p)}: served stream != in-process stream")
-        say("serve", "served streams equal the in-process executors' streams, token for token "
-                     f"({len(prompts)} requests x {NEW_TOKENS} tokens)")
+        say(phase, "served streams equal the in-process executors' streams, token for token "
+                   f"({len(prompts)} requests x {NEW_TOKENS} tokens)")
 
         probe = [kernel_ex[0], LastStageProbe(cfg, loaded[1][1], loaded[1][0], max_len=MAX_LEN)]
-        plain_probe = [plain_ex[0], LastStageProbe(plain_cfg, loaded[1][1], loaded[1][0],
-                                                   max_len=MAX_LEN)]
-        plain_steps = teacher_forced(plain_probe, prompts, streams)
+        if quant_flag is None:  # the kernel path against plain attention
+            plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
+            plain_probe = [Qwen3StageExecutor(plain_cfg, loaded[0][1], loaded[0][0],
+                                              max_len=MAX_LEN),
+                           LastStageProbe(plain_cfg, loaded[1][1], loaded[1][0], max_len=MAX_LEN)]
+            plain_ctx, plant, faults, what = contextlib.nullcontext, planted_attention_fault, \
+                E2E_FAULTS, "plain attention"
+        else:  # the GEMV kernels against their plain versions
+            plain_probe, plain_ctx, plant, faults, what = probe, plain_gemvs, planted_gemv_fault, \
+                QUANT_E2E_FAULTS, "plain GEMVs"
+        with plain_ctx():
+            plain_steps = teacher_forced(plain_probe, prompts, streams)
         readings = {"sound": compare_steps(teacher_forced(probe, prompts, streams), plain_steps,
                                            cfg.hidden_size)}
-        for f in E2E_FAULTS:
-            with planted_attention_fault(f):
+        for f in faults:
+            with plant(f):
                 readings[f] = compare_steps(teacher_forced(probe, prompts, streams), plain_steps,
                                             cfg.hidden_size)
         for name, (h_err, l_err) in readings.items():
-            say("serve", f"kernel path {'' if name == 'sound' else 'with fault ' + name + ' '}vs "
-                         f"plain attention over {len(plain_steps)} teacher-forced steps: hidden "
-                         f"row error {h_err:.4g} (tol {HIDDEN_TOL}), logits {l_err:.4%} of max "
-                         f"|logit| (tol {LOGIT_TOL:.0%})")
+            say(phase, f"kernel path {'' if name == 'sound' else 'with fault ' + name + ' '}vs "
+                       f"{what} over {len(plain_steps)} teacher-forced steps: hidden "
+                       f"row error {h_err:.4g} (tol {HIDDEN_TOL}), logits {l_err:.4%} of max "
+                       f"|logit| (tol {LOGIT_TOL:.0%})")
         h_err, l_err = readings.pop("sound")
         if not (h_err <= HIDDEN_TOL and l_err <= LOGIT_TOL):
-            raise AssertionError(f"kernel path vs plain attention: hidden {h_err}, logits {l_err}")
+            raise AssertionError(f"kernel path vs {what}: hidden {h_err}, logits {l_err}")
         for f, (h_f, l_f) in readings.items():
             if not (h_f > HIDDEN_TOL or l_f > LOGIT_TOL):
                 raise AssertionError(f"planted fault {f} passes the checks: hidden {h_f}, "
                                      f"logits {l_f}")
-        return {"launches": launches, "passes": expected_passes}
+        del kernel_ex, probe, plain_probe, loaded
+        torch.cuda.empty_cache()
+        return {"launches": launches, "passes": expected_passes, "rates": rates}
     except BaseException:
         stop_nodes(nodes, show_logs=True)
         nodes = []
@@ -917,21 +1269,29 @@ def lane_executors(cfg, loaded, block_size: int, probe: bool):
     return [BatchedStageExecutor(cfg, s0, p0, **kw), last]
 
 
-def check_teacher_forced(tag: str, cfg, loaded, block_size: int, prompts, streams,
-                         faults=()) -> Dict[str, Any]:
-    """The lane executors' kernel path against their plain-attention path
-    (attn_impl="xla"), teacher-forced over every prompt chunk and the first
-    DECODE_CHECKED co-batched decode steps of the streams, held to
-    HIDDEN_TOL and LOGIT_TOL on every prompt. Each planted paged fault must
-    break one of them on the lanes whose chain spans more than one block
-    (a one-block lane under either fault reads only the zeroed scratch
-    block or nothing, so its attention is exactly zero and shows nothing
-    of a multi-block walk); the per-prompt readings are printed."""
+def check_teacher_forced(phase: str, tag: str, cfg, loaded, block_size: int, prompts, streams,
+                         faults=(), gemv: bool = False) -> Dict[str, Any]:
+    """The lane executors' kernel path against their plain path, teacher-
+    forced over every prompt chunk and the first DECODE_CHECKED co-batched
+    decode steps of the streams, held to HIDDEN_TOL and LOGIT_TOL on every
+    prompt. The plain path is plain attention (attn_impl="xla"), or with
+    `gemv` the plain GEMVs. Each planted fault (paged-attention faults, or
+    GEMV faults with `gemv`) must break one of the limits on some lane; a
+    paged fault only on lanes whose chain spans more than one block (a
+    one-block lane under either fault reads only the zeroed scratch block or
+    nothing, so its attention is exactly zero and shows nothing of a
+    multi-block walk). The per-prompt readings are printed."""
     import torch
 
-    plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
-    plain = teacher_forced_lanes(lane_executors(plain_cfg, loaded, block_size, True), prompts,
-                                 streams)
+    if gemv:
+        plain_cfg, plain_ctx, plant, what = cfg, plain_gemvs, planted_gemv_fault, "plain GEMVs"
+    else:
+        plain_cfg, plain_ctx, plant, what = (dataclasses.replace(cfg, attn_impl="xla"),
+                                             contextlib.nullcontext, planted_paged_fault,
+                                             "plain attention")
+    with plain_ctx():
+        plain = teacher_forced_lanes(lane_executors(plain_cfg, loaded, block_size, True), prompts,
+                                     streams)
     torch.cuda.empty_cache()
     kernel_ex = lane_executors(cfg, loaded, block_size, True)
 
@@ -941,54 +1301,61 @@ def check_teacher_forced(tag: str, cfg, loaded, block_size: int, prompts, stream
 
     readings = {"sound": per_prompt()}
     for f in faults:
-        with planted_paged_fault(f):
+        with plant(f):
             readings[f] = per_prompt()
     del kernel_ex
     torch.cuda.empty_cache()
     bs = block_size or PAGED_BS
-    multi = [i for i, p in enumerate(prompts) if len(p) + DECODE_CHECKED > bs]
+    trip_lanes = [i for i, p in enumerate(prompts) if gemv or len(p) + DECODE_CHECKED > bs]
     n_steps = sum(len(r) for r in plain)
     for name, per in readings.items():
         rows = ", ".join(f"{len(p)}: {h:.4g} / {l:.3%}" for p, (h, l) in zip(prompts, per))
-        say("serve_lanes", f"{tag}: kernel path {'' if name == 'sound' else 'with fault ' + name + ' '}"
-                           f"vs plain attention over {n_steps} teacher-forced steps "
-                           f"({DECODE_CHECKED} co-batched decode steps of {len(prompts)} lanes); "
-                           f"per prompt, hidden row error / logits share of max |logit| (tol "
-                           f"{HIDDEN_TOL} / {LOGIT_TOL:.0%}): {rows}")
+        say(phase, f"{tag}: kernel path {'' if name == 'sound' else 'with fault ' + name + ' '}"
+                   f"vs {what} over {n_steps} teacher-forced steps "
+                   f"({DECODE_CHECKED} co-batched decode steps of {len(prompts)} lanes); "
+                   f"per prompt, hidden row error / logits share of max |logit| (tol "
+                   f"{HIDDEN_TOL} / {LOGIT_TOL:.0%}): {rows}")
     h_err = max(h for h, _ in readings["sound"])
     l_err = max(l for _, l in readings["sound"])
     if not (h_err <= HIDDEN_TOL and l_err <= LOGIT_TOL):
-        raise AssertionError(f"{tag}: kernel path vs plain attention: hidden {h_err}, "
-                             f"logits {l_err}")
+        raise AssertionError(f"{tag}: kernel path vs {what}: hidden {h_err}, logits {l_err}")
     for f in faults:
-        tripped = [i for i in multi
+        tripped = [i for i in trip_lanes
                    if readings[f][i][0] > HIDDEN_TOL or readings[f][i][1] > LOGIT_TOL]
-        say("serve_lanes", f"{tag}: fault {f} exceeds the limits on {len(tripped)} of "
-                           f"{len(multi)} multi-block lanes")
+        say(phase, f"{tag}: fault {f} exceeds the limits on {len(tripped)} of "
+                   f"{len(trip_lanes)} {'' if gemv else 'multi-block '}lanes")
         if not tripped:
-            raise AssertionError(f"{tag}: planted fault {f} passes the checks on every "
-                                 f"multi-block lane: {readings[f]}")
+            raise AssertionError(f"{tag}: planted fault {f} passes the checks on every lane it "
+                                 f"can reach: {readings[f]}")
     return {name: [list(r) for r in per] for name, per in readings.items()}
 
 
-def run_serve_lanes(card: str, parts: str, work: str) -> Dict[str, Any]:
+def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
+                    baseline=None) -> Dict[str, Any]:
+    """The `serve_lanes` phase, or with quant_flag `serve_lanes_quant` on
+    --quant lane nodes (every decode GEMV then runs at M = LANES rows;
+    `baseline`'s bf16 rates are printed beside its own)."""
     import numpy as np
     import torch
 
     from inferd_tpu_torch.client.chain_client import ChainClient
     from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.core.generate import bucket_len
+    from inferd_tpu_torch.ops.qmatmul import MAX_KERNEL_ROWS
     from inferd_tpu_torch.parallel.stages import load_stage_checkpoint, stage_checkpoint_path
 
+    phase = "serve_lanes" if quant_flag is None else "serve_lanes_quant"
+    node_args = LANE_NODE_ARGS + ([] if quant_flag is None else ["--quant", quant_flag])
     cfg = get_config(MODEL)
     greedy = SamplingConfig(temperature=0.0)
     nodes: List[Dict[str, Any]] = []
     try:
-        nodes = [start_node(parts, s, work, LANE_NODE_ARGS) for s in range(2)]
+        nodes = [start_node(parts, s, work, node_args) for s in range(2)]
         t0 = time.perf_counter()
         for n in nodes:
             wait_ready(n)
-        say("serve_lanes", f"2 run_node --device {DEVICE} {' '.join(LANE_NODE_ARGS)} processes "
-                           f"ready in {time.perf_counter() - t0:.1f}s")
+        say(phase, f"2 run_node --device {DEVICE} {' '.join(node_args)} processes "
+                   f"ready in {time.perf_counter() - t0:.1f}s")
 
         def stats():
             return [http_get_json(f"http://127.0.0.1:{n['port']}/stats") for n in nodes]
@@ -1020,55 +1387,70 @@ def run_serve_lanes(card: str, parts: str, work: str) -> Dict[str, Any]:
         wall = time.perf_counter() - t_all
         after = stats()
         streams = [ids for ids, _, _ in served]
-        for p, (ids, t_req, stamps) in zip(prompts, served):
+        rates = []
+        for i, (p, (ids, t_req, stamps)) in enumerate(zip(prompts, served)):
             if len(ids) != NEW_TOKENS:
                 raise AssertionError(f"prompt {len(p)}: {len(ids)} tokens, want {NEW_TOKENS}")
             ttft = (stamps[0] - t_req) * 1e3
             tps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
-            say("serve_lanes", f"session, prompt {len(p)} tokens: TTFT {ttft:.1f} ms, decode "
-                               f"{tps:.1f} tok/s over {len(stamps) - 1} steps ({card})")
+            rates.append((ttft, tps))
+            beside = ""
+            if baseline is not None:
+                b_ttft, b_tps = baseline["rates"][i]
+                beside = f"; bf16 serve_lanes in this run: TTFT {b_ttft:.1f} ms, {b_tps:.1f} tok/s"
+            say(phase, f"session, prompt {len(p)} tokens: TTFT {ttft:.1f} ms, decode "
+                       f"{tps:.1f} tok/s over {len(stamps) - 1} steps ({card}){beside}")
         total = sum(len(ids) for ids in streams)
-        say("serve_lanes", f"aggregate: {total} tokens from {len(prompts)} concurrent sessions in "
-                           f"{wall:.2f} s = {total / wall:.1f} tok/s ({card})")
+        beside = ("" if baseline is None else
+                  f"; bf16 serve_lanes in this run: {baseline['tokens_per_s']:.1f} tok/s")
+        say(phase, f"aggregate: {total} tokens from {len(prompts)} concurrent sessions in "
+                   f"{wall:.2f} s = {total / wall:.1f} tok/s ({card}){beside}")
 
         # prefill dispatches: the client's 512-token chunks, each split into
-        # LANE_PREFILL_CHUNK-token dispatches on the node
-        want_prefill = sum(math.ceil(len(p[c:c + 512]) / LANE_PREFILL_CHUNK)
-                           for p in prompts for c in range(0, len(p), 512))
+        # LANE_PREFILL_CHUNK-token dispatches on the node, padded to a bucket
+        pieces = [len(c[j:j + LANE_PREFILL_CHUNK]) for p in prompts
+                  for c in (p[i:i + 512] for i in range(0, len(p), 512))
+                  for j in range(0, len(c), LANE_PREFILL_CHUNK)]
+        want_prefill = len(pieces)
+        small_prefill = sum(bucket_len(n) <= MAX_KERNEL_ROWS for n in pieces)
         want_decode_tokens = len(prompts) * (NEW_TOKENS - 1)
-        launches = {"flash_gqa": 0, "paged_decode_gqa": 0}
+        launches = dict.fromkeys(after[0]["kernels"], 0)
         mean_batches = []
         for st in after:
             ex = st["executor"]
             layers = st["end_layer"] - st["start_layer"] + 1
-            paged = st["kernels"]["paged_decode_gqa"]["launches"]
-            flash = st["kernels"]["flash_gqa"]["launches"]
+            last = st["stage"] == st["num_stages"] - 1
+            kern = {name: k["launches"] for name, k in st["kernels"].items()}
             steps, toks = ex["batched_steps"], ex["batched_tokens"]
             mean = toks / steps if steps else 0.0
             mean_batches.append(mean)
-            say("serve_lanes", f"node stage {st['stage']} on {st['device']}: {steps} decode "
-                               f"dispatches serving {toks} session steps (mean co-batch "
-                               f"{mean:.3f}), {ex['prefill_steps']} prefill dispatches; "
-                               f"paged_decode_gqa launches {paged} (= {layers} x {steps}: "
-                               f"{paged == layers * steps}), flash_gqa launches {flash} (= "
-                               f"{layers} x {ex['prefill_steps']}: "
-                               f"{flash == layers * ex['prefill_steps']}); blocks "
-                               f"{ex['paged']['blocks_used']} used after the run")
-            if (paged != layers * steps or flash != layers * ex["prefill_steps"] or paged == 0
-                    or toks != want_decode_tokens or ex["prefill_steps"] != want_prefill
-                    or not mean > 1.0 or st["errors"]):
+            want = {"flash_gqa": layers * ex["prefill_steps"], "paged_decode_gqa": layers * steps,
+                    "w8a16_matmul": 0, "w4a16_matvec": 0}
+            if quant_flag is not None:
+                # decode dispatches run LANES rows: every one takes the kernels
+                want[QMM_KERNEL_OF[quant_flag]] = gemv_launches(
+                    layers, last, steps + small_prefill, steps + ex["prefill_steps"])
+            say(phase, f"node stage {st['stage']} on {st['device']} (quant {st['quant']}, "
+                       f"{st['quantized_bytes']} parameter bytes): {steps} decode dispatches "
+                       f"serving {toks} session steps (mean co-batch {mean:.3f}), "
+                       f"{ex['prefill_steps']} prefill dispatches ({small_prefill} of at most "
+                       f"{MAX_KERNEL_ROWS} rows); launches {kern} (want {want}: {kern == want}); "
+                       f"blocks {ex['paged']['blocks_used']} used after the run")
+            if (kern != want or kern["paged_decode_gqa"] == 0 or toks != want_decode_tokens
+                    or ex["prefill_steps"] != want_prefill or not mean > 1.0 or st["errors"]):
                 raise AssertionError(
-                    f"stage {st['stage']}: paged {paged} / flash {flash} launches, {steps} decode "
+                    f"stage {st['stage']}: launches {kern} (want {want}), {steps} decode "
                     f"dispatches for {toks} steps (want {want_decode_tokens}), "
                     f"{ex['prefill_steps']} prefill dispatches (want {want_prefill}), "
                     f"mean co-batch {mean}, {st['errors']} errors")
-            launches["flash_gqa"] += flash
-            launches["paged_decode_gqa"] += paged
+            for name, v in kern.items():
+                launches[name] += v
         stop_nodes(nodes)
         nodes = []
 
-        loaded = [load_stage_checkpoint(stage_checkpoint_path(parts, s), device=DEVICE)
-                  for s in range(2)]
+        loaded = quantize_loaded([load_stage_checkpoint(stage_checkpoint_path(parts, s),
+                                                        device=DEVICE) for s in range(2)],
+                                 quant_flag)
 
         async def local(executors):
             client = make_local_client(executors, greedy)
@@ -1081,18 +1463,23 @@ def run_serve_lanes(card: str, parts: str, work: str) -> Dict[str, Any]:
                 diverge = next(i for i, (x, y) in enumerate(zip(a_, b_)) if x != y)
                 raise AssertionError(f"prompt {len(p)}: served stream != in-process lane "
                                      f"executors' stream from token {diverge}")
-        say("serve_lanes", "served streams equal the in-process lane executors' streams "
-                           f"(sessions one at a time), token for token ({len(prompts)} x "
-                           f"{NEW_TOKENS} tokens)")
+        say(phase, "served streams equal the in-process lane executors' streams "
+                   f"(sessions one at a time), token for token ({len(prompts)} x "
+                   f"{NEW_TOKENS} tokens)")
 
-        paged_readings = check_teacher_forced("paged lanes", cfg, loaded, PAGED_BS, prompts,
-                                              streams, LANE_E2E_FAULTS)
+        out = {"launches": launches, "mean_batch": mean_batches, "rates": rates,
+               "tokens_per_s": total / wall}
+        if quant_flag is not None:
+            out["paged_e2e"] = check_teacher_forced(phase, "paged lanes", cfg, loaded, PAGED_BS,
+                                                    prompts, streams, QUANT_E2E_FAULTS, gemv=True)
+            return out
+        out["paged_e2e"] = check_teacher_forced(phase, "paged lanes", cfg, loaded, PAGED_BS,
+                                                prompts, streams, LANE_E2E_FAULTS)
         pick = [LANE_PROMPT_LENS.index(n) for n in DENSE_LANE_PROMPTS]
-        dense_readings = check_teacher_forced(
-            "dense lanes", cfg, loaded, 0, [prompts[i] for i in pick], [streams[i] for i in pick])
-        return {"launches": launches, "mean_batch": mean_batches,
-                "tokens_per_s": total / wall, "paged_e2e": paged_readings,
-                "dense_e2e": dense_readings}
+        out["dense_e2e"] = check_teacher_forced(
+            phase, "dense lanes", cfg, loaded, 0, [prompts[i] for i in pick],
+            [streams[i] for i in pick])
+        return out
     except BaseException:
         stop_nodes(nodes, show_logs=True)
         nodes = []
@@ -1138,51 +1525,83 @@ def main() -> int:
 
     cases = run_kernel_cases()
     paged_cases = run_paged_cases()
+    qmm_cases = run_qmm_cases()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         parts = split_parts(work)
         serve = run_serve(card, parts, work)
+        serve_q = {q: run_serve(card, parts, work, quant_flag=q, baseline=serve)
+                   for q in ("int8", "int4")}
         lanes = run_serve_lanes(card, parts, work)
+        lanes_q = run_serve_lanes(card, parts, work, quant_flag="int8", baseline=lanes)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    paths = {"serve": serve, "serve_quant_int8": serve_q["int8"],
+             "serve_quant_int4": serve_q["int4"], "serve_lanes": lanes,
+             "serve_lanes_quant": lanes_q}
+
+    def by_path(name):
+        return {path: r["launches"][name] for path, r in paths.items() if r["launches"][name]}
+
+    def timed(row):
+        return {"ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+    def qmm_timed(row):
+        return dict(timed(row), library_call=row["library_call"],
+                    library_note=row["library_note"],
+                    dequant_matmul_yardstick_ms=row["dequant_matmul_yardstick_ms"])
+
+    def qmm_entry(name, kernel, replaces):
+        rows = [r for r in qmm_cases if r["kernel"] == kernel]
+        main_row = next(r for r in rows if r["case"] == QMM_MAIN_CASE)
+        lane_row = next(r for r in rows if r["case"] == QMM_LANE_CASE)
+        launches = by_path(name)
+        return dict({
+            "name": name, "route": "cuda", "source": "inferd_tpu_torch/csrc/qmatmul.cu",
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_row_err": max(r["row_err"] for r in rows if r["dtype"] == "bfloat16"),
+        }, **qmm_timed(main_row), **{
+            "shape": f"{QMM_MAIN_CASE}: M 1, K 1024, N 151936 (the tied head), bf16, {kernel}",
+            QMM_LANE_CASE: dict(qmm_timed(lane_row), shape="M 8, K 1024, N 3072, bf16"),
+        })
+
     main_case = next(c for c in cases if c["case"] == MAIN_CASE)
     paged_main = next(c for c in paged_cases if c["case"] == PAGED_MAIN_CASE)
-    kernels = {"kernels": [{
+    flash_launches, paged_launches = by_path("flash_gqa"), by_path("paged_decode_gqa")
+    kernels = {"kernels": [dict({
         "name": "flash_gqa",
         "route": "cuda",
         "source": "inferd_tpu_torch/csrc/flash_gqa.cu",
         "replaces": "inferd_tpu/ops/attention.py:131",
         "also_replaces": "inferd_tpu/ops/attention.py:218",
-        "launches": lanes["launches"]["flash_gqa"],
-        "launches_by_path": {"serve": serve["launches"],
-                             "serve_lanes": lanes["launches"]["flash_gqa"]},
+        "launches": sum(flash_launches.values()),
+        "launches_by_path": flash_launches,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_row_err": max(c["row_err"] for c in cases if c["dtype"].startswith("bfloat16")),
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "shape": f"{MAIN_CASE}: B 1, S 1, T 1024, Nq 16, Nkv 8, D 128, bf16",
-    }, {
-        "name": "paged_decode_gqa",
-        "route": "cuda",
-        "source": "inferd_tpu_torch/csrc/paged_decode.cu",
-        "replaces": "inferd_tpu/ops/attention.py:460",
-        "launches": lanes["launches"]["paged_decode_gqa"],
-        "launches_by_path": {"serve": 0, "serve_lanes": lanes["launches"]["paged_decode_gqa"]},
-        "max_abs_err": max(c["max_abs_err"] for c in paged_cases),
-        "max_row_err": max(c["row_err"] for c in paged_cases
-                           if c["dtype"].startswith("bfloat16")),
-        "ms": paged_main["ms"],
-        "plain_ms": paged_main["plain_ms"],
-        "bound_ms": paged_main["bound_ms"],
-        "bound_by": paged_main["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes paged attention
-        "shape": f"{PAGED_MAIN_CASE}: B 8, bs 32, MB 32, kv_len {paged_main['kv_len']}, "
-                 "Nq 16, Nkv 8, D 128, bf16",
-    }]}
+    }, **timed(main_case), shape=f"{MAIN_CASE}: B 1, S 1, T 1024, Nq 16, Nkv 8, D 128, bf16"),
+        dict({
+            "name": "paged_decode_gqa",
+            "route": "cuda",
+            "source": "inferd_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "inferd_tpu/ops/attention.py:460",
+            "launches": sum(paged_launches.values()),
+            "launches_by_path": paged_launches,
+            "max_abs_err": max(c["max_abs_err"] for c in paged_cases),
+            "max_row_err": max(c["row_err"] for c in paged_cases
+                               if c["dtype"].startswith("bfloat16")),
+        }, **timed(paged_main),  # library_ms None: no single PyTorch call computes it
+            shape=f"{PAGED_MAIN_CASE}: B 8, bs 32, MB 32, kv_len {paged_main['kv_len']}, "
+                  "Nq 16, Nkv 8, D 128, bf16"),
+        # library_ms: torch's own weight-only quantized product on the same
+        # weight (library_call); dequant_matmul_yardstick_ms is torch.matmul
+        # against the weight dequantized beforehand, what --quant none pays
+        qmm_entry("w8a16_matmul", "w8a16", "inferd_tpu/ops/qmatmul.py:34"),
+        qmm_entry("w4a16_matvec", "w4a16_grouped", "inferd_tpu/ops/qmatmul.py:94"),
+    ]}
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels))
     print(card)

@@ -23,10 +23,16 @@ Caches: the uniform dense KVCache, written from one start position or from
 a per-row start [B] (lanes at ragged fill levels decoding in one step), and
 the paged PagedKVCache, whose writes scatter through the block table.
 
+Every linear projection (q/k/v/o, the MLP, an untied head, and a tied
+head's quantized shadow "lm_head_q") contracts through ops.quant.qdot, so
+a stage quantized by ops.quant.quantize_params (run_node --quant) serves
+unchanged: decode-shaped rows against int8 or int4 weights launch the GEMV
+kernels of csrc/qmatmul.cu on the card, and bf16 weights stay plain
+products.
+
 This slice covers the dense Qwen3/Qwen2-style decoder. MoE, sandwich norms,
-sliding windows, scaled RoPE, LoRA, quantization, tensor/expert parallelism
-and fused K-step decode wait for later slices and raise
-NotImplementedError here.
+sliding windows and scaled RoPE raise NotImplementedError here; LoRA,
+tensor/expert parallelism and fused K-step decode wait for later slices.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch.nn.functional as F
 
 from inferd_tpu_torch.config import ModelConfig
 from inferd_tpu_torch.ops import attention as attention_ops
+from inferd_tpu_torch.ops.quant import qdot
 
 Params = Dict[str, Any]
 Positions = Union[torch.Tensor, int, None]
@@ -269,7 +276,7 @@ def gqa_attention(
 
 def swiglu_mlp(p: Params, x: torch.Tensor, act=F.silu) -> torch.Tensor:
     """Gated feed-forward: act(x @ gate) * (x @ up) @ down."""
-    return (act(x @ p["gate_proj"]) * (x @ p["up_proj"])) @ p["down_proj"]
+    return qdot(act(qdot(x, p["gate_proj"])) * qdot(x, p["up_proj"]), p["down_proj"])
 
 
 def _attend(
@@ -349,9 +356,9 @@ def decoder_layer(
     p1 = cfg.rms_norm_plus_one
 
     x = rms_norm(hidden, lp["input_norm"], cfg.rms_norm_eps, p1)
-    q = x @ lp["q_proj"]
-    k = x @ lp["k_proj"]
-    v = x @ lp["v_proj"]
+    q = qdot(x, lp["q_proj"])
+    k = qdot(x, lp["k_proj"])
+    v = qdot(x, lp["v_proj"])
     if cfg.attn_bias:
         q = q + lp["q_bias"]
         k = k + lp["k_bias"]
@@ -418,7 +425,7 @@ def decoder_layer(
             q_start=q_start,
         )
 
-    attn_out = attn @ lp["o_proj"]
+    attn_out = qdot(attn, lp["o_proj"])
     if cfg.o_bias:
         attn_out = attn_out + lp["o_bias"]
     hidden = hidden + attn_out.to(hidden.dtype)
@@ -624,9 +631,12 @@ def unembed(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Ten
     """Final norm + LM head -> float32 logits (+ final softcapping)."""
     x = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps, cfg.rms_norm_plus_one)
     if cfg.tie_word_embeddings:
-        z = (x @ params["embed"].T).float()
+        if "lm_head_q" in params:  # quantized shadow of embed.T (ops.quant)
+            z = qdot(x, params["lm_head_q"]).float()
+        else:
+            z = (x @ params["embed"].T).float()
     else:
-        z = (x @ params["lm_head"]).float()
+        z = qdot(x, params["lm_head"]).float()
     return attention_ops.apply_softcap(z, cfg.final_logit_softcap)
 
 

@@ -11,8 +11,10 @@ the JAX node for this topology:
                      "session_id", "stage", "result", "served_by"}
   POST /end_session  {"session_id", ...} -> {"ok": true}
   GET  /health       JSON: status, stage, device
-  GET  /stats        JSON: counters, the device's name, each kernel's
-                     launch count in this process, the executor's stats
+  GET  /stats        JSON: counters, the device's name, the serving
+                     quantization and the stage's parameter bytes as
+                     stored, each kernel's launch count in this process,
+                     the executor's stats
 
 Errors are wire-packed {"error", "code"} bodies with the JAX node's codes:
 409 "wrong_stage" (the chain's address list is stale), 409 "overflow" (KV
@@ -43,6 +45,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Tuple
 
 from inferd_tpu_torch.ops import attention as attention_ops
+from inferd_tpu_torch.ops import qmatmul
+from inferd_tpu_torch.ops.quant import quantized_bytes
 from inferd_tpu_torch.runtime import wire
 from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor, CapacityError
 from inferd_tpu_torch.runtime.window import WindowedBatcher
@@ -85,9 +89,12 @@ class ChainNode:
         host: str = "127.0.0.1",
         port: int = 0,
         window_ms: float = 2.0,
+        quant: str = "none",  # the run_node --quant flag the params were loaded with
     ):
         self.executor = executor
         self.spec = executor.spec
+        self.quant = quant
+        self.param_bytes = quantized_bytes(executor.params)
         self.device = device_name(executor.device)
         self.window: Optional[WindowedBatcher] = None
         if isinstance(executor, BatchedStageExecutor):
@@ -263,7 +270,8 @@ class ChainNode:
         }
 
     def stats(self) -> Dict[str, Any]:
-        """Counters, the device's name, each kernel's launch count in this
+        """Counters, the device's name, the quantization and the stage's
+        parameter bytes as stored, each kernel's launch count in this
         process and the executor's stats (for the lane executor: co-batched
         steps and tokens, mean co-batch, prefill dispatches and tokens, and
         the block pool's gauges when paged)."""
@@ -273,6 +281,8 @@ class ChainNode:
             kernels = {
                 "flash_gqa": {"launches": attention_ops.flash_gqa.launches},
                 "paged_decode_gqa": {"launches": attention_ops.paged_decode_gqa.launches},
+                "w8a16_matmul": {"launches": qmatmul.w8a16_matmul.launches},
+                "w4a16_matvec": {"launches": qmatmul.w4a16_matvec.launches},
             }
         with self._stats_lock:
             passes = self.forward_passes
@@ -284,6 +294,8 @@ class ChainNode:
             "start_layer": self.spec.start_layer,
             "end_layer": self.spec.end_layer,
             "device": self.device,
+            "quant": self.quant,
+            "quantized_bytes": self.param_bytes,
             "forward_passes": passes,
             "errors": errors,
             "kernels": kernels,

@@ -11,11 +11,14 @@ Usage:
   python -m inferd_tpu_torch.tools.run_node --parts parts/ --stage 0 \\
       --port 6050 [--device cuda|cpu] [--max-len 4096] \\
       [--stage-lanes N [--window-ms W] [--paged-kv BS [--kv-blocks K]] \\
-       [--prefill-chunk C]]
+       [--prefill-chunk C]] [--quant none|int8|int8-kernel|int4]
 
 With --stage-lanes the stage serves its sessions from lanes of one shared
 KV cache, and co-arriving decode steps of concurrent sessions run as one
 device step (stage-level continuous batching); --paged-kv pages that cache.
+With --quant the stage's linear weights are quantized at load (the
+checkpoint stays bf16 on disk) and its decode GEMVs run the kernels of
+csrc/qmatmul.cu, on either executor.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import threading
 from typing import List, Optional
 
 from inferd_tpu_torch.config import get_config
+from inferd_tpu_torch.ops import quant
 from inferd_tpu_torch.parallel.stages import load_stage_checkpoint, stage_checkpoint_path
 from inferd_tpu_torch.runtime.executor import make_executor
 from inferd_tpu_torch.runtime.node import ChainNode
@@ -75,6 +79,14 @@ def build_parser() -> argparse.ArgumentParser:
         "most this many tokens, releasing the device between chunks so "
         "co-batched decode windows interleave (0 = whole-prompt dispatches)",
     )
+    ap.add_argument(
+        "--quant", default="none", choices=quant.QUANT_CHOICES,
+        help="serving quantization, applied at load: int8 (weight-only, per output "
+        "channel) and int8-kernel route the same way here: decode-shaped products "
+        "(<= 64 rows) run the w8a16 CUDA kernel, longer ones a plain product; int4 "
+        "(group-wise w4a16, quarter the weight bytes) runs the w4a16 kernel. w8a8 is "
+        "not ported yet and fails at start",
+    )
     return ap
 
 
@@ -85,8 +97,13 @@ def make_node(args: argparse.Namespace) -> ChainNode:
     )
     if spec.stage != args.stage:
         raise ValueError(f"{args.parts}: checkpoint holds stage {spec.stage}, not {args.stage}")
+    cfg = get_config(model_name)
+    # a non-last stage holds embed for the token gather only: no head shadow
+    params = quant.apply_quant_mode(args.quant, params,
+                                    tie_word_embeddings=cfg.tie_word_embeddings,
+                                    needs_head=spec.is_last)
     executor = make_executor(
-        get_config(model_name), spec, params, max_len=args.max_len,
+        cfg, spec, params, max_len=args.max_len,
         stage_lanes=args.stage_lanes, block_size=args.paged_kv, kv_blocks=args.kv_blocks,
         prefill_chunk=args.prefill_chunk,
     )
@@ -97,7 +114,10 @@ def make_node(args: argparse.Namespace) -> ChainNode:
         build.load("flash_gqa")
         if args.paged_kv > 0:
             build.load("paged_decode")
-    return ChainNode(executor, host=args.host, port=args.port, window_ms=args.window_ms)
+        if args.quant != "none":
+            build.load("qmatmul")
+    return ChainNode(executor, host=args.host, port=args.port, window_ms=args.window_ms,
+                     quant=args.quant)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

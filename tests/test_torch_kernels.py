@@ -1,5 +1,6 @@
-"""The flash_gqa and paged_decode_gqa wrappers' contracts, and on a card
-each CUDA kernel against its plain version.
+"""The flash_gqa, paged_decode_gqa, w8a16_matmul and w4a16_matvec
+wrappers' contracts, and on a card each CUDA kernel against its plain
+version.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with a CUDA card and no JAX: there, skip the JAX-pinning conftest
@@ -15,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ATTN_TOL, row_rel_err
+from chip_smoke import ATTN_TOL, QMM_SHAPES, QMM_TOL, row_rel_err
 from inferd_tpu_torch.ops import attention as A
 from inferd_tpu_torch.ops import build
+from inferd_tpu_torch.ops import qmatmul as Q
+from inferd_tpu_torch.ops import quant
 
 torch.set_num_threads(2)
 
@@ -261,3 +264,156 @@ def test_cuda_paged_kernel_matches_plain(cuda_device, name):
     assert got.dtype == dt and got.shape == (b, 1, nq * d)
     tol = ATTN_TOL["float32" if dt == torch.float32 else "bfloat16"]
     assert row_rel_err(got, want, d) <= tol
+
+
+# -- decode GEMVs (w8a16_matmul, w4a16_matvec) --------------------------------------
+
+
+def _qmm_case(seed, m, k, n, device="cpu", dtype=torch.float32, group=128):
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(k, n, generator=g) * 0.02
+    x = torch.randn(m, k, generator=g)
+    return (x.to(device, dtype), quant.quantize(w.to(device, dtype)),
+            quant.quantize_int4(w.to(device, dtype), group))
+
+
+@pytest.mark.parametrize(
+    "kw,err",
+    [
+        (dict(m=65), "MAX_KERNEL_ROWS"),
+        (dict(dtype=torch.float16), "f32 or bf16"),
+        (dict(noncontig=True), "contiguous"),
+        (dict(misaligned=True), "16-byte aligned"),
+        (dict(scale_dtype=torch.bfloat16), "f32 scale"),
+        (dict(k_mismatch=True), "want x"),
+    ],
+)
+def test_gemv_kernel_paths_reject_what_the_kernels_do_not_take(kw, err):
+    """The CUDA paths validate before they build or launch (checked on CPU
+    tensors, which the validation treats like any other)."""
+    x, q8, q4 = _qmm_case(1, kw.get("m", 4), 64, 48, dtype=kw.get("dtype", torch.float32))
+    if kw.get("k_mismatch"):
+        x = x[:, :32]
+    if kw.get("noncontig"):
+        q8 = quant.QuantWeight(q8.q.t().contiguous().t(), q8.scale)
+        q4 = quant.Int4Weight(q4.q.t().contiguous().t(), q4.scale, q4.packed)
+    if kw.get("misaligned"):
+        raw = torch.zeros(q8.q.numel() + 1, dtype=torch.int8)
+        raw[1:] = q8.q.flatten()
+        q8 = quant.QuantWeight(raw[1:].view(q8.q.shape), q8.scale)
+        raw4 = torch.zeros(q4.q.numel() + 1, dtype=torch.int8)
+        raw4[1:] = q4.q.flatten()
+        q4 = quant.Int4Weight(raw4[1:].view(q4.q.shape), q4.scale, q4.packed)
+    if "scale_dtype" in kw:
+        q8 = quant.QuantWeight(q8.q, q8.scale.to(kw["scale_dtype"]))
+        q4 = quant.Int4Weight(q4.q, q4.scale.to(kw["scale_dtype"]), q4.packed)
+    with pytest.raises((ValueError, TypeError), match=err):
+        Q._launch_w8a16(x, q8.q, q8.scale)
+    with pytest.raises((ValueError, TypeError), match=err):
+        Q._launch_w4a16(x, q4, "grouped")
+
+
+def test_w4a16_rejects_an_unknown_scheme():
+    x, _, q4 = _qmm_case(2, 2, 64, 48)
+    with pytest.raises(ValueError, match="scheme"):
+        Q.w4a16_matvec(x, q4, "fused")
+
+
+def test_gemv_plain_versions_match_dequantized_products():
+    """Each plain version against x @ the dequantized weight in f64 (the
+    dequant scheme rounds q * scale to x.dtype first: exact in f32)."""
+    x, q8, q4 = _qmm_case(3, 5, 130, 40, group=64)  # K 130: groups of 65 split byte pairs
+    xd = x.double()
+    torch.testing.assert_close(Q.w8a16_matmul_reference(x, q8.q, q8.scale).double(),
+                               xd @ q8.dequantize(torch.float64), rtol=1e-5, atol=1e-5)
+    for scheme in ("grouped", "dequant"):
+        torch.testing.assert_close(Q.w4a16_matvec_reference(x, q4, scheme).double(),
+                                   xd @ q4.dequantize(torch.float64), rtol=1e-5, atol=1e-5)
+
+
+GEMV_CUDA_CASES = {
+    # name: (M, K, N, dtype, int4 group)
+    "q_proj_m1": (1, *QMM_SHAPES["q_proj"], torch.bfloat16, 128),
+    "gate_up_m8": (8, *QMM_SHAPES["gate_up_proj"], torch.bfloat16, 128),
+    "down_m64": (64, *QMM_SHAPES["down_proj"], torch.bfloat16, 128),
+    "head_m1": (1, *QMM_SHAPES["lm_head_q"], torch.bfloat16, 128),
+    "f32_m3": (3, 1024, 1024, torch.float32, 128),
+    "ragged_n1000": (8, 1024, 1000, torch.bfloat16, 128),
+    "ragged_n333": (2, 256, 333, torch.bfloat16, 128),
+    "odd_k1023": (4, 1023, 512, torch.bfloat16, 128),
+    "k130_group65": (5, 130, 200, torch.float32, 128),
+}
+
+
+@requires_cuda
+@pytest.mark.parametrize("kernel", ["w8a16", "w4a16_grouped", "w4a16_dequant"])
+@pytest.mark.parametrize("name", sorted(GEMV_CUDA_CASES))
+def test_cuda_gemv_kernels_match_plain(cuda_device, name, kernel):
+    m, k, n, dt, group = GEMV_CUDA_CASES[name]
+    x, q8, q4 = _qmm_case(4, m, k, n, device=cuda_device, dtype=dt, group=group)
+    if kernel == "w8a16":
+        before = Q.w8a16_matmul.launches
+        got, want = Q.w8a16_matmul(x, q8.q, q8.scale), Q.w8a16_matmul_reference(x, q8.q, q8.scale)
+        launches = Q.w8a16_matmul.launches - before
+    else:
+        scheme = kernel.split("_")[1]
+        before = Q.w4a16_matvec.launches
+        got, want = Q.w4a16_matvec(x, q4, scheme), Q.w4a16_matvec_reference(x, q4, scheme)
+        launches = Q.w4a16_matvec.launches - before
+    torch.cuda.synchronize()
+    assert launches == 1 and got.dtype == dt and got.shape == (m, n)
+    assert row_rel_err(got, want, n) <= QMM_TOL["float32" if dt == torch.float32 else "bfloat16"]
+
+
+@requires_cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_qdot_launches_the_kernel_up_to_64_rows(cuda_device, bits):
+    """A stacked weight's layer slice (q[i]: an offset view) through qdot:
+    64 rows launch the kernel once, 65 take the plain product."""
+    g = torch.Generator().manual_seed(5)
+    w = (torch.randn(3, 1024, 2048, generator=g) * 0.02).to(cuda_device, torch.bfloat16)
+    qw = quant.quantize(w) if bits == 8 else quant.quantize_int4(w)
+    wrapper = Q.w8a16_matmul if bits == 8 else Q.w4a16_matvec
+    for rows, launched in ((1, 1), (Q.MAX_KERNEL_ROWS, 1), (Q.MAX_KERNEL_ROWS + 1, 0)):
+        x = torch.randn(1, rows, 1024, generator=g).to(cuda_device, torch.bfloat16)
+        before = wrapper.launches
+        got = quant.qdot(x, qw[2])
+        torch.cuda.synchronize()
+        assert wrapper.launches - before == launched
+        want = x.float() @ qw[2].dequantize(torch.float32)
+        assert row_rel_err(got, want, 2048) <= QMM_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("m,n", [(0, 48), (3, 0)])
+def test_gemv_empty_products_reach_no_kernel(m, n, monkeypatch):
+    """No rows or no columns: the launch path returns an empty [M, N] before
+    it builds anything (checked on CPU tensors, as above)."""
+    from inferd_tpu_torch.ops import build
+
+    def no_build(name):
+        raise AssertionError("an empty product must not reach the kernel build")
+
+    monkeypatch.setattr(build, "load", no_build)
+    x, q8, q4 = _qmm_case(7, m, 64, max(n, 2))
+    q8 = quant.QuantWeight(q8.q[:, :n].contiguous(), q8.scale[:n].contiguous())
+    q4 = quant.Int4Weight(q4.q[:, :n].contiguous(), q4.scale[:, :n].contiguous(), q4.packed)
+    assert Q._launch_w8a16(x, q8.q, q8.scale).shape == (m, n)
+    assert Q._launch_w4a16(x, q4, "grouped").shape == (m, n)
+
+
+@requires_cuda
+def test_cuda_gemv_empty_product_counts_no_launch(cuda_device):
+    x, q8, q4 = _qmm_case(8, 0, 256, 128, device=cuda_device, dtype=torch.bfloat16)
+    before = Q.w8a16_matmul.launches, Q.w4a16_matvec.launches
+    assert Q.w8a16_matmul(x, q8.q, q8.scale).shape == (0, 128)
+    assert Q.w4a16_matvec(x, q4, "grouped").shape == (0, 128)
+    assert (Q.w8a16_matmul.launches, Q.w4a16_matvec.launches) == before
+
+
+@requires_cuda
+def test_cuda_gemv_rejects_noncontiguous_weight(cuda_device):
+    x, q8, q4 = _qmm_case(6, 2, 256, 128, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        Q.w8a16_matmul(x, q8.q.t().contiguous().t(), q8.scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        Q.w4a16_matvec(x, quant.Int4Weight(q4.q.t().contiguous().t(), q4.scale), "grouped")
