@@ -51,6 +51,26 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               the serve_lanes traffic on --quant int8 lane nodes (every
               decode GEMV at 8 rows), with the same checks on the paged
               lanes
+  lora        the fused LoRA lane delta (fused_lane_delta, csrc/lora_delta.cu)
+              against its plain version at Qwen3-0.6B's seven projections:
+              decode (8 lanes on slots 1,2,3,0,1,2,3,0) at ranks 16 and 64,
+              prefill (1 lane, S 256 and 1000) on gate and down, f32, ranks
+              1 and 33, and every lane on the base slot (exact zeros); five
+              planted faults every case; timed with inputs cold in L2 beside
+              a gather + torch.bmm yardstick and the bound
+  serve_lanes_lora
+              three synthetic peft tenants at full width (written from a
+              seed by ops.lora.save_adapter) behind two --stage-lanes 8
+              --paged-kv 32 --adapters nodes; the serve_lanes traffic with
+              the 8 sessions bound round-robin to t0, t1, t2 and the base
+              model. Checks: streams equal in-process executors with the
+              same registries; tenants' streams differ from the base's and
+              base sessions' equal serve_lanes'; teacher-forced, the kernel
+              path near the plain-delta path and planted delta faults not;
+              base lanes of mixed windows bit-identical to an executor
+              without a registry; exact launch counts (98 per dispatch that
+              carries a tenant lane, none for all-base dispatches); 3 loads
+              per node
 
 Then one JSON line listing every kernel, the nvidia-smi line, and last:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -212,6 +232,51 @@ QMM_MAIN_CASE, QMM_LANE_CASE = "lm_head_q_m1", "gate_up_proj_m8"
 # (the same executors with each GEMV wrapper's plain version), by the
 # HIDDEN_TOL / LOGIT_TOL rule, and planted GEMV faults that must break it.
 QUANT_E2E_FAULTS = ("last_k_chunk_skipped", "scale_neighbour_column")
+
+# The fused LoRA lane delta (csrc/lora_delta.cu) against its plain version:
+# the output is f32 and both sum the same f32 products in another order, so
+# the per-row rule (row_rel_err over an output row of `out` values) holds it
+# to 1e-4; rows of base-slot lanes must be exactly zero. Pools of LORA_SLOTS
+# slots x LORA_LAYERS layers (a 14-layer stage) in the case's dtype, slot 0
+# zero, N(0, 0.05) elsewhere; x N(0, 1). Planted faults, each the kernel run
+# on inputs that reproduce what a wrong kernel would compute: each lane reads
+# the next slot, the layer one too high, the scale skipped (read as 1), the
+# last rank column skipped, the last S tile (LORA_S_TILE rows) skipped.
+LORA_TOL = 1e-4
+LORA_SLOTS, LORA_LAYERS, LORA_LAYER = 4, 14, 5
+LORA_SCALES = (0.0, 2.0, 0.5, 1.25)  # slot 0 is the base adapter
+LORA_S_TILE = 16  # kRows in csrc/lora_delta.cu
+LORA_FAULTS = ("neighbour_slot", "layer_off_by_one", "scale_skipped",
+               "last_rank_column_skipped", "last_s_tile_skipped")
+LORA_SHAPES = {  # Qwen3-0.6B's projections [in, out]
+    "q_proj": (1024, 2048), "k_proj": (1024, 1024), "v_proj": (1024, 1024),
+    "o_proj": (2048, 1024), "gate_proj": (1024, 3072), "up_proj": (1024, 3072),
+    "down_proj": (3072, 1024),
+}
+LORA_DECODE_IDS = [1, 2, 3, 0, 1, 2, 3, 0]
+LORA_CASES: List[Dict[str, Any]] = (
+    [dict(name=f"decode_{t}_r{r}", target=t, r=r, s=1, ids=LORA_DECODE_IDS)
+     for r in (16, 64) for t in LORA_SHAPES]
+    + [dict(name=f"prefill_s{s}_{t}_r16", target=t, r=16, s=s, ids=[1])
+       for s in (256, 1000) for t in ("gate_proj", "down_proj")]
+    + [dict(name="decode_gate_proj_r16_f32", target="gate_proj", r=16, s=1, ids=LORA_DECODE_IDS,
+            dtype="float32"),
+       dict(name="decode_q_proj_r1", target="q_proj", r=1, s=1, ids=LORA_DECODE_IDS),
+       dict(name="decode_q_proj_r33", target="q_proj", r=33, s=1, ids=LORA_DECODE_IDS),
+       # every lane on the base slot: exact zeros, so only a fault that
+       # reads another slot can show
+       dict(name="decode_gate_proj_all_base", target="gate_proj", r=16, s=1, ids=[0] * 8,
+            blind=LORA_FAULTS[1:])]
+)
+LORA_MAIN_CASE, LORA_PREFILL_CASE = "decode_gate_proj_r16", "prefill_s256_gate_proj_r16"
+# serve_lanes_lora: three tenants over all 28 layers, (name, rank, targets),
+# bound round-robin with the base model to the serve_lanes sessions
+LORA_TENANTS = (("t0", 16, ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+                            "down_proj")),
+                ("t1", 8, ("q_proj", "v_proj")),
+                ("t2", 32, ("gate_proj", "up_proj", "down_proj")))
+LORA_TENANT_B_SD = 0.125  # B ~ N(0, (LORA_TENANT_B_SD / sqrt(r))^2), alpha = 2r (write_tenants)
+LORA_E2E_FAULTS = ("neighbour_slot", "layer_off_by_one")
 
 
 def say(phase: str, msg: str) -> None:
@@ -767,6 +832,129 @@ def run_qmm_cases() -> List[Dict[str, Any]]:
     return results
 
 
+# -- LoRA lane-delta cases ---------------------------------------------------------
+
+
+def lora_inputs(c: Dict[str, Any], gen, dev):
+    """One LoRA case's inputs: x [B, S, in], pools [LORA_SLOTS, LORA_LAYERS,
+    in, r] / [.., r, out] (slot 0 zero), scales, ids int32 [B]."""
+    import torch
+
+    din, dout = LORA_SHAPES[c["target"]]
+    dt = torch.float32 if c.get("dtype") == "float32" else torch.bfloat16
+    r, b = c["r"], len(c["ids"])
+    a_pool = torch.randn((LORA_SLOTS, LORA_LAYERS, din, r), generator=gen, device=dev) * 0.05
+    b_pool = torch.randn((LORA_SLOTS, LORA_LAYERS, r, dout), generator=gen, device=dev) * 0.05
+    a_pool[0] = 0.0
+    b_pool[0] = 0.0
+    x = torch.randn((b, c["s"], din), generator=gen, device=dev).to(dt)
+    scale = torch.tensor(LORA_SCALES[:LORA_SLOTS], device=dev)
+    ids = torch.tensor(c["ids"], dtype=torch.int32, device=dev)
+    return x, a_pool.to(dt), b_pool.to(dt), scale, ids
+
+
+def lora_fault_inputs(fault: str, x, a_pool, b_pool, scale_pool, ids, layer):
+    """Inputs on which the sound kernel computes what a kernel with `fault`
+    computes on the given ones (LORA_FAULTS)."""
+    import torch
+
+    if fault == "neighbour_slot":
+        ids = ((ids + 1) % a_pool.shape[0]).to(torch.int32)
+    elif fault == "layer_off_by_one":
+        layer = (layer + 1) % a_pool.shape[1]
+    elif fault == "scale_skipped":
+        scale_pool = torch.ones_like(scale_pool)
+    elif fault == "last_rank_column_skipped":
+        a_pool = a_pool.clone()
+        a_pool[..., -1] = 0
+    elif fault == "last_s_tile_skipped":
+        x = x.clone()
+        x[:, (x.shape[1] - 1) // LORA_S_TILE * LORA_S_TILE:] = 0
+    else:
+        raise ValueError(f"unknown fault {fault}")
+    return x, a_pool, b_pool, scale_pool, ids, layer
+
+
+def lora_work(x, a_pool, b_pool, ids) -> Dict[str, float]:
+    """Bytes and flops one lane-delta launch needs: each distinct tenant
+    slot's A and B slices read once (base-slot lanes need none: slot 0 is
+    zero by contract), x read once, the f32 output written once;
+    2 * S * r * (in + out) flops per tenant lane."""
+    b, s, din = x.shape
+    r, dout = a_pool.shape[-1], b_pool.shape[-1]
+    tenants = [i for i in ids.tolist() if i]
+    slices = len(set(tenants)) * r * (din + dout) * a_pool.element_size()
+    return {"bytes": slices + x.numel() * x.element_size() + 4 * b * s * dout,
+            "flops": 2.0 * len(tenants) * s * r * (din + dout)}
+
+
+def run_lora_cases() -> List[Dict[str, Any]]:
+    import torch
+
+    from inferd_tpu_torch.ops import lora as L
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    results, failures = [], []
+    for c in LORA_CASES:
+        x, a_pool, b_pool, scale, ids = lora_inputs(c, gen, dev)
+        layer, dout = LORA_LAYER, b_pool.shape[-1]
+
+        def kernel(args=(x, a_pool, b_pool, scale, ids, layer)):
+            return L.fused_lane_delta(*args)
+
+        def plain():
+            return L.fused_lane_delta_reference(x, a_pool, b_pool, scale, ids, layer)
+
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{c['name']}: kernel output is not finite")
+        err = (got - ref).abs().max().item()
+        rel = row_rel_err(got, ref, dout)
+        faults = {f: row_rel_err(kernel(lora_fault_inputs(f, x, a_pool, b_pool, scale, ids,
+                                                          layer)), ref, dout)
+                  for f in LORA_FAULTS}
+        if not rel <= LORA_TOL:
+            failures.append(f"{c['name']}: row error {rel} > tol {LORA_TOL}")
+        if not any(c["ids"]) and not torch.equal(got, torch.zeros_like(got)):
+            failures.append(f"{c['name']}: base-slot lanes are not exactly zero")
+        for f, reading in faults.items():
+            if f not in c.get("blind", ()) and not reading > LORA_TOL:
+                failures.append(f"{c['name']}: planted fault {f} reads {reading} <= tol {LORA_TOL}")
+        il = ids.long()
+
+        def yardstick():
+            # gather, then two bmm in the pools' dtype: a yardstick only, no
+            # single PyTorch call computes the per-lane delta
+            xa = torch.bmm(x, a_pool[il, layer])
+            return torch.bmm(xa, b_pool[il, layer]).float() * scale[il][:, None, None]
+
+        yardstick_ms = time_ms(yardstick, cold=True)
+        ms = time_ms(kernel, cold=True)
+        plain_ms = time_ms(plain, iters=10, cold=True)
+        w = lora_work(x, a_pool, b_pool, ids)
+        t_bytes = w["bytes"] / HBM_BYTES_PER_S
+        t_ops = w["flops"] / PEAK_FLOPS[str(a_pool.dtype).replace("torch.", "")]
+        row = {
+            "case": c["name"], "target": c["target"], "B": len(c["ids"]), "S": c["s"],
+            "in": x.shape[-1], "out": dout, "r": c["r"], "ids": c["ids"],
+            "dtype": str(x.dtype).replace("torch.", ""),
+            "max_abs_err": err, "row_err": rel, "tol": LORA_TOL, "faults": faults,
+            "blind": list(c.get("blind", ())), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "gather_bmm_yardstick_ms": yardstick_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": w["bytes"], "flops": w["flops"],
+        }
+        say("lora", json.dumps(row))
+        results.append(row)
+        del x, a_pool, b_pool
+    if failures:
+        raise AssertionError("lora cases failed:\n  " + "\n  ".join(failures))
+    return results
+
+
 # -- serve phase ----------------------------------------------------------------
 
 
@@ -792,9 +980,9 @@ def http_get_json(url: str, timeout: float = 10.0) -> Dict[str, Any]:
         conn.close()
 
 
-def start_node(parts: str, stage: int, log_dir: str, extra=()) -> Dict[str, Any]:
+def start_node(parts: str, stage: int, log_dir: str, extra=(), tag: str = "") -> Dict[str, Any]:
     port = free_port()
-    log = open(os.path.join(log_dir, f"node{stage}{'_'.join(extra)}.log"), "w")
+    log = open(os.path.join(log_dir, f"node{stage}{tag or '_'.join(extra)}.log"), "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "inferd_tpu_torch.tools.run_node", "--parts", parts,
          "--stage", str(stage), "--port", str(port), "--device", DEVICE,
@@ -836,23 +1024,25 @@ def stop_nodes(nodes: List[Dict[str, Any]], show_logs: bool = False) -> None:
             print(f"--- node {n['stage']} log tail ---\n{tail}", file=sys.stderr)
 
 
-def make_local_client(executors, sampling):
+def make_local_client(executors, sampling, adapter=None):
     """A GenerationClient whose transport is the stage executors in this
-    process: the same generation loop and chunking as the ChainClient."""
+    process: the same generation loop and chunking as the ChainClient, and
+    its `adapter` stamp on every stage of a session's first chunk."""
     from inferd_tpu_torch.client.base import GenerationClient
 
     class LocalChain(GenerationClient):
         def _step_sync(self, session_id, tokens, start_pos):
             import numpy as np
 
+            stamp = {"adapter": self.adapter} if self.adapter and start_pos == 0 else {}
             payload = {"tokens": np.asarray([tokens], np.int32), "start_pos": start_pos,
-                       "real_len": len(tokens)}
+                       "real_len": len(tokens), **stamp}
             for ex in executors:
                 out = ex.process(session_id, payload)
                 if "logits" in out:
                     return out["logits"].numpy()[0]
                 payload = {"hidden": out["hidden"], "start_pos": out["start_pos"],
-                           "real_len": out["real_len"]}
+                           "real_len": out["real_len"], **stamp}
             raise RuntimeError("no logits")
 
         async def _step(self, session_id, tokens, start_pos):
@@ -862,7 +1052,7 @@ def make_local_client(executors, sampling):
             for ex in executors:
                 ex.end_session(session_id)
 
-    return LocalChain(sampling=sampling, prefill_chunk=512)
+    return LocalChain(sampling=sampling, prefill_chunk=512, adapter=adapter)
 
 
 def _last_stage_probe_class():
@@ -981,6 +1171,38 @@ def planted_gemv_fault(fault: str):
         Q._launch = launch
 
 
+@contextlib.contextmanager
+def plain_lora():
+    """Every lane-delta wrapper call runs its plain version, until the block
+    ends: the plain-delta path the LoRA phase holds the kernel path to."""
+    from inferd_tpu_torch.ops import lora as L
+
+    saved = L.fused_lane_delta
+    L.fused_lane_delta = L.fused_lane_delta_reference
+    try:
+        yield
+    finally:
+        L.fused_lane_delta = saved
+
+
+@contextlib.contextmanager
+def planted_lora_fault(fault: str):
+    """Every lane-delta kernel launch runs on inputs that reproduce `fault`
+    (see lora_fault_inputs), until the block ends."""
+    from inferd_tpu_torch.ops import lora as L
+
+    launch = L._launch
+
+    def faulty(*args):
+        return launch(*lora_fault_inputs(fault, *args))
+
+    L._launch = faulty
+    try:
+        yield
+    finally:
+        L._launch = launch
+
+
 QMM_KERNEL_OF = {"int8": "w8a16_matmul", "int4": "w4a16_matvec"}  # --quant -> its kernel
 GEMVS_PER_LAYER = 7  # q, k, v, o, gate, up, down
 
@@ -1086,7 +1308,7 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
             layers = a_["end_layer"] - a_["start_layer"] + 1
             last = a_["stage"] == a_["num_stages"] - 1
             want = {"flash_gqa": layers * passes, "paged_decode_gqa": 0,
-                    "w8a16_matmul": 0, "w4a16_matvec": 0}
+                    "w8a16_matmul": 0, "w4a16_matvec": 0, "fused_lane_delta": 0}
             if quant_flag is not None:
                 want[QMM_KERNEL_OF[quant_flag]] = gemv_launches(layers, last, small, passes)
             say(phase, f"node stage {a_['stage']} on {a_['device']} (quant {a_['quant']}, "
@@ -1221,23 +1443,26 @@ class LaneProbe:
         self.ex.end_session(session_id)
 
 
-def teacher_forced_lanes(executors, prompts, streams) -> List[List[Any]]:
+def teacher_forced_lanes(executors, prompts, streams, names=None) -> List[List[Any]]:
     """Per prompt, (last-stage hidden of the real rows, last logits) per
     step through the lane executors in this process: each prompt's
     512-token chunks one session at a time (prefill), then the first
     DECODE_CHECKED decode steps of EVERY stream co-batched, one
     process_batch per stage per step, so each step runs all sessions'
-    lanes live at their ragged lengths."""
+    lanes live at their ragged lengths. `names` binds session i to adapter
+    names[i] (None: the base model), stamped on every stage of its first
+    chunk as the chain client stamps it."""
     import numpy as np
 
     steps: List[List[Any]] = [[] for _ in prompts]
     sids = [f"forced-{i}" for i in range(len(prompts))]
     for i, p in enumerate(prompts):
         for c in range(0, len(p), 512):
+            stamp = {"adapter": names[i]} if names and names[i] and c == 0 else {}
             out = {"tokens": np.asarray([p[c:c + 512]], np.int32), "start_pos": c,
                    "real_len": len(p[c:c + 512])}
             for ex in executors:
-                out = ex.process(sids[i], out)
+                out = ex.process(sids[i], {**out, **stamp})
             steps[i].append((out["hidden"].float(), out["logits"].float()))
     for j in range(DECODE_CHECKED):
         items = [(sid, {"tokens": [[ids[j]]], "start_pos": len(p) + j, "real_len": 1})
@@ -1257,56 +1482,101 @@ def teacher_forced_lanes(executors, prompts, streams) -> List[List[Any]]:
     return steps
 
 
-def lane_executors(cfg, loaded, block_size: int, probe: bool):
+def lane_executors(cfg, loaded, block_size: int, probe: bool, adapters=None):
     """The two stages' lane executors as the serve_lanes nodes build them;
-    with `probe` the last one is a LaneProbe."""
+    with `probe` the last one is a LaneProbe; with `adapters` (a list of
+    adapter directories) each serves its stage's slice of that catalog, as
+    a run_node --adapters node does."""
+    from inferd_tpu_torch.runtime.adapters import AdapterRegistry
     from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor
 
     kw = dict(lanes=LANES, max_len=MAX_LEN, block_size=block_size,
               prefill_chunk=LANE_PREFILL_CHUNK)
+
+    def reg(spec):
+        if adapters is None:
+            return None
+        return AdapterRegistry(cfg, adapters, start_layer=spec.start_layer,
+                               end_layer=spec.end_layer + 1, device=DEVICE)
+
     (p0, s0, _), (p1, s1, _) = loaded
-    last = LaneProbe(cfg, s1, p1, **kw) if probe else BatchedStageExecutor(cfg, s1, p1, **kw)
-    return [BatchedStageExecutor(cfg, s0, p0, **kw), last]
+    last = (LaneProbe(cfg, s1, p1, adapters=reg(s1), **kw) if probe
+            else BatchedStageExecutor(cfg, s1, p1, adapters=reg(s1), **kw))
+    return [BatchedStageExecutor(cfg, s0, p0, adapters=reg(s0), **kw), last]
 
 
 def check_teacher_forced(phase: str, tag: str, cfg, loaded, block_size: int, prompts, streams,
-                         faults=(), gemv: bool = False) -> Dict[str, Any]:
+                         faults=(), gemv: bool = False, lora=None) -> Dict[str, Any]:
     """The lane executors' kernel path against their plain path, teacher-
     forced over every prompt chunk and the first DECODE_CHECKED co-batched
     decode steps of the streams, held to HIDDEN_TOL and LOGIT_TOL on every
-    prompt. The plain path is plain attention (attn_impl="xla"), or with
-    `gemv` the plain GEMVs. Each planted fault (paged-attention faults, or
-    GEMV faults with `gemv`) must break one of the limits on some lane; a
-    paged fault only on lanes whose chain spans more than one block (a
-    one-block lane under either fault reads only the zeroed scratch block or
-    nothing, so its attention is exactly zero and shows nothing of a
-    multi-block walk). The per-prompt readings are printed."""
+    prompt. The plain path is plain attention (attn_impl="xla"), with
+    `gemv` the plain GEMVs, or with `lora` = (adapter directories, the
+    sessions' adapter names) the plain lane delta, on executors serving
+    that catalog. Each planted fault (paged-attention, GEMV or lane-delta
+    faults) must break one of the limits on some lane; a paged fault only
+    on lanes whose chain spans more than one block (a one-block lane under
+    either fault reads only the zeroed scratch block or nothing, so its
+    attention is exactly zero and shows nothing of a multi-block walk), a
+    lane-delta fault only on tenant lanes. With `lora`, the base sessions'
+    steps must also be bit-identical to those of executors without a
+    registry. The per-prompt readings are printed."""
     import torch
 
-    if gemv:
+    dirs, names = lora if lora is not None else (None, None)
+    if lora is not None:
+        plain_cfg, plain_ctx, plant, what = cfg, plain_lora, planted_lora_fault, "plain lane delta"
+    elif gemv:
         plain_cfg, plain_ctx, plant, what = cfg, plain_gemvs, planted_gemv_fault, "plain GEMVs"
     else:
         plain_cfg, plain_ctx, plant, what = (dataclasses.replace(cfg, attn_impl="xla"),
                                              contextlib.nullcontext, planted_paged_fault,
                                              "plain attention")
     with plain_ctx():
-        plain = teacher_forced_lanes(lane_executors(plain_cfg, loaded, block_size, True), prompts,
-                                     streams)
+        plain = teacher_forced_lanes(lane_executors(plain_cfg, loaded, block_size, True, dirs),
+                                     prompts, streams, names)
     torch.cuda.empty_cache()
-    kernel_ex = lane_executors(cfg, loaded, block_size, True)
+    kernel_ex = lane_executors(cfg, loaded, block_size, True, dirs)
 
     def per_prompt():
-        got = teacher_forced_lanes(kernel_ex, prompts, streams)
-        return [compare_steps(g, r, cfg.hidden_size) for g, r in zip(got, plain)]
+        got = teacher_forced_lanes(kernel_ex, prompts, streams, names)
+        return got, [compare_steps(g, r, cfg.hidden_size) for g, r in zip(got, plain)]
 
-    readings = {"sound": per_prompt()}
+    t0 = time.perf_counter()
+    sound, readings = per_prompt()
+    torch.cuda.synchronize()
+    sound_s = time.perf_counter() - t0
+    readings = {"sound": readings}
     for f in faults:
         with plant(f):
-            readings[f] = per_prompt()
+            readings[f] = per_prompt()[1]
     del kernel_ex
     torch.cuda.empty_cache()
+    if lora is not None:
+        bare_ex = lane_executors(cfg, loaded, block_size, True)
+        t0 = time.perf_counter()
+        bare = teacher_forced_lanes(bare_ex, prompts, streams)
+        torch.cuda.synchronize()
+        say(phase, f"{tag}: one teacher-forced pass (every prompt chunk, then {DECODE_CHECKED} "
+                   f"co-batched decode windows) took {sound_s:.3f} s on the host clock with the "
+                   f"registry, {time.perf_counter() - t0:.3f} s on executors without one")
+        del bare_ex
+        base = [i for i, n in enumerate(names) if n is None]
+        same = all(torch.equal(g[0], b[0]) and torch.equal(g[1], b[1])
+                   for i in base for g, b in zip(sound[i], bare[i]))
+        say(phase, f"{tag}: base sessions' hidden rows and logits over {len(sound[base[0]])} "
+                   f"steps each ({DECODE_CHECKED} in windows mixed with tenants) bit-identical to "
+                   f"executors without a registry: {same}")
+        if not same:
+            raise AssertionError(f"{tag}: base lanes differ from executors without a registry")
+        del bare
+        torch.cuda.empty_cache()
     bs = block_size or PAGED_BS
-    trip_lanes = [i for i, p in enumerate(prompts) if gemv or len(p) + DECODE_CHECKED > bs]
+    if lora is not None:
+        trip_lanes, kind = [i for i, n in enumerate(names) if n is not None], "tenant "
+    else:
+        trip_lanes = [i for i, p in enumerate(prompts) if gemv or len(p) + DECODE_CHECKED > bs]
+        kind = "" if gemv else "multi-block "
     n_steps = sum(len(r) for r in plain)
     for name, per in readings.items():
         rows = ", ".join(f"{len(p)}: {h:.4g} / {l:.3%}" for p, (h, l) in zip(prompts, per))
@@ -1323,7 +1593,7 @@ def check_teacher_forced(phase: str, tag: str, cfg, loaded, block_size: int, pro
         tripped = [i for i in trip_lanes
                    if readings[f][i][0] > HIDDEN_TOL or readings[f][i][1] > LOGIT_TOL]
         say(phase, f"{tag}: fault {f} exceeds the limits on {len(tripped)} of "
-                   f"{len(trip_lanes)} {'' if gemv else 'multi-block '}lanes")
+                   f"{len(trip_lanes)} {kind}lanes")
         if not tripped:
             raise AssertionError(f"{tag}: planted fault {f} passes the checks on every lane it "
                                  f"can reach: {readings[f]}")
@@ -1425,7 +1695,7 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
             mean = toks / steps if steps else 0.0
             mean_batches.append(mean)
             want = {"flash_gqa": layers * ex["prefill_steps"], "paged_decode_gqa": layers * steps,
-                    "w8a16_matmul": 0, "w4a16_matvec": 0}
+                    "w8a16_matmul": 0, "w4a16_matvec": 0, "fused_lane_delta": 0}
             if quant_flag is not None:
                 # decode dispatches run LANES rows: every one takes the kernels
                 want[QMM_KERNEL_OF[quant_flag]] = gemv_launches(
@@ -1468,7 +1738,7 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
                    f"{NEW_TOKENS} tokens)")
 
         out = {"launches": launches, "mean_batch": mean_batches, "rates": rates,
-               "tokens_per_s": total / wall}
+               "tokens_per_s": total / wall, "prompts": prompts, "streams": streams}
         if quant_flag is not None:
             out["paged_e2e"] = check_teacher_forced(phase, "paged lanes", cfg, loaded, PAGED_BS,
                                                     prompts, streams, QUANT_E2E_FAULTS, gemv=True)
@@ -1479,6 +1749,199 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
         out["dense_e2e"] = check_teacher_forced(
             phase, "dense lanes", cfg, loaded, 0, [prompts[i] for i in pick],
             [streams[i] for i in pick])
+        return out
+    except BaseException:
+        stop_nodes(nodes, show_logs=True)
+        nodes = []
+        raise
+    finally:
+        stop_nodes(nodes)
+
+
+def write_tenants(work: str) -> List[str]:
+    """LORA_TENANTS as peft adapter directories at Qwen3-0.6B's full width
+    over all its layers, written from a seed by ops.lora.save_adapter: A
+    N(0, 1/in), B N(0, LORA_TENANT_B_SD^2/r), alpha = 2r, so each delta's
+    RMS is about a quarter of its input's, some 40% of the base
+    projection's (N(0, 0.02^2) weights over 1024 inputs), and the tenants'
+    greedy streams leave the base's."""
+    import numpy as np
+
+    from inferd_tpu_torch.config import get_config
+    from inferd_tpu_torch.ops import lora as L
+
+    cfg = get_config(MODEL)
+    dims = {"q_proj": (cfg.hidden_size, cfg.q_dim), "k_proj": (cfg.hidden_size, cfg.kv_dim),
+            "v_proj": (cfg.hidden_size, cfg.kv_dim), "o_proj": (cfg.q_dim, cfg.hidden_size),
+            "gate_proj": (cfg.hidden_size, cfg.intermediate_size),
+            "up_proj": (cfg.hidden_size, cfg.intermediate_size),
+            "down_proj": (cfg.intermediate_size, cfg.hidden_size)}
+    rng = np.random.default_rng(4)
+    dirs = []
+    for name, r, targets in LORA_TENANTS:
+        layers = {}
+        for t in targets:
+            din, dout = dims[t]
+            a = rng.standard_normal((cfg.num_layers, din, r), dtype=np.float32) / np.sqrt(din)
+            b = rng.standard_normal((cfg.num_layers, r, dout), dtype=np.float32) * (
+                LORA_TENANT_B_SD / np.sqrt(r))
+            layers[t] = (a, b)
+        dirs.append(L.save_adapter(os.path.join(work, "adapters", name), layers, alpha=2 * r, r=r))
+    return dirs
+
+
+def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str, Any]:
+    """The `serve_lanes_lora` phase: serve_lanes' prompts on --adapters lane
+    nodes, session i bound to t0, t1, t2 or the base model in turn;
+    `baseline` is serve_lanes' result from this run (its streams are the
+    base model's on the same prompts, its rates printed beside these)."""
+    import numpy as np
+    import torch
+
+    from inferd_tpu_torch.client.chain_client import ChainClient
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.parallel.stages import load_stage_checkpoint, stage_checkpoint_path
+
+    phase = "serve_lanes_lora"
+    cfg = get_config(MODEL)
+    greedy = SamplingConfig(temperature=0.0)
+    t0 = time.perf_counter()
+    dirs = write_tenants(work)
+    kinds = ", ".join(f"{n}: r {r}, {len(t)} targets" for n, r, t in LORA_TENANTS)
+    say(phase, f"wrote {len(dirs)} peft tenants ({kinds}) over {cfg.num_layers} layers in "
+               f"{time.perf_counter() - t0:.1f}s")
+    names = [LORA_TENANTS[i % 4][0] if i % 4 < 3 else None for i in range(LANES)]
+    prompts, base_streams = baseline["prompts"], baseline["streams"]
+    n_targets = len(set().union(*(t for _, _, t in LORA_TENANTS)))
+    node_args = LANE_NODE_ARGS + ["--adapters", ",".join(dirs)]
+    nodes: List[Dict[str, Any]] = []
+    try:
+        nodes = [start_node(parts, s, work, node_args, tag="_lora") for s in range(2)]
+        t0 = time.perf_counter()
+        for n in nodes:
+            wait_ready(n)
+        say(phase, f"2 run_node --device {DEVICE} {' '.join(LANE_NODE_ARGS)} --adapters "
+                   f"t0,t1,t2 processes ready in {time.perf_counter() - t0:.1f}s")
+
+        def stats():
+            return [http_get_json(f"http://127.0.0.1:{n['port']}/stats") for n in nodes]
+
+        before = stats()  # fresh processes: every count starts at 0
+        for st in before:
+            ex = st["executor"]
+            if (any(k["launches"] for k in st["kernels"].values()) or st["forward_passes"]
+                    or ex["batched_steps"] or ex["prefill_steps"] or ex["adapters"]["loads"]):
+                raise AssertionError(f"nodes did work before the main path: {before}")
+
+        async def drive():
+            addrs = [("127.0.0.1", n["port"]) for n in nodes]
+            clients = {nm: ChainClient(addrs, sampling=greedy, prefill_chunk=512, adapter=nm)
+                       for nm in set(names)}
+
+            async def one(p, nm):
+                stamps: List[float] = []
+                t_req = time.perf_counter()
+                ids = await clients[nm].generate_ids(
+                    p, max_new_tokens=NEW_TOKENS,
+                    on_token=lambda _tok: stamps.append(time.perf_counter()))
+                return ids, t_req, stamps
+
+            return await asyncio.gather(*(one(p, nm) for p, nm in zip(prompts, names)))
+
+        t_all = time.perf_counter()
+        served = asyncio.run(drive())
+        wall = time.perf_counter() - t_all
+        after = stats()
+        streams = [ids for ids, _, _ in served]
+        for i, (p, nm, (ids, t_req, stamps)) in enumerate(zip(prompts, names, served)):
+            if len(ids) != NEW_TOKENS:
+                raise AssertionError(f"prompt {len(p)}: {len(ids)} tokens, want {NEW_TOKENS}")
+            ttft = (stamps[0] - t_req) * 1e3
+            tps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+            b_ttft, b_tps = baseline["rates"][i]
+            say(phase, f"session {i} ({nm or 'base'}), prompt {len(p)} tokens: TTFT {ttft:.1f} ms, "
+                       f"decode {tps:.1f} tok/s over {len(stamps) - 1} steps ({card}); "
+                       f"serve_lanes in this run: TTFT {b_ttft:.1f} ms, {b_tps:.1f} tok/s")
+        total = sum(len(ids) for ids in streams)
+        say(phase, f"aggregate: {total} tokens from {len(prompts)} concurrent sessions in "
+                   f"{wall:.2f} s = {total / wall:.1f} tok/s ({card}); serve_lanes in this run: "
+                   f"{baseline['tokens_per_s']:.1f} tok/s")
+        for i, (nm, a_, b_) in enumerate(zip(names, streams, base_streams)):
+            if (nm is None) != (a_ == b_):
+                how = "differs from" if nm is None else "equals"
+                raise AssertionError(f"session {i} ({nm or 'base'}): stream {how} the base "
+                                     "model's on the same prompt (serve_lanes)")
+        say(phase, "tenant streams differ from the base model's on the same prompts, and the "
+                   "base sessions' equal serve_lanes', token for token")
+
+        def pieces(idx):
+            return [len(c[j:j + LANE_PREFILL_CHUNK]) for i in idx
+                    for c in (prompts[i][k:k + 512] for k in range(0, len(prompts[i]), 512))
+                    for j in range(0, len(c), LANE_PREFILL_CHUNK)]
+
+        want_prefill = len(pieces(range(len(prompts))))
+        want_tenant_prefill = len(pieces([i for i, nm in enumerate(names) if nm]))
+        want_decode_tokens = len(prompts) * (NEW_TOKENS - 1)
+        launches = dict.fromkeys(after[0]["kernels"], 0)
+        mean_batches = []
+        for st in after:
+            ex = st["executor"]
+            layers = st["end_layer"] - st["start_layer"] + 1
+            kern = {name: k["launches"] for name, k in st["kernels"].items()}
+            steps, toks = ex["batched_steps"], ex["batched_tokens"]
+            a_dec, a_pre = ex["adapter_steps"], ex["adapter_prefill_steps"]
+            mean = toks / steps if steps else 0.0
+            mean_batches.append(mean)
+            want = {"flash_gqa": layers * ex["prefill_steps"], "paged_decode_gqa": layers * steps,
+                    "w8a16_matmul": 0, "w4a16_matvec": 0,
+                    "fused_lane_delta": layers * n_targets * (a_dec + a_pre)}
+            say(phase, f"node stage {st['stage']} on {st['device']}: {steps} decode dispatches "
+                       f"({a_dec} with a tenant lane, {steps - a_dec} all-base) serving {toks} "
+                       f"session steps (mean co-batch {mean:.3f}; serve_lanes in this run "
+                       f"{baseline['mean_batch'][st['stage']]:.3f}), {ex['prefill_steps']} prefill "
+                       f"dispatches ({a_pre} of tenant sessions); launches {kern} (want {want}: "
+                       f"{kern == want}); registry {ex['adapters']}")
+            if (kern != want or kern["fused_lane_delta"] == 0 or a_pre != want_tenant_prefill
+                    or not 0 < a_dec <= steps or toks != want_decode_tokens
+                    or ex["prefill_steps"] != want_prefill or ex["adapters"]["loads"] != 3
+                    or st["errors"]):
+                raise AssertionError(
+                    f"stage {st['stage']}: launches {kern} (want {want}), {a_pre} tenant prefill "
+                    f"dispatches (want {want_tenant_prefill}), {a_dec} of {steps} decode "
+                    f"dispatches with a tenant, {toks} steps (want {want_decode_tokens}), "
+                    f"{ex['prefill_steps']} prefill dispatches (want {want_prefill}), registry "
+                    f"{ex['adapters']} (want 3 loads), {st['errors']} errors")
+            for name, v in kern.items():
+                launches[name] += v
+        stop_nodes(nodes)
+        nodes = []
+
+        loaded = [load_stage_checkpoint(stage_checkpoint_path(parts, s), device=DEVICE)
+                  for s in range(2)]
+        local_ex = lane_executors(cfg, loaded, PAGED_BS, False, dirs)
+
+        async def local():
+            out = []
+            for p, nm in zip(prompts, names):
+                client = make_local_client(local_ex, greedy, adapter=nm)
+                out.append(await client.generate_ids(p, max_new_tokens=NEW_TOKENS))
+            return out
+
+        local_streams = asyncio.run(local())
+        del local_ex
+        torch.cuda.empty_cache()
+        for p, nm, a_, b_ in zip(prompts, names, streams, local_streams):
+            if a_ != b_:
+                diverge = next(i for i, (x, y) in enumerate(zip(a_, b_)) if x != y)
+                raise AssertionError(f"prompt {len(p)} ({nm or 'base'}): served stream != "
+                                     f"in-process lane executors' stream from token {diverge}")
+        say(phase, "served streams equal the in-process lane executors' with the same "
+                   f"registries (sessions one at a time), token for token ({len(prompts)} x "
+                   f"{NEW_TOKENS} tokens)")
+        out = {"launches": launches, "mean_batch": mean_batches, "tokens_per_s": total / wall}
+        out["paged_e2e"] = check_teacher_forced(phase, "paged lanes", cfg, loaded, PAGED_BS,
+                                                prompts, streams, LORA_E2E_FAULTS,
+                                                lora=(dirs, names))
         return out
     except BaseException:
         stop_nodes(nodes, show_logs=True)
@@ -1526,6 +1989,7 @@ def main() -> int:
     cases = run_kernel_cases()
     paged_cases = run_paged_cases()
     qmm_cases = run_qmm_cases()
+    lora_cases = run_lora_cases()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1535,11 +1999,12 @@ def main() -> int:
                    for q in ("int8", "int4")}
         lanes = run_serve_lanes(card, parts, work)
         lanes_q = run_serve_lanes(card, parts, work, quant_flag="int8", baseline=lanes)
+        lanes_lora = run_serve_lanes_lora(card, parts, work, baseline=lanes)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths = {"serve": serve, "serve_quant_int8": serve_q["int8"],
              "serve_quant_int4": serve_q["int4"], "serve_lanes": lanes,
-             "serve_lanes_quant": lanes_q}
+             "serve_lanes_quant": lanes_q, "serve_lanes_lora": lanes_lora}
 
     def by_path(name):
         return {path: r["launches"][name] for path, r in paths.items() if r["launches"][name]}
@@ -1569,6 +2034,12 @@ def main() -> int:
             QMM_LANE_CASE: dict(qmm_timed(lane_row), shape="M 8, K 1024, N 3072, bf16"),
         })
 
+    def lora_timed(row):
+        return dict(timed(row), gather_bmm_yardstick_ms=row["gather_bmm_yardstick_ms"])
+
+    lora_main = next(r for r in lora_cases if r["case"] == LORA_MAIN_CASE)
+    lora_prefill = next(r for r in lora_cases if r["case"] == LORA_PREFILL_CASE)
+    lora_launches = by_path("fused_lane_delta")
     main_case = next(c for c in cases if c["case"] == MAIN_CASE)
     paged_main = next(c for c in paged_cases if c["case"] == PAGED_MAIN_CASE)
     flash_launches, paged_launches = by_path("flash_gqa"), by_path("paged_decode_gqa")
@@ -1601,6 +2072,20 @@ def main() -> int:
         # against the weight dequantized beforehand, what --quant none pays
         qmm_entry("w8a16_matmul", "w8a16", "inferd_tpu/ops/qmatmul.py:34"),
         qmm_entry("w4a16_matvec", "w4a16_grouped", "inferd_tpu/ops/qmatmul.py:94"),
+        dict({
+            "name": "fused_lane_delta",
+            "route": "cuda",
+            "source": "inferd_tpu_torch/csrc/lora_delta.cu",
+            "replaces": "inferd_tpu/ops/lora.py:313",
+            "launches": sum(lora_launches.values()),
+            "launches_by_path": lora_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in lora_cases),
+            "max_row_err": max(r["row_err"] for r in lora_cases),
+        }, **lora_timed(lora_main),  # library_ms None: no single PyTorch call computes it
+            shape=f"{LORA_MAIN_CASE}: B 8, S 1, in 1024, out 3072, r 16, ids {LORA_DECODE_IDS}, "
+                  "bf16 pools 4 x 14 layers",
+            **{LORA_PREFILL_CASE: dict(lora_timed(lora_prefill),
+                                       shape="B 1, S 256, in 1024, out 3072, r 16, bf16")}),
     ]}
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels))

@@ -103,9 +103,14 @@ class GenerationClient:
         sampling: Optional[SamplingConfig] = None,
         timeout_s: float = 300.0,
         prefill_chunk: int = 512,
+        adapter: Optional[str] = None,
     ):
         self.sampling = sampling or SamplingConfig()
         self.timeout_s = timeout_s
+        # multi-tenant LoRA: this client's sessions decode with the named
+        # adapter (the `adapter` envelope key on a session's first chunk;
+        # None = the base model, envelopes byte-identical to a base client's)
+        self.adapter = adapter
         # long prompts prefill in sequential chunks of this many tokens
         self.prefill_chunk = max(1, prefill_chunk)
 

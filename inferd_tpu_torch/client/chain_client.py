@@ -6,6 +6,12 @@ gets the token chunk and every later stage gets the previous stage's
 `hidden`, carried by the client untouched (bf16 stays its raw bytes); the
 last stage returns last-token logits and the client samples. No DHT.
 `server_addrs[i]` serves stage i.
+
+A client bound to a tenant adapter (`adapter=`) stamps the `adapter` key on
+the first chunk's payload (start_pos 0) to EVERY stage: each stage binds
+the session's slot at admission. The reference client stamps the entry hop
+only and the swarm relay carries the key on; here the client drives each
+stage itself, so it carries the key on.
 """
 
 from __future__ import annotations
@@ -29,10 +35,11 @@ class ChainClient(GenerationClient):
         sampling: Optional[SamplingConfig] = None,
         timeout_s: float = 300.0,
         prefill_chunk: int = 512,
+        adapter: Optional[str] = None,
     ):
         if not server_addrs:
             raise ValueError("need at least one stage server address")
-        super().__init__(sampling, timeout_s, prefill_chunk)
+        super().__init__(sampling, timeout_s, prefill_chunk, adapter=adapter)
         self.server_addrs = [tuple(a) for a in server_addrs]
 
     async def _post(self, addr: Tuple[str, int], path: str, body: Dict[str, Any]) -> Dict[str, Any]:
@@ -43,10 +50,12 @@ class ChainClient(GenerationClient):
         self, session_id: str, tokens: List[int], start_pos: int
     ) -> np.ndarray:
         """One pipeline pass, client-carried: tokens -> ... -> last-token logits."""
+        stamp = {"adapter": self.adapter} if self.adapter is not None and start_pos == 0 else {}
         payload: Dict[str, Any] = {
             "tokens": np.asarray([tokens], dtype=np.int32),
             "start_pos": start_pos,
             "real_len": len(tokens),
+            **stamp,
         }
         for stage, addr in enumerate(self.server_addrs):
             env = {
@@ -63,6 +72,7 @@ class ChainClient(GenerationClient):
                 "hidden": result["hidden"],
                 "start_pos": int(result.get("start_pos", start_pos)),
                 "real_len": int(result.get("real_len", len(tokens))),
+                **stamp,
             }
         raise RuntimeError("last stage returned no logits: is the chain complete?")
 

@@ -30,9 +30,16 @@ unchanged: decode-shaped rows against int8 or int4 weights launch the GEMV
 kernels of csrc/qmatmul.cu on the card, and bf16 weights stay plain
 products.
 
+Multi-tenant LoRA: with an `adapters` operand (the registry's stacked pools
+plus per-lane slot ids, ops.lora's pool contract) every one of the seven
+projections adds each lane's own delta through ops.lora.apply_lane_delta:
+on the card one launch of the kernel of csrc/lora_delta.cu per projection
+and layer, on the CPU the reference's gather-then-einsum form.
+
 This slice covers the dense Qwen3/Qwen2-style decoder. MoE, sandwich norms,
-sliding windows and scaled RoPE raise NotImplementedError here; LoRA,
-tensor/expert parallelism and fused K-step decode wait for later slices.
+sliding windows and scaled RoPE raise NotImplementedError here (and an
+adapter operand on such a config raises, as in the reference); tensor/
+expert parallelism and fused K-step decode wait for later slices.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch.nn.functional as F
 
 from inferd_tpu_torch.config import ModelConfig
 from inferd_tpu_torch.ops import attention as attention_ops
+from inferd_tpu_torch.ops import lora as lora_ops
 from inferd_tpu_torch.ops.quant import qdot
 
 Params = Dict[str, Any]
@@ -274,9 +282,14 @@ def gqa_attention(
     return out.reshape(b, s, nq * d)
 
 
-def swiglu_mlp(p: Params, x: torch.Tensor, act=F.silu) -> torch.Tensor:
-    """Gated feed-forward: act(x @ gate) * (x @ up) @ down."""
-    return qdot(act(qdot(x, p["gate_proj"])) * qdot(x, p["up_proj"]), p["down_proj"])
+def swiglu_mlp(p: Params, x: torch.Tensor, act=F.silu, lane_adapters=None) -> torch.Tensor:
+    """Gated feed-forward: act(x @ gate) * (x @ up) @ down. `lane_adapters`
+    (ops.lora.apply_lane_delta) adds each lane's LoRA delta to the three
+    projections, where a merged adapter's weights would act."""
+    gate = act(lora_ops.apply_lane_delta(qdot(x, p["gate_proj"]), x, "gate_proj", lane_adapters))
+    up = lora_ops.apply_lane_delta(qdot(x, p["up_proj"]), x, "up_proj", lane_adapters)
+    h = gate * up
+    return lora_ops.apply_lane_delta(qdot(h, p["down_proj"]), h, "down_proj", lane_adapters)
 
 
 def _attend(
@@ -330,6 +343,7 @@ def decoder_layer(
     q_start=None,  # int or [B]: first query position (see _attend)
     block_table: Optional[torch.Tensor] = None,  # [B, MB] int32: PAGED mode
     paged_write=None,  # PagedWrite: the committing rows and their pool slots
+    adapters=None,  # this layer's per-lane LoRA operand (ops.lora.layer_adapters)
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """One pre-norm residual decoder block with GQA and Qwen3's per-head
     q/k RMSNorm. Returns (hidden', k_buf, v_buf); the chunk's K/V are
@@ -356,9 +370,9 @@ def decoder_layer(
     p1 = cfg.rms_norm_plus_one
 
     x = rms_norm(hidden, lp["input_norm"], cfg.rms_norm_eps, p1)
-    q = qdot(x, lp["q_proj"])
-    k = qdot(x, lp["k_proj"])
-    v = qdot(x, lp["v_proj"])
+    q = lora_ops.apply_lane_delta(qdot(x, lp["q_proj"]), x, "q_proj", adapters)
+    k = lora_ops.apply_lane_delta(qdot(x, lp["k_proj"]), x, "k_proj", adapters)
+    v = lora_ops.apply_lane_delta(qdot(x, lp["v_proj"]), x, "v_proj", adapters)
     if cfg.attn_bias:
         q = q + lp["q_bias"]
         k = k + lp["k_bias"]
@@ -425,12 +439,12 @@ def decoder_layer(
             q_start=q_start,
         )
 
-    attn_out = qdot(attn, lp["o_proj"])
+    attn_out = lora_ops.apply_lane_delta(qdot(attn, lp["o_proj"]), attn, "o_proj", adapters)
     if cfg.o_bias:
         attn_out = attn_out + lp["o_bias"]
     hidden = hidden + attn_out.to(hidden.dtype)
     x = rms_norm(hidden, lp["post_norm"], cfg.rms_norm_eps, p1)
-    mlp_out = swiglu_mlp(lp, x, act_fn(cfg))
+    mlp_out = swiglu_mlp(lp, x, act_fn(cfg), lane_adapters=adapters)
     return hidden + mlp_out.to(hidden.dtype), k_buf, v_buf
 
 
@@ -470,17 +484,27 @@ def forward_layers(
     layer_offset: int = 0,
     block_table: Optional[torch.Tensor] = None,  # [B, MB] int32: paged pools
     paged_write=None,  # PagedWrite (paged only)
+    adapters=None,  # multi-tenant LoRA pools + per-lane ids (ops.lora's contract)
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Run a stack of decoder layers (a Python loop over the stacked
     params). With caches, each layer writes its chunk K/V into
     k_cache[i]/v_cache[i] in place; the buffers are returned as given.
     With `block_table` the caches are paged pools (one table for every
-    layer: a lane's chain covers all of them)."""
+    layer: a lane's chain covers all of them). With `adapters`, layer i
+    adds the lanes' deltas of the pools' layer i (the registry holds this
+    stage's slice), gathered once here on the CPU, in the kernel on the
+    card (ops.lora.layer_adapters)."""
+    if adapters is not None and (cfg.is_moe or cfg.sliding_window):
+        raise ValueError(
+            "the adapter registry targets dense decoder projections on a "
+            "uniform layout — MoE and sliding-window configs are unsupported"
+        )
     check_supported(cfg)
     del layer_offset  # selects the sliding-window pattern, which waits
     b, s = hidden.shape[:2]
     pos, q_start = _positions(positions, b, s, hidden.device)
     cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta, cfg)
+    lane_adapters = lora_ops.layer_adapters(adapters, hidden.device)
     for i in range(_stack_len(layers)):
         lp = {name: a[i] for name, a in layers.items()}
         hidden, _, _ = decoder_layer(
@@ -488,7 +512,7 @@ def forward_layers(
             None if k_cache is None else k_cache[i],
             None if v_cache is None else v_cache[i],
             cache_write_pos, q_start=q_start, block_table=block_table,
-            paged_write=paged_write,
+            paged_write=paged_write, adapters=lane_adapters(i),
         )
     return hidden, k_cache, v_cache
 
@@ -558,6 +582,7 @@ def forward_layers_cached(
     real_end=None,  # int or [B]: first bucket-padding position (paged only)
     layer_offset: int = 0,
     write_mask=None,  # [B] bool (paged only): rows whose KV writes commit
+    adapters=None,  # multi-tenant LoRA pools + per-lane ids (see forward_layers)
 ):
     """Cached stage/model forward, dispatching on the cache's layout: paged
     block pools (writes scatter and reads go through the lanes' block
@@ -585,6 +610,7 @@ def forward_layers_cached(
     if not paged:
         h, _, _ = forward_layers(
             layers, cfg, hidden, positions, cache.k, cache.v, wp, layer_offset=layer_offset,
+            adapters=adapters,
         )
         return h, cache
     wp_host = _host_rows(cache_write_pos, b)
@@ -595,7 +621,7 @@ def forward_layers_cached(
     )
     h, _, _ = forward_layers(
         layers, cfg, hidden, positions, cache.k, cache.v, wp, layer_offset=layer_offset,
-        block_table=cache.table, paged_write=plan,
+        block_table=cache.table, paged_write=plan, adapters=adapters,
     )
     return h, cache
 

@@ -93,7 +93,8 @@ def build(name: str) -> dict:
     return {"path": path, "seconds": time.perf_counter() - t0, "built": True, "log": log}
 
 
-KERNELS = ("flash_gqa", "paged_decode", "qmatmul")  # every csrc/<name>.cu the port builds
+# every csrc/<name>.cu the port builds
+KERNELS = ("flash_gqa", "paged_decode", "qmatmul", "lora_delta")
 
 
 def load(name: str) -> ctypes.CDLL:

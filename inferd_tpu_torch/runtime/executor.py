@@ -240,11 +240,13 @@ def make_executor(
     block_size: int = 0,
     kv_blocks: int = 0,
     prefill_chunk: int = 0,
+    adapters=None,
     **kw,
 ):
     """The stage's executor: with `stage_lanes` > 0 the lane-slotted
     continuous-batching executor (runtime/stage_batch; `block_size` > 0
-    pages its KV), else the one-cache-per-session Qwen3StageExecutor.
+    pages its KV; `adapters`, a runtime/adapters.AdapterRegistry, serves
+    multi-tenant LoRA), else the one-cache-per-session Qwen3StageExecutor.
     Refuses the flag combinations the reference node refuses."""
     if backend != "qwen3":
         raise ValueError(f"executor backend {backend!r} is not ported yet (qwen3 only)")
@@ -254,11 +256,16 @@ def make_executor(
         raise ValueError(
             "--paged-kv runs on the lane executors: pair it with --stage-lanes"
         )
+    if adapters is not None and stage_lanes <= 0:
+        raise ValueError(
+            "--adapters (multi-tenant batched LoRA) runs on the lane "
+            "executors — pair it with --stage-lanes"
+        )
     if stage_lanes > 0:
         from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor
 
         return BatchedStageExecutor(
             cfg, spec, stage_params, lanes=stage_lanes, block_size=block_size,
-            kv_blocks=kv_blocks, prefill_chunk=prefill_chunk, **kw,
+            kv_blocks=kv_blocks, prefill_chunk=prefill_chunk, adapters=adapters, **kw,
         )
     return Qwen3StageExecutor(cfg, spec, stage_params, **kw)

@@ -18,8 +18,12 @@ the JAX node for this topology:
 
 Errors are wire-packed {"error", "code"} bodies with the JAX node's codes:
 409 "wrong_stage" (the chain's address list is stale), 409 "overflow" (KV
-budget), 409 "session_state" (out-of-order chunk), 503 "busy" (every lane
-held by an in-flight request), 500 on a compute failure. A relaying
+budget), 409 "session_state" (out-of-order chunk), 409
+"no_adapter_registry" (the payload names an adapter and this node serves
+no `--adapters` registry: serving the base model instead would be silent
+tenant corruption), 409 "unknown_adapter" (a name outside the catalog), 503
+"busy" (every lane, or every adapter slot, held by live sessions), 500 on
+a compute failure. A relaying
 envelope (`relay` true or absent) gets 409 "relay_unsupported": the swarm
 plane (gossip, routing, relay) is not ported.
 
@@ -45,9 +49,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Tuple
 
 from inferd_tpu_torch.ops import attention as attention_ops
-from inferd_tpu_torch.ops import qmatmul
+from inferd_tpu_torch.ops import lora, qmatmul
 from inferd_tpu_torch.ops.quant import quantized_bytes
 from inferd_tpu_torch.runtime import wire
+from inferd_tpu_torch.runtime.adapters import AdapterCapacityError, UnknownAdapterError
 from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor, CapacityError
 from inferd_tpu_torch.runtime.window import WindowedBatcher
 from inferd_tpu_torch.utils.platform import device_name
@@ -215,6 +220,14 @@ class ChainNode:
                 code="relay_unsupported",
             )
         payload = env.get("payload") or {}
+        if (isinstance(payload, dict) and payload.get("adapter") is not None
+                and getattr(self.executor, "adapters", None) is None):
+            return self._error(
+                409,
+                f"payload names adapter {payload.get('adapter')!r} but this "
+                "replica serves no adapter registry (--adapters)",
+                code="no_adapter_registry",
+            )
         try:
             if self.window is None:
                 with self._compute_lock:
@@ -228,8 +241,12 @@ class ChainNode:
             self._maybe_sweep()
         except BufferError as e:
             return self._error(409, str(e), code="overflow")
-        except CapacityError as e:
+        except (CapacityError, AdapterCapacityError) as e:
             return self._error(503, str(e), code="busy")
+        except UnknownAdapterError as e:
+            # a permanent configuration error: never the restart-and-retry
+            # `session_state` loop
+            return self._error(409, str(e), code="unknown_adapter")
         except ValueError as e:
             return self._error(409, str(e), code="session_state")
         except Exception as e:  # compute failure: report it, keep serving
@@ -274,7 +291,8 @@ class ChainNode:
         parameter bytes as stored, each kernel's launch count in this
         process and the executor's stats (for the lane executor: co-batched
         steps and tokens, mean co-batch, prefill dispatches and tokens, and
-        the block pool's gauges when paged)."""
+        the block pool's gauges when paged, the adapter registry's with
+        --adapters)."""
         lock = self._compute_lock if self.window is None else contextlib.nullcontext()
         with lock:
             executor = self.executor.stats()
@@ -283,6 +301,7 @@ class ChainNode:
                 "paged_decode_gqa": {"launches": attention_ops.paged_decode_gqa.launches},
                 "w8a16_matmul": {"launches": qmatmul.w8a16_matmul.launches},
                 "w4a16_matvec": {"launches": qmatmul.w4a16_matvec.launches},
+                "fused_lane_delta": {"launches": lora.fused_lane_delta.launches},
             }
         with self._stats_lock:
             passes = self.forward_passes

@@ -29,9 +29,18 @@ donated (and so invalidated) the shared cache, has no counterpart: nothing
 is donated here, a failed dispatch leaves the buffers valid, and a window
 is one dispatch.
 
+Multi-tenant LoRA (`adapters`, a runtime/adapters.AdapterRegistry holding
+this stage's layer slice): a session admitted with an `adapter` key binds a
+registry slot (runtime/adapters.AdapterBindingMixin), resolved and maybe
+hot-loaded before any executor lock; each dispatch hands the forward the
+pools plus every lane's slot id, so a window mixing tenants is one
+dispatch, and a dispatch whose lanes all ride slot 0 carries no adapter
+operand at all. Paged prefix keys are salted with the adapter's name, so
+tenants never share prefix KV.
+
 Not ported in this slice: `decode_steps` items (fused K-step decode; a
-per-item ValueError), `fork_session`, multi-tenant adapter binding,
-`anatomy_target` and `prefix_digest`.
+per-item ValueError), `fork_session` (and with it the fork-time adapter
+binding), `anatomy_target` and `prefix_digest`.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from inferd_tpu_torch.core.cache import (
 from inferd_tpu_torch.core.generate import bucket_len
 from inferd_tpu_torch.models import qwen3
 from inferd_tpu_torch.parallel.stages import StageSpec
+from inferd_tpu_torch.runtime.adapters import AdapterBindingMixin
 from inferd_tpu_torch.runtime.executor import _as_tensor
 
 Params = Dict[str, Any]
@@ -60,7 +70,7 @@ class CapacityError(RuntimeError):
     """Every lane is held by an in-flight request: transient, retryable."""
 
 
-class BatchedStageExecutor:
+class BatchedStageExecutor(AdapterBindingMixin):
     """Lane-slotted multi-session executor for one pipeline stage.
 
     Node executor contract: process(session_id, payload) -> {"hidden":
@@ -81,6 +91,7 @@ class BatchedStageExecutor:
         block_size: int = 0,
         kv_blocks: int = 0,
         prefill_chunk: int = 0,
+        adapters=None,
     ):
         qwen3.check_supported(cfg)
         self.cfg = cfg
@@ -90,6 +101,15 @@ class BatchedStageExecutor:
         self.lanes = lanes
         self.max_len = max_len
         self.ttl_s = session_ttl_s
+        # multi-tenant LoRA registry (None: single-model serving); the lane's
+        # slot mirror is what each dispatch hands the forward as its ids
+        self.adapters = adapters
+        self._session_adapter: Dict[str, str] = {}
+        self._lane_slot = [0] * lanes  # slot 0 = the zero base adapter
+        # dispatches that carried an adapter operand (a tenant lane): each
+        # launches the LoRA kernel once per covered projection and layer
+        self.adapter_steps = 0
+        self.adapter_prefill_steps = 0
         # server-side chunked prefill: a prompt longer than this many tokens
         # ingests as several dispatches, RELEASING the device lock between
         # chunks so co-batched decode windows interleave (0 = off)
@@ -158,6 +178,7 @@ class BatchedStageExecutor:
     def _drop_locked(self, session_id: str) -> None:
         lane = self._sessions.pop(session_id, None)
         self._last_used.pop(session_id, None)
+        self._release_adapter_locked(session_id)
         if lane is None:
             return
         # fail entries still waiting in the node's window: a later flush
@@ -172,6 +193,7 @@ class BatchedStageExecutor:
 
     def _free_lane_locked(self, lane: int) -> None:
         self.lengths[lane] = 0
+        self._lane_slot[lane] = 0  # back to the base adapter
         if self.pool is not None:
             # cached/pinned prefix blocks survive through their index
             # references; everything else returns to the pool
@@ -240,7 +262,8 @@ class BatchedStageExecutor:
     def _embed_or_hidden(self, x: torch.Tensor) -> torch.Tensor:
         return qwen3.embed(self.params, x, self.cfg) if self.spec.is_first else x
 
-    def _decode_all(self, xd: torch.Tensor, lens: np.ndarray, active: np.ndarray) -> torch.Tensor:
+    def _decode_all(self, xd: torch.Tensor, lens: np.ndarray, active: np.ndarray,
+                    ads=None) -> torch.Tensor:
         """One co-batched decode step over EVERY lane; returns [L, V] logits
         or [L, 1, H] hidden on the device. xd: tokens [L, 1] or hidden
         [L, 1, H]; lens [L]: per-lane fill. Dense: lanes without an entry
@@ -255,19 +278,20 @@ class BatchedStageExecutor:
             cache = self._sync_paged()
             hidden, _ = qwen3.forward_layers_cached(
                 p["layers"], cfg, hidden, None, cache, lens, real_end=lens + 1,
-                layer_offset=self.spec.start_layer, write_mask=active,
+                layer_offset=self.spec.start_layer, write_mask=active, adapters=ads,
             )
         else:
             wp = np.minimum(lens, self.max_len - 1)
             hidden, _ = qwen3.forward_layers_cached(
                 p["layers"], cfg, hidden, None, self.cache, wp, real_end=wp + 1,
-                layer_offset=self.spec.start_layer,
+                layer_offset=self.spec.start_layer, adapters=ads,
             )
         if self.spec.is_last:
             return qwen3.unembed(p, cfg, hidden)[:, 0]
         return hidden
 
-    def _prefill_lane(self, xd: torch.Tensor, lane: int, start: int, n: int) -> torch.Tensor:
+    def _prefill_lane(self, xd: torch.Tensor, lane: int, start: int, n: int,
+                      ads=None) -> torch.Tensor:
         """Chunk-ingest ONE lane: xd [1, S_bucket] tokens or [1, S_bucket, H]
         hidden at absolute `start`, of which the first n rows are real.
         Returns [1, V] logits of the last real row, or [1, S_bucket, H]."""
@@ -282,13 +306,13 @@ class BatchedStageExecutor:
             lc = PagedKVCache(k=self.cache.k, v=self.cache.v, table=row)
             hidden, _ = qwen3.forward_layers_cached(
                 p["layers"], cfg, hidden, start, lc, start, real_end=start + n,
-                layer_offset=self.spec.start_layer,
+                layer_offset=self.spec.start_layer, adapters=ads,
             )
         else:
             lc = lane_slice(self.cache, lane)
             hidden, lc = qwen3.forward_layers_cached(
                 p["layers"], cfg, hidden, start, lc, start, real_end=start + n,
-                layer_offset=self.spec.start_layer,
+                layer_offset=self.spec.start_layer, adapters=ads,
             )
             lane_write(self.cache, lane, lc)
         if self.spec.is_last:
@@ -347,10 +371,16 @@ class BatchedStageExecutor:
                             "decode_steps (fused K-step decode) is not ported yet; "
                             "send one token per step"
                         )
-                    if payload.get("adapter") is not None:
+                    nm = payload.get("adapter")
+                    if nm is not None and (
+                        self.adapters is None or self._session_adapter.get(sid) != str(nm)
+                    ):
+                        # decode steps are mid-session: the binding happened at
+                        # admission, and a mismatch is a routing bug, never
+                        # served with other weights
                         raise ValueError(
-                            f"session {sid}: payload names adapter {payload['adapter']!r} "
-                            "but this executor serves no adapter registry"
+                            f"session {sid}: decode-step adapter {nm!r} "
+                            "does not match the admitted binding"
                         )
                     if real_len != 1 or start_pos <= 0:
                         raise ValueError(
@@ -385,6 +415,8 @@ class BatchedStageExecutor:
                     return out
                 with self._mu:
                     lens = np.asarray(self.lengths, np.int64)
+                    slot_ids = list(self._lane_slot)
+                ads = self._ads(slot_ids)
                 active = np.zeros((self.lanes,), bool)
                 if self.spec.is_first:
                     xs = torch.zeros((self.lanes, 1), dtype=torch.int64)
@@ -396,12 +428,14 @@ class BatchedStageExecutor:
                     xs[lane] = _as_tensor(x)[0]
                     active[lane] = True
                 with torch.no_grad():
-                    res = self._decode_all(host_to_device(xs, self.device), lens, active).cpu()
+                    res = self._decode_all(host_to_device(xs, self.device), lens, active,
+                                           ads).cpu()
                 with self._mu:
                     for _i, _sid, lane, _x, _sp in served:
                         self.lengths[lane] += 1
                     self._batched_steps += 1
                     self._batched_tokens += len(served)
+                    self.adapter_steps += ads is not None
                 key = "logits" if self.spec.is_last else "hidden"
                 for i, _sid, lane, _x, sp in served:
                     out[i] = {key: res[lane:lane + 1], "real_len": 1, "start_pos": sp}
@@ -447,11 +481,17 @@ class BatchedStageExecutor:
              blocks publish into the prefix index for later sessions.
         """
         x, _, _ = self._parse(payload)
-        if payload.get("adapter") is not None:
-            raise ValueError(f"session {session_id}: payload names adapter "
-                             f"{payload['adapter']!r} but this executor serves no adapter registry")
-        with self._mu:
-            lane = self._admit_locked(session_id, start_pos, real_len, new_ok=start_pos == 0)
+        acquired = self._resolve_adapter(session_id, payload, start_pos)
+        try:
+            with self._mu:
+                lane = self._admit_locked(session_id, start_pos, real_len, new_ok=start_pos == 0)
+                self._bind_adapter_locked(session_id, lane, start_pos, acquired)
+        except Exception:
+            # an admission that died before the binding took the reference
+            # must give it back, or the slot could never be evicted
+            if acquired is not None and acquired[1]:
+                self.adapters.release(acquired[0])
+            raise
         owner = f"session {session_id}, lane {lane}"
         key = "logits" if self.spec.is_last else "hidden"
         parts: List[torch.Tensor] = []  # device results, one boundary copy after the loop
@@ -459,10 +499,15 @@ class BatchedStageExecutor:
         try:
             pos = start_pos
             keys = None
+            with self._mu:
+                ad_name = self._session_adapter.get(session_id)
+                ads = self._ads([self._lane_slot[lane]])
             whole = self.spec.is_first and self.spec.is_last
             if self.pool is not None and whole and start_pos == 0:
+                # a tenant's chain is salted with its adapter: tenants never
+                # share prefix KV (core.prefix.block_keys)
                 keys = prefixlib.block_keys([int(t) for t in x[0, :real_len]],
-                                            self.pool.block_size)
+                                            self.pool.block_size, salt=ad_name)
                 # map at most the blocks covering real_len - 1 tokens: the
                 # LAST prompt token must compute (its logits seed decode)
                 nmap = (real_len - 1) // self.pool.block_size
@@ -492,7 +537,8 @@ class BatchedStageExecutor:
                     if self.pool is not None:
                         self._sync_paged()
                     with torch.no_grad():
-                        res = self._prefill_lane(host_to_device(padded, self.device), lane, pos, n)
+                        res = self._prefill_lane(host_to_device(padded, self.device), lane, pos, n,
+                                                 ads)
                     parts.append(res if key == "logits" else res[:, :n])
                     # advance BEFORE releasing the device lock: a window
                     # flush snapshots lengths under the same lock order
@@ -500,6 +546,7 @@ class BatchedStageExecutor:
                         self.lengths[lane] = pos + n
                         self.prefill_steps += 1
                         self.prefill_tokens += n
+                        self.adapter_prefill_steps += ads is not None
                 pos += n
                 if self.prefill_chunk > 0 and pos < end:
                     # threading.Lock is not fair: without a yield the chunk
@@ -617,6 +664,11 @@ class BatchedStageExecutor:
                 "kv_bytes": self.cache.nbytes,
                 "kv_occupancy": occupancy,
             }
+            if self.adapters is not None:
+                out["adapter_steps"] = self.adapter_steps
+                out["adapter_prefill_steps"] = self.adapter_prefill_steps
+        if self.adapters is not None:
+            out["adapters"] = self.adapters.stats()
         if paged is not None:
             out["paged"] = paged
         return out

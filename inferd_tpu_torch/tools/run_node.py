@@ -11,14 +11,18 @@ Usage:
   python -m inferd_tpu_torch.tools.run_node --parts parts/ --stage 0 \\
       --port 6050 [--device cuda|cpu] [--max-len 4096] \\
       [--stage-lanes N [--window-ms W] [--paged-kv BS [--kv-blocks K]] \\
-       [--prefill-chunk C]] [--quant none|int8|int8-kernel|int4]
+       [--prefill-chunk C] [--adapters DIR[,DIR...] [--adapter-slots N]]] \\
+      [--quant none|int8|int8-kernel|int4] [--lora DIR]
 
 With --stage-lanes the stage serves its sessions from lanes of one shared
 KV cache, and co-arriving decode steps of concurrent sessions run as one
 device step (stage-level continuous batching); --paged-kv pages that cache.
 With --quant the stage's linear weights are quantized at load (the
 checkpoint stays bf16 on disk) and its decode GEMVs run the kernels of
-csrc/qmatmul.cu, on either executor.
+csrc/qmatmul.cu, on either executor. --lora merges one peft adapter into the
+stage's weights at load, before --quant, on either executor; --adapters
+serves many on lane nodes, each session's own adapter added per lane by the
+kernel of csrc/lora_delta.cu (the two are exclusive).
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ import threading
 from typing import List, Optional
 
 from inferd_tpu_torch.config import get_config
+from inferd_tpu_torch.ops import lora as loralib
 from inferd_tpu_torch.ops import quant
 from inferd_tpu_torch.parallel.stages import load_stage_checkpoint, stage_checkpoint_path
+from inferd_tpu_torch.runtime.adapters import AdapterRegistry
 from inferd_tpu_torch.runtime.executor import make_executor
 from inferd_tpu_torch.runtime.node import ChainNode
 from inferd_tpu_torch.utils.platform import DEVICE_CHOICES, resolve_device
@@ -87,6 +93,26 @@ def build_parser() -> argparse.ArgumentParser:
         "(group-wise w4a16, quarter the weight bytes) runs the w4a16 kernel. w8a8 is "
         "not ported yet and fails at start",
     )
+    ap.add_argument(
+        "--lora", default="",
+        help="peft LoRA adapter directory merged into this node's stage weights at "
+        "load time, before quantization; mutually exclusive with --adapters",
+    )
+    ap.add_argument(
+        "--adapters", default="",
+        help="multi-tenant LoRA: comma-separated peft adapter directories forming "
+        "this node's adapter CATALOG. Sessions admitted with an `adapter` envelope "
+        "key decode with that adapter's weights via the batched unmerged apply — "
+        "heterogeneous-adapter sessions co-batch in ONE device step; adapters "
+        "hot-load/evict through a refcounted slot registry. Needs --stage-lanes; "
+        "mutually exclusive with --lora",
+    )
+    ap.add_argument(
+        "--adapter-slots", type=int, default=0,
+        help="device-resident adapter slots incl. the permanent base slot 0 (0 = "
+        "catalog size + 1). Fewer slots than tenants => idle adapters LRU-evict "
+        "and cache-miss admissions hot-load",
+    )
     return ap
 
 
@@ -98,14 +124,30 @@ def make_node(args: argparse.Namespace) -> ChainNode:
     if spec.stage != args.stage:
         raise ValueError(f"{args.parts}: checkpoint holds stage {spec.stage}, not {args.stage}")
     cfg = get_config(model_name)
+    owner = f"{args.host}:{args.port} stage {spec.stage}"
+    loralib.check_exclusive_modes(args.lora, args.adapters, owner=owner)
+    if args.lora:
+        # the stage's slice of the adapter, merged BEFORE quantization so the
+        # adapted weights quantize like a base checkpoint
+        sliced = loralib.slice_adapter(loralib.load_adapter(cfg, args.lora),
+                                       spec.start_layer, spec.end_layer + 1, owner=owner)
+        params = loralib.merge_adapter(params, sliced)
     # a non-last stage holds embed for the token gather only: no head shadow
     params = quant.apply_quant_mode(args.quant, params,
                                     tie_word_embeddings=cfg.tie_word_embeddings,
                                     needs_head=spec.is_last)
+    registry = None
+    if args.adapters:
+        if args.stage_lanes <= 0:  # before reading the catalog
+            raise ValueError("--adapters (multi-tenant batched LoRA) runs on the lane "
+                             "executors — pair it with --stage-lanes")
+        registry = AdapterRegistry(cfg, args.adapters, slots=args.adapter_slots,
+                                   start_layer=spec.start_layer, end_layer=spec.end_layer + 1,
+                                   owner=owner, device=device)
     executor = make_executor(
         cfg, spec, params, max_len=args.max_len,
         stage_lanes=args.stage_lanes, block_size=args.paged_kv, kv_blocks=args.kv_blocks,
-        prefill_chunk=args.prefill_chunk,
+        prefill_chunk=args.prefill_chunk, adapters=registry,
     )
     if device.type == "cuda":
         from inferd_tpu_torch.ops import build
@@ -116,6 +158,8 @@ def make_node(args: argparse.Namespace) -> ChainNode:
             build.load("paged_decode")
         if args.quant != "none":
             build.load("qmatmul")
+        if registry is not None:
+            build.load("lora_delta")
     return ChainNode(executor, host=args.host, port=args.port, window_ms=args.window_ms,
                      quant=args.quant)
 

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
-package, and no serving-path module needs aiohttp, msgpack, PyYAML or
-ml_dtypes (a machine with the card need not have them)."""
+package, and no serving-path module needs aiohttp, msgpack, PyYAML,
+ml_dtypes or safetensors (a machine with the card need not have them)."""
 
 import ast
 import os
@@ -12,7 +12,8 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "inferd_tpu_torch")
 
-FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "aiohttp", "msgpack", "yaml", "ml_dtypes")
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "aiohttp", "msgpack", "yaml", "ml_dtypes",
+                   "safetensors")
 
 # Runs in a fresh interpreter: the test process already imported jax (conftest).
 _BLOCKED_IMPORT = r"""

@@ -1,6 +1,6 @@
-"""The flash_gqa, paged_decode_gqa, w8a16_matmul and w4a16_matvec
-wrappers' contracts, and on a card each CUDA kernel against its plain
-version.
+"""The flash_gqa, paged_decode_gqa, w8a16_matmul, w4a16_matvec and
+fused_lane_delta wrappers' contracts, and on a card each CUDA kernel
+against its plain version.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with a CUDA card and no JAX: there, skip the JAX-pinning conftest
@@ -10,15 +10,19 @@ Tolerance on the card: chip_smoke's rule, `row_rel_err` against
 `ATTN_TOL`: the worst output row's max |kernel - plain| over that row's
 RMS in the plain version, with rows the plain version leaves at zero held
 to exactly zero (chip_smoke.py says why, and PERF.md gives the sound and
-planted-fault readings that place the limits)."""
+planted-fault readings that place the limits); for the f32 lane delta,
+chip_smoke's LORA_TOL."""
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ATTN_TOL, QMM_SHAPES, QMM_TOL, row_rel_err
+from chip_smoke import (
+    ATTN_TOL, LORA_CASES, LORA_LAYER, LORA_TOL, QMM_SHAPES, QMM_TOL, lora_inputs, row_rel_err,
+)
 from inferd_tpu_torch.ops import attention as A
 from inferd_tpu_torch.ops import build
+from inferd_tpu_torch.ops import lora as L
 from inferd_tpu_torch.ops import qmatmul as Q
 from inferd_tpu_torch.ops import quant
 
@@ -417,3 +421,78 @@ def test_cuda_gemv_rejects_noncontiguous_weight(cuda_device):
         Q.w8a16_matmul(x, q8.q.t().contiguous().t(), q8.scale)
     with pytest.raises(ValueError, match="contiguous"):
         Q.w4a16_matvec(x, quant.Int4Weight(q4.q.t().contiguous().t(), q4.scale), "grouped")
+
+
+# -- the fused LoRA lane delta ------------------------------------------------------
+
+
+@requires_cuda
+@pytest.mark.parametrize("name", [c["name"] for c in LORA_CASES])
+def test_cuda_lora_delta_matches_plain(cuda_device, name):
+    """chip_smoke's cases: decode at 8 lanes (ranks 16 and 64, every
+    projection), prefill at S 256 and 1000, f32, ranks 1 and 33, all lanes
+    on the base slot (exact zeros)."""
+    c = next(c for c in LORA_CASES if c["name"] == name)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x, a_pool, b_pool, scale, ids = lora_inputs(c, gen, cuda_device)
+    before = L.fused_lane_delta.launches
+    got = L.fused_lane_delta(x, a_pool, b_pool, scale, ids, LORA_LAYER)
+    want = L.fused_lane_delta_reference(x, a_pool, b_pool, scale, ids, LORA_LAYER)
+    torch.cuda.synchronize()
+    assert L.fused_lane_delta.launches - before == 1
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert row_rel_err(got, want, got.shape[-1]) <= LORA_TOL
+    base = (ids == 0).nonzero().flatten()
+    assert torch.equal(got[base], torch.zeros_like(got[base]))  # exact zeros, not small
+
+
+@requires_cuda
+def test_cuda_lora_delta_refuses_noncontiguous_x_and_counts_no_empty_launch(cuda_device):
+    c = dict(LORA_CASES[0])
+    x, a_pool, b_pool, scale, ids = lora_inputs(c, torch.Generator(device=cuda_device)
+                                                .manual_seed(1), cuda_device)
+    xt = torch.cat([x, x], dim=-1)[..., ::2]  # the same values, every other element
+    with pytest.raises(ValueError, match="contiguous"):
+        L.fused_lane_delta(xt, a_pool, b_pool, scale, ids, 0)
+    before = L.fused_lane_delta.launches
+    assert L.fused_lane_delta(x[:, :0], a_pool, b_pool, scale, ids, 0).shape == (8, 0, 2048)
+    assert L.fused_lane_delta.launches == before
+
+
+@requires_cuda
+def test_cuda_lane_executor_launches_the_delta_only_for_tenant_dispatches(cuda_device, tmp_path):
+    """A base session's prefill and decode on a registry executor launch no
+    lane delta; a tenant's prefill launches one per layer and covered
+    projection, and the decode windows it joins launch for every lane."""
+    import dataclasses
+
+    from inferd_tpu_torch.config import TINY
+    from inferd_tpu_torch.models import qwen3
+    from inferd_tpu_torch.parallel.stages import StageSpec
+    from inferd_tpu_torch.runtime.adapters import AdapterRegistry
+    from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor
+
+    cfg = dataclasses.replace(TINY, head_dim=64)  # a head size the flash kernel takes
+    g = np.random.default_rng(0)
+    dims = {"q_proj": (cfg.hidden_size, cfg.q_dim), "o_proj": (cfg.q_dim, cfg.hidden_size)}
+    layers = {t: (g.normal(0, 0.3, (cfg.num_layers, din, 4)).astype(np.float32),
+                  g.normal(0, 0.3, (cfg.num_layers, 4, dout)).astype(np.float32))
+              for t, (din, dout) in dims.items()}
+    L.save_adapter(str(tmp_path / "ten"), layers, alpha=8, r=4)
+    params = qwen3.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    reg = AdapterRegistry(cfg, [str(tmp_path / "ten")], device=cuda_device)
+    ex = BatchedStageExecutor(cfg, StageSpec(0, 1, 0, cfg.num_layers - 1), params, lanes=2,
+                              max_len=64, adapters=reg)
+    prompt = [3, 17, 42, 9, 5]
+    before = L.fused_lane_delta.launches
+    base = ex.process("b", {"tokens": [prompt], "start_pos": 0, "real_len": 5})["logits"]
+    ex.process("b", {"tokens": [[int(base.argmax())]], "start_pos": 5, "real_len": 1})
+    assert L.fused_lane_delta.launches == before
+    ten = ex.process("t", {"tokens": [prompt], "start_pos": 0, "real_len": 5,
+                           "adapter": "ten"})["logits"]
+    assert L.fused_lane_delta.launches - before == 2 * cfg.num_layers
+    assert not torch.equal(ten, base)
+    out = ex.process_batch([("b", {"tokens": [[1]], "start_pos": 6, "real_len": 1}),
+                            ("t", {"tokens": [[2]], "start_pos": 5, "real_len": 1})])
+    assert not any(isinstance(o, Exception) for o in out), out
+    assert L.fused_lane_delta.launches - before == 4 * cfg.num_layers
