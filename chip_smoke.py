@@ -12,7 +12,9 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               and feature cases; the per-row error against a stated
               tolerance, beside the readings of planted faults that it must
               catch; kernel / plain / library (or yardstick) times from CUDA
-              events, and the bound for the work. flash_gqa's cases, then
+              events, and the bound for the work. flash_gqa's cases (each
+              asserts the route flash_plan picks moved its launch counter:
+              split-KV or tensor cores; timed with inputs cold in L2), then
               paged_decode_gqa's
   qmatmul     the same for the decode GEMVs (w8a16_matmul, w4a16_matvec
               under both int4 schemes) at Qwen3-0.6B's projection and head
@@ -26,7 +28,9 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               --device cuda processes on loopback, drive 4 greedy requests
               one after another through the port's ChainClient, and check:
               every request completes; each node's flash_gqa launches = 14 x
-              its forward passes; the streams equal the same two stage
+              its forward passes, of which 14 x its decode passes took the
+              split-KV route and 14 x its prefill passes the tensor cores; the
+              streams equal the same two stage
               executors driven in-process; over teacher-forced prefill and
               decode steps the kernel path's hidden states and logits are
               near the plain attention path's, and planted attention faults
@@ -35,7 +39,8 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               processes; 8 ChainClient sessions run CONCURRENTLY, greedy.
               Checks: every stream completes; per node, paged_decode_gqa
               launches = 14 x its decode dispatches, flash_gqa launches = 14 x
-              its prefill dispatches, and the mean co-batch is above 1; the
+              its prefill dispatches (all on the tensor cores), and the mean
+              co-batch is above 1; the
               streams equal two in-process lane executors' over the same
               parts; teacher-forced, the kernel path stays near the plain
               attention path on the paged and on the dense lane layout, and
@@ -117,7 +122,7 @@ L2_FLUSH_BYTES = 128 << 20  # read before each cold timed call: > 2x the H100's 
 # limit sits between the sound kernel's readings and those of planted
 # faults (FAULTS), which every run measures beside it (PERF.md has both).
 ATTN_TOL = {"bfloat16": 0.05, "float32": 1e-4}
-TILE = 64  # the kernel's kv-tile width (kBlockK in csrc/flash_gqa.cu)
+TILE = 64  # the planted fault's skipped kv block (the tensor-core route's tile, kMmaTile)
 # Planted faults: the kernel run on inputs that reproduce what a wrong
 # kernel would compute. A case lists under `blind` the faults that cannot
 # change its answer beyond bf16 noise, with the reason beside the case.
@@ -143,8 +148,31 @@ CASES: List[Dict[str, Any]] = [
     dict(name="ragged_b4", b=4, s=16, t=256, q_start=[0, 50, 100, 200],
          kv_len=[16, 0, 116, 216], stream=False),
     dict(name="f32", s=64, t=256, q_start=100, kv_len=164, dtype="float32", stream=False),
+    # the route boundary: 8 positions x 2 heads = 16 packed rows is the
+    # split-KV route's row tile; 9 positions (18 rows) take the tensor cores
+    dict(name="route_rows_16", s=8, t=1024, q_start=700, kv_len=708, stream=False),
+    dict(name="route_rows_18", s=9, t=1024, q_start=700, kv_len=709, stream=False),
+    # decode over many splits: sinks fold once, after the splits merge (this
+    # and the next two decode cases are blind to causal_off_by_one as above:
+    # each row's kv_len already ends at its query)
+    dict(name="decode_sinks_split", s=1, t=4096, q_start=4095, kv_len=4096, sinks=True,
+         stream=False, blind=("causal_off_by_one",)),
+    # the window floor (slot 2000) falls inside a split
+    dict(name="decode_window_split", s=1, t=4096, q_start=2999, kv_len=3000, window=1000,
+         stream=False, blind=("causal_off_by_one",)),
+    # a dense-lane decode step: per-lane spans from device meta, one lane empty
+    dict(name="dense_lanes_decode_b8_T4096", b=8, s=1, t=4096,
+         q_start=[16, 0, 229, 700, 999, 2047, 3099, 3999],
+         kv_len=[17, 0, 230, 701, 1000, 2048, 3100, 4000], stream=False,
+         blind=("causal_off_by_one",)),
+    # the lanes' real prefill dispatch: 256 positions over the gathered T 1024
+    # view, spans from device meta
+    dict(name="lanes_chunk_256_T1024", s=256, t=1024, q_start=[444], kv_len=[700], stream=False),
+    # the one-session path's first 512-token chunk in its T 1024 buffer
+    dict(name="session_chunk_512_T1024", s=512, t=1024, q_start=0, kv_len=512, stream=False),
 ]
 MAIN_CASE = "main_decode_T1024"  # the serve phase's decode step: T = 1024 bucket
+LANES_CHUNK_CASE = "lanes_chunk_256_T1024"  # a lane node's prefill dispatch (tensor cores)
 
 PROMPT_LENS = (16, 100, 300, 700)
 NEW_TOKENS = 32
@@ -431,8 +459,15 @@ def run_kernel_cases() -> List[Dict[str, Any]]:
         def plain():
             return A.flash_gqa_reference(q, k, v, q_start, kv_len, **kw)
 
-        got, ref = kernel(), plain()
+        plan = A.flash_plan(b, c["s"], c["t"], nq, nkv, dt, q_start, kv_len, c.get("window"))
+        counts = (A.flash_gqa.split_launches, A.flash_gqa.mma_launches)
+        got = kernel()
+        moved = {"split": A.flash_gqa.split_launches - counts[0],
+                 "mma": A.flash_gqa.mma_launches - counts[1]}
+        ref = plain()
         torch.cuda.synchronize()
+        if moved != {r: int(r == plan.route) for r in moved}:
+            raise AssertionError(f"{c['name']}: route counts moved {moved}, plan {plan.route}")
         if not bool(torch.isfinite(got.float()).all()):
             raise AssertionError(f"{c['name']}: kernel output is not finite")
         err = (got.float() - ref.float()).abs().max().item()
@@ -467,14 +502,15 @@ def run_kernel_cases() -> List[Dict[str, Any]]:
                 mask &= kpos > qpos - c["window"]
             mask = mask[:, None]
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask, scale=c.get("scale")))
-        ms = time_ms(kernel)
-        plain_ms = time_ms(plain, iters=10)
+                qh, kh, vh, attn_mask=mask, scale=c.get("scale")), cold=True)
+        ms = time_ms(kernel, cold=True)
+        plain_ms = time_ms(plain, iters=10, cold=True)
         w = work_of(c, nq, nkv, d)
         peak = PEAK_FLOPS["float32" if dt == torch.float32 else "bfloat16"]
         t_bytes, t_ops = w["bytes"] / HBM_BYTES_PER_S, w["flops"] / peak
         row = {
             "case": c["name"], "stream": c["stream"], "B": b, "S": c["s"], "T": c["t"],
+            "route": plan.route, "splits": plan.splits, "ctas": plan.splits * plan.row_tiles * b * nkv,
             "dtype": str(dt).replace("torch.", "") + ("/fp8-kv" if c.get("fp8") else ""),
             "max_abs_err": err, "row_err": rel, "tol": tol, "faults": faults,
             "blind": list(c.get("blind", ())), "ms": ms, "plain_ms": plain_ms,
@@ -1120,6 +1156,12 @@ def planted_attention_fault(fault: str):
         A._launch = launch
 
 
+def flash_routes(stats: Dict[str, Any]) -> Dict[str, int]:
+    """A node's flash_gqa launches by route, from its /stats."""
+    fl = stats["kernels"]["flash_gqa"]
+    return {"split": fl["split_launches"], "mma": fl["mma_launches"]}
+
+
 def split_parts(work: str) -> str:
     """Qwen3-0.6B at full width from a seeded random init, split into two
     14-layer stage files by tools/split_model; returns the parts directory."""
@@ -1298,8 +1340,10 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
 
         # every forward pass of a prompt chunk pads to its bucket; decode is 1 row
         rows = [bucket_len(len(p[c:c + 512])) for p in prompts for c in range(0, len(p), 512)]
-        rows += [1] * (len(prompts) * (NEW_TOKENS - 1))
+        decode_passes = len(prompts) * (NEW_TOKENS - 1)
+        rows += [1] * decode_passes
         expected_passes = len(rows)
+        route_launches = {"split": 0, "mma": 0}
         small = sum(r <= MAX_KERNEL_ROWS for r in rows)
         launches = dict.fromkeys(after[0]["kernels"], 0)
         for a_ in after:
@@ -1315,11 +1359,21 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
                        f"{a_['quantized_bytes']} parameter bytes): {passes} forward passes "
                        f"({small} of at most {MAX_KERNEL_ROWS} rows); launches {kern} "
                        f"(want {want}: {kern == want})")
-            if passes != expected_passes or kern != want or kern["flash_gqa"] == 0:
+            # decode steps take the split-KV route, prompt chunks the tensor cores
+            routes = flash_routes(a_)
+            want_routes = {"split": layers * decode_passes,
+                           "mma": layers * (expected_passes - decode_passes)}
+            say(phase, f"node stage {a_['stage']}: flash_gqa routes {routes} (want "
+                       f"{want_routes}: {routes == want_routes})")
+            if (passes != expected_passes or kern != want or kern["flash_gqa"] == 0
+                    or routes != want_routes):
                 raise AssertionError(f"stage {a_['stage']}: {passes} passes (want "
-                                     f"{expected_passes}), launches {kern} (want {want})")
+                                     f"{expected_passes}), launches {kern} (want {want}), "
+                                     f"flash_gqa routes {routes} (want {want_routes})")
             for name, v in kern.items():
                 launches[name] += v
+            for r, v in routes.items():
+                route_launches[r] += v
         stop_nodes(nodes)
         nodes = []
 
@@ -1374,7 +1428,8 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
                                      f"logits {l_f}")
         del kernel_ex, probe, plain_probe, loaded
         torch.cuda.empty_cache()
-        return {"launches": launches, "passes": expected_passes, "rates": rates}
+        return {"launches": launches, "flash_routes": route_launches, "passes": expected_passes,
+                "rates": rates}
     except BaseException:
         stop_nodes(nodes, show_logs=True)
         nodes = []
@@ -1685,6 +1740,7 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
         small_prefill = sum(bucket_len(n) <= MAX_KERNEL_ROWS for n in pieces)
         want_decode_tokens = len(prompts) * (NEW_TOKENS - 1)
         launches = dict.fromkeys(after[0]["kernels"], 0)
+        route_launches = {"split": 0, "mma": 0}
         mean_batches = []
         for st in after:
             ex = st["executor"]
@@ -1706,15 +1762,23 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
                        f"{ex['prefill_steps']} prefill dispatches ({small_prefill} of at most "
                        f"{MAX_KERNEL_ROWS} rows); launches {kern} (want {want}: {kern == want}); "
                        f"blocks {ex['paged']['blocks_used']} used after the run")
+            routes = flash_routes(st)  # prefill chunks only, on the tensor cores
+            want_routes = {"split": 0, "mma": layers * ex["prefill_steps"]}
+            say(phase, f"node stage {st['stage']}: flash_gqa routes {routes} (want "
+                       f"{want_routes}: {routes == want_routes})")
             if (kern != want or kern["paged_decode_gqa"] == 0 or toks != want_decode_tokens
-                    or ex["prefill_steps"] != want_prefill or not mean > 1.0 or st["errors"]):
+                    or ex["prefill_steps"] != want_prefill or not mean > 1.0 or st["errors"]
+                    or routes != want_routes):
                 raise AssertionError(
-                    f"stage {st['stage']}: launches {kern} (want {want}), {steps} decode "
+                    f"stage {st['stage']}: launches {kern} (want {want}), flash_gqa routes "
+                    f"{routes} (want {want_routes}), {steps} decode "
                     f"dispatches for {toks} steps (want {want_decode_tokens}), "
                     f"{ex['prefill_steps']} prefill dispatches (want {want_prefill}), "
                     f"mean co-batch {mean}, {st['errors']} errors")
             for name, v in kern.items():
                 launches[name] += v
+            for r, v in routes.items():
+                route_launches[r] += v
         stop_nodes(nodes)
         nodes = []
 
@@ -1737,8 +1801,9 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
                    f"(sessions one at a time), token for token ({len(prompts)} x "
                    f"{NEW_TOKENS} tokens)")
 
-        out = {"launches": launches, "mean_batch": mean_batches, "rates": rates,
-               "tokens_per_s": total / wall, "prompts": prompts, "streams": streams}
+        out = {"launches": launches, "flash_routes": route_launches, "mean_batch": mean_batches,
+               "rates": rates, "tokens_per_s": total / wall, "prompts": prompts,
+               "streams": streams}
         if quant_flag is not None:
             out["paged_e2e"] = check_teacher_forced(phase, "paged lanes", cfg, loaded, PAGED_BS,
                                                     prompts, streams, QUANT_E2E_FAULTS, gemv=True)
@@ -1883,6 +1948,7 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
         want_tenant_prefill = len(pieces([i for i, nm in enumerate(names) if nm]))
         want_decode_tokens = len(prompts) * (NEW_TOKENS - 1)
         launches = dict.fromkeys(after[0]["kernels"], 0)
+        route_launches = {"split": 0, "mma": 0}
         mean_batches = []
         for st in after:
             ex = st["executor"]
@@ -1901,7 +1967,12 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
                        f"{baseline['mean_batch'][st['stage']]:.3f}), {ex['prefill_steps']} prefill "
                        f"dispatches ({a_pre} of tenant sessions); launches {kern} (want {want}: "
                        f"{kern == want}); registry {ex['adapters']}")
+            routes = flash_routes(st)
+            want_routes = {"split": 0, "mma": layers * ex["prefill_steps"]}
+            say(phase, f"node stage {st['stage']}: flash_gqa routes {routes} (want "
+                       f"{want_routes}: {routes == want_routes})")
             if (kern != want or kern["fused_lane_delta"] == 0 or a_pre != want_tenant_prefill
+                    or routes != want_routes
                     or not 0 < a_dec <= steps or toks != want_decode_tokens
                     or ex["prefill_steps"] != want_prefill or ex["adapters"]["loads"] != 3
                     or st["errors"]):
@@ -1910,9 +1981,12 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
                     f"dispatches (want {want_tenant_prefill}), {a_dec} of {steps} decode "
                     f"dispatches with a tenant, {toks} steps (want {want_decode_tokens}), "
                     f"{ex['prefill_steps']} prefill dispatches (want {want_prefill}), registry "
-                    f"{ex['adapters']} (want 3 loads), {st['errors']} errors")
+                    f"{ex['adapters']} (want 3 loads), {st['errors']} errors, flash_gqa "
+                    f"routes {routes} (want {want_routes})")
             for name, v in kern.items():
                 launches[name] += v
+            for r, v in routes.items():
+                route_launches[r] += v
         stop_nodes(nodes)
         nodes = []
 
@@ -1938,7 +2012,8 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
         say(phase, "served streams equal the in-process lane executors' with the same "
                    f"registries (sessions one at a time), token for token ({len(prompts)} x "
                    f"{NEW_TOKENS} tokens)")
-        out = {"launches": launches, "mean_batch": mean_batches, "tokens_per_s": total / wall}
+        out = {"launches": launches, "flash_routes": route_launches, "mean_batch": mean_batches,
+               "tokens_per_s": total / wall}
         out["paged_e2e"] = check_teacher_forced(phase, "paged lanes", cfg, loaded, PAGED_BS,
                                                 prompts, streams, LORA_E2E_FAULTS,
                                                 lora=(dirs, names))
@@ -1952,6 +2027,28 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
 
 
 # -- main -----------------------------------------------------------------------
+
+
+def ptxas_report(log: str) -> List[str]:
+    """One line per kernel of nvcc's -Xptxas -v log: its (demangled, where
+    c++filt is found) name, registers, static shared memory and spills."""
+    import re
+
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            if shutil.which("c++filt"):
+                name = subprocess.run(["c++filt", name], capture_output=True, text=True
+                                      ).stdout.strip() or name
+            name = re.sub(r"\(.*$", "", name.replace("(anonymous namespace)::", ""))
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and name:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
 
 
 def main() -> int:
@@ -1981,10 +2078,10 @@ def main() -> int:
     with ThreadPoolExecutor(len(build.KERNELS)) as pool:  # one nvcc per source, all at once
         infos = dict(zip(build.KERNELS, pool.map(build.build, build.KERNELS)))
     for name, info in infos.items():
-        regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
+        regs = ptxas_report(info["log"])
         say("build", f"{name}: {os.path.relpath(info['path'], REPO)} "
                      f"({'built' if info['built'] else 'cached'} in {info['seconds']:.1f}s); "
-                     f"ptxas ({len(regs) // 2} kernels): {regs}")
+                     f"ptxas ({len(regs)} kernels): {regs}")
 
     cases = run_kernel_cases()
     paged_cases = run_paged_cases()
@@ -2043,6 +2140,9 @@ def main() -> int:
     main_case = next(c for c in cases if c["case"] == MAIN_CASE)
     paged_main = next(c for c in paged_cases if c["case"] == PAGED_MAIN_CASE)
     flash_launches, paged_launches = by_path("flash_gqa"), by_path("paged_decode_gqa")
+    flash_routes_all = {r: sum(res["flash_routes"][r] for res in paths.values())
+                        for r in ("split", "mma")}
+    lanes_chunk = next(c for c in cases if c["case"] == LANES_CHUNK_CASE)
     kernels = {"kernels": [dict({
         "name": "flash_gqa",
         "route": "cuda",
@@ -2053,7 +2153,11 @@ def main() -> int:
         "launches_by_path": flash_launches,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_row_err": max(c["row_err"] for c in cases if c["dtype"].startswith("bfloat16")),
-    }, **timed(main_case), shape=f"{MAIN_CASE}: B 1, S 1, T 1024, Nq 16, Nkv 8, D 128, bf16"),
+        "launches_by_route": flash_routes_all,
+    }, **timed(main_case), route=main_case["route"],
+        shape=f"{MAIN_CASE}: B 1, S 1, T 1024, Nq 16, Nkv 8, D 128, bf16",
+        **{LANES_CHUNK_CASE: dict(timed(lanes_chunk), route=lanes_chunk["route"],
+                                  shape="B 1, S 256, T 1024, kv_len 700 (device meta), bf16")}),
         dict({
             "name": "paged_decode_gqa",
             "route": "cuda",

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -34,7 +34,8 @@ NEG_INF = -1e30  # finite: exp(-inf - -inf) would be NaN
 Scalar = Union[int, torch.Tensor]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
-_MAX_GRID_YZ = 65535  # CUDA's limit on grid.y (Nkv) and grid.z (B)
+_MAX_GRID_YZ = 65535  # CUDA's limit on grid.y and grid.z
+_ROUTE_CODES = {"split": 0, "mma": 1}  # Route in csrc/flash_gqa.cu
 
 
 def apply_softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -212,12 +213,85 @@ def flash_gqa_reference(
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, nq * d).to(q.dtype)
 
 
+# -- the flash kernels' launch plan --------------------------------------------
+
+# Constants shared with csrc/flash_gqa.cu
+SPLIT_ROWS = 16  # packed rows G*S a split-KV CTA holds at most (its largest row tile)
+SPLIT_TILE = 32  # kv slots per tile on the split-KV route (kSplitTile)
+MMA_ROWS = 64  # packed rows per tensor-core CTA (kMmaRows)
+MMA_TILE = 64  # kv slots per tile on the tensor-core route (kMmaTile)
+# Enough CTAs to fill the H100's 132 SMs in one wave (two split-KV CTAs fit
+# an SM, one tensor-core CTA of 8 warps and 153 KB of shared memory), never
+# more from splitting (a launch with more groups keeps one split each), and
+# at most MAX_SPLITS partials per row for the combine kernel. A split spans
+# at least MIN_SPLIT_TILES tiles, so a short span is not cut into CTAs that
+# each read almost nothing, nor a chunk into partials that cost more than
+# they save.
+TARGET_CTAS = {"split": 2 * 132, "mma": 132}
+MAX_SPLITS = 64
+MIN_SPLIT_TILES = {"split": 2, "mma": 16}
+
+
+class FlashPlan(NamedTuple):
+    """How one flash_gqa call is launched. Split z covers the kv tiles
+    [tile_lo + z * tiles_per_split, min(tile_lo + (z+1) * tiles_per_split,
+    tile_hi)), each tile `tile` slots; a CTA reads only what its rows can
+    attend of its split's tiles. The grid is (row_tiles, splits, B * Nkv)."""
+
+    route: str  # "split" (CUDA cores, split-KV) or "mma" (tensor cores)
+    rows: int  # packed query rows (i * G + g) per CTA
+    row_tiles: int
+    tile: int
+    tile_lo: int
+    tile_hi: int
+    splits: int
+    tiles_per_split: int
+
+
+def flash_plan(b: int, s: int, t: int, nq: int, nkv: int, dtype: torch.dtype,
+               q_start: Scalar, kv_len: Scalar, window: Optional[Scalar] = None,
+               kv_start: Scalar = 0) -> FlashPlan:
+    """The route and the KV split of a flash_gqa launch, from what the host
+    knows. With host ints (the one-session path) the split covers the real
+    span, the window floor of the first query to the causal frontier of the
+    last; with device tensors (lanes, the paged prefill) it covers the whole
+    buffer and CTAs past a row's frontier write an empty partial.
+
+    The route: bf16 queries with more packed rows per kv head (G*S) than
+    the split-KV route's row tile take the tensor cores; everything else,
+    and every f32 call (TF32 would break f32's accuracy), splits KV."""
+    g = nq // nkv
+    route = "mma" if dtype == torch.bfloat16 and s * g > SPLIT_ROWS else "split"
+    if route == "mma":
+        rows, tile = MMA_ROWS, MMA_TILE
+    else:
+        rows = max(2, min(SPLIT_ROWS, 1 << max(s * g - 1, 0).bit_length()))
+        tile = SPLIT_TILE
+    row_tiles = -(-s * g // rows)
+    win = 0 if window is None else window
+    if all(isinstance(x, int) for x in (q_start, kv_len, kv_start, win)):
+        last = min(kv_len, t, q_start + s - kv_start)  # past the last query's frontier
+        floor = max(q_start - win + 1 - kv_start, 0) if win > 0 else 0
+        lo = floor // tile
+        hi = -(-last // tile) if last > floor else lo
+    else:
+        lo, hi = 0, -(-t // tile)
+    span = hi - lo
+    if span <= 0:
+        return FlashPlan(route, rows, row_tiles, tile, lo, lo, 1, 0)
+    groups = b * nkv * row_tiles
+    want = max(1, min(TARGET_CTAS[route] // groups, MAX_SPLITS))
+    tps = max(MIN_SPLIT_TILES[route], -(-span // want))
+    return FlashPlan(route, rows, row_tiles, tile, lo, hi, -(-span // tps), tps)
+
+
 def _kernel_lib() -> ctypes.CDLL:
     lib = build.load("flash_gqa")
     fn = lib.flash_gqa_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, f, f, i, i, p]
+        ll = ctypes.c_longlong
+        fn.argtypes = [p] * 11 + [i] * 10 + [ll] * 4 + [f, f] + [i] * 8 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -239,13 +313,15 @@ def flash_gqa(
     """Flash GQA attention over a (possibly oversized) KV buffer; returns
     [B, S, Nq*D] in q.dtype.
 
-    CUDA tensors launch the kernel of csrc/flash_gqa.cu (which replaces both
-    Pallas kernels of the JAX package); CPU tensors run
-    flash_gqa_reference. `stream` keeps the JAX signature: on the TPU it
-    picked the VMEM-resident or the streaming kernel, here both values
-    launch the one kernel, which streams K/V tiles through shared memory.
-    The Pallas-only `block_q`/`block_k`/`interpret` knobs have no
-    counterpart. Each kernel launch adds one to `flash_gqa.launches`."""
+    CUDA tensors launch the kernels of csrc/flash_gqa.cu (which replace both
+    Pallas kernels of the JAX package) on the route `flash_plan` picks: the
+    split-KV kernel (and its combine) or the tensor-core kernel; CPU tensors
+    run flash_gqa_reference. `stream` keeps the JAX signature: on the TPU it
+    picked the VMEM-resident or the streaming kernel; here both stream K/V
+    through shared memory and it changes nothing. The Pallas-only
+    `block_q`/`block_k`/`interpret` knobs have no counterpart. Each call
+    that launches adds one to `flash_gqa.launches` and one to its route's
+    count, `flash_gqa.split_launches` or `flash_gqa.mma_launches`."""
     if q.device.type == "cpu":
         return flash_gqa_reference(
             q, k, v, q_start, kv_len, kv_start, stream=stream, scale=scale,
@@ -253,15 +329,22 @@ def flash_gqa(
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_gqa: unsupported device {q.device}")
-    out = _launch(q, k, v, q_start, kv_len, kv_start, scale, softcap, window, sinks)
+    out, route = _launch(q, k, v, q_start, kv_len, kv_start, scale, softcap, window, sinks)
     flash_gqa.launches += 1
+    if route == "mma":
+        flash_gqa.mma_launches += 1
+    else:
+        flash_gqa.split_launches += 1
     return out
 
 
 flash_gqa.launches = 0
+flash_gqa.split_launches = 0
+flash_gqa.mma_launches = 0
 
 
 def _launch(q, k, v, q_start, kv_len, kv_start, scale, softcap, window, sinks):
+    """Validate, plan and launch; returns (out, route)."""
     dev = q.device
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"flash_gqa: want 4-d q/k/v, got {q.shape} {k.shape} {v.shape}")
@@ -279,43 +362,64 @@ def _launch(q, k, v, q_start, kv_len, kv_start, scale, softcap, window, sinks):
         raise ValueError(f"flash_gqa kernel: head_dim {d} not in (64, 128)")
     if nkv == 0 or nq % nkv or nq // nkv > 32:
         raise ValueError(f"flash_gqa kernel: Nq {nq} / Nkv {nkv} groups not supported")
-    if b > _MAX_GRID_YZ or nkv > _MAX_GRID_YZ:
-        raise ValueError(f"flash_gqa kernel: B {b} or Nkv {nkv} over the grid limit")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous():
             raise ValueError(f"flash_gqa kernel: {name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_gqa kernel: {name} must be 16-byte aligned")
+    plan = flash_plan(b, s, t, nq, nkv, q.dtype, q_start, kv_len, window, kv_start)
+    if b * nkv > _MAX_GRID_YZ:
+        raise ValueError(f"flash_gqa kernel: B*Nkv {b * nkv} over the grid limit")
     out = torch.empty((b, s, nq * d), dtype=q.dtype, device=dev)
     if b == 0 or s == 0:
-        return out
+        return out, plan.route
     sink_t = None
     if sinks is not None:
         if sinks.shape != (nq,):
             raise ValueError(f"flash_gqa: sinks shape {tuple(sinks.shape)} != ({nq},)")
         sink_t = sinks.to(device=dev, dtype=torch.float32).contiguous()
-    win = 0 if window is None else window
-    scalars = (q_start, kv_start, kv_len, win)
-    meta = None
-    if all(isinstance(x, int) for x in scalars):
-        qs0, ks0, kl0, w0 = (int(x) for x in scalars)
-    else:
-        meta = torch.stack([_per_batch(x, b, dev) for x in scalars], dim=1)
-        meta = meta.to(torch.int32).contiguous()
-        qs0 = ks0 = kl0 = w0 = 0
+    # each span field a host int, or an int64 column the kernel reads in
+    # place (no copy kernels: a decode step's positions are used as they are)
+    scalars, columns, strides = [], [], []
+    for name, x in (("q_start", q_start), ("kv_start", kv_start), ("kv_len", kv_len),
+                    ("window", 0 if window is None else window)):
+        if isinstance(x, int):
+            scalars.append(x)
+            columns.append(None)
+            strides.append(0)
+            continue
+        col = torch.as_tensor(x, device=dev)
+        if col.dtype != torch.int64:
+            col = col.to(torch.int64)
+        if col.ndim > 1 or (col.ndim == 1 and col.shape[0] != b):
+            raise ValueError(f"flash_gqa: {name} of shape {tuple(col.shape)} for B {b}")
+        scalars.append(0)
+        columns.append(col)
+        strides.append(col.stride(0) if col.ndim else 0)
+    part_acc = part_ml = None
+    if plan.splits > 1:  # scratch for the partials, merged by the combine kernel
+        n = b * nkv * plan.row_tiles * plan.splits * plan.rows
+        part_acc = torch.empty(n * d, dtype=torch.float32, device=dev)
+        part_ml = torch.empty(n * 2, dtype=torch.float32, device=dev)
     eff_scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         rc = lib.flash_gqa_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if meta is None else meta.data_ptr(),
+            *(None if c is None else c.data_ptr() for c in columns),
             None if sink_t is None else sink_t.data_ptr(),
-            b, s, t, nq, nkv, d, qs0, ks0, kl0, w0,
+            None if part_acc is None else part_acc.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            b, s, t, nq, nkv, d, *scalars, *strides,
             eff_scale, float(softcap),
             _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype],
+            _ROUTE_CODES[plan.route], plan.rows, plan.row_tiles, plan.tile_lo, plan.splits,
+            plan.tiles_per_split,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_gqa kernel launch failed: cudaError_t {rc}")
-    return out
+    return out, plan.route
 
 
 # -- paged decode attention ----------------------------------------------------

@@ -297,7 +297,9 @@ class ChainNode:
         with lock:
             executor = self.executor.stats()
             kernels = {
-                "flash_gqa": {"launches": attention_ops.flash_gqa.launches},
+                "flash_gqa": {"launches": attention_ops.flash_gqa.launches,
+                              "split_launches": attention_ops.flash_gqa.split_launches,
+                              "mma_launches": attention_ops.flash_gqa.mma_launches},
                 "paged_decode_gqa": {"launches": attention_ops.paged_decode_gqa.launches},
                 "w8a16_matmul": {"launches": qmatmul.w8a16_matmul.launches},
                 "w4a16_matvec": {"launches": qmatmul.w4a16_matvec.launches},

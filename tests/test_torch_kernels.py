@@ -129,17 +129,39 @@ def test_kernel_path_rejects_what_the_kernel_does_not_take(kw, err):
 
 
 CUDA_CASES = {
-    # (b, s, t, nq, nkv, d, q_start, kv_len, kv_start, extra)
-    "prefill": (1, 64, 64, 16, 8, 128, 0, 64, 0, {}),
-    "chunk_over_buffer": (1, 40, 256, 16, 8, 128, 100, 140, 0, {}),
-    "decode": (1, 1, 300, 16, 8, 128, 250, 251, 0, {}),
-    "per_batch_meta": (3, 4, 32, 8, 2, 64, [0, 8, 20], [4, 0, 24], [0, 0, 0], {}),
-    "kv_start_window_softcap": (2, 16, 96, 8, 2, 64, 120, 80, 50, {"window": 24, "softcap": 30.0}),
-    "sinks_stream": (1, 8, 128, 16, 8, 128, 100, 108, 0, {"sinks": True, "stream": True}),
-    "group8": (1, 5, 64, 16, 2, 128, 30, 35, 0, {}),
-    "f32": (2, 9, 64, 8, 4, 64, 10, 19, 0, {"dtype": torch.float32}),
-    "fp8_kv_f32_q": (1, 8, 64, 8, 4, 64, 20, 28, 0, {"dtype": torch.float32, "fp8": True}),
-    "fp8_kv_bf16_q": (1, 8, 64, 8, 4, 128, 20, 28, 0, {"fp8": True}),
+    # (b, s, t, nq, nkv, d, q_start, kv_len, kv_start, extra); extra["route"]
+    # is the route (flash_plan's rule: bf16 with G*S > 16 rows takes the
+    # tensor cores) whose counter the call must move
+    "prefill": (1, 64, 64, 16, 8, 128, 0, 64, 0, {"route": "mma"}),
+    "chunk_over_buffer": (1, 40, 256, 16, 8, 128, 100, 140, 0, {"route": "mma"}),
+    "decode": (1, 1, 300, 16, 8, 128, 250, 251, 0, {"route": "split", "splits": True}),
+    "per_batch_meta": (3, 4, 32, 8, 2, 64, [0, 8, 20], [4, 0, 24], [0, 0, 0], {"route": "split"}),
+    "kv_start_window_softcap": (2, 16, 96, 8, 2, 64, 120, 80, 50,
+                                {"window": 24, "softcap": 30.0, "route": "mma"}),
+    "sinks_stream": (1, 8, 128, 16, 8, 128, 100, 108, 0,
+                     {"sinks": True, "stream": True, "route": "split", "splits": True}),
+    "group8": (1, 5, 64, 16, 2, 128, 30, 35, 0, {"route": "mma"}),
+    "f32": (2, 9, 64, 8, 4, 64, 10, 19, 0, {"dtype": torch.float32, "route": "split"}),
+    "fp8_kv_f32_q": (1, 8, 64, 8, 4, 64, 20, 28, 0,
+                     {"dtype": torch.float32, "fp8": True, "route": "split"}),
+    "fp8_kv_bf16_q": (1, 8, 64, 8, 4, 128, 20, 28, 0, {"fp8": True, "route": "split"}),
+    # the route boundary: 16 packed rows split, 18 take the tensor cores
+    "route_rows_16": (1, 8, 1024, 16, 8, 128, 700, 708, 0, {"route": "split", "splits": True}),
+    "route_rows_18": (1, 9, 1024, 16, 8, 128, 700, 709, 0, {"route": "mma"}),
+    # many splits: sinks fold once, after the merge; a window floor inside a split
+    "decode_sinks_split": (1, 1, 4096, 16, 8, 128, 4095, 4096, 0,
+                           {"sinks": True, "route": "split", "splits": True}),
+    "decode_window_split": (1, 1, 4096, 16, 8, 128, 2999, 3000, 0,
+                            {"window": 1000, "route": "split", "splits": True}),
+    "mma_sinks_split": (1, 32, 4096, 16, 8, 128, 4064, 4096, 0,
+                        {"sinks": True, "route": "mma", "splits": True}),
+    # device meta: dense-lane decode with an empty lane; the lanes' chunk
+    "dense_lanes_decode": (8, 1, 4096, 16, 8, 128, [16, 0, 229, 700, 999, 2047, 3099, 3999],
+                           [17, 0, 230, 701, 1000, 2048, 3100, 4000], [0] * 8,
+                           {"route": "split", "splits": True}),
+    "lanes_chunk_meta": (1, 256, 1024, 16, 8, 128, [444], [700], [0], {"route": "mma"}),
+    "fp8_kv_mma_ragged_t": (2, 24, 200, 16, 8, 128, [150, 0], [174, 24], [0, 0],
+                            {"fp8": True, "route": "mma"}),
 }
 
 
@@ -157,11 +179,16 @@ def test_cuda_kernel_matches_plain(cuda_device, name):
 
     kw = dict(stream=ex.get("stream"), softcap=ex.get("softcap", 0.0), window=ex.get("window"),
               sinks=torch.randn(nq, device=cuda_device) if ex.get("sinks") else None)
-    before = A.flash_gqa.launches
+    plan = A.flash_plan(b, s, t, nq, nkv, dt, arg(q_start), arg(kv_len), ex.get("window"),
+                        arg(kv_start))
+    assert plan.route == ex["route"] and (plan.splits > 1) == bool(ex.get("splits"))
+    before = (A.flash_gqa.launches, A.flash_gqa.split_launches, A.flash_gqa.mma_launches)
     got = A.flash_gqa(q, k, v, arg(q_start), arg(kv_len), arg(kv_start), **kw)
     want = A.flash_gqa_reference(q, k, v, arg(q_start), arg(kv_len), arg(kv_start), **kw)
     torch.cuda.synchronize()
-    assert A.flash_gqa.launches == before + 1
+    split, mma = ex["route"] == "split", ex["route"] == "mma"
+    assert (A.flash_gqa.launches, A.flash_gqa.split_launches, A.flash_gqa.mma_launches) == (
+        before[0] + 1, before[1] + split, before[2] + mma)
     assert got.dtype == dt and got.device.type == "cuda"
     tol = ATTN_TOL["float32" if dt == torch.float32 else "bfloat16"]
     assert row_rel_err(got, want, d) <= tol
