@@ -22,7 +22,13 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               timed with every input cold in L2; the library call is
               torch._weight_int8pack_mm / torch._weight_int4pack_mm on the
               same quantized weight, and a yardstick torch.matmul against
-              the dequantized bf16 weight
+              the dequantized bf16 weight. Each case asserts the route
+              counter that ops.qmatmul.qgemv_plan names (mma or simt) and
+              that two calls give the same bits; planted faults include a
+              cluster rank's partial dropped or added twice. Then one line
+              per kernel with a stage step's sums at 1 and 8 rows (14
+              layers x the seven projections) beside the yardstick's and
+              the library call's
   serve       split Qwen3-0.6B (seeded random weights, full width, 28 layers)
               into 2 stages with tools/split_model, start two tools/run_node
               --device cuda processes on loopback, drive 4 greedy requests
@@ -50,8 +56,9 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               processes: streams equal in-process quantized executors'; the
               GEMV kernels' launches exact on both nodes (7 per layer on
               every pass of at most 64 rows, plus the head on the last
-              stage); teacher-forced, the kernel path near the plain-GEMV
-              path and planted GEMV faults not; TTFT and tok/s beside serve's
+              stage), per route as qgemv_plan routes each; teacher-forced,
+              the kernel path near the plain-GEMV path and planted GEMV
+              faults not; TTFT and tok/s beside serve's
   serve_lanes_quant
               the serve_lanes traffic on --quant int8 lane nodes (every
               decode GEMV at 8 rows), with the same checks on the paged
@@ -233,14 +240,20 @@ LANE_E2E_FAULTS = ("table_shifted", "last_block_skipped")
 # both schemes. Planted faults, each what a wrong kernel would compute:
 # the scale of the neighbouring column, the nibbles of each byte swapped
 # (packed int4 only), the weight bytes zero-extended instead of sign-
-# extended, the last K chunk (QMM_CHUNK_K values) skipped, the last column
-# tile (QMM_BLOCK_N columns) skipped, the group index one too high (int4
-# with more than one group). A fault that cannot apply to a case reads
-# null.
+# extended, the last ring stage of the last rank (the plan's stage_k
+# values) skipped, the last column tile (the plan's block_n columns)
+# skipped, the group index one too high (int4 with more than one group),
+# and in the cluster's reduction rank 1's partial dropped or the last
+# rank's partial added twice (split K only). The stage, tile and ranks come
+# from ops.qmatmul.qgemv_plan, so each fault is one a kernel of this design
+# could make. A fault that cannot apply to a case reads null.
 QMM_TOL = ATTN_TOL
-QMM_CHUNK_K, QMM_BLOCK_N = 256, 64  # kChunkK and kBlockN in csrc/qmatmul.cu
 QMM_FAULTS = ("scale_neighbour_column", "nibbles_swapped", "zero_extended",
-              "last_k_chunk_skipped", "n_tail_skipped", "group_off_by_one")
+              "last_k_chunk_skipped", "n_tail_skipped", "group_off_by_one",
+              "rank_dropped", "rank_doubled")
+# a stage step of one Qwen3-0.6B stage: 14 layers x the seven projections
+QMM_STAGE_LAYERS = 14
+QMM_PER_LAYER = {"q_proj": 1, "k_v_proj": 2, "o_proj": 1, "gate_up_proj": 2, "down_proj": 1}
 QMM_SHAPES = {  # Qwen3-0.6B, hidden 1024, q 2048, kv 1024, intermediate 3072
     "q_proj": (1024, 2048), "k_v_proj": (1024, 1024), "o_proj": (2048, 1024),
     "gate_up_proj": (1024, 3072), "down_proj": (3072, 1024), "lm_head_q": (1024, 151936),
@@ -699,17 +712,43 @@ def qmm_plain(kernel: str, x, q8, q4):
     return Q.w4a16_matvec_reference(x, q4, kernel.split("_")[1])
 
 
-def qmm_fault_inputs(fault: str, x, scale, k: int):
+def qmm_plan(kernel: str, x, q8, q4):
+    """ops.qmatmul.qgemv_plan of the case's launch."""
+    from inferd_tpu_torch.ops import qmatmul as Q
+
+    if kernel == "w8a16":
+        return Q.qgemv_plan(x.shape[0], x.shape[1], q8.q.shape[1], 1, "int8", "grouped", x.dtype)
+    k, n = q4.shape
+    return Q.qgemv_plan(x.shape[0], k, n, q4.scale.shape[0], "int4" if q4.packed else "int4_bytes",
+                        kernel.split("_")[1], x.dtype)
+
+
+QMM_INPUT_FAULTS = ("scale_neighbour_column", "last_k_chunk_skipped", "rank_dropped",
+                    "rank_doubled")
+
+
+def qmm_fault_inputs(fault: str, x, scale, k: int, plan):
     """(x, scale) on which the sound kernel computes what a kernel with
-    `fault` computes, for the faults that live in the inputs: the scale of
-    the neighbouring column, the last K chunk skipped."""
+    `fault` computes, for the faults that live in the inputs (under the
+    launch's plan): the scale of the neighbouring column, the last stage of
+    the last rank skipped, a rank's partial dropped or added twice (x zero
+    or doubled over that rank's K range: exact). None where the plan has no
+    such rank (one rank: no reduction)."""
     if fault == "scale_neighbour_column":
         return x, scale.roll(1, dims=-1).contiguous()
+    ranges = plan.rank_ranges(k)
     if fault == "last_k_chunk_skipped":
-        x = x.clone()
-        x[:, (k - 1) // QMM_CHUNK_K * QMM_CHUNK_K:] = 0
-        return x, scale
-    raise ValueError(f"unknown fault {fault}")
+        lo, hi = ranges[-1]
+        lo = plan.stage_starts(lo, hi)[-1]
+    elif fault in ("rank_dropped", "rank_doubled"):
+        if plan.cluster == 1:
+            return None
+        lo, hi = ranges[1] if fault == "rank_dropped" else ranges[-1]
+    else:
+        raise ValueError(f"unknown fault {fault}")
+    x = x.clone()
+    x[:, lo:hi] *= 2 if fault == "rank_doubled" else 0
+    return x, scale
 
 
 def qmm_fault(fault: str, kernel: str, x, q8, q4):
@@ -721,8 +760,12 @@ def qmm_fault(fault: str, kernel: str, x, q8, q4):
 
     int4 = kernel != "w8a16"
     k = x.shape[1]
-    if fault in ("scale_neighbour_column", "last_k_chunk_skipped"):
-        xf, sf = qmm_fault_inputs(fault, x, q4.scale if int4 else q8.scale, k)
+    plan = qmm_plan(kernel, x, q8, q4)
+    if fault in QMM_INPUT_FAULTS:
+        inputs = qmm_fault_inputs(fault, x, q4.scale if int4 else q8.scale, k, plan)
+        if inputs is None:
+            return None
+        xf, sf = inputs
         if int4:
             return qmm_call(kernel, xf, q8, dataclasses.replace(q4, scale=sf))
         return qmm_call(kernel, xf, quant.QuantWeight(q8.q, sf), q4)
@@ -742,7 +785,7 @@ def qmm_fault(fault: str, kernel: str, x, q8, q4):
         return qmm_plain(kernel, x, q8, quant.Int4Weight(vals.float(), q4.scale, packed=False))
     if fault == "n_tail_skipped":
         out = qmm_call(kernel, x, q8, q4).clone()
-        out[:, (out.shape[1] - 1) // QMM_BLOCK_N * QMM_BLOCK_N:] = 0
+        out[:, (out.shape[1] - 1) // plan.block_n * plan.block_n:] = 0
         return out
     if fault == "group_off_by_one":
         if not int4 or q4.scale.shape[0] < 2:
@@ -794,6 +837,30 @@ def qmm_work(m: int, k: int, n: int, x_item: int, q_bytes: int, groups: int) -> 
             "flops": 2.0 * m * k * n}
 
 
+def qmm_wrapper(kernel: str):
+    from inferd_tpu_torch.ops import qmatmul as Q
+
+    return Q.w8a16_matmul if kernel == "w8a16" else Q.w4a16_matvec
+
+
+def qmm_stage_sums(rows: List[Dict[str, Any]], kernel: str, m: int) -> Dict[str, Any]:
+    """Device ms of one stage step's GEMVs at m rows (QMM_STAGE_LAYERS x the
+    seven projections, k_v and gate_up twice) by the kernel, the bf16
+    yardstick and the library call, summed from the cases; None where a
+    case has no time."""
+    by = {r["case"]: r for r in rows if r["kernel"] == kernel}
+
+    def total(key):
+        vals = [by[f"{s}_m{m}"][key] for s in QMM_PER_LAYER]
+        if any(v is None for v in vals):
+            return None
+        return QMM_STAGE_LAYERS * sum(n * v for n, v in zip(QMM_PER_LAYER.values(), vals))
+
+    return {"kernel": kernel, "M": m, "ms": total("ms"),
+            "dequant_matmul_yardstick_ms": total("dequant_matmul_yardstick_ms"),
+            "library_ms": total("library_ms"), "bound_ms": total("bound_ms")}
+
+
 def run_qmm_cases() -> List[Dict[str, Any]]:
     import torch
 
@@ -813,9 +880,19 @@ def run_qmm_cases() -> List[Dict[str, Any]]:
         x = torch.randn((c["m"], k), generator=gen, device=dev).to(dt)
         tol = QMM_TOL["float32" if dt == torch.float32 else "bfloat16"]
         for kernel in QMM_KERNELS:
+            plan = qmm_plan(kernel, x, q8, q4)
+            wrapper = qmm_wrapper(kernel)
+            before = {r: getattr(wrapper, f"{r}_launches") for r in ("mma", "simt")}
             got, ref = qmm_call(kernel, x, q8, q4), qmm_plain(kernel, x, q8, q4)
+            again = qmm_call(kernel, x, q8, q4)
             torch.cuda.synchronize()
             name = f"{c['name']}/{kernel}"
+            moved = {r: getattr(wrapper, f"{r}_launches") - v for r, v in before.items()}
+            if moved != {r: 2 if r == plan.route else 0 for r in moved}:
+                raise AssertionError(f"{name}: route counters moved {moved}, want 2 on "
+                                     f"{plan.route} ({plan})")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two calls on the same inputs differ")
             if not bool(torch.isfinite(got.float()).all()):
                 raise AssertionError(f"{name}: kernel output is not finite")
             err = (got.float() - ref.float()).abs().max().item()
@@ -847,6 +924,9 @@ def run_qmm_cases() -> List[Dict[str, Any]]:
             t_ops = w_["flops"] / PEAK_FLOPS["float32" if dt == torch.float32 else "bfloat16"]
             row = {
                 "case": c["name"], "kernel": kernel, "M": c["m"], "K": k, "N": n,
+                "route": plan.route, "cluster": plan.cluster, "k_per_rank": plan.k_per_rank,
+                "stage_k": plan.stage_k, "depth": plan.depth, "ctas": plan.ctas,
+                "bitwise_repeat": True,
                 "dtype": str(dt).replace("torch.", ""),
                 "int4_layout": None if kernel == "w8a16" else ("packed" if q4.packed else "bytes"),
                 "max_abs_err": err, "row_err": rel, "tol": tol, "faults": faults,
@@ -865,6 +945,9 @@ def run_qmm_cases() -> List[Dict[str, Any]]:
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError("qmatmul cases failed:\n  " + "\n  ".join(failures))
+    for kernel in QMM_KERNELS:
+        for m in (1, 8):
+            say("qmatmul", "stage step " + json.dumps(qmm_stage_sums(results, kernel, m)))
     return results
 
 
@@ -1202,9 +1285,10 @@ def planted_gemv_fault(fault: str):
 
     launch = Q._launch
 
-    def faulty(x, q, scale, k, *rest):
-        x, scale = qmm_fault_inputs(fault, x, scale, k)
-        return launch(x, q, scale, k, *rest)
+    def faulty(x, q, scale, k, n, kind, groups, scheme, name):
+        plan = Q.qgemv_plan(x.shape[0], k, n, groups, kind, scheme, x.dtype)
+        x, scale = qmm_fault_inputs(fault, x, scale, k, plan)
+        return launch(x, q, scale, k, n, kind, groups, scheme, name)
 
     Q._launch = faulty
     try:
@@ -1254,6 +1338,48 @@ def gemv_launches(layers: int, last: bool, small_dispatches: int, dispatches: in
     dispatch of at most MAX_KERNEL_ROWS rows, and on the last stage one for
     the head on every dispatch (its logits are one row per lane)."""
     return GEMVS_PER_LAYER * layers * small_dispatches + (dispatches if last else 0)
+
+
+def gemv_projections(cfg) -> List[tuple]:
+    """[K, N] of the seven per-layer projections, and the head's [K, N]."""
+    h, q, kv = cfg.hidden_size, cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    i = cfg.intermediate_size
+    return [(h, q), (h, kv), (h, kv), (q, h), (h, i), (h, i), (i, h)], (h, cfg.vocab_size)
+
+
+def gemv_route_launches(cfg, quant_flag, layers: int, last: bool, small_rows: List[int],
+                        head_rows: List[int]) -> Dict[str, int]:
+    """Launches per route (qgemv_plan's) of --quant quant_flag's GEMV wrapper
+    on one stage: the seven projections of each layer on every dispatch
+    whose row count is in small_rows (those of at most MAX_KERNEL_ROWS), and
+    on the last stage the head on every dispatch (head_rows: its rows per
+    dispatch), each weight quantized as the node quantizes it."""
+    import torch
+
+    from inferd_tpu_torch.ops import qmatmul as Q
+    from inferd_tpu_torch.ops import quant
+
+    def route(m, k, n):
+        if quant_flag == "int8":
+            return Q.qgemv_plan(m, k, n, 1, "int8", "grouped", torch.bfloat16).route
+        return Q.qgemv_plan(m, k, n, k // quant._group_size(k, 128),
+                            "int4" if k % 2 == 0 else "int4_bytes", quant.INT4_MODE,
+                            torch.bfloat16).route
+
+    counts = {"mma": 0, "simt": 0}
+    projections, head = gemv_projections(cfg)
+    for m in small_rows:
+        for k, n in projections:
+            counts[route(m, k, n)] += layers
+    for m in head_rows if last else ():
+        counts[route(m, *head)] += 1
+    return counts
+
+
+def gemv_routes(stats: Dict[str, Any]) -> Dict[str, Dict[str, int]]:
+    """A node's GEMV launches by wrapper and route, from its /stats."""
+    return {name: {r: stats["kernels"][name][f"{r}_launches"] for r in ("mma", "simt")}
+            for name in ("w8a16_matmul", "w4a16_matvec")}
 
 
 def quantize_loaded(loaded, quant_flag):
@@ -1346,6 +1472,7 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
         route_launches = {"split": 0, "mma": 0}
         small = sum(r <= MAX_KERNEL_ROWS for r in rows)
         launches = dict.fromkeys(after[0]["kernels"], 0)
+        gemv_total = {name: {"mma": 0, "simt": 0} for name in QMM_KERNEL_OF.values()}
         for a_ in after:
             passes = a_["forward_passes"]
             kern = {name: k["launches"] for name, k in a_["kernels"].items()}
@@ -1365,11 +1492,24 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
                            "mma": layers * (expected_passes - decode_passes)}
             say(phase, f"node stage {a_['stage']}: flash_gqa routes {routes} (want "
                        f"{want_routes}: {routes == want_routes})")
+            # the GEMVs by route: every dispatch of at most 64 rows, the head on 1 row
+            g_routes = gemv_routes(a_)
+            want_g = {name: {"mma": 0, "simt": 0} for name in g_routes}
+            if quant_flag is not None:
+                want_g[QMM_KERNEL_OF[quant_flag]] = gemv_route_launches(
+                    cfg, quant_flag, layers, last, [r for r in rows if r <= MAX_KERNEL_ROWS],
+                    [1] * passes)
+                say(phase, f"node stage {a_['stage']}: GEMV routes {g_routes} (want {want_g}: "
+                           f"{g_routes == want_g})")
             if (passes != expected_passes or kern != want or kern["flash_gqa"] == 0
-                    or routes != want_routes):
+                    or routes != want_routes or g_routes != want_g):
                 raise AssertionError(f"stage {a_['stage']}: {passes} passes (want "
                                      f"{expected_passes}), launches {kern} (want {want}), "
-                                     f"flash_gqa routes {routes} (want {want_routes})")
+                                     f"flash_gqa routes {routes} (want {want_routes}), "
+                                     f"GEMV routes {g_routes} (want {want_g})")
+            for name, per in g_routes.items():
+                for r, v in per.items():
+                    gemv_total[name][r] += v
             for name, v in kern.items():
                 launches[name] += v
             for r, v in routes.items():
@@ -1428,7 +1568,8 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
                                      f"logits {l_f}")
         del kernel_ex, probe, plain_probe, loaded
         torch.cuda.empty_cache()
-        return {"launches": launches, "flash_routes": route_launches, "passes": expected_passes,
+        return {"launches": launches, "flash_routes": route_launches, "gemv_routes": gemv_total,
+                "passes": expected_passes,
                 "rates": rates}
     except BaseException:
         stop_nodes(nodes, show_logs=True)
@@ -1741,6 +1882,7 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
         want_decode_tokens = len(prompts) * (NEW_TOKENS - 1)
         launches = dict.fromkeys(after[0]["kernels"], 0)
         route_launches = {"split": 0, "mma": 0}
+        gemv_total = {name: {"mma": 0, "simt": 0} for name in QMM_KERNEL_OF.values()}
         mean_batches = []
         for st in after:
             ex = st["executor"]
@@ -1766,12 +1908,28 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
             want_routes = {"split": 0, "mma": layers * ex["prefill_steps"]}
             say(phase, f"node stage {st['stage']}: flash_gqa routes {routes} (want "
                        f"{want_routes}: {routes == want_routes})")
+            # the GEMVs by route: decode at LANES rows (the head too), prefill
+            # pieces at their bucket (the head on their last row)
+            g_routes = gemv_routes(st)
+            want_g = {name: {"mma": 0, "simt": 0} for name in g_routes}
+            if quant_flag is not None:
+                want_g[QMM_KERNEL_OF[quant_flag]] = gemv_route_launches(
+                    cfg, quant_flag, layers, last,
+                    [LANES] * steps + [bucket_len(n) for n in pieces
+                                       if bucket_len(n) <= MAX_KERNEL_ROWS],
+                    [LANES] * steps + [1] * ex["prefill_steps"])
+                say(phase, f"node stage {st['stage']}: GEMV routes {g_routes} (want {want_g}: "
+                           f"{g_routes == want_g})")
+            for name, per in g_routes.items():
+                for r, v in per.items():
+                    gemv_total[name][r] += v
             if (kern != want or kern["paged_decode_gqa"] == 0 or toks != want_decode_tokens
                     or ex["prefill_steps"] != want_prefill or not mean > 1.0 or st["errors"]
-                    or routes != want_routes):
+                    or routes != want_routes or g_routes != want_g):
                 raise AssertionError(
                     f"stage {st['stage']}: launches {kern} (want {want}), flash_gqa routes "
-                    f"{routes} (want {want_routes}), {steps} decode "
+                    f"{routes} (want {want_routes}), GEMV routes {g_routes} (want {want_g}), "
+                    f"{steps} decode "
                     f"dispatches for {toks} steps (want {want_decode_tokens}), "
                     f"{ex['prefill_steps']} prefill dispatches (want {want_prefill}), "
                     f"mean co-batch {mean}, {st['errors']} errors")
@@ -1801,7 +1959,8 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
                    f"(sessions one at a time), token for token ({len(prompts)} x "
                    f"{NEW_TOKENS} tokens)")
 
-        out = {"launches": launches, "flash_routes": route_launches, "mean_batch": mean_batches,
+        out = {"launches": launches, "flash_routes": route_launches, "gemv_routes": gemv_total,
+               "mean_batch": mean_batches,
                "rates": rates, "tokens_per_s": total / wall, "prompts": prompts,
                "streams": streams}
         if quant_flag is not None:
@@ -2012,7 +2171,10 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
         say(phase, "served streams equal the in-process lane executors' with the same "
                    f"registries (sessions one at a time), token for token ({len(prompts)} x "
                    f"{NEW_TOKENS} tokens)")
-        out = {"launches": launches, "flash_routes": route_launches, "mean_batch": mean_batches,
+        gemv_total = {name: {r: sum(gemv_routes(st)[name][r] for st in after)
+                             for r in ("mma", "simt")} for name in QMM_KERNEL_OF.values()}
+        out = {"launches": launches, "flash_routes": route_launches, "gemv_routes": gemv_total,
+               "mean_batch": mean_batches,
                "tokens_per_s": total / wall}
         out["paged_e2e"] = check_teacher_forced(phase, "paged lanes", cfg, loaded, PAGED_BS,
                                                 prompts, streams, LORA_E2E_FAULTS,
@@ -2113,7 +2275,8 @@ def main() -> int:
     def qmm_timed(row):
         return dict(timed(row), library_call=row["library_call"],
                     library_note=row["library_note"],
-                    dequant_matmul_yardstick_ms=row["dequant_matmul_yardstick_ms"])
+                    dequant_matmul_yardstick_ms=row["dequant_matmul_yardstick_ms"],
+                    plan={k: row[k] for k in ("route", "cluster", "k_per_rank", "ctas")})
 
     def qmm_entry(name, kernel, replaces):
         rows = [r for r in qmm_cases if r["kernel"] == kernel]
@@ -2129,6 +2292,9 @@ def main() -> int:
         }, **qmm_timed(main_row), **{
             "shape": f"{QMM_MAIN_CASE}: M 1, K 1024, N 151936 (the tied head), bf16, {kernel}",
             QMM_LANE_CASE: dict(qmm_timed(lane_row), shape="M 8, K 1024, N 3072, bf16"),
+            "launches_by_route": {r: sum(res["gemv_routes"][name][r] for res in paths.values())
+                                  for r in ("mma", "simt")},
+            "stage_step": [qmm_stage_sums(qmm_cases, kernel, m) for m in (1, 8)],
         })
 
     def lora_timed(row):

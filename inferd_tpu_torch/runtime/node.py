@@ -301,8 +301,12 @@ class ChainNode:
                               "split_launches": attention_ops.flash_gqa.split_launches,
                               "mma_launches": attention_ops.flash_gqa.mma_launches},
                 "paged_decode_gqa": {"launches": attention_ops.paged_decode_gqa.launches},
-                "w8a16_matmul": {"launches": qmatmul.w8a16_matmul.launches},
-                "w4a16_matvec": {"launches": qmatmul.w4a16_matvec.launches},
+                "w8a16_matmul": {"launches": qmatmul.w8a16_matmul.launches,
+                                 "mma_launches": qmatmul.w8a16_matmul.mma_launches,
+                                 "simt_launches": qmatmul.w8a16_matmul.simt_launches},
+                "w4a16_matvec": {"launches": qmatmul.w4a16_matvec.launches,
+                                 "mma_launches": qmatmul.w4a16_matvec.mma_launches,
+                                 "simt_launches": qmatmul.w4a16_matvec.simt_launches},
                 "fused_lane_delta": {"launches": lora.fused_lane_delta.launches},
             }
         with self._stats_lock:

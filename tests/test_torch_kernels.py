@@ -396,6 +396,53 @@ def test_cuda_gemv_kernels_match_plain(cuda_device, name, kernel):
     assert row_rel_err(got, want, n) <= QMM_TOL["float32" if dt == torch.float32 else "bfloat16"]
 
 
+GEMV_ROUTE_CASES = {
+    # name: (M, K, N, dtype): the mma route's four row capacities past 8,
+    # a K split whose last rank is short, odd K and f32 on the simt route
+    "m9": (9, 1024, 1024, torch.bfloat16),
+    "m33": (33, 2048, 1024, torch.bfloat16),
+    "m64_head_slice": (64, 1024, 4096, torch.bfloat16),
+    "ragged_last_rank_k1040": (8, 1040, 1024, torch.bfloat16),
+    "odd_k1023_m33": (33, 1023, 1024, torch.bfloat16),
+    "f32_m64": (64, 1024, 1024, torch.float32),
+    "f32_m1": (1, 3072, 1024, torch.float32),
+    # the 128-column tile of a wide unsplit weight, its last tile ragged
+    "wide_m12": (12, 1024, 16448, torch.bfloat16),
+    "wide_f32_m8": (8, 512, 16448, torch.float32),
+}
+
+
+@requires_cuda
+@pytest.mark.parametrize("kernel", ["w8a16", "w4a16_grouped", "w4a16_dequant"])
+@pytest.mark.parametrize("name", sorted(GEMV_ROUTE_CASES))
+def test_cuda_gemv_routes_splits_and_repeats(cuda_device, name, kernel):
+    """Each call moves the counter of the route qgemv_plan names, matches
+    the plain version, and gives the same bits twice."""
+    m, k, n, dt = GEMV_ROUTE_CASES[name]
+    x, q8, q4 = _qmm_case(9, m, k, n, device=cuda_device, dtype=dt)
+    if kernel == "w8a16":
+        wrapper, plan = Q.w8a16_matmul, Q.qgemv_plan(m, k, n, 1, "int8", "grouped", dt)
+        call = lambda: Q.w8a16_matmul(x, q8.q, q8.scale)  # noqa: E731
+        want = Q.w8a16_matmul_reference(x, q8.q, q8.scale)
+    else:
+        scheme = kernel.split("_")[1]
+        wrapper = Q.w4a16_matvec
+        plan = Q.qgemv_plan(m, k, n, q4.scale.shape[0], "int4" if q4.packed else "int4_bytes",
+                            scheme, dt)
+        call = lambda: Q.w4a16_matvec(x, q4, scheme)  # noqa: E731
+        want = Q.w4a16_matvec_reference(x, q4, scheme)
+    before = {r: getattr(wrapper, f"{r}_launches") for r in ("mma", "simt")}
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    moved = {r: getattr(wrapper, f"{r}_launches") - v for r, v in before.items()}
+    assert moved == {r: 2 if r == plan.route else 0 for r in moved}
+    if name == "ragged_last_rank_k1040" and kernel == "w8a16":
+        lo, hi = plan.rank_ranges(k)[-1]
+        assert plan.cluster > 1 and 0 < hi - lo < plan.k_per_rank
+    assert torch.equal(got, again)
+    assert row_rel_err(got, want, n) <= QMM_TOL["float32" if dt == torch.float32 else "bfloat16"]
+
+
 @requires_cuda
 @pytest.mark.parametrize("bits", [8, 4])
 def test_cuda_qdot_launches_the_kernel_up_to_64_rows(cuda_device, bits):
@@ -428,8 +475,8 @@ def test_gemv_empty_products_reach_no_kernel(m, n, monkeypatch):
     x, q8, q4 = _qmm_case(7, m, 64, max(n, 2))
     q8 = quant.QuantWeight(q8.q[:, :n].contiguous(), q8.scale[:n].contiguous())
     q4 = quant.Int4Weight(q4.q[:, :n].contiguous(), q4.scale[:, :n].contiguous(), q4.packed)
-    assert Q._launch_w8a16(x, q8.q, q8.scale).shape == (m, n)
-    assert Q._launch_w4a16(x, q4, "grouped").shape == (m, n)
+    for out, plan in (Q._launch_w8a16(x, q8.q, q8.scale), Q._launch_w4a16(x, q4, "grouped")):
+        assert out.shape == (m, n) and plan is None  # no plan: nothing launched
 
 
 @requires_cuda
