@@ -14,8 +14,11 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               catch; kernel / plain / library (or yardstick) times from CUDA
               events, and the bound for the work. flash_gqa's cases (each
               asserts the route flash_plan picks moved its launch counter:
-              split-KV or tensor cores; timed with inputs cold in L2), then
-              paged_decode_gqa's
+              split-KV or tensor cores), then paged_decode_gqa's (each
+              asserts its launch and split counters moved as
+              ops.attention.paged_plan cuts the chain, and prints the plan),
+              all timed with inputs cold in L2; every kernel case checks
+              that two calls give the same bits
   qmatmul     the same for the decode GEMVs (w8a16_matmul, w4a16_matvec
               under both int4 schemes) at Qwen3-0.6B's projection and head
               shapes at 1, 8 and 64 rows, plus f32, ragged-N and odd-K cases,
@@ -44,9 +47,11 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
   serve_lanes the same parts behind two run_node --stage-lanes 8 --paged-kv 32
               processes; 8 ChainClient sessions run CONCURRENTLY, greedy.
               Checks: every stream completes; per node, paged_decode_gqa
-              launches = 14 x its decode dispatches, flash_gqa launches = 14 x
-              its prefill dispatches (all on the tensor cores), and the mean
-              co-batch is above 1; the
+              launches = 14 x its decode dispatches, of which split ones =
+              14 x the dispatches whose table width (/stats
+              executor.decode_widths) paged_plan splits, flash_gqa launches =
+              14 x its prefill dispatches (all on the tensor cores), and the
+              mean co-batch is above 1; the
               streams equal two in-process lane executors' over the same
               parts; teacher-forced, the kernel path stays near the plain
               attention path on the paged and on the dense lane layout, and
@@ -68,8 +73,13 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               decode (8 lanes on slots 1,2,3,0,1,2,3,0) at ranks 16 and 64,
               prefill (1 lane, S 256 and 1000) on gate and down, f32, ranks
               1 and 33, and every lane on the base slot (exact zeros); five
-              planted faults every case; timed with inputs cold in L2 beside
-              a gather + torch.bmm yardstick and the bound
+              planted faults every case; each line prints ops.lora.lora_plan;
+              timed with inputs cold in L2 beside a gather + torch.bmm
+              yardstick and the bound. Then the y= mode (the residual add in
+              the epilogue) at decode and prefill, bf16: bit-identical to
+              (y.float() + delta).to(y.dtype), in place too, base lanes equal
+              to y, one launch; timed in place beside the four-launch
+              sequence it replaces
   serve_lanes_lora
               three synthetic peft tenants at full width (written from a
               seed by ops.lora.save_adapter) behind two --stage-lanes 8
@@ -81,14 +91,16 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               path near the plain-delta path and planted delta faults not;
               base lanes of mixed windows bit-identical to an executor
               without a registry; exact launch counts (98 per dispatch that
-              carries a tenant lane, none for all-base dispatches); 3 loads
-              per node
+              carries a tenant lane, none for all-base dispatches; paged split
+              launches as in serve_lanes); 3 loads per node
 
 Then one JSON line listing every kernel, the nvidia-smi line, and last:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Run from the root of a checkout: python3 chip_smoke.py
 Exits non-zero without a CUDA device, and outside a checkout.
+`--only paged,lora` (any of flash, paged, qmm, lora) builds the kernels and
+runs those case phases alone, with no serve phase and no result lines.
 """
 
 from __future__ import annotations
@@ -218,6 +230,8 @@ PAGED_CASES: List[Dict[str, Any]] = [
     dict(name="paged_sinks", kv_len=[230, 701], sinks=True, nb=64),
     dict(name="paged_fp8", kv_len=[230, 701], fp8=True, nb=64),
     dict(name="paged_f32", kv_len=[230, 701], dtype="float32", nb=64),
+    # one long session among short ones: the imbalance a split chain removes
+    dict(name="paged_b8_one_long", kv_len=[4096, 17, 60, 101, 150, 230, 260, 300], nb=200),
 ]
 PAGED_MAIN_CASE = "paged_main_b8_bs32"
 
@@ -310,6 +324,16 @@ LORA_CASES: List[Dict[str, Any]] = (
             blind=LORA_FAULTS[1:])]
 )
 LORA_MAIN_CASE, LORA_PREFILL_CASE = "decode_gate_proj_r16", "prefill_s256_gate_proj_r16"
+# The y= mode (the residual add in the kernel's epilogue) at decode and at
+# prefill, bf16: its output must equal the unfused (y.float() + delta).to(y.dtype)
+# bit for bit, base lanes must equal y exactly, and it is held to the plain
+# version's sum by the bf16 row rule (ATTN_TOL, its output being bf16); timed
+# in place beside the four-launch sequence it replaces (delta, cast, add, cast).
+LORA_Y_CASES: List[Dict[str, Any]] = [
+    dict(name="y_decode_gate_proj_r16", target="gate_proj", r=16, s=1, ids=LORA_DECODE_IDS),
+    dict(name="y_prefill_s256_gate_proj_r16", target="gate_proj", r=16, s=256, ids=[1]),
+]
+LORA_Y_MAIN_CASE = "y_decode_gate_proj_r16"
 # serve_lanes_lora: three tenants over all 28 layers, (name, rank, targets),
 # bound round-robin with the base model to the serve_lanes sessions
 LORA_TENANTS = (("t0", 16, ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
@@ -477,12 +501,14 @@ def run_kernel_cases() -> List[Dict[str, Any]]:
         got = kernel()
         moved = {"split": A.flash_gqa.split_launches - counts[0],
                  "mma": A.flash_gqa.mma_launches - counts[1]}
-        ref = plain()
+        again, ref = kernel(), plain()
         torch.cuda.synchronize()
         if moved != {r: int(r == plan.route) for r in moved}:
             raise AssertionError(f"{c['name']}: route counts moved {moved}, plan {plan.route}")
         if not bool(torch.isfinite(got.float()).all()):
             raise AssertionError(f"{c['name']}: kernel output is not finite")
+        if not torch.equal(got, again):
+            failures.append(f"{c['name']}: two calls gave different bits")
         err = (got.float() - ref.float()).abs().max().item()
         rel = row_rel_err(got, ref, d)
         tol = ATTN_TOL["float32" if dt == torch.float32 else "bfloat16"]
@@ -630,10 +656,19 @@ def run_paged_cases() -> List[Dict[str, Any]]:
         def plain():
             return A.paged_decode_gqa_reference(q, k_pool, v_pool, table, qpos, kl, **kw)
 
-        got, ref = kernel(), plain()
+        plan = A.paged_plan(len(c["kv_len"]), nkv, table.shape[1], PAGED_BS, dt)
+        counts = (A.paged_decode_gqa.launches, A.paged_decode_gqa.split_launches)
+        got = kernel()
+        moved = (A.paged_decode_gqa.launches - counts[0],
+                 A.paged_decode_gqa.split_launches - counts[1])
+        again, ref = kernel(), plain()
         torch.cuda.synchronize()
+        if moved != (1, int(plan.splits > 1)):
+            raise AssertionError(f"{c['name']}: launch counts moved {moved}, plan {plan}")
         if not bool(torch.isfinite(got.float()).all()):
             raise AssertionError(f"{c['name']}: kernel output is not finite")
+        if not torch.equal(got, again):
+            failures.append(f"{c['name']}: two calls gave different bits")
         err = (got.float() - ref.float()).abs().max().item()
         rel = row_rel_err(got, ref, d)
         tol = ATTN_TOL["float32" if dt == torch.float32 else "bfloat16"]
@@ -665,9 +700,9 @@ def run_paged_cases() -> List[Dict[str, Any]]:
                 return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                       scale=kw["scale"])
 
-            yardstick_ms = time_ms(yardstick)
-        ms = time_ms(kernel)
-        plain_ms = time_ms(plain, iters=10)
+            yardstick_ms = time_ms(yardstick, cold=True)
+        ms = time_ms(kernel, cold=True)
+        plain_ms = time_ms(plain, iters=10, cold=True)
         q_item = 4 if dt == torch.float32 else 2
         w = paged_work(c["kv_len"], c.get("window") or 0, len(c["kv_len"]), nq, nkv, d, q_item,
                        k_pool.element_size())
@@ -675,7 +710,8 @@ def run_paged_cases() -> List[Dict[str, Any]]:
         t_bytes, t_ops = w["bytes"] / HBM_BYTES_PER_S, w["flops"] / peak
         row = {
             "case": c["name"], "B": len(c["kv_len"]), "MB": table.shape[1], "bs": PAGED_BS,
-            "kv_len": c["kv_len"],
+            "kv_len": c["kv_len"], "plan": plan._asdict(),
+            "ctas": plan.splits * nkv * len(c["kv_len"]),
             "dtype": str(dt).replace("torch.", "") + ("/fp8-pools" if c.get("fp8") else ""),
             "max_abs_err": err, "row_err": rel, "tol": tol, "faults": faults,
             "blind": list(c.get("blind", ())), "ms": ms, "plain_ms": plain_ms,
@@ -1025,10 +1061,14 @@ def run_lora_cases() -> List[Dict[str, Any]]:
         def plain():
             return L.fused_lane_delta_reference(x, a_pool, b_pool, scale, ids, layer)
 
-        got, ref = kernel(), plain()
+        plan = L.lora_plan(len(c["ids"]), c["s"], x.shape[-1], dout, c["r"], x.dtype,
+                           a_pool.dtype)
+        got, again, ref = kernel(), kernel(), plain()
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{c['name']}: kernel output is not finite")
+        if not torch.equal(got, again):
+            failures.append(f"{c['name']}: two calls gave different bits")
         err = (got - ref).abs().max().item()
         rel = row_rel_err(got, ref, dout)
         faults = {f: row_rel_err(kernel(lora_fault_inputs(f, x, a_pool, b_pool, scale, ids,
@@ -1058,7 +1098,7 @@ def run_lora_cases() -> List[Dict[str, Any]]:
         row = {
             "case": c["name"], "target": c["target"], "B": len(c["ids"]), "S": c["s"],
             "in": x.shape[-1], "out": dout, "r": c["r"], "ids": c["ids"],
-            "dtype": str(x.dtype).replace("torch.", ""),
+            "dtype": str(x.dtype).replace("torch.", ""), "plan": dataclasses.asdict(plan),
             "max_abs_err": err, "row_err": rel, "tol": LORA_TOL, "faults": faults,
             "blind": list(c.get("blind", ())), "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "gather_bmm_yardstick_ms": yardstick_ms,
@@ -1069,8 +1109,90 @@ def run_lora_cases() -> List[Dict[str, Any]]:
         say("lora", json.dumps(row))
         results.append(row)
         del x, a_pool, b_pool
+    results += run_lora_y_cases(gen, failures)
     if failures:
         raise AssertionError("lora cases failed:\n  " + "\n  ".join(failures))
+    return results
+
+
+def run_lora_y_cases(gen, failures: List[str]) -> List[Dict[str, Any]]:
+    """LORA_Y_CASES: fused_lane_delta(..., y=y) against the unfused add of
+    its own delta (bit for bit) and of the plain version's (row rule)."""
+    import torch
+
+    from inferd_tpu_torch.ops import lora as L
+
+    dev = torch.device(DEVICE)
+    results = []
+    for c in LORA_Y_CASES:
+        x, a_pool, b_pool, scale, ids = lora_inputs(c, gen, dev)
+        layer, dout = LORA_LAYER, b_pool.shape[-1]
+        y = torch.randn((x.shape[0], x.shape[1], dout), generator=gen, device=dev).to(x.dtype)
+
+        def fused(args=(x, a_pool, b_pool, scale, ids, layer), y=y):
+            return L.fused_lane_delta(*args, y=y)
+
+        def unfused():
+            return (y.float() + L.fused_lane_delta(x, a_pool, b_pool, scale, ids, layer)
+                    ).to(y.dtype)
+
+        plan = L.lora_plan(len(c["ids"]), c["s"], x.shape[-1], dout, c["r"], x.dtype,
+                           a_pool.dtype)
+        before = L.fused_lane_delta.launches
+        got = fused()
+        launched = L.fused_lane_delta.launches - before
+        again, sep = fused(), unfused()
+        y_in = y.clone()
+        in_place = L.fused_lane_delta(x, a_pool, b_pool, scale, ids, layer, y=y_in, inplace=True)
+        ref = (y.float() + L.fused_lane_delta_reference(x, a_pool, b_pool, scale, ids, layer)
+               ).to(y.dtype)
+        torch.cuda.synchronize()
+        base = (ids == 0).nonzero().flatten()
+        checks = {
+            "one launch": launched == 1,
+            "equal to the unfused add": torch.equal(got, sep),
+            "the same bits on two calls": torch.equal(got, again),
+            "in place into y": in_place is y_in and torch.equal(y_in, got),
+            "base lanes equal y": torch.equal(got[base], y[base]),
+        }
+        for what, ok in checks.items():
+            if not ok:
+                failures.append(f"{c['name']}: not {what}")
+        tol = ATTN_TOL["bfloat16"]
+        rel = row_rel_err(got, ref, dout)
+        faults = {f: row_rel_err(fused(lora_fault_inputs(f, x, a_pool, b_pool, scale, ids,
+                                                         layer)), ref, dout)
+                  for f in LORA_FAULTS}
+        if not rel <= tol:
+            failures.append(f"{c['name']}: row error {rel} > tol {tol}")
+        for f, reading in faults.items():
+            if not reading > tol:
+                failures.append(f"{c['name']}: planted fault {f} reads {reading} <= tol {tol}")
+        scratch = y.clone()
+        ms = time_ms(lambda: L.fused_lane_delta(x, a_pool, b_pool, scale, ids, layer,
+                                                y=scratch, inplace=True), cold=True)
+        unfused_ms = time_ms(unfused, cold=True)
+        plain_ms = time_ms(lambda: (y.float() + L.fused_lane_delta_reference(
+            x, a_pool, b_pool, scale, ids, layer)).to(y.dtype), iters=10, cold=True)
+        w = lora_work(x, a_pool, b_pool, ids)
+        # y read once and written once in place of the f32 delta's write
+        nbytes = w["bytes"] - 4 * y.numel() + 2 * y.numel() * y.element_size()
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = w["flops"] / PEAK_FLOPS[str(a_pool.dtype).replace("torch.", "")]
+        row = {
+            "case": c["name"], "target": c["target"], "B": len(c["ids"]), "S": c["s"],
+            "in": x.shape[-1], "out": dout, "r": c["r"], "ids": c["ids"],
+            "dtype": str(x.dtype).replace("torch.", ""), "plan": dataclasses.asdict(plan),
+            "checks": {k: bool(v) for k, v in checks.items()},
+            "max_abs_err": (got.float() - ref.float()).abs().max().item(), "row_err": rel,
+            "tol": tol, "faults": faults, "blind": [], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "unfused_ms": unfused_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": w["flops"],
+        }
+        say("lora", json.dumps(row))
+        results.append(row)
     return results
 
 
@@ -1239,6 +1361,24 @@ def planted_attention_fault(fault: str):
         A._launch = launch
 
 
+def paged_splits(phase: str, st: Dict[str, Any], cfg) -> tuple:
+    """(paged_decode_gqa.split_launches of a lane node, the count its decode
+    dispatches want): every dispatch of table width MB launches one paged
+    call per layer, split when ops.attention.paged_plan(LANES, Nkv, MB, ...)
+    cuts the chain."""
+    from inferd_tpu_torch.ops.attention import paged_plan
+
+    layers = st["end_layer"] - st["start_layer"] + 1
+    widths = {int(w): n for w, n in st["executor"]["decode_widths"].items()}
+    plans = {w: paged_plan(LANES, cfg.num_kv_heads, w, PAGED_BS, cfg.torch_dtype).splits
+             for w in widths}
+    want = layers * sum(n for w, n in widths.items() if plans[w] > 1)
+    got = st["kernels"]["paged_decode_gqa"]["split_launches"]
+    say(phase, f"node stage {st['stage']}: decode dispatches by table width {widths}, splits "
+               f"{plans}; paged split launches {got} (want {want}: {got == want})")
+    return got, want
+
+
 def flash_routes(stats: Dict[str, Any]) -> Dict[str, int]:
     """A node's flash_gqa launches by route, from its /stats."""
     fl = stats["kernels"]["flash_gqa"]
@@ -1319,8 +1459,8 @@ def planted_lora_fault(fault: str):
 
     launch = L._launch
 
-    def faulty(*args):
-        return launch(*lora_fault_inputs(fault, *args))
+    def faulty(*args):  # (x, pools, scale, ids, layer) and y, inplace as they come
+        return launch(*lora_fault_inputs(fault, *args[:6]), *args[6:])
 
     L._launch = faulty
     try:
@@ -1884,6 +2024,7 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
         route_launches = {"split": 0, "mma": 0}
         gemv_total = {name: {"mma": 0, "simt": 0} for name in QMM_KERNEL_OF.values()}
         mean_batches = []
+        paged_split = 0
         for st in after:
             ex = st["executor"]
             layers = st["end_layer"] - st["start_layer"] + 1
@@ -1908,6 +2049,8 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
             want_routes = {"split": 0, "mma": layers * ex["prefill_steps"]}
             say(phase, f"node stage {st['stage']}: flash_gqa routes {routes} (want "
                        f"{want_routes}: {routes == want_routes})")
+            split, want_split = paged_splits(phase, st, cfg)
+            paged_split += split
             # the GEMVs by route: decode at LANES rows (the head too), prefill
             # pieces at their bucket (the head on their last row)
             g_routes = gemv_routes(st)
@@ -1925,10 +2068,11 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
                     gemv_total[name][r] += v
             if (kern != want or kern["paged_decode_gqa"] == 0 or toks != want_decode_tokens
                     or ex["prefill_steps"] != want_prefill or not mean > 1.0 or st["errors"]
-                    or routes != want_routes or g_routes != want_g):
+                    or routes != want_routes or g_routes != want_g or split != want_split):
                 raise AssertionError(
                     f"stage {st['stage']}: launches {kern} (want {want}), flash_gqa routes "
                     f"{routes} (want {want_routes}), GEMV routes {g_routes} (want {want_g}), "
+                    f"paged split launches {split} (want {want_split}), "
                     f"{steps} decode "
                     f"dispatches for {toks} steps (want {want_decode_tokens}), "
                     f"{ex['prefill_steps']} prefill dispatches (want {want_prefill}), "
@@ -1960,7 +2104,7 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
                    f"{NEW_TOKENS} tokens)")
 
         out = {"launches": launches, "flash_routes": route_launches, "gemv_routes": gemv_total,
-               "mean_batch": mean_batches,
+               "paged_split": paged_split, "mean_batch": mean_batches,
                "rates": rates, "tokens_per_s": total / wall, "prompts": prompts,
                "streams": streams}
         if quant_flag is not None:
@@ -2109,6 +2253,7 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
         launches = dict.fromkeys(after[0]["kernels"], 0)
         route_launches = {"split": 0, "mma": 0}
         mean_batches = []
+        paged_split = 0
         for st in after:
             ex = st["executor"]
             layers = st["end_layer"] - st["start_layer"] + 1
@@ -2130,8 +2275,10 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
             want_routes = {"split": 0, "mma": layers * ex["prefill_steps"]}
             say(phase, f"node stage {st['stage']}: flash_gqa routes {routes} (want "
                        f"{want_routes}: {routes == want_routes})")
+            split, want_split = paged_splits(phase, st, cfg)
+            paged_split += split
             if (kern != want or kern["fused_lane_delta"] == 0 or a_pre != want_tenant_prefill
-                    or routes != want_routes
+                    or routes != want_routes or split != want_split
                     or not 0 < a_dec <= steps or toks != want_decode_tokens
                     or ex["prefill_steps"] != want_prefill or ex["adapters"]["loads"] != 3
                     or st["errors"]):
@@ -2141,7 +2288,8 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
                     f"dispatches with a tenant, {toks} steps (want {want_decode_tokens}), "
                     f"{ex['prefill_steps']} prefill dispatches (want {want_prefill}), registry "
                     f"{ex['adapters']} (want 3 loads), {st['errors']} errors, flash_gqa "
-                    f"routes {routes} (want {want_routes})")
+                    f"routes {routes} (want {want_routes}), paged split launches {split} "
+                    f"(want {want_split})")
             for name, v in kern.items():
                 launches[name] += v
             for r, v in routes.items():
@@ -2174,7 +2322,7 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
         gemv_total = {name: {r: sum(gemv_routes(st)[name][r] for st in after)
                              for r in ("mma", "simt")} for name in QMM_KERNEL_OF.values()}
         out = {"launches": launches, "flash_routes": route_launches, "gemv_routes": gemv_total,
-               "mean_batch": mean_batches,
+               "paged_split": paged_split, "mean_batch": mean_batches,
                "tokens_per_s": total / wall}
         out["paged_e2e"] = check_teacher_forced(phase, "paged lanes", cfg, loaded, PAGED_BS,
                                                 prompts, streams, LORA_E2E_FAULTS,
@@ -2213,8 +2361,21 @@ def ptxas_report(log: str) -> List[str]:
     return out
 
 
-def main() -> int:
+CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_qmm_cases,
+               "lora": run_lora_cases}
+
+
+def main(argv: List[str]) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Drive the port end to end on one CUDA card.")
+    ap.add_argument("--only", default="", help="comma-separated case phases to run alone "
+                    f"({', '.join(CASE_PHASES)}), after the build; the default runs every phase")
+    only = [x for x in ap.parse_args(argv).only.split(",") if x]
+    if any(x not in CASE_PHASES for x in only):
+        ap.error(f"--only takes {sorted(CASE_PHASES)}, got {only}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device; this script runs on the card only",
@@ -2245,6 +2406,11 @@ def main() -> int:
                      f"({'built' if info['built'] else 'cached'} in {info['seconds']:.1f}s); "
                      f"ptxas ({len(regs)} kernels): {regs}")
 
+    if only:  # a partial run: the named case phases, no serve phases and no result lines
+        for name in only:
+            CASE_PHASES[name]()
+        say("done", f"case phases {only} passed in {time.perf_counter() - t_start:.1f}s")
+        return 0
     cases = run_kernel_cases()
     paged_cases = run_paged_cases()
     qmm_cases = run_qmm_cases()
@@ -2302,28 +2468,39 @@ def main() -> int:
 
     lora_main = next(r for r in lora_cases if r["case"] == LORA_MAIN_CASE)
     lora_prefill = next(r for r in lora_cases if r["case"] == LORA_PREFILL_CASE)
+    lora_y = next(r for r in lora_cases if r["case"] == LORA_Y_MAIN_CASE)
+    lora_delta_rows = [r for r in lora_cases if "checks" not in r]  # f32 deltas, LORA_TOL
     lora_launches = by_path("fused_lane_delta")
     main_case = next(c for c in cases if c["case"] == MAIN_CASE)
     paged_main = next(c for c in paged_cases if c["case"] == PAGED_MAIN_CASE)
-    flash_launches, paged_launches = by_path("flash_gqa"), by_path("paged_decode_gqa")
+    paged_launches = by_path("paged_decode_gqa")
     flash_routes_all = {r: sum(res["flash_routes"][r] for res in paths.values())
                         for r in ("split", "mma")}
     lanes_chunk = next(c for c in cases if c["case"] == LANES_CHUNK_CASE)
-    kernels = {"kernels": [dict({
-        "name": "flash_gqa",
-        "route": "cuda",
-        "source": "inferd_tpu_torch/csrc/flash_gqa.cu",
-        "replaces": "inferd_tpu/ops/attention.py:131",
-        "also_replaces": "inferd_tpu/ops/attention.py:218",
-        "launches": sum(flash_launches.values()),
-        "launches_by_path": flash_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "max_row_err": max(c["row_err"] for c in cases if c["dtype"].startswith("bfloat16")),
-        "launches_by_route": flash_routes_all,
-    }, **timed(main_case), route=main_case["route"],
-        shape=f"{MAIN_CASE}: B 1, S 1, T 1024, Nq 16, Nkv 8, D 128, bf16",
-        **{LANES_CHUNK_CASE: dict(timed(lanes_chunk), route=lanes_chunk["route"],
-                                  shape="B 1, S 256, T 1024, kv_len 700 (device meta), bf16")}),
+    def flash_entry(route, replaces, row, shape):
+        """One entry per flash_gqa kernel: its Pallas kernel, the launches of
+        its route, the errors of the cases that ran on it, its main case."""
+        on_route = [c for c in cases if c["route"] == route]
+        return dict({
+            "name": f"flash_gqa.{route}",
+            "route": "cuda",
+            "source": "inferd_tpu_torch/csrc/flash_gqa.cu",
+            "replaces": replaces,
+            "launches": flash_routes_all[route],
+            "launches_by_path": {path: r["flash_routes"][route] for path, r in paths.items()
+                                 if r["flash_routes"][route]},
+            "max_abs_err": max(c["max_abs_err"] for c in on_route),
+            "max_row_err": max(c["row_err"] for c in on_route
+                               if c["dtype"].startswith("bfloat16")),
+        }, **timed(row), shape=shape)
+
+    kernels = {"kernels": [
+        # the one wrapper's two kernels: split-KV (with its combine) for
+        # decode, the tensor cores for prompt chunks, as flash_plan routes
+        flash_entry("split", "inferd_tpu/ops/attention.py:131", main_case,
+                    f"{MAIN_CASE}: B 1, S 1, T 1024, Nq 16, Nkv 8, D 128, bf16"),
+        flash_entry("mma", "inferd_tpu/ops/attention.py:218", lanes_chunk,
+                    f"{LANES_CHUNK_CASE}: B 1, S 256, T 1024, kv_len 700 (device meta), bf16"),
         dict({
             "name": "paged_decode_gqa",
             "route": "cuda",
@@ -2334,7 +2511,10 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in paged_cases),
             "max_row_err": max(c["row_err"] for c in paged_cases
                                if c["dtype"].startswith("bfloat16")),
+            "launches_split": sum(res["paged_split"] for res in paths.values()
+                                  if "paged_split" in res),
         }, **timed(paged_main),  # library_ms None: no single PyTorch call computes it
+            plan=paged_main["plan"],
             shape=f"{PAGED_MAIN_CASE}: B 8, bs 32, MB 32, kv_len {paged_main['kv_len']}, "
                   "Nq 16, Nkv 8, D 128, bf16"),
         # library_ms: torch's own weight-only quantized product on the same
@@ -2349,13 +2529,17 @@ def main() -> int:
             "replaces": "inferd_tpu/ops/lora.py:313",
             "launches": sum(lora_launches.values()),
             "launches_by_path": lora_launches,
-            "max_abs_err": max(r["max_abs_err"] for r in lora_cases),
-            "max_row_err": max(r["row_err"] for r in lora_cases),
+            "max_abs_err": max(r["max_abs_err"] for r in lora_delta_rows),
+            "max_row_err": max(r["row_err"] for r in lora_delta_rows),
         }, **lora_timed(lora_main),  # library_ms None: no single PyTorch call computes it
+            plan=lora_main["plan"],
             shape=f"{LORA_MAIN_CASE}: B 8, S 1, in 1024, out 3072, r 16, ids {LORA_DECODE_IDS}, "
                   "bf16 pools 4 x 14 layers",
-            **{LORA_PREFILL_CASE: dict(lora_timed(lora_prefill),
-                                       shape="B 1, S 256, in 1024, out 3072, r 16, bf16")}),
+            **{LORA_PREFILL_CASE: dict(lora_timed(lora_prefill), plan=lora_prefill["plan"],
+                                       shape="B 1, S 256, in 1024, out 3072, r 16, bf16"),
+               LORA_Y_MAIN_CASE: dict(timed(lora_y), unfused_ms=lora_y["unfused_ms"],
+                                      plan=lora_y["plan"],
+                                      shape="the main case with y= (bf16), in place")}),
     ]}
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels))
@@ -2368,7 +2552,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = main(sys.argv[1:])
     except Exception as e:  # report the failed phase and exit non-zero
         import traceback
 

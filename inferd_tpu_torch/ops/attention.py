@@ -22,6 +22,7 @@ Also here, as in the JAX module: `NEG_INF`, `apply_softcap`,
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple, Union
 
@@ -453,12 +454,51 @@ def paged_decode_gqa_reference(
     )
 
 
+# -- the paged kernel's launch plan -----------------------------------------------
+
+# A split covers at least PAGED_MIN_SPLIT_SLOTS chain slots (whole blocks): a
+# CTA's 8 warps then have four steps of rows each to keep loads in flight,
+# and a short chain is not cut into partials that cost more to merge than
+# they save. The ranges aim at PAGED_TARGET_CTAS CTAs: one CTA of the split
+# kernel fits an SM (~180 registers a thread), so that is four waves, the
+# slowest CTA's range short. Both chosen with tools/paged_sweep.py (PERF.md).
+PAGED_MIN_SPLIT_SLOTS = 256
+PAGED_TARGET_CTAS = 4 * 132
+
+
+class PagedPlan(NamedTuple):
+    """How one paged_decode_gqa call is launched: split z covers chain
+    blocks [z * blocks_per_split, min((z+1) * blocks_per_split, mb)) of
+    every lane, intersected with the lane's own [lo, hi). The grid is
+    (splits, Nkv, B); with splits > 1 a combine kernel merges the partials."""
+
+    splits: int
+    blocks_per_split: int
+
+
+@functools.lru_cache(maxsize=4096)
+def paged_plan(b: int, nkv: int, mb: int, bs: int, dtype: torch.dtype) -> PagedPlan:
+    """Cut the table's chain [0, mb) into uniform ranges so that B * Nkv *
+    splits lands near PAGED_TARGET_CTAS, each range at least
+    PAGED_MIN_SPLIT_SLOTS slots, at most MAX_SPLITS ranges, and none empty
+    at the end. Host ints only: the lanes' spans live on the device, so a
+    range past a lane's chain writes an empty partial. `dtype` (the
+    query's) does not change the cut today; it is in the key so a later
+    route may."""
+    del dtype
+    groups = b * nkv
+    want = max(1, min(PAGED_TARGET_CTAS // max(groups, 1), MAX_SPLITS))
+    least = max(1, -(-PAGED_MIN_SPLIT_SLOTS // bs))
+    bps = max(least, -(-mb // want), 1)
+    return PagedPlan(max(1, -(-mb // bps)), bps)
+
+
 def _paged_kernel_lib() -> ctypes.CDLL:
     lib = build.load("paged_decode")
     fn = lib.paged_decode_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, i, i, p]
+        fn.argtypes = [p] * 12 + [i] * 8 + [f, f, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -479,12 +519,14 @@ def paged_decode_gqa(
     """S == 1 attention that walks each lane's block chain through the
     table, with no dense gather; returns [B, 1, Nq*D] in q.dtype.
 
-    CUDA tensors launch the kernel of csrc/paged_decode.cu (which replaces
-    the Pallas `_paged_decode_kernel`); CPU tensors run
-    paged_decode_gqa_reference. The Pallas-only `interpret` knob has no
-    counterpart. Table entries must index the pool (core.cache.BlockPool
-    hands out nothing else); the kernel does not check them. Each kernel
-    launch adds one to `paged_decode_gqa.launches`."""
+    CUDA tensors launch the kernels of csrc/paged_decode.cu (which replace
+    the Pallas `_paged_decode_kernel`) as `paged_plan` cuts the chain: one
+    kernel when it keeps the chain whole, else the split kernel and a
+    combine; CPU tensors run paged_decode_gqa_reference. The Pallas-only
+    `interpret` knob has no counterpart. Table entries must index the pool
+    (core.cache.BlockPool hands out nothing else); the kernel does not check
+    them. Each call that launches adds one to `paged_decode_gqa.launches`,
+    and one to `paged_decode_gqa.split_launches` when its plan splits."""
     if q.device.type == "cpu":
         return paged_decode_gqa_reference(
             q, k_pool, v_pool, block_table, q_positions, kv_valid_len,
@@ -492,17 +534,22 @@ def paged_decode_gqa(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_gqa: unsupported device {q.device}")
-    out = _paged_launch(q, k_pool, v_pool, block_table, q_positions, kv_valid_len,
-                        scale, softcap, window, sinks)
-    paged_decode_gqa.launches += 1
+    out, plan = _paged_launch(q, k_pool, v_pool, block_table, q_positions, kv_valid_len,
+                              scale, softcap, window, sinks)
+    if plan is not None:
+        paged_decode_gqa.launches += 1
+        paged_decode_gqa.split_launches += plan.splits > 1
     return out
 
 
 paged_decode_gqa.launches = 0
+paged_decode_gqa.split_launches = 0
 
 
 def _paged_launch(q, k_pool, v_pool, block_table, q_positions, kv_valid_len,
-                  scale, softcap, window, sinks):
+                  scale, softcap, window, sinks, plan: Optional[PagedPlan] = None):
+    """Validate and launch on `plan` (paged_plan's unless given: the sweep
+    tool times others); returns (out, plan), plan None when nothing launched."""
     dev = q.device
     if q.ndim != 4 or k_pool.ndim != 4 or v_pool.ndim != 4 or block_table.ndim != 2:
         raise ValueError(
@@ -540,24 +587,50 @@ def _paged_launch(q, k_pool, v_pool, block_table, q_positions, kv_valid_len,
         raise ValueError("paged_decode_gqa kernel: pools must be 16-byte aligned")
     out = torch.empty((b, 1, nq * d), dtype=q.dtype, device=dev)
     if b == 0:
-        return out
+        return out, None
     sink_t = None
     if sinks is not None:
         if sinks.shape != (nq,):
             raise ValueError(f"paged_decode_gqa: sinks shape {tuple(sinks.shape)} != ({nq},)")
         sink_t = sinks.to(device=dev, dtype=torch.float32).contiguous()
-    meta = torch.stack([_per_batch(x, b, dev) for x in (q_positions[:, 0], kv_valid_len, window)],
-                       dim=1).to(torch.int32).contiguous()
+    # each span a host int, or a column the kernel reads in place (int32 or
+    # int64, any stride): a decode step launches no copy kernel for them
+    cols = (ctypes.c_void_p * 3)()
+    scalars, strides, wide = (ctypes.c_longlong * 3)(), (ctypes.c_longlong * 3)(), (ctypes.c_int * 3)()
+    keep = []  # the columns, alive until the launch is enqueued
+    for i, (name, x) in enumerate((("q_positions", q_positions[:, 0]), ("kv_valid_len", kv_valid_len),
+                                   ("window", 0 if window is None else window))):
+        if isinstance(x, int):
+            scalars[i] = x
+            continue
+        col = torch.as_tensor(x, device=dev)
+        if col.dtype not in (torch.int32, torch.int64):
+            col = col.to(torch.int64)
+        if col.ndim > 1 or (col.ndim == 1 and col.shape[0] != b):
+            raise ValueError(f"paged_decode_gqa: {name} of shape {tuple(col.shape)} for B {b}")
+        keep.append(col)
+        cols[i] = col.data_ptr()
+        strides[i] = col.stride(0) if col.ndim else 0
+        wide[i] = int(col.dtype == torch.int64)
     eff_scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    plan = plan or paged_plan(b, nkv, mb, bs, q.dtype)
+    part_acc = part_ml = None
+    if plan.splits > 1:  # scratch for the partials, merged by the combine kernel
+        n = b * nkv * plan.splits * (nq // nkv)
+        part_acc = torch.empty(n * d, dtype=torch.float32, device=dev)
+        part_ml = torch.empty(n * 2, dtype=torch.float32, device=dev)
     lib = _paged_kernel_lib()
     with torch.cuda.device(dev):
         rc = lib.paged_decode_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
-            meta.data_ptr(), None if sink_t is None else sink_t.data_ptr(), out.data_ptr(),
-            b, nq, nkv, d, bs, mb, eff_scale, float(softcap),
-            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
+            cols, scalars, strides, wide, None if sink_t is None else sink_t.data_ptr(),
+            out.data_ptr(),
+            None if part_acc is None else part_acc.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            b, nq, nkv, d, bs, mb, plan.splits, plan.blocks_per_split, eff_scale,
+            float(softcap), _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"paged_decode_gqa kernel launch failed: cudaError_t {rc}")
-    return out
+    return out, plan

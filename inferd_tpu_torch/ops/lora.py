@@ -36,6 +36,8 @@ per-dispatch ids), as in the reference:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import json
 import os
 import re
@@ -287,14 +289,115 @@ def lane_delta(
 def fused_lane_delta_reference(
     x: torch.Tensor, a_pool: torch.Tensor, b_pool: torch.Tensor,
     scale_pool: torch.Tensor, ids: torch.Tensor, layer: int,
+    y: Optional[torch.Tensor] = None, *, inplace: bool = False,
 ) -> torch.Tensor:
     """The plain version of fused_lane_delta: lane_delta on the gathered
-    slices, in f32."""
-    ids = ids.long()
-    return lane_delta(x, a_pool[ids, layer], b_pool[ids, layer], scale_pool.float()[ids])
+    slices, in f32; with `y`, (y.float() + delta).to(y.dtype), into y when
+    `inplace`."""
+    il = ids.long()
+    d = lane_delta(x, a_pool[il, layer], b_pool[il, layer], scale_pool.float()[il])
+    if y is None:
+        return d
+    res = (y.float() + d).to(y.dtype)
+    return y.copy_(res) if inplace else res
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# -- the kernel's launch plan ------------------------------------------------------
+
+# Constants shared with csrc/lora_delta.cu
+ROW_TILE = 16  # kRows: rows of S per row tile (one mma m16 tile); decode (S 1) takes 1
+THREADS, WARPS = 256, 8  # kThreads, kWarps
+MAX_CLUSTER = 8  # kMaxCluster: ranks that split the shrink's K (portable cluster size)
+# A rank takes about RANK_K values of K (one round trip of 16-byte loads),
+# the tensor cores take the shrink from MMA_MIN_ROWS rows of S (bf16 x and
+# pools, K a multiple of their 16), and a rank stages at most SMEM_BUDGET
+# bytes of shared memory: its x and A chunks and, where they fit beside
+# whole chunks, its B columns; past that B is read from device memory after
+# an L2 prefetch, and then past that K is walked in chunks (only ranks of
+# 64-128 at Qwen3-0.6B's widths need either).
+RANK_K = 128
+MMA_MIN_ROWS = 16
+SMEM_BUDGET = 160 * 1024
+
+
+def smem_parts(route: str, rows: int, kc: int, rp: int, r: int, cluster: int, sx: int,
+               sw: int, bcols: int) -> Tuple[int, ...]:
+    """The byte sizes of the kernel's shared-memory parts, in order (smem_bytes
+    of csrc/lora_delta.cu): x chunk, A chunk, K-split partials, the
+    cluster's inbox, xa, and B's columns when staged (bcols > 0). Each is a
+    multiple of 16 bytes, so every part starts aligned for cp.async."""
+    red = WARPS * ROW_TILE * rp if route == "mma" else THREADS
+    inbox, xa = (-(-n // 4) * 4 for n in (cluster * rows * r, rows * r))  # f32, to 16 bytes
+    xst = -(-kc // 8) * 8 + 8  # x_stride: rows 16-byte aligned
+    return (rows * xst * sx, kc * (rp + 8) * sw, 4 * red, 4 * inbox, 4 * xa, r * bcols * sw)
+
+
+@dataclasses.dataclass(frozen=True)
+class LoraPlan:
+    """How one fused_lane_delta call is launched: a cluster of `cluster` CTAs
+    per (lane, tile of `rows` rows of S); rank c shrinks K [c * k_per_rank,
+    (c+1) * k_per_rank) in chunks of k_chunk and expands the output columns
+    [c * cols_per_rank, (c+1) * cols_per_rank), from shared memory when
+    b_stage. Grid (cluster, row_tiles, B)."""
+
+    route: str  # "mma" (the shrink on the tensor cores) or "simt" (FMAs)
+    rows: int  # rows of S per row tile: 1 at S 1 (decode), else ROW_TILE
+    row_tiles: int
+    cluster: int
+    k_per_rank: int
+    k_chunk: int
+    r_pad: int  # r rounded up to the mma's 8 columns (shared-memory layout)
+    cols_per_rank: int  # a multiple of 8: each rank's first column is 16-byte aligned
+    b_stage: bool
+    smem_bytes: int
+
+
+def plan_for(s: int, din: int, dout: int, r: int, x_dtype: torch.dtype, w_dtype: torch.dtype,
+             cluster: int) -> Optional[LoraPlan]:
+    """The plan with `cluster` ranks, None when the kernel cannot split K so
+    (a rank would get nothing). The route, the row tile, K per rank (a
+    multiple of 16), the chunk and B's staging follow from the shapes;
+    lora_plan picks the cluster, tools/lora_sweep times the others."""
+    route = ("mma" if x_dtype == w_dtype == torch.bfloat16 and s >= MMA_MIN_ROWS
+             and din % 16 == 0 else "simt")
+    rows = 1 if s == 1 else ROW_TILE
+    kr = din if cluster == 1 else -(-(-(-din // cluster)) // 16) * 16
+    if (cluster - 1) * kr >= din:
+        return None
+    rp = -(-r // 8) * 8
+    cols = -(-(-(-dout // cluster)) // 8) * 8
+    sx, sw = (4 if t == torch.float32 else 2 for t in (x_dtype, w_dtype))
+    b_stage = sum(smem_parts(route, rows, kr, rp, r, cluster, sx, sw, cols)) <= SMEM_BUDGET
+    bcols = cols if b_stage else 0
+    kc = kr
+    while kc > 16 and sum(smem_parts(route, rows, kc, rp, r, cluster, sx, sw, bcols)) > SMEM_BUDGET:
+        kc = (kc - 1) // 16 * 16
+    return LoraPlan(route, rows, -(-s // rows), cluster, kr, kc, rp, cols, b_stage,
+                    sum(smem_parts(route, rows, kc, rp, r, cluster, sx, sw, bcols)))
+
+
+@functools.lru_cache(maxsize=4096)
+def lora_plan(b: int, s: int, din: int, dout: int, r: int, x_dtype: torch.dtype,
+              w_dtype: torch.dtype) -> LoraPlan:
+    """The lane delta's launch plan, a pure function of shapes and dtypes.
+    The route: bf16 x and pools with at least MMA_MIN_ROWS rows of S and K a
+    multiple of 16 take the tensor cores for the shrink; decode, f32 (never
+    TF32) and odd K take FMAs. The cluster: the largest power of two up to
+    MAX_CLUSTER that leaves each rank RANK_K values of K or more, and every
+    rank a non-empty range. The row tile: 1 at S 1 (decode), else
+    ROW_TILE. B's columns are staged in shared memory whenever they fit
+    beside whole chunks."""
+    del b  # every lane is its own cluster: the batch sets the grid, not the plan
+    cluster = MAX_CLUSTER
+    while cluster > 1 and din < cluster * RANK_K:
+        cluster //= 2
+    while True:
+        plan = plan_for(s, din, dout, r, x_dtype, w_dtype, cluster)
+        if plan is not None:
+            return plan
+        cluster //= 2
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -302,15 +405,19 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.lora_delta_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p] * 7 + [i] * 21 + [p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def _launch(x: torch.Tensor, a_pool: torch.Tensor, b_pool: torch.Tensor,
-            scale_pool: torch.Tensor, ids: torch.Tensor, layer: int) -> torch.Tensor:
-    """Check everything the kernel relies on, then launch it; returns the
-    f32 delta [B, S, out], empty and with no launch when B, S or out is 0."""
+            scale_pool: torch.Tensor, ids: torch.Tensor, layer: int,
+            y: Optional[torch.Tensor] = None, inplace: bool = False,
+            plan: Optional[LoraPlan] = None) -> torch.Tensor:
+    """Check everything the kernel relies on, then launch it on `plan`
+    (lora_plan's unless given: the sweep tool times others); returns the
+    f32 delta [B, S, out], or with `y` y + delta in y's dtype (into y itself
+    when `inplace`); empty and with no launch when B, S or out is 0."""
     dev = x.device
     if x.ndim != 3 or a_pool.ndim != 4 or b_pool.ndim != 4:
         raise ValueError(f"fused_lane_delta: want x [B, S, in] and pools [slots, L, in, r] / "
@@ -344,16 +451,33 @@ def _launch(x: torch.Tensor, a_pool: torch.Tensor, b_pool: torch.Tensor,
                      ("ids", ids)):
         if not t.is_contiguous():
             raise ValueError(f"fused_lane_delta kernel: {label} must be contiguous")
-    out = torch.empty((bsz, s, d_out), dtype=torch.float32, device=dev)
+    if y is not None:
+        if y.shape != (bsz, s, d_out) or y.device != dev:
+            raise ValueError(f"fused_lane_delta: y {tuple(y.shape)} on {y.device}, want "
+                             f"{(bsz, s, d_out)} on {dev}")
+        if y.dtype not in _DTYPE_CODES:
+            raise TypeError(f"fused_lane_delta kernel takes f32 or bf16 y, got {y.dtype}")
+        if not y.is_contiguous():
+            raise ValueError("fused_lane_delta kernel: y must be contiguous")
+        out = y if inplace else torch.empty_like(y)
+    else:
+        out = torch.empty((bsz, s, d_out), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    plan = plan or lora_plan(bsz, s, d_in, d_out, r, x.dtype, a_pool.dtype)
+    # 16-byte copies of x's, A's and B's rows where they are aligned (the main path)
+    x_vec = d_in % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
+    a_vec = r % (16 // a_pool.element_size()) == 0 and a_pool.data_ptr() % 16 == 0
+    b_vec = d_out % (16 // b_pool.element_size()) == 0 and b_pool.data_ptr() % 16 == 0
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         rc = lib.lora_delta_launch(
             x.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(), scale_pool.data_ptr(),
-            ids.data_ptr(), out.data_ptr(), bsz, s, d_in, d_out, r, slots, n_layers, layer,
-            _DTYPE_CODES[x.dtype], _DTYPE_CODES[a_pool.dtype],
-            torch.cuda.current_stream(dev).cuda_stream,
+            ids.data_ptr(), None if y is None else y.data_ptr(), out.data_ptr(), bsz, s, d_in,
+            d_out, r, slots, n_layers, layer, _DTYPE_CODES[x.dtype], _DTYPE_CODES[a_pool.dtype],
+            _DTYPE_CODES[out.dtype], int(plan.route == "mma"), plan.rows, plan.cluster,
+            plan.k_per_rank, plan.k_chunk, plan.cols_per_rank, int(plan.b_stage), int(x_vec),
+            int(a_vec), int(b_vec), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_lane_delta kernel launch failed: cudaError_t {rc}")
@@ -367,21 +491,32 @@ def fused_lane_delta(
     scale_pool: torch.Tensor,  # [slots] f32
     ids: torch.Tensor,  # [B] int32 per-lane slot ids
     layer: int,  # stacked-layer index (a host int: the layer loop is Python)
+    y: Optional[torch.Tensor] = None,  # [B, S, out] f32 or bf16: the projection output
+    *,
+    inplace: bool = False,
 ) -> torch.Tensor:
     """The delta of ONE projection of ONE layer for every lane, the slots
     indexed in the pools by the kernel, so no per-lane copy of the pools
     exists. Returns [B, S, out] f32; slot 0 lanes get an exact zero.
 
+    With `y`, returns (y.float() + delta).to(y.dtype) with exactly those
+    bits, the add done in the kernel's epilogue: one launch where the
+    unfused form takes four. With `inplace` the result is written into y
+    itself and y is returned, so only a caller that owns y (a fresh
+    projection output) may pass it; base-slot lanes then leave y untouched.
+    Without `inplace` y is only read.
+
     CUDA tensors launch the kernel of csrc/lora_delta.cu (which replaces the
-    Pallas `_fused_delta_kernel`), or raise on anything it does not take;
-    CPU tensors run fused_lane_delta_reference. The Pallas-only `interpret`
-    knob has no counterpart. Each kernel launch adds one to
-    `fused_lane_delta.launches`."""
+    Pallas `_fused_delta_kernel`) on the plan `lora_plan` makes, or raise on
+    anything it does not take; CPU tensors run fused_lane_delta_reference
+    (and the same add). The Pallas-only `interpret` knob has no counterpart.
+    Each kernel launch adds one to `fused_lane_delta.launches`."""
     if x.device.type == "cpu":
-        return fused_lane_delta_reference(x, a_pool, b_pool, scale_pool, ids, layer)
+        return fused_lane_delta_reference(x, a_pool, b_pool, scale_pool, ids, layer, y,
+                                          inplace=inplace)
     if x.device.type != "cuda":
         raise ValueError(f"fused_lane_delta: unsupported device {x.device}")
-    out = _launch(x, a_pool, b_pool, scale_pool, ids, layer)
+    out = _launch(x, a_pool, b_pool, scale_pool, ids, layer, y, inplace)
     if out.numel():  # an empty product launches nothing
         fused_lane_delta.launches += 1
     return out
@@ -420,11 +555,12 @@ def apply_lane_delta(y: torch.Tensor, x: torch.Tensor, name: str,
         pools = lane_adapters["pools"]
         if name not in pools["a"]:
             return y
-        d = fused_lane_delta(
+        # y is this projection's fresh output, owned here: the kernel adds
+        # the delta into it in place, one launch for the whole projection
+        return fused_lane_delta(
             x.contiguous(), pools["a"][name], pools["b"][name], pools["scale"],
-            pools["ids"], lane_adapters["layer"],
+            pools["ids"], lane_adapters["layer"], y.contiguous(), inplace=True,
         )
-        return (y.float() + d).to(y.dtype)
     ab = lane_adapters["layers"].get(name)
     if ab is None:
         return y

@@ -300,7 +300,9 @@ class ChainNode:
                 "flash_gqa": {"launches": attention_ops.flash_gqa.launches,
                               "split_launches": attention_ops.flash_gqa.split_launches,
                               "mma_launches": attention_ops.flash_gqa.mma_launches},
-                "paged_decode_gqa": {"launches": attention_ops.paged_decode_gqa.launches},
+                "paged_decode_gqa": {
+                    "launches": attention_ops.paged_decode_gqa.launches,
+                    "split_launches": attention_ops.paged_decode_gqa.split_launches},
                 "w8a16_matmul": {"launches": qmatmul.w8a16_matmul.launches,
                                  "mma_launches": qmatmul.w8a16_matmul.mma_launches,
                                  "simt_launches": qmatmul.w8a16_matmul.simt_launches},

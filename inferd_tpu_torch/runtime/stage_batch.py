@@ -140,6 +140,9 @@ class BatchedStageExecutor(AdapterBindingMixin):
         self.on_drop: Optional[Callable[[str], None]] = None
         self._batched_steps = 0
         self._batched_tokens = 0
+        # paged decode dispatches by the stamped table width (chain_clamp):
+        # with the lane count it fixes ops.attention.paged_plan's cut
+        self._decode_widths: Dict[int, int] = {}
 
     def co_possible(self) -> bool:
         """More than one live session: a window wait can pay off. LOCK-FREE
@@ -276,6 +279,9 @@ class BatchedStageExecutor(AdapterBindingMixin):
         hidden = self._embed_or_hidden(xd)
         if self.pool is not None:
             cache = self._sync_paged()
+            width = int(cache.table.shape[1])
+            with self._mu:
+                self._decode_widths[width] = self._decode_widths.get(width, 0) + 1
             hidden, _ = qwen3.forward_layers_cached(
                 p["layers"], cfg, hidden, None, cache, lens, real_end=lens + 1,
                 layer_offset=self.spec.start_layer, write_mask=active, adapters=ads,
@@ -671,4 +677,6 @@ class BatchedStageExecutor(AdapterBindingMixin):
             out["adapters"] = self.adapters.stats()
         if paged is not None:
             out["paged"] = paged
+            with self._mu:
+                out["decode_widths"] = {str(w): n for w, n in sorted(self._decode_widths.items())}
         return out

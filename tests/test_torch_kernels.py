@@ -297,6 +297,47 @@ def test_cuda_paged_kernel_matches_plain(cuda_device, name):
     assert row_rel_err(got, want, d) <= tol
 
 
+PAGED_SPLIT_CASES = {
+    # (b, nq, nkv, d, bs, mb, kv_len, extra): chains long enough that
+    # paged_plan splits them; a lane shorter than a range, an empty lane,
+    # a window whose floor falls inside a range, sinks folded once
+    "one_long_b4": (4, 16, 8, 128, 32, 128, [4096, 17, 0, 300], {}),
+    "b1_4096_sinks": (1, 16, 8, 128, 32, 128, [4096], {"sinks": True}),
+    "window_inside_a_range": (2, 16, 8, 128, 16, 64, [1000, 700], {"window": 300}),
+    "f32_fp8_d64": (2, 8, 2, 64, 16, 40, [640, 9], {"dtype": torch.float32, "fp8": True}),
+}
+
+
+@requires_cuda
+@pytest.mark.parametrize("name", sorted(PAGED_SPLIT_CASES))
+def test_cuda_paged_split_route_matches_plain_and_repeats(cuda_device, name):
+    """Chains cut into ranges and merged by the combine kernel: within the
+    tolerance of the plain version, the split counter moved, and two calls
+    give the same bits."""
+    b, nq, nkv, d, bs, mb, kv_len, ex = PAGED_SPLIT_CASES[name]
+    dt = ex.get("dtype", torch.bfloat16)
+    q, kp, vp, table, qpos, kl = _paged_case(
+        11, b, nq, nkv, d, bs, mb, kv_len, device=cuda_device, dtype=dt,
+        pool_dtype=torch.float8_e4m3fn if ex.get("fp8") else None)
+    kw = dict(window=ex.get("window"),
+              sinks=torch.randn(nq, device=cuda_device) if ex.get("sinks") else None)
+    plan = A.paged_plan(b, nkv, mb, bs, dt)
+    assert plan.splits > 1
+    before = (A.paged_decode_gqa.launches, A.paged_decode_gqa.split_launches)
+    got = A.paged_decode_gqa(q, kp, vp, table, qpos, kl, **kw)
+    again = A.paged_decode_gqa(q, kp, vp, table, qpos, kl, **kw)
+    want = A.paged_decode_gqa_reference(q, kp, vp, table, qpos, kl, **kw)
+    torch.cuda.synchronize()
+    assert (A.paged_decode_gqa.launches, A.paged_decode_gqa.split_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(got, again)
+    tol = ATTN_TOL["float32" if dt == torch.float32 else "bfloat16"]
+    assert row_rel_err(got, want, d) <= tol
+    empty = (kl == 0).nonzero().flatten()
+    if not ex.get("sinks"):
+        assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+
+
 # -- decode GEMVs (w8a16_matmul, w4a16_matvec) --------------------------------------
 
 
@@ -518,6 +559,66 @@ def test_cuda_lora_delta_matches_plain(cuda_device, name):
     assert row_rel_err(got, want, got.shape[-1]) <= LORA_TOL
     base = (ids == 0).nonzero().flatten()
     assert torch.equal(got[base], torch.zeros_like(got[base]))  # exact zeros, not small
+
+
+LORA_ROUTE_CASES = {
+    # (b, s, din, dout, r, ids, x/pool dtype): each lora_plan route, row tile
+    # and cluster size, K walked in chunks, unaligned rows (element loads),
+    # ragged columns
+    "mma_prefill_chunks_r128": (1, 40, 3072, 1024, 128, [1], torch.bfloat16),
+    "mma_two_lanes_r8": (2, 33, 1024, 1000, 8, [2, 1], torch.bfloat16),
+    "simt_cluster1_odd": (3, 5, 40, 24, 3, [1, 0, 2], torch.bfloat16),
+    "simt_decode_odd_k": (3, 1, 45, 24, 5, [2, 1, 0], torch.bfloat16),
+    "simt_cluster4_din1000": (2, 17, 1000, 333, 7, [2, 1], torch.float32),
+    "simt_f32_chunks_r128": (2, 1, 3072, 1024, 128, [1, 2], torch.float32),
+}
+
+
+@requires_cuda
+@pytest.mark.parametrize("name", sorted(LORA_ROUTE_CASES))
+def test_cuda_lora_delta_routes_match_plain_and_y_mode(cuda_device, name):
+    """Every plan shape against the plain version (LORA_TOL), the same bits
+    on two calls, and the y= mode equal to the unfused add bit for bit, in
+    place too, with base lanes leaving y untouched."""
+    b, s, din, dout, r, ids, dt = LORA_ROUTE_CASES[name]
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    a_pool = torch.randn((3, 2, din, r), generator=g, device=cuda_device) * 0.05
+    b_pool = torch.randn((3, 2, r, dout), generator=g, device=cuda_device) * 0.05
+    a_pool[0] = b_pool[0] = 0.0
+    a_pool, b_pool = a_pool.to(dt), b_pool.to(dt)
+    x = torch.randn((b, s, din), generator=g, device=cuda_device).to(dt)
+    scale = torch.tensor([0.0, 2.0, 0.5], device=cuda_device)
+    idt = torch.tensor(ids, dtype=torch.int32, device=cuda_device)
+    plan = L.lora_plan(b, s, din, dout, r, dt, dt)
+    got = L.fused_lane_delta(x, a_pool, b_pool, scale, idt, 1)
+    again = L.fused_lane_delta(x, a_pool, b_pool, scale, idt, 1)
+    want = L.fused_lane_delta_reference(x, a_pool, b_pool, scale, idt, 1)
+    y = torch.randn((b, s, dout), generator=g, device=cuda_device).to(torch.bfloat16)
+    fused = L.fused_lane_delta(x, a_pool, b_pool, scale, idt, 1, y=y)
+    y_in = y.clone()
+    L.fused_lane_delta(x, a_pool, b_pool, scale, idt, 1, y=y_in, inplace=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert row_rel_err(got, want, dout) <= LORA_TOL, plan
+    assert torch.equal(fused, (y.float() + got).to(y.dtype))
+    assert torch.equal(y_in, fused)
+    base = (idt == 0).nonzero().flatten()
+    assert torch.equal(fused[base], y[base]) and torch.equal(got[base], torch.zeros_like(got[base]))
+
+
+@requires_cuda
+def test_cuda_lora_delta_slot_out_of_range_writes_nan(cuda_device):
+    c = dict(LORA_CASES[0])
+    x, a_pool, b_pool, scale, ids = lora_inputs(c, torch.Generator(device=cuda_device)
+                                                .manual_seed(2), cuda_device)
+    ids = ids.clone()
+    ids[1] = a_pool.shape[0]  # one past the last slot
+    got = L.fused_lane_delta(x, a_pool, b_pool, scale, ids, 0)
+    y = torch.zeros(got.shape, dtype=torch.bfloat16, device=cuda_device)
+    L.fused_lane_delta(x, a_pool, b_pool, scale, ids, 0, y=y, inplace=True)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[1]).all() and torch.isfinite(got[0]).all()
+    assert torch.isnan(y[1].float()).all() and torch.isfinite(y[0].float()).all()
 
 
 @requires_cuda

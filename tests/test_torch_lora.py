@@ -418,3 +418,39 @@ def test_apply_lane_delta_cpu_path_matches_jax_gather_form():
         assert tlora.apply_lane_delta(yt, torch.from_numpy(x), "v_proj", tla) is yt
     assert tlora.layer_adapters(None, torch.device("cpu"))(0) is None
     assert tlora.layer_adapters(tads, torch.device("cuda"))(2) == {"pools": tads, "layer": 2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_lane_delta_y_mode_matches_jax_apply_lane_delta(dtype):
+    """fused_lane_delta(..., y=y) on the CPU, returned and in place, against
+    the JAX package's apply_lane_delta on its kernel form (the pools and a
+    layer index: the Pallas kernel in interpret mode), through
+    models/convert. f32 within TOL; bf16 within one bf16 step of the value,
+    since both add an f32 delta (the same products summed in another order)
+    to y in f32 and round once. Base lanes are y, bit for bit."""
+    rng = np.random.RandomState(11)
+    a, b, scale = _lora_pools(rng)
+    ids = np.asarray([2, 0, 1, 3], np.int32)
+    x = rng.randn(4, 3, 32).astype(np.float32)
+    y = rng.randn(4, 3, 48).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jads = {"a": {"q_proj": jnp.asarray(a, jdt)}, "b": {"q_proj": jnp.asarray(b, jdt)},
+            "scale": jnp.asarray(scale), "ids": jnp.asarray(ids)}
+    ta, tb, tx, ty = (convert.tensor_from_numpy(np.asarray(jnp.asarray(v, jdt)))
+                      for v in (a, b, x, y))
+    for layer in range(a.shape[1]):
+        want = jlora.apply_lane_delta(jnp.asarray(y, jdt), jnp.asarray(x, jdt), "q_proj",
+                                      {"pools": jads, "layer": jnp.int32(layer)})
+        got = tlora.fused_lane_delta(tx, ta, tb, torch.from_numpy(scale), torch.from_numpy(ids),
+                                     layer, y=ty)
+        y_in = ty.clone()
+        back = tlora.fused_lane_delta(tx, ta, tb, torch.from_numpy(scale),
+                                      torch.from_numpy(ids), layer, y=y_in, inplace=True)
+        assert got.dtype == ty.dtype and back is y_in and torch.equal(y_in, got)
+        assert torch.equal(got[1], ty[1])  # the slot-0 lane: y itself
+        w = np.asarray(want).astype(np.float32)
+        g = got.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL, err_msg=f"layer {layer}")
+        else:
+            np.testing.assert_allclose(g, w, rtol=2.0 ** -8, atol=0, err_msg=f"layer {layer}")

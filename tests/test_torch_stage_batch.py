@@ -525,3 +525,20 @@ def test_chunked_prefill_interleaves_with_decode_windows(whole_stage):
     r2 = dense.process("long", {"tokens": [[1]], "start_pos": 240, "real_len": 1})
     assert np.argmax(_np(r1["logits"])[0]) == np.argmax(_np(r2["logits"])[0])
     np.testing.assert_allclose(_np(r1["logits"]), _np(r2["logits"]), atol=1e-4)
+
+
+def test_paged_decode_dispatches_are_counted_by_table_width(whole_stage):
+    """Every paged decode dispatch is recorded under the table width it was
+    stamped at (chain_clamp: the power-of-two bucket of the longest chain),
+    which with the lane count fixes ops.attention.paged_plan's cut: the
+    record chip_smoke derives each node's split launches from. A dense
+    executor records none."""
+    ex = _whole(whole_stage, block_size=16)[1]
+    _drive(ex, "a", list(range(3, 40)), 3)  # 37 + 3 tokens: chains of 3 blocks
+    _drive(ex, "b", list(range(3, 70)), 2)  # 67 + 2 tokens: chains of 5 blocks
+    st = ex.stats()
+    assert st["decode_widths"] == {"4": 3, "8": 2}
+    assert sum(st["decode_widths"].values()) == st["batched_steps"]
+    dense = _whole(whole_stage)[1]
+    _drive(dense, "a", [3, 4, 5], 2)
+    assert "decode_widths" not in dense.stats()
