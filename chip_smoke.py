@@ -93,14 +93,45 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               without a registry; exact launch counts (98 per dispatch that
               carries a tenant lane, none for all-base dispatches; paged split
               launches as in serve_lanes); 3 loads per node
+  generate    the whole model in this process (the serve checkpoints joined,
+              bf16) through core.generate.Engine: on the serve prompts (32
+              new tokens), generate at chunk 1 and at chunk 8 and
+              generate_scan give the same tokens, greedy and under the
+              default sampling config (0.6/20/0.95) with one seed; flash_gqa
+              launches exact per route (28 tensor-core launches per prefill,
+              28 split-KV per decode step); a planted fault (decode_k writes
+              each step's K/V one slot early) breaks the chunk equality;
+              teacher-forced prefill + 8 decode steps within 5% of max
+              |logit| of plain attention; the greedy stream's shared prefix
+              with serve's chain stream (printed); bench.py's headline regime
+              (64-token prompt, 50 and 150 steps in interleaved pairs via
+              utils.profiling) for generate_scan, generate(chunk=1) and
+              generate(chunk=8): steady ms/token, e2e tok/s, fixed overhead;
+              one decode step's device time against its host time, and the
+              sampler's device time per call
+  generate_quant
+              the same engine on --quant int8 weights: chunk 8 equals chunk 1,
+              greedy; w8a16 launches exact per route (7 x 28 + 1 per decode
+              step, all simt); the headline regime's generate_scan
+  serve_kstep one run_node --device cuda process serving a one-stage split of
+              the same model, driven by raw /forward payloads: a prefill, then
+              decode_steps 8 windows up to 32 tokens, greedy and sampled, eos
+              set to the free run's token 5 (a window stops mid-way); tokens,
+              real_len, decode_steps and key equal the in-process executor's;
+              /stats launches exact; stage 0 of the two-stage chain answers
+              decode_steps with 409 session_state ("single-stage")
+  cli         python -m inferd_tpu_torch.tools.generate --model qwen3-0.6b
+              --random-init --prompt-ids ... --max-new-tokens 16 --chunk 8 as a
+              subprocess, on the card by default: exit 0, 16 ids
 
 Then one JSON line listing every kernel, the nvidia-smi line, and last:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Run from the root of a checkout: python3 chip_smoke.py
 Exits non-zero without a CUDA device, and outside a checkout.
-`--only paged,lora` (any of flash, paged, qmm, lora) builds the kernels and
-runs those case phases alone, with no serve phase and no result lines.
+`--only paged,lora` (any of flash, paged, qmm, lora, and generate: the
+generate and generate_quant phases on a fresh split) builds the kernels and
+runs those phases alone, with no serve phase and no result lines.
 """
 
 from __future__ import annotations
@@ -119,7 +150,7 @@ import sys
 import tempfile
 import time
 import urllib.parse
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"  # main() runs only on the card
@@ -1572,8 +1603,7 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
                 raise AssertionError(f"nodes did work before the main path: {before}")
             if st["quant"] != (quant_flag or "none"):
                 raise AssertionError(f"node serves quant {st['quant']}, want {quant_flag}")
-        rng = np.random.default_rng(0)
-        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+        prompts = serve_prompts(cfg.vocab_size)
         streams, timing = [], []
 
         async def drive():
@@ -1710,7 +1740,7 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
         torch.cuda.empty_cache()
         return {"launches": launches, "flash_routes": route_launches, "gemv_routes": gemv_total,
                 "passes": expected_passes,
-                "rates": rates}
+                "rates": rates, "streams": streams}
     except BaseException:
         stop_nodes(nodes, show_logs=True)
         nodes = []
@@ -2336,6 +2366,534 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
         stop_nodes(nodes)
 
 
+# -- generate, generate_quant, serve_kstep, cli: the whole model in one process --
+
+GEN_CHUNK = 8  # fused decode steps per host read in the chunked runs (generate(chunk=8))
+GEN_SEED = 11  # the sampler's seed in the sampled runs
+# bench.py's headline regime: a 64-token prompt, generate_scan at 50 and 150
+# steps under the default SamplingConfig, differenced in interleaved pairs
+HEADLINE_PROMPT = 64
+HEADLINE_STEPS = (50, 150)
+HEADLINE_PAIRS = 3
+KSTEP_WINDOW = 8  # serve_kstep: decode_steps per /forward
+
+
+def serve_prompts(vocab: int) -> List[List[int]]:
+    """The serve phase's prompts (PROMPT_LENS tokens each, from seed 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, n).tolist() for n in PROMPT_LENS]
+
+
+def _wrappers():
+    from inferd_tpu_torch.ops import attention as A
+    from inferd_tpu_torch.ops import lora
+    from inferd_tpu_torch.ops import qmatmul as Q
+
+    return {"flash_gqa": A.flash_gqa, "paged_decode_gqa": A.paged_decode_gqa,
+            "w8a16_matmul": Q.w8a16_matmul, "w4a16_matvec": Q.w4a16_matvec,
+            "fused_lane_delta": lora.fused_lane_delta}
+
+
+def reset_kernel_counts() -> None:
+    """Every wrapper's launch and route counters in this process to 0."""
+    for w in _wrappers().values():
+        for attr in ("launches", "split_launches", "mma_launches", "simt_launches"):
+            if hasattr(w, attr):
+                setattr(w, attr, 0)
+
+
+def kernel_counts() -> Dict[str, Any]:
+    """This process's counters, in the shape a phase result carries them."""
+    w = _wrappers()
+    return {"launches": {name: f.launches for name, f in w.items()},
+            "flash_routes": {r: getattr(w["flash_gqa"], f"{r}_launches") for r in ("split", "mma")},
+            "gemv_routes": {name: {r: getattr(w[name], f"{r}_launches") for r in ("mma", "simt")}
+                            for name in ("w8a16_matmul", "w4a16_matvec")}}
+
+
+def whole_model(parts: str):
+    """The serve phase's two stage checkpoints joined into the whole model's
+    params on the card: the same seeded weights, initialised once."""
+    import torch
+
+    from inferd_tpu_torch.parallel.stages import load_stage_checkpoint, stage_checkpoint_path
+
+    (p0, s0, _), (p1, s1, _) = [load_stage_checkpoint(stage_checkpoint_path(parts, s),
+                                                      device=DEVICE) for s in range(2)]
+    if s0.end_layer + 1 != s1.start_layer:
+        raise AssertionError(f"stage layers {s0} {s1} do not join")
+    return {"embed": p0["embed"], "final_norm": p1["final_norm"],
+            "layers": {k: torch.cat([p0["layers"][k], p1["layers"][k]]) for k in p0["layers"]}}
+
+
+def generate_three_ways(eng, prompt, seed: int) -> List[List[int]]:
+    """NEW_TOKENS tokens by Engine.generate at chunk 1 and at GEN_CHUNK, and
+    by generate_scan, from one seed."""
+    import numpy as np
+
+    from inferd_tpu_torch.core.generate import bucket_len
+
+    padded = [prompt + [0] * (bucket_len(len(prompt)) - len(prompt))]
+    return [eng.generate(prompt, NEW_TOKENS, seed=seed),
+            eng.generate(prompt, NEW_TOKENS, seed=seed, chunk=GEN_CHUNK),
+            eng.generate_scan(np.asarray(padded), len(prompt), NEW_TOKENS, seed=seed)[0].tolist()]
+
+
+def first_divergence(a: List[int], b: List[int]) -> int:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def check_flash_routes(phase: str, counts, runs: int, layers: int) -> None:
+    """One prefill chunk per run on the tensor cores, NEW_TOKENS - 1 decode
+    steps on the split-KV route, `layers` launches each, as flash_plan
+    routes them: exact."""
+    want = {"split": layers * (NEW_TOKENS - 1) * runs, "mma": layers * runs}
+    got = counts["flash_routes"]
+    say(phase, f"flash_gqa routes {got} over {runs} generations (want {want}: {got == want})")
+    if got != want or counts["launches"]["flash_gqa"] != sum(want.values()):
+        raise AssertionError(f"{phase}: flash_gqa launches {counts}, want routes {want}")
+
+
+@contextlib.contextmanager
+def planted_kstep_slot_fault():
+    """Until the block ends, decode_k writes each step's K/V one slot early,
+    over the previous token's (its positions and masks stay right): the
+    fault the chunked stream's equality with the per-step one must catch."""
+    import torch
+
+    from inferd_tpu_torch.models import qwen3 as Q
+
+    real = Q.forward_layers
+
+    def faulty(layers, cfg, hidden, positions, k_cache=None, v_cache=None,
+               cache_write_pos=None, *rest, **kw):
+        if isinstance(cache_write_pos, torch.Tensor):  # decode_k's per-row write
+            cache_write_pos = cache_write_pos - 1
+        return real(layers, cfg, hidden, positions, k_cache, v_cache, cache_write_pos, *rest, **kw)
+
+    Q.forward_layers = faulty
+    try:
+        yield
+    finally:
+        Q.forward_layers = real
+
+
+def forced_logits(eng, prompts, streams) -> List[Any]:
+    """Last-token logits of each prompt's prefill and of its stream's first
+    DECODE_CHECKED tokens fed one at a time, through the engine."""
+    import torch
+
+    out = []
+    with torch.no_grad():
+        for p, ids in zip(prompts, streams):
+            logits, cache = eng.prefill(p, eng.new_cache(1))
+            out.append(logits.float())
+            for tok in ids[:DECODE_CHECKED]:
+                tok_t = torch.tensor([[tok]], device=DEVICE)
+                out.append(eng._forward(tok_t, cache.length, cache, 1).float())
+                cache.length += 1
+    return out
+
+
+def headline(phase: str, card: str, methods) -> Dict[str, Dict[str, float]]:
+    """bench.py's headline regime for each (name, run(n_steps, seed))
+    method: one warm-up run, then HEADLINE_PAIRS interleaved pairs of
+    50- and 150-step runs (host clock, each ending in a read of its
+    tokens), differenced by utils.profiling.paired_delta_stats."""
+    import torch
+
+    from inferd_tpu_torch.utils.profiling import interleaved_pair_times, paired_delta_stats
+
+    short, long_ = HEADLINE_STEPS
+    out = {}
+    for name, run in methods:
+        seeds = iter(range(1, 1000))
+        run(short, 0)  # nothing compiles: one run warms the allocator and the caches
+
+        def timed(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(n, next(seeds))
+            return time.perf_counter() - t0
+
+        ts, tl = interleaved_pair_times(lambda: timed(short), lambda: timed(long_), HEADLINE_PAIRS)
+        per, n_valid, spread, ts_valid = paired_delta_stats(ts, tl, short, long_)
+        e2e_t = statistics.median(ts_valid)
+        overhead = max(e2e_t - short * per, 0.0) * 1e3 if n_valid else 0.0
+        out[name] = {"steady_ms_per_token": per * 1e3, "e2e_tok_s": short / e2e_t,
+                     "overhead_ms": overhead, "valid_pairs": n_valid, "spread_pt": spread}
+        say(phase, f"headline {name}: steady {per * 1e3:.3f} ms/token ({1 / per:.1f} tok/s), "
+                   f"e2e {short / e2e_t:.1f} tok/s over {short} tokens, fixed overhead "
+                   f"{overhead:.1f} ms; {n_valid}/{HEADLINE_PAIRS} valid pairs, spread "
+                   f"{spread}% ({card})")
+    return out
+
+
+def device_share(phase: str, card: str, name: str, fn, per: int, reps: int = 4):
+    """Where one decode step's time goes: the host clock per step (no
+    profiler), and from a torch.profiler trace (CUPTI) of `reps` more calls
+    the device's busy time per step (the sum of its kernels' durations) and
+    the kernels launched per step; `fn` runs `per` steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / (reps * per) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / (reps * per) / 1e3
+    by_name: Dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / (reps * per)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    host_top = sorted(((e.key, e.self_cpu_time_total / (reps * per)) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU), key=lambda kv: -kv[1])[:8]
+    say(phase, f"{name}: most host time under the profiler, ms per step: "
+               + ", ".join(f"{k[:40]} {v / 1e3:.3f}" for k, v in host_top))
+    out = {"host_ms": host_ms, "device_busy_ms": busy_ms if kernels else None,
+           "kernels_per_step": len(kernels) / (reps * per)}
+    if not kernels:
+        say(phase, f"{name}: {host_ms:.3f} ms per step on the host clock; device time not "
+                   f"measured (the profiler traced no kernel) ({card})")
+        return out
+    say(phase, f"{name}: {host_ms:.3f} ms per step on the host clock; the device is busy "
+               f"{busy_ms:.3f} ms of it ({max(0.0, 1 - busy_ms / host_ms):.0%} idle) over "
+               f"{out['kernels_per_step']:.0f} kernel launches per step (torch.profiler); "
+               "most device time: " + ", ".join(f"{k[:48]} {v / 1e3:.3f} ms" for k, v in top)
+               + f" ({card})")
+    return out
+
+
+def headline_methods(eng, prompt, scan_only: bool = False):
+    """(name, run) pairs over one engine for `headline`: generate_scan, and
+    unless scan_only, generate at chunk 1 and at GEN_CHUNK."""
+    import numpy as np
+
+    toks = np.asarray([prompt])
+    methods = [("generate_scan", lambda n, seed: eng.generate_scan(
+        toks, len(prompt), n, seed=seed).cpu())]
+    if not scan_only:
+        methods += [(f"generate(chunk={c})", lambda n, seed, c=c: eng.generate(
+            prompt, n, seed=seed, chunk=c)) for c in (1, GEN_CHUNK)]
+    return methods
+
+
+def run_generate(card: str, params, serve: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """The `generate` phase: the engine in this process, the whole model
+    (with `serve`'s streams, the shared prefixes are printed)."""
+    import numpy as np
+    import torch
+
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.core import sampling as samplib
+    from inferd_tpu_torch.core.generate import Engine, bucket_len
+    from inferd_tpu_torch.ops.attention import flash_plan
+
+    phase = "generate"
+    cfg = get_config(MODEL)
+    prompts = serve_prompts(cfg.vocab_size)
+    greedy_cfg = SamplingConfig(temperature=0.0)
+    engines = {"greedy": Engine(cfg, params, sampling_cfg=greedy_cfg),
+               "sampled (0.6/20/0.95)": Engine(cfg, params)}
+    for p in prompts:
+        b = bucket_len(len(p))
+        plans = [flash_plan(1, b, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.torch_dtype, 0, b),
+                 flash_plan(1, 1, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.torch_dtype,
+                            len(p), len(p) + 1)]
+        say(phase, f"prompt {len(p)}: prefill bucket {b} -> {plans[0].route}, decode at "
+                   f"{len(p)} -> {plans[1].route} ({plans[1].splits} splits)")
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    streams = {name: [generate_three_ways(eng, p, GEN_SEED) for p in prompts]
+               for name, eng in engines.items()}
+    counts = kernel_counts()
+    wall = time.perf_counter() - t0
+    for name, per_prompt in streams.items():
+        for p, (a, b, c) in zip(prompts, per_prompt):
+            if not a == b == c:
+                raise AssertionError(
+                    f"{name}, prompt {len(p)}: chunk 1 / chunk {GEN_CHUNK} / generate_scan "
+                    f"differ from token {min(first_divergence(a, b), first_divergence(a, c))}")
+        say(phase, f"{name}: generate(chunk=1), generate(chunk={GEN_CHUNK}) and generate_scan "
+                   f"give the same tokens on all {len(prompts)} prompts ({NEW_TOKENS} each, "
+                   f"seed {GEN_SEED}); distinct tokens per stream "
+                   f"{[len(set(s[0])) for s in per_prompt]}")
+    runs = 3 * len(prompts) * len(engines)
+    say(phase, f"{runs} generations of {NEW_TOKENS} tokens in {wall:.1f}s; launches "
+               f"{counts['launches']}")
+    check_flash_routes(phase, counts, runs, cfg.num_layers)
+    others = {k: v for k, v in counts["launches"].items() if k != "flash_gqa"}
+    if any(others.values()):
+        raise AssertionError(f"{phase}: bf16 generation launched {others}")
+    greedy = [s[0] for s in streams["greedy"]]
+
+    # the planted fault: decode_k's KV one slot early must break the equality
+    # of the chunked streams with the per-step ones (greedy or sampled)
+    caught = {}
+    with planted_kstep_slot_fault():
+        for name, eng in engines.items():
+            caught[name] = [len(p) for p, s in zip(prompts, streams[name])
+                            if eng.generate(p, NEW_TOKENS, seed=GEN_SEED, chunk=GEN_CHUNK) != s[0]]
+    say(phase, f"planted fault kv_slot_early (decode_k writes each step's K/V one slot early): "
+               f"chunk {GEN_CHUNK} differs from chunk 1 on prompts {caught} of "
+               f"{list(PROMPT_LENS)}")
+    if not any(caught.values()):
+        raise AssertionError("planted fault kv_slot_early passes the chunk equality")
+
+    # teacher-forced: the kernel path against plain attention, logits only
+    plain = Engine(dataclasses.replace(cfg, attn_impl="xla"), params, sampling_cfg=greedy_cfg)
+    got = forced_logits(engines["greedy"], prompts, greedy)
+    ref = forced_logits(plain, prompts, greedy)
+    l_err = max((g - r).abs().max().item() / r.abs().max().item() for g, r in zip(got, ref))
+    say(phase, f"kernel path vs plain attention over {len(ref)} teacher-forced steps (prefill + "
+               f"{DECODE_CHECKED} decode steps per prompt): logits {l_err:.4%} of max |logit| "
+               f"(tol {LOGIT_TOL:.0%})")
+    if not l_err <= LOGIT_TOL:
+        raise AssertionError(f"{phase}: kernel path vs plain attention, logits {l_err}")
+    del plain, got, ref
+    for p, a, s in zip(prompts, greedy, serve["streams"] if serve else ()):
+        say(phase, f"prompt {len(p)}: the engine's greedy stream shares its first "
+                   f"{first_divergence(a, s)} of {NEW_TOKENS} tokens with the serve phase's "
+                   "chain stream (printed, not gated: other buffers, other split plans)")
+
+    # bench.py's headline regime, and what a step and the sampler cost
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab_size, HEADLINE_PROMPT).tolist()
+    eng = Engine(cfg, params, max_len=512)
+    rates = headline(phase, card, headline_methods(eng, prompt))
+    logits, cache = eng.prefill(prompt, eng.new_cache(1, 512))
+    sub = samplib.split_key(samplib.prng_key(0))[1]
+    key = samplib.prng_key(0)
+    tok = samplib.sample(logits, sub)
+    steps = {"decode (one step)": (lambda: eng.decode(tok, cache, sub), 1),
+             f"decode_chunk ({GEN_CHUNK} steps)": (
+                 lambda: eng.decode_chunk(tok, cache, key, GEN_CHUNK), GEN_CHUNK)}
+    step_share = {name: device_share(phase, card, name, fn, per) for name, (fn, per)
+                  in steps.items()}
+    row = torch.randn(1, cfg.vocab_size, device=DEVICE) * 3
+    sampler = {}
+    for label, args in (("0.6/20/0.95 (topk 20 of V)", (0.6, 20, 0.95, 0.0)),
+                        ("0.6/0/0.95 (sort of V)", (0.6, 0, 0.95, 0.0)),
+                        ("greedy (argmax)", (0.0, 0, 1.0, 0.0))):
+        sampler[label] = time_ms(lambda a=args: samplib.sample(row, sub, *a))
+    say(phase, f"sampler on [1, {cfg.vocab_size}] float32 logits, device ms per call: "
+               + ", ".join(f"{k} {v:.4f}" for k, v in sampler.items()) + f" ({card})")
+    del eng, cache, engines
+    torch.cuda.empty_cache()
+    return dict(counts, rates=rates, step_share=step_share, sampler_ms=sampler)
+
+
+def run_generate_quant(card: str, params) -> Dict[str, Any]:
+    """The `generate_quant` phase: the engine on --quant int8 weights."""
+    import numpy as np
+    import torch
+
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.core.generate import Engine, bucket_len
+    from inferd_tpu_torch.ops import quant
+    from inferd_tpu_torch.ops.qmatmul import MAX_KERNEL_ROWS
+
+    phase = "generate_quant"
+    cfg = get_config(MODEL)
+    prompts = serve_prompts(cfg.vocab_size)
+    qparams = quant.apply_quant_mode("int8", params, tie_word_embeddings=cfg.tie_word_embeddings)
+    eng = Engine(cfg, qparams, sampling_cfg=SamplingConfig(temperature=0.0))
+    reset_kernel_counts()
+    small_rows, head_rows = [], []
+    for p in prompts:
+        a = eng.generate(p, NEW_TOKENS)
+        b = eng.generate(p, NEW_TOKENS, chunk=GEN_CHUNK)
+        if a != b:
+            raise AssertionError(f"{phase}, prompt {len(p)}: chunk {GEN_CHUNK} != chunk 1 from "
+                                 f"token {first_divergence(a, b)}")
+        bucket = bucket_len(len(p))
+        for _ in range(2):  # a prefill (its head on the last row), then decode steps
+            small_rows += ([bucket] if bucket <= MAX_KERNEL_ROWS else []) + [1] * (NEW_TOKENS - 1)
+            head_rows += [1] * NEW_TOKENS
+    counts = kernel_counts()
+    say(phase, f"int8 greedy: generate(chunk={GEN_CHUNK}) equals generate(chunk=1) on all "
+               f"{len(prompts)} prompts")
+    check_flash_routes(phase, counts, 2 * len(prompts), cfg.num_layers)
+    per_step = gemv_route_launches(cfg, "int8", cfg.num_layers, True, [1], [1])
+    want = gemv_route_launches(cfg, "int8", cfg.num_layers, True, small_rows, head_rows)
+    got = counts["gemv_routes"]["w8a16_matmul"]
+    say(phase, f"w8a16_matmul routes {got} (want {want}: {got == want}); a decode step "
+               f"launches {per_step} = {GEMVS_PER_LAYER} x {cfg.num_layers} + 1")
+    if (per_step != {"mma": 0, "simt": GEMVS_PER_LAYER * cfg.num_layers + 1} or got != want
+            or counts["launches"]["w8a16_matmul"] != sum(want.values())
+            or counts["launches"]["w4a16_matvec"]):
+        raise AssertionError(f"{phase}: GEMV launches {counts}, want {want}")
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab_size, HEADLINE_PROMPT).tolist()
+    rates = headline(phase, card, headline_methods(Engine(cfg, qparams, max_len=512), prompt,
+                                                   scan_only=True))
+    del eng, qparams
+    torch.cuda.empty_cache()
+    return dict(counts, rates=rates)
+
+
+def kstep_session(process, sid: str, prompt: List[int], eos=None, sampling=None):
+    """A raw /forward session: the prompt's prefill (its first token the
+    logits' argmax), then windows of KSTEP_WINDOW decode_steps up to
+    NEW_TOKENS tokens or eos, the key chained. Returns (stream, the
+    windows' results)."""
+    import numpy as np
+
+    r = process(sid, {"tokens": np.asarray([prompt], np.int32), "start_pos": 0,
+                      "real_len": len(prompt)})
+    out = [int(np.argmax(np.asarray(r["logits"], np.float32)[0]))]
+    windows, key = [], None
+    while len(out) < NEW_TOKENS and (eos is None or out[-1] != eos):
+        pl = {"tokens": [[out[-1]]], "start_pos": len(prompt) + len(out) - 1,
+              "decode_steps": min(KSTEP_WINDOW, NEW_TOKENS - len(out)), "seed": GEN_SEED}
+        if eos is not None:
+            pl["eos"] = eos
+        if sampling is not None:
+            pl["sampling"] = sampling
+        if key is not None:
+            pl["key"] = key
+        w = process(sid, pl)
+        windows.append({k: w[k] for k in ("tokens", "real_len", "decode_steps", "key")})
+        out += [int(t) for t in w["tokens"][0]]
+        key = w["key"]
+    return out, windows
+
+
+def node_process(node: Dict[str, Any], stage: int = 0):
+    """A session-step callable over a node's /forward (raw payloads)."""
+    from inferd_tpu_torch.client.base import ServerError, http_post
+    from inferd_tpu_torch.runtime import wire
+
+    def process(sid, payload):
+        status, raw = http_post(f"http://127.0.0.1:{node['port']}/forward", wire.pack(
+            {"session_id": sid, "stage": stage, "relay": False, "payload": payload}), 300.0)
+        body = wire.unpack(raw)
+        if status != 200:
+            raise ServerError(str(body.get("error")), status, body.get("code"))
+        return body["result"]
+
+    return process
+
+
+def run_serve_kstep(card: str, params, parts: str, work: str) -> Dict[str, Any]:
+    """The `serve_kstep` phase: decode_steps through /forward on a one-stage
+    node, against the same executor in this process."""
+    import torch
+
+    from inferd_tpu_torch.client.base import ServerError
+    from inferd_tpu_torch.config import get_config
+    from inferd_tpu_torch.parallel.stages import (
+        StageSpec, save_stage_checkpoint, stage_checkpoint_path)
+    from inferd_tpu_torch.runtime.executor import Qwen3StageExecutor
+
+    phase = "serve_kstep"
+    cfg = get_config(MODEL)
+    spec = StageSpec(0, 1, 0, cfg.num_layers - 1)
+    parts1 = os.path.join(work, "parts1")
+    save_stage_checkpoint(stage_checkpoint_path(parts1, 0), params, spec, MODEL)
+    prompts = serve_prompts(cfg.vocab_size)
+    modes = (("greedy", None), ("sampled", {"temperature": 0.6, "top_k": 20, "top_p": 0.95}))
+    nodes: List[Dict[str, Any]] = []
+    try:
+        nodes = [start_node(parts1, 0, work, tag="_kstep"), start_node(parts, 0, work,
+                                                                        tag="_chain0")]
+        for n in nodes:
+            wait_ready(n)
+        before = http_get_json(f"http://127.0.0.1:{nodes[0]['port']}/stats")
+        if any(k["launches"] for k in before["kernels"].values()) or before["forward_passes"]:
+            raise AssertionError(f"the node did work before the main path: {before}")
+        local = Qwen3StageExecutor(cfg, spec, params, max_len=MAX_LEN)
+        served, prefills, steps, stops = {}, 0, 0, 0
+        for mode, sampling in modes:
+            for i, p in enumerate(prompts):
+                free, _ = kstep_session(local.process, f"free-{mode}-{i}", p, sampling=sampling)
+                # eos: the free run's token 5, or the first that is not its token 0
+                eos = next((t for t in free[5:] + free[1:] if free.index(t) > 0), None)
+                want = kstep_session(local.process, f"local-{mode}-{i}", p, eos, sampling)
+                got = kstep_session(node_process(nodes[0]), f"node-{mode}-{i}", p, eos, sampling)
+                if got != want:
+                    raise AssertionError(f"{phase} {mode}, prompt {len(p)}: the node's windows "
+                                         f"{got[1]} != in-process {want[1]}")
+                cut = len(free) if eos is None else free.index(eos) + 1
+                if got[0] != free[:cut]:
+                    raise AssertionError(f"{phase} {mode}, prompt {len(p)}: the eos run is not "
+                                         "the free run cut at eos")
+                stops += sum(w["real_len"] < w["decode_steps"] for w in got[1])
+                served[(mode, len(p))] = got
+                prefills += 1
+                steps += sum(w["decode_steps"] for w in got[1])
+                for ex_sid in (f"free-{mode}-{i}", f"local-{mode}-{i}"):
+                    local.end_session(ex_sid)
+            say(phase, f"{mode}: {len(prompts)} sessions of decode_steps {KSTEP_WINDOW} windows: "
+                       "tokens, real_len, decode_steps and key equal the in-process executor's, "
+                       "and each stream is its free run's cut at eos (the free run's token 5); "
+                       "real_len per window "
+                       + str([[w['real_len'] for w in served[(mode, len(p))][1]] for p in prompts]))
+        if not stops:
+            raise AssertionError(f"{phase}: no eos stopped a window mid-way")
+        st = http_get_json(f"http://127.0.0.1:{nodes[0]['port']}/stats")
+        kern = {name: k["launches"] for name, k in st["kernels"].items()}
+        routes = flash_routes(st)
+        want_routes = {"split": cfg.num_layers * steps, "mma": cfg.num_layers * prefills}
+        windows = sum(len(v[1]) for v in served.values())
+        say(phase, f"node: {st['forward_passes']} forward passes ({prefills} prefills, {windows} "
+                   f"windows of {steps} decode steps in all); launches {kern}; flash_gqa routes "
+                   f"{routes} (want {want_routes}: {routes == want_routes})")
+        if (routes != want_routes or st["forward_passes"] != prefills + windows
+                or kern["flash_gqa"] != sum(want_routes.values())
+                or any(v for name, v in kern.items() if name != "flash_gqa")):
+            raise AssertionError(f"{phase}: node stats {st}")
+        chain0 = node_process(nodes[1])
+        chain0("chain", {"tokens": [prompts[0]], "start_pos": 0, "real_len": len(prompts[0])})
+        try:
+            chain0("chain", {"tokens": [[1]], "start_pos": len(prompts[0]), "decode_steps": 4})
+            raise AssertionError("stage 0 of the two-stage chain served decode_steps")
+        except ServerError as e:
+            say(phase, f"stage 0 of the two-stage chain answers decode_steps with HTTP "
+                       f"{e.status} {e.code}: {e}")
+            if e.status != 409 or e.code != "session_state" or "single-stage" not in str(e):
+                raise
+        del local
+        torch.cuda.empty_cache()
+        return {"launches": kern, "flash_routes": routes, "gemv_routes": gemv_routes(st)}
+    except BaseException:
+        stop_nodes(nodes, show_logs=True)
+        nodes = []
+        raise
+    finally:
+        stop_nodes(nodes)
+
+
+def run_cli(card: str) -> None:
+    """The `cli` phase: tools/generate as a user runs it, on the card by
+    default."""
+    phase = "cli"
+    cmd = [sys.executable, "-m", "inferd_tpu_torch.tools.generate", "--model", MODEL,
+           "--random-init", "--prompt-ids", ",".join(str(t) for t in range(100, 132)),
+           "--max-new-tokens", "16", "--chunk", "8"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"{phase}: exit {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    ids = json.loads(r.stdout.split("generated ids:", 1)[1].strip().splitlines()[0])
+    rate = r.stderr.strip().splitlines()[-1]
+    say(phase, f"{' '.join(cmd[1:4])} ... exit 0 in {time.perf_counter() - t0:.1f}s with "
+               f"{len(ids)} ids; {rate} ({card})")
+    if len(ids) != 16 or "on cuda" not in rate:
+        raise AssertionError(f"{phase}: {r.stdout!r} {r.stderr[-2000:]!r}")
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -2371,11 +2929,12 @@ def main(argv: List[str]) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Drive the port end to end on one CUDA card.")
-    ap.add_argument("--only", default="", help="comma-separated case phases to run alone "
-                    f"({', '.join(CASE_PHASES)}), after the build; the default runs every phase")
+    ap.add_argument("--only", default="", help="comma-separated phases to run alone "
+                    f"({', '.join(CASE_PHASES)}, generate: the generate and generate_quant "
+                    "phases on a fresh split), after the build; the default runs every phase")
     only = [x for x in ap.parse_args(argv).only.split(",") if x]
-    if any(x not in CASE_PHASES for x in only):
-        ap.error(f"--only takes {sorted(CASE_PHASES)}, got {only}")
+    if any(x not in CASE_PHASES and x != "generate" for x in only):
+        ap.error(f"--only takes {sorted(CASE_PHASES) + ['generate']}, got {only}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device; this script runs on the card only",
@@ -2406,9 +2965,19 @@ def main(argv: List[str]) -> int:
                      f"({'built' if info['built'] else 'cached'} in {info['seconds']:.1f}s); "
                      f"ptxas ({len(regs)} kernels): {regs}")
 
-    if only:  # a partial run: the named case phases, no serve phases and no result lines
+    if only:  # a partial run: the named phases, no serve phases and no result lines
         for name in only:
-            CASE_PHASES[name]()
+            if name != "generate":
+                CASE_PHASES[name]()
+                continue
+            work = tempfile.mkdtemp(prefix="chip_smoke_")
+            try:
+                whole = whole_model(split_parts(work))
+                run_generate(card, whole, None)
+                run_generate_quant(card, whole)
+                del whole
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
         say("done", f"case phases {only} passed in {time.perf_counter() - t_start:.1f}s")
         return 0
     cases = run_kernel_cases()
@@ -2425,11 +2994,19 @@ def main(argv: List[str]) -> int:
         lanes = run_serve_lanes(card, parts, work)
         lanes_q = run_serve_lanes(card, parts, work, quant_flag="int8", baseline=lanes)
         lanes_lora = run_serve_lanes_lora(card, parts, work, baseline=lanes)
+        whole = whole_model(parts)
+        gen = run_generate(card, whole, serve)
+        gen_q = run_generate_quant(card, whole)
+        kstep = run_serve_kstep(card, whole, parts, work)
+        del whole
+        torch.cuda.empty_cache()
+        run_cli(card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths = {"serve": serve, "serve_quant_int8": serve_q["int8"],
              "serve_quant_int4": serve_q["int4"], "serve_lanes": lanes,
-             "serve_lanes_quant": lanes_q, "serve_lanes_lora": lanes_lora}
+             "serve_lanes_quant": lanes_q, "serve_lanes_lora": lanes_lora,
+             "generate": gen, "generate_quant": gen_q, "serve_kstep": kstep}
 
     def by_path(name):
         return {path: r["launches"][name] for path, r in paths.items() if r["launches"][name]}

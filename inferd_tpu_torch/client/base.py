@@ -6,8 +6,9 @@ the session's server-side KV. Subclasses provide only the transport step.
 HTTP runs on the standard library (http.client), on worker threads, so the
 event loop never blocks.
 
-Not ported in this slice: prefix pins, session-restart retries and retry
-budgets, deadlines, tracing and the tokenizer.
+Per-token logprobs (`logprob_sink`, `top_n`, `top_sink`) come from the
+logits the client samples from. Not ported in this slice: prefix pins,
+session-restart retries and retry budgets, deadlines and tracing.
 """
 
 from __future__ import annotations
@@ -68,6 +69,24 @@ def sample_np(
         logits = np.where(logits < np.max(logits) + np.log(min_p), -np.inf, logits)
     probs = _softmax(logits)
     return int(rng.choice(logits.shape[-1], p=probs))
+
+
+def logprob_np(logits: np.ndarray, tok: int) -> float:
+    """Model log-probability of `tok` under the RAW logits (what the model
+    assigned, not what the sampler drew from), float64 log-softmax."""
+    l = np.asarray(logits, dtype=np.float64)
+    l = l - np.max(l)
+    return float(l[tok] - np.log(np.sum(np.exp(l))))
+
+
+def top_logprobs_np(logits: np.ndarray, n: int):
+    """Top-n (ids, logprobs) under the RAW logits, descending (ties to the
+    lower id)."""
+    l = np.asarray(logits, dtype=np.float64)
+    l = l - np.max(l)
+    lps = l - np.log(np.sum(np.exp(l)))
+    idx = np.argsort(-lps, kind="stable")[:n]
+    return idx.astype(int).tolist(), lps[idx].tolist()
 
 
 def _softmax(x: np.ndarray) -> np.ndarray:
@@ -156,10 +175,17 @@ class GenerationClient:
         seed: int = 0,
         sampling: Optional[SamplingConfig] = None,
         on_token=None,
+        logprob_sink: Optional[List[float]] = None,
+        top_n: int = 0,
+        top_sink: Optional[List] = None,
     ) -> List[int]:
         """Prefill + token-by-token decode under a fresh session; returns the
         new ids. `on_token` (sync callable) sees each id as it is sampled.
-        The session's server-side KV is dropped at the end, success or not."""
+        `logprob_sink` (cleared first) collects each emitted token's model
+        log-probability (log-softmax of the raw logits), and `top_sink` the
+        top-`top_n` (ids, logprobs) per step, both from the logits the
+        token was sampled from. The session's server-side KV is dropped at
+        the end, success or not."""
         if not prompt_ids:
             raise ValueError("prompt_ids must be non-empty")
         prompt = [int(t) for t in prompt_ids]
@@ -167,6 +193,10 @@ class GenerationClient:
         session_id = str(uuid.uuid4())
         rng = np.random.default_rng(seed)
         out: List[int] = []
+        if logprob_sink is not None:
+            logprob_sink.clear()
+        if top_sink is not None:
+            top_sink.clear()
         try:
             pos = 0
             logits: Optional[np.ndarray] = None
@@ -178,6 +208,10 @@ class GenerationClient:
             while True:
                 tok = sample_np(logits, rng, s.temperature, s.top_k, s.top_p, s.min_p)
                 out.append(tok)
+                if logprob_sink is not None:
+                    logprob_sink.append(logprob_np(logits, tok))
+                if top_sink is not None:
+                    top_sink.append(top_logprobs_np(logits, top_n))
                 if on_token is not None:
                     on_token(tok)
                 if len(out) >= max_new_tokens or tok == eos_token_id:

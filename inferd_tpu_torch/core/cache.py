@@ -111,6 +111,20 @@ def host_to_device(a, device) -> torch.Tensor:
     return t.clone().to(device)
 
 
+def device_to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """Several tensors of one device as numpy arrays, in ONE transfer: they
+    ride as float64 (exact for token ids, float32 values and int32 ids) in
+    one buffer, split again on the host. Integer tensors come back int64,
+    float ones float32."""
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        a = flat[at:at + t.numel()].reshape(tuple(t.shape))
+        at += t.numel()
+        out.append(a.astype(np.float32 if t.is_floating_point() else np.int64))
+    return out
+
+
 def lane_slice(cache: KVCache, lane: int) -> KVCache:
     """One lane's KVCache, [L, 1, T, Nkv, D] on the batch axis. Unlike the
     reference's dynamic_slice this is a VIEW of the slab (a basic slice),

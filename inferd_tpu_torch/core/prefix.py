@@ -1,16 +1,17 @@
 """Chained block keys: the paged KV pool's shared-prefix identity (port of
 inferd_tpu/core/prefix.py).
 
-This slice ports what the block pool needs: `normalize_ids`, `block_keys`
-and `digest_key`. The bytes are the reference's, so a key made by either
-package names the same prefix. The gossiped digest (`make_digest`),
-`AffinityProbe` and `longest_prefix_match` wait for the swarm slice.
+Ported: what the block pool needs (`normalize_ids`, `block_keys` and
+`digest_key`; the bytes are the reference's, so a key made by either
+package names the same prefix) and `longest_prefix_match`, which the
+engine's prefix pins use. The gossiped digest (`make_digest`) and
+`AffinityProbe` wait for the swarm slice.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 #: Bytes of the 16-byte chained block key that ride in a digest (hex).
 DIGEST_KEY_BYTES = 4
@@ -53,3 +54,16 @@ def block_keys(ids: Sequence[int], block_size: int,
 def digest_key(key: bytes) -> str:
     """Truncated wire form of one chained block key."""
     return key[:DIGEST_KEY_BYTES].hex()
+
+
+def longest_prefix_match(
+    keys: Iterable[Tuple[int, ...]], prompt_ids: Sequence[int]
+) -> Optional[Tuple[int, ...]]:
+    """Longest key that `prompt_ids` starts with, or None."""
+    best: Optional[Tuple[int, ...]] = None
+    prompt = tuple(prompt_ids)
+    for ids in keys:
+        if len(ids) <= len(prompt) and prompt[: len(ids)] == ids:
+            if best is None or len(ids) > len(best):
+                best = ids
+    return best

@@ -36,10 +36,14 @@ projections adds each lane's own delta through ops.lora.apply_lane_delta:
 on the card one launch of the kernel of csrc/lora_delta.cu per projection
 and layer, on the CPU the reference's gather-then-einsum form.
 
+Fused K-step decode (`decode_k`, `make_decode_k_serve`) runs K decode
+steps with on-device sampling over a dense cache and reads nothing back
+until the window ends.
+
 This slice covers the dense Qwen3/Qwen2-style decoder. MoE, sandwich norms,
 sliding windows and scaled RoPE raise NotImplementedError here (and an
 adapter operand on such a config raises, as in the reference); tensor/
-expert parallelism and fused K-step decode wait for later slices.
+expert parallelism waits for a later slice.
 """
 
 from __future__ import annotations
@@ -303,6 +307,7 @@ def _attend(
     window=None,
     sinks: Optional[torch.Tensor] = None,
     q_start=None,  # int or [B]: q_positions[:, 0], as a host int when known
+    kv_bound: Optional[int] = None,  # host bound on every row's kv_len (flash_gqa)
 ) -> torch.Tensor:
     """The attention dispatch site for prefill AND cached decode: the flash
     kernel (ops.attention.flash_gqa) for every call, unless the config asks
@@ -325,7 +330,7 @@ def _attend(
     return attention_ops.flash_gqa(
         q, k, v, q_start=q_start, kv_len=kv_len, kv_start=kv_start,
         scale=cfg.attn_scale, softcap=cfg.attn_logit_softcap,
-        window=window, sinks=sinks,
+        window=window, sinks=sinks, kv_bound=kv_bound,
     )
 
 
@@ -344,6 +349,7 @@ def decoder_layer(
     block_table: Optional[torch.Tensor] = None,  # [B, MB] int32: PAGED mode
     paged_write=None,  # PagedWrite: the committing rows and their pool slots
     adapters=None,  # this layer's per-lane LoRA operand (ops.lora.layer_adapters)
+    kv_bound: Optional[int] = None,  # dense cache: host bound on every row's KV fill
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """One pre-norm residual decoder block with GQA and Qwen3's per-head
     q/k RMSNorm. Returns (hidden', k_buf, v_buf); the chunk's K/V are
@@ -436,7 +442,7 @@ def decoder_layer(
             v_buf[rows, cols] = vc
         attn = _attend(
             cfg, q, k_buf, v_buf, q_positions, end, window=window, sinks=sinks,
-            q_start=q_start,
+            q_start=q_start, kv_bound=kv_bound,
         )
 
     attn_out = lora_ops.apply_lane_delta(qdot(attn, lp["o_proj"]), attn, "o_proj", adapters)
@@ -485,6 +491,7 @@ def forward_layers(
     block_table: Optional[torch.Tensor] = None,  # [B, MB] int32: paged pools
     paged_write=None,  # PagedWrite (paged only)
     adapters=None,  # multi-tenant LoRA pools + per-lane ids (ops.lora's contract)
+    kv_bound: Optional[int] = None,  # dense caches: host bound on every row's KV fill
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Run a stack of decoder layers (a Python loop over the stacked
     params). With caches, each layer writes its chunk K/V into
@@ -512,7 +519,7 @@ def forward_layers(
             None if k_cache is None else k_cache[i],
             None if v_cache is None else v_cache[i],
             cache_write_pos, q_start=q_start, block_table=block_table,
-            paged_write=paged_write, adapters=lane_adapters(i),
+            paged_write=paged_write, adapters=lane_adapters(i), kv_bound=kv_bound,
         )
     return hidden, k_cache, v_cache
 
@@ -644,6 +651,137 @@ def forward_cached(
         write_mask=write_mask,
     )
     return unembed(params, cfg, hidden), cache
+
+
+def decode_k(
+    params: Params,
+    cfg: ModelConfig,
+    toks,  # [B] int: each row's last emitted token (host or device)
+    cache,  # core.cache.KVCache with batch B (dense)
+    lengths,  # [B] HOST ints: each row's KV fill (its next write position)
+    active,  # [B] bool (host or device): rows that advance this window
+    keys,  # [B, 2] uint32 host keys (core.sampling.split_key chains them)
+    k: int,  # decode steps in this window
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    min_p: float = 0.0,
+    eos=None,  # None, an int, or [B] host ints; < 0 disables
+    top_n: int = 0,
+    want_lp: bool = False,
+    adapters=None,  # multi-tenant LoRA pools + per-lane ids, for every step
+):
+    """K decode steps with sampling and every KV write on the device: the
+    host reads the window's outputs once, at its end (port of
+    inferd_tpu/models/qwen3.decode_k, whose per-row semantics hold here):
+
+      * positions and masks come from each row's fill, not cache.length:
+        a frozen row computes garbage at its frozen frontier slot, which its
+        next real step overwrites before any query can read it;
+      * a row's fill advances only while it is active; `n_new` counts those
+        advances;
+      * with `eos` >= 0 a row deactivates the step AFTER it emits its stop
+        token (the token itself is emitted and counted); frozen rows
+        re-emit their token;
+      * sampled rows chain `key, sub = split_key(key)` every step, frozen
+        rows too (greedy leaves the keys as they are), so a window gives the
+        tokens of K single steps from the same keys.
+
+    The steps are a Python loop. Every key split is on the host
+    (core.sampling), so all K subkeys are known before the first launch.
+    Each row's fill stays on the device (eos can freeze a row mid-window),
+    so the attention gets its spans as device columns plus a host bound,
+    max(lengths) + j + 1 at step j: a row advances at most one slot per
+    step, and the kernel walks the filled span of the buffer, not all of it.
+
+    Returns (cache, seq [k, B], n_new [B], keys' [B, 2], lps [k, B],
+    top_ids [k, B, top_n], top_lps [k, B, top_n]); keys' is a host uint32
+    array, the rest are tensors on the cache's device. The cache is
+    written in place and its `length` left to the caller. A paged cache
+    raises: its fused window needs host-side write plans from an on-device
+    active mask (ROADMAP A3)."""
+    from inferd_tpu_torch.core import sampling as samplib
+    from inferd_tpu_torch.core.cache import PagedKVCache, host_to_device
+
+    if isinstance(cache, PagedKVCache):
+        raise NotImplementedError(
+            "decode_k over a paged cache is not ported yet (ROADMAP A3: the lane "
+            "executors' fused K-step items)"
+        )
+    dev = cache.k.device
+    lens_host = np.asarray(lengths, dtype=np.int64).reshape(-1)
+    b = lens_host.shape[0]
+    top = int(lens_host.max(initial=0))
+    if top + k > cache.max_len:
+        raise BufferError(f"decode_k: {k} steps from fill {top} past the buffer ({cache.max_len})")
+    lens = host_to_device(lens_host, dev)
+
+    def column(x, dtype):  # [B] of x on the device, uploaded without a sync
+        if isinstance(x, torch.Tensor):
+            return x.reshape(b).to(dev, dtype)
+        return host_to_device(np.array(np.broadcast_to(np.asarray(x), (b,))), dev).to(dtype)
+
+    cur = column(toks, torch.int64)
+    act = column(active, torch.bool)
+    eos_t = None if eos is None else column(eos, torch.int64)
+    keys = np.asarray(keys, dtype=np.uint32).reshape(b, 2)
+    subs = []
+    if temperature != 0.0:
+        for _ in range(k):
+            keys, sub = samplib.split_keys(keys)
+            subs.append(sub)
+    n_cand = samplib.candidate_count(cfg.vocab_size, top_k)
+    n_new = torch.zeros(b, dtype=torch.int64, device=dev)
+    no_lp = (torch.zeros(b, dtype=torch.float32, device=dev),
+             torch.zeros((b, 0), dtype=torch.int32, device=dev),
+             torch.zeros((b, 0), dtype=torch.float32, device=dev))
+    seq, lps, tis, tls = [], [], [], []
+    for j in range(k):
+        hidden = embed(params, cur[:, None], cfg)
+        hidden, _, _ = forward_layers(
+            params["layers"], cfg, hidden, lens[:, None], cache.k, cache.v, lens,
+            adapters=adapters, kv_bound=top + j + 1,
+        )
+        last = unembed(params, cfg, hidden)[:, 0]  # [B, V]
+        if temperature == 0.0:
+            ntok = torch.argmax(last, dim=-1)
+        else:
+            u = torch.cat([samplib.uniforms(sb, (1, n_cand), dev) for sb in subs[j]])
+            ntok = samplib.sample_from_uniforms(last, u, temperature, top_k, top_p, min_p)
+        ntok = torch.where(act, ntok, cur)  # frozen rows re-emit their token
+        lp, ti, tl = samplib.logprob_topn(last, ntok, top_n) if want_lp else no_lp
+        step = act.long()
+        lens = lens + step
+        n_new = n_new + step
+        if eos_t is not None:
+            act = act & ((eos_t < 0) | (ntok != eos_t))
+        cur = ntok
+        seq.append(ntok)
+        lps.append(lp)
+        tis.append(ti)
+        tls.append(tl)
+    return (cache, torch.stack(seq), n_new, keys, torch.stack(lps), torch.stack(tis),
+            torch.stack(tls))
+
+
+def make_decode_k_serve(cfg: ModelConfig):
+    """The serving form of decode_k, with the reference's dispatch contract
+    (params, cache, toks, lengths, active, keys, eos, k, t, tk, tp, mp,
+    ads=None) -> (cache, seq [k, L], n_new [L], keys' [L, 2]): sampling
+    parameters per request and a per-lane `eos` [L] that deactivates a
+    lane in the window the step after its stop token. Its consumers (the
+    batched engine, the lane executors' K-step items) land with ROADMAP A3."""
+
+    def decode_k_serve(params, cache, toks, lengths, active, keys, eos, k: int,
+                       temperature: float, top_k: int, top_p: float, min_p: float,
+                       ads=None):
+        cache, seq, n_new, keys, _lps, _tis, _tls = decode_k(
+            params, cfg, toks, cache, lengths, active, keys, k, temperature=temperature,
+            top_k=top_k, top_p=top_p, min_p=min_p, eos=eos, adapters=ads,
+        )
+        return cache, seq, n_new, keys
+
+    return decode_k_serve
 
 
 def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

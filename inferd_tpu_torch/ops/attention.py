@@ -251,12 +251,14 @@ class FlashPlan(NamedTuple):
 
 def flash_plan(b: int, s: int, t: int, nq: int, nkv: int, dtype: torch.dtype,
                q_start: Scalar, kv_len: Scalar, window: Optional[Scalar] = None,
-               kv_start: Scalar = 0) -> FlashPlan:
+               kv_start: Scalar = 0, kv_bound: Optional[int] = None) -> FlashPlan:
     """The route and the KV split of a flash_gqa launch, from what the host
     knows. With host ints (the one-session path) the split covers the real
     span, the window floor of the first query to the causal frontier of the
-    last; with device tensors (lanes, the paged prefill) it covers the whole
-    buffer and CTAs past a row's frontier write an empty partial.
+    last; with device tensors (lanes, the paged prefill, a fused K-step
+    window) it covers the whole buffer, or the first `kv_bound` slots when
+    the caller knows that bound on the host, and CTAs past a row's frontier
+    write an empty partial.
 
     The route: bf16 queries with more packed rows per kv head (G*S) than
     the split-KV route's row tile take the tensor cores; everything else,
@@ -276,7 +278,7 @@ def flash_plan(b: int, s: int, t: int, nq: int, nkv: int, dtype: torch.dtype,
         lo = floor // tile
         hi = -(-last // tile) if last > floor else lo
     else:
-        lo, hi = 0, -(-t // tile)
+        lo, hi = 0, -(-(t if kv_bound is None else min(t, kv_bound)) // tile)
     span = hi - lo
     if span <= 0:
         return FlashPlan(route, rows, row_tiles, tile, lo, lo, 1, 0)
@@ -310,9 +312,14 @@ def flash_gqa(
     softcap: float = 0.0,
     window: Optional[Scalar] = None,
     sinks: Optional[torch.Tensor] = None,
+    kv_bound: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash GQA attention over a (possibly oversized) KV buffer; returns
     [B, S, Nq*D] in q.dtype.
+
+    `kv_bound`, a launch hint, is a host int no row's `kv_len` exceeds:
+    with device spans the kernel then walks only the first kv_bound slots
+    (flash_plan). The caller guarantees it; the plain version ignores it.
 
     CUDA tensors launch the kernels of csrc/flash_gqa.cu (which replace both
     Pallas kernels of the JAX package) on the route `flash_plan` picks: the
@@ -330,7 +337,8 @@ def flash_gqa(
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_gqa: unsupported device {q.device}")
-    out, route = _launch(q, k, v, q_start, kv_len, kv_start, scale, softcap, window, sinks)
+    out, route = _launch(q, k, v, q_start, kv_len, kv_start, scale, softcap, window, sinks,
+                         kv_bound)
     flash_gqa.launches += 1
     if route == "mma":
         flash_gqa.mma_launches += 1
@@ -344,7 +352,8 @@ flash_gqa.split_launches = 0
 flash_gqa.mma_launches = 0
 
 
-def _launch(q, k, v, q_start, kv_len, kv_start, scale, softcap, window, sinks):
+def _launch(q, k, v, q_start, kv_len, kv_start, scale, softcap, window, sinks,
+            kv_bound=None):
     """Validate, plan and launch; returns (out, route)."""
     dev = q.device
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
@@ -368,7 +377,7 @@ def _launch(q, k, v, q_start, kv_len, kv_start, scale, softcap, window, sinks):
             raise ValueError(f"flash_gqa kernel: {name} must be contiguous")
         if x.data_ptr() % 16:
             raise ValueError(f"flash_gqa kernel: {name} must be 16-byte aligned")
-    plan = flash_plan(b, s, t, nq, nkv, q.dtype, q_start, kv_len, window, kv_start)
+    plan = flash_plan(b, s, t, nq, nkv, q.dtype, q_start, kv_len, window, kv_start, kv_bound)
     if b * nkv > _MAX_GRID_YZ:
         raise ValueError(f"flash_gqa kernel: B*Nkv {b * nkv} over the grid limit")
     out = torch.empty((b, s, nq * d), dtype=q.dtype, device=dev)

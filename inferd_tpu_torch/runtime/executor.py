@@ -19,11 +19,14 @@ step for the same effect), so a step that fails midway leaves its partial
 KV writes behind; the session frontier only advances on success, and the
 slots past it are rewritten by the next step.
 
+A payload with `decode_steps` K runs K decode steps with on-device
+sampling in one window (models/qwen3.decode_k) and returns the tokens it
+committed: only a single-stage (whole-model) executor serves it, since a
+pipeline stage's next token depends on every other stage.
+
 `make_executor` routes `--stage-lanes` to the lane-slotted executor of
-runtime/stage_batch.py. Not ported in this slice: fused K-step decode
-(`decode_steps`, which the JAX package serves on single-stage topologies
-only), ring high-water marks, session fork/export/import and the counter
-backend.
+runtime/stage_batch.py. Not ported in this slice: ring high-water marks,
+session fork/export/import and the counter backend.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from inferd_tpu_torch.config import ModelConfig
-from inferd_tpu_torch.core.cache import KVCache, grow
+from inferd_tpu_torch.core import sampling as samplib
+from inferd_tpu_torch.core.cache import KVCache, device_to_host, grow
 from inferd_tpu_torch.core.generate import bucket_len
 from inferd_tpu_torch.models import qwen3
 from inferd_tpu_torch.parallel.stages import StageSpec
@@ -109,6 +113,52 @@ class SessionStore:
             self._caches.pop(oldest, None)
             self._locks.pop(oldest, None)
             self._last_used.pop(oldest, None)
+
+
+def parse_kstep(payload: Dict[str, Any], budget: int) -> Optional[Dict[str, Any]]:
+    """The multi-step decode request of a /forward payload, one parse for
+    every executor so the wire contract cannot drift.
+
+    Payload keys: "decode_steps" (K requested), optional "sampling"
+    ({temperature, top_k, top_p, min_p}; greedy by default), "eos" (a stop
+    token id; absent = none), "key" ([2] uint32, the session's key chain)
+    or "seed" (the chain's root when no key rides yet).
+
+    Returns None when the payload asks for no multi-step decode, else
+    {"k": K clamped into [1, budget], "sampling": (t, top_k, top_p, min_p),
+    "eos": int (-1 = none), "key": uint32 [2]}. A budget below 1 raises
+    BufferError."""
+    k_req = int(payload.get("decode_steps") or 0)
+    if k_req <= 0:
+        return None
+    if budget < 1:
+        raise BufferError(f"KV overflow: no budget for a decode step ({budget})")
+    s = payload.get("sampling") or {}
+    sampling = (
+        float(s.get("temperature", 0.0)),
+        int(s.get("top_k", 0)),
+        float(s.get("top_p", 1.0)),
+        float(s.get("min_p", 0.0)),
+    )
+    key = payload.get("key")
+    if key is None:
+        key = samplib.prng_key(int(payload.get("seed", 0) or 0))
+    eos = payload.get("eos")
+    return {
+        "k": max(1, min(k_req, int(budget))),
+        "sampling": sampling,
+        "eos": -1 if eos is None else int(eos),
+        "key": np.asarray(key, np.uint32),
+    }
+
+
+def kstep_hi(start: int, n: int, k: int) -> int:
+    """The highest slot a K-step window wrote, plus one: the `n` committed
+    writes and, when eos froze the row early, the ONE frozen-frontier slot
+    it kept rewriting (a frozen row does not advance). The ring high-water
+    mark of sliding-window layers, which wait for the model-families
+    slice, is advanced by it."""
+    return start + min(n + 1, k)
 
 
 def _as_tensor(x: Any) -> torch.Tensor:
@@ -195,10 +245,7 @@ class Qwen3StageExecutor:
         Returns {"hidden"} or, on the last stage, {"logits": [B, V]} as CPU
         tensors, plus the relay metadata "real_len" and "start_pos"."""
         if int(payload.get("decode_steps") or 0) > 0:
-            raise ValueError(
-                "decode_steps (fused K-step decode) is not ported yet; "
-                "send one token per step"
-            )
+            return self._process_decode_k(session_id, payload)
         start_pos = int(payload.get("start_pos", 0))
         if self.spec.is_first:
             x = torch.as_tensor(np.asarray(payload["tokens"], dtype=np.int64))
@@ -223,6 +270,52 @@ class Qwen3StageExecutor:
         result["real_len"] = real_len
         result["start_pos"] = start_pos
         return result
+
+    def _process_decode_k(self, session_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
+        """K decode steps and their sampling on the device, one host read at
+        the end (models/qwen3.decode_k).
+
+        payload: {"tokens": [[last token]], "start_pos", "decode_steps": K}
+        plus parse_kstep's optional keys. Returns {"tokens": [[t_0 ..
+        t_{n-1}]], "real_len": n (the tokens committed: n < K only when
+        `eos` fired inside the window), "decode_steps": the K run (clamped
+        to the KV budget), "start_pos", "key": the advanced key chain}. The
+        session frontier advances by n; a window starting before the
+        frontier is a replay and recomputes from its start."""
+        if not (self.spec.is_first and self.spec.is_last):
+            raise ValueError(
+                "decode_steps requires a single-stage (whole-model) "
+                "topology — pipeline stages relay per token"
+            )
+        toks = np.asarray(payload["tokens"], dtype=np.int64)
+        if toks.shape != (1, 1):
+            raise ValueError(f"multi-step decode expects tokens [1, 1], got {toks.shape}")
+        start_pos = int(payload.get("start_pos", 0))
+        if start_pos <= 0:
+            raise ValueError("multi-step decode needs an established frontier (start_pos > 0)")
+        ks = parse_kstep(payload, self.max_len - start_pos)
+        k = ks["k"]
+        t, tk, tp, mp = ks["sampling"]
+        with self.sessions.lock_for(session_id), torch.no_grad():
+            cache = self._cache_for(session_id, 1, 1)
+            self._rollback_for(session_id, cache, start_pos)  # a replay restarts at start_pos
+            if start_pos + k > cache.max_len:
+                cache = grow(cache, bucket_len(start_pos + k))
+            cache, seq, n_new, nkey, _lps, _tis, _tls = qwen3.decode_k(
+                self.params, self.cfg, toks[0], cache, [start_pos], [True], ks["key"][None],
+                k, temperature=t, top_k=tk, top_p=tp, min_p=mp, eos=ks["eos"],
+            )
+            seq, n_new = device_to_host(seq[:, 0], n_new)  # the window's one read
+            n = int(n_new[0])
+            cache.length = start_pos + n
+            self.sessions.put(session_id, cache)
+        return {
+            "tokens": [seq[:n].tolist()],
+            "real_len": n,
+            "decode_steps": k,
+            "start_pos": start_pos,
+            "key": nkey[0].tolist(),
+        }
 
     def end_session(self, session_id: str) -> None:
         self.sessions.drop(session_id)

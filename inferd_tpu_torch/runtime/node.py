@@ -16,9 +16,15 @@ the JAX node for this topology:
                      stored, each kernel's launch count in this process,
                      the executor's stats
 
+A payload with `decode_steps` K asks a one-stage (whole-model) node for a
+fused window of K decode steps sampled on the device (the one-session
+executor's `_process_decode_k`); the reply's `result` holds the committed
+`tokens`, `real_len`, `decode_steps` and the advanced `key`.
+
 Errors are wire-packed {"error", "code"} bodies with the JAX node's codes:
 409 "wrong_stage" (the chain's address list is stale), 409 "overflow" (KV
-budget), 409 "session_state" (out-of-order chunk), 409
+budget, a K-step window's too), 409 "session_state" (out-of-order chunk;
+`decode_steps` to a stage of a multi-stage chain, or to a lane node), 409
 "no_adapter_registry" (the payload names an adapter and this node serves
 no `--adapters` registry: serving the base model instead would be silent
 tenant corruption), 409 "unknown_adapter" (a name outside the catalog), 503

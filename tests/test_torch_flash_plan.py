@@ -86,6 +86,28 @@ def test_device_span_is_the_whole_buffer(call):
 
 
 @settings(max_examples=300, deadline=None)
+@given(calls(), st.integers(0, 50000))
+def test_device_span_with_a_bound_covers_every_attended_slot(call, extra):
+    """kv_bound (a host bound on every row's kv_len, as decode_k passes it)
+    cuts a device plan to the bound's tiles and no further, and a decode
+    row's device plan under the bound kv_len is the host plan: a fused
+    K-step window launches what a single step launches."""
+    b, s, t, nq, nkv, dtype, q_start, kv_len, window, kv_start, _ = call
+    bound = kv_len + extra
+    cols = torch.full((b,), q_start), torch.full((b,), kv_len)
+    p = A.flash_plan(b, s, t, nq, nkv, dtype, *cols, window, kv_start, kv_bound=bound)
+    assert (p.tile_lo, p.tile_hi) == (0, -(-min(t, bound) // p.tile))
+    if s <= 64:
+        assert {j // p.tile for j in _needed_slots(s, t, q_start, kv_len, window, kv_start)} \
+            <= set(range(p.tile_lo, p.tile_hi))
+    if q_start < t:  # a decode step at q_start over the filled span [0, q_start]
+        host = A.flash_plan(b, 1, t, nq, nkv, dtype, q_start, q_start + 1)
+        dev = A.flash_plan(b, 1, t, nq, nkv, dtype, torch.full((b,), q_start),
+                           torch.full((b,), q_start + 1), kv_bound=q_start + 1)
+        assert dev == host
+
+
+@settings(max_examples=300, deadline=None)
 @given(calls())
 def test_cta_count_stays_within_the_cap(call):
     b, s, t, nq, nkv = call[:5]

@@ -150,7 +150,7 @@ def test_out_of_order_chunk_and_decode_steps_raise_value_error(jax_parts):
     _chain(tex, "x", [1, 2, 3], 0)
     with pytest.raises(ValueError, match="out-of-order"):
         _chain(tex, "x", [4], 7)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="single-stage"):
         tex[0].process("x", {"tokens": [[4]], "start_pos": 3, "decode_steps": 4})
 
 
