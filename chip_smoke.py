@@ -94,21 +94,27 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               carries a tenant lane, none for all-base dispatches; paged split
               launches as in serve_lanes); 3 loads per node
   generate    the whole model in this process (the serve checkpoints joined,
-              bf16) through core.generate.Engine: on the serve prompts (32
-              new tokens), generate at chunk 1 and at chunk 8 and
+              bf16) through core.generate.Engine, whose decode steps and
+              K-step windows replay captured CUDA graphs: on the serve
+              prompts (32 new tokens), generate at chunk 1 and at chunk 8 and
               generate_scan give the same tokens, greedy and under the
-              default sampling config (0.6/20/0.95) with one seed; flash_gqa
-              launches exact per route (28 tensor-core launches per prefill,
-              28 split-KV per decode step); a planted fault (decode_k writes
-              each step's K/V one slot early) breaks the chunk equality;
+              default sampling config (0.6/20/0.95) with one seed, and equal
+              the eager step function's (no graph, the same kv bounds) bit
+              for bit; flash_gqa launches exact per route, counted per
+              replay (28 tensor-core launches per prefill, 28 split-KV per
+              decode step); each engine's graph_stats, replays at least 4
+              per capture; a planted fault (a fused window's later steps
+              write their K/V one slot early) breaks the chunk equality;
               teacher-forced prefill + 8 decode steps within 5% of max
               |logit| of plain attention; the greedy stream's shared prefix
               with serve's chain stream (printed); bench.py's headline regime
               (64-token prompt, 50 and 150 steps in interleaved pairs via
               utils.profiling) for generate_scan, generate(chunk=1) and
-              generate(chunk=8): steady ms/token, e2e tok/s, fixed overhead;
-              one decode step's device time against its host time, and the
-              sampler's device time per call
+              generate(chunk=8): steady ms/token, e2e tok/s, fixed overhead,
+              the roofline share of the steady ms/token (perf.roofline, the
+              h100 row); one decode step's device time against its host time
+              (torch.profiler), graphed and eager, and the sampler's device
+              time per call
   generate_quant
               the same engine on --quant int8 weights: chunk 8 equals chunk 1,
               greedy; w8a16 launches exact per route (7 x 28 + 1 per decode
@@ -120,6 +126,22 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               real_len, decode_steps and key equal the in-process executor's;
               /stats launches exact; stage 0 of the two-stage chain answers
               decode_steps with 409 session_state ("single-stage")
+  anatomy     perf.anatomy.profile_step on the whole model at the headline
+              regime's context: bf16, --quant int8 and paged (bs 32): each
+              phase's device ms (short and long loops of it captured as
+              graphs, replayed in interleaved pairs), bytes and bound, the
+              graphed whole step, the unattributed residual and dispatch
+              (the eager host-driven step minus the graphed one); each
+              case's kernels must launch
+  profile     the serve split behind two run_node --enable-profiling
+              processes: after a warm-up request, POST /profile window on
+              both, one greedy request (a prefill and 8 decode steps) inside
+              it; each node's torch.profiler trace must hold the requests
+              and the card's kernels, and its host time is split
+              (utils.profiling.host_time_split): HTTP, wire pack/unpack,
+              the compute lock, the executor, the layers (and their Python
+              alone), the kernel wrappers' checks and launch, the results'
+              .cpu()
   cli         python -m inferd_tpu_torch.tools.generate --model qwen3-0.6b
               --random-init --prompt-ids ... --max-new-tokens 16 --chunk 8 as a
               subprocess, on the card by default: exit 0, 16 ids
@@ -129,9 +151,10 @@ Then one JSON line listing every kernel, the nvidia-smi line, and last:
 
 Run from the root of a checkout: python3 chip_smoke.py
 Exits non-zero without a CUDA device, and outside a checkout.
-`--only paged,lora` (any of flash, paged, qmm, lora, and generate: the
-generate and generate_quant phases on a fresh split) builds the kernels and
-runs those phases alone, with no serve phase and no result lines.
+`--only paged,lora` (any of flash, paged, qmm, lora, and generate, anatomy,
+profile on a fresh split: generate runs the generate and generate_quant
+phases) builds the kernels and runs those phases alone, with no serve phase
+and no result lines.
 """
 
 from __future__ import annotations
@@ -447,10 +470,24 @@ def _per_row(x, b):
     return list(x) if isinstance(x, (list, tuple)) else [x] * b
 
 
+def roofline_kv_read(ctx: int, nkv: int, d: int, kv_item: int) -> int:
+    """perf/roofline's KV read of ONE layer and one sequence at ctx cached
+    tokens (decode_step_cost on a one-layer config with these heads)."""
+    from inferd_tpu_torch.config import get_config
+    from inferd_tpu_torch.perf import roofline as rl
+
+    cfg = dataclasses.replace(get_config(MODEL), num_layers=1, num_kv_heads=nkv, head_dim=d)
+    kv_dtype = {1: "float8_e4m3fn", 2: "bfloat16", 4: "float32"}[kv_item]
+    return rl.decode_step_cost(cfg, kv_dtype=kv_dtype, ctx=ctx).kv_read_bytes
+
+
 def work_of(case: Dict[str, Any], nq: int, nkv: int, d: int) -> Dict[str, float]:
     """Bytes and flops the case's data needs: Q read, O written, each K/V
     slot that some query attends read once; 4 * D flops per unmasked
-    (query head, kv slot) pair (q.k and p.v)."""
+    (query head, kv slot) pair (q.k and p.v). A decode row without a window
+    attends its whole span, the roofline's KV read at ctx = that span, and
+    takes its count from perf/roofline; a chunk's rows attend a causal
+    triangle and a window a band, which the roofline does not model."""
     import torch
 
     b, s, t = case.get("b", 1), case["s"], case["t"]
@@ -458,7 +495,7 @@ def work_of(case: Dict[str, Any], nq: int, nkv: int, d: int) -> Dict[str, float]
     win = case.get("window") or 0
     q_item = 4 if case.get("dtype") == "float32" else 2
     kv_item = 1 if case.get("fp8") else q_item
-    slots = pairs = 0
+    kv_bytes = pairs = 0
     for r in range(b):
         qpos = qs[r] + torch.arange(s)[:, None]
         kpos = torch.arange(t)[None, :]  # kv_start 0 in every case
@@ -466,8 +503,12 @@ def work_of(case: Dict[str, Any], nq: int, nkv: int, d: int) -> Dict[str, float]
         if win > 0:
             m &= kpos > qpos - win
         pairs += int(m.sum())
-        slots += int(m.any(dim=0).sum())
-    nbytes = 2 * b * s * nq * d * q_item + 2 * slots * nkv * d * kv_item
+        slots = int(m.any(dim=0).sum())
+        if s == 1 and win == 0:
+            kv_bytes += roofline_kv_read(slots, nkv, d, kv_item)
+        else:
+            kv_bytes += 2 * slots * nkv * d * kv_item
+    nbytes = 2 * b * s * nq * d * q_item + kv_bytes
     flops = 4.0 * d * nq * pairs
     return {"bytes": nbytes, "flops": flops}
 
@@ -599,7 +640,10 @@ def paged_work(kv_len, window: int, b: int, nq: int, nkv: int, d: int, q_item: i
                kv_item: int) -> Dict[str, float]:
     """Bytes and flops one paged decode step needs: Q read and O written,
     each K/V row a query attends read once; 4 * D flops per (query head,
-    attended slot). Each lane's query sits at kv_len - 1."""
+    attended slot). Each lane's query sits at kv_len - 1. Its own count:
+    perf/roofline.paged_attn_step_bytes models the kernel's reads (whole
+    blocks and one scratch block per lane, at one ctx for every lane), more
+    than these lanes' data needs."""
     slots = 0
     for n in kv_len:
         qpos = max(n - 1, 0)
@@ -897,11 +941,18 @@ def qmm_library(kernel: str, x, q8, q4):
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
 
 
-def qmm_work(m: int, k: int, n: int, x_item: int, q_bytes: int, groups: int) -> Dict[str, float]:
+def qmm_work(m: int, k: int, n: int, x_item: int, scheme: str, stored: int) -> Dict[str, float]:
     """Bytes and flops of one GEMV: the weight as stored and its f32 scales
-    read once, x read once, the output written once; 2*M*K*N flops."""
-    return {"bytes": q_bytes + 4 * n * groups + (m * k + m * n) * x_item,
-            "flops": 2.0 * m * k * n}
+    read once (perf/roofline.quant_matvec_bytes, held equal to the
+    `stored` bytes of the case's weight), x read once, the output written
+    once; 2*M*K*N flops."""
+    from inferd_tpu_torch.perf import roofline as rl
+
+    weight = rl.quant_matvec_bytes(k, n, scheme)["kernel"]
+    if weight != stored:
+        raise AssertionError(f"roofline counts {weight} weight bytes of [{k}, {n}] {scheme}, "
+                             f"the weight stores {stored}")
+    return {"bytes": weight + (m * k + m * n) * x_item, "flops": 2.0 * m * k * n}
 
 
 def qmm_wrapper(kernel: str):
@@ -986,7 +1037,8 @@ def run_qmm_cases() -> List[Dict[str, Any]]:
             ms = time_ms(lambda: qmm_call(kernel, x, q8, q4), cold=True)
             plain_ms = time_ms(lambda: qmm_plain(kernel, x, q8, q4), iters=10, cold=True)
             groups = 1 if kernel == "w8a16" else q4.scale.shape[0]
-            w_ = qmm_work(c["m"], k, n, x.element_size(), wq.q.numel(), groups)
+            w_ = qmm_work(c["m"], k, n, x.element_size(), "int8" if kernel == "w8a16" else "int4",
+                          wq.q.numel() + 4 * n * groups)
             t_bytes = w_["bytes"] / HBM_BYTES_PER_S
             t_ops = w_["flops"] / PEAK_FLOPS["float32" if dt == torch.float32 else "bfloat16"]
             row = {
@@ -1063,13 +1115,18 @@ def lora_fault_inputs(fault: str, x, a_pool, b_pool, scale_pool, ids, layer):
 
 def lora_work(x, a_pool, b_pool, ids) -> Dict[str, float]:
     """Bytes and flops one lane-delta launch needs: each distinct tenant
-    slot's A and B slices read once (base-slot lanes need none: slot 0 is
-    zero by contract), x read once, the f32 output written once;
-    2 * S * r * (in + out) flops per tenant lane."""
+    slot's A and B slices read once (perf/roofline.lora_delta_step_bytes
+    over the distinct slots: lanes that share a slot share its read, and
+    base-slot lanes need none, slot 0 being zero by contract), x read once,
+    the f32 output written once; 2 * S * r * (in + out) flops per tenant
+    lane."""
+    from inferd_tpu_torch.perf import roofline as rl
+
     b, s, din = x.shape
     r, dout = a_pool.shape[-1], b_pool.shape[-1]
     tenants = [i for i in ids.tolist() if i]
-    slices = len(set(tenants)) * r * (din + dout) * a_pool.element_size()
+    slices = rl.lora_delta_step_bytes(len(set(tenants)), din, r, dout,
+                                      a_pool.element_size())["kernel"]
     return {"bytes": slices + x.numel() * x.element_size() + 4 * b * s * dout,
             "flops": 2.0 * len(tenants) * s * r * (din + dout)}
 
@@ -2458,26 +2515,45 @@ def check_flash_routes(phase: str, counts, runs: int, layers: int) -> None:
 
 @contextlib.contextmanager
 def planted_kstep_slot_fault():
-    """Until the block ends, decode_k writes each step's K/V one slot early,
-    over the previous token's (its positions and masks stay right): the
-    fault the chunked stream's equality with the per-step one must catch."""
+    """Until the block ends, every step after the first of a fused window
+    (models/qwen3.decode_window) writes its K/V one slot early, over the
+    previous token's (its positions and masks stay right): the fault the
+    chunked stream's equality with the per-step one must catch. A graph
+    captured inside the block holds the fault; one captured before does
+    not, so the check runs on engines made inside it."""
     import torch
 
     from inferd_tpu_torch.models import qwen3 as Q
 
-    real = Q.forward_layers
+    real_layers, real_window = Q.forward_layers, Q.decode_window
+    early = [False]
 
-    def faulty(layers, cfg, hidden, positions, k_cache=None, v_cache=None,
-               cache_write_pos=None, *rest, **kw):
-        if isinstance(cache_write_pos, torch.Tensor):  # decode_k's per-row write
+    def faulty_layers(layers, cfg, hidden, positions, k_cache=None, v_cache=None,
+                      cache_write_pos=None, *rest, **kw):
+        if early[0] and isinstance(cache_write_pos, torch.Tensor):
             cache_write_pos = cache_write_pos - 1
-        return real(layers, cfg, hidden, positions, k_cache, v_cache, cache_write_pos, *rest, **kw)
+        return real_layers(layers, cfg, hidden, positions, k_cache, v_cache, cache_write_pos,
+                           *rest, **kw)
 
-    Q.forward_layers = faulty
+    def faulty_window(params, cfg, k_cache, v_cache, tok, fill, active, eos, u, bounds, *rest):
+        outs = []
+        for j, bound in enumerate(bounds):
+            early[0] = j > 0
+            try:
+                o = real_window(params, cfg, k_cache, v_cache, tok, fill, active, eos,
+                                None if u is None else u[j:j + 1], (bound,), *rest)
+            finally:
+                early[0] = False
+            tok, fill, active = o[0][0], o[1], o[2]
+            outs.append(o)
+        return (torch.cat([o[0] for o in outs]), fill, active,
+                *(torch.cat([o[i] for o in outs]) for i in (3, 4, 5)))
+
+    Q.forward_layers, Q.decode_window = faulty_layers, faulty_window
     try:
         yield
     finally:
-        Q.forward_layers = real
+        Q.forward_layers, Q.decode_window = real_layers, real_window
 
 
 def forced_logits(eng, prompts, streams) -> List[Any]:
@@ -2575,6 +2651,39 @@ def device_share(phase: str, card: str, name: str, fn, per: int, reps: int = 4):
     return out
 
 
+# The engine's graphs must be reused, not captured anew per generation:
+# replays per capture at least this many over the prompts' generations, and
+# over the headline's repeated runs (a few kv buckets, thousands of steps).
+GRAPH_REPLAYS_PER_CAPTURE = 4
+HEADLINE_REPLAYS_PER_CAPTURE = 20
+# the headline's steady ms/token differences tokens 50..150 of runs from a
+# 64-token prompt: their mean fill, the context its roofline is taken at
+HEADLINE_CTX = HEADLINE_PROMPT + sum(HEADLINE_STEPS) // 2
+
+
+def check_graph_stats(phase: str, stats: Dict[str, Dict[str, int]], least: int) -> None:
+    """Print each engine's graph_stats; fail unless its steps were replayed
+    at least `least` times per capture."""
+    for name, st in stats.items():
+        say(phase, f"{name}: graph_stats {st}")
+        if not st["captures"] or st["replays"] < least * st["captures"]:
+            raise AssertionError(f"{phase} {name}: {st['replays']} replays of {st['captures']} "
+                                 f"captures (want >= {least} per capture)")
+
+
+def roofline_shares(phase: str, card: str, cfg, quant: str, rates) -> None:
+    """The roofline share of each method's steady ms/token: the step's floor
+    (perf/roofline, the h100 row, at HEADLINE_CTX) over the measured ms."""
+    from inferd_tpu_torch.perf import roofline as rl
+
+    roof = rl.roofline(rl.decode_step_cost(cfg, quant=quant, ctx=HEADLINE_CTX), rl.get_chip("h100"))
+    for name, r in rates.items():
+        say(phase, f"{name}: roofline share of the steady ms/token {roof.floor_ms:.4f} / "
+                   f"{r['steady_ms_per_token']:.3f} = {roof.floor_ms / r['steady_ms_per_token']:.2%}"
+                   f" (bound by {roof.bound}, {quant}, ctx {HEADLINE_CTX}; {card})")
+        r["roofline_frac"] = roof.floor_ms / r["steady_ms_per_token"]
+
+
 def headline_methods(eng, prompt, scan_only: bool = False):
     """(name, run) pairs over one engine for `headline`: generate_scan, and
     unless scan_only, generate at chunk 1 and at GEN_CHUNK."""
@@ -2637,16 +2746,36 @@ def run_generate(card: str, params, serve: Optional[Dict[str, Any]]) -> Dict[str
     if any(others.values()):
         raise AssertionError(f"{phase}: bf16 generation launched {others}")
     greedy = [s[0] for s in streams["greedy"]]
+    graph_stats = {name: eng.graph_stats() for name, eng in engines.items()}
+    check_graph_stats(phase, graph_stats, GRAPH_REPLAYS_PER_CAPTURE)
 
-    # the planted fault: decode_k's KV one slot early must break the equality
-    # of the chunked streams with the per-step ones (greedy or sampled)
+    # the same steps run eagerly (the eager decode_window, no graph): the
+    # graphs' tokens, bit for bit, at the same kv bounds
+    for name, eng in engines.items():
+        eager = Engine(cfg, params, sampling_cfg=eng.sampling)
+        eager.graphs = None  # the eager step on the card
+        for p, s in zip(prompts, streams[name]):
+            e = eager.generate(p, NEW_TOKENS, seed=GEN_SEED)
+            if e != s[0]:
+                raise AssertionError(f"{name}, prompt {len(p)}: the graphed stream differs from "
+                                     f"the eager step's from token {first_divergence(e, s[0])}")
+        del eager
+    say(phase, f"the graphed streams equal the eager step function's (generate(chunk=1), no "
+               f"graph, the same kv bounds), greedy and sampled, on all {len(prompts)} prompts")
+
+    # the planted fault: a fused window's later steps writing their K/V one
+    # slot early must break the equality of the chunked streams with the
+    # per-step ones (greedy or sampled); fresh engines capture it
     caught = {}
     with planted_kstep_slot_fault():
         for name, eng in engines.items():
+            faulty = Engine(cfg, params, sampling_cfg=eng.sampling)
             caught[name] = [len(p) for p, s in zip(prompts, streams[name])
-                            if eng.generate(p, NEW_TOKENS, seed=GEN_SEED, chunk=GEN_CHUNK) != s[0]]
-    say(phase, f"planted fault kv_slot_early (decode_k writes each step's K/V one slot early): "
-               f"chunk {GEN_CHUNK} differs from chunk 1 on prompts {caught} of "
+                            if faulty.generate(p, NEW_TOKENS, seed=GEN_SEED,
+                                               chunk=GEN_CHUNK) != s[0]]
+            del faulty
+    say(phase, f"planted fault kv_slot_early (a window's later steps write their K/V one slot "
+               f"early): chunk {GEN_CHUNK} differs from chunk 1 on prompts {caught} of "
                f"{list(PROMPT_LENS)}")
     if not any(caught.values()):
         raise AssertionError("planted fault kv_slot_early passes the chunk equality")
@@ -2672,15 +2801,30 @@ def run_generate(card: str, params, serve: Optional[Dict[str, Any]]) -> Dict[str
     prompt = rng.integers(0, cfg.vocab_size, HEADLINE_PROMPT).tolist()
     eng = Engine(cfg, params, max_len=512)
     rates = headline(phase, card, headline_methods(eng, prompt))
+    roofline_shares(phase, card, cfg, "none", rates)
+    headline_graphs = eng.graph_stats()
+    check_graph_stats(phase, {"headline engine": headline_graphs}, HEADLINE_REPLAYS_PER_CAPTURE)
+    eager = Engine(cfg, params, max_len=512)
+    eager.graphs = None  # the eager step on the card
     logits, cache = eng.prefill(prompt, eng.new_cache(1, 512))
     sub = samplib.split_key(samplib.prng_key(0))[1]
     key = samplib.prng_key(0)
     tok = samplib.sample(logits, sub)
-    steps = {"decode (one step)": (lambda: eng.decode(tok, cache, sub), 1),
+
+    def at_prompt(call):  # every call from the same fill: one kv bound, one graph
+        def run():
+            cache.length = HEADLINE_PROMPT
+            return call()
+        return run
+
+    steps = {"decode (one step)": (at_prompt(lambda: eng.decode(tok, cache, sub)), 1),
              f"decode_chunk ({GEN_CHUNK} steps)": (
-                 lambda: eng.decode_chunk(tok, cache, key, GEN_CHUNK), GEN_CHUNK)}
+                 at_prompt(lambda: eng.decode_chunk(tok, cache, key, GEN_CHUNK)), GEN_CHUNK),
+             "decode (one step, eager: no graph)": (
+                 at_prompt(lambda: eager.decode(tok, cache, sub)), 1)}
     step_share = {name: device_share(phase, card, name, fn, per) for name, (fn, per)
                   in steps.items()}
+    del eager
     row = torch.randn(1, cfg.vocab_size, device=DEVICE) * 3
     sampler = {}
     for label, args in (("0.6/20/0.95 (topk 20 of V)", (0.6, 20, 0.95, 0.0)),
@@ -2691,7 +2835,8 @@ def run_generate(card: str, params, serve: Optional[Dict[str, Any]]) -> Dict[str
                + ", ".join(f"{k} {v:.4f}" for k, v in sampler.items()) + f" ({card})")
     del eng, cache, engines
     torch.cuda.empty_cache()
-    return dict(counts, rates=rates, step_share=step_share, sampler_ms=sampler)
+    return dict(counts, rates=rates, step_share=step_share, sampler_ms=sampler,
+                graph_stats=dict(graph_stats, headline=headline_graphs))
 
 
 def run_generate_quant(card: str, params) -> Dict[str, Any]:
@@ -2734,10 +2879,12 @@ def run_generate_quant(card: str, params) -> Dict[str, Any]:
             or counts["launches"]["w8a16_matmul"] != sum(want.values())
             or counts["launches"]["w4a16_matvec"]):
         raise AssertionError(f"{phase}: GEMV launches {counts}, want {want}")
+    check_graph_stats(phase, {"int8 greedy": eng.graph_stats()}, GRAPH_REPLAYS_PER_CAPTURE)
     rng = np.random.default_rng(1)
     prompt = rng.integers(0, cfg.vocab_size, HEADLINE_PROMPT).tolist()
     rates = headline(phase, card, headline_methods(Engine(cfg, qparams, max_len=512), prompt,
                                                    scan_only=True))
+    roofline_shares(phase, card, cfg, "int8", rates)
     del eng, qparams
     torch.cuda.empty_cache()
     return dict(counts, rates=rates)
@@ -2875,6 +3022,204 @@ def run_serve_kstep(card: str, params, parts: str, work: str) -> Dict[str, Any]:
         stop_nodes(nodes)
 
 
+# The anatomy phase: perf/anatomy.profile_step on the whole model at the
+# headline regime's context, bf16, --quant int8, and paged (bs PAGED_BS).
+ANATOMY_CASES = (("bf16", "none", 0), ("int8", "int8", 0), (f"paged bs {PAGED_BS}", "none", PAGED_BS))
+ANATOMY_PAIRS = 3
+
+
+def run_anatomy(card: str, params) -> Dict[str, Any]:
+    """The `anatomy` phase: where one decode step's time goes, per phase,
+    each beside its bound, the graphed whole step and the host's dispatch
+    cost; the counts of every launch the phase's graphs and eager steps
+    made."""
+    import torch
+
+    from inferd_tpu_torch.config import get_config
+    from inferd_tpu_torch.ops import quant
+    from inferd_tpu_torch.perf import anatomy, roofline as rl
+
+    phase = "anatomy"
+    cfg = get_config(MODEL)
+    chip = rl.get_chip("h100")
+    qparams = quant.apply_quant_mode("int8", params, tie_word_embeddings=cfg.tie_word_embeddings)
+    reset_kernel_counts()
+    out = {}
+    for label, q, bs in ANATOMY_CASES:
+        t0 = time.perf_counter()
+        before = kernel_counts()["launches"]
+        r = anatomy.profile_step(cfg, params=qparams if q != "none" else params, quant=q,
+                                 ctx=HEADLINE_CTX, pairs=ANATOMY_PAIRS, chip=chip,
+                                 paged_block_size=bs)
+        moved = {k: v - before[k] for k, v in kernel_counts()["launches"].items()
+                 if v != before[k]}
+        for name, ph in r["phases"].items():
+            extra = (f", the eager host-driven step {ph['hostloop_step_ms']:.4f} ms"
+                     if name == "dispatch" else
+                     f", bound {ph['roofline_ms']:.4f} ms ({ph['roofline_frac'] or 0:.1%} of it)")
+            say(phase, f"{label}: {name} {ph['ms']:.4f} ms, {ph['bytes']} bytes{extra}; "
+                       f"{ph['pairs_valid']}/{ANATOMY_PAIRS} valid pairs")
+        say(phase, f"{label}: step {r['step_ms']} ms (graphed; bound {r['step_roofline_ms']} ms, "
+                   f"{r['step_roofline_frac']:.1%}), phase sum {r['phase_sum_ms']} ms, "
+                   f"unattributed {r['unattributed_ms']} ms, dispatch "
+                   f"{r['phases']['dispatch']['ms']} ms; ctx {HEADLINE_CTX}, "
+                   f"{time.perf_counter() - t0:.1f}s; graphs {r['graphs']}; launches {moved} "
+                   f"({card})")
+        want = {"w8a16_matmul"} if q == "int8" else set()
+        want |= {"paged_decode_gqa"} if bs else {"flash_gqa"}
+        if not want <= set(moved) or any(r["phases"][p]["ms"] <= 0 for p in anatomy.PHASES
+                                         if p != "dispatch"):
+            raise AssertionError(f"{phase} {label}: launches {moved} (want {want}), {r}")
+        out[label] = r
+    counts = kernel_counts()
+    from inferd_tpu_torch.ops.attention import paged_decode_gqa
+
+    paged_split = paged_decode_gqa.split_launches
+    check_paged_split_capture(phase)  # after the counts: not part of the path
+    del qparams
+    torch.cuda.empty_cache()
+    return dict(counts, anatomy=out, paged_split=paged_split)
+
+
+def check_paged_split_capture(phase: str) -> None:
+    """paged_decode_gqa on a plan that splits the chain (its combine kernel
+    a programmatic dependent launch) captured into a CUDA graph: a replay
+    gives the eager call's bits and counts one launch and one split launch.
+    The anatomy's paged case (ctx HEADLINE_CTX) keeps its chain whole."""
+    import torch
+
+    from inferd_tpu_torch.ops.attention import paged_decode_gqa, paged_plan
+    from inferd_tpu_torch.utils.cuda_graph import GraphCache
+
+    gen = torch.Generator(DEVICE).manual_seed(5)
+    b, nq, nkv, d, mb = LANES, 16, 8, 128, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+
+    kp, vp = randn(b * mb + 1, PAGED_BS, nkv, d), randn(b * mb + 1, PAGED_BS, nkv, d)
+    table = (1 + torch.randperm(b * mb, generator=gen, device=DEVICE)).reshape(b, mb).int()
+    kv_len = torch.tensor([4096, 3000, 17, 1000, 2048, 4095, 1, 512], device=DEVICE)
+    qpos = (kv_len - 1)[:, None]
+    q = randn(b, 1, nq, d)
+    plan = paged_plan(b, nkv, mb, PAGED_BS, torch.bfloat16)
+
+    def fn(q):
+        return paged_decode_gqa(q, kp, vp, table, qpos, kv_len)
+
+    eager = fn(q)
+    graphs = GraphCache()
+    graphs.run("paged", fn, {"q": q})  # the warm-up and the capture
+    before = (paged_decode_gqa.launches, paged_decode_gqa.split_launches)
+    got = graphs.run("paged", fn, {"q": q}).clone()
+    torch.cuda.synchronize()
+    moved = (paged_decode_gqa.launches - before[0], paged_decode_gqa.split_launches - before[1])
+    say(phase, f"paged_decode_gqa captured on a split plan {plan._asdict()} (its combine a "
+               f"programmatic dependent launch): replay equals the eager call bit for bit: "
+               f"{torch.equal(got, eager)}; a replay counts {moved} (launches, split launches)")
+    if plan.splits < 2 or not torch.equal(got, eager) or moved != (1, 1):
+        raise AssertionError(f"{phase}: paged split under capture: plan {plan}, moved {moved}")
+
+
+PROFILE_WINDOW_S = 8.0  # the /profile window on each node
+PROFILE_PROMPT, PROFILE_TOKENS = 100, 9  # the request traced: a prefill and 8 decode steps
+
+
+def run_profile(card: str, parts: str, work: str) -> Dict[str, Any]:
+    """The `profile` phase: the serve chain's two nodes with
+    --enable-profiling; a warm-up request, then POST /profile window on
+    both and one request of a prefill and 8 decode steps inside it. Each
+    node's trace (utils/profiling.host_time_split) splits its host time;
+    the trace must hold the card's kernels."""
+    from inferd_tpu_torch.client.base import http_post
+    from inferd_tpu_torch.client.chain_client import ChainClient
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.runtime import wire
+    from inferd_tpu_torch.utils.profiling import TRACE_FILE, host_time_split
+
+    phase = "profile"
+    cfg = get_config(MODEL)
+    prof_dir = os.path.join(work, "profiles")
+    extra = ["--enable-profiling", "--profile-dir", prof_dir]
+    prompt = serve_prompts(cfg.vocab_size)[1][:PROFILE_PROMPT]
+    nodes: List[Dict[str, Any]] = []
+    try:
+        nodes = [start_node(parts, s, work, extra, tag="_profile") for s in range(2)]
+        for n in nodes:
+            wait_ready(n)
+        before = [http_get_json(f"http://127.0.0.1:{n['port']}/stats") for n in nodes]
+        if any(k["launches"] for st in before for k in st["kernels"].values()):
+            raise AssertionError(f"the nodes did work before the main path: {before}")
+
+        async def drive(tokens: int) -> List[int]:
+            async with ChainClient([("127.0.0.1", n["port"]) for n in nodes],
+                                   sampling=SamplingConfig(temperature=0.0)) as client:
+                return await client.generate_ids(prompt, max_new_tokens=tokens)
+
+        asyncio.run(drive(4))  # warm-up: allocator, libraries, first launches
+        dirs = []
+        for n in nodes:
+            status, raw = http_post(f"http://127.0.0.1:{n['port']}/profile", wire.pack(
+                {"action": "window", "seconds": PROFILE_WINDOW_S, "capture_id": "smoke"}), 60.0)
+            reply = wire.unpack(raw)
+            if status != 200 or not reply.get("ok"):
+                raise AssertionError(f"{phase}: /profile window on node {n['stage']}: HTTP "
+                                     f"{status} {reply}")
+            dirs.append(reply["dir"])
+        t0 = time.perf_counter()
+        ids = asyncio.run(drive(PROFILE_TOKENS))
+        drive_s = time.perf_counter() - t0
+        if len(ids) != PROFILE_TOKENS:
+            raise AssertionError(f"{phase}: {len(ids)} tokens, want {PROFILE_TOKENS}")
+        if drive_s > PROFILE_WINDOW_S:
+            raise AssertionError(f"{phase}: the request took {drive_s:.1f}s, longer than the "
+                                 f"{PROFILE_WINDOW_S}s window")
+        paths = [os.path.join(d, TRACE_FILE) for d in dirs]
+        deadline = time.monotonic() + PROFILE_WINDOW_S + 120
+        while not all(os.path.exists(p) for p in paths) and time.monotonic() < deadline:
+            time.sleep(0.5)
+        splits = []
+        for n, p in zip(nodes, paths):
+            if not os.path.exists(p):
+                raise AssertionError(f"{phase}: node {n['stage']} wrote no trace at {p}")
+            s = host_time_split(p)
+            splits.append(s)
+            req = max(s["requests"], 1)
+            parts_ms = {k: v for k, v in s.items() if k.endswith("_ms") and k != "device_kernel_ms"}
+            say(phase, f"node {n['stage']}: trace {os.path.getsize(p)} bytes, {s['requests']} "
+                       f"requests ({drive_s:.2f}s of drive in the {PROFILE_WINDOW_S}s window); "
+                       f"host ms per request: "
+                       + ", ".join(f"{k[:-3]} {v / req:.3f}" for k, v in parts_ms.items())
+                       + f"; device: {s['device_kernels']} kernels, "
+                         f"{s['device_kernel_ms'] / req:.3f} ms per request ({card})")
+            # the decode steps: the session's compute requests after its prefill
+            steps = [r for r in s["per_request"] if r["compute"]][1:]
+            if (len(steps) < PROFILE_TOKENS - 1 or not s["device_kernels"]
+                    or not s["layers_ms"]):
+                raise AssertionError(f"{phase}: node {n['stage']}'s trace misses the requests or "
+                                     f"the card's kernels: {s}")
+            med = {k: statistics.median(r[k] for r in steps) for k in steps[0]
+                   if k.endswith("_ms")}
+            say(phase, f"node {n['stage']}: one decode step (the median of {len(steps)} "
+                       f"requests), host ms: request {statistics.median(r['ms'] for r in steps):.3f}"
+                       ": " + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in med.items())
+                       + f" (under the profiler; {card})")
+        st = [http_get_json(f"http://127.0.0.1:{n['port']}/stats") for n in nodes]
+        kern = {name: sum(x["kernels"][name]["launches"] for x in st)
+                for name in st[0]["kernels"]}
+        routes = {r: sum(flash_routes(x)[r] for x in st) for r in ("split", "mma")}
+        gemv = {name: {r: sum(gemv_routes(x)[name][r] for x in st) for r in ("mma", "simt")}
+                for name in ("w8a16_matmul", "w4a16_matvec")}
+        return {"launches": kern, "flash_routes": routes, "gemv_routes": gemv,
+                "host_split": splits}
+    except BaseException:
+        stop_nodes(nodes, show_logs=True)
+        nodes = []
+        raise
+    finally:
+        stop_nodes(nodes)
+
+
 def run_cli(card: str) -> None:
     """The `cli` phase: tools/generate as a user runs it, on the card by
     default."""
@@ -2921,6 +3266,7 @@ def ptxas_report(log: str) -> List[str]:
 
 CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_qmm_cases,
                "lora": run_lora_cases}
+SPLIT_PHASES = ("generate", "anatomy", "profile")  # --only phases that need the model's split
 
 
 def main(argv: List[str]) -> int:
@@ -2930,11 +3276,12 @@ def main(argv: List[str]) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port end to end on one CUDA card.")
     ap.add_argument("--only", default="", help="comma-separated phases to run alone "
-                    f"({', '.join(CASE_PHASES)}, generate: the generate and generate_quant "
-                    "phases on a fresh split), after the build; the default runs every phase")
+                    f"({', '.join(CASE_PHASES)}, {', '.join(SPLIT_PHASES)}: on a fresh split; "
+                    "generate runs the generate and generate_quant phases), after the build; "
+                    "the default runs every phase")
     only = [x for x in ap.parse_args(argv).only.split(",") if x]
-    if any(x not in CASE_PHASES and x != "generate" for x in only):
-        ap.error(f"--only takes {sorted(CASE_PHASES) + ['generate']}, got {only}")
+    if any(x not in CASE_PHASES and x not in SPLIT_PHASES for x in only):
+        ap.error(f"--only takes {sorted(CASE_PHASES) + list(SPLIT_PHASES)}, got {only}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device; this script runs on the card only",
@@ -2967,18 +3314,25 @@ def main(argv: List[str]) -> int:
 
     if only:  # a partial run: the named phases, no serve phases and no result lines
         for name in only:
-            if name != "generate":
+            if name in CASE_PHASES:
                 CASE_PHASES[name]()
-                continue
+        split_only = [x for x in only if x in SPLIT_PHASES]
+        if split_only:
             work = tempfile.mkdtemp(prefix="chip_smoke_")
             try:
-                whole = whole_model(split_parts(work))
-                run_generate(card, whole, None)
-                run_generate_quant(card, whole)
+                parts = split_parts(work)
+                if "profile" in split_only:
+                    run_profile(card, parts, work)
+                whole = whole_model(parts)
+                if "generate" in split_only:
+                    run_generate(card, whole, None)
+                    run_generate_quant(card, whole)
+                if "anatomy" in split_only:
+                    run_anatomy(card, whole)
                 del whole
             finally:
                 shutil.rmtree(work, ignore_errors=True)
-        say("done", f"case phases {only} passed in {time.perf_counter() - t_start:.1f}s")
+        say("done", f"phases {only} passed in {time.perf_counter() - t_start:.1f}s")
         return 0
     cases = run_kernel_cases()
     paged_cases = run_paged_cases()
@@ -2998,15 +3352,18 @@ def main(argv: List[str]) -> int:
         gen = run_generate(card, whole, serve)
         gen_q = run_generate_quant(card, whole)
         kstep = run_serve_kstep(card, whole, parts, work)
+        anat = run_anatomy(card, whole)
         del whole
         torch.cuda.empty_cache()
+        prof = run_profile(card, parts, work)
         run_cli(card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths = {"serve": serve, "serve_quant_int8": serve_q["int8"],
              "serve_quant_int4": serve_q["int4"], "serve_lanes": lanes,
              "serve_lanes_quant": lanes_q, "serve_lanes_lora": lanes_lora,
-             "generate": gen, "generate_quant": gen_q, "serve_kstep": kstep}
+             "generate": gen, "generate_quant": gen_q, "serve_kstep": kstep,
+             "anatomy": anat, "profile": prof}
 
     def by_path(name):
         return {path: r["launches"][name] for path, r in paths.items() if r["launches"][name]}

@@ -16,16 +16,32 @@ As in the JAX package:
 What differs, by PyTorch idiom: the cache is written in place, so a pinned
 snapshot is deep-copied into every session that reuses it (no storage is
 shared with a live cache); the prefill unembeds only the last real row (the
-JAX engine unembeds the whole bucket; the results are the same); the steps
-are Python loops. The engine runs on its parameters' device and never
-moves to another. Sampled tokens follow core.sampling's key (not JAX's
-threefry), identical across chunk sizes, generate_scan and the host loop.
+JAX engine unembeds the whole bucket; the results are the same). The engine
+runs on its parameters' device and never moves to another. Sampled tokens
+follow core.sampling's key (not JAX's threefry), identical across chunk
+sizes, generate_scan and the host loop.
+
+The compiled, donated step. The JAX engine runs each decode step and each
+fused window as one jitted program with the cache donated. Here the engine
+owns one KV buffer per (batch, max_len), which `generate` and
+`generate_scan` reuse (the eager prefill writes into it, a pin is copied
+into it), and on a CUDA device every decode step, `decode_chunk` window and
+step of `generate_scan` replays a captured CUDA graph of
+models/qwen3.decode_window over static buffers (utils/cuda_graph). Graphs
+are keyed by (buffer, batch, the steps' kv bounds, the sampling config,
+top_n, want_lp); the bounds come from models/qwen3.window_bounds, the one
+rule every form uses, so a step at one fill launches the same kernels with
+the same plans in every form and the tokens are the same bits. Host values
+(the fill, the first token) and the uniforms, drawn by core.sampling per
+subkey outside the graph, are copied into the static buffers before a
+replay. On the CPU (or with `graphs` set to None) the same function runs
+eagerly.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,8 +49,9 @@ import torch
 from inferd_tpu_torch.config import ModelConfig, SamplingConfig
 from inferd_tpu_torch.core import prefix as prefixlib
 from inferd_tpu_torch.core import sampling as samplib
-from inferd_tpu_torch.core.cache import KVCache, device_to_host, grow, host_to_device
+from inferd_tpu_torch.core.cache import KVCache, device_to_host, host_to_device
 from inferd_tpu_torch.models import qwen3
+from inferd_tpu_torch.utils.cuda_graph import GraphCache
 
 
 def bucket_len(n: int, minimum: int = 16) -> int:
@@ -68,6 +85,13 @@ class Engine:
         # at max_pins because each pin holds a whole KV snapshot
         self._pins: "OrderedDict[Tuple[int, ...], Tuple[KVCache, torch.Tensor]]" = OrderedDict()
         self.max_pins = max_pins
+        # the donated cache: one buffer per (batch, max_len), reused
+        self._buffers: Dict[Tuple[int, int], KVCache] = {}
+        # decode steps as graph replays on a card, eager on the CPU (a
+        # caller that sets it to None gets the eager step on a card too: the
+        # reference the graphs are held to)
+        self.graphs = GraphCache() if self.device.type == "cuda" else None
+        self._consts: Dict[tuple, torch.Tensor] = {}
 
     @property
     def pins_resident(self) -> int:
@@ -77,6 +101,26 @@ class Engine:
     def new_cache(self, batch: int, max_len: Optional[int] = None) -> KVCache:
         return KVCache.create(self.cfg, self.cfg.num_layers, batch, max_len or self.max_len,
                               device=self.device)
+
+    def buffer(self, batch: int, max_len: Optional[int] = None) -> KVCache:
+        """The engine's own KV buffer of this shape, emptied (length 0): one
+        per (batch, max_len), reused by every generation, so its graphs are
+        too. Slots past a session's fill hold an earlier session's values,
+        which no query attends."""
+        shape = (batch, max_len or self.max_len)
+        cache = self._buffers.get(shape)
+        if cache is None:
+            cache = self._buffers[shape] = self.new_cache(*shape)
+        cache.length = 0
+        return cache
+
+    def graph_stats(self) -> Dict[str, int]:
+        """Captures, replays, resident graphs and evictions (zeros when the
+        steps run eagerly): a recapture on every generation would show."""
+        if self.graphs is None:
+            return {"captures": 0, "replays": 0, "resident": 0, "evictions": 0,
+                    "max_graphs": 0}
+        return self.graphs.stats()
 
     # -- steps ---------------------------------------------------------------
 
@@ -122,40 +166,94 @@ class Engine:
         cache.length += n
         return logits, cache
 
+    def _window(self, cache: KVCache, tok: torch.Tensor, fill, active, eos, u,
+                bounds: Tuple[int, ...], top_n: int, want_lp: bool):
+        """models/qwen3.decode_window over `cache`: a graph replay on a card,
+        eager otherwise. `fill`, `active`, `eos` are device [B] tensors or
+        host values ([B] or one for every row); `u` [K, B, n] or None.
+        Returns device tensors the caller owns (seq [K, B], fill', active',
+        lps [K, B], top ids, top lps)."""
+        b = cache.batch
+        c = self.sampling
+        inputs = {"tok": tok.reshape(b), "fill": self._column(fill, b, torch.int64),
+                  "active": self._column(active, b, torch.bool),
+                  "eos": self._column(eos, b, torch.int64)}
+        if u is not None:
+            inputs["u"] = u
+        sampling = (c.temperature, c.top_k, c.top_p, c.min_p)
+
+        def window(tok, fill, active, eos, u=None):
+            return qwen3.decode_window(self.params, self.cfg, cache.k, cache.v, tok, fill,
+                                       active, eos, u, bounds, *sampling, top_n, want_lp)
+
+        if self.graphs is None:
+            return window(**inputs)
+        key = (cache.k.data_ptr(), tuple(cache.k.shape), bounds, sampling, top_n, want_lp)
+        return tuple(t.clone() for t in self.graphs.run(key, window, inputs))
+
+    def _column(self, x, b: int, dtype: torch.dtype) -> torch.Tensor:
+        """[B] of x on the device: a device tensor as it is, a host value
+        uploaded (pinned, non-blocking)."""
+        if isinstance(x, torch.Tensor) and x.device == self.device:
+            return x.reshape(b).to(dtype)
+        a = np.array(np.broadcast_to(np.asarray(x), (b,)))
+        return host_to_device(a, self.device).to(dtype)
+
+    def _const(self, value, b: int, dtype: torch.dtype) -> torch.Tensor:
+        """A constant [B] column on the device (every row active, no eos),
+        made once and kept: a replay copies it into its static buffer."""
+        key = (value, b, dtype)
+        col = self._consts.get(key)
+        if col is None:
+            col = self._consts[key] = torch.full((b,), value, dtype=dtype, device=self.device)
+        return col
+
+    def _uniforms(self, sub, b: int) -> torch.Tensor:
+        """[B, n_cand] uniforms of one step, all rows from one subkey (the
+        draw `core.sampling.sample` makes for a [B, V] row block)."""
+        n = samplib.candidate_count(self.cfg.vocab_size, self.sampling.top_k)
+        return samplib.uniforms(sub, (b, n), self.device)
+
     @torch.no_grad()
     def decode(self, tok: torch.Tensor, cache: KVCache, sub, top_n: Optional[int] = None):
         """One decode step from tokens [B] on the device: (next [B], cache),
         and with `top_n` not None also (lp [B], top ids, top lps) of the
         emitted token under the raw logits (core.sampling.logprob_topn)."""
         cache.ensure_room(1)
-        logits = self._forward(tok[:, None], cache.length, cache, 1)
+        b = cache.batch
+        u = None if self.sampling.temperature == 0.0 else self._uniforms(sub, b)[None]
+        seq, _f, _a, lps, tis, tls = self._window(
+            cache, tok, cache.length, self._const(True, b, torch.bool),
+            self._const(-1, b, torch.int64), u,
+            qwen3.window_bounds(cache.length, 1, cache.max_len), top_n or 0, top_n is not None)
         cache.length += 1
-        nxt = self._sample(logits, sub)
         if top_n is None:
-            return nxt, cache
-        return (nxt, cache, *samplib.logprob_topn(logits, nxt, top_n))
+            return seq[0], cache
+        return seq[0], cache, lps[0], tis[0], tls[0]
 
     @torch.no_grad()
     def decode_chunk(self, tok: torch.Tensor, cache: KVCache, key, s: int, top_n: int = 0,
                      want_lp: bool = False):
-        """`s` fused decode steps of one row (models/qwen3.decode_k), the key
-        chained as the host loop chains it, so the tokens equal `s` decode
-        calls. Returns (seq [s, 1], cache, key', lps [s, 1], top ids
+        """`s` fused decode steps of one row (models/qwen3.decode_window), the
+        key chained as the host loop chains it, so the tokens equal `s`
+        decode calls. Returns (seq [s, 1], cache, key', lps [s, 1], top ids
         [s, 1, n], top lps [s, 1, n]), all on the device but key'."""
         if cache.batch != 1:
             raise ValueError(f"decode_chunk decodes one row, the cache has {cache.batch}")
-        c = self.sampling
-        cache, seq, _n, keys, lps, tis, tls = qwen3.decode_k(
-            self.params, self.cfg, tok, cache, [cache.length], [True],
-            np.asarray(key, np.uint32)[None], s, temperature=c.temperature, top_k=c.top_k,
-            top_p=c.top_p, min_p=c.min_p, top_n=top_n, want_lp=want_lp,
-        )
+        cache.ensure_room(s)
+        key = np.asarray(key, np.uint32)
+        subs = []
+        for _ in range(s):
+            key, sub = samplib.split_key(key)
+            subs.append(sub)
+        u = (None if self.sampling.temperature == 0.0
+             else torch.stack([self._uniforms(sub, 1) for sub in subs]))
+        seq, _f, _a, lps, tis, tls = self._window(
+            cache, tok, cache.length, self._const(True, 1, torch.bool),
+            self._const(-1, 1, torch.int64), u,
+            qwen3.window_bounds(cache.length, s, cache.max_len), top_n, want_lp)
         cache.length += s
-        if c.temperature == 0.0:  # decode_k splits no key when greedy; the host loop does
-            keys = np.asarray(key, np.uint32)[None]
-            for _ in range(s):
-                keys = samplib.split_keys(keys)[0]
-        return seq, cache, keys[0], lps, tis, tls
+        return seq, cache, key, lps, tis, tls
 
     # -- prefix caching --------------------------------------------------------
 
@@ -176,12 +274,13 @@ class Engine:
         self._pins.pop(tuple(int(t) for t in prefix_ids), None)
 
     def _cache_from_pin(self, pinned: KVCache) -> KVCache:
-        """A session cache seeded from a pinned snapshot, sharing no storage
-        with it: the session's steps write their cache in place."""
-        target = max(self.max_len, pinned.max_len)
-        if pinned.max_len < target:
-            return grow(pinned, target)  # fresh buffers, the snapshot copied in
-        return KVCache(k=pinned.k.clone(), v=pinned.v.clone(), length=pinned.length)
+        """The engine's buffer seeded from a pinned snapshot (copied in, no
+        storage shared): the session's steps write their cache in place."""
+        cache = self.buffer(1, max(self.max_len, pinned.max_len))
+        cache.k[:, :, :pinned.max_len] = pinned.k
+        cache.v[:, :, :pinned.max_len] = pinned.v
+        cache.length = pinned.length
+        return cache
 
     # -- generation ----------------------------------------------------------
 
@@ -224,7 +323,7 @@ class Engine:
             rest = prompt_ids[len(pin):]
             logits = self.prefill_at(rest, cache)[0] if rest else plogits
         else:
-            logits, cache = self.prefill(prompt_ids, self.new_cache(1))
+            logits, cache = self.prefill(prompt_ids, self.buffer(1))
         want_lp = logprob_sink is not None or top_sink is not None
         if logprob_sink is not None:
             logprob_sink.clear()
@@ -293,21 +392,24 @@ class Engine:
         toks = (toks.to(self.device, torch.int64) if toks.device.type != "cpu"
                 else host_to_device(toks.to(torch.int64), self.device))
         b, s = toks.shape
-        cache = self.new_cache(b, bucket_len(s + steps))
+        cache = self.buffer(b, max(self.max_len, bucket_len(s + steps)))
         key, subs = samplib.prng_key(seed), []
         for _ in range(steps):
             key, sub = samplib.split_key(key)
             subs.append(sub)
         logits = self._forward(toks, 0, cache, prompt_len)
-        cache.length = prompt_len
-        eos = -1 if eos_token_id is None else int(eos_token_id)
+        eos = self._const(-1 if eos_token_id is None else int(eos_token_id), b, torch.int64)
         tok = self._sample(logits, subs[0])
-        done = tok == eos
+        active = tok != eos  # a row is done once it emitted eos
+        fill = torch.full((b,), prompt_len, dtype=torch.int64, device=self.device)
         out = [tok]
-        for sub in subs[1:]:
-            ntok, cache = self.decode(tok, cache, sub)
-            tok = torch.where(done, tok, ntok)
-            done = done | (tok == eos)
+        greedy = self.sampling.temperature == 0.0
+        for j, sub in enumerate(subs[1:]):
+            u = None if greedy else self._uniforms(sub, b)[None]
+            seq, fill, active, _l, _i, _t = self._window(
+                cache, tok, fill, active, eos, u,
+                qwen3.window_bounds(prompt_len + j, 1, cache.max_len), 0, False)
+            tok = seq[0]
             out.append(tok)
         return torch.stack(out, dim=1)
 

@@ -38,7 +38,10 @@ and layer, on the CPU the reference's gather-then-einsum form.
 
 Fused K-step decode (`decode_k`, `make_decode_k_serve`) runs K decode
 steps with on-device sampling over a dense cache and reads nothing back
-until the window ends.
+until the window ends. Its body, `decode_step` chained by `decode_window`,
+reads and writes tensors only, so the engine captures it as a CUDA graph;
+`window_bounds` gives every step's kv bound, one rule for every form of
+generation.
 
 This slice covers the dense Qwen3/Qwen2-style decoder. MoE, sandwich norms,
 sliding windows and scaled RoPE raise NotImplementedError here (and an
@@ -59,6 +62,7 @@ from inferd_tpu_torch.config import ModelConfig
 from inferd_tpu_torch.ops import attention as attention_ops
 from inferd_tpu_torch.ops import lora as lora_ops
 from inferd_tpu_torch.ops.quant import qdot
+from inferd_tpu_torch.utils.profiling import span
 
 Params = Dict[str, Any]
 Positions = Union[torch.Tensor, int, None]
@@ -513,14 +517,15 @@ def forward_layers(
     cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta, cfg)
     lane_adapters = lora_ops.layer_adapters(adapters, hidden.device)
     for i in range(_stack_len(layers)):
-        lp = {name: a[i] for name, a in layers.items()}
-        hidden, _, _ = decoder_layer(
-            lp, cfg, hidden, cos, sin, pos,
-            None if k_cache is None else k_cache[i],
-            None if v_cache is None else v_cache[i],
-            cache_write_pos, q_start=q_start, block_table=block_table,
-            paged_write=paged_write, adapters=lane_adapters(i), kv_bound=kv_bound,
-        )
+        with span("qwen3.layer"):
+            lp = {name: a[i] for name, a in layers.items()}
+            hidden, _, _ = decoder_layer(
+                lp, cfg, hidden, cos, sin, pos,
+                None if k_cache is None else k_cache[i],
+                None if v_cache is None else v_cache[i],
+                cache_write_pos, q_start=q_start, block_table=block_table,
+                paged_write=paged_write, adapters=lane_adapters(i), kv_bound=kv_bound,
+            )
     return hidden, k_cache, v_cache
 
 
@@ -653,6 +658,124 @@ def forward_cached(
     return unembed(params, cfg, hidden), cache
 
 
+# The kv bound a decode step's attention is launched with (flash_gqa's
+# `kv_bound` hint, a launch parameter that a captured graph fixes): the
+# power of two at or above the step's kv length, at least KV_BUCKET_MIN,
+# capped at the buffer. The split-KV route's split spans at least 2 tiles
+# of 32 slots, so a bound under 64 saves nothing; doubling buckets keep the
+# graphs few (one per power of two the fill crosses) at the cost of CTAs
+# past the frontier that write an empty partial.
+KV_BUCKET_MIN = 64
+
+
+def kv_bucket(kv_len: int, max_len: int) -> int:
+    """The kv bound of a step whose rows attend at most `kv_len` slots."""
+    b = KV_BUCKET_MIN
+    while b < kv_len:
+        b *= 2
+    return min(b, max_len)
+
+
+def window_bounds(fill: int, k: int, max_len: int) -> Tuple[int, ...]:
+    """The kv bound of each of k steps from a host fill (every row's fill
+    at most `fill`): step j attends fill + j + 1 slots at most. Every form
+    of generation derives its bounds here, so a step at one fill gets one
+    bound, whichever form runs it, and the same kernels' split plans."""
+    return tuple(kv_bucket(fill + j + 1, max_len) for j in range(k))
+
+
+def decode_step(
+    params: Params,
+    cfg: ModelConfig,
+    k_cache: torch.Tensor,  # [L, B, T, Nkv, D], written in place
+    v_cache: torch.Tensor,
+    tok: torch.Tensor,  # [B] int64: each row's last emitted token
+    fill: torch.Tensor,  # [B] int64: each row's KV fill (its next write slot)
+    active: torch.Tensor,  # [B] bool: rows that advance
+    eos: Optional[torch.Tensor],  # [B] int64, < 0 disables; or None
+    u: Optional[torch.Tensor],  # [B, candidate_count] uniforms (sampled), or None
+    kv_bound: int,  # host bound on every row's kv length this step (window_bounds)
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    min_p: float = 0.0,
+    top_n: int = 0,
+    want_lp: bool = False,
+    adapters=None,
+):
+    """One decode step over tensors only: embed, the layers with device
+    positions and writes, unembed, the sample from the given uniforms, the
+    freeze of inactive rows, logprob_topn, and the advance. It reads no
+    device value on the host and uploads nothing, so a CUDA graph can
+    capture it. Returns (tok' [B], fill' [B], active' [B], lp [B], top ids
+    [B, top_n], top lps [B, top_n]).
+
+    A frozen row re-emits its token and computes garbage at its frontier
+    slot, which its next real step overwrites before a query reads it; with
+    `eos` a row deactivates the step AFTER it emits its stop token."""
+    from inferd_tpu_torch.core import sampling as samplib
+
+    hidden = embed(params, tok[:, None], cfg)
+    hidden, _, _ = forward_layers(
+        params["layers"], cfg, hidden, fill[:, None], k_cache, v_cache, fill,
+        adapters=adapters, kv_bound=kv_bound,
+    )
+    last = unembed(params, cfg, hidden)[:, 0]  # [B, V]
+    if temperature == 0.0:
+        ntok = torch.argmax(last, dim=-1)
+    else:
+        ntok = samplib.sample_from_uniforms(last, u, temperature, top_k, top_p, min_p)
+    ntok = torch.where(active, ntok, tok)  # frozen rows re-emit their token
+    if want_lp:
+        lp, ti, tl = samplib.logprob_topn(last, ntok, top_n)
+    else:
+        b = tok.shape[0]
+        lp = torch.zeros(b, dtype=torch.float32, device=tok.device)
+        ti = torch.zeros((b, 0), dtype=torch.int32, device=tok.device)
+        tl = torch.zeros((b, 0), dtype=torch.float32, device=tok.device)
+    fill = fill + active.long()
+    if eos is not None:
+        active = active & ((eos < 0) | (ntok != eos))
+    return ntok, fill, active, lp, ti, tl
+
+
+def decode_window(
+    params: Params,
+    cfg: ModelConfig,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    tok: torch.Tensor,
+    fill: torch.Tensor,
+    active: torch.Tensor,
+    eos: Optional[torch.Tensor],
+    u: Optional[torch.Tensor],  # [K, B, candidate_count] (sampled), or None
+    bounds: Tuple[int, ...],  # window_bounds: one kv bound per step
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    min_p: float = 0.0,
+    top_n: int = 0,
+    want_lp: bool = False,
+    adapters=None,
+):
+    """len(bounds) decode_steps chained on the device, step j from u[j]:
+    what decode_k runs eagerly and the engine captures as one graph.
+    Returns (seq [K, B], fill' [B], active' [B], lps [K, B], top ids
+    [K, B, top_n], top lps [K, B, top_n])."""
+    seq, lps, tis, tls = [], [], [], []
+    for j, bound in enumerate(bounds):
+        tok, fill, active, lp, ti, tl = decode_step(
+            params, cfg, k_cache, v_cache, tok, fill, active, eos,
+            None if u is None else u[j], bound, temperature, top_k, top_p, min_p,
+            top_n, want_lp, adapters)
+        seq.append(tok)
+        lps.append(lp)
+        tis.append(ti)
+        tls.append(tl)
+    return (torch.stack(seq), fill, active, torch.stack(lps), torch.stack(tis),
+            torch.stack(tls))
+
+
 def decode_k(
     params: Params,
     cfg: ModelConfig,
@@ -687,12 +810,12 @@ def decode_k(
         rows too (greedy leaves the keys as they are), so a window gives the
         tokens of K single steps from the same keys.
 
-    The steps are a Python loop. Every key split is on the host
-    (core.sampling), so all K subkeys are known before the first launch.
-    Each row's fill stays on the device (eos can freeze a row mid-window),
-    so the attention gets its spans as device columns plus a host bound,
-    max(lengths) + j + 1 at step j: a row advances at most one slot per
-    step, and the kernel walks the filled span of the buffer, not all of it.
+    The host prepares the window (the uploads, every key split, the
+    uniforms of every step, each step's kv bound from window_bounds), then
+    decode_window runs the steps eagerly: the body a CUDA graph captures
+    (core.generate.Engine replays it). Each row's fill stays on the device
+    (eos can freeze a row), so the attention gets its spans as device
+    columns plus the step's host bound.
 
     Returns (cache, seq [k, B], n_new [B], keys' [B, 2], lps [k, B],
     top_ids [k, B, top_n], top_lps [k, B, top_n]); keys' is a host uint32
@@ -721,47 +844,22 @@ def decode_k(
             return x.reshape(b).to(dev, dtype)
         return host_to_device(np.array(np.broadcast_to(np.asarray(x), (b,))), dev).to(dtype)
 
-    cur = column(toks, torch.int64)
-    act = column(active, torch.bool)
-    eos_t = None if eos is None else column(eos, torch.int64)
     keys = np.asarray(keys, dtype=np.uint32).reshape(b, 2)
-    subs = []
+    u = None
     if temperature != 0.0:
+        subs = []
         for _ in range(k):
             keys, sub = samplib.split_keys(keys)
             subs.append(sub)
-    n_cand = samplib.candidate_count(cfg.vocab_size, top_k)
-    n_new = torch.zeros(b, dtype=torch.int64, device=dev)
-    no_lp = (torch.zeros(b, dtype=torch.float32, device=dev),
-             torch.zeros((b, 0), dtype=torch.int32, device=dev),
-             torch.zeros((b, 0), dtype=torch.float32, device=dev))
-    seq, lps, tis, tls = [], [], [], []
-    for j in range(k):
-        hidden = embed(params, cur[:, None], cfg)
-        hidden, _, _ = forward_layers(
-            params["layers"], cfg, hidden, lens[:, None], cache.k, cache.v, lens,
-            adapters=adapters, kv_bound=top + j + 1,
-        )
-        last = unembed(params, cfg, hidden)[:, 0]  # [B, V]
-        if temperature == 0.0:
-            ntok = torch.argmax(last, dim=-1)
-        else:
-            u = torch.cat([samplib.uniforms(sb, (1, n_cand), dev) for sb in subs[j]])
-            ntok = samplib.sample_from_uniforms(last, u, temperature, top_k, top_p, min_p)
-        ntok = torch.where(act, ntok, cur)  # frozen rows re-emit their token
-        lp, ti, tl = samplib.logprob_topn(last, ntok, top_n) if want_lp else no_lp
-        step = act.long()
-        lens = lens + step
-        n_new = n_new + step
-        if eos_t is not None:
-            act = act & ((eos_t < 0) | (ntok != eos_t))
-        cur = ntok
-        seq.append(ntok)
-        lps.append(lp)
-        tis.append(ti)
-        tls.append(tl)
-    return (cache, torch.stack(seq), n_new, keys, torch.stack(lps), torch.stack(tis),
-            torch.stack(tls))
+        n_cand = samplib.candidate_count(cfg.vocab_size, top_k)
+        u = torch.stack([torch.cat([samplib.uniforms(sb, (1, n_cand), dev) for sb in sub])
+                         for sub in subs])  # [K, B, n_cand]: one generator per row's subkey
+    seq, fill, _act, lps, tis, tls = decode_window(
+        params, cfg, cache.k, cache.v, column(toks, torch.int64), lens,
+        column(active, torch.bool), None if eos is None else column(eos, torch.int64), u,
+        window_bounds(top, k, cache.max_len), temperature, top_k, top_p, min_p, top_n,
+        want_lp, adapters)
+    return cache, seq, fill - lens, keys, lps, tis, tls
 
 
 def make_decode_k_serve(cfg: ModelConfig):

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 
 from inferd_tpu_torch.ops import build
+from inferd_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e30  # finite: exp(-inf - -inf) would be NaN
 
@@ -329,7 +330,10 @@ def flash_gqa(
     through shared memory and it changes nothing. The Pallas-only
     `block_q`/`block_k`/`interpret` knobs have no counterpart. Each call
     that launches adds one to `flash_gqa.launches` and one to its route's
-    count, `flash_gqa.split_launches` or `flash_gqa.mma_launches`."""
+    count, `flash_gqa.split_launches` or `flash_gqa.mma_launches`.
+    Inside a captured CUDA graph (utils/cuda_graph) the checks, the plan
+    and the count run once, at capture: a replay launches what was captured
+    and re-runs none of them."""
     if q.device.type == "cpu":
         return flash_gqa_reference(
             q, k, v, q_start, kv_len, kv_start, stream=stream, scale=scale,
@@ -337,8 +341,9 @@ def flash_gqa(
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_gqa: unsupported device {q.device}")
-    out, route = _launch(q, k, v, q_start, kv_len, kv_start, scale, softcap, window, sinks,
-                         kv_bound)
+    with span("kernel.flash_gqa"):
+        out, route = _launch(q, k, v, q_start, kv_len, kv_start, scale, softcap, window, sinks,
+                             kv_bound)
     flash_gqa.launches += 1
     if route == "mma":
         flash_gqa.mma_launches += 1
@@ -535,7 +540,10 @@ def paged_decode_gqa(
     `interpret` knob has no counterpart. Table entries must index the pool
     (core.cache.BlockPool hands out nothing else); the kernel does not check
     them. Each call that launches adds one to `paged_decode_gqa.launches`,
-    and one to `paged_decode_gqa.split_launches` when its plan splits."""
+    and one to `paged_decode_gqa.split_launches` when its plan splits.
+    Inside a captured CUDA graph (utils/cuda_graph) the checks, the plan
+    and the count run once, at capture: a replay launches what was captured
+    and re-runs none of them."""
     if q.device.type == "cpu":
         return paged_decode_gqa_reference(
             q, k_pool, v_pool, block_table, q_positions, kv_valid_len,
@@ -543,8 +551,9 @@ def paged_decode_gqa(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_gqa: unsupported device {q.device}")
-    out, plan = _paged_launch(q, k_pool, v_pool, block_table, q_positions, kv_valid_len,
-                              scale, softcap, window, sinks)
+    with span("kernel.paged_decode_gqa"):
+        out, plan = _paged_launch(q, k_pool, v_pool, block_table, q_positions, kv_valid_len,
+                                  scale, softcap, window, sinks)
     if plan is not None:
         paged_decode_gqa.launches += 1
         paged_decode_gqa.split_launches += plan.splits > 1

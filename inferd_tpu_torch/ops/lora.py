@@ -49,6 +49,7 @@ import torch
 from inferd_tpu_torch.config import ModelConfig
 from inferd_tpu_torch.ops import build
 from inferd_tpu_torch.utils import safetensors_io
+from inferd_tpu_torch.utils.profiling import span
 
 Params = Dict[str, Any]
 
@@ -510,13 +511,17 @@ def fused_lane_delta(
     Pallas `_fused_delta_kernel`) on the plan `lora_plan` makes, or raise on
     anything it does not take; CPU tensors run fused_lane_delta_reference
     (and the same add). The Pallas-only `interpret` knob has no counterpart.
-    Each kernel launch adds one to `fused_lane_delta.launches`."""
+    Each kernel launch adds one to `fused_lane_delta.launches`.
+    Inside a captured CUDA graph (utils/cuda_graph) the checks, the plan
+    and the count run once, at capture: a replay launches what was captured
+    and re-runs none of them."""
     if x.device.type == "cpu":
         return fused_lane_delta_reference(x, a_pool, b_pool, scale_pool, ids, layer, y,
                                           inplace=inplace)
     if x.device.type != "cuda":
         raise ValueError(f"fused_lane_delta: unsupported device {x.device}")
-    out = _launch(x, a_pool, b_pool, scale_pool, ids, layer, y, inplace)
+    with span("kernel.fused_lane_delta"):
+        out = _launch(x, a_pool, b_pool, scale_pool, ids, layer, y, inplace)
     if out.numel():  # an empty product launches nothing
         fused_lane_delta.launches += 1
     return out

@@ -30,6 +30,7 @@ import functools
 import torch
 
 from inferd_tpu_torch.ops import build
+from inferd_tpu_torch.utils.profiling import span
 
 # Past this many rows (prefill chunks) ops.quant.qdot takes the plain
 # product: the GEMV shape, and its bound by bytes, is gone.
@@ -267,12 +268,16 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch
     the Pallas `_w8a16_kernel`); CPU tensors run w8a16_matmul_reference.
     The Pallas-only `block_n`/`interpret` knobs have no counterpart. Each
     kernel launch adds one to `w8a16_matmul.launches` and one to its
-    route's count (`mma_launches`, `simt_launches`)."""
+    route's count (`mma_launches`, `simt_launches`). Inside a captured CUDA
+    graph (utils/cuda_graph) the checks, the plan and the count run once,
+    at capture: a replay launches what was captured and re-runs none of
+    them."""
     if x.device.type == "cpu":
         return w8a16_matmul_reference(x, q, scale)
     if x.device.type != "cuda":
         raise ValueError(f"w8a16_matmul: unsupported device {x.device}")
-    out, plan = _launch_w8a16(x, q, scale)
+    with span("kernel.qgemv"):
+        out, plan = _launch_w8a16(x, q, scale)
     _count(w8a16_matmul, plan)
     return out
 
@@ -303,12 +308,16 @@ def w4a16_matvec(x: torch.Tensor, w, scheme: str = "dequant") -> torch.Tensor:
     `scheme` is "dequant" or "grouped", the Pallas kernel's two; a
     --quant int4 node serves "grouped" (ops.quant.INT4_MODE). Each kernel
     launch adds one to `w4a16_matvec.launches` and one to its route's count
-    (`mma_launches`, `simt_launches`)."""
+    (`mma_launches`, `simt_launches`). Inside a captured CUDA graph
+    (utils/cuda_graph) the checks, the plan and the count run once, at
+    capture: a replay launches what was captured and re-runs none of
+    them."""
     if x.device.type == "cpu":
         return w4a16_matvec_reference(x, w, scheme)
     if x.device.type != "cuda":
         raise ValueError(f"w4a16_matvec: unsupported device {x.device}")
-    out, plan = _launch_w4a16(x, w, scheme)
+    with span("kernel.qgemv"):
+        out, plan = _launch_w4a16(x, w, scheme)
     _count(w4a16_matvec, plan)
     return out
 

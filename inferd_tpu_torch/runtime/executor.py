@@ -45,6 +45,7 @@ from inferd_tpu_torch.core.cache import KVCache, device_to_host, grow
 from inferd_tpu_torch.core.generate import bucket_len
 from inferd_tpu_torch.models import qwen3
 from inferd_tpu_torch.parallel.stages import StageSpec
+from inferd_tpu_torch.utils.profiling import span
 
 
 class SessionStore:
@@ -266,7 +267,8 @@ class Qwen3StageExecutor:
             out = self._run(x, pos, cache, real_len)
             cache.length = pos + real_len
             self.sessions.put(session_id, cache)
-            result: Dict[str, Any] = {k: v.cpu() for k, v in out.items()}
+            with span("results.cpu"):
+                result: Dict[str, Any] = {k: v.cpu() for k, v in out.items()}
         result["real_len"] = real_len
         result["start_pos"] = start_pos
         return result

@@ -15,6 +15,17 @@ the JAX node for this topology:
                      quantization and the stage's parameter bytes as
                      stored, each kernel's launch count in this process,
                      the executor's stats
+  POST /profile      {"action": "start" [, "name"]} | {"action": "stop"} |
+                     {"action": "window", "seconds" S [, "capture_id"]}:
+                     an on-demand torch.profiler trace of this process
+                     (utils/profiling.Profiler), every thread's host work
+                     and the card's kernels, written as a Chrome trace
+                     under the node's profile directory. A window stops
+                     itself after S seconds (clamped to [0.1, 60]) and lands
+                     in <capture_id>/<host>_<port>. Opt-in only
+                     (run_node --enable-profiling): 403 without it, 400 for
+                     a bad request or a name that escapes the directory,
+                     409 for a second start or a stop with none running.
 
 A payload with `decode_steps` K asks a one-stage (whole-model) node for a
 fused window of K decode steps sampled on the device (the one-session
@@ -48,6 +59,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import os
 import threading
 import time
 import uuid
@@ -62,11 +74,13 @@ from inferd_tpu_torch.runtime.adapters import AdapterCapacityError, UnknownAdapt
 from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor, CapacityError
 from inferd_tpu_torch.runtime.window import WindowedBatcher
 from inferd_tpu_torch.utils.platform import device_name
+from inferd_tpu_torch.utils.profiling import Profiler, span
 
 log = logging.getLogger(__name__)
 
 FORWARD_PATH = "/forward"
 END_SESSION_PATH = "/end_session"
+PROFILE_PATH = "/profile"
 
 Reply = Tuple[int, str, bytes]  # (status, content type, body)
 _WIRE = "application/octet-stream"
@@ -101,6 +115,8 @@ class ChainNode:
         port: int = 0,
         window_ms: float = 2.0,
         quant: str = "none",  # the run_node --quant flag the params were loaded with
+        enable_profiling: bool = False,  # POST /profile (off: any peer could fill the disk)
+        profile_dir: str = "profiles",
     ):
         self.executor = executor
         self.spec = executor.spec
@@ -120,6 +136,8 @@ class ChainNode:
         self.host, self.port = self._server.server_address[:2]
         self.node_id = f"{self.host}:{self.port}"
         self._thread: Optional[threading.Thread] = None
+        self.enable_profiling = enable_profiling
+        self.profiler = Profiler(base_dir=profile_dir)
 
     def _attach_window(self, executor: BatchedStageExecutor, window_ms: float) -> None:
         """Give the lane executor its arrival window: co-arriving decode
@@ -184,12 +202,18 @@ class ChainNode:
         return self
 
     def stop(self) -> None:
-        """Stop serving and release the socket."""
+        """Stop serving and release the socket; a trace still running is
+        stopped and written."""
         self._server.shutdown()
         self._server.server_close()
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
+        if self.profiler.active_dir is not None:
+            try:
+                self.profiler.stop()
+            except RuntimeError:  # a window's timer stopped it meanwhile
+                pass
 
     # -- endpoints ------------------------------------------------------------
 
@@ -203,7 +227,8 @@ class ChainNode:
 
     def forward(self, body: bytes) -> Reply:
         try:
-            env = wire.unpack(body)
+            with span("wire.unpack"):
+                env = wire.unpack(body)
             if not isinstance(env, dict):
                 raise ValueError("envelope is not a dict")
             stage = int(env.get("stage", 0))
@@ -236,12 +261,19 @@ class ChainNode:
             )
         try:
             if self.window is None:
-                with self._compute_lock:
-                    result = self.executor.process(session_id, payload)
+                with span("node.lock_wait"):
+                    self._compute_lock.acquire()
+                try:
+                    with span("executor.process"):
+                        result = self.executor.process(session_id, payload)
+                finally:
+                    self._compute_lock.release()
             elif _is_decode_step(payload):
-                result = self.window.submit((session_id, payload))
+                with span("window.wait"):
+                    result = self.window.submit((session_id, payload))
             else:
-                result = self.executor.process(session_id, payload)
+                with span("executor.process"):
+                    result = self.executor.process(session_id, payload)
             with self._stats_lock:
                 self.forward_passes += 1
             self._maybe_sweep()
@@ -258,13 +290,66 @@ class ChainNode:
         except Exception as e:  # compute failure: report it, keep serving
             log.exception("stage compute failed")
             return self._error(500, f"stage compute failed: {e}")
-        return 200, _WIRE, wire.pack({
-            "task_id": task_id,
-            "session_id": session_id,
-            "stage": stage,
-            "result": result,
-            "served_by": self.node_id,
-        })
+        with span("wire.pack"):
+            return 200, _WIRE, wire.pack({
+                "task_id": task_id,
+                "session_id": session_id,
+                "stage": stage,
+                "result": result,
+                "served_by": self.node_id,
+            })
+
+    def profile(self, body: bytes) -> Reply:
+        """POST /profile: start, stop, or a window that stops itself (the
+        reference's handle_profile; its span and journal records of a
+        window wait for the port's obs plane)."""
+        if not self.enable_profiling:
+            return self._error(403, "profiling disabled (start the node with "
+                                    "--enable-profiling)")
+        try:
+            env = wire.unpack(body)
+            action = env["action"]
+        except Exception as e:
+            return self._error(400, f"bad profile request: {e}")
+        reply: Dict[str, Any] = {"ok": True}
+        try:
+            if action == "start":
+                reply["dir"] = self.profiler.start(env.get("name") or env.get("dir"))
+            elif action == "stop":
+                reply["dir"] = self.profiler.stop()
+            elif action == "window":
+                try:
+                    seconds = min(max(float(env.get("seconds", 3.0)), 0.1), 60.0)
+                except (TypeError, ValueError):
+                    return self._error(400, "bad seconds")
+                capture_id = str(env.get("capture_id") or time.strftime("%Y%m%d-%H%M%S"))
+                label = os.path.join(capture_id, self.node_id.replace(":", "_"))
+                reply["dir"] = self.profiler.start(label)
+                timer = threading.Timer(seconds, self._close_window, args=(reply["dir"],))
+                timer.daemon = True
+                timer.start()
+                reply.update(capture_id=capture_id, seconds=seconds)
+            else:
+                return self._error(400, f"unknown action {action!r}")
+        except ValueError as e:
+            return self._error(400, str(e))
+        except RuntimeError as e:
+            return self._error(409, str(e))
+        except Exception as e:  # the profiler itself failed: report it, keep serving
+            log.exception("profile %s failed", action)
+            return self._error(500, f"profile {action} failed: {e}")
+        return 200, _WIRE, wire.pack(reply)
+
+    def _close_window(self, d: str) -> None:
+        """A window's end: stop its trace unless a stop came first."""
+        if self.profiler.active_dir != d:
+            return
+        try:
+            self.profiler.stop()
+        except RuntimeError:  # an explicit stop won the race
+            pass
+        except Exception:
+            log.exception("profile window %s: stop failed", d)
 
     def end_session(self, body: bytes) -> Reply:
         try:
@@ -346,14 +431,17 @@ def _handler_for(node: ChainNode):
             self.wfile.write(body)
 
         def do_POST(self) -> None:  # noqa: N802 (http.server's naming)
-            n = int(self.headers.get("Content-Length") or 0)
-            body = self.rfile.read(n)
-            if self.path == FORWARD_PATH:
-                self._reply(*node.forward(body))
-            elif self.path == END_SESSION_PATH:
-                self._reply(*node.end_session(body))
-            else:
-                self._reply(*node._error(404, f"no endpoint {self.path}"))
+            with span("http.request"):
+                n = int(self.headers.get("Content-Length") or 0)
+                body = self.rfile.read(n)
+                if self.path == FORWARD_PATH:
+                    self._reply(*node.forward(body))
+                elif self.path == END_SESSION_PATH:
+                    self._reply(*node.end_session(body))
+                elif self.path == PROFILE_PATH:
+                    self._reply(*node.profile(body))
+                else:
+                    self._reply(*node._error(404, f"no endpoint {self.path}"))
 
         def do_GET(self) -> None:  # noqa: N802
             if self.path == "/health":

@@ -12,7 +12,8 @@ Usage:
       --port 6050 [--device cuda|cpu] [--max-len 4096] \\
       [--stage-lanes N [--window-ms W] [--paged-kv BS [--kv-blocks K]] \\
        [--prefill-chunk C] [--adapters DIR[,DIR...] [--adapter-slots N]]] \\
-      [--quant none|int8|int8-kernel|int4] [--lora DIR]
+      [--quant none|int8|int8-kernel|int4] [--lora DIR] \\
+      [--enable-profiling [--profile-dir DIR]]
 
 With --stage-lanes the stage serves its sessions from lanes of one shared
 KV cache, and co-arriving decode steps of concurrent sessions run as one
@@ -22,7 +23,9 @@ checkpoint stays bf16 on disk) and its decode GEMVs run the kernels of
 csrc/qmatmul.cu, on either executor. --lora merges one peft adapter into the
 stage's weights at load, before --quant, on either executor; --adapters
 serves many on lane nodes, each session's own adapter added per lane by the
-kernel of csrc/lora_delta.cu (the two are exclusive).
+kernel of csrc/lora_delta.cu (the two are exclusive). --enable-profiling
+opens POST /profile: torch.profiler traces of the node on demand, under
+--profile-dir.
 """
 
 from __future__ import annotations
@@ -113,6 +116,13 @@ def build_parser() -> argparse.ArgumentParser:
         "catalog size + 1). Fewer slots than tenants => idle adapters LRU-evict "
         "and cache-miss admissions hot-load",
     )
+    ap.add_argument(
+        "--enable-profiling", action="store_true",
+        help="expose the POST /profile torch.profiler endpoint (off by default: any "
+        "peer could otherwise start traces and fill the disk)",
+    )
+    ap.add_argument("--profile-dir", default="profiles",
+                    help="directory the /profile traces land under (default profiles/)")
     return ap
 
 
@@ -161,7 +171,8 @@ def make_node(args: argparse.Namespace) -> ChainNode:
         if registry is not None:
             build.load("lora_delta")
     return ChainNode(executor, host=args.host, port=args.port, window_ms=args.window_ms,
-                     quant=args.quant)
+                     quant=args.quant, enable_profiling=args.enable_profiling,
+                     profile_dir=args.profile_dir)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

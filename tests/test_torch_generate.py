@@ -17,6 +17,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from inferd_tpu import config as jcfg
 from inferd_tpu.core import generate as jgen
@@ -244,3 +246,110 @@ def test_cli_refuses_what_is_not_ported(capsys, argv, item):
     with pytest.raises(SystemExit) as e:
         gen_cli.main(["--prompt-ids", "1", "--device", "cpu", *extra, *argv])
     assert e.value.code == 2 and item in capsys.readouterr().err
+
+
+# -- the graphed step's contract, held on the CPU (the graphs themselves run
+#    only on the card: chip_smoke's generate phase) -----------------------------
+
+
+def _pr8_stream(eng, prompt, steps, seed):
+    """Slice 8's host loop written out: prefill, then one cached forward per
+    step over host-int positions and `core.sampling.sample` from the key
+    chain, the loop the engine ran before its steps became decode_window."""
+    from inferd_tpu_torch.core import sampling as samplib
+
+    s = eng.sampling
+    cache = eng.new_cache(1)
+    logits, cache = eng.prefill(prompt, cache)
+    key, sub = samplib.split_key(samplib.prng_key(seed))
+    tok = samplib.sample(logits, sub, s.temperature, s.top_k, s.top_p, s.min_p)
+    out = [int(tok[0])]
+    while len(out) < steps:
+        key, sub = samplib.split_key(key)
+        logits, cache = tq.forward_cached(eng.params, eng.cfg, tok[:, None], cache.length, cache,
+                                          cache.length)
+        cache.length += 1
+        tok = samplib.sample(logits[:, 0], sub, s.temperature, s.top_k, s.top_p, s.min_p)
+        out.append(int(tok[0]))
+    return out
+
+
+@pytest.mark.parametrize("cfg_i", range(len(SAMPLED)))
+def test_step_refactor_gives_slice_8_tokens(tiny, cfg_i):
+    """Every form of generation, now on models/qwen3.decode_window, gives
+    the tokens of slice 8's loop (one cached forward and sample per step)."""
+    eng = tgen.Engine(tcfg.TINY, tiny[1], max_len=64, sampling_cfg=SAMPLED[cfg_i])
+    ref = _pr8_stream(eng, PROMPT, 20, seed=9)
+    for chunk in (1, 8):
+        assert eng.generate(PROMPT, max_new_tokens=20, seed=9, chunk=chunk) == ref
+    toks = [PROMPT + [0] * (tgen.bucket_len(len(PROMPT)) - len(PROMPT))]
+    assert eng.generate_scan(np.asarray(toks), len(PROMPT), 20, seed=9)[0].tolist() == ref
+    assert eng.graph_stats() == {"captures": 0, "replays": 0, "resident": 0, "evictions": 0,
+                                 "max_graphs": 0}  # the CPU runs the step eagerly
+
+
+def test_engine_reuses_its_buffer(tiny):
+    """The donated cache: one buffer per (batch, max_len), reused by generate
+    and generate_scan (and a pin copied into it), never a new allocation."""
+    eng = tgen.Engine(tcfg.TINY, tiny[1], max_len=64, sampling_cfg=GREEDY_T)
+    first = eng.generate(PROMPT, max_new_tokens=6)
+    buf = eng.buffer(1)
+    ptr = buf.k.data_ptr()
+    eng.pin_prefix(PROMPT[:3])
+    assert eng.generate(PROMPT, max_new_tokens=6) == first
+    eng.generate_scan(np.asarray([PROMPT + [0] * 8]), len(PROMPT), 6)
+    assert eng.buffer(1) is buf and buf.k.data_ptr() == ptr and buf.length == 0
+    assert len(eng._buffers) == 1
+
+
+def _record_bounds(monkeypatch):
+    """Every decode_window call's (fill -> kv bound) per step, on the host."""
+    seen = []
+    real = tq.decode_window
+
+    def spy(params, cfg, k_cache, v_cache, tok, fill, active, eos, u, bounds, *rest):
+        f = int(fill.max())
+        seen.extend((f + j, b) for j, b in enumerate(bounds))
+        return real(params, cfg, k_cache, v_cache, tok, fill, active, eos, u, bounds, *rest)
+
+    monkeypatch.setattr(tq, "decode_window", spy)
+    return seen
+
+
+def test_every_form_gives_a_step_the_same_bound(tiny, monkeypatch):
+    """generate at chunk 1 and 8, generate_scan and decode_k launch the step
+    at one fill with one kv bound (the flash plan, so the bits, follow)."""
+    eng = tgen.Engine(tcfg.TINY, tiny[1], max_len=128, sampling_cfg=SAMPLED[0])
+    prompt = list(range(3, 60))  # fills 57..96 cross the 64 bucket
+    maps = []
+    for run in (lambda: eng.generate(prompt, 40, seed=1),
+                lambda: eng.generate(prompt, 40, seed=1, chunk=8),
+                lambda: eng.generate_scan(np.asarray([prompt + [0] * 7]), len(prompt), 40,
+                                          seed=1)):
+        seen = _record_bounds(monkeypatch)
+        run()
+        maps.append(dict(seen))
+        assert len(maps[-1]) == len(seen) == 39
+    assert maps[0] == maps[1] == maps[2]
+    assert maps[0][57] == 64 and maps[0][63] == 64 and maps[0][64] == 128
+    seen = _record_bounds(monkeypatch)
+    cache = eng.new_cache(1, 128)
+    tq.decode_k(eng.params, tcfg.TINY, [5], cache, [57], [True], np.zeros((1, 2), np.uint32), 12)
+    assert dict(seen) == {f: maps[0][f] for f in range(57, 69)}
+
+
+@settings(max_examples=200, deadline=None)
+@given(max_len=st.sampled_from([16, 48, 64, 100, 128, 2048, 4096]), data=st.data())
+def test_bucket_rule_covers_each_step_and_agrees_across_windows(max_len, data):
+    fill = data.draw(st.integers(0, max_len - 1))
+    k = data.draw(st.integers(1, max_len - fill))
+    bounds = tq.window_bounds(fill, k, max_len)
+    assert len(bounds) == k
+    for j, b in enumerate(bounds):
+        assert fill + j + 1 <= b <= max_len  # covers the step's kv length, within the buffer
+        assert b == max_len or (b >= tq.KV_BUCKET_MIN and b & (b - 1) == 0)
+        assert b == tq.kv_bucket(fill + j + 1, max_len)
+        assert tq.window_bounds(fill + j, 1, max_len) == (b,)  # a single step at that fill
+    assert list(bounds) == sorted(bounds)
+    i = data.draw(st.integers(0, k - 1))  # a window starting inside this one agrees
+    assert tq.window_bounds(fill + i, k - i, max_len) == bounds[i:]

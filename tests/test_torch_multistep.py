@@ -321,3 +321,114 @@ def test_one_stage_node_serves_decode_steps(solo, tmp_path):
     finally:
         node.stop()
         stage0.stop()
+
+
+@pytest.mark.parametrize("eos", [None, "mid"])
+def test_decode_k_equals_k_single_steps(solo, eos):
+    """decode_k's window (decode_window over decode_step) gives, sampled,
+    B = 2 at ragged fills, the tokens, fills and keys of K one-step windows
+    chained on the host, an eos row freezing in both."""
+    _, tp, _ = solo
+    rows = [[3, 7, 11, 19, 5], [9, 4, 1, 8, 30, 2, 6, 12, 44]]
+    keys0 = np.stack([samplib.prng_key(7), samplib.prng_key(8)])
+    kw = dict(temperature=0.9, top_k=8)
+    k = 6
+    _, tc = _prefilled(solo, rows)
+    _, free, _, _, _, _, _ = tq.decode_k(tp, tcfg.TINY, [5, 44], tc, [5, 9], [True, True],
+                                         keys0, k, **kw)
+    stop = None if eos is None else [-1, int(free[2, 1])]
+    _, tc = _prefilled(solo, rows)
+    _, seq, n_new, keys, _, _, _ = tq.decode_k(tp, tcfg.TINY, [5, 44], tc, [5, 9], [True, True],
+                                               keys0, k, eos=stop, **kw)
+    _, tc = _prefilled(solo, rows)
+    toks, lens, active, ks, steps = [5, 44], np.array([5, 9]), np.array([True, True]), keys0, []
+    for _ in range(k):
+        _, s1, n1, ks, _, _, _ = tq.decode_k(tp, tcfg.TINY, toks, tc, lens, active, ks, 1,
+                                             eos=stop, **kw)
+        toks = s1[0].tolist()
+        steps.append(toks)
+        lens = lens + n1.numpy()
+        if stop is not None:
+            active = active & ((np.asarray(stop) < 0) | (np.asarray(toks) != np.asarray(stop)))
+    np.testing.assert_array_equal(seq.numpy(), np.asarray(steps))
+    np.testing.assert_array_equal(n_new.numpy(), lens - np.array([5, 9]))
+    np.testing.assert_array_equal(keys, ks)
+    if stop is not None:
+        assert int(n_new[1]) == 3 and int(n_new[0]) == k
+
+
+class _FakeGraph:
+    """What a CUDA graph does at replay: the captured work runs again over
+    the same buffers, and no Python runs (so no wrapper counts)."""
+
+    def __init__(self, work):
+        self.work, self.replays = work, 0
+
+    def replay(self):
+        self.work()
+        self.replays += 1
+
+
+class _FakeBackend:
+    def __init__(self):
+        self.warmups = 0
+
+    def warmup(self, fn):
+        self.warmups += 1
+        return fn()
+
+    def capture(self, fn):
+        out = fn()  # the capture runs the Python once; the fake graph redoes the math
+        return _FakeGraph(lambda: out.copy_(self.math())), out
+
+
+def test_graph_cache_counts_the_captured_change_once_per_replay():
+    """The warm-up's launches count once (they ran), the capture's are taken
+    back out (nothing launched), and each replay adds exactly the change
+    the capture made; inputs go through the static buffers; the LRU holds
+    max_graphs entries."""
+    from inferd_tpu_torch.utils.cuda_graph import GraphCache
+
+    class Wrapper:
+        launches = 0
+        split_launches = 0
+
+    def fn(x):
+        Wrapper.launches += 3  # three kernels
+        Wrapper.split_launches += 1
+        return x * 2
+
+    backend = _FakeBackend()
+    gc = GraphCache(max_graphs=2, counters=[(Wrapper, "launches"), (Wrapper, "split_launches")],
+                    backend=backend)
+    x = torch.arange(4.0)
+    r = gc.run("a", fn, {"x": x})
+    assert torch.equal(r, x * 2) and (Wrapper.launches, Wrapper.split_launches) == (3, 1)
+    entry = gc._entries["a"]
+    assert entry.delta == [3, 1] and backend.warmups == 1
+    backend.math = lambda: entry.inputs["x"] * 2
+    for i in range(1, 4):
+        y = torch.full((4,), float(i))
+        out = gc.run("a", fn, {"x": y})
+        assert out is entry.outputs and torch.equal(out, y * 2)  # the static output
+        assert torch.equal(entry.inputs["x"], y) and y is not entry.inputs["x"]
+        assert (Wrapper.launches, Wrapper.split_launches) == (3 + 3 * i, 1 + i)
+    assert gc.stats() == {"captures": 1, "replays": 3, "resident": 1, "evictions": 0,
+                          "max_graphs": 2}
+    gc.run("b", fn, {"x": x})
+    gc.run("c", fn, {"x": x})
+    assert list(gc._entries) == ["b", "c"] and gc.stats()["evictions"] == 1
+    assert Wrapper.launches == 3 + 9 + 6  # two more warm-ups, no capture counted
+    with pytest.raises(ValueError):
+        GraphCache(max_graphs=0, counters=[])
+
+
+def test_kernel_counters_cover_every_wrapper():
+    from inferd_tpu_torch.ops import attention, lora, qmatmul
+    from inferd_tpu_torch.utils.cuda_graph import kernel_counters
+
+    got = {(w.__name__, a) for w, a in kernel_counters()}
+    for w in (attention.flash_gqa, attention.paged_decode_gqa, qmatmul.w8a16_matmul,
+              qmatmul.w4a16_matvec, lora.fused_lane_delta):
+        attrs = {a for a in vars(w) if a.endswith("launches")}
+        assert attrs and {(w.__name__, a) for a in attrs} <= got
