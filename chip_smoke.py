@@ -38,22 +38,29 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               one after another through the port's ChainClient, and check:
               every request completes; each node's flash_gqa launches = 14 x
               its forward passes, of which 14 x its decode passes took the
-              split-KV route and 14 x its prefill passes the tensor cores; the
-              streams equal the same two stage
-              executors driven in-process; over teacher-forced prefill and
-              decode steps the kernel path's hidden states and logits are
-              near the plain attention path's, and planted attention faults
-              are not
+              split-KV route and 14 x its prefill passes the tensor cores;
+              every decode step a graph capture or replay (/stats
+              executor.graphs: captures + replays = decode steps); the
+              streams equal the same two stage executors driven in-process
+              with their graphs off (eager); a stage graph whose fill is
+              frozen at capture (planted) breaks that equality; one 14-layer
+              stage step's host and device time, graphed and eager; over
+              teacher-forced prefill and decode steps the kernel path's
+              hidden states and logits are near the plain attention
+              path's, and planted attention faults are not
   serve_lanes the same parts behind two run_node --stage-lanes 8 --paged-kv 32
-              processes; 8 ChainClient sessions run CONCURRENTLY, greedy.
+              processes (their decode dispatches graphed); 8 ChainClient
+              sessions run CONCURRENTLY, greedy.
               Checks: every stream completes; per node, paged_decode_gqa
               launches = 14 x its decode dispatches, of which split ones =
               14 x the dispatches whose table width (/stats
               executor.decode_widths) paged_plan splits, flash_gqa launches =
               14 x its prefill dispatches (all on the tensor cores), and the
-              mean co-batch is above 1; the
-              streams equal two in-process lane executors' over the same
-              parts; teacher-forced, the kernel path stays near the plain
+              mean co-batch is above 1; every decode dispatch a graph
+              capture or replay; the streams equal two in-process eager
+              lane executors' over the same parts; the planted frozen-fill
+              fault breaks that on graphed paged lane executors;
+              teacher-forced, the kernel path stays near the plain
               attention path on the paged and on the dense lane layout, and
               planted paged-attention faults do not; TTFT and tok/s
   serve_quant_int8, serve_quant_int4
@@ -123,8 +130,10 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               the same model, driven by raw /forward payloads: a prefill, then
               decode_steps 8 windows up to 32 tokens, greedy and sampled, eos
               set to the free run's token 5 (a window stops mid-way); tokens,
-              real_len, decode_steps and key equal the in-process executor's;
-              /stats launches exact; stage 0 of the two-stage chain answers
+              real_len, decode_steps and key of the node's graphed windows
+              equal the in-process eager executor's; /stats launches exact,
+              every window a capture or a replay; stage 0 of the two-stage
+              chain answers
               decode_steps with 409 session_state ("single-stage")
   anatomy     perf.anatomy.profile_step on the whole model at the headline
               regime's context: bf16, --quant int8 and paged (bs 32): each
@@ -134,14 +143,16 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               (the eager host-driven step minus the graphed one); each
               case's kernels must launch
   profile     the serve split behind two run_node --enable-profiling
-              processes: after a warm-up request, POST /profile window on
-              both, one greedy request (a prefill and 8 decode steps) inside
-              it; each node's torch.profiler trace must hold the requests
+              processes: after a warm-up request, one node at a time, POST
+              /profile window on it and one greedy request (a prefill and 8
+              decode steps) inside it (two processes tracing the card at
+              once leave the first trace empty); each node's
+              torch.profiler trace must hold the requests
               and the card's kernels, and its host time is split
               (utils.profiling.host_time_split): HTTP, wire pack/unpack,
               the compute lock, the executor, the layers (and their Python
-              alone), the kernel wrappers' checks and launch, the results'
-              .cpu()
+              alone), the kernel wrappers' checks and launch, the graph
+              replays, the results' .cpu(); each node replayed its graphs
   cli         python -m inferd_tpu_torch.tools.generate --model qwen3-0.6b
               --random-init --prompt-ids ... --max-new-tokens 16 --chunk 8 as a
               subprocess, on the card by default: exit 0, 16 ids
@@ -151,10 +162,12 @@ Then one JSON line listing every kernel, the nvidia-smi line, and last:
 
 Run from the root of a checkout: python3 chip_smoke.py
 Exits non-zero without a CUDA device, and outside a checkout.
-`--only paged,lora` (any of flash, paged, qmm, lora, and generate, anatomy,
-profile on a fresh split: generate runs the generate and generate_quant
-phases) builds the kernels and runs those phases alone, with no serve phase
-and no result lines.
+`--only paged,lora` (any of flash, paged, qmm, lora, and on a fresh split
+serve, serve_quant, serve_lanes, serve_lanes_quant, serve_lanes_lora,
+generate, serve_kstep, anatomy, profile: serve_quant runs int8 and int4,
+serve_lanes_lora runs serve_lanes first, generate runs the generate and
+generate_quant phases) builds the kernels and runs those phases alone,
+with no result lines.
 """
 
 from __future__ import annotations
@@ -1321,6 +1334,40 @@ def start_node(parts: str, stage: int, log_dir: str, extra=(), tag: str = "") ->
     return {"proc": proc, "port": port, "log": log, "stage": stage}
 
 
+# node processes started ahead of their phase: (parts, extra, tag) -> nodes
+_PRESTARTED: Dict[tuple, List[Dict[str, Any]]] = {}
+
+
+def prestart_nodes(parts: str, work: str, specs) -> None:
+    """Start the two stage processes of each (extra, tag) in `specs` now,
+    all at once, and wait until every one answers: its phase then takes
+    them fresh and idle (start_nodes) instead of waiting ~8 s for its own,
+    and no process is still starting while a phase measures."""
+    t0 = time.perf_counter()
+    for extra, tag in specs:
+        _PRESTARTED[(parts, tuple(extra), tag)] = [start_node(parts, s, work, extra, tag)
+                                                   for s in range(2)]
+    for nodes in _PRESTARTED.values():
+        for n in nodes:
+            wait_ready(n)
+    say("nodes", f"{2 * len(specs)} run_node processes of {len(specs)} phases started at once, "
+                 f"ready in {time.perf_counter() - t0:.1f}s")
+
+
+def start_nodes(parts: str, work: str, extra=(), tag: str = "") -> List[Dict[str, Any]]:
+    """Stages 0 and 1 behind these flags: the processes prestart_nodes
+    started for them, else two started now."""
+    nodes = _PRESTARTED.pop((parts, tuple(extra), tag), None)
+    return nodes if nodes is not None else [start_node(parts, s, work, extra, tag)
+                                            for s in range(2)]
+
+
+def stop_prestarted() -> None:
+    """Stop every prestarted process no phase took (a run that failed)."""
+    while _PRESTARTED:
+        stop_nodes(_PRESTARTED.popitem()[1])
+
+
 def wait_ready(node: Dict[str, Any], timeout_s: float = 300.0) -> None:
     deadline = time.monotonic() + timeout_s
     while time.monotonic() < deadline:
@@ -1390,7 +1437,12 @@ def _last_stage_probe_class():
 
     class LastStageProbe(Qwen3StageExecutor):
         """The last stage's executor, returning its hidden state on every
-        real row beside the last real token's logits."""
+        real row beside the last real token's logits; its token steps run
+        stage_step as a node's do (eagerly: its graphs are None)."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.graphs = None
 
         def _run(self, x, start_pos, cache, real_len):
             hidden, _ = qwen3.forward_layers_cached(
@@ -1399,7 +1451,251 @@ def _last_stage_probe_class():
             return {"hidden": hidden[:, :real_len],
                     "logits": qwen3.unembed(self.params, self.cfg, last)[:, 0]}
 
+        def _token_step(self, x, pos, cache):
+            import torch
+
+            x = x.to(self.device)  # the executor hands a token step's row over on the host
+            fill = torch.full((1,), pos, dtype=torch.int64, device=self.device)
+            hidden = qwen3.stage_step(self.params, self.cfg, x, cache.k, cache.v, fill,
+                                      first=False, last=False,
+                                      kv_bound=qwen3.kv_bucket(pos + 1, cache.max_len))
+            return {"hidden": hidden, "logits": qwen3.unembed(self.params, self.cfg, hidden)[:, 0]}
+
     return LastStageProbe
+
+
+def eager(executors):
+    """The executors with their graphs off: the same steps run eagerly, the
+    reference a graphed node is held to, and the only form a planted kernel
+    fault can reach after a capture."""
+    for ex in executors:
+        getattr(ex, "ex", ex).graphs = None
+    return executors
+
+
+def check_node_graphs(phase: str, st: Dict[str, Any], decode_steps: int) -> Dict[str, int]:
+    """A node's /stats executor.graphs: every one of its `decode_steps`
+    decode steps (token steps, co-batched dispatches or decode_steps
+    windows) was a capture or a replay, none ran eagerly; at least one
+    capture and one replay; the resident graphs within max_graphs."""
+    g = st["executor"]["graphs"]
+    say(phase, f"node stage {st['stage']}: graphs {g} over {decode_steps} decode steps "
+               f"({g['replays'] / max(g['captures'], 1):.1f} replays per capture)")
+    if (g["captures"] < 1 or g["replays"] < 1 or g["captures"] + g["replays"] != decode_steps
+            or g["resident"] > g["max_graphs"]):
+        raise AssertionError(f"{phase} stage {st['stage']}: graphs {g} for {decode_steps} "
+                             "decode steps (want captures + replays == steps, captures >= 1, "
+                             "replays >= 1)")
+    return g
+
+
+@contextlib.contextmanager
+def planted_frozen_fill():
+    """Until the block ends, a stage step captured into a graph runs with
+    each row's fill (its position and write slot) frozen at its value in
+    the warm-up just before the capture: a host value baked into the graph,
+    the fault a stage graph's token-exactness against the eager step must
+    catch. Eager steps stay right; a graph captured before the block does
+    not hold the fault, so the check runs on executors made inside it."""
+    import torch
+
+    from inferd_tpu_torch.models import qwen3 as Q
+
+    real = Q.stage_step
+    seen = {}
+
+    def faulty(params, cfg, x, k_cache, v_cache, fill, **kw):
+        key = fill.data_ptr()  # the graph's static fill buffer
+        if torch.cuda.is_current_stream_capturing():
+            frozen = torch.zeros_like(fill)
+            for i, v in enumerate(seen[key]):
+                frozen[i:i + 1].fill_(v)  # a fill kernel with the value baked in
+            fill = frozen
+        else:
+            seen[key] = fill.tolist()
+        return real(params, cfg, x, k_cache, v_cache, fill, **kw)
+
+    Q.stage_step = faulty
+    try:
+        yield
+    finally:
+        Q.stage_step = real
+
+
+# Tokens of each planted frozen-fill stream: the fault shows within the
+# first few (token 2 on the one-session chain, token 5 on the paged lanes,
+# in earlier runs), and every token of the eager reference costs a
+# Python-dispatched step per stage.
+FROZEN_FILL_TOKENS = 12
+
+
+def check_frozen_fill_caught(phase: str, what: str, make_executors, prompt) -> None:
+    """Graphed executors made under planted_frozen_fill give a stream of
+    `prompt` that leaves the eager executors' (fresh ones from
+    `make_executors`, their graphs off), sampled with the default config
+    0.6/20/0.95 and one seed, whose draws follow every logit (the random
+    model's greedy streams barely move under the fault); the same graphed
+    executors without the fault give the eager stream. FROZEN_FILL_TOKENS
+    tokens each."""
+    from inferd_tpu_torch.config import SamplingConfig
+
+    def run(executors):
+        return asyncio.run(make_local_client(executors, SamplingConfig()).generate_ids(
+            prompt, max_new_tokens=FROZEN_FILL_TOKENS, seed=GEN_SEED))
+
+    want = run(eager(make_executors()))
+    sound = run(make_executors())
+    with planted_frozen_fill():
+        got = run(make_executors())
+    say(phase, f"planted fault frozen_fill on graphed {what}, prompt {len(prompt)}, sampled: "
+               f"the stream leaves the eager one at token {first_divergence(got, want)} of "
+               f"{FROZEN_FILL_TOKENS}; without the fault, graphed equals eager: {sound == want}")
+    if sound != want:
+        raise AssertionError(f"{phase}: graphed {what} leave the eager stream: {sound} {want}")
+    if got == want:
+        raise AssertionError(f"{phase}: planted fault frozen_fill passes on {what}")
+
+
+def stage_step_share(phase: str, card: str, loaded, prompt) -> Dict[str, Any]:
+    """One decode step of stage 0 (14 layers, 1 token) on an in-process
+    one-session executor, graphed and eager in this call: the host clock
+    per step and the device's busy time (device_share), the step replayed
+    at one fill (the upload, the replay or the eager layers, the .cpu())."""
+    import numpy as np
+
+    from inferd_tpu_torch.config import get_config
+    from inferd_tpu_torch.runtime.executor import Qwen3StageExecutor
+
+    cfg = get_config(MODEL)
+    params, spec, _ = loaded[0]
+    out = {}
+    for name, graphed in (("graphed", True), ("eager", False)):
+        ex = Qwen3StageExecutor(cfg, spec, params, max_len=MAX_LEN)
+        if not graphed:
+            ex.graphs = None
+        ex.process("share", {"tokens": np.asarray([prompt], np.int32), "start_pos": 0,
+                             "real_len": len(prompt)})
+        step = {"tokens": [[prompt[-1]]], "start_pos": len(prompt), "real_len": 1}
+        out[name] = device_share(phase, card, f"stage 0 decode step ({spec.num_layers} "
+                                 f"layers, fill {len(prompt)}), {name}",
+                                 lambda ex=ex: ex.process("share", step), 1)
+        out[name]["graphs"] = ex.stats()["graphs"]
+        if graphed:
+            out["capture"] = capture_cost(phase, card, ex, prompt)
+        del ex
+    return out
+
+
+def capture_cost(phase: str, card: str, ex, prompt, n: int = 3) -> Dict[str, Any]:
+    """What one more token-step graph costs a one-session executor: `n`
+    more sessions live at once, each prefilled into a buffer of its own,
+    then per session the host clock of its first token step (the graph's
+    warm-up and capture, and the .cpu()) and of its second (a replay at
+    the same kv bound), and the device memory the n captures leave
+    allocated (torch.cuda.memory_allocated: the graphs' static buffers and
+    what their warm-ups keep; memory_reserved also moves with the
+    allocator's cache, so it does not count a graph)."""
+    import numpy as np
+    import torch
+
+    sids = [f"capture{i}" for i in range(n)]
+    for sid in sids:
+        ex.process(sid, {"tokens": np.asarray([prompt], np.int32), "start_pos": 0,
+                         "real_len": len(prompt)})
+    torch.cuda.synchronize()
+    allocated0, captures0 = torch.cuda.memory_allocated(), ex.stats()["graphs"]["captures"]
+    first, second = [], []
+    for sid in sids:
+        for times, pos in ((first, len(prompt)), (second, len(prompt) + 1)):
+            t0 = time.perf_counter()
+            ex.process(sid, {"tokens": [[prompt[-1]]], "start_pos": pos, "real_len": 1})
+            times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    mib = (torch.cuda.memory_allocated() - allocated0) / n / 2**20
+    captures = ex.stats()["graphs"]["captures"] - captures0
+    for sid in sids:
+        ex.end_session(sid)
+    out = {"capture_ms": statistics.median(first), "replay_ms": statistics.median(second),
+           "allocated_mib_per_graph": mib, "sessions": n}
+    say(phase, f"a token-step graph of stage 0 ({n} sessions live at once, each its own "
+               f"buffer): first step (warm-up + capture) {out['capture_ms']:.2f} ms, second "
+               f"(a replay) {out['replay_ms']:.2f} ms on the host clock (medians); "
+               f"{mib:.3f} MiB of device memory left allocated per capture ({card})")
+    if captures != n:
+        raise AssertionError(f"{phase}: {captures} captures for {n} new buffers")
+    return out
+
+
+# The serve prompts driven again, all at once, on the same graphed
+# one-session nodes, in this many waves: the first allocates buffers (and
+# captures graphs) for the sessions live together; later waves reuse the
+# buffers, and capture only the (buffer, kv bound) pairs a buffer had not
+# met yet (which session takes which free buffer follows arrival order).
+CONCURRENT_WAVES = 2
+
+
+def concurrent_waves(phase: str, card: str, nodes, prompts, streams, sampling) -> List[Any]:
+    """The serve prompts on the serve nodes, CONCURRENTLY, CONCURRENT_WAVES
+    times: every stream equals the sequential run's, every decode step of a
+    wave is a capture or a replay on each node, and at the end no node
+    ever evicted or captured a graph twice (captures == resident,
+    evictions 0), and its captures stay within a graph per kv bound per
+    buffer it allocated: they grow with the sessions live at once, never
+    with the sessions served. Prints each wave's aggregate rate, and per
+    node its captures per session and its buffers allocated and reused."""
+    from inferd_tpu_torch.client.chain_client import ChainClient
+    from inferd_tpu_torch.models.qwen3 import KV_BUCKET_MIN
+
+    addrs = [("127.0.0.1", n["port"]) for n in nodes]
+
+    def executors():
+        return [http_get_json(f"http://127.0.0.1:{n['port']}/stats")["executor"] for n in nodes]
+
+    async def drive():
+        async with ChainClient(addrs, sampling=sampling, prefill_chunk=512) as client:
+            return await asyncio.gather(*(client.generate_ids(p, max_new_tokens=NEW_TOKENS)
+                                          for p in prompts))
+
+    steps = len(prompts) * (NEW_TOKENS - 1)
+    waves = []
+    for w in range(CONCURRENT_WAVES):
+        ex0 = executors()
+        t0 = time.perf_counter()
+        got = asyncio.run(drive())
+        wall = time.perf_counter() - t0
+        ex1 = executors()
+        if got != streams:
+            raise AssertionError(f"{phase}: concurrent wave {w + 1}'s streams differ from the "
+                                 "sequential run's")
+        per_node = []
+        for stage, (a, b) in enumerate(zip(ex0, ex1)):
+            d = {k: b["graphs"][k] - a["graphs"][k] for k in ("captures", "replays", "evictions")}
+            d.update({k: b["buffers"][k] - a["buffers"][k]
+                      for k in ("allocated", "reused", "released")})
+            per_node.append(d)
+            if d["captures"] + d["replays"] != steps:
+                raise AssertionError(f"{phase}: wave {w + 1}, stage {stage}: {d} for {steps} "
+                                     "decode steps")
+        waves.append({"wall_s": wall, "tok_s": len(prompts) * NEW_TOKENS / wall,
+                      "nodes": per_node})
+        say(phase, f"concurrent wave {w + 1}: {len(prompts)} sessions at once, "
+                   f"{len(prompts) * NEW_TOKENS} tokens in {wall:.2f} s = "
+                   f"{waves[-1]['tok_s']:.1f} tok/s aggregate ({card}); per node "
+                   + "; ".join(f"stage {i}: {d['captures']} captures "
+                               f"({d['captures'] / len(prompts):.2f} per session), "
+                               f"{d['replays']} replays, buffers {d['allocated']} allocated, "
+                               f"{d['reused']} reused, {d['released']} released"
+                               for i, d in enumerate(per_node))
+                   + "; streams equal the sequential run's")
+    bounds = int(math.log2(MAX_LEN // KV_BUCKET_MIN)) + 1  # kv bounds 64 .. MAX_LEN
+    for stage, ex in enumerate(executors()):
+        g, b = ex["graphs"], ex["buffers"]
+        say(phase, f"node stage {stage} after the waves: graphs {g}, buffers {b}")
+        if (g["evictions"] or g["captures"] != g["resident"]
+                or g["captures"] > b["allocated"] * bounds):
+            raise AssertionError(f"{phase}: stage {stage}: graphs {g} over buffers {b}: a graph "
+                                 f"evicted or captured twice, or more than {bounds} per buffer")
+    return waves
 
 
 def teacher_forced(executors, prompts, streams) -> List[Any]:
@@ -1644,7 +1940,7 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
     greedy = SamplingConfig(temperature=0.0)
     nodes: List[Dict[str, Any]] = []
     try:
-        nodes = [start_node(parts, s, work, extra) for s in range(2)]
+        nodes = start_nodes(parts, work, extra)
         t0 = time.perf_counter()
         for n in nodes:
             wait_ready(n)
@@ -1700,6 +1996,7 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
         small = sum(r <= MAX_KERNEL_ROWS for r in rows)
         launches = dict.fromkeys(after[0]["kernels"], 0)
         gemv_total = {name: {"mma": 0, "simt": 0} for name in QMM_KERNEL_OF.values()}
+        node_graphs = []
         for a_ in after:
             passes = a_["forward_passes"]
             kern = {name: k["launches"] for name, k in a_["kernels"].items()}
@@ -1728,6 +2025,7 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
                     [1] * passes)
                 say(phase, f"node stage {a_['stage']}: GEMV routes {g_routes} (want {want_g}: "
                            f"{g_routes == want_g})")
+            node_graphs.append(check_node_graphs(phase, a_, decode_passes))
             if (passes != expected_passes or kern != want or kern["flash_gqa"] == 0
                     or routes != want_routes or g_routes != want_g):
                 raise AssertionError(f"stage {a_['stage']}: {passes} passes (want "
@@ -1741,15 +2039,20 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
                 launches[name] += v
             for r, v in routes.items():
                 route_launches[r] += v
+        extra_out: Dict[str, Any] = {}
+        if quant_flag is None:
+            extra_out["concurrent"] = concurrent_waves(phase, card, nodes, prompts, streams,
+                                                       greedy)
         stop_nodes(nodes)
         nodes = []
 
-        # the same stage executors in this process, over the same parts
+        # the same stage executors in this process, over the same parts,
+        # eager: the graphed nodes' streams must be theirs, token for token
         loaded = quantize_loaded([load_stage_checkpoint(stage_checkpoint_path(parts, s),
                                                         device=DEVICE) for s in range(2)],
                                  quant_flag)
-        kernel_ex = [Qwen3StageExecutor(cfg, spec, params, max_len=MAX_LEN)
-                     for params, spec, _ in loaded]
+        kernel_ex = eager([Qwen3StageExecutor(cfg, spec, params, max_len=MAX_LEN)
+                           for params, spec, _ in loaded])
 
         async def local(executors):
             client = make_local_client(executors, greedy)
@@ -1758,16 +2061,26 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
         local_streams = asyncio.run(local(kernel_ex))
         for p, a_, b_ in zip(prompts, streams, local_streams):
             if a_ != b_:
-                raise AssertionError(f"prompt {len(p)}: served stream != in-process stream")
-        say(phase, "served streams equal the in-process executors' streams, token for token "
-                   f"({len(prompts)} requests x {NEW_TOKENS} tokens)")
+                diverge = first_divergence(a_, b_)
+                raise AssertionError(f"prompt {len(p)}: served stream != in-process eager "
+                                     f"executors' stream from token {diverge}")
+        say(phase, "served streams (graphed decode steps) equal the in-process eager "
+                   f"executors' streams, token for token ({len(prompts)} requests x "
+                   f"{NEW_TOKENS} tokens)")
+        if quant_flag is None:
+            check_frozen_fill_caught(
+                phase, "one-session executors",
+                lambda: [Qwen3StageExecutor(cfg, spec, params, max_len=MAX_LEN)
+                         for params, spec, _ in loaded], prompts[1])
+            extra_out["step_share"] = stage_step_share(phase, card, loaded, prompts[2])
 
         probe = [kernel_ex[0], LastStageProbe(cfg, loaded[1][1], loaded[1][0], max_len=MAX_LEN)]
         if quant_flag is None:  # the kernel path against plain attention
             plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
-            plain_probe = [Qwen3StageExecutor(plain_cfg, loaded[0][1], loaded[0][0],
-                                              max_len=MAX_LEN),
-                           LastStageProbe(plain_cfg, loaded[1][1], loaded[1][0], max_len=MAX_LEN)]
+            plain_probe = eager([Qwen3StageExecutor(plain_cfg, loaded[0][1], loaded[0][0],
+                                                    max_len=MAX_LEN),
+                                 LastStageProbe(plain_cfg, loaded[1][1], loaded[1][0],
+                                                max_len=MAX_LEN)])
             plain_ctx, plant, faults, what = contextlib.nullcontext, planted_attention_fault, \
                 E2E_FAULTS, "plain attention"
         else:  # the GEMV kernels against their plain versions
@@ -1795,9 +2108,9 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
                                      f"logits {l_f}")
         del kernel_ex, probe, plain_probe, loaded
         torch.cuda.empty_cache()
-        return {"launches": launches, "flash_routes": route_launches, "gemv_routes": gemv_total,
-                "passes": expected_passes,
-                "rates": rates, "streams": streams}
+        return dict({"launches": launches, "flash_routes": route_launches,
+                     "gemv_routes": gemv_total, "passes": expected_passes,
+                     "rates": rates, "streams": streams, "graphs": node_graphs}, **extra_out)
     except BaseException:
         stop_nodes(nodes, show_logs=True)
         nodes = []
@@ -1928,6 +2241,11 @@ def lane_executors(cfg, loaded, block_size: int, probe: bool, adapters=None):
     return [BatchedStageExecutor(cfg, s0, p0, adapters=reg(s0), **kw), last]
 
 
+def eager_lanes(*args, **kw):
+    """lane_executors with their graphs off (eager)."""
+    return eager(lane_executors(*args, **kw))
+
+
 def check_teacher_forced(phase: str, tag: str, cfg, loaded, block_size: int, prompts, streams,
                          faults=(), gemv: bool = False, lora=None) -> Dict[str, Any]:
     """The lane executors' kernel path against their plain path, teacher-
@@ -1956,10 +2274,10 @@ def check_teacher_forced(phase: str, tag: str, cfg, loaded, block_size: int, pro
                                              contextlib.nullcontext, planted_paged_fault,
                                              "plain attention")
     with plain_ctx():
-        plain = teacher_forced_lanes(lane_executors(plain_cfg, loaded, block_size, True, dirs),
+        plain = teacher_forced_lanes(eager_lanes(plain_cfg, loaded, block_size, True, dirs),
                                      prompts, streams, names)
     torch.cuda.empty_cache()
-    kernel_ex = lane_executors(cfg, loaded, block_size, True, dirs)
+    kernel_ex = eager_lanes(cfg, loaded, block_size, True, dirs)
 
     def per_prompt():
         got = teacher_forced_lanes(kernel_ex, prompts, streams, names)
@@ -1976,7 +2294,7 @@ def check_teacher_forced(phase: str, tag: str, cfg, loaded, block_size: int, pro
     del kernel_ex
     torch.cuda.empty_cache()
     if lora is not None:
-        bare_ex = lane_executors(cfg, loaded, block_size, True)
+        bare_ex = eager_lanes(cfg, loaded, block_size, True)
         t0 = time.perf_counter()
         bare = teacher_forced_lanes(bare_ex, prompts, streams)
         torch.cuda.synchronize()
@@ -2043,7 +2361,7 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
     greedy = SamplingConfig(temperature=0.0)
     nodes: List[Dict[str, Any]] = []
     try:
-        nodes = [start_node(parts, s, work, node_args) for s in range(2)]
+        nodes = start_nodes(parts, work, node_args)
         t0 = time.perf_counter()
         for n in nodes:
             wait_ready(n)
@@ -2112,6 +2430,7 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
         gemv_total = {name: {"mma": 0, "simt": 0} for name in QMM_KERNEL_OF.values()}
         mean_batches = []
         paged_split = 0
+        node_graphs = []
         for st in after:
             ex = st["executor"]
             layers = st["end_layer"] - st["start_layer"] + 1
@@ -2138,6 +2457,7 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
                        f"{want_routes}: {routes == want_routes})")
             split, want_split = paged_splits(phase, st, cfg)
             paged_split += split
+            node_graphs.append(check_node_graphs(phase, st, steps))
             # the GEMVs by route: decode at LANES rows (the head too), prefill
             # pieces at their bucket (the head on their last row)
             g_routes = gemv_routes(st)
@@ -2179,21 +2499,26 @@ def run_serve_lanes(card: str, parts: str, work: str, quant_flag=None,
             client = make_local_client(executors, greedy)
             return [await client.generate_ids(p, max_new_tokens=NEW_TOKENS) for p in prompts]
 
-        local_streams = asyncio.run(local(lane_executors(cfg, loaded, PAGED_BS, False)))
+        local_streams = asyncio.run(local(eager(lane_executors(cfg, loaded, PAGED_BS, False))))
         torch.cuda.empty_cache()
         for p, a_, b_ in zip(prompts, streams, local_streams):
             if a_ != b_:
-                diverge = next(i for i, (x, y) in enumerate(zip(a_, b_)) if x != y)
-                raise AssertionError(f"prompt {len(p)}: served stream != in-process lane "
+                diverge = first_divergence(a_, b_)
+                raise AssertionError(f"prompt {len(p)}: served stream != in-process eager lane "
                                      f"executors' stream from token {diverge}")
-        say(phase, "served streams equal the in-process lane executors' streams "
-                   f"(sessions one at a time), token for token ({len(prompts)} x "
-                   f"{NEW_TOKENS} tokens)")
+        say(phase, "served streams (graphed co-batched decode steps) equal the in-process eager "
+                   f"lane executors' streams (sessions one at a time), token for token "
+                   f"({len(prompts)} x {NEW_TOKENS} tokens)")
+        if quant_flag is None:
+            check_frozen_fill_caught(phase, "paged lane executors",
+                                     lambda: lane_executors(cfg, loaded, PAGED_BS, False),
+                                     prompts[2])
+            torch.cuda.empty_cache()
 
         out = {"launches": launches, "flash_routes": route_launches, "gemv_routes": gemv_total,
                "paged_split": paged_split, "mean_batch": mean_batches,
                "rates": rates, "tokens_per_s": total / wall, "prompts": prompts,
-               "streams": streams}
+               "streams": streams, "graphs": node_graphs}
         if quant_flag is not None:
             out["paged_e2e"] = check_teacher_forced(phase, "paged lanes", cfg, loaded, PAGED_BS,
                                                     prompts, streams, QUANT_E2E_FAULTS, gemv=True)
@@ -2341,6 +2666,7 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
         route_launches = {"split": 0, "mma": 0}
         mean_batches = []
         paged_split = 0
+        node_graphs = []
         for st in after:
             ex = st["executor"]
             layers = st["end_layer"] - st["start_layer"] + 1
@@ -2364,6 +2690,7 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
                        f"{want_routes}: {routes == want_routes})")
             split, want_split = paged_splits(phase, st, cfg)
             paged_split += split
+            node_graphs.append(check_node_graphs(phase, st, steps))
             if (kern != want or kern["fused_lane_delta"] == 0 or a_pre != want_tenant_prefill
                     or routes != want_routes or split != want_split
                     or not 0 < a_dec <= steps or toks != want_decode_tokens
@@ -2386,7 +2713,7 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
 
         loaded = [load_stage_checkpoint(stage_checkpoint_path(parts, s), device=DEVICE)
                   for s in range(2)]
-        local_ex = lane_executors(cfg, loaded, PAGED_BS, False, dirs)
+        local_ex = eager_lanes(cfg, loaded, PAGED_BS, False, dirs)
 
         async def local():
             out = []
@@ -2403,14 +2730,14 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
                 diverge = next(i for i, (x, y) in enumerate(zip(a_, b_)) if x != y)
                 raise AssertionError(f"prompt {len(p)} ({nm or 'base'}): served stream != "
                                      f"in-process lane executors' stream from token {diverge}")
-        say(phase, "served streams equal the in-process lane executors' with the same "
-                   f"registries (sessions one at a time), token for token ({len(prompts)} x "
-                   f"{NEW_TOKENS} tokens)")
+        say(phase, "served streams (graphed co-batched decode steps) equal the in-process "
+                   "eager lane executors' with the same registries (sessions one at a time), "
+                   f"token for token ({len(prompts)} x {NEW_TOKENS} tokens)")
         gemv_total = {name: {r: sum(gemv_routes(st)[name][r] for st in after)
                              for r in ("mma", "simt")} for name in QMM_KERNEL_OF.values()}
         out = {"launches": launches, "flash_routes": route_launches, "gemv_routes": gemv_total,
                "paged_split": paged_split, "mean_batch": mean_batches,
-               "tokens_per_s": total / wall}
+               "tokens_per_s": total / wall, "graphs": node_graphs}
         out["paged_e2e"] = check_teacher_forced(phase, "paged lanes", cfg, loaded, PAGED_BS,
                                                 prompts, streams, LORA_E2E_FAULTS,
                                                 lora=(dirs, names))
@@ -2960,18 +3287,21 @@ def run_serve_kstep(card: str, params, parts: str, work: str) -> Dict[str, Any]:
         before = http_get_json(f"http://127.0.0.1:{nodes[0]['port']}/stats")
         if any(k["launches"] for k in before["kernels"].values()) or before["forward_passes"]:
             raise AssertionError(f"the node did work before the main path: {before}")
-        local = Qwen3StageExecutor(cfg, spec, params, max_len=MAX_LEN)
+        local = eager([Qwen3StageExecutor(cfg, spec, params, max_len=MAX_LEN)])[0]
+        # the free runs only pick each session's eos: graphed, as the node is
+        graphed = Qwen3StageExecutor(cfg, spec, params, max_len=MAX_LEN)
         served, prefills, steps, stops = {}, 0, 0, 0
         for mode, sampling in modes:
             for i, p in enumerate(prompts):
-                free, _ = kstep_session(local.process, f"free-{mode}-{i}", p, sampling=sampling)
+                free, _ = kstep_session(graphed.process, f"free-{mode}-{i}", p,
+                                        sampling=sampling)
                 # eos: the free run's token 5, or the first that is not its token 0
                 eos = next((t for t in free[5:] + free[1:] if free.index(t) > 0), None)
                 want = kstep_session(local.process, f"local-{mode}-{i}", p, eos, sampling)
                 got = kstep_session(node_process(nodes[0]), f"node-{mode}-{i}", p, eos, sampling)
                 if got != want:
-                    raise AssertionError(f"{phase} {mode}, prompt {len(p)}: the node's windows "
-                                         f"{got[1]} != in-process {want[1]}")
+                    raise AssertionError(f"{phase} {mode}, prompt {len(p)}: the node's (graphed) "
+                                         f"windows {got[1]} != in-process eager {want[1]}")
                 cut = len(free) if eos is None else free.index(eos) + 1
                 if got[0] != free[:cut]:
                     raise AssertionError(f"{phase} {mode}, prompt {len(p)}: the eos run is not "
@@ -2980,8 +3310,8 @@ def run_serve_kstep(card: str, params, parts: str, work: str) -> Dict[str, Any]:
                 served[(mode, len(p))] = got
                 prefills += 1
                 steps += sum(w["decode_steps"] for w in got[1])
-                for ex_sid in (f"free-{mode}-{i}", f"local-{mode}-{i}"):
-                    local.end_session(ex_sid)
+                graphed.end_session(f"free-{mode}-{i}")
+                local.end_session(f"local-{mode}-{i}")
             say(phase, f"{mode}: {len(prompts)} sessions of decode_steps {KSTEP_WINDOW} windows: "
                        "tokens, real_len, decode_steps and key equal the in-process executor's, "
                        "and each stream is its free run's cut at eos (the free run's token 5); "
@@ -2997,6 +3327,7 @@ def run_serve_kstep(card: str, params, parts: str, work: str) -> Dict[str, Any]:
         say(phase, f"node: {st['forward_passes']} forward passes ({prefills} prefills, {windows} "
                    f"windows of {steps} decode steps in all); launches {kern}; flash_gqa routes "
                    f"{routes} (want {want_routes}: {routes == want_routes})")
+        node_graphs = check_node_graphs(phase, st, windows)
         if (routes != want_routes or st["forward_passes"] != prefills + windows
                 or kern["flash_gqa"] != sum(want_routes.values())
                 or any(v for name, v in kern.items() if name != "flash_gqa")):
@@ -3011,9 +3342,10 @@ def run_serve_kstep(card: str, params, parts: str, work: str) -> Dict[str, Any]:
                        f"{e.status} {e.code}: {e}")
             if e.status != 409 or e.code != "session_state" or "single-stage" not in str(e):
                 raise
-        del local
+        del local, graphed
         torch.cuda.empty_cache()
-        return {"launches": kern, "flash_routes": routes, "gemv_routes": gemv_routes(st)}
+        return {"launches": kern, "flash_routes": routes, "gemv_routes": gemv_routes(st),
+                "graphs": node_graphs}
     except BaseException:
         stop_nodes(nodes, show_logs=True)
         nodes = []
@@ -3121,16 +3453,20 @@ def check_paged_split_capture(phase: str) -> None:
         raise AssertionError(f"{phase}: paged split under capture: plan {plan}, moved {moved}")
 
 
-PROFILE_WINDOW_S = 8.0  # the /profile window on each node
+PROFILE_WINDOW_S = 2.0  # the /profile window on each node (a request takes 0.2-0.7 s)
 PROFILE_PROMPT, PROFILE_TOKENS = 100, 9  # the request traced: a prefill and 8 decode steps
+
+
+def profile_node_args(work: str) -> List[str]:
+    return ["--enable-profiling", "--profile-dir", os.path.join(work, "profiles")]
 
 
 def run_profile(card: str, parts: str, work: str) -> Dict[str, Any]:
     """The `profile` phase: the serve chain's two nodes with
-    --enable-profiling; a warm-up request, then POST /profile window on
-    both and one request of a prefill and 8 decode steps inside it. Each
-    node's trace (utils/profiling.host_time_split) splits its host time;
-    the trace must hold the card's kernels."""
+    --enable-profiling; a warm-up request, then, one node at a time, POST
+    /profile window on it and one request of a prefill and 8 decode steps
+    inside the window. Each node's trace (utils/profiling.host_time_split)
+    splits its host time; the trace must hold the card's kernels."""
     from inferd_tpu_torch.client.base import http_post
     from inferd_tpu_torch.client.chain_client import ChainClient
     from inferd_tpu_torch.config import SamplingConfig, get_config
@@ -3139,12 +3475,11 @@ def run_profile(card: str, parts: str, work: str) -> Dict[str, Any]:
 
     phase = "profile"
     cfg = get_config(MODEL)
-    prof_dir = os.path.join(work, "profiles")
-    extra = ["--enable-profiling", "--profile-dir", prof_dir]
+    extra = profile_node_args(work)
     prompt = serve_prompts(cfg.vocab_size)[1][:PROFILE_PROMPT]
     nodes: List[Dict[str, Any]] = []
     try:
-        nodes = [start_node(parts, s, work, extra, tag="_profile") for s in range(2)]
+        nodes = start_nodes(parts, work, extra, tag="_profile")
         for n in nodes:
             wait_ready(n)
         before = [http_get_json(f"http://127.0.0.1:{n['port']}/stats") for n in nodes]
@@ -3157,7 +3492,10 @@ def run_profile(card: str, parts: str, work: str) -> Dict[str, Any]:
                 return await client.generate_ids(prompt, max_new_tokens=tokens)
 
         asyncio.run(drive(4))  # warm-up: allocator, libraries, first launches
-        dirs = []
+        splits = []
+        # one node's window at a time: while a second process on the card
+        # starts its own trace, the first one's comes back empty (graphed
+        # nodes or not), so each node is traced around a request of its own
         for n in nodes:
             status, raw = http_post(f"http://127.0.0.1:{n['port']}/profile", wire.pack(
                 {"action": "window", "seconds": PROFILE_WINDOW_S, "capture_id": "smoke"}), 60.0)
@@ -3165,21 +3503,18 @@ def run_profile(card: str, parts: str, work: str) -> Dict[str, Any]:
             if status != 200 or not reply.get("ok"):
                 raise AssertionError(f"{phase}: /profile window on node {n['stage']}: HTTP "
                                      f"{status} {reply}")
-            dirs.append(reply["dir"])
-        t0 = time.perf_counter()
-        ids = asyncio.run(drive(PROFILE_TOKENS))
-        drive_s = time.perf_counter() - t0
-        if len(ids) != PROFILE_TOKENS:
-            raise AssertionError(f"{phase}: {len(ids)} tokens, want {PROFILE_TOKENS}")
-        if drive_s > PROFILE_WINDOW_S:
-            raise AssertionError(f"{phase}: the request took {drive_s:.1f}s, longer than the "
-                                 f"{PROFILE_WINDOW_S}s window")
-        paths = [os.path.join(d, TRACE_FILE) for d in dirs]
-        deadline = time.monotonic() + PROFILE_WINDOW_S + 120
-        while not all(os.path.exists(p) for p in paths) and time.monotonic() < deadline:
-            time.sleep(0.5)
-        splits = []
-        for n, p in zip(nodes, paths):
+            t0 = time.perf_counter()
+            ids = asyncio.run(drive(PROFILE_TOKENS))
+            drive_s = time.perf_counter() - t0
+            if len(ids) != PROFILE_TOKENS:
+                raise AssertionError(f"{phase}: {len(ids)} tokens, want {PROFILE_TOKENS}")
+            if drive_s > PROFILE_WINDOW_S:
+                raise AssertionError(f"{phase}: the request took {drive_s:.1f}s, longer than "
+                                     f"the {PROFILE_WINDOW_S}s window")
+            p = os.path.join(reply["dir"], TRACE_FILE)
+            deadline = time.monotonic() + PROFILE_WINDOW_S + 120
+            while not os.path.exists(p) and time.monotonic() < deadline:
+                time.sleep(0.2)
             if not os.path.exists(p):
                 raise AssertionError(f"{phase}: node {n['stage']} wrote no trace at {p}")
             s = host_time_split(p)
@@ -3205,6 +3540,11 @@ def run_profile(card: str, parts: str, work: str) -> Dict[str, Any]:
                        ": " + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in med.items())
                        + f" (under the profiler; {card})")
         st = [http_get_json(f"http://127.0.0.1:{n['port']}/stats") for n in nodes]
+        for x in st:
+            g = x["executor"]["graphs"]
+            say(phase, f"node {x['stage']}: graphs {g} (the decode steps replay graphs)")
+            if not g["replays"]:
+                raise AssertionError(f"{phase}: node {x['stage']} replayed no graph: {g}")
         kern = {name: sum(x["kernels"][name]["launches"] for x in st)
                 for name in st[0]["kernels"]}
         routes = {r: sum(flash_routes(x)[r] for x in st) for r in ("split", "mma")}
@@ -3266,7 +3606,10 @@ def ptxas_report(log: str) -> List[str]:
 
 CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_qmm_cases,
                "lora": run_lora_cases}
-SPLIT_PHASES = ("generate", "anatomy", "profile")  # --only phases that need the model's split
+# --only phases that need the model's split (serve_quant runs int8 and int4;
+# serve_lanes_lora runs serve_lanes first, its baseline)
+SPLIT_PHASES = ("serve", "serve_quant", "serve_lanes", "serve_lanes_quant", "serve_lanes_lora",
+                "generate", "serve_kstep", "anatomy", "profile")
 
 
 def main(argv: List[str]) -> int:
@@ -3321,12 +3664,26 @@ def main(argv: List[str]) -> int:
             work = tempfile.mkdtemp(prefix="chip_smoke_")
             try:
                 parts = split_parts(work)
+                if "serve" in split_only:
+                    run_serve(card, parts, work)
+                if "serve_quant" in split_only:
+                    for q in ("int8", "int4"):
+                        run_serve(card, parts, work, quant_flag=q)
+                lanes = None
+                if "serve_lanes" in split_only or "serve_lanes_lora" in split_only:
+                    lanes = run_serve_lanes(card, parts, work)
+                if "serve_lanes_quant" in split_only:
+                    run_serve_lanes(card, parts, work, quant_flag="int8", baseline=lanes)
+                if "serve_lanes_lora" in split_only:
+                    run_serve_lanes_lora(card, parts, work, baseline=lanes)
                 if "profile" in split_only:
                     run_profile(card, parts, work)
                 whole = whole_model(parts)
                 if "generate" in split_only:
                     run_generate(card, whole, None)
                     run_generate_quant(card, whole)
+                if "serve_kstep" in split_only:
+                    run_serve_kstep(card, whole, parts, work)
                 if "anatomy" in split_only:
                     run_anatomy(card, whole)
                 del whole
@@ -3334,30 +3691,53 @@ def main(argv: List[str]) -> int:
                 shutil.rmtree(work, ignore_errors=True)
         say("done", f"phases {only} passed in {time.perf_counter() - t_start:.1f}s")
         return 0
+    lap_at = [time.perf_counter()]
+
+    def lap(name: str) -> None:  # each phase's wall time, for the run's time limit
+        now = time.perf_counter()
+        say("time", f"{name}: {now - lap_at[0]:.1f}s")
+        lap_at[0] = now
+
     cases = run_kernel_cases()
     paged_cases = run_paged_cases()
     qmm_cases = run_qmm_cases()
     lora_cases = run_lora_cases()
+    lap("kernel cases")
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         parts = split_parts(work)
+        prestart_nodes(parts, work, [
+            ([], ""), (["--quant", "int8"], ""), (["--quant", "int4"], ""), (LANE_NODE_ARGS, ""),
+            (LANE_NODE_ARGS + ["--quant", "int8"], ""), (profile_node_args(work), "_profile")])
+        lap("split, node start")
         serve = run_serve(card, parts, work)
+        lap("serve")
         serve_q = {q: run_serve(card, parts, work, quant_flag=q, baseline=serve)
                    for q in ("int8", "int4")}
+        lap("serve_quant_int8, serve_quant_int4")
         lanes = run_serve_lanes(card, parts, work)
+        lap("serve_lanes")
         lanes_q = run_serve_lanes(card, parts, work, quant_flag="int8", baseline=lanes)
+        lap("serve_lanes_quant")
         lanes_lora = run_serve_lanes_lora(card, parts, work, baseline=lanes)
+        lap("serve_lanes_lora")
         whole = whole_model(parts)
         gen = run_generate(card, whole, serve)
         gen_q = run_generate_quant(card, whole)
+        lap("generate, generate_quant")
         kstep = run_serve_kstep(card, whole, parts, work)
+        lap("serve_kstep")
         anat = run_anatomy(card, whole)
+        lap("anatomy")
         del whole
         torch.cuda.empty_cache()
         prof = run_profile(card, parts, work)
+        lap("profile")
         run_cli(card)
+        lap("cli")
     finally:
+        stop_prestarted()
         shutil.rmtree(work, ignore_errors=True)
     paths = {"serve": serve, "serve_quant_int8": serve_q["int8"],
              "serve_quant_int4": serve_q["int4"], "serve_lanes": lanes,

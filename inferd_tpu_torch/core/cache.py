@@ -7,8 +7,9 @@ Dense layout: k/v are [num_layers, batch, max_len, num_kv_heads, head_dim];
 The JAX cache is functional and its jitted steps donate the buffers so the
 update happens in place on the device. Here the buffers are simply written
 IN PLACE (models/qwen3.decoder_layer writes into them), and `grow` copies
-into a larger allocation. Overflow is checked on the host before dispatch
-(`ensure_room`).
+into a larger bucket. Overflow is checked on the host before dispatch
+(`ensure_room`). `BufferPool` keeps a one-session executor's buffers for
+reuse by later sessions, so the graphs captured over them are reused too.
 
 Paged layout (`PagedKVCache` + `BlockPool`): K/V live in a pool of
 fixed-size blocks [num_layers, num_blocks, block_size, Nkv, D] and each lane
@@ -18,7 +19,8 @@ cached or pinned prefix maps read-only into many lanes, and copy-on-write
 splits a block at the first divergent write. Block 0 is a reserved scratch
 block: unallocated table entries point at it, and it is never attended.
 `BlockPool` is the host-side allocator; the table is a host numpy mirror,
-uploaded to the device per dispatch (`sync_paged`).
+staged per dispatch (`sync_paged`) and copied once to the device: straight
+into a lane executor's decode graph's static table.
 
 Ring buffers for sliding-window layers, `fork_lane` and session
 export/import wait for later slices.
@@ -27,6 +29,7 @@ export/import wait for later slices.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -86,29 +89,101 @@ class KVCache:
             )
 
 
-def grow(cache: KVCache, new_max_len: int) -> KVCache:
-    """Reallocate to a larger bucket, copying the populated slots (the
-    whole old buffer, as the JAX pad does)."""
-    if new_max_len <= cache.max_len:
-        return cache
+def grow(cache: KVCache, into: KVCache) -> KVCache:
+    """Move to the larger bucket `into` (a buffer of the same batch, from a
+    BufferPool), copying the populated slots (the whole old buffer, as the
+    JAX pad does)."""
     l, b, t, n, d = cache.k.shape
-    k = cache.k.new_zeros((l, b, new_max_len, n, d))
-    v = cache.v.new_zeros((l, b, new_max_len, n, d))
-    k[:, :, :t] = cache.k
-    v[:, :, :t] = cache.v
-    return KVCache(k=k, v=v, length=cache.length)
+    if into.batch != b or into.max_len <= t:
+        raise ValueError(f"grow: buffer [{into.batch}, {into.max_len}] for a cache [{b}, {t}]")
+    into.k[:, :, :t] = cache.k
+    into.v[:, :, :t] = cache.v
+    into.length = cache.length
+    return into
+
+
+class BufferPool:
+    """Dense KV buffers kept for reuse: a free list per (batch, max_len).
+
+    The one-session executor takes a session's buffer here and gives it back
+    when the session ends, is swept or evicted, or grows into the next
+    bucket; the next session of that bucket reuses it, and with it the CUDA
+    graphs captured over its address (the JAX executor's donated cache has
+    the same effect). A returned buffer keeps its old values: slots past a
+    session's fill are never attended. At most `max_free` buffers wait per
+    shape (the executor passes its max_sessions, so a wave of sessions that
+    end together all wait for the next wave, and the buffers of a shape
+    never outnumber the sessions that were live at once); one past that is
+    released, and `on_free(cache)` is called first so that whatever reads
+    it by address (its graphs) goes with it."""
+
+    def __init__(self, cfg: ModelConfig, num_layers: int, device, max_free: int,
+                 on_free=None):
+        if max_free < 0:
+            raise ValueError(f"max_free must be >= 0, got {max_free}")
+        self.cfg, self.num_layers, self.device = cfg, num_layers, device
+        self.max_free = max_free
+        self.on_free = on_free
+        self._free: Dict[Tuple[int, int], List[KVCache]] = {}
+        self._lock = threading.Lock()
+        self.allocated = 0  # buffers made
+        self.reused = 0  # takes served from a free list
+        self.released = 0  # buffers given back past max_free, and freed
+
+    def take(self, batch: int, max_len: int) -> KVCache:
+        """A buffer of this shape with length 0: a free one, else a new one."""
+        with self._lock:
+            free = self._free.get((batch, max_len))
+            if free:
+                self.reused += 1
+                cache = free.pop()
+                cache.length = 0
+                return cache
+            self.allocated += 1
+        return KVCache.create(self.cfg, self.num_layers, batch, max_len, device=self.device)
+
+    def give(self, cache: KVCache) -> None:
+        """Return a buffer no session holds any more."""
+        with self._lock:
+            free = self._free.setdefault((cache.batch, cache.max_len), [])
+            if any(c is cache for c in free):
+                raise ValueError("BufferPool.give: the buffer is already free")
+            if len(free) < self.max_free:
+                free.append(cache)
+                return
+            self.released += 1
+        if self.on_free is not None:
+            self.on_free(cache)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"allocated": self.allocated, "reused": self.reused,
+                    "released": self.released,
+                    "free": sum(len(v) for v in self._free.values())}
+
+
+def host_staged(a, device) -> torch.Tensor:
+    """A host array (numpy or CPU tensor) as a CPU tensor of its own, ready
+    for ONE copy to `device`: pinned when that is a card, so the copy runs
+    non-blocking (a pageable copy stalls the host until the stream drains).
+    A graph's static buffer takes it as it is (utils/cuda_graph)."""
+    t = a.contiguous() if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory() if torch.device(device).type == "cuda" else t.clone()
 
 
 def host_to_device(a, device) -> torch.Tensor:
     """A host array (numpy or CPU tensor) as a tensor on `device`, never
-    sharing the array's memory. To a card it goes through pinned memory,
-    non-blocking: a pageable copy (`torch.as_tensor(a, device="cuda")`)
-    stalls the host until the stream drains."""
-    t = a.contiguous() if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
-    device = torch.device(device)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.clone().to(device)
+    sharing the array's memory (host_staged, then one non-blocking copy)."""
+    return host_staged(a, device).to(device, non_blocking=True)
+
+
+def device_column(x, b: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """[B] of x on `device`: a device tensor as it is, a host value (one
+    for every row, or [B]) uploaded without a sync."""
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        return x.reshape(b).to(device, dtype)
+    a = np.array(np.broadcast_to(np.asarray(x), (b,)))
+    return host_to_device(a, device).to(dtype)
 
 
 def device_to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
@@ -503,12 +578,13 @@ def paged_copy_blocks(cache: PagedKVCache, pairs: List[Tuple[int, int]]) -> Page
     return cache
 
 
-def sync_paged(pool: BlockPool, cache: PagedKVCache, mu) -> PagedKVCache:
-    """Dispatch-ready paged cache: apply queued CoW copies and stamp the
-    CURRENT table at the chain_clamp width. Call under the caller's DEVICE
-    lock with `mu` (its bookkeeping lock) NOT held."""
+def sync_paged(pool: BlockPool, cache: PagedKVCache, mu) -> Tuple[PagedKVCache, torch.Tensor]:
+    """Dispatch-ready paged state: (the cache with the queued CoW copies
+    applied, the CURRENT table at the chain_clamp width staged on the host
+    for the cache's device: host_staged, one copy away from the device).
+    Call under the caller's DEVICE lock with `mu` (its bookkeeping lock)
+    NOT held."""
     with mu:
         pairs = pool.drain_copies()
-        table = pool.device_table(pool.chain_clamp())
-    cache = paged_copy_blocks(cache, pairs)
-    return dataclasses.replace(cache, table=table)
+        table = host_staged(pool.table[:, :pool.chain_clamp()], cache.k.device)
+    return paged_copy_blocks(cache, pairs), table

@@ -27,7 +27,8 @@ owns one KV buffer per (batch, max_len), which `generate` and
 `generate_scan` reuse (the eager prefill writes into it, a pin is copied
 into it), and on a CUDA device every decode step, `decode_chunk` window and
 step of `generate_scan` replays a captured CUDA graph of
-models/qwen3.decode_window over static buffers (utils/cuda_graph). Graphs
+models/qwen3.decode_window over static buffers (models/qwen3.run_window,
+utils/cuda_graph). Graphs
 are keyed by (buffer, batch, the steps' kv bounds, the sampling config,
 top_n, want_lp); the bounds come from models/qwen3.window_bounds, the one
 rule every form uses, so a step at one fill launches the same kernels with
@@ -49,9 +50,9 @@ import torch
 from inferd_tpu_torch.config import ModelConfig, SamplingConfig
 from inferd_tpu_torch.core import prefix as prefixlib
 from inferd_tpu_torch.core import sampling as samplib
-from inferd_tpu_torch.core.cache import KVCache, device_to_host, host_to_device
+from inferd_tpu_torch.core.cache import KVCache, device_column, device_to_host, host_to_device
 from inferd_tpu_torch.models import qwen3
-from inferd_tpu_torch.utils.cuda_graph import GraphCache
+from inferd_tpu_torch.utils.cuda_graph import GraphCache, graph_stats
 
 
 def bucket_len(n: int, minimum: int = 16) -> int:
@@ -117,10 +118,7 @@ class Engine:
     def graph_stats(self) -> Dict[str, int]:
         """Captures, replays, resident graphs and evictions (zeros when the
         steps run eagerly): a recapture on every generation would show."""
-        if self.graphs is None:
-            return {"captures": 0, "replays": 0, "resident": 0, "evictions": 0,
-                    "max_graphs": 0}
-        return self.graphs.stats()
+        return graph_stats(self.graphs)
 
     # -- steps ---------------------------------------------------------------
 
@@ -168,36 +166,18 @@ class Engine:
 
     def _window(self, cache: KVCache, tok: torch.Tensor, fill, active, eos, u,
                 bounds: Tuple[int, ...], top_n: int, want_lp: bool):
-        """models/qwen3.decode_window over `cache`: a graph replay on a card,
-        eager otherwise. `fill`, `active`, `eos` are device [B] tensors or
-        host values ([B] or one for every row); `u` [K, B, n] or None.
-        Returns device tensors the caller owns (seq [K, B], fill', active',
-        lps [K, B], top ids, top lps)."""
-        b = cache.batch
+        """models/qwen3.run_window over `cache` with the engine's sampling
+        config. `fill`, `active`, `eos` are device [B] tensors or host
+        values ([B] or one for every row); `u` [K, B, n] or None."""
+        b, dev = cache.batch, self.device
         c = self.sampling
-        inputs = {"tok": tok.reshape(b), "fill": self._column(fill, b, torch.int64),
-                  "active": self._column(active, b, torch.bool),
-                  "eos": self._column(eos, b, torch.int64)}
+        inputs = {"tok": tok.reshape(b), "fill": device_column(fill, b, torch.int64, dev),
+                  "active": device_column(active, b, torch.bool, dev),
+                  "eos": device_column(eos, b, torch.int64, dev)}
         if u is not None:
             inputs["u"] = u
-        sampling = (c.temperature, c.top_k, c.top_p, c.min_p)
-
-        def window(tok, fill, active, eos, u=None):
-            return qwen3.decode_window(self.params, self.cfg, cache.k, cache.v, tok, fill,
-                                       active, eos, u, bounds, *sampling, top_n, want_lp)
-
-        if self.graphs is None:
-            return window(**inputs)
-        key = (cache.k.data_ptr(), tuple(cache.k.shape), bounds, sampling, top_n, want_lp)
-        return tuple(t.clone() for t in self.graphs.run(key, window, inputs))
-
-    def _column(self, x, b: int, dtype: torch.dtype) -> torch.Tensor:
-        """[B] of x on the device: a device tensor as it is, a host value
-        uploaded (pinned, non-blocking)."""
-        if isinstance(x, torch.Tensor) and x.device == self.device:
-            return x.reshape(b).to(dtype)
-        a = np.array(np.broadcast_to(np.asarray(x), (b,)))
-        return host_to_device(a, self.device).to(dtype)
+        return qwen3.run_window(self.graphs, self.params, self.cfg, cache, inputs, bounds,
+                                (c.temperature, c.top_k, c.top_p, c.min_p), top_n, want_lp)
 
     def _const(self, value, b: int, dtype: torch.dtype) -> torch.Tensor:
         """A constant [B] column on the device (every row active, no eos),

@@ -21,7 +21,8 @@ the composite `gqa_attention` instead, as in the JAX package.
 
 Caches: the uniform dense KVCache, written from one start position or from
 a per-row start [B] (lanes at ragged fill levels decoding in one step), and
-the paged PagedKVCache, whose writes scatter through the block table.
+the paged PagedKVCache, whose writes scatter through the block table (rows
+that must not commit to the scratch block 0).
 
 Every linear projection (q/k/v/o, the MLP, an untied head, and a tied
 head's quantized shadow "lm_head_q") contracts through ops.quant.qdot, so
@@ -41,7 +42,9 @@ steps with on-device sampling over a dense cache and reads nothing back
 until the window ends. Its body, `decode_step` chained by `decode_window`,
 reads and writes tensors only, so the engine captures it as a CUDA graph;
 `window_bounds` gives every step's kv bound, one rule for every form of
-generation.
+generation. A chain node's decode step, `stage_step`, keeps the same
+contract (tensors only, a host kv bound), so the stage executors capture
+it too; paged writes are planned on the device (`paged_write_device`).
 
 This slice covers the dense Qwen3/Qwen2-style decoder. MoE, sandwich norms,
 sliding windows and scaled RoPE raise NotImplementedError here (and an
@@ -351,7 +354,7 @@ def decoder_layer(
     window=None,
     q_start=None,  # int or [B]: first query position (see _attend)
     block_table: Optional[torch.Tensor] = None,  # [B, MB] int32: PAGED mode
-    paged_write=None,  # PagedWrite: the committing rows and their pool slots
+    paged_write: Optional[torch.Tensor] = None,  # [B, S] flat pool slots (paged_write_device)
     adapters=None,  # this layer's per-lane LoRA operand (ops.lora.layer_adapters)
     kv_bound: Optional[int] = None,  # dense cache: host bound on every row's KV fill
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -363,15 +366,16 @@ def decoder_layer(
     Dense caches take the chunk at one start slot (an int) or at a start
     per batch row ([B], continuous batching: lanes at ragged fill levels).
     PAGED mode (`block_table`): k_buf/v_buf are one layer's block pools;
-    the rows in `paged_write` (computed once per forward on the host by
-    paged_write_plan) scatter into their pool slots, and every other row
-    (bucket padding past real_end, lanes with write_mask False) writes
-    NOTHING: blocks are shared property. The reference drops those writes
-    with an out-of-range scatter index; torch would raise on it, so the
-    committing rows are selected first. Then attention reads through the
-    table: the paged decode kernel at S == 1, and for a chunk (S > 1)
-    flash_gqa over the gathered view (the reference runs its composite
-    there), so no attention on the card runs outside a hand-written kernel.
+    every row of the chunk scatters to its flat pool slot in `paged_write`
+    (computed once per forward on the device by paged_write_device), and a
+    row that must not commit (bucket padding past real_end, a lane with
+    write_mask False) has its slot in the reserved scratch block 0, which
+    no query attends: blocks are shared property. The reference drops
+    those writes with an out-of-range scatter index (mode="drop"), which
+    torch has no counterpart of. Then attention reads through the table:
+    the paged decode kernel at S == 1, and for a chunk (S > 1) flash_gqa
+    over the gathered view (the reference runs its composite there), so no
+    attention on the card runs outside a hand-written kernel.
 
     Caller contract: every write lands inside the buffer (the runtime and
     forward_layers_cached check room on the host before dispatch)."""
@@ -406,8 +410,8 @@ def decoder_layer(
         if paged_write is not None:
             kf = k_buf.view(-1, *k_buf.shape[2:])  # [NB * bs, Nkv, D]: slot = block * bs + off
             vf = v_buf.view(-1, *v_buf.shape[2:])
-            kf[paged_write.dest] = _to_cache_dtype(k[paged_write.rows, paged_write.cols], kf.dtype)
-            vf[paged_write.dest] = _to_cache_dtype(v[paged_write.rows, paged_write.cols], vf.dtype)
+            kf[paged_write] = _to_cache_dtype(k, kf.dtype)
+            vf[paged_write] = _to_cache_dtype(v, vf.dtype)
         end = cache_write_pos + s
         if cfg.attn_impl == "xla":
             attn = gqa_attention(
@@ -493,7 +497,7 @@ def forward_layers(
     cache_write_pos=None,  # int, or [B] int64 on the device
     layer_offset: int = 0,
     block_table: Optional[torch.Tensor] = None,  # [B, MB] int32: paged pools
-    paged_write=None,  # PagedWrite (paged only)
+    paged_write: Optional[torch.Tensor] = None,  # [B, S] pool slots (paged only)
     adapters=None,  # multi-tenant LoRA pools + per-lane ids (ops.lora's contract)
     kv_bound: Optional[int] = None,  # dense caches: host bound on every row's KV fill
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -529,17 +533,6 @@ def forward_layers(
     return hidden, k_cache, v_cache
 
 
-class PagedWrite:
-    """The rows of a chunk that commit to a paged pool, and their slots:
-    row (rows[n], cols[n]) of the chunk's K/V goes to flat pool slot
-    dest[n] = block * bs + offset. All three are int64 on the device."""
-
-    __slots__ = ("rows", "cols", "dest")
-
-    def __init__(self, rows: torch.Tensor, cols: torch.Tensor, dest: torch.Tensor):
-        self.rows, self.cols, self.dest = rows, cols, dest
-
-
 def _host_rows(x, b: int) -> Optional[np.ndarray]:
     """int or [B] host values (list, numpy, CPU tensor) -> int64 numpy [B];
     None stays None. No device value is read here."""
@@ -549,39 +542,38 @@ def _host_rows(x, b: int) -> Optional[np.ndarray]:
     return np.broadcast_to(a, (b,)) if a.ndim == 0 else a
 
 
-def paged_write_plan(
-    table: torch.Tensor,  # [B, MB] int32 on the pools' device
+def paged_write_device(
+    table: torch.Tensor,  # [B, W] int32 on the pools' device
     block_size: int,
-    write_pos: np.ndarray,  # [B] host: first position of each row's chunk
+    write_pos,  # int, or [B] int64 on the device: each row's first position
     s: int,
-    real_end: Optional[np.ndarray] = None,  # [B] host: first padding position
-    write_mask: Optional[np.ndarray] = None,  # [B] host bool: rows that commit
-) -> Optional[PagedWrite]:
-    """Select on the host the chunk rows that commit (position < real_end,
-    write_mask True), then look their blocks up in the device table; None
-    when no row commits. One upload per forward, whatever the depth."""
-    pos = write_pos[:, None] + np.arange(s)[None, :]  # [B, S]
-    ok = np.ones(pos.shape, bool)
+    real_end=None,  # None, int, or [B] on the device: first padding position
+    write_mask: Optional[torch.Tensor] = None,  # [B] bool on the device: rows that commit
+) -> torch.Tensor:
+    """Flat pool slots [B, S] of a chunk's K/V rows (slot = block * bs +
+    offset), computed on the device: the reference's paged write
+    (inferd_tpu/models/qwen3.py's decoder_layer). Row (b, i) sits at
+    position p = write_pos[b] + i, in chain slot p // bs of row b's table;
+    a row that must not commit (p >= real_end, write_mask False, or a chain
+    slot past the table) goes to block 0, the reserved scratch block that
+    no query attends, where the reference scatters to NB and drops the
+    write. Reads no device value and uploads nothing, so a CUDA graph can
+    capture it. The host checks that a committing row stays inside the
+    table before dispatch (the executors' admission, forward_layers_cached)."""
+    b, w = table.shape
+    dev = table.device
+    if isinstance(write_pos, int):
+        write_pos = torch.full((b,), write_pos, dtype=torch.int64, device=dev)
+    pos = write_pos.reshape(b, 1) + torch.arange(s, device=dev)[None, :]  # [B, S]
+    chain = pos // block_size
+    ok = chain < w
     if real_end is not None:
-        ok &= pos < real_end[:, None]
+        re = real_end if isinstance(real_end, int) else real_end.reshape(b, 1)
+        ok = ok & (pos < re)
     if write_mask is not None:
-        ok &= np.asarray(write_mask, bool)[:, None]
-    rows, cols = np.nonzero(ok)
-    if rows.size == 0:
-        return None
-    p = pos[rows, cols]
-    chain = p // block_size
-    if chain.max() >= table.shape[1]:
-        raise BufferError(
-            f"paged KV write at position {int(p.max())} past the table "
-            f"({table.shape[1]} blocks of {block_size})"
-        )
-    from inferd_tpu_torch.core.cache import host_to_device
-
-    idx = host_to_device(np.stack([rows, cols, chain, p % block_size]).astype(np.int64),
-                         table.device)
-    blk = table[idx[0], idx[2]].long()
-    return PagedWrite(idx[0], idx[1], blk * block_size + idx[3])
+        ok = ok & write_mask.reshape(b, 1)
+    blk = table.gather(1, chain.clamp(max=w - 1)).long()
+    return torch.where(ok, blk, 0) * block_size + pos % block_size
 
 
 def forward_layers_cached(
@@ -603,14 +595,29 @@ def forward_layers_cached(
 
     A per-row `cache_write_pos` (lanes at ragged fill levels) is checked
     against the buffer on the host and uploaded once; with `positions`
-    None each row's queries run contiguously from its write position."""
+    None each row's queries run contiguously from its write position. A
+    paged write's committing rows are checked against the table on the
+    host (a BufferError before any dispatch), and its slots computed on the
+    device (paged_write_device)."""
     from inferd_tpu_torch.core.cache import PagedKVCache, host_to_device
 
     b, s = hidden.shape[:2]
     paged = isinstance(cache, PagedKVCache)
     wp = cache_write_pos
+    wp_host = _host_rows(wp, b)
+    if paged:
+        re_host = wp_host + s if real_end is None else np.minimum(_host_rows(real_end, b),
+                                                                   wp_host + s)
+        commit = re_host > wp_host
+        if write_mask is not None:
+            commit &= np.asarray(write_mask, bool).reshape(b)
+        top = int(re_host[commit].max(initial=0))
+        if top > cache.table.shape[1] * cache.block_size:
+            raise BufferError(
+                f"paged KV write at position {top - 1} past the table "
+                f"({cache.table.shape[1]} blocks of {cache.block_size})"
+            )
     if not isinstance(wp, int):
-        wp_host = _host_rows(wp, b)
         if not paged and int(wp_host.max(initial=0)) + s > cache.max_len:
             raise BufferError(
                 f"KV write at {int(wp_host.max())} + {s} past the buffer ({cache.max_len})"
@@ -625,15 +632,17 @@ def forward_layers_cached(
             adapters=adapters,
         )
         return h, cache
-    wp_host = _host_rows(cache_write_pos, b)
-    plan = paged_write_plan(
-        cache.table, cache.block_size, wp_host, s,
-        wp_host + s if real_end is None else _host_rows(real_end, b),
-        _host_rows(write_mask, b),
-    )
+    dev = hidden.device
+    re = None
+    if real_end is not None:
+        re = real_end if isinstance(real_end, int) else host_to_device(_host_rows(real_end, b),
+                                                                       dev)
+    wm = None if write_mask is None else host_to_device(np.asarray(write_mask, bool).reshape(b),
+                                                        dev)
+    dest = paged_write_device(cache.table, cache.block_size, wp, s, re, wm)
     h, _, _ = forward_layers(
         layers, cfg, hidden, positions, cache.k, cache.v, wp, layer_offset=layer_offset,
-        block_table=cache.table, paged_write=plan, adapters=adapters,
+        block_table=cache.table, paged_write=dest, adapters=adapters,
     )
     return h, cache
 
@@ -656,6 +665,45 @@ def forward_cached(
         write_mask=write_mask,
     )
     return unembed(params, cfg, hidden), cache
+
+
+def stage_step(
+    params: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # tokens [B, 1] int64 (first stage) or hidden [B, 1, H]
+    k_cache: torch.Tensor,  # [L, B, T, Nkv, D] dense, or pools [L, NB, bs, Nkv, D]
+    v_cache: torch.Tensor,
+    fill: torch.Tensor,  # [B] int64 on the device: each row's position and write slot
+    *,
+    first: bool,  # the stage embeds tokens
+    last: bool,  # the stage unembeds its row
+    kv_bound: Optional[int] = None,  # dense: host bound on every live row's kv length
+    table: Optional[torch.Tensor] = None,  # [B, W] int32: the pools' block table (paged)
+    write_mask: Optional[torch.Tensor] = None,  # [B] bool on the device (paged): rows that commit
+    adapters=None,  # multi-tenant LoRA pools + per-lane ids (see forward_layers)
+) -> torch.Tensor:
+    """One decode step of a pipeline stage, one token per row, over tensors
+    only: the embed (first stage) or the hidden rows, the stage's layers at
+    device positions fill[:, None] writing each row's K/V at its fill (a
+    dense cache) or through paged_write_device (a paged one, rows with
+    write_mask False to scratch), then the float32 logits [B, V] of the
+    row (last stage) or its hidden state [B, 1, H]. Like decode_step it
+    reads no device value on the host and uploads nothing, so the stage
+    executors capture it as a CUDA graph (runtime/executor,
+    runtime/stage_batch); its host values (`kv_bound`, the table's width,
+    first/last) are fixed by the capture and belong in the graph's key.
+    The caller checks every write's room on the host before the step."""
+    hidden = embed(params, x, cfg) if first else x
+    dest = None
+    if table is not None:
+        dest = paged_write_device(table, k_cache.shape[2], fill, 1, write_mask=write_mask)
+    hidden, _, _ = forward_layers(
+        params["layers"], cfg, hidden, fill[:, None], k_cache, v_cache, fill,
+        block_table=table, paged_write=dest, adapters=adapters, kv_bound=kv_bound,
+    )
+    if last:
+        return unembed(params, cfg, hidden)[:, 0]
+    return hidden
 
 
 # The kv bound a decode step's attention is launched with (flash_gqa's
@@ -759,7 +807,7 @@ def decode_window(
     adapters=None,
 ):
     """len(bounds) decode_steps chained on the device, step j from u[j]:
-    what decode_k runs eagerly and the engine captures as one graph.
+    what run_window runs, eagerly or captured as one graph.
     Returns (seq [K, B], fill' [B], active' [B], lps [K, B], top ids
     [K, B, top_n], top lps [K, B, top_n])."""
     seq, lps, tis, tls = [], [], [], []
@@ -774,6 +822,52 @@ def decode_window(
         tls.append(tl)
     return (torch.stack(seq), fill, active, torch.stack(lps), torch.stack(tis),
             torch.stack(tls))
+
+
+def run_window(graphs, params: Params, cfg: ModelConfig, cache,
+               inputs: Dict[str, torch.Tensor], bounds: Tuple[int, ...],
+               sampling: Tuple[float, int, float, float], top_n: int, want_lp: bool,
+               adapters=None):
+    """decode_window over a dense `cache` (core.cache.KVCache) from device
+    inputs {"tok", "fill", "active" [B], optional "eos" [B], and "u" [K, B,
+    n] when sampled}: a replay of the graph keyed by (buffer, bounds,
+    sampling, top_n, want_lp, the inputs given) from `graphs` (a utils.cuda_graph.GraphCache),
+    or eager when `graphs` is None. The one window runner: the engine's
+    steps and windows and decode_k (the one-session executor's
+    `decode_steps`) all come here. Returns device tensors the caller owns
+    (seq [K, B], fill', active', lps [K, B], top ids, top lps)."""
+    from inferd_tpu_torch.utils.cuda_graph import run_step
+
+    if graphs is not None and adapters is not None:
+        raise NotImplementedError(
+            "a graphed window with tenant lanes waits for the lane executors' K-step "
+            "items (ROADMAP A3)")
+
+    def window(tok, fill, active, eos=None, u=None):
+        return decode_window(params, cfg, cache.k, cache.v, tok, fill, active, eos, u, bounds,
+                             *sampling, top_n, want_lp, adapters)
+
+    key = (cache.k.data_ptr(), tuple(cache.k.shape), bounds, sampling, top_n, want_lp,
+           tuple(sorted(inputs)))
+    out = run_step(graphs, key, window, inputs, cache.k.device)
+    return out if graphs is None else tuple(t.clone() for t in out)
+
+
+def window_uniforms(cfg: ModelConfig, keys, k: int, top_k: int, device):
+    """(keys' [B, 2], u [K, B, n_cand]) of a sampled K-step window: each
+    row's key chained k times (`keys, sub = split_keys(keys)`) and step j's
+    uniforms drawn per row from its subkey, one generator per row, on the
+    host's side of the window (a graph replays none of it)."""
+    from inferd_tpu_torch.core import sampling as samplib
+
+    keys = np.asarray(keys, dtype=np.uint32).reshape(-1, 2)
+    subs = []
+    for _ in range(k):
+        keys, sub = samplib.split_keys(keys)
+        subs.append(sub)
+    n_cand = samplib.candidate_count(cfg.vocab_size, top_k)
+    return keys, torch.stack([torch.cat([samplib.uniforms(sb, (1, n_cand), device) for sb in sub])
+                              for sub in subs])
 
 
 def decode_k(
@@ -793,6 +887,7 @@ def decode_k(
     top_n: int = 0,
     want_lp: bool = False,
     adapters=None,  # multi-tenant LoRA pools + per-lane ids, for every step
+    graphs=None,  # utils.cuda_graph.GraphCache: the window as a graph replay
 ):
     """K decode steps with sampling and every KV write on the device: the
     host reads the window's outputs once, at its end (port of
@@ -812,8 +907,8 @@ def decode_k(
 
     The host prepares the window (the uploads, every key split, the
     uniforms of every step, each step's kv bound from window_bounds), then
-    decode_window runs the steps eagerly: the body a CUDA graph captures
-    (core.generate.Engine replays it). Each row's fill stays on the device
+    run_window runs decode_window: a replay from `graphs`, or eagerly when
+    it is None. Each row's fill stays on the device
     (eos can freeze a row), so the attention gets its spans as device
     columns plus the step's host bound.
 
@@ -821,10 +916,9 @@ def decode_k(
     top_ids [k, B, top_n], top_lps [k, B, top_n]); keys' is a host uint32
     array, the rest are tensors on the cache's device. The cache is
     written in place and its `length` left to the caller. A paged cache
-    raises: its fused window needs host-side write plans from an on-device
-    active mask (ROADMAP A3)."""
-    from inferd_tpu_torch.core import sampling as samplib
-    from inferd_tpu_torch.core.cache import PagedKVCache, host_to_device
+    raises: its fused window (the lane executors' K-step items, ROADMAP
+    A3) waits for a later slice."""
+    from inferd_tpu_torch.core.cache import PagedKVCache, device_column, host_to_device
 
     if isinstance(cache, PagedKVCache):
         raise NotImplementedError(
@@ -838,27 +932,16 @@ def decode_k(
     if top + k > cache.max_len:
         raise BufferError(f"decode_k: {k} steps from fill {top} past the buffer ({cache.max_len})")
     lens = host_to_device(lens_host, dev)
-
-    def column(x, dtype):  # [B] of x on the device, uploaded without a sync
-        if isinstance(x, torch.Tensor):
-            return x.reshape(b).to(dev, dtype)
-        return host_to_device(np.array(np.broadcast_to(np.asarray(x), (b,))), dev).to(dtype)
-
+    inputs = {"tok": device_column(toks, b, torch.int64, dev), "fill": lens,
+              "active": device_column(active, b, torch.bool, dev)}
+    if eos is not None:
+        inputs["eos"] = device_column(eos, b, torch.int64, dev)
     keys = np.asarray(keys, dtype=np.uint32).reshape(b, 2)
-    u = None
     if temperature != 0.0:
-        subs = []
-        for _ in range(k):
-            keys, sub = samplib.split_keys(keys)
-            subs.append(sub)
-        n_cand = samplib.candidate_count(cfg.vocab_size, top_k)
-        u = torch.stack([torch.cat([samplib.uniforms(sb, (1, n_cand), dev) for sb in sub])
-                         for sub in subs])  # [K, B, n_cand]: one generator per row's subkey
-    seq, fill, _act, lps, tis, tls = decode_window(
-        params, cfg, cache.k, cache.v, column(toks, torch.int64), lens,
-        column(active, torch.bool), None if eos is None else column(eos, torch.int64), u,
-        window_bounds(top, k, cache.max_len), temperature, top_k, top_p, min_p, top_n,
-        want_lp, adapters)
+        keys, inputs["u"] = window_uniforms(cfg, keys, k, top_k, dev)
+    seq, fill, _act, lps, tis, tls = run_window(
+        graphs, params, cfg, cache, inputs, window_bounds(top, k, cache.max_len),
+        (temperature, top_k, top_p, min_p), top_n, want_lp, adapters)
     return cache, seq, fill - lens, keys, lps, tis, tls
 
 

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from inferd_tpu_torch.config import ModelConfig
-from inferd_tpu_torch.core.cache import host_to_device
+from inferd_tpu_torch.core.cache import host_staged, host_to_device
 from inferd_tpu_torch.ops import lora as loralib
 from inferd_tpu_torch.utils import safetensors_io
 
@@ -97,11 +97,14 @@ class AdapterBindingMixin:
     `self.adapters`, `self._session_adapter`, `self._lane_slot` and
     `self._mu` (held before the registry's lock, everywhere)."""
 
-    def _ads(self, ids) -> Optional[Dict[str, Any]]:
+    def _ads(self, ids, staged: bool = False) -> Optional[Dict[str, Any]]:
         """The adapter operand of ONE dispatch: the registry's pools plus
-        these per-lane int32 slot ids, or None (no registry, nothing loaded,
-        or every lane on slot 0: an all-base dispatch computes no delta and
-        launches nothing)."""
+        these per-lane int32 slot ids, uploaded, or with `staged` left on
+        the host for a lane decode graph's static input (core.cache.
+        host_staged: one copy, straight into it); or None (no registry,
+        nothing loaded, or every lane on slot 0: an all-base dispatch
+        computes no delta, launches nothing, and replays a graph of its
+        own)."""
         if self.adapters is None:
             return None
         if not any(int(i) for i in ids):
@@ -110,7 +113,8 @@ class AdapterBindingMixin:
         if pools is None:
             return None
         dev = pools["scale"].device
-        return {**pools, "ids": host_to_device(np.asarray(ids, np.int32), dev)}
+        put = host_staged if staged else host_to_device
+        return {**pools, "ids": put(np.asarray(ids, np.int32), dev)}
 
     def _resolve_adapter(self, session_id: str, payload: Dict[str, Any], start_pos: int):
         """Resolve the payload's `adapter` key BEFORE any executor lock: a
@@ -431,7 +435,10 @@ class AdapterRegistry:
 
     def device_adapters(self) -> Optional[Dict[str, Any]]:
         """The pool operand ({"a", "b", "scale"}; the executor adds "ids"),
-        or None before the first load (an all-base window computes no delta)."""
+        or None before the first load (an all-base window computes no delta).
+        The pools are allocated once, at the first load, and written in
+        place ever after: a captured lane graph reads them by address
+        (runtime/stage_batch checks that it never changes)."""
         with self._mu:
             if self._pools is None:
                 return None

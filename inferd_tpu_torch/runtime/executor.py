@@ -20,9 +20,26 @@ KV writes behind; the session frontier only advances on success, and the
 slots past it are rewritten by the next step.
 
 A payload with `decode_steps` K runs K decode steps with on-device
-sampling in one window (models/qwen3.decode_k) and returns the tokens it
-committed: only a single-stage (whole-model) executor serves it, since a
-pipeline stage's next token depends on every other stage.
+sampling in one window (models/qwen3.decode_window, with decode_k's keys)
+and returns the tokens it committed: only a single-stage (whole-model)
+executor serves it, since a pipeline stage's next token depends on every
+other stage.
+
+The compiled step. The JAX executor jits every step with the cache
+donated. Here, on a card, every single-token step (models/qwen3.stage_step)
+and every `decode_steps` window replays a captured CUDA graph
+(utils/cuda_graph) keyed by the session's buffer and the step's kv bound
+(kv_bucket of the fill, the engine's rule); prompt chunks run eagerly. The
+session buffers come from a BufferPool and go back to it when a session
+ends, is evicted or swept, or grows, so the next session of the bucket
+replays the same graphs; a buffer the pool frees takes its graphs with it.
+The pool keeps up to max_sessions buffers per shape and the graph cache
+holds max_sessions x token_graphs_per_slot graphs, every (buffer, kv
+bound) pair the pool's buffers can key, so the captures grow with the
+sessions live at once, never with the sessions served, and no token
+step's graph is evicted while its buffer lives (`decode_steps` windows
+share the cache's LRU). With `graphs` set to None the same steps run
+eagerly: the reference the graphs are held to.
 
 `make_executor` routes `--stage-lanes` to the lane-slotted executor of
 runtime/stage_batch.py. Not ported in this slice: ring high-water marks,
@@ -31,9 +48,10 @@ session fork/export/import and the counter backend.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -41,19 +59,28 @@ import torch.nn.functional as F
 
 from inferd_tpu_torch.config import ModelConfig
 from inferd_tpu_torch.core import sampling as samplib
-from inferd_tpu_torch.core.cache import KVCache, device_to_host, grow
+from inferd_tpu_torch.core.cache import (
+    BufferPool, KVCache, device_to_host, grow, host_staged, host_to_device,
+)
 from inferd_tpu_torch.core.generate import bucket_len
 from inferd_tpu_torch.models import qwen3
 from inferd_tpu_torch.parallel.stages import StageSpec
+from inferd_tpu_torch.utils.cuda_graph import GraphCache, graph_stats, run_step
 from inferd_tpu_torch.utils.profiling import span
 
 
 class SessionStore:
-    """session_id -> KVCache with LRU eviction and idle TTL."""
+    """session_id -> KVCache with LRU eviction and idle TTL.
 
-    def __init__(self, max_sessions: int = 64, ttl_s: float = 600.0):
+    A cache that leaves the store (drop, sweep, eviction, or replaced by a
+    grown one in `put`) is handed to `on_release`, which returns the buffer
+    for reuse. A session mid-step (its lock held) is never released under
+    it: `drop` waits for its step, and eviction and sweep pass it over."""
+
+    def __init__(self, max_sessions: int = 64, ttl_s: float = 600.0, on_release=None):
         self.max_sessions = max_sessions
         self.ttl_s = ttl_s
+        self.on_release = on_release
         self._lock = threading.Lock()
         self._caches: Dict[str, KVCache] = {}
         self._locks: Dict[str, threading.Lock] = {}
@@ -73,16 +100,22 @@ class SessionStore:
             return c
 
     def put(self, session_id: str, cache: KVCache) -> None:
+        """Store (or refresh) a session's cache; call under its lock."""
         with self._lock:
+            old = self._caches.get(session_id)
             self._caches[session_id] = cache
             self._last_used[session_id] = time.monotonic()
-            self._evict_locked()
+            gone = [old] if old is not None and old is not cache else []
+            gone += self._evict_locked()
+        self._release(gone)
 
     def drop(self, session_id: str) -> None:
         with self._lock:
-            self._caches.pop(session_id, None)
-            self._locks.pop(session_id, None)
-            self._last_used.pop(session_id, None)
+            lock = self._locks.get(session_id)
+        with lock or contextlib.nullcontext():
+            with self._lock:
+                cache = self._pop_locked(session_id)
+        self._release([cache])
 
     def kv_bytes(self) -> int:
         """Total bytes of live session KV buffers."""
@@ -90,15 +123,14 @@ class SessionStore:
             return sum(c.nbytes for c in self._caches.values())
 
     def sweep(self) -> int:
-        """Drop sessions idle for > ttl_s; returns the count dropped."""
+        """Drop sessions idle for > ttl_s (none mid-step); returns the count
+        dropped."""
         now = time.monotonic()
         with self._lock:
             stale = [s for s, t in self._last_used.items() if now - t > self.ttl_s]
-            for s in stale:
-                self._caches.pop(s, None)
-                self._locks.pop(s, None)
-                self._last_used.pop(s, None)
-            return len(stale)
+            gone = [self._pop_idle_locked(s) for s in stale]
+        self._release(gone)
+        return sum(c is not None for c in gone)
 
     def __len__(self) -> int:
         with self._lock:
@@ -108,12 +140,38 @@ class SessionStore:
         with self._lock:
             return session_id in self._caches
 
-    def _evict_locked(self) -> None:
-        while len(self._caches) > self.max_sessions:
-            oldest = min(self._last_used, key=self._last_used.get)
-            self._caches.pop(oldest, None)
-            self._locks.pop(oldest, None)
-            self._last_used.pop(oldest, None)
+    def _pop_locked(self, session_id: str) -> Optional[KVCache]:
+        self._locks.pop(session_id, None)
+        self._last_used.pop(session_id, None)
+        return self._caches.pop(session_id, None)
+
+    def _pop_idle_locked(self, session_id: str) -> Optional[KVCache]:
+        """Pop a session unless a step holds its lock (then None)."""
+        lock = self._locks.get(session_id)
+        if lock is not None and not lock.acquire(blocking=False):
+            return None
+        try:
+            return self._pop_locked(session_id)
+        finally:
+            if lock is not None:
+                lock.release()
+
+    def _evict_locked(self) -> List[KVCache]:
+        """LRU-evict sessions not mid-step until at most max_sessions remain."""
+        gone = []
+        for sid in sorted(self._last_used, key=self._last_used.get):
+            if len(self._caches) <= self.max_sessions:
+                break
+            cache = self._pop_idle_locked(sid)
+            if cache is not None:
+                gone.append(cache)
+        return gone
+
+    def _release(self, caches) -> None:
+        if self.on_release is not None:
+            for c in caches:
+                if c is not None:
+                    self.on_release(c)
 
 
 def parse_kstep(payload: Dict[str, Any], budget: int) -> Optional[Dict[str, Any]]:
@@ -162,6 +220,22 @@ def kstep_hi(start: int, n: int, k: int) -> int:
     return start + min(n + 1, k)
 
 
+def token_graphs_per_slot(initial_kv_len: int, max_len: int) -> int:
+    """The most token-step graphs one session slot's buffers can key: the
+    pool holds at most one buffer of each bucket per session live at once
+    (initial_kv_len up to bucket_len(max_len)), and a buffer of bucket T
+    keys one graph per kv bound its steps can take (kv_bucket of fills up
+    to min(T, max_len)), whichever sessions meet it at which fills."""
+    total, t = 0, max(initial_kv_len, 16)
+    while True:
+        top = min(t, max_len)
+        total += len({qwen3.kv_bucket(n, t) for j in range(top.bit_length())
+                      for n in (2 ** j, 2 ** j + 1) if n <= top})
+        if t >= bucket_len(max_len):
+            return total
+        t *= 2
+
+
 def _as_tensor(x: Any) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
 
@@ -186,43 +260,74 @@ class Qwen3StageExecutor:
         self.device = next(iter(stage_params["layers"].values())).device
         self.max_len = max_len
         self.initial_kv_len = initial_kv_len
-        self.sessions = SessionStore(max_sessions, session_ttl_s)
+        # session buffers outlive their sessions, and so do the graphs
+        # captured over them (a buffer released for good takes its graphs)
+        self.buffers = BufferPool(cfg, spec.num_layers, self.device, max_free=max_sessions,
+                                  on_free=self._forget)
+        self.sessions = SessionStore(max_sessions, session_ttl_s, on_release=self.buffers.give)
+        # token steps and decode_steps windows as graph replays on a card,
+        # eager on the CPU; set to None for the eager step on a card too
+        # (the reference the graphs are held to). Room for every token-step
+        # graph the pool's buffers can key; decode_steps windows share it.
+        self.graphs: Optional[GraphCache] = None
+        # one graphed step at a time, its outputs read before the next: the
+        # graphs share one memory pool (utils/cuda_graph)
+        self._step_lock = threading.Lock()
+        if self.device.type == "cuda":
+            self.graphs = GraphCache(
+                max_graphs=max_sessions * token_graphs_per_slot(initial_kv_len, max_len),
+                device=self.device)
 
     # -- session cache management ------------------------------------------
 
-    def _cache_for(self, session_id: str, real_len: int, padded_len: int) -> KVCache:
-        """Cache with room for the PADDED chunk write (the forward writes
-        padded_len rows). The real-token budget is capped at max_len."""
+    def _forget(self, cache: KVCache) -> None:
+        """A buffer leaves the pool: drop the graphs that read it."""
+        if self.graphs is not None:
+            ptr = cache.k.data_ptr()
+            self.graphs.drop(lambda key: key[0] == ptr)
+
+    def _cache_for(self, session_id: str, start_pos: int, real_len: int, padded_len: int):
+        """(cache, write position) for a chunk at start_pos, with room for
+        the PADDED chunk write (the forward writes padded_len rows); the
+        real-token budget is capped at max_len. A new or grown buffer comes
+        from the pool and is stored at once (a grown one returns the old)."""
         needed = max(real_len, padded_len)
         cache = self.sessions.get(session_id)
-        if cache is None:
-            cache = KVCache.create(
-                self.cfg, self.spec.num_layers, 1,
-                max(self.initial_kv_len, bucket_len(needed)), device=self.device,
-            )
-        if cache.length + real_len > self.max_len:
+        have = 0 if cache is None else cache.length
+        if have + real_len > self.max_len:
             raise BufferError(
-                f"session {session_id}: KV overflow ({cache.length}+{real_len} > {self.max_len})"
+                f"session {session_id}: KV overflow ({have}+{real_len} > {self.max_len})"
             )
-        if cache.length + needed > cache.max_len:
-            cache = grow(cache, bucket_len(cache.length + needed))
+        pos = self._rollback_for(session_id, have, start_pos)
+        if cache is None:
+            cache = self.buffers.take(1, max(self.initial_kv_len, bucket_len(needed)))
+            self.sessions.put(session_id, cache)
+        elif have + needed > cache.max_len:
+            cache = self._grow(session_id, cache, bucket_len(have + needed))
+        return cache, pos
+
+    def _grow(self, session_id: str, cache: KVCache, max_len: int) -> KVCache:
+        cache = grow(cache, self.buffers.take(1, max_len))
+        self.sessions.put(session_id, cache)
         return cache
 
     @staticmethod
-    def _rollback_for(session_id: str, cache: KVCache, start_pos: int) -> int:
-        """The write position for a chunk starting at start_pos: the frontier,
-        or, for a REPLAY (a chunk starting before it), the chunk start."""
-        cur = cache.length
-        if start_pos == cur:
-            return cur
-        if not 0 <= start_pos < cur:
+    def _rollback_for(session_id: str, have: int, start_pos: int) -> int:
+        """The write position for a chunk starting at start_pos: the
+        frontier `have`, or, for a REPLAY (a chunk starting before it), the
+        chunk start."""
+        if start_pos == have:
+            return have
+        if not 0 <= start_pos < have:
             raise ValueError(
                 f"session {session_id}: start_pos {start_pos} != cache "
-                f"length {cur} (out-of-order chunk)"
+                f"length {have} (out-of-order chunk)"
             )
         return start_pos
 
     def _run(self, x: torch.Tensor, start_pos: int, cache: KVCache, real_len: int):
+        """A prompt chunk (eager): host-int positions, so the attention
+        splits over the chunk's real span."""
         cfg, spec, p = self.cfg, self.spec, self.params
         hidden = qwen3.embed(p, x, cfg) if spec.is_first else x
         hidden, _ = qwen3.forward_layers_cached(
@@ -235,6 +340,28 @@ class Qwen3StageExecutor:
             return {"logits": qwen3.unembed(p, cfg, last[:, None, :])[:, 0]}
         return {"hidden": hidden[:, :real_len]}
 
+    def _token_step(self, x: torch.Tensor, pos: int, cache: KVCache):
+        """One token at fill `pos` (models/qwen3.stage_step) from a host x:
+        a replay of the graph keyed by (buffer, kv bound), the bound
+        kv_bucket(pos + 1, T) that a capture fixes (a replay below the
+        frontier is only another fill), x and the fill copied once into its
+        static buffers; eager when `graphs` is None, with the same bound."""
+        spec = self.spec
+        bound = qwen3.kv_bucket(pos + 1, cache.max_len)
+
+        def step(x, fill):
+            return qwen3.stage_step(self.params, self.cfg, x, cache.k, cache.v, fill,
+                                    first=spec.is_first, last=spec.is_last, kv_bound=bound)
+
+        inputs = {"x": host_staged(x, self.device) if x.device.type == "cpu" else x,
+                  "fill": host_staged(np.array([pos], np.int64), self.device)}
+        key = (cache.k.data_ptr(), tuple(cache.k.shape), "stage", bound)
+        out = run_step(self.graphs, key, step, inputs, self.device)
+        return {"logits" if spec.is_last else "hidden": out}
+
+    def _upload(self, x: torch.Tensor) -> torch.Tensor:
+        return host_to_device(x, self.device) if x.device.type == "cpu" else x.to(self.device)
+
     # -- public API ---------------------------------------------------------
 
     def process(self, session_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
@@ -244,7 +371,9 @@ class Qwen3StageExecutor:
         [B, S, H]}; plus "start_pos" (absolute position of the chunk's first
         token) and optionally "real_len" (rows past it are bucket padding).
         Returns {"hidden"} or, on the last stage, {"logits": [B, V]} as CPU
-        tensors, plus the relay metadata "real_len" and "start_pos"."""
+        tensors, plus the relay metadata "real_len" and "start_pos". A
+        single-token step runs `_token_step` (a graph replay on a card), a
+        prompt chunk `_run`."""
         if int(payload.get("decode_steps") or 0) > 0:
             return self._process_decode_k(session_id, payload)
         start_pos = int(payload.get("start_pos", 0))
@@ -253,29 +382,34 @@ class Qwen3StageExecutor:
             real_len = int(payload.get("real_len", x.shape[1]))
             if x.shape[1] > 1:  # prompt chunks pad to a bucket; decode steps do not
                 x = F.pad(x, (0, bucket_len(x.shape[1]) - x.shape[1]))
-            x = x.to(self.device)
         else:
             x = _as_tensor(payload["hidden"])
             real_len = int(payload.get("real_len", x.shape[1]))
             if x.shape[1] > 1:  # upstream ships real rows only: re-pad locally
                 x = F.pad(x, (0, 0, 0, bucket_len(max(x.shape[1], real_len)) - x.shape[1]))
-            x = x.to(self.device, self.cfg.torch_dtype)
+            x = x.to(self.cfg.torch_dtype)
+        token = x.shape[1] == 1 and real_len == 1
+        if not token:
+            x = self._upload(x)
 
         with self.sessions.lock_for(session_id), torch.no_grad():
-            cache = self._cache_for(session_id, real_len, int(x.shape[1]))
-            pos = self._rollback_for(session_id, cache, start_pos)
-            out = self._run(x, pos, cache, real_len)
+            cache, pos = self._cache_for(session_id, start_pos, real_len, int(x.shape[1]))
+            with self._step_lock if token else contextlib.nullcontext():
+                out = (self._token_step(x, pos, cache) if token
+                       else self._run(x, pos, cache, real_len))
+                # read before any later replay can overwrite a graph's output
+                with span("results.cpu"):
+                    result: Dict[str, Any] = {k: v.cpu() for k, v in out.items()}
             cache.length = pos + real_len
             self.sessions.put(session_id, cache)
-            with span("results.cpu"):
-                result: Dict[str, Any] = {k: v.cpu() for k, v in out.items()}
         result["real_len"] = real_len
         result["start_pos"] = start_pos
         return result
 
     def _process_decode_k(self, session_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
         """K decode steps and their sampling on the device, one host read at
-        the end (models/qwen3.decode_k).
+        the end: models/qwen3.decode_k, its window a graph replay on a card
+        (run_window, as the engine's decode_chunk).
 
         payload: {"tokens": [[last token]], "start_pos", "decode_steps": K}
         plus parse_kstep's optional keys. Returns {"tokens": [[t_0 ..
@@ -299,15 +433,15 @@ class Qwen3StageExecutor:
         k = ks["k"]
         t, tk, tp, mp = ks["sampling"]
         with self.sessions.lock_for(session_id), torch.no_grad():
-            cache = self._cache_for(session_id, 1, 1)
-            self._rollback_for(session_id, cache, start_pos)  # a replay restarts at start_pos
+            # a replay restarts at start_pos
+            cache, _ = self._cache_for(session_id, start_pos, 1, 1)
             if start_pos + k > cache.max_len:
-                cache = grow(cache, bucket_len(start_pos + k))
-            cache, seq, n_new, nkey, _lps, _tis, _tls = qwen3.decode_k(
-                self.params, self.cfg, toks[0], cache, [start_pos], [True], ks["key"][None],
-                k, temperature=t, top_k=tk, top_p=tp, min_p=mp, eos=ks["eos"],
-            )
-            seq, n_new = device_to_host(seq[:, 0], n_new)  # the window's one read
+                cache = self._grow(session_id, cache, bucket_len(start_pos + k))
+            with self._step_lock:
+                cache, seq, n_new, keys, _l, _i, _t = qwen3.decode_k(
+                    self.params, self.cfg, toks[0], cache, [start_pos], [True],
+                    ks["key"][None], k, t, tk, tp, mp, eos=ks["eos"], graphs=self.graphs)
+                seq, n_new = device_to_host(seq[:, 0], n_new)  # the window's one read
             n = int(n_new[0])
             cache.length = start_pos + n
             self.sessions.put(session_id, cache)
@@ -316,14 +450,15 @@ class Qwen3StageExecutor:
             "real_len": n,
             "decode_steps": k,
             "start_pos": start_pos,
-            "key": nkey[0].tolist(),
+            "key": keys[0].tolist(),
         }
 
     def end_session(self, session_id: str) -> None:
         self.sessions.drop(session_id)
 
     def stats(self) -> Dict[str, Any]:
-        return {"sessions": len(self.sessions), "kv_bytes": self.sessions.kv_bytes()}
+        return {"sessions": len(self.sessions), "kv_bytes": self.sessions.kv_bytes(),
+                "buffers": self.buffers.stats(), "graphs": graph_stats(self.graphs)}
 
 
 def make_executor(

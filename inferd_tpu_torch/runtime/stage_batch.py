@@ -22,8 +22,11 @@ pending (a teardown mid-step defers the lane's free until the step drains).
 
 What differs from the reference, by PyTorch idiom: the four jitted step
 closures are plain methods that write the cache IN PLACE; the host-side
-per-lane values (lengths, the `active` mask, the block table) reach the
-card through pinned buffers, non-blocking. The reference's `cache_intact`
+per-lane values (lengths, the `active` mask, the block table, the adapter
+ids) reach the card through pinned buffers, non-blocking. The co-batched
+decode step, the reference's compiled `_decode_all`, replays a captured
+CUDA graph on a card (utils/cuda_graph; see `_decode_all`); prefill
+dispatches run eagerly. The reference's `cache_intact`
 check, which stops a window after a failed dispatch because the jit had
 donated (and so invalidated) the shared cache, has no counterpart: nothing
 is donated here, a failed dispatch leaves the buffers valid, and a window
@@ -55,13 +58,15 @@ import torch
 from inferd_tpu_torch.config import ModelConfig
 from inferd_tpu_torch.core import prefix as prefixlib
 from inferd_tpu_torch.core.cache import (
-    BlockPool, KVCache, PagedKVCache, host_to_device, lane_slice, lane_write, sync_paged,
+    BlockPool, KVCache, PagedKVCache, host_staged, host_to_device, lane_slice, lane_write,
+    sync_paged,
 )
 from inferd_tpu_torch.core.generate import bucket_len
 from inferd_tpu_torch.models import qwen3
 from inferd_tpu_torch.parallel.stages import StageSpec
 from inferd_tpu_torch.runtime.adapters import AdapterBindingMixin
 from inferd_tpu_torch.runtime.executor import _as_tensor
+from inferd_tpu_torch.utils.cuda_graph import GraphCache, graph_stats, run_step
 
 Params = Dict[str, Any]
 
@@ -143,6 +148,12 @@ class BatchedStageExecutor(AdapterBindingMixin):
         # paged decode dispatches by the stamped table width (chain_clamp):
         # with the lane count it fixes ops.attention.paged_plan's cut
         self._decode_widths: Dict[int, int] = {}
+        # co-batched decode steps as graph replays on a card, eager on the
+        # CPU; set to None for the eager step on a card too (the reference
+        # the graphs are held to)
+        self.graphs: Optional[GraphCache] = (
+            GraphCache(device=self.device) if self.device.type == "cuda" else None)
+        self._pools_ptr: Optional[int] = None  # the adapter pools' address the graphs read
 
     def co_possible(self) -> bool:
         """More than one live session: a window wait can pay off. LOCK-FREE
@@ -265,36 +276,64 @@ class BatchedStageExecutor(AdapterBindingMixin):
     def _embed_or_hidden(self, x: torch.Tensor) -> torch.Tensor:
         return qwen3.embed(self.params, x, self.cfg) if self.spec.is_first else x
 
-    def _decode_all(self, xd: torch.Tensor, lens: np.ndarray, active: np.ndarray,
+    def _decode_all(self, xs: torch.Tensor, lens: np.ndarray, active: np.ndarray,
                     ads=None) -> torch.Tensor:
-        """One co-batched decode step over EVERY lane; returns [L, V] logits
-        or [L, 1, H] hidden on the device. xd: tokens [L, 1] or hidden
-        [L, 1, H]; lens [L]: per-lane fill. Dense: lanes without an entry
-        compute garbage at their own frontier slot, which the lane's next
-        real step rewrites before it can be read (a full idle lane writes
-        its last slot, which only a replay below it can reach, and a replay
-        rewrites it first). Paged: rows of inactive lanes write nothing
-        (blocks are shared property)."""
-        cfg, p = self.cfg, self.params
-        hidden = self._embed_or_hidden(xd)
+        """One co-batched decode step over EVERY lane (models/qwen3.
+        stage_step); returns [L, V] logits or [L, 1, H] hidden on the
+        device, a graph's static output on a card: read it before the next
+        step. xs: host tokens [L, 1] or hidden [L, 1, H]; lens [L]: per-lane
+        fill; active [L]: the lanes with an entry; ads: the adapter operand
+        with host ids (`_ads(..., staged=True)`). Dense: lanes without an
+        entry compute garbage at their own frontier slot, which the lane's
+        next real step rewrites before it can be read (a full idle lane
+        writes its last slot, which only a replay below it can reach, and a
+        replay rewrites it first). Paged: rows of inactive lanes write only
+        to the scratch block (blocks are shared property).
+
+        On a card the step replays the graph keyed by the layout, the
+        table's width W (paged) and whether a tenant lane rides; xs, lens,
+        active, the table and the adapter ids are its static inputs, each
+        staged on the host and copied once, straight into its static buffer
+        (utils/cuda_graph.run_step); the cache and the adapter pools are
+        read by address. The queued CoW copies and the decode_widths count
+        stay on the host side, before the replay. The dense attention walks the whole lane slab, as the
+        eager step always did: a bound from the co-batch's fills would make
+        a lane's bits depend on which sessions share its window."""
+        cfg, p, spec = self.cfg, self.params, self.spec
+        dev = self.device
+        inputs = {"x": host_staged(xs, dev), "lens": host_staged(lens, dev)}
+        pools = None
+        if ads is not None:
+            pools = {k: v for k, v in ads.items() if k != "ids"}
+            inputs["ids"] = ads["ids"]
+            ptr = pools["scale"].data_ptr()
+            if self._pools_ptr is None:
+                self._pools_ptr = ptr
+            elif ptr != self._pools_ptr:
+                # the graphs read the pools by address: they are written in
+                # place for good (runtime/adapters), never reallocated
+                raise RuntimeError("adapter pools moved: the lane graphs read the old ones")
         if self.pool is not None:
-            cache = self._sync_paged()
-            width = int(cache.table.shape[1])
+            cache, table = self._sync_paged()
+            width = int(table.shape[1])
             with self._mu:
                 self._decode_widths[width] = self._decode_widths.get(width, 0) + 1
-            hidden, _ = qwen3.forward_layers_cached(
-                p["layers"], cfg, hidden, None, cache, lens, real_end=lens + 1,
-                layer_offset=self.spec.start_layer, write_mask=active, adapters=ads,
-            )
+            inputs["table"] = table
+            inputs["active"] = host_staged(active, dev)
+            key = ("paged", width, ads is not None)
         else:
-            wp = np.minimum(lens, self.max_len - 1)
-            hidden, _ = qwen3.forward_layers_cached(
-                p["layers"], cfg, hidden, None, self.cache, wp, real_end=wp + 1,
-                layer_offset=self.spec.start_layer, adapters=ads,
-            )
-        if self.spec.is_last:
-            return qwen3.unembed(p, cfg, hidden)[:, 0]
-        return hidden
+            cache = self.cache
+            key = ("dense", ads is not None)
+
+        def step(x, lens, table=None, active=None, ids=None):
+            adapters = None if ids is None else {**pools, "ids": ids}
+            if table is None:  # dense: an idle full lane writes its last slot
+                lens = lens.clamp(max=self.max_len - 1)
+            return qwen3.stage_step(p, cfg, x, cache.k, cache.v, lens, first=spec.is_first,
+                                    last=spec.is_last, table=table, write_mask=active,
+                                    adapters=adapters)
+
+        return run_step(self.graphs, key, step, inputs, dev)
 
     def _prefill_lane(self, xd: torch.Tensor, lane: int, start: int, n: int,
                       ads=None) -> torch.Tensor:
@@ -325,11 +364,12 @@ class BatchedStageExecutor(AdapterBindingMixin):
             return qwen3.unembed(p, cfg, hidden[:, n - 1:n])[:, 0]
         return hidden
 
-    def _sync_paged(self) -> PagedKVCache:
+    def _sync_paged(self) -> Tuple[PagedKVCache, torch.Tensor]:
         """core.cache.sync_paged over this executor's state (under the
-        device lock): queued CoW copies applied, the table stamped."""
-        self.cache = sync_paged(self.pool, self.cache, self._mu)
-        return self.cache
+        device lock): (the cache, its queued CoW copies applied; the table
+        at the chain_clamp width, staged on the host)."""
+        self.cache, table = sync_paged(self.pool, self.cache, self._mu)
+        return self.cache, table
 
     # -- executor contract ---------------------------------------------------
 
@@ -422,7 +462,7 @@ class BatchedStageExecutor(AdapterBindingMixin):
                 with self._mu:
                     lens = np.asarray(self.lengths, np.int64)
                     slot_ids = list(self._lane_slot)
-                ads = self._ads(slot_ids)
+                ads = self._ads(slot_ids, staged=True)
                 active = np.zeros((self.lanes,), bool)
                 if self.spec.is_first:
                     xs = torch.zeros((self.lanes, 1), dtype=torch.int64)
@@ -434,8 +474,7 @@ class BatchedStageExecutor(AdapterBindingMixin):
                     xs[lane] = _as_tensor(x)[0]
                     active[lane] = True
                 with torch.no_grad():
-                    res = self._decode_all(host_to_device(xs, self.device), lens, active,
-                                           ads).cpu()
+                    res = self._decode_all(xs, lens, active, ads).cpu()  # before the next replay
                 with self._mu:
                     for _i, _sid, lane, _x, _sp in served:
                         self.lengths[lane] += 1
@@ -669,6 +708,7 @@ class BatchedStageExecutor(AdapterBindingMixin):
                 "prefill_tokens": self.prefill_tokens,
                 "kv_bytes": self.cache.nbytes,
                 "kv_occupancy": occupancy,
+                "graphs": graph_stats(self.graphs),
             }
             if self.adapters is not None:
                 out["adapter_steps"] = self.adapter_steps

@@ -231,6 +231,8 @@ HOST_SPLIT_LABELS = {
     "node.lock_wait": "lock_waits",  # waiting for the one-session node's compute lock
     "executor.process": "executor",  # the stage step outside the layers and wrappers
     "results.cpu": "results_cpu",  # the results' .cpu(): device wait + the copy
+    "graph.replay": "graph_replay",  # a captured step: its inputs' copies and the replay
+    "graph.capture": "graph_capture",  # a step's warm-up and capture, outside its layers
     "qwen3.layer": "layers",  # one decoder layer's host time (its torch ops included)
     "kernel.flash_gqa": "wrappers",  # a kernel wrapper: its checks, plan and launch
     "kernel.paged_decode_gqa": "wrappers",

@@ -183,10 +183,12 @@ def test_cache_overflow_and_grow():
     c.ensure_room(6)
     with pytest.raises(BufferError, match="overflow"):
         c.ensure_room(7, owner="s1")
-    g = grow(c, 64)
+    g = grow(c, KVCache.create(tcfg.TINY, 2, 1, 64))
     assert g.max_len == 64 and g.length == 10
     assert torch.equal(g.k[:, :, :16], c.k) and float(g.k[:, :, 16:].abs().max()) == 0.0
-    assert grow(g, 32) is g
+    for into in (KVCache.create(tcfg.TINY, 2, 1, 64), KVCache.create(tcfg.TINY, 2, 2, 128)):
+        with pytest.raises(ValueError, match="grow"):  # not larger, or another batch
+            grow(g, into)
     with pytest.raises(BufferError):  # a write past the buffer raises, never clamps
         tq.forward_cached(
             tq.init_params(tcfg.TINY, torch.Generator().manual_seed(0)), tcfg.TINY,

@@ -432,3 +432,125 @@ def test_kernel_counters_cover_every_wrapper():
               qmatmul.w4a16_matvec, lora.fused_lane_delta):
         attrs = {a for a in vars(w) if a.endswith("launches")}
         assert attrs and {(w.__name__, a) for a in attrs} <= got
+
+
+def test_graph_cache_drop_by_predicate():
+    """drop(pred) removes the matching entries (and what their fn closes
+    over), counts each as an eviction and leaves the other counters and
+    entries as they were; a dropped key captures anew."""
+    from inferd_tpu_torch.utils.cuda_graph import GraphCache
+
+    backend = _FakeBackend()
+    gc = GraphCache(max_graphs=8, counters=[], backend=backend)
+    x = torch.arange(4.0)
+    for key in [(1, "a"), (1, "b"), (2, "a")]:
+        gc.run(key, lambda x: x + 1, {"x": x})
+    backend.math = lambda: gc._entries[(2, "a")].inputs["x"] + 1
+    gc.run((2, "a"), lambda x: x + 1, {"x": x})
+    assert gc.drop(lambda key: key[0] == 1) == 2
+    assert list(gc._entries) == [(2, "a")]
+    assert gc.stats() == {"captures": 3, "replays": 1, "resident": 1, "evictions": 2,
+                          "max_graphs": 8}
+    assert gc.drop(lambda key: key[0] == 1) == 0 and gc.stats()["evictions"] == 2
+    gc.run((1, "a"), lambda x: x + 1, {"x": x})
+    assert gc.stats()["captures"] == 4 and backend.warmups == 4
+
+
+def test_cuda_backend_warms_up_on_one_stream(monkeypatch):
+    """Every warm-up of one CudaBackend runs on the same side stream (a
+    stream per warm-up keeps device memory per stream), and its result is
+    the warm-up's."""
+    import contextlib
+
+    from inferd_tpu_torch.utils import cuda_graph
+
+    made, entered = [], []
+
+    class Stream:
+        def __init__(self):
+            made.append(self)
+
+        def wait_stream(self, other):
+            pass
+
+    cur = Stream()
+    made.clear()
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: cur)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: entered.append(s) or contextlib.nullcontext())
+    backend = cuda_graph.CudaBackend()
+    assert [backend.warmup(lambda i=i: i) for i in range(3)] == [0, 1, 2]
+    assert len(made) == 1 and entered == made * 3
+
+
+def test_run_step_copies_host_inputs_once_into_static_buffers():
+    """run_step: with a cache, a host input's static buffer lives on the
+    cache's device, is its own memory, and takes the next call's host
+    input in place (one copy, no upload in between); with None, fn runs
+    eagerly on the inputs moved to the device."""
+    from inferd_tpu_torch.core.cache import host_staged
+    from inferd_tpu_torch.utils.cuda_graph import GraphCache, run_step
+
+    backend = _FakeBackend()
+    gc = GraphCache(max_graphs=2, counters=[], backend=backend, device="cpu")
+    x = host_staged(np.arange(4), "cpu")
+    assert torch.equal(run_step(gc, "k", lambda x: x + 1, {"x": x}, "cpu"), x + 1)
+    entry = gc._entries["k"]
+    static = entry.inputs["x"]
+    assert static.device.type == "cpu" and static.data_ptr() != x.data_ptr()
+    backend.math = lambda: entry.inputs["x"] + 1
+    y = host_staged(np.arange(4) * 3, "cpu")
+    out = run_step(gc, "k", lambda x: x + 1, {"x": y}, "cpu")
+    assert entry.inputs["x"] is static and torch.equal(static, y) and torch.equal(out, y + 1)
+    seen = {}
+
+    def eager(x):
+        seen["x"] = x
+        return x + 1
+
+    assert torch.equal(run_step(None, "k", eager, {"x": y}, "cpu"), y + 1)
+    assert seen["x"].device.type == "cpu" and gc.stats()["replays"] == 1
+
+
+def test_cuda_backend_captures_thread_local(monkeypatch):
+    """CudaBackend captures with capture_error_mode="thread_local", the mode
+    its module docstring states: another thread of a node may touch the
+    card while a step is captured; with the garbage collector off; and
+    every capture into the one memory pool of the backend."""
+    import gc
+
+    from inferd_tpu_torch.utils import cuda_graph
+
+    seen = {}
+
+    class Graph:
+        pass
+
+    class Ctx:
+        def __init__(self, graph, **kw):
+            seen.update(kw, graph=graph)
+
+        def __enter__(self):
+            seen["gc_in_capture"] = gc.isenabled()
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    pools = iter(["pool 1", "pool 2"])
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", Ctx)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: next(pools))
+    assert gc.isenabled()
+    backend = cuda_graph.CudaBackend()
+    graph, out = backend.capture(lambda: "out")
+    assert out == "out" and seen["graph"] is graph
+    assert seen["capture_error_mode"] == "thread_local"
+    # every graph of one backend (one GraphCache) shares one memory pool
+    assert seen["pool"] == "pool 1" and backend.capture(lambda: "out")[0] is not graph
+    assert seen["pool"] == "pool 1"
+    assert 'capture_error_mode="thread_local"' in cuda_graph.__doc__
+    # no cyclic collection inside the capture (a dead graph's reset there
+    # fails it), and the collector is back on after
+    assert seen["gc_in_capture"] is False and gc.isenabled()

@@ -169,8 +169,10 @@ def test_sync_paged_applies_copies_and_stamps_the_clamped_table():
     pool.cache.k[:, int(pool.table[0, 1])] = 7.0
     pool.refcount[int(pool.table[0, 1])] += 1  # a second holder: the next write must split
     pool.make_writable(0, 16, owner="a")
-    cache = tcache.sync_paged(pool, pool.cache, threading.Lock())
-    assert cache.table.shape == (2, 2) and torch.equal(cache.table, torch.from_numpy(pool.table[:, :2]))
+    cache, table = tcache.sync_paged(pool, pool.cache, threading.Lock())
+    assert table.shape == (2, 2) and torch.equal(table, torch.from_numpy(pool.table[:, :2]))
+    pool.table[0, 0] = 99  # a snapshot: the host mirror moves on without it
+    assert int(table[0, 0]) != 99
     assert bool((cache.k[:, int(pool.table[0, 1])] == 7.0).all())
 
 
@@ -291,7 +293,11 @@ def test_forward_cached_paged_prefill_then_cobatched_decode(tiny_params):
     """A bucket-padded prefill of three lanes at ragged real lengths, then 8
     co-batched decode steps with a write mask (lane 1 sits out the odd
     steps): logits atol 1e-4 against the JAX forward over the same pool
-    state, and a masked-out lane writes nothing."""
+    state, and a masked-out lane writes nothing outside the scratch block 0
+    (where the device write plan sends a write that must not commit). The
+    one row left out of the logits check is named: a masked-out row whose
+    position lies in a chain slot with no block attends block 0, where its
+    own dropped write lands (the reference drops it)."""
     jp, tp = tiny_params
     kw = dict(lanes=3, max_len=64, block_size=8)
     jpool = jcache.BlockPool(jcfg.TINY, jcfg.TINY.num_layers, **kw)
@@ -312,6 +318,7 @@ def test_forward_cached_paged_prefill_then_cobatched_decode(tiny_params):
         np.testing.assert_allclose(tl[lane, :n].numpy(), jl[lane, :n], rtol=0, atol=1e-4)
     lens = real.copy()
     tok = jl[np.arange(3), lens - 1].argmax(-1)
+    scratch_rows = []
     for step in range(8):
         active = np.array([True, step % 2 == 0, True])
         for lane in np.flatnonzero(active):
@@ -326,12 +333,102 @@ def test_forward_cached_paged_prefill_then_cobatched_decode(tiny_params):
         tl, tc = tq.forward_cached(tp, tcfg.TINY, _t(tok[:, None]).long(), None, tc, lens,
                                    real_end=lens + 1, write_mask=active)
         jl = np.asarray(jl)
-        np.testing.assert_allclose(tl.numpy(), jl, rtol=0, atol=1e-4)
-        # the pool changed at the active lanes' write slots, and only there
+        # rows whose position's chain slot maps no block read the scratch block
+        table = tc.table.numpy()
+        slot = lens // 8
+        scratch = np.array([slot[b] >= table.shape[1] or table[b, slot[b]] == 0
+                            for b in range(3)])
+        assert not (scratch & active).any()
+        scratch_rows += [(step, int(b)) for b in np.flatnonzero(scratch)]
+        np.testing.assert_allclose(tl.numpy()[~scratch], jl[~scratch], rtol=0, atol=1e-4)
+        # outside the scratch block, the pool changed at the active lanes'
+        # write slots, and only there; inside it, only at the offsets of
+        # rows that did not commit
         changed = (tc.k != before).any(dim=(0, 3, 4)).nonzero().tolist()  # [(block, offset)]
         want = sorted([int(tpool.table[b, lens[b] // 8]), int(lens[b] % 8)]
                       for b in np.flatnonzero(active))
-        assert sorted(changed) == want
+        assert sorted(c for c in changed if c[0] != 0) == want
+        assert {o for blk, o in changed if blk == 0} <= {int(lens[b] % 8)
+                                                         for b in np.flatnonzero(~active)}
         new_tok = jl[:, 0].argmax(-1)
         tok = np.where(active, new_tok, tok)
         lens = lens + active
+    # lane 1 sits out step 5 at position 8, the first slot of an unmapped block
+    assert scratch_rows == [(5, 1)]
+
+
+def test_paged_write_device_gives_the_reference_pools(tiny_params):
+    """One bucket-padded chunk of 8 rows on 3 lanes (blocks of 4) at ragged
+    write positions, with padding past real_end and lane 1 masked out,
+    through both packages' cached forward over the same pool state: every
+    block but the scratch block 0 ends as the reference's scatter left it
+    (f32, atol 1e-5), the reference's block 0 stays zero, and the device
+    plan sends exactly the committing rows to their chain slots and every
+    other row into block 0."""
+    jp, tp = tiny_params
+    kw = dict(lanes=3, max_len=32, block_size=4)
+    jpool = jcache.BlockPool(jcfg.TINY, jcfg.TINY.num_layers, **kw)
+    tpool = tcache.BlockPool(tcfg.TINY, tcfg.TINY.num_layers, **kw)
+    wp, real_end = np.array([0, 4, 2]), np.array([6, 12, 10])
+    mask = np.array([True, False, True])
+    for lane in range(3):
+        for p in (jpool, tpool):
+            p.ensure(lane, int(real_end[lane]), owner=f"lane {lane}")
+    jc = dataclasses.replace(jpool.cache, table=jpool.device_table())
+    tc = dataclasses.replace(tpool.cache, table=tpool.device_table())
+    toks = np.random.default_rng(2).integers(0, 256, (3, 8)).astype(np.int32)
+    pos = wp[:, None] + np.arange(8)[None, :]
+    _, jc = jq.forward_cached(jp, jcfg.TINY, jnp.asarray(toks), jnp.asarray(pos), jc,
+                              jnp.asarray(wp), real_end=jnp.asarray(real_end),
+                              write_mask=jnp.asarray(mask))
+    _, tc = tq.forward_cached(tp, tcfg.TINY, _t(toks).long(), None, tc, wp, real_end=real_end,
+                              write_mask=mask)
+    for name in ("k", "v"):
+        jb, tb = np.asarray(getattr(jc, name)), getattr(tc, name).numpy()
+        np.testing.assert_allclose(tb[:, 1:], jb[:, 1:], rtol=0, atol=1e-5)
+        assert not jb[:, 0].any()
+    dest = tq.paged_write_device(tc.table, 4, _t(wp), 8, _t(real_end), _t(mask)).numpy()
+    commit = (pos < real_end[:, None]) & mask[:, None]
+    table = tpool.table
+    want = table[np.arange(3)[:, None], pos // 4] * 4 + pos % 4
+    np.testing.assert_array_equal(dest[commit], want[commit])
+    assert (dest[~commit] < 4).all()  # the scratch block
+    assert (dest[commit] >= 4).all()
+
+
+def test_paged_write_past_the_table_raises_before_dispatch(tiny_params):
+    """A committing row past the table raises BufferError on the host before
+    any write: from forward_cached's check on a narrowed table, and on the
+    lane executor from admission (a step past max_len, a chain the pool
+    cannot extend), with no dispatch and the pools untouched."""
+    from inferd_tpu_torch.parallel.stages import StageSpec, extract_stage_params
+    from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor
+
+    _, tp = tiny_params
+    pool = tcache.BlockPool(tcfg.TINY, tcfg.TINY.num_layers, lanes=1, max_len=32, block_size=8)
+    pool.ensure(0, 16)
+    narrow = dataclasses.replace(pool.cache, table=pool.device_table(2))
+    before = narrow.k.clone()
+    with pytest.raises(BufferError, match="past the table"):
+        tq.forward_cached(tp, tcfg.TINY, torch.zeros((1, 4), dtype=torch.long), None, narrow,
+                          14, real_end=18)
+    assert torch.equal(narrow.k, before)
+    # padding past the table is not a write: only committing rows count
+    tq.forward_cached(tp, tcfg.TINY, torch.zeros((1, 4), dtype=torch.long), None, narrow, 14,
+                      real_end=16)
+
+    spec = StageSpec(0, 1, 0, tcfg.TINY.num_layers - 1)
+    ex = BatchedStageExecutor(tcfg.TINY, spec, extract_stage_params(tp, tcfg.TINY, spec),
+                              lanes=2, max_len=32, block_size=8, kv_blocks=6)
+    ex.process("a", {"tokens": [list(range(1, 32))], "start_pos": 0, "real_len": 31})
+    ex.process("a", {"tokens": [[5]], "start_pos": 31, "real_len": 1})
+    ex.process("b", {"tokens": [[1, 2, 3]], "start_pos": 0, "real_len": 3})
+    steps, k = ex.stats()["batched_steps"], ex.cache.k.clone()
+    with pytest.raises(BufferError, match="overflow"):
+        ex.process("a", {"tokens": [[5]], "start_pos": 32, "real_len": 1})
+    assert ex.stats()["batched_steps"] == steps and torch.equal(ex.cache.k, k)
+    ex.process("b", {"tokens": [list(range(5))], "start_pos": 3, "real_len": 5})  # 8: 1 block
+    k = ex.cache.k.clone()
+    with pytest.raises(BufferError, match="exhausted"):  # b's second block: none left
+        ex.process("b", {"tokens": [[5]], "start_pos": 8, "real_len": 1})
+    assert ex.stats()["batched_steps"] == steps and torch.equal(ex.cache.k, k)
