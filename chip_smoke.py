@@ -63,6 +63,28 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               teacher-forced, the kernel path stays near the plain
               attention path on the paged and on the dense lane layout, and
               planted paged-attention faults do not; TTFT and tok/s
+  serve_swarm the relay topology on the serve parts: run_node processes that
+              join by gossip (--gossip-port, --bootstrap): a stage-0 seed and
+              two stage-1 replicas A and B (one-session, graphed), driven by
+              the port's SwarmClient through the seed, which relays each chunk
+              to a replica it picks (session affinity, else min load) and
+              unwinds the logits. Checks: the serve prompts one after another
+              and then all at once, token-exact against the serve phase's
+              chain streams; each session's stage-1 passes on one replica,
+              both replicas serving the concurrent ones; flash_gqa routes
+              exact and every decode step a capture or replay on each node;
+              a stage-1 envelope posted to the seed is relayed and answered;
+              eight sessions grow to the top KV bucket and each node's idle
+              buffers stay within the pool's byte bound (/stats
+              executor.buffers beside the device memory reserved); replica B
+              killed with no tombstone: two new sessions complete on A,
+              token-exact, with one dead hop counted, and B's record leaves
+              the seed's view within the TTL; a relay-mode --stage-lanes pair
+              serves the serve_lanes traffic token-exact with split paged
+              launches; a 3-stage --backend counter swarm answers state 3,
+              trace [0, 1, 2]; the per-token latency of relay against chain
+              on the seed and A, in interleaved pairs of 8- and 32-token runs
+              (utils.profiling.paired_delta_stats)
   serve_quant_int8, serve_quant_int4
               the serve traffic on two run_node --quant int8 (then int4)
               processes: streams equal in-process quantized executors'; the
@@ -164,10 +186,11 @@ Run from the root of a checkout: python3 chip_smoke.py
 Exits non-zero without a CUDA device, and outside a checkout.
 `--only paged,lora` (any of flash, paged, qmm, lora, and on a fresh split
 serve, serve_quant, serve_lanes, serve_lanes_quant, serve_lanes_lora,
-generate, serve_kstep, anatomy, profile: serve_quant runs int8 and int4,
-serve_lanes_lora runs serve_lanes first, generate runs the generate and
-generate_quant phases) builds the kernels and runs those phases alone,
-with no result lines.
+serve_swarm, generate, serve_kstep, anatomy, profile: serve_quant runs int8
+and int4, serve_lanes_lora runs serve_lanes first, serve_swarm runs serve
+and serve_lanes first, generate runs the generate and generate_quant
+phases) builds the kernels and runs those phases alone, with no result
+lines.
 """
 
 from __future__ import annotations
@@ -1322,36 +1345,53 @@ def http_get_json(url: str, timeout: float = 10.0) -> Dict[str, Any]:
         conn.close()
 
 
-def start_node(parts: str, stage: int, log_dir: str, extra=(), tag: str = "") -> Dict[str, Any]:
+def free_udp_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_node(stage: int, log_name: str, args) -> Dict[str, Any]:
+    """One run_node process for `stage` on a free port, on DEVICE, its
+    gossip on an ephemeral UDP port unless `args` names one."""
     port = free_port()
-    log = open(os.path.join(log_dir, f"node{stage}{tag or '_'.join(extra)}.log"), "w")
+    log = open(log_name, "w")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "inferd_tpu_torch.tools.run_node", "--parts", parts,
-         "--stage", str(stage), "--port", str(port), "--device", DEVICE,
-         "--max-len", str(MAX_LEN), *extra],
+        [sys.executable, "-m", "inferd_tpu_torch.tools.run_node", "--stage", str(stage),
+         "--port", str(port), "--device", DEVICE, "--gossip-port", "0", *args],
         cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
     )
     return {"proc": proc, "port": port, "log": log, "stage": stage}
+
+
+def start_node(parts: str, stage: int, log_dir: str, extra=(), tag: str = "") -> Dict[str, Any]:
+    return launch_node(stage, os.path.join(log_dir, f"node{stage}{tag or '_'.join(extra)}.log"),
+                       ["--parts", parts, "--max-len", str(MAX_LEN), *extra])
 
 
 # node processes started ahead of their phase: (parts, extra, tag) -> nodes
 _PRESTARTED: Dict[tuple, List[Dict[str, Any]]] = {}
 
 
-def prestart_nodes(parts: str, work: str, specs) -> None:
-    """Start the two stage processes of each (extra, tag) in `specs` now,
-    all at once, and wait until every one answers: its phase then takes
-    them fresh and idle (start_nodes) instead of waiting ~8 s for its own,
-    and no process is still starting while a phase measures."""
+def prestart_nodes(parts: str, work: str, specs, swarms=()) -> None:
+    """Start the two stage processes of each (extra, tag) in `specs`, and
+    the swarms that `swarm_nodes` describes for each (parts, tag) in
+    `swarms`, now, all at once, and wait until every one answers: its
+    phase then takes them fresh and idle (start_nodes, take_swarm) instead
+    of waiting ~8 s for its own, and no process is still starting while a
+    phase measures."""
     t0 = time.perf_counter()
     for extra, tag in specs:
         _PRESTARTED[(parts, tuple(extra), tag)] = [start_node(parts, s, work, extra, tag)
                                                    for s in range(2)]
+    for swarm_parts, tag in swarms:
+        _PRESTARTED[("swarm", tag)] = swarm_nodes(swarm_parts, work, tag)
     for nodes in _PRESTARTED.values():
         for n in nodes:
             wait_ready(n)
-    say("nodes", f"{2 * len(specs)} run_node processes of {len(specs)} phases started at once, "
-                 f"ready in {time.perf_counter() - t0:.1f}s")
+    count = sum(len(v) for v in _PRESTARTED.values())
+    say("nodes", f"{count} run_node processes of {len(specs) + len(swarms)} node sets started "
+                 f"at once, ready in {time.perf_counter() - t0:.1f}s")
 
 
 def start_nodes(parts: str, work: str, extra=(), tag: str = "") -> List[Dict[str, Any]]:
@@ -1360,6 +1400,12 @@ def start_nodes(parts: str, work: str, extra=(), tag: str = "") -> List[Dict[str
     nodes = _PRESTARTED.pop((parts, tuple(extra), tag), None)
     return nodes if nodes is not None else [start_node(parts, s, work, extra, tag)
                                             for s in range(2)]
+
+
+def take_swarm(parts: str, work: str, tag: str) -> List[Dict[str, Any]]:
+    """The swarm `tag`: the processes prestart_nodes started, else new ones."""
+    nodes = _PRESTARTED.pop(("swarm", tag), None)
+    return nodes if nodes is not None else swarm_nodes(parts, work, tag)
 
 
 def stop_prestarted() -> None:
@@ -1581,9 +1627,12 @@ def stage_step_share(phase: str, card: str, loaded, prompt) -> Dict[str, Any]:
                                  lambda ex=ex: ex.process("share", step), 1)
         out[name]["graphs"] = ex.stats()["graphs"]
         if graphed:
-            out["capture"] = capture_cost(phase, card, ex, prompt)
+            out["capture"] = capture_cost(phase, card, ex, prompt, n=CAPTURE_SESSIONS)
         del ex
     return out
+
+
+CAPTURE_SESSIONS = 8  # capture_cost's new sessions, a graph each
 
 
 def capture_cost(phase: str, card: str, ex, prompt, n: int = 3) -> Dict[str, Any]:
@@ -1594,9 +1643,15 @@ def capture_cost(phase: str, card: str, ex, prompt, n: int = 3) -> Dict[str, Any
     the same kv bound), and the device memory the n captures leave
     allocated (torch.cuda.memory_allocated: the graphs' static buffers and
     what their warm-ups keep; memory_reserved also moves with the
-    allocator's cache, so it does not count a graph)."""
+    allocator's cache, so it does not count a graph) and the host memory
+    this process grew by (its resident set: the instantiated graphs, and
+    whatever else the steps left on the host)."""
     import numpy as np
     import torch
+
+    def rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
 
     sids = [f"capture{i}" for i in range(n)]
     for sid in sids:
@@ -1604,6 +1659,7 @@ def capture_cost(phase: str, card: str, ex, prompt, n: int = 3) -> Dict[str, Any
                          "real_len": len(prompt)})
     torch.cuda.synchronize()
     allocated0, captures0 = torch.cuda.memory_allocated(), ex.stats()["graphs"]["captures"]
+    rss0 = rss()
     first, second = [], []
     for sid in sids:
         for times, pos in ((first, len(prompt)), (second, len(prompt) + 1)):
@@ -1612,15 +1668,19 @@ def capture_cost(phase: str, card: str, ex, prompt, n: int = 3) -> Dict[str, Any
             times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     mib = (torch.cuda.memory_allocated() - allocated0) / n / 2**20
+    host_mib = (rss() - rss0) / n / 2**20
     captures = ex.stats()["graphs"]["captures"] - captures0
     for sid in sids:
         ex.end_session(sid)
     out = {"capture_ms": statistics.median(first), "replay_ms": statistics.median(second),
-           "allocated_mib_per_graph": mib, "sessions": n}
+           "allocated_mib_per_graph": mib, "host_mib_per_graph": host_mib, "sessions": n,
+           "max_graphs": ex.graphs.max_graphs}
     say(phase, f"a token-step graph of stage 0 ({n} sessions live at once, each its own "
                f"buffer): first step (warm-up + capture) {out['capture_ms']:.2f} ms, second "
                f"(a replay) {out['replay_ms']:.2f} ms on the host clock (medians); "
-               f"{mib:.3f} MiB of device memory left allocated per capture ({card})")
+               f"{mib:.3f} MiB of device memory left allocated per capture, the process's "
+               f"resident host memory {host_mib:.3f} MiB more per capture (x max_graphs "
+               f"{ex.graphs.max_graphs}: {host_mib * ex.graphs.max_graphs:.0f} MiB) ({card})")
     if captures != n:
         raise AssertionError(f"{phase}: {captures} captures for {n} new buffers")
     return out
@@ -2750,6 +2810,375 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
         stop_nodes(nodes)
 
 
+# -- serve_swarm: the relay topology -------------------------------------------------
+
+SWARM_TTL_S = 15.0  # a gossip record's liveness TTL (run_node's default)
+SWARM_GROW_SESSIONS = 8  # sessions at once that grow into the top bucket
+SWARM_GROW_PROMPT = 2100  # tokens: past 2048, so every buffer reaches bucket_len(MAX_LEN)
+SWARM_TIMING_PROMPT = 100
+SWARM_TIMING_STEPS = (8, 32)  # relay against chain: new tokens of the short and long runs
+SWARM_TIMING_PAIRS = 3
+
+
+def swarm_nodes(parts: Optional[str], work: str, tag: str) -> List[Dict[str, Any]]:
+    """The node processes of one serve_swarm swarm, started now: the first,
+    a stage-0 node, is the gossip seed on a UDP port chosen here; the others
+    bootstrap to it on ephemeral ports. `swarm`: three one-session nodes
+    (stage 0, and stage 1 twice: replicas A and B); `swarm_lanes`: a lane
+    pair (LANE_NODE_ARGS); `swarm_counter`: three counter stages."""
+    seed_port = free_udp_port()
+    if tag == "swarm_counter":
+        common, stages = ["--backend", "counter", "--num-stages", "3"], [0, 1, 2]
+    else:
+        common = ["--parts", parts, "--max-len", str(MAX_LEN)]
+        common += LANE_NODE_ARGS if tag == "swarm_lanes" else []
+        stages = [0, 1] if tag == "swarm_lanes" else [0, 1, 1]
+    nodes = []
+    for i, stage in enumerate(stages):
+        gossip = (["--gossip-port", str(seed_port)] if i == 0
+                  else ["--bootstrap", f"127.0.0.1:{seed_port}"])
+        nodes.append(launch_node(stage, os.path.join(work, f"{tag}{i}.log"), common + gossip))
+    return nodes
+
+
+def wait_gossip(phase: str, nodes: List[Dict[str, Any]], timeout_s: float = 30.0) -> float:
+    """Wait until every node's /stats gossip view holds every node's record;
+    returns the seconds it took."""
+    t0 = time.perf_counter()
+    views: List[Any] = []
+    while time.perf_counter() - t0 < timeout_s:
+        views = [http_get_json(f"http://127.0.0.1:{n['port']}/stats")["dht"] for n in nodes]
+        if all(sum(len(v) for v in view.values()) == len(nodes) for view in views):
+            return time.perf_counter() - t0
+        time.sleep(0.1)
+    raise TimeoutError(f"{phase}: gossip views {views} after {timeout_s}s")
+
+
+def whole_sessions(count: int, per: List[int]) -> Optional[int]:
+    """How many sessions of `per` passes each make up `count` passes (a
+    subset's size; None when no subset sums to it)."""
+    for mask in range(1 << len(per)):
+        if sum(c for i, c in enumerate(per) if mask >> i & 1) == count:
+            return bin(mask).count("1")
+    return None
+
+
+def post_wire(port: int, path: str, body: Dict[str, Any]):
+    """(status, unpacked reply) of one wire POST to a local node."""
+    from inferd_tpu_torch.client.base import http_post
+    from inferd_tpu_torch.runtime import wire
+
+    status, raw = http_post(f"http://127.0.0.1:{port}{path}", wire.pack(body), 300.0)
+    return status, wire.unpack(raw)
+
+
+def run_serve_swarm(card: str, parts: str, work: str, serve, lanes) -> Dict[str, Any]:
+    """The `serve_swarm` phase: the relay topology (SwarmClient -> stage 0
+    -> a stage-1 replica picked from gossip -> the logits unwinding back),
+    held token-exact to the `serve` and `serve_lanes` phases' chain streams
+    on the same parts."""
+    import threading
+
+    import numpy as np
+
+    from inferd_tpu_torch.client.chain_client import ChainClient
+    from inferd_tpu_torch.client.swarm_client import SwarmClient
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.core.cache import kv_slot_bytes
+    from inferd_tpu_torch.core.generate import bucket_len
+    from inferd_tpu_torch.utils.profiling import paired_delta_stats
+
+    phase = "serve_swarm"
+    cfg = get_config(MODEL)
+    greedy = SamplingConfig(temperature=0.0)
+    prompts = serve_prompts(cfg.vocab_size)
+    one: List[Dict[str, Any]] = []
+    lane: List[Dict[str, Any]] = []
+    counter: List[Dict[str, Any]] = []
+
+    def url(n):
+        return ("127.0.0.1", n["port"])
+
+    def node_id(n):
+        return f"127.0.0.1:{n['port']}"
+
+    def stats(nodes):
+        return [http_get_json(f"http://127.0.0.1:{n['port']}/stats") for n in nodes]
+
+    def run(client, ps, concurrent=False, new=NEW_TOKENS, stamps=None):
+        async def go():
+            async with client as c:
+                async def one_(p):
+                    marks: List[float] = []
+                    t_req = time.perf_counter()
+                    ids = await c.generate_ids(
+                        p, max_new_tokens=new,
+                        on_token=lambda _t: marks.append(time.perf_counter()))
+                    if stamps is not None:
+                        stamps.append((t_req, marks))
+                    return ids
+
+                if concurrent:
+                    return await asyncio.gather(*(one_(p) for p in ps))
+                return [await one_(p) for p in ps]
+
+        return asyncio.run(go())
+
+    def swarm_client(nodes):
+        return SwarmClient([url(nodes[0])], sampling=greedy, prefill_chunk=512)
+
+    try:
+        one = take_swarm(parts, work, "swarm")
+        lane = take_swarm(parts, work, "swarm_lanes")
+        counter = take_swarm(parts, work, "swarm_counter")
+        t0 = time.perf_counter()
+        for n in one + lane + counter:
+            wait_ready(n)
+        converged = [wait_gossip(phase, nodes) for nodes in (one, lane, counter)]
+        say(phase, f"{len(one) + len(lane) + len(counter)} run_node --device {DEVICE} processes "
+                   f"in three swarms (one-session: stage 0 seed + stage-1 replicas A, B; "
+                   f"lanes: {' '.join(LANE_NODE_ARGS)}; counter: 3 stages) ready in "
+                   f"{time.perf_counter() - t0:.1f}s; every gossip view full after "
+                   f"{', '.join(f'{c:.2f}' for c in converged)} s")
+        for st in stats(one + lane + counter):  # fresh processes: every count starts at 0
+            if any(k["launches"] for k in st["kernels"].values()) or st["forward_passes"]:
+                raise AssertionError(f"{phase}: a node did work before the main path: {st}")
+        seed, rep_a, rep_b = one
+        layers = cfg.num_layers // 2
+
+        # sequential, then the four at once: token-exact against serve's chain
+        stamps: List[Any] = []
+        sequential = run(swarm_client(one), prompts, stamps=stamps)
+        seq = stats(one)
+        concurrent = run(swarm_client(one), prompts, concurrent=True)
+        conc = stats(one)
+        for name, got in (("sequential", sequential), ("concurrent", concurrent)):
+            for p, a_, b_ in zip(prompts, got, serve["streams"]):
+                if a_ != b_:
+                    raise AssertionError(f"{phase}: {name} relay stream of prompt {len(p)} != "
+                                         f"the serve phase's chain stream from token "
+                                         f"{first_divergence(a_, b_)}")
+        for i, (p, (t_req, marks)) in enumerate(zip(prompts, stamps)):
+            ttft = (marks[0] - t_req) * 1e3
+            tps = (len(marks) - 1) / (marks[-1] - marks[0])
+            b_ttft, b_tps = serve["rates"][i]
+            say(phase, f"prompt {len(p)} tokens through the relay: TTFT {ttft:.1f} ms, decode "
+                       f"{tps:.1f} tok/s ({card}); the serve phase's chain in this run: TTFT "
+                       f"{b_ttft:.1f} ms, {b_tps:.1f} tok/s")
+        # a session's passes on each stage: its 512-token chunks, then a step per token
+        per = [-(-len(p) // 512) + NEW_TOKENS - 1 for p in prompts]
+        seq_served = [seq[i]["forward_passes"] for i in (1, 2)]
+        conc_served = [conc[i]["forward_passes"] - seq[i]["forward_passes"] for i in (1, 2)]
+        whole = [[whole_sessions(c, per) for c in served]
+                 for served in (seq_served, conc_served)]
+        say(phase, f"stage-1 forward passes, replicas A / B: sequential {seq_served}, "
+                   f"concurrent {conc_served} (sessions of {per} passes: {whole}); seed "
+                   f"relays {conc[0]['relays']}, affinity entries {conc[0]['affinity']}")
+        if (None in whole[0] + whole[1] or sum(whole[0]) != len(prompts)
+                or sum(whole[1]) != len(prompts) or not all(conc_served)):
+            raise AssertionError(f"{phase}: sessions on A / B: sequential {seq_served}, "
+                                 f"concurrent {conc_served} passes: want whole sessions "
+                                 f"({per} passes) on each replica, and both serving when "
+                                 "the sessions run at once")
+        sessions = [2 * len(prompts), whole[0][0] + whole[1][0], whole[0][1] + whole[1][1]]
+        node_graphs = []
+        for st, n_sessions in zip(conc, sessions):
+            passes = st["forward_passes"]
+            decode = n_sessions * (NEW_TOKENS - 1)
+            routes = flash_routes(st)
+            want = {"split": layers * decode, "mma": layers * (passes - decode)}
+            say(phase, f"node stage {st['stage']} ({st['node_id']}): {passes} passes, flash_gqa "
+                       f"routes {routes} (want {want}: {routes == want})")
+            if routes != want or st["errors"]:
+                raise AssertionError(f"{phase}: {st['node_id']}: routes {routes}, want {want}, "
+                                     f"{st['errors']} errors")
+            node_graphs.append(check_node_graphs(phase, st, decode))
+
+        # a stage-1 envelope entering at the stage-0 node is relayed there
+        sid = "swarm-mismatch"
+        tokens = np.asarray([prompts[0]], np.int32)
+        status, body = post_wire(seed["port"], "/forward", {
+            "session_id": sid, "stage": 0, "relay": False,
+            "payload": {"tokens": tokens, "start_pos": 0, "real_len": tokens.shape[1]}})
+        if status != 200:
+            raise AssertionError(f"{phase}: chain-mode stage 0: HTTP {status}: {body}")
+        status, body = post_wire(seed["port"], "/forward",
+                                 {"session_id": sid, "stage": 1, "payload": body["result"]})
+        logits = np.asarray(body["result_for_user"]["logits"]) if status == 200 else None
+        if (logits is None or logits.shape != (1, cfg.vocab_size)
+                or not np.isfinite(logits).all()
+                or int(np.argmax(logits[0])) != serve["streams"][0][0]
+                or body["served_by"] not in (node_id(rep_a), node_id(rep_b))):
+            raise AssertionError(f"{phase}: a stage-1 envelope at the stage-0 node: HTTP "
+                                 f"{status}, {body if logits is None else body['served_by']}")
+        post_wire(seed["port"], "/end_session", {"session_id": sid, "stage": 0})
+        say(phase, f"a stage-1 envelope posted to the stage-0 node was relayed to "
+                   f"{body['served_by']}: logits [1, {cfg.vocab_size}], finite, argmax = the "
+                   "serve stream's first token")
+
+        # the pool's idle buffers stay bounded while sessions grow to the top bucket
+        rng = np.random.default_rng(3)
+        grow = [rng.integers(0, cfg.vocab_size, SWARM_GROW_PROMPT).tolist()
+                for _ in range(SWARM_GROW_SESSIONS)]
+        pre = stats(one)
+        run(swarm_client(one), grow, concurrent=True, new=2)
+        post = stats(one)
+        slot = kv_slot_bytes(cfg, layers)
+        buckets, b = [], bucket_len(512)
+        while b <= bucket_len(SWARM_GROW_PROMPT):
+            buckets.append(b)
+            b *= 2
+        passes_per = -(-SWARM_GROW_PROMPT // 512) + 1  # prefill chunks, one decode step
+        for a_, b_ in zip(pre, post):
+            buf = b_["executor"]["buffers"]
+            mem = {k: b_["memory"].get(k, 0) for k in ("allocated", "reserved")}
+            sessions = (b_["forward_passes"] - a_["forward_passes"]) // passes_per
+            per_shape = sessions * sum(buckets) * slot  # what a bound per shape keeps idle
+            say(phase, f"node stage {b_['stage']} ({b_['node_id']}) after {sessions} sessions "
+                       f"grew to {buckets[-1]} slots: buffers {buf}; idle "
+                       f"{buf['free_bytes'] / 2**30:.3f} GiB of a "
+                       f"{buf['max_free_bytes'] / 2**30:.3f} GiB bound (a bound per shape "
+                       f"would keep {per_shape / 2**30:.3f} GiB idle); device memory "
+                       f"allocated {mem['allocated'] / 2**30:.3f} GiB, reserved "
+                       f"{mem['reserved'] / 2**30:.3f} GiB (before the growth "
+                       f"{a_['memory'].get('reserved', 0) / 2**30:.3f}) ({card})")
+            if buf["free_bytes"] > buf["max_free_bytes"] or (sessions and not buf["released"]):
+                raise AssertionError(f"{phase}: {b_['node_id']}: buffers {buf} after {sessions} "
+                                     "sessions grew")
+
+        # planted fault: replica B dies with no tombstone, once the seed's view
+        # has both replicas idle (a load frozen in B's last record would steer
+        # new sessions away from it, and no hop would meet the dead peer)
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline:
+            view = stats([seed])[0]["dht"]["1"]
+            if all(view.get(node_id(n), {}).get("load") == 0 for n in (rep_a, rep_b)):
+                break
+            time.sleep(0.1)
+        b_stats = stats([rep_b])[0]
+        rep_b["proc"].kill()
+        rep_b["proc"].wait(timeout=30)
+        t_kill = time.monotonic()
+        expired: List[float] = []
+
+        def watch():
+            while time.monotonic() - t_kill < SWARM_TTL_S + 10:
+                view = http_get_json(f"http://127.0.0.1:{seed['port']}/stats")["dht"]
+                if node_id(rep_b) not in view.get("1", {}):
+                    expired.append(time.monotonic() - t_kill)
+                    return
+                time.sleep(0.25)
+
+        after_kill = run(swarm_client(one), prompts[:2], concurrent=True)
+        if after_kill != serve["streams"][:2]:
+            raise AssertionError(f"{phase}: new sessions after replica B died differ from "
+                                 "the serve streams")
+        st0 = stats([seed])[0]
+        b_listed = node_id(rep_b) in st0["dht"]["1"]
+        if st0["dead_hops"] != 1 or not b_listed:
+            raise AssertionError(f"{phase}: after B died: dead hops {st0['dead_hops']} (want "
+                                 f"1), B's record in the seed's view: {b_listed}")
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        say(phase, f"replica B killed (no tombstone): two new sessions at once completed on A, "
+                   f"token-exact; the seed counted {st0['dead_hops']} dead hop")
+
+        # the lane pair, relaying: serve_lanes' traffic
+        lane_streams = run(swarm_client(lane), lanes["prompts"], concurrent=True)
+        for p, a_, b_ in zip(lanes["prompts"], lane_streams, lanes["streams"]):
+            if a_ != b_:
+                raise AssertionError(f"{phase}: lane relay stream of prompt {len(p)} != "
+                                     f"serve_lanes' from token {first_divergence(a_, b_)}")
+        lane_split = 0
+        for st in stats(lane):
+            ex = st["executor"]
+            split, want_split = paged_splits(phase, st, cfg)
+            lane_split += split
+            node_graphs.append(check_node_graphs(phase, st, ex["batched_steps"]))
+            paged = st["kernels"]["paged_decode_gqa"]["launches"]
+            if split != want_split or st["errors"] or paged != layers * ex["batched_steps"]:
+                raise AssertionError(f"{phase}: lane node {st['node_id']}: paged launches "
+                                     f"{paged}, {ex['batched_steps']} dispatches, split {split} "
+                                     f"(want {want_split}), {st['errors']} errors")
+        if not lane_split:
+            raise AssertionError(f"{phase}: the lane pair launched no split paged_decode_gqa")
+        say(phase, f"relay-mode lane pair: {len(lanes['prompts'])} concurrent sessions equal "
+                   f"serve_lanes' streams; paged split launches {lane_split}")
+
+        # the counter swarm: three stages, entered right and wrong
+        for entry in (counter[0], counter[2]):
+            status, body = post_wire(entry["port"], "/forward",
+                                     {"session_id": "count", "stage": 0, "payload": {}})
+            r = body.get("result_for_user", {}) if status == 200 else {}
+            if r.get("state") != 3 or r.get("trace") != [0, 1, 2]:
+                raise AssertionError(f"{phase}: counter swarm via stage {entry['stage']}: "
+                                     f"HTTP {status} {body}")
+        say(phase, "counter swarm: state 3, trace [0, 1, 2], entered at stage 0 and at stage 2")
+
+        watcher.join(timeout=SWARM_TTL_S + 15)
+        if not expired or expired[0] > SWARM_TTL_S + 3.0:
+            raise AssertionError(f"{phase}: B's record left the seed's view after "
+                                 f"{expired or 'never'} s (TTL {SWARM_TTL_S})")
+        say(phase, f"B's record left the seed's view {expired[0]:.1f} s after the kill "
+                   f"(TTL {SWARM_TTL_S})")
+
+        # per-token latency, relay against chain, on the same two nodes
+        view = stats([seed])[0]["dht"]["1"]
+        if set(view) != {node_id(rep_a)}:
+            raise AssertionError(f"{phase}: stage 1 of the seed's view {sorted(view)}, want A")
+        prompt = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                                   SWARM_TIMING_PROMPT).tolist()
+        arms = {"relay": lambda: swarm_client(one),
+                "chain": lambda: ChainClient([url(seed), url(rep_a)], sampling=greedy,
+                                             prefill_chunk=512)}
+        short, long_ = SWARM_TIMING_STEPS
+        outs = {name: run(make(), [prompt], new=long_)[0] for name, make in arms.items()}
+        if outs["relay"] != outs["chain"]:
+            raise AssertionError(f"{phase}: relay and chain streams differ on the timing prompt")
+        times: Dict[str, Any] = {name: ([], []) for name in arms}
+        for i in range(SWARM_TIMING_PAIRS):
+            for name in (list(arms) if i % 2 == 0 else list(reversed(arms))):
+                for n in ((short, long_) if i % 2 == 0 else (long_, short)):
+                    t0 = time.perf_counter()
+                    run(arms[name](), [prompt], new=n)
+                    times[name][0 if n == short else 1].append(time.perf_counter() - t0)
+        timing: Dict[str, Any] = {}
+        for name, (ts, tl) in times.items():
+            per, n_valid, spread, _ = paired_delta_stats(ts, tl, short, long_)
+            timing[name] = {"ms_per_token": per * 1e3, "valid_pairs": n_valid,
+                            "spread_pt": spread}
+        ratio = timing["relay"]["ms_per_token"] / timing["chain"]["ms_per_token"]
+        timing["relay_over_chain"] = ratio
+        say(phase, f"per-token latency on the same two nodes (stage 0 + replica A), "
+                   f"{SWARM_TIMING_PAIRS} interleaved pairs of {short}- and {long_}-token runs "
+                   f"each: relay {timing['relay']['ms_per_token']:.3f} ms/token "
+                   f"({timing['relay']['valid_pairs']} valid, spread "
+                   f"{timing['relay']['spread_pt']}%), chain "
+                   f"{timing['chain']['ms_per_token']:.3f} ms/token "
+                   f"({timing['chain']['valid_pairs']} valid, spread "
+                   f"{timing['chain']['spread_pt']}%): relay / chain {ratio:.3f} ({card})")
+
+        final = stats(one[:2] + lane + counter) + [b_stats]
+        launches = dict.fromkeys(final[0]["kernels"], 0)
+        routes = {"split": 0, "mma": 0}
+        for st in final:
+            for name, k in st["kernels"].items():
+                launches[name] += k["launches"]
+            for r, v in flash_routes(st).items():
+                routes[r] += v
+        stop_nodes(one + lane + counter)
+        one, lane, counter = [], [], []
+        return {"launches": launches, "flash_routes": routes, "paged_split": lane_split,
+                "gemv_routes": {name: {"mma": 0, "simt": 0} for name in QMM_KERNEL_OF.values()},
+                "graphs": node_graphs, "timing": timing, "b_expired_s": expired[0]}
+    except BaseException:
+        stop_nodes(one + lane + counter, show_logs=True)
+        one, lane, counter = [], [], []
+        raise
+    finally:
+        stop_nodes(one + lane + counter)
+
+
 # -- generate, generate_quant, serve_kstep, cli: the whole model in one process --
 
 GEN_CHUNK = 8  # fused decode steps per host read in the chunked runs (generate(chunk=8))
@@ -3607,9 +4036,10 @@ def ptxas_report(log: str) -> List[str]:
 CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_qmm_cases,
                "lora": run_lora_cases}
 # --only phases that need the model's split (serve_quant runs int8 and int4;
-# serve_lanes_lora runs serve_lanes first, its baseline)
+# serve_lanes_lora runs serve_lanes first, its baseline; serve_swarm runs
+# serve and serve_lanes first, the streams it is held to)
 SPLIT_PHASES = ("serve", "serve_quant", "serve_lanes", "serve_lanes_quant", "serve_lanes_lora",
-                "generate", "serve_kstep", "anatomy", "profile")
+                "serve_swarm", "generate", "serve_kstep", "anatomy", "profile")
 
 
 def main(argv: List[str]) -> int:
@@ -3664,14 +4094,17 @@ def main(argv: List[str]) -> int:
             work = tempfile.mkdtemp(prefix="chip_smoke_")
             try:
                 parts = split_parts(work)
-                if "serve" in split_only:
-                    run_serve(card, parts, work)
+                serve = None
+                if "serve" in split_only or "serve_swarm" in split_only:
+                    serve = run_serve(card, parts, work)
                 if "serve_quant" in split_only:
                     for q in ("int8", "int4"):
                         run_serve(card, parts, work, quant_flag=q)
                 lanes = None
-                if "serve_lanes" in split_only or "serve_lanes_lora" in split_only:
+                if {"serve_lanes", "serve_lanes_lora", "serve_swarm"} & set(split_only):
                     lanes = run_serve_lanes(card, parts, work)
+                if "serve_swarm" in split_only:
+                    run_serve_swarm(card, parts, work, serve, lanes)
                 if "serve_lanes_quant" in split_only:
                     run_serve_lanes(card, parts, work, quant_flag="int8", baseline=lanes)
                 if "serve_lanes_lora" in split_only:
@@ -3709,7 +4142,8 @@ def main(argv: List[str]) -> int:
         parts = split_parts(work)
         prestart_nodes(parts, work, [
             ([], ""), (["--quant", "int8"], ""), (["--quant", "int4"], ""), (LANE_NODE_ARGS, ""),
-            (LANE_NODE_ARGS + ["--quant", "int8"], ""), (profile_node_args(work), "_profile")])
+            (LANE_NODE_ARGS + ["--quant", "int8"], ""), (profile_node_args(work), "_profile")],
+            swarms=[(parts, "swarm"), (parts, "swarm_lanes"), (None, "swarm_counter")])
         lap("split, node start")
         serve = run_serve(card, parts, work)
         lap("serve")
@@ -3718,6 +4152,8 @@ def main(argv: List[str]) -> int:
         lap("serve_quant_int8, serve_quant_int4")
         lanes = run_serve_lanes(card, parts, work)
         lap("serve_lanes")
+        swarm = run_serve_swarm(card, parts, work, serve, lanes)
+        lap("serve_swarm")
         lanes_q = run_serve_lanes(card, parts, work, quant_flag="int8", baseline=lanes)
         lap("serve_lanes_quant")
         lanes_lora = run_serve_lanes_lora(card, parts, work, baseline=lanes)
@@ -3740,7 +4176,7 @@ def main(argv: List[str]) -> int:
         stop_prestarted()
         shutil.rmtree(work, ignore_errors=True)
     paths = {"serve": serve, "serve_quant_int8": serve_q["int8"],
-             "serve_quant_int4": serve_q["int4"], "serve_lanes": lanes,
+             "serve_quant_int4": serve_q["int4"], "serve_lanes": lanes, "serve_swarm": swarm,
              "serve_lanes_quant": lanes_q, "serve_lanes_lora": lanes_lora,
              "generate": gen, "generate_quant": gen_q, "serve_kstep": kstep,
              "anatomy": anat, "profile": prof}

@@ -102,33 +102,42 @@ def grow(cache: KVCache, into: KVCache) -> KVCache:
     return into
 
 
+def kv_slot_bytes(cfg: ModelConfig, num_layers: int) -> int:
+    """Bytes of one dense KV slot of one row: K and V, every layer."""
+    return 2 * num_layers * cfg.num_kv_heads * cfg.head_dim * cfg.kv_torch_dtype.itemsize
+
+
 class BufferPool:
-    """Dense KV buffers kept for reuse: a free list per (batch, max_len).
+    """Dense KV buffers kept for reuse: a free list per (batch, max_len),
+    their bytes bounded in total.
 
     The one-session executor takes a session's buffer here and gives it back
     when the session ends, is swept or evicted, or grows into the next
     bucket; the next session of that bucket reuses it, and with it the CUDA
     graphs captured over its address (the JAX executor's donated cache has
     the same effect). A returned buffer keeps its old values: slots past a
-    session's fill are never attended. At most `max_free` buffers wait per
-    shape (the executor passes its max_sessions, so a wave of sessions that
-    end together all wait for the next wave, and the buffers of a shape
-    never outnumber the sessions that were live at once); one past that is
-    released, and `on_free(cache)` is called first so that whatever reads
-    it by address (its graphs) goes with it."""
+    session's fill are never attended. The idle buffers of every shape
+    together hold at most `max_free_bytes` (the executor passes max_sessions
+    buffers of its smallest bucket: what a wave of sessions that end
+    together needs to start again). A give past that releases idle buffers,
+    the largest first (every session starts in the smallest bucket, so
+    those are reused most and keep the most buffers within the bound), of
+    one shape the one given last first; `on_free(cache)` is called for each
+    so that whatever reads it by address (its graphs) goes with it."""
 
-    def __init__(self, cfg: ModelConfig, num_layers: int, device, max_free: int,
+    def __init__(self, cfg: ModelConfig, num_layers: int, device, max_free_bytes: int,
                  on_free=None):
-        if max_free < 0:
-            raise ValueError(f"max_free must be >= 0, got {max_free}")
+        if max_free_bytes < 0:
+            raise ValueError(f"max_free_bytes must be >= 0, got {max_free_bytes}")
         self.cfg, self.num_layers, self.device = cfg, num_layers, device
-        self.max_free = max_free
+        self.max_free_bytes = max_free_bytes
         self.on_free = on_free
         self._free: Dict[Tuple[int, int], List[KVCache]] = {}
         self._lock = threading.Lock()
         self.allocated = 0  # buffers made
         self.reused = 0  # takes served from a free list
-        self.released = 0  # buffers given back past max_free, and freed
+        self.released = 0  # buffers given back past the bound, and freed
+        self.free_bytes = 0  # bytes of the idle buffers
 
     def take(self, batch: int, max_len: int) -> KVCache:
         """A buffer of this shape with length 0: a free one, else a new one."""
@@ -137,6 +146,7 @@ class BufferPool:
             if free:
                 self.reused += 1
                 cache = free.pop()
+                self.free_bytes -= cache.nbytes
                 cache.length = 0
                 return cache
             self.allocated += 1
@@ -148,18 +158,25 @@ class BufferPool:
             free = self._free.setdefault((cache.batch, cache.max_len), [])
             if any(c is cache for c in free):
                 raise ValueError("BufferPool.give: the buffer is already free")
-            if len(free) < self.max_free:
-                free.append(cache)
-                return
-            self.released += 1
+            free.append(cache)
+            self.free_bytes += cache.nbytes
+            gone = []
+            for shape in sorted(self._free, key=lambda s: s[0] * s[1], reverse=True):
+                free = self._free[shape]
+                while free and self.free_bytes > self.max_free_bytes:
+                    gone.append(free.pop())
+                    self.free_bytes -= gone[-1].nbytes
+            self.released += len(gone)
         if self.on_free is not None:
-            self.on_free(cache)
+            for c in gone:
+                self.on_free(c)
 
     def stats(self) -> Dict[str, int]:
         with self._lock:
             return {"allocated": self.allocated, "reused": self.reused,
                     "released": self.released,
-                    "free": sum(len(v) for v in self._free.values())}
+                    "free": sum(len(v) for v in self._free.values()),
+                    "free_bytes": self.free_bytes, "max_free_bytes": self.max_free_bytes}
 
 
 def host_staged(a, device) -> torch.Tensor:

@@ -33,17 +33,21 @@ and every `decode_steps` window replays a captured CUDA graph
 session buffers come from a BufferPool and go back to it when a session
 ends, is evicted or swept, or grows, so the next session of the bucket
 replays the same graphs; a buffer the pool frees takes its graphs with it.
-The pool keeps up to max_sessions buffers per shape and the graph cache
-holds max_sessions x token_graphs_per_slot graphs, every (buffer, kv
-bound) pair the pool's buffers can key, so the captures grow with the
-sessions live at once, never with the sessions served, and no token
-step's graph is evicted while its buffer lives (`decode_steps` windows
-share the cache's LRU). With `graphs` set to None the same steps run
+The pool's idle buffers hold at most max_sessions buffers of the smallest
+bucket's bytes, across every bucket (the reference keeps only live
+sessions' caches: a bound per bucket let sessions grown to 4096 slots
+leave ~1.9x the live KV idle), and the graph cache holds max_sessions x
+token_graphs_per_slot graphs, every (buffer, kv bound) pair the live and
+idle buffers can key, so the captures grow with the sessions live at
+once, never with the sessions served, and no token step's graph is
+evicted while its buffer lives (`decode_steps` windows share the cache's
+LRU). With `graphs` set to None the same steps run
 eagerly: the reference the graphs are held to.
 
 `make_executor` routes `--stage-lanes` to the lane-slotted executor of
-runtime/stage_batch.py. Not ported in this slice: ring high-water marks,
-session fork/export/import and the counter backend.
+runtime/stage_batch.py, and `backend="counter"` to CounterStageExecutor
+(models/counter: no weights, for the swarm's distribution logic). Not
+ported yet: ring high-water marks and session fork/export/import.
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ import torch.nn.functional as F
 from inferd_tpu_torch.config import ModelConfig
 from inferd_tpu_torch.core import sampling as samplib
 from inferd_tpu_torch.core.cache import (
-    BufferPool, KVCache, device_to_host, grow, host_staged, host_to_device,
+    BufferPool, KVCache, device_to_host, grow, host_staged, host_to_device, kv_slot_bytes,
 )
 from inferd_tpu_torch.core.generate import bucket_len
 from inferd_tpu_torch.models import qwen3
@@ -262,8 +266,10 @@ class Qwen3StageExecutor:
         self.initial_kv_len = initial_kv_len
         # session buffers outlive their sessions, and so do the graphs
         # captured over them (a buffer released for good takes its graphs)
-        self.buffers = BufferPool(cfg, spec.num_layers, self.device, max_free=max_sessions,
-                                  on_free=self._forget)
+        smallest = max(initial_kv_len, bucket_len(1))
+        self.buffers = BufferPool(
+            cfg, spec.num_layers, self.device, on_free=self._forget,
+            max_free_bytes=max_sessions * smallest * kv_slot_bytes(cfg, spec.num_layers))
         self.sessions = SessionStore(max_sessions, session_ttl_s, on_release=self.buffers.give)
         # token steps and decode_steps windows as graph replays on a card,
         # eager on the CPU; set to None for the eager step on a card too
@@ -461,6 +467,29 @@ class Qwen3StageExecutor:
                 "buffers": self.buffers.stats(), "graphs": graph_stats(self.graphs)}
 
 
+class CounterStageExecutor:
+    """The counter model behind the executors' process() surface: a stage
+    with no weights and no device, for the swarm's distribution logic."""
+
+    def __init__(self, spec: StageSpec):
+        from inferd_tpu_torch.models.counter import CounterStage
+
+        self.spec = spec
+        self.model = CounterStage(spec.stage, spec.num_stages)
+        self.sessions = SessionStore()
+        self.params: Dict[str, Any] = {}
+        self.device = torch.device("cpu")
+
+    def process(self, session_id: str, payload: Dict[str, Any]) -> Dict[str, Any]:
+        return self.model.forward(payload, session_id)
+
+    def end_session(self, session_id: str) -> None:
+        self.sessions.drop(session_id)
+
+    def stats(self) -> Dict[str, Any]:
+        return {"sessions": len(self.sessions)}
+
+
 def make_executor(
     cfg: ModelConfig,
     spec: StageSpec,
@@ -473,13 +502,16 @@ def make_executor(
     adapters=None,
     **kw,
 ):
-    """The stage's executor: with `stage_lanes` > 0 the lane-slotted
-    continuous-batching executor (runtime/stage_batch; `block_size` > 0
-    pages its KV; `adapters`, a runtime/adapters.AdapterRegistry, serves
-    multi-tenant LoRA), else the one-cache-per-session Qwen3StageExecutor.
-    Refuses the flag combinations the reference node refuses."""
+    """The stage's executor: `backend="counter"` the weightless counter
+    model; else with `stage_lanes` > 0 the lane-slotted continuous-batching
+    executor (runtime/stage_batch; `block_size` > 0 pages its KV;
+    `adapters`, a runtime/adapters.AdapterRegistry, serves multi-tenant
+    LoRA), else the one-cache-per-session Qwen3StageExecutor. Refuses the
+    flag combinations the reference node refuses."""
+    if backend == "counter":
+        return CounterStageExecutor(spec)
     if backend != "qwen3":
-        raise ValueError(f"executor backend {backend!r} is not ported yet (qwen3 only)")
+        raise ValueError(f"unknown executor backend {backend!r} (qwen3 or counter)")
     if stage_params is None:
         raise ValueError("qwen3 backend needs stage params")
     if block_size > 0 and stage_lanes <= 0:

@@ -1,15 +1,20 @@
-"""Start one chain-mode stage node (port of inferd_tpu/tools/run_node.py,
-chain topology only).
+"""Start one stage node (port of inferd_tpu/tools/run_node.py, the chain and
+relay topologies).
 
 Loads `stage_NNN.msgpack` from the parts directory (its `meta_json` gives
 the model and the stage's layer range), places it on the device, builds the
-CUDA kernels there if needed, and serves /forward, /end_session, /health
-and /stats until SIGINT or SIGTERM. Prints one JSON line
-{"ready": true, ...} when it accepts requests.
+CUDA kernels there if needed, joins the swarm's gossip (its UDP port
+--gossip-port, seeds --bootstrap) and serves /forward, /end_session,
+/health and /stats until SIGINT or SIGTERM. Prints one JSON line
+{"ready": true, ...} when it accepts requests. With --backend counter the
+stage is the weightless counter model (no --parts; --num-stages gives the
+pipeline's depth).
 
 Usage:
   python -m inferd_tpu_torch.tools.run_node --parts parts/ --stage 0 \\
       --port 6050 [--device cuda|cpu] [--max-len 4096] \\
+      [--gossip-port 7050] [--bootstrap host:port[,host:port...]] \\
+      [--capacity 4] \\
       [--stage-lanes N [--window-ms W] [--paged-kv BS [--kv-blocks K]] \\
        [--prefill-chunk C] [--adapters DIR[,DIR...] [--adapter-slots N]]] \\
       [--quant none|int8|int8-kernel|int4] [--lora DIR] \\
@@ -26,35 +31,75 @@ serves many on lane nodes, each session's own adapter added per lane by the
 kernel of csrc/lora_delta.cu (the two are exclusive). --enable-profiling
 opens POST /profile: torch.profiler traces of the node on demand, under
 --profile-dir.
+
+A swarm: start the stage-0 seed with --gossip-port P, every other node
+with --bootstrap <seed host>:P (each with a gossip port of its own, or 0
+for an ephemeral one), and send requests to any stage-0 node with
+client/swarm_client.SwarmClient. The defaults of --gossip-port and
+--bootstrap come from GOSSIP_PORT and BOOTSTRAP_NODES.
+
+  python -m inferd_tpu_torch.tools.run_node --backend counter --num-stages 3 \\
+      --stage 0 --port 6050 --gossip-port 7050 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import signal
 import threading
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from inferd_tpu_torch.config import get_config
 from inferd_tpu_torch.ops import lora as loralib
 from inferd_tpu_torch.ops import quant
-from inferd_tpu_torch.parallel.stages import load_stage_checkpoint, stage_checkpoint_path
+from inferd_tpu_torch.parallel.stages import (
+    StageSpec, load_stage_checkpoint, stage_checkpoint_path,
+)
 from inferd_tpu_torch.runtime.adapters import AdapterRegistry
 from inferd_tpu_torch.runtime.executor import make_executor
-from inferd_tpu_torch.runtime.node import ChainNode
+from inferd_tpu_torch.runtime.node import Node
 from inferd_tpu_torch.utils.platform import DEVICE_CHOICES, resolve_device
 
 DEFAULT_HTTP_PORT = 6050
+DEFAULT_GOSSIP_PORT = 7050
+
+
+def parse_bootstrap(value: Optional[str]) -> List[Tuple[str, int]]:
+    """Parse `host:port,host:port` gossip seeds."""
+    if not value:
+        return []
+    out = []
+    for part in value.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        host, _, port = part.rpartition(":")
+        if not host:
+            raise ValueError(f"bootstrap entry {part!r} is not host:port")
+        out.append((host, int(port)))
+    return out
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="run_node", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--parts", required=True, help="directory of stage_NNN.msgpack files")
+    ap.add_argument("--parts", default="", help="directory of stage_NNN.msgpack files "
+                    "(required but with --backend counter)")
     ap.add_argument("--stage", type=int, required=True, help="stage this node serves")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=DEFAULT_HTTP_PORT)
+    ap.add_argument("--backend", default="qwen3", choices=["qwen3", "counter"],
+                    help="'counter' = the weightless distribution-test backend")
+    ap.add_argument("--num-stages", type=int, default=2,
+                    help="pipeline depth with --backend counter (a checkpoint names its own)")
+    ap.add_argument("--gossip-port", type=int,
+                    default=int(os.environ.get("GOSSIP_PORT", DEFAULT_GOSSIP_PORT)),
+                    help="UDP port of the swarm's gossip (env GOSSIP_PORT; 0 = ephemeral)")
+    ap.add_argument("--bootstrap", default=os.environ.get("BOOTSTRAP_NODES", ""),
+                    help="comma-separated host:port gossip seeds (env BOOTSTRAP_NODES)")
+    ap.add_argument("--capacity", type=int, default=4, help="advertised task capacity")
     ap.add_argument("--device", default="cuda", choices=DEVICE_CHOICES,
                     help="device that runs the stage (default cuda)")
     ap.add_argument("--max-len", type=int, default=4096, help="per-session KV budget (tokens)")
@@ -126,7 +171,20 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def make_node(args: argparse.Namespace) -> ChainNode:
+def make_node(args: argparse.Namespace) -> Node:
+    swarm = dict(gossip_port=args.gossip_port, bootstrap=parse_bootstrap(args.bootstrap),
+                 capacity=args.capacity)
+    if args.backend == "counter":
+        if args.parts:
+            raise ValueError("--backend counter takes no --parts (it has no weights)")
+        if not 0 <= args.stage < args.num_stages:
+            raise ValueError(f"--stage {args.stage} outside --num-stages {args.num_stages}")
+        resolve_device(args.device)  # the same refusal without a card as every node
+        spec = StageSpec(args.stage, args.num_stages, 0, 0)
+        return Node(make_executor(None, spec, backend="counter"), host=args.host,
+                    port=args.port, model_name="counter", **swarm)
+    if not args.parts:
+        raise ValueError("--parts is required with --backend qwen3")
     device = resolve_device(args.device)
     params, spec, model_name = load_stage_checkpoint(
         stage_checkpoint_path(args.parts, args.stage), device=device
@@ -170,9 +228,9 @@ def make_node(args: argparse.Namespace) -> ChainNode:
             build.load("qmatmul")
         if registry is not None:
             build.load("lora_delta")
-    return ChainNode(executor, host=args.host, port=args.port, window_ms=args.window_ms,
-                     quant=args.quant, enable_profiling=args.enable_profiling,
-                     profile_dir=args.profile_dir)
+    return Node(executor, host=args.host, port=args.port, window_ms=args.window_ms,
+                quant=args.quant, enable_profiling=args.enable_profiling,
+                profile_dir=args.profile_dir, model_name=model_name, **swarm)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -185,6 +243,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     print(json.dumps({
         "ready": True, "host": node.host, "port": node.port, "stage": node.spec.stage,
         "layers": [node.spec.start_layer, node.spec.end_layer], "device": node.device,
+        "gossip_port": node.dht.port,
     }), flush=True)
     try:
         while not stop.wait(0.5):

@@ -436,7 +436,7 @@ def parts(tmp_path_factory, jax_full):
 
 def _node_args(parts, stage, *extra):
     return run_node.build_parser().parse_args(
-        ["--parts", parts, "--stage", str(stage), "--port", "0", "--device", "cpu",
+        ["--parts", parts, "--stage", str(stage), "--port", "0", "--gossip-port", "0", "--device", "cpu",
          "--max-len", "64", *extra])
 
 

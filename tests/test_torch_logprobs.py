@@ -102,7 +102,7 @@ def test_chain_client_logprob_sinks(tiny, reference, tmp_path):
     parts = str(tmp_path / "parts")
     jstages.split_and_save(tiny[0], jcfg.TINY, jstages.Manifest.even_split("tiny", 2), parts)
     nodes = [run_node.make_node(run_node.build_parser().parse_args(
-        ["--parts", parts, "--stage", str(s), "--port", "0", "--device", "cpu",
+        ["--parts", parts, "--stage", str(s), "--port", "0", "--gossip-port", "0", "--device", "cpu",
          "--max-len", "64"])).start() for s in range(2)]
     try:
         lps, tops = [1.0], [([0], [0.0])]  # stale entries: the client clears them

@@ -293,12 +293,12 @@ def test_one_stage_node_serves_decode_steps(solo, tmp_path):
     a stage of a two-stage chain)."""
     jp, _, parts = solo
     args = run_node.build_parser().parse_args(
-        ["--parts", parts, "--stage", "0", "--port", "0", "--device", "cpu", "--max-len", "24"])
+        ["--parts", parts, "--stage", "0", "--port", "0", "--gossip-port", "0", "--device", "cpu", "--max-len", "24"])
     node = run_node.make_node(args).start()
     parts2 = str(tmp_path / "parts2")
     jstages.split_and_save(jp, jcfg.TINY, jstages.Manifest.even_split("tiny", 2), parts2)
     stage0 = run_node.make_node(run_node.build_parser().parse_args(
-        ["--parts", parts2, "--stage", "0", "--port", "0", "--device", "cpu"])).start()
+        ["--parts", parts2, "--stage", "0", "--port", "0", "--gossip-port", "0", "--device", "cpu"])).start()
     try:
         ex = _port_solo(solo, max_len=24)
         for sampling in (None, SAMPLING):

@@ -33,7 +33,7 @@ def chain(tmp_path_factory):
     nodes = []
     for s in range(2):
         args = run_node.build_parser().parse_args(
-            ["--parts", parts, "--stage", str(s), "--port", "0", "--device", "cpu",
+            ["--parts", parts, "--stage", str(s), "--port", "0", "--gossip-port", "0", "--device", "cpu",
              "--max-len", "64"])
         nodes.append(run_node.make_node(args).start())
     yield nodes, params
@@ -102,14 +102,18 @@ def test_health_and_stats_endpoints(chain):
         assert "flash_gqa" in doc["kernels"]
 
 
-def test_wrong_stage_relay_and_bad_requests_are_typed_errors(chain):
+def test_wrong_stage_relay_and_bad_requests_are_typed_errors(chain, monkeypatch):
     nodes, _ = chain
     env = {"session_id": "e", "stage": 1, "relay": False,
            "payload": {"tokens": np.asarray([[1, 2]], np.int32), "start_pos": 0}}
     status, body = _post(nodes[0], "/forward", env)
     assert status == 409 and body["code"] == "wrong_stage"
+    # a relaying envelope is served: stage 0 computes, then finds no stage-1
+    # record in its gossip store (the chain's nodes share no seed) and, after
+    # the PathFinder's retries, answers 503
+    monkeypatch.setattr(nodes[0].path_finder, "retry_delay_s", 0.01)
     status, body = _post(nodes[0], "/forward", dict(env, stage=0, relay=True))
-    assert status == 409 and body["code"] == "relay_unsupported"
+    assert status == 503 and body["error"].startswith("no next node")
     status, body = _post(nodes[0], "/forward", dict(env, stage=0, payload={
         "tokens": np.asarray([[1]], np.int32), "start_pos": 5}))
     assert status == 409 and body["code"] == "session_state"
@@ -141,7 +145,7 @@ def lane_chain(tmp_path_factory):
         # a generous window: the gang target flushes it as soon as every live
         # idle session's step is pending, so it costs little
         args = run_node.build_parser().parse_args(
-            ["--parts", parts, "--stage", str(s), "--port", "0", "--device", "cpu",
+            ["--parts", parts, "--stage", str(s), "--port", "0", "--gossip-port", "0", "--device", "cpu",
              "--max-len", "64", "--stage-lanes", "4", "--paged-kv", "16",
              "--prefill-chunk", "8", "--window-ms", "50"])
         nodes.append(run_node.make_node(args).start())

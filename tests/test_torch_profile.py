@@ -38,7 +38,7 @@ def node(tmp_path_factory):
     params = jq.init_params(jcfg.TINY, jax.random.PRNGKey(0))
     jstages.split_and_save(params, jcfg.TINY, jstages.Manifest.even_split("tiny", 1), parts)
     args = run_node.build_parser().parse_args(
-        ["--parts", parts, "--stage", "0", "--port", "0", "--device", "cpu", "--max-len", "64",
+        ["--parts", parts, "--stage", "0", "--port", "0", "--gossip-port", "0", "--device", "cpu", "--max-len", "64",
          "--enable-profiling", "--profile-dir", prof])
     n = run_node.make_node(args).start()
     yield n, prof

@@ -9,7 +9,7 @@ kernel runs computes the function. Imports no JAX."""
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
+from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
 from chip_smoke import QMM_SHAPES, QMM_TOL, row_rel_err
@@ -193,8 +193,23 @@ def emulated_cases(draw):
     return m, k, n, kernel, group, draw(st.sampled_from(DTYPES)), draw(st.integers(0, 2**31 - 1))
 
 
+def split_err(got, want, x, w) -> float:
+    """Worst row of max |got - want| over the row's scale: the larger of
+    its own RMS and the RMS a row of random-sign dot products of these
+    inputs has (sqrt(mean over columns of sum_k x_k^2 w_k^2)). The second
+    never vanishes, so a row of one value that cancels to near zero is
+    measured against what its sum could have been, not against itself."""
+    g, r = got.float(), want.float()
+    diff = (g - r).abs().amax(dim=1)
+    rms = r.pow(2).mean(dim=1).sqrt()
+    typical = (x.float().pow(2) @ w.float().pow(2)).mean(dim=1).sqrt()
+    return (diff / torch.maximum(rms, typical)).max().item()
+
+
 @settings(max_examples=60, deadline=None)
 @given(emulated_cases())
+# a one-value row whose sum cancels to ~1e-6: a row RMS measure fails it
+@example((27, 3072, 1, "w8a16", 32, torch.float32, 1))
 def test_the_split_computes_the_function(case):
     m, k, n, kernel, group, dtype, seed = case
     rng = np.random.default_rng(seed)
@@ -213,7 +228,7 @@ def test_the_split_computes_the_function(case):
         got = emulate(plan, x, q4.unpacked(), q4.scale, kernel)
         want = Q.w4a16_matvec_reference(x, q4, scheme)
     tol = QMM_TOL["float32" if dtype == torch.float32 else "bfloat16"]
-    assert row_rel_err(got, want, n) <= tol
+    assert split_err(got, want, x, w) <= tol
 
 
 def test_a_wrong_split_is_caught():

@@ -458,7 +458,7 @@ def jax_parts(tmp_path_factory, jax_full):
 
 def _nodes(parts, flag, extra=()):
     return [run_node.make_node(run_node.build_parser().parse_args(
-        ["--parts", parts, "--stage", str(s), "--port", "0", "--device", "cpu",
+        ["--parts", parts, "--stage", str(s), "--port", "0", "--gossip-port", "0", "--device", "cpu",
          "--max-len", "64", "--quant", flag, *extra])).start() for s in range(2)]
 
 
@@ -501,7 +501,7 @@ def test_quant_nodes_serve_the_jax_quantized_stream(jax_full, jax_parts, flag, e
 
 def test_run_node_quant_w8a8_fails_loudly(jax_parts):
     args = run_node.build_parser().parse_args(
-        ["--parts", jax_parts, "--stage", "0", "--port", "0", "--device", "cpu",
+        ["--parts", jax_parts, "--stage", "0", "--port", "0", "--gossip-port", "0", "--device", "cpu",
          "--quant", "w8a8"])
     with pytest.raises(NotImplementedError, match="w8a8.*not ported"):
         run_node.make_node(args)
@@ -509,7 +509,7 @@ def test_run_node_quant_w8a8_fails_loudly(jax_parts):
 
 def test_run_node_quant_none_serves_bf16_unchanged(jax_parts):
     node = run_node.make_node(run_node.build_parser().parse_args(
-        ["--parts", jax_parts, "--stage", "1", "--port", "0", "--device", "cpu"])).start()
+        ["--parts", jax_parts, "--stage", "1", "--port", "0", "--gossip-port", "0", "--device", "cpu"])).start()
     try:
         assert node.stats()["quant"] == "none"
         assert not any(hasattr(v, "scale") for v in node.executor.params["layers"].values())

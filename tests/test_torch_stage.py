@@ -158,8 +158,11 @@ def test_make_executor_and_manifest(jax_parts):
     params, spec, _ = tstages.load_stage_checkpoint(jstages.stage_checkpoint_path(jax_parts, 1))
     ex = make_executor(tcfg.TINY, spec, params)
     assert isinstance(ex, Qwen3StageExecutor) and ex.spec.is_last
-    with pytest.raises(ValueError):
-        make_executor(tcfg.TINY, spec, params, backend="counter")
+    counter = make_executor(tcfg.TINY, spec, params, backend="counter")
+    assert counter.process("s", {"state": 1, "trace": [0]}) == {
+        "state": 2, "trace": [0, 1], "result_for_user": {"state": 2, "trace": [0, 1]}}
+    with pytest.raises(ValueError, match="unknown executor backend"):
+        make_executor(tcfg.TINY, spec, params, backend="mystery")
     m = tstages.Manifest.even_split("qwen3-0.6b", 2)
     m.validate()
     assert [(s.start_layer, s.end_layer) for s in m.stage_specs()] == [(0, 13), (14, 27)]

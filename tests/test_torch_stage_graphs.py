@@ -35,6 +35,7 @@ from inferd_tpu.runtime.adapters import AdapterRegistry as JRegistry
 from inferd_tpu.runtime.executor import Qwen3StageExecutor as JExecutor
 from inferd_tpu.runtime.stage_batch import BatchedStageExecutor as JLanes
 from inferd_tpu_torch import config as tcfg
+from inferd_tpu_torch.core.cache import kv_slot_bytes
 from inferd_tpu_torch.models import convert
 from inferd_tpu_torch.models import qwen3 as tq
 from inferd_tpu_torch.parallel import stages as tstages
@@ -210,7 +211,7 @@ def test_one_session_chain_graphed_equals_eager_and_jax(params):
         assert g.stats()["graphs"] == {"captures": 2, "replays": 12, "resident": 2,
                                        "evictions": 0, "max_graphs": 32}
         assert g.sessions.get("s").max_len == 128
-        assert g.stats()["buffers"] == {"allocated": 2, "reused": 0, "released": 0, "free": 1}
+        assert _buffers(g) == {"allocated": 2, "reused": 0, "released": 0, "free": 1}
         g.end_session("s")
         assert g.stats()["buffers"]["free"] == 2 and g.stats()["graphs"]["resident"] == 2
     assert chains[1][0].stats()["graphs"]["captures"] == 0  # graphs None: eager
@@ -443,13 +444,23 @@ def test_frozen_fill_breaks_paged_lane_equality(params, tenant, frozen_fill):
 # -- buffers and graphs: reuse and drops ------------------------------------------------
 
 
+SLOT = kv_slot_bytes(tcfg.TINY, tcfg.TINY.num_layers)  # one slot of a whole-model buffer
+
+
 def _solo(params, max_free, **kw):
+    """A whole-model executor over 32-slot first buffers whose pool keeps
+    idle buffers of up to `max_free` 32-slot buffers' bytes."""
     (_, _, tspec, tsp), = _stages(params, 1)
     ex = Qwen3StageExecutor(tcfg.TINY, tspec, tsp, **dict(dict(max_len=128, initial_kv_len=32),
                                                            **kw))
     ex.graphs = _graphs()
-    ex.buffers.max_free = max_free
+    ex.buffers.max_free_bytes = max_free * 32 * SLOT
     return ex
+
+
+def _buffers(ex):
+    """The pool's counts, without its byte gauges."""
+    return {k: v for k, v in ex.stats()["buffers"].items() if "bytes" not in k}
 
 
 def _session(ex, sid, n=10, steps=2):
@@ -467,9 +478,9 @@ def test_next_session_of_a_bucket_reuses_buffer_and_graphs(params):
     assert ex.sessions.get("s2").k.data_ptr() == ptr
     assert ex.stats()["graphs"]["captures"] == 1 and ex.stats()["graphs"]["replays"] == 3
     _session(ex, "s3")  # s2 is live: a second buffer, its own graph
-    assert ex.stats()["buffers"] == {"allocated": 2, "reused": 1, "released": 0, "free": 0}
+    assert _buffers(ex) == {"allocated": 2, "reused": 1, "released": 0, "free": 0}
     ex.end_session("s2")
-    ex.end_session("s3")  # the free list holds one: s3's buffer goes, its graph with it
+    ex.end_session("s3")  # the pool holds one: s3's buffer goes, its graph with it
     assert ex.stats()["buffers"]["released"] == 1
     assert ex.stats()["graphs"] == {"captures": 2, "replays": 4, "resident": 1, "evictions": 1,
                                     "max_graphs": 32}
@@ -490,12 +501,14 @@ def test_waves_of_concurrent_sessions_capture_once(params):
     """Three sessions live at once, their steps interleaved, cross from the
     32-slot into the 64-slot bucket and end together; a second wave of
     three reuses every buffer and every graph: the captures grow with the
-    sessions live at once, not with the sessions served. The executor
-    keeps max_sessions buffers per shape."""
+    sessions live at once, not with the sessions served (the pool holds
+    the six buffers' bytes). The executor's own bound is max_sessions
+    buffers of its smallest bucket."""
     from inferd_tpu_torch.runtime.executor import token_graphs_per_slot
 
-    ex = _solo(params, max_free=3, max_sessions=3)
-    assert Qwen3StageExecutor(tcfg.TINY, ex.spec, ex.params, max_sessions=3).buffers.max_free == 3
+    ex = _solo(params, max_free=3 + 3 * 2, max_sessions=3)
+    assert (Qwen3StageExecutor(tcfg.TINY, ex.spec, ex.params, max_sessions=3)
+            .buffers.max_free_bytes == 3 * 256 * SLOT)
     ex.graphs = _graphs(3 * token_graphs_per_slot(32, 128))
     for wave in range(2):
         sids = [f"w{wave}-{i}" for i in range(3)]
@@ -509,7 +522,8 @@ def test_waves_of_concurrent_sessions_capture_once(params):
         # per session a graph on its 32-slot buffer and one on its 64-slot one
         assert ex.stats()["graphs"]["captures"] == 6
     assert ex.stats()["graphs"]["replays"] == 2 * 3 * 30 - 6
-    assert ex.stats()["buffers"] == {"allocated": 6, "reused": 6, "released": 0, "free": 6}
+    assert _buffers(ex) == {"allocated": 6, "reused": 6, "released": 0, "free": 6}
+    assert ex.stats()["buffers"]["free_bytes"] == 9 * 32 * SLOT
 
 
 @pytest.mark.parametrize("how", ["end_session", "evict", "sweep", "grow"])
@@ -533,6 +547,43 @@ def test_released_buffer_drops_its_graphs(params, how):
         assert ex.sessions.get("s1").max_len == 64
     assert ptr not in [k[0] for k in ex.graphs._entries]
     assert ex.stats()["graphs"]["evictions"] == 1 and ex.stats()["buffers"]["released"] == 1
+
+
+def test_idle_buffers_stay_within_the_pool_bytes_across_buckets(params):
+    """Sessions that grow through the 32-, 64- and 128-slot buckets hand
+    each outgrown buffer back: the idle buffers of every shape together
+    stay within the executor's bound (max_sessions buffers of its smallest
+    bucket), the largest released first, and no graph outlives the buffer
+    it reads."""
+    from inferd_tpu_torch.runtime.executor import token_graphs_per_slot
+
+    (_, _, tspec, tsp), = _stages(params, 1)
+    ex = Qwen3StageExecutor(tcfg.TINY, tspec, tsp, max_len=128, initial_kv_len=32,
+                            max_sessions=2)
+    ex.graphs = _graphs(2 * token_graphs_per_slot(32, 128))
+    bound = ex.buffers.max_free_bytes
+    assert bound == 2 * 32 * SLOT
+    seen = []
+    for wave in range(2):
+        sids = [f"g{wave}-{i}" for i in range(2)]
+        for sid in sids:
+            ex.process(sid, {"tokens": [list(range(1, 11))], "start_pos": 0, "real_len": 10})
+        for pos in range(10, 100):  # through 32, 64 and 128 slots
+            for sid in sids:
+                ex.process(sid, {"tokens": [[5]], "start_pos": pos, "real_len": 1})
+                seen.append(ex.stats()["buffers"]["free_bytes"])
+        assert {ex.sessions.get(sid).max_len for sid in sids} == {128}
+        for sid in sids:
+            ex.end_session(sid)
+            seen.append(ex.stats()["buffers"]["free_bytes"])
+    st = ex.stats()["buffers"]
+    assert max(seen) <= bound and st["free_bytes"] == bound
+    # the two 32-slot buffers stay (every session starts there), the rest go
+    assert st["free"] == 2 and st["released"] == st["allocated"] - 2 > 0
+    free = {c.k.data_ptr() for v in ex.buffers._free.values() for c in v}
+    assert {c.max_len for v in ex.buffers._free.values() for c in v} == {32}
+    assert {k[0] for k in ex.graphs._entries} <= free
+    assert ex.stats()["graphs"]["evictions"] > 0
 
 
 def test_sessions_and_buffers_under_concurrent_steps_and_teardown(params):
