@@ -148,6 +148,34 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               the same engine on --quant int8 weights: chunk 8 equals chunk 1,
               greedy; w8a16 launches exact per route (7 x 28 + 1 per decode
               step, all simt); the headline regime's generate_scan
+  generate_batched
+              core.batch.BatchedEngine, 8 lanes of the whole model in this
+              process (max_len 2048), on twelve prompts (the serve four and
+              the serve_lanes eight, 16-1000 tokens, so lanes refill), 32
+              tokens each, greedy and sampled (0.6/20/0.95) at chunk 1 and 8:
+              chunk 8 gives chunk 1's tokens; greedy sequences equal the solo
+              Engine's (seed + index), and every sequence equals itself
+              decoded alone in the batched engine (the sampled ones' shared
+              prefix with the solo engine's is printed); flash_gqa launches
+              exact per route, counted per replay; every window a capture
+              or a replay, at least 4 replays per capture; aggregate tok/s,
+              and one co-batched step's host and device time beside the solo
+              engine's step (device_share); then python -m
+              inferd_tpu_torch.tools.generate --engine batched --lanes 4
+  serve_batch whole-model lane nodes on a one-stage checkpoint of the same
+              weights: run_node --batch-lanes 8 (dense) and --batch-lanes 8
+              --paged-kv 32 --prefill-chunk 256 take the serve_lanes traffic
+              (8 concurrent greedy ChainClient sessions): streams equal
+              generate_batched's, mean co-batch above 1, every decode
+              dispatch a capture or a replay, launches exact per route
+              (paged: paged_decode_gqa per replay and its split launches);
+              then decode_steps 8 windows of the serve prompts at once on
+              both and on a whole-model --stage-lanes 8 --paged-kv 32 node,
+              equal to one token per step; a --batch-lanes 4 --adapters
+              t0,t1,t2 node, whose tenant streams leave the base model's and
+              whose graphed tenant K-step windows equal an eager in-process
+              executor's; a planted frozen-fill fault in graphed paged
+              K-step windows must leave the eager stream
   serve_kstep one run_node --device cuda process serving a one-stage split of
               the same model, driven by raw /forward payloads: a prefill, then
               decode_steps 8 windows up to 32 tokens, greedy and sampled, eos
@@ -186,10 +214,11 @@ Run from the root of a checkout: python3 chip_smoke.py
 Exits non-zero without a CUDA device, and outside a checkout.
 `--only paged,lora` (any of flash, paged, qmm, lora, and on a fresh split
 serve, serve_quant, serve_lanes, serve_lanes_quant, serve_lanes_lora,
-serve_swarm, generate, serve_kstep, anatomy, profile: serve_quant runs int8
-and int4, serve_lanes_lora runs serve_lanes first, serve_swarm runs serve
-and serve_lanes first, generate runs the generate and generate_quant
-phases) builds the kernels and runs those phases alone, with no result
+serve_swarm, generate, generate_batched, serve_batch, serve_kstep, anatomy,
+profile: serve_quant runs int8 and int4, serve_lanes_lora runs serve_lanes
+first, serve_swarm runs serve and serve_lanes first, generate runs the
+generate and generate_quant phases, serve_batch runs generate_batched
+first) builds the kernels and runs those phases alone, with no result
 lines.
 """
 
@@ -1373,24 +1402,28 @@ def start_node(parts: str, stage: int, log_dir: str, extra=(), tag: str = "") ->
 _PRESTARTED: Dict[tuple, List[Dict[str, Any]]] = {}
 
 
-def prestart_nodes(parts: str, work: str, specs, swarms=()) -> None:
-    """Start the two stage processes of each (extra, tag) in `specs`, and
-    the swarms that `swarm_nodes` describes for each (parts, tag) in
-    `swarms`, now, all at once, and wait until every one answers: its
-    phase then takes them fresh and idle (start_nodes, take_swarm) instead
-    of waiting ~8 s for its own, and no process is still starting while a
-    phase measures."""
+def prestart_nodes(parts: str, work: str, specs, swarms=(), singles=()) -> None:
+    """Start the two stage processes of each (extra, tag) in `specs`, the
+    swarms that `swarm_nodes` describes for each (parts, tag) in `swarms`,
+    and one whole-model process for each (one-stage parts, extra, tag) in
+    `singles`, now, all at once, and wait until every one answers: its
+    phase then takes them fresh and idle (start_nodes, take_swarm,
+    start_single) instead of waiting ~8 s for its own, and no process is
+    still starting while a phase measures."""
     t0 = time.perf_counter()
     for extra, tag in specs:
         _PRESTARTED[(parts, tuple(extra), tag)] = [start_node(parts, s, work, extra, tag)
                                                    for s in range(2)]
+    for parts1, extra, tag in singles:
+        _PRESTARTED[(parts1, tuple(extra), tag)] = [start_node(parts1, 0, work, extra, tag)]
     for swarm_parts, tag in swarms:
         _PRESTARTED[("swarm", tag)] = swarm_nodes(swarm_parts, work, tag)
     for nodes in _PRESTARTED.values():
         for n in nodes:
             wait_ready(n)
     count = sum(len(v) for v in _PRESTARTED.values())
-    say("nodes", f"{count} run_node processes of {len(specs) + len(swarms)} node sets started "
+    say("nodes", f"{count} run_node processes of {len(specs) + len(swarms) + len(singles)} node "
+                 "sets started "
                  f"at once, ready in {time.perf_counter() - t0:.1f}s")
 
 
@@ -1400,6 +1433,13 @@ def start_nodes(parts: str, work: str, extra=(), tag: str = "") -> List[Dict[str
     nodes = _PRESTARTED.pop((parts, tuple(extra), tag), None)
     return nodes if nodes is not None else [start_node(parts, s, work, extra, tag)
                                             for s in range(2)]
+
+
+def start_single(parts1: str, work: str, extra=(), tag: str = "") -> Dict[str, Any]:
+    """One whole-model process behind these flags (one-stage parts): the one
+    prestart_nodes started for them, else one started now."""
+    nodes = _PRESTARTED.pop((parts1, tuple(extra), tag), None)
+    return nodes[0] if nodes is not None else start_node(parts1, 0, work, extra, tag)
 
 
 def take_swarm(parts: str, work: str, tag: str) -> List[Dict[str, Any]]:
@@ -1446,7 +1486,7 @@ def stop_nodes(nodes: List[Dict[str, Any]], show_logs: bool = False) -> None:
             print(f"--- node {n['stage']} log tail ---\n{tail}", file=sys.stderr)
 
 
-def make_local_client(executors, sampling, adapter=None):
+def make_local_client(executors, sampling, adapter=None, prefill_chunk: int = 512):
     """A GenerationClient whose transport is the stage executors in this
     process: the same generation loop and chunking as the ChainClient, and
     its `adapter` stamp on every stage of a session's first chunk."""
@@ -1474,7 +1514,7 @@ def make_local_client(executors, sampling, adapter=None):
             for ex in executors:
                 ex.end_session(session_id)
 
-    return LocalChain(sampling=sampling, prefill_chunk=512, adapter=adapter)
+    return LocalChain(sampling=sampling, prefill_chunk=prefill_chunk, adapter=adapter)
 
 
 def _last_stage_probe_class():
@@ -1537,35 +1577,38 @@ def check_node_graphs(phase: str, st: Dict[str, Any], decode_steps: int) -> Dict
 
 @contextlib.contextmanager
 def planted_frozen_fill():
-    """Until the block ends, a stage step captured into a graph runs with
-    each row's fill (its position and write slot) frozen at its value in
-    the warm-up just before the capture: a host value baked into the graph,
-    the fault a stage graph's token-exactness against the eager step must
-    catch. Eager steps stay right; a graph captured before the block does
-    not hold the fault, so the check runs on executors made inside it."""
+    """Until the block ends, a stage step or a K-step window
+    (models/qwen3.decode_window) captured into a graph runs with each row's
+    fill (its position and write slot) frozen at its value in the warm-up
+    just before the capture: a host value baked into the graph, the fault a
+    graph's token-exactness against the eager step must catch. Eager steps
+    stay right; a graph captured before the block does not hold the fault,
+    so the check runs on executors made inside it."""
     import torch
 
     from inferd_tpu_torch.models import qwen3 as Q
 
-    real = Q.stage_step
+    real_step, real_window = Q.stage_step, Q.decode_window
     seen = {}
 
-    def faulty(params, cfg, x, k_cache, v_cache, fill, **kw):
+    def frozen(fill):
         key = fill.data_ptr()  # the graph's static fill buffer
         if torch.cuda.is_current_stream_capturing():
-            frozen = torch.zeros_like(fill)
-            for i, v in enumerate(seen[key]):
-                frozen[i:i + 1].fill_(v)  # a fill kernel with the value baked in
-            fill = frozen
-        else:
-            seen[key] = fill.tolist()
-        return real(params, cfg, x, k_cache, v_cache, fill, **kw)
+            return seen[key]  # the warm-up's copy, which no later step updates
+        seen[key] = fill.clone()
+        return fill
 
-    Q.stage_step = faulty
+    def faulty_step(params, cfg, x, k_cache, v_cache, fill, **kw):
+        return real_step(params, cfg, x, k_cache, v_cache, frozen(fill), **kw)
+
+    def faulty_window(params, cfg, k_cache, v_cache, tok, fill, *rest):
+        return real_window(params, cfg, k_cache, v_cache, tok, frozen(fill), *rest)
+
+    Q.stage_step, Q.decode_window = faulty_step, faulty_window
     try:
         yield
     finally:
-        Q.stage_step = real
+        Q.stage_step, Q.decode_window = real_step, real_window
 
 
 # Tokens of each planted frozen-fill stream: the fault shows within the
@@ -3667,6 +3710,9 @@ def kstep_session(process, sid: str, prompt: List[int], eos=None, sampling=None)
         if key is not None:
             pl["key"] = key
         w = process(sid, pl)
+        if not 1 <= w["real_len"] <= pl["decode_steps"]:
+            raise AssertionError(f"session {sid}: a window of {pl['decode_steps']} committed "
+                                 f"{w['real_len']} tokens")
         windows.append({k: w[k] for k in ("tokens", "real_len", "decode_steps", "key")})
         out += [int(t) for t in w["tokens"][0]]
         key = w["key"]
@@ -3696,15 +3742,13 @@ def run_serve_kstep(card: str, params, parts: str, work: str) -> Dict[str, Any]:
 
     from inferd_tpu_torch.client.base import ServerError
     from inferd_tpu_torch.config import get_config
-    from inferd_tpu_torch.parallel.stages import (
-        StageSpec, save_stage_checkpoint, stage_checkpoint_path)
+    from inferd_tpu_torch.parallel.stages import StageSpec
     from inferd_tpu_torch.runtime.executor import Qwen3StageExecutor
 
     phase = "serve_kstep"
     cfg = get_config(MODEL)
     spec = StageSpec(0, 1, 0, cfg.num_layers - 1)
-    parts1 = os.path.join(work, "parts1")
-    save_stage_checkpoint(stage_checkpoint_path(parts1, 0), params, spec, MODEL)
+    parts1 = one_stage_parts(work, params)
     prompts = serve_prompts(cfg.vocab_size)
     modes = (("greedy", None), ("sampled", {"temperature": 0.6, "top_k": 20, "top_p": 0.95}))
     nodes: List[Dict[str, Any]] = []
@@ -3781,6 +3825,473 @@ def run_serve_kstep(card: str, params, parts: str, work: str) -> Dict[str, Any]:
         raise
     finally:
         stop_nodes(nodes)
+
+
+# -- whole-model lane batching: generate_batched, serve_batch ------------------------
+
+BATCH_LANES = 8
+# the batch lanes' KV budget, in process and on the nodes: every prompt + 32
+# tokens fits, and the dense step walks this many slots (core/batch)
+BATCH_MAX_LEN = 2048
+# the window: the client takes its sessions' logits one after another (~3 ms
+# each), so their next steps reach the node that far apart, past a 2 ms window
+BATCH_WINDOW_MS = 10
+BATCH_NODE_ARGS = ["--batch-lanes", str(BATCH_LANES), "--max-len", str(BATCH_MAX_LEN),
+                   "--window-ms", str(BATCH_WINDOW_MS)]
+BATCH_PAGED_ARGS = BATCH_NODE_ARGS + ["--paged-kv", str(PAGED_BS), "--prefill-chunk",
+                                      str(LANE_PREFILL_CHUNK)]
+WHOLE_LANE_ARGS = ["--stage-lanes", str(LANES), "--paged-kv", str(PAGED_BS), "--max-len",
+                   str(BATCH_MAX_LEN), "--prefill-chunk", str(LANE_PREFILL_CHUNK)]
+BATCH_CLIENT_CHUNK = 1024  # the client sends each prompt whole: one chunk, as the engine's prefill
+TENANT_BATCH_LANES = 4
+SAMPLED_KSTEP = {"temperature": 0.6, "top_k": 20, "top_p": 0.95}
+
+
+def tenant_batch_args(dirs: List[str]) -> List[str]:
+    return ["--batch-lanes", str(TENANT_BATCH_LANES), "--max-len", str(BATCH_MAX_LEN),
+            "--window-ms", str(BATCH_WINDOW_MS), "--adapters", ",".join(dirs)]
+
+
+def one_stage_parts(work: str, params) -> str:
+    """The whole model as a one-stage checkpoint under `work` (written once:
+    serve_kstep's node, the whole-model lane nodes)."""
+    from inferd_tpu_torch.config import get_config
+    from inferd_tpu_torch.parallel.stages import (
+        StageSpec, save_stage_checkpoint, stage_checkpoint_path)
+
+    parts1 = os.path.join(work, "parts1")
+    path = stage_checkpoint_path(parts1, 0)
+    if not os.path.exists(path):
+        cfg = get_config(MODEL)
+        save_stage_checkpoint(path, params, StageSpec(0, 1, 0, cfg.num_layers - 1), MODEL)
+    return parts1
+
+
+def batch_prompts(vocab: int) -> List[List[int]]:
+    """The serve prompts and the serve_lanes prompts: twelve, 16-1000 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    return serve_prompts(vocab) + [rng.integers(0, vocab, n).tolist() for n in LANE_PROMPT_LENS]
+
+
+def solo_margin(params, cfg, prompt: List[int], stream: List[int]) -> float:
+    """The greedy `stream`'s worst token against the solo model: the prompt
+    and the stream (but its last token) as one eager chunk through the
+    whole model, and at each of the stream's positions the gap from the
+    top logit to its token's, over the row's max |logit|. 0 where the
+    stream took the argmax; a near-tie flip is a small gap."""
+    import torch
+
+    from inferd_tpu_torch.core.cache import KVCache
+    from inferd_tpu_torch.core.generate import bucket_len
+    from inferd_tpu_torch.models import qwen3 as Q
+
+    ids = prompt + stream[:-1]
+    b = bucket_len(len(ids))
+    toks = torch.tensor([ids + [0] * (b - len(ids))], device=DEVICE)
+    cache = KVCache.create(cfg, cfg.num_layers, 1, b, device=DEVICE)
+    with torch.no_grad():
+        hidden, _ = Q.forward_layers_cached(params["layers"], cfg, Q.embed(params, toks, cfg), 0,
+                                            cache, 0, real_end=len(ids))
+        logits = Q.unembed(params, cfg, hidden[:, len(prompt) - 1:len(ids)])[0]
+        chosen = logits[torch.arange(len(stream), device=DEVICE),
+                        torch.tensor(stream, device=DEVICE)]
+        gap = (logits.max(-1).values - chosen) / logits.abs().max(-1).values
+    return float(gap.max())
+
+
+def run_generate_batched(card: str, params) -> Dict[str, Any]:
+    """The `generate_batched` phase: core.batch.BatchedEngine (8 lanes) in
+    this process on twelve prompts, greedy and sampled, chunk 1 and 8."""
+    import torch
+
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.core import sampling as samplib
+    from inferd_tpu_torch.core.batch import BatchedEngine
+    from inferd_tpu_torch.core.generate import Engine
+
+    phase = "generate_batched"
+    cfg = get_config(MODEL)
+    prompts = batch_prompts(cfg.vocab_size)
+    modes = {"greedy": SamplingConfig(temperature=0.0), "sampled (0.6/20/0.95)": SamplingConfig()}
+    engines, windows, streams, walls = {}, {}, {}, {}
+    reset_kernel_counts()
+    for name, sc in modes.items():
+        eng = BatchedEngine(cfg, params, lanes=BATCH_LANES, max_len=BATCH_MAX_LEN,
+                            sampling_cfg=sc, device=DEVICE)
+        steps = windows[name] = []
+        chunked = eng.decode_chunk
+
+        def counted(toks, active, n, *a, _real=chunked, _steps=steps, **kw):
+            _steps.append(n)
+            return _real(toks, active, n, *a, **kw)
+
+        eng.decode_chunk = counted
+        engines[name] = eng
+        for chunk in (1, GEN_CHUNK):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            streams[(name, chunk)] = eng.generate_all(prompts, NEW_TOKENS, seed=GEN_SEED,
+                                                      chunk=chunk)
+            walls[(name, chunk)] = time.perf_counter() - t0
+    counts = kernel_counts()
+    total = len(prompts) * NEW_TOKENS
+    for (name, chunk), wall in walls.items():
+        say(phase, f"{name}, chunk {chunk}: {total} tokens of {len(prompts)} prompts on "
+                   f"{BATCH_LANES} lanes in {wall:.2f} s = {total / wall:.1f} tok/s aggregate "
+                   f"(wall clock, prefills included; {card})")
+    for name in modes:
+        a, b = streams[(name, 1)], streams[(name, GEN_CHUNK)]
+        bad = [len(p) for p, x, y in zip(prompts, a, b) if x != y]
+        if bad or any(len(x) != NEW_TOKENS for x in a):
+            raise AssertionError(f"{phase} {name}: chunk {GEN_CHUNK} != chunk 1 on prompts {bad}")
+    say(phase, f"chunk {GEN_CHUNK} gives chunk 1's tokens on all {len(prompts)} prompts, greedy "
+               "and sampled; distinct tokens per sampled stream "
+               f"{[len(set(x)) for x in streams[('sampled (0.6/20/0.95)', 1)]]}")
+    # launches, counted per replay: 28 tensor-core launches per prefill, 28
+    # split-KV launches per decode step of a window (the lanes' bound)
+    n_steps = sum(sum(w) for w in windows.values())
+    want = {"split": cfg.num_layers * n_steps, "mma": cfg.num_layers * len(prompts) * 4}
+    got = counts["flash_routes"]
+    others = {k: v for k, v in counts["launches"].items() if k != "flash_gqa"}
+    say(phase, f"flash_gqa routes {got} over {sum(len(w) for w in windows.values())} windows of "
+               f"{n_steps} steps and {len(prompts) * 4} prefills (want {want}: {got == want})")
+    if got != want or counts["launches"]["flash_gqa"] != sum(want.values()) or any(
+            others.values()):
+        raise AssertionError(f"{phase}: launches {counts}, want flash routes {want}")
+    for name, eng in engines.items():
+        st = eng.graph_stats()
+        say(phase, f"{name}: graph_stats {st} over {len(windows[name])} windows "
+                   f"({st['replays'] / max(st['captures'], 1):.1f} replays per capture)")
+        if (st["captures"] + st["replays"] != len(windows[name])
+                or st["replays"] < GRAPH_REPLAYS_PER_CAPTURE * st["captures"]):
+            raise AssertionError(f"{phase} {name}: graphs {st} for {len(windows[name])} windows "
+                                 f"(want every window a capture or a replay, >= "
+                                 f"{GRAPH_REPLAYS_PER_CAPTURE} replays per capture)")
+
+    # every sequence against itself decoded alone in the batched engine (the
+    # lanes never interact: bit for bit), and against the solo engine with
+    # seed + index: its shared prefix printed (8 lanes and 1 run other split
+    # plans and GEMM shapes, so other bits, and a near-tie flips), and each
+    # greedy token held to the solo model's logits over the same context
+    alone_bad, solo_same = {}, {}
+    for name, sc in modes.items():
+        solo = Engine(cfg, params, max_len=BATCH_MAX_LEN, sampling_cfg=sc)
+        solo_same[name] = [first_divergence(solo.generate(p, NEW_TOKENS, seed=GEN_SEED + i), s)
+                           for i, (p, s) in enumerate(zip(prompts, streams[(name, 1)]))]
+        del solo
+        alone_bad[name] = [len(p) for i, (p, s) in enumerate(zip(prompts, streams[(name, 1)]))
+                           if engines[name].generate_all([p], NEW_TOKENS, seed=GEN_SEED + i,
+                                                         chunk=GEN_CHUNK)[0] != s]
+        say(phase, f"{name}: decoded alone in the batched engine, prompts that differ: "
+                   f"{alone_bad[name]}; tokens each sequence shares with the solo Engine's "
+                   f"(seed + index): {solo_same[name]} of {NEW_TOKENS} (printed, not gated)")
+    margins = [solo_margin(params, cfg, p, s) for p, s in zip(prompts, streams[("greedy", 1)])]
+    say(phase, f"greedy: each batched token's logit below the solo model's top logit over the "
+               f"same context, worst per sequence, share of max |logit|: "
+               f"{[round(m, 4) for m in margins]} (tol {LOGIT_TOL:.0%})")
+    if any(alone_bad.values()) or not max(margins) <= LOGIT_TOL:
+        raise AssertionError(f"{phase}: sequences leave their own decoded alone {alone_bad}, or "
+                             f"greedy tokens the solo model's top logits {margins}")
+
+    # what a co-batched step costs beside a solo one, in this call
+    eng = engines["greedy"]
+    fill = len(prompts[1])
+    solo = Engine(cfg, params, max_len=BATCH_MAX_LEN, sampling_cfg=modes["greedy"])
+    logits, cache = solo.prefill(prompts[1], solo.new_cache(1))
+    sub = samplib.split_key(samplib.prng_key(0))[1]
+    tok = samplib.sample(logits, sub)
+
+    def cobatched():
+        for lane in range(BATCH_LANES):
+            eng.lengths[lane] = fill
+        eng.decode_chunk([1] * BATCH_LANES, [True] * BATCH_LANES, 1)
+
+    def one():
+        cache.length = fill
+        return solo.decode(tok, cache, sub)
+
+    share = {"co-batched step (8 lanes)": device_share(phase, card, "co-batched step (8 lanes)",
+                                                       cobatched, 1),
+             "solo step": device_share(phase, card, "solo step", one, 1)}
+    eng.lengths[:] = [0] * BATCH_LANES
+    cob, solo_ms = share["co-batched step (8 lanes)"]["host_ms"], share["solo step"]["host_ms"]
+    say(phase, f"at fill {fill}: a co-batched step of {BATCH_LANES} lanes {cob:.3f} ms = "
+               f"{BATCH_LANES * 1e3 / cob:.1f} tok/s aggregate, the solo engine's step "
+               f"{solo_ms:.3f} ms = {1e3 / solo_ms:.1f} tok/s ({card})")
+    del solo, cache, engines, eng
+    torch.cuda.empty_cache()
+
+    # tools/generate --engine batched, as a user runs it
+    cmd = [sys.executable, "-m", "inferd_tpu_torch.tools.generate", "--model", MODEL,
+           "--random-init", "--prompt-ids", ",".join(str(t) for t in range(100, 132)),
+           "--max-new-tokens", "16", "--chunk", "8", "--engine", "batched", "--lanes", "4"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"{phase}: exit {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    ids = json.loads(r.stdout.split("generated ids:", 1)[1].strip().splitlines()[0])
+    rate = r.stderr.strip().splitlines()[-1]
+    say(phase, f"tools/generate --engine batched --lanes 4: exit 0 in "
+               f"{time.perf_counter() - t0:.1f}s with {len(ids)} ids; {rate} ({card})")
+    if len(ids) != 16 or "on cuda" not in rate:
+        raise AssertionError(f"{phase}: {r.stdout!r} {r.stderr[-2000:]!r}")
+    return dict(counts, prompts=prompts, streams=streams[("greedy", 1)],
+                tokens_per_s={f"{n} chunk {c}": total / w for (n, c), w in walls.items()},
+                step_share=share)
+
+
+def kstep_sessions(node, prompts, tag: str, sampling=None):
+    """kstep_session on `node` for every prompt at once (threads): the
+    streams, and the windows' results."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    process = node_process(node)
+    with ThreadPoolExecutor(len(prompts)) as pool:
+        return list(pool.map(lambda ip: kstep_session(process, f"{tag}{ip[0]}", ip[1],
+                                                      sampling=sampling), enumerate(prompts)))
+
+
+def check_kstep_frozen_fill(phase: str, make, prompt) -> None:
+    """A paged whole-model lane executor made under planted_frozen_fill
+    (its K-step windows captured with the fill frozen) gives a sampled
+    decode_steps stream that leaves the eager executor's; without the fault
+    the graphed stream is the eager one."""
+    import torch
+
+    def run(ex):
+        out = kstep_session(ex.process, "f", prompt, sampling=SAMPLED_KSTEP)[0]
+        del ex
+        torch.cuda.empty_cache()
+        return out
+
+    want = run(eager([make()])[0])
+    sound = run(make())
+    with planted_frozen_fill():
+        try:
+            got = run(make())
+            how = f"the stream leaves the eager one at token {first_divergence(got, want)}"
+        except Exception as e:  # the executor refuses a window that commits no token
+            got, how = None, f"the session fails: {e}"
+    say(phase, f"planted fault frozen_fill on graphed paged K-step windows, prompt {len(prompt)}, "
+               f"sampled: {how}; without the fault, graphed equals eager: {sound == want}")
+    if sound != want:
+        raise AssertionError(f"{phase}: graphed K-step windows leave the eager stream")
+    if got == want:
+        raise AssertionError(f"{phase}: planted fault frozen_fill passes the K-step windows")
+
+
+def run_serve_batch(card: str, params, work: str, gen: Dict[str, Any]) -> Dict[str, Any]:
+    """The `serve_batch` phase: whole-model lane nodes (`run_node
+    --batch-lanes`, dense and paged; `--stage-lanes` on the one-stage
+    parts; `--batch-lanes 4 --adapters`) against generate_batched's greedy
+    streams `gen`."""
+    import numpy as np
+    import torch
+
+    from inferd_tpu_torch.client.chain_client import ChainClient
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.runtime.adapters import AdapterRegistry
+    from inferd_tpu_torch.runtime.batch_executor import BatchedExecutor
+
+    phase = "serve_batch"
+    cfg = get_config(MODEL)
+    greedy = SamplingConfig(temperature=0.0)
+    parts1 = one_stage_parts(work, params)
+    dirs = write_tenants(work)
+    kinds = {"dense": BATCH_NODE_ARGS, "paged": BATCH_PAGED_ARGS, "stage lanes": WHOLE_LANE_ARGS,
+             "tenants": tenant_batch_args(dirs)}
+    tags = {"dense": "_batch", "paged": "_batchp", "stage lanes": "_wlanes",
+            "tenants": "_batcht"}
+    serve_p, lane_p = gen["prompts"][:len(PROMPT_LENS)], gen["prompts"][len(PROMPT_LENS):]
+    serve_s, lane_s = gen["streams"][:len(PROMPT_LENS)], gen["streams"][len(PROMPT_LENS):]
+    nodes: Dict[str, Dict[str, Any]] = {}
+    try:
+        for kind in kinds:
+            nodes[kind] = start_single(parts1, work, kinds[kind], tags[kind])
+        for n in nodes.values():
+            wait_ready(n)
+
+        def stats(kind):
+            return http_get_json(f"http://127.0.0.1:{nodes[kind]['port']}/stats")
+
+        for kind in kinds:  # fresh processes: every count starts at 0
+            st = stats(kind)
+            if any(k["launches"] for k in st["kernels"].values()) or st["forward_passes"]:
+                raise AssertionError(f"{kind} node did work before the main path: {st}")
+
+        # the serve_lanes traffic on the two --batch-lanes nodes: the dense
+        # node's streams are generate_batched's (the same step at the same
+        # max_len, each prompt prefilled whole), the paged node's an eager
+        # in-process paged executor's (sessions one at a time)
+        launches = dict.fromkeys(_wrappers(), 0)
+        routes_all = {"split": 0, "mma": 0}
+        out: Dict[str, Any] = {"rates": {}, "mean_batch": {}, "graphs": {}}
+        served: Dict[str, List[List[int]]] = {}
+
+        def chain_streams(kind: str) -> List[List[int]]:
+            """The lane prompts as concurrent greedy ChainClient sessions."""
+            async def drive():
+                async with ChainClient([("127.0.0.1", nodes[kind]["port"])], sampling=greedy,
+                                       prefill_chunk=BATCH_CLIENT_CHUNK) as client:
+                    return await asyncio.gather(*(client.generate_ids(p, max_new_tokens=NEW_TOKENS)
+                                                  for p in lane_p))
+
+            return asyncio.run(drive())
+
+        for kind in ("dense", "paged"):
+            t0 = time.perf_counter()
+            got = served[kind] = chain_streams(kind)
+            wall = time.perf_counter() - t0
+            if kind == "dense":
+                want, against = lane_s, "generate_batched's greedy ones"
+            else:
+                local = eager([BatchedExecutor(cfg, params, lanes=BATCH_LANES,
+                                               max_len=BATCH_MAX_LEN, block_size=PAGED_BS,
+                                               prefill_chunk=LANE_PREFILL_CHUNK, device=DEVICE)])
+
+                async def one_by_one():
+                    client = make_local_client(local, greedy, prefill_chunk=BATCH_CLIENT_CHUNK)
+                    return [await client.generate_ids(p, max_new_tokens=NEW_TOKENS)
+                            for p in lane_p]
+
+                want, against = asyncio.run(one_by_one()), "an eager in-process paged executor's"
+                del local
+                torch.cuda.empty_cache()
+            bad = [len(p) for p, a, b in zip(lane_p, got, want) if a != b]
+            say(phase, f"{kind} node ({' '.join(kinds[kind])}): {len(lane_p)} concurrent "
+                       f"ChainClient sessions, {len(lane_p) * NEW_TOKENS} tokens in {wall:.2f} s "
+                       f"= {len(lane_p) * NEW_TOKENS / wall:.1f} tok/s aggregate ({card}); "
+                       f"streams equal {against}: {not bad}; tokens shared with "
+                       f"generate_batched's: {[first_divergence(a, b) for a, b in zip(got, lane_s)]}")
+            if bad:
+                raise AssertionError(f"{phase} {kind}: streams of prompts {bad} leave {against}")
+            st = stats(kind)
+            ex = st["executor"]
+            steps, toks = ex["batched_steps"], ex["batched_tokens"]
+            kern = {name: k["launches"] for name, k in st["kernels"].items()}
+            routes = flash_routes(st)
+            layers = cfg.num_layers
+            if kind == "dense":
+                want_routes = {"split": layers * steps, "mma": layers * ex["prefill_steps"]}
+                want_paged = 0
+            else:
+                want_routes = {"split": 0, "mma": layers * ex["prefill_steps"]}
+                want_paged = layers * sum(ex["decode_widths"].values())
+                split, want_split = paged_splits(phase, st, cfg)
+                out["paged_split"] = split
+            mean = toks / steps if steps else 0.0
+            say(phase, f"{kind} node: {steps} decode dispatches serving {toks} session steps "
+                       f"(mean co-batch {mean:.3f}; window {ex['window']}), "
+                       f"{ex['prefill_steps']} prefill dispatches; launches {kern}; flash_gqa "
+                       f"routes {routes} (want {want_routes}); paged_decode_gqa launches "
+                       f"{kern['paged_decode_gqa']} (want {want_paged})")
+            out["graphs"][kind] = check_node_graphs(phase, st, steps)
+            if (routes != want_routes or kern["paged_decode_gqa"] != want_paged
+                    or (kind == "paged" and (want_paged == 0 or split != want_split))
+                    or toks != len(lane_p) * (NEW_TOKENS - 1) or not mean > 1.0
+                    or st["errors"] or kern["fused_lane_delta"] or kern["w8a16_matmul"]):
+                raise AssertionError(f"{phase} {kind}: node stats {st}")
+            out["mean_batch"][kind] = mean
+            out["rates"][kind] = len(lane_p) * NEW_TOKENS / wall
+
+        # decode_steps windows of 8 on both and on a whole-model --stage-lanes
+        # node (its prefill chunked as the paged node's): one token per step's
+        # streams (the dense node: generate_batched's; the fresh stage lanes:
+        # the paged node's above). The paged node's K-step sessions map the
+        # prompts' blocks that its first sessions published and prefill only
+        # the rest, in other chunks (other bits): they are held to the same
+        # ChainClient traffic driven again, which maps the same blocks
+        for kind in ("dense", "paged", "stage lanes"):
+            before = stats(kind)["executor"]["batched_steps"]
+            res = kstep_sessions(nodes[kind], lane_p, "k")
+            k_disp = stats(kind)["executor"]["batched_steps"] - before
+            want = {"dense": lane_s, "stage lanes": served["paged"]}.get(kind)
+            if want is None:  # the paged node, warm: the ChainClient traffic again
+                want = chain_streams(kind)
+            bad = [len(p) for p, (a, _), b in zip(lane_p, res, want) if a != b]
+            full = all(w["real_len"] == w["decode_steps"] for _, ws in res for w in ws)
+            st = stats(kind)
+            kern = {name: k["launches"] for name, k in st["kernels"].items()}
+            say(phase, f"{kind} node: decode_steps {KSTEP_WINDOW} windows of {len(lane_p)} "
+                       f"sessions at once, {k_disp} dispatches: "
+                       f"streams equal one token per step: {not bad}; launches {kern}")
+            out["graphs"][kind] = check_node_graphs(phase, st, st["executor"]["batched_steps"])
+            if bad or not full or st["errors"]:
+                raise AssertionError(f"{phase} {kind}: K-step streams of prompts {bad} leave one "
+                                     f"token per step, windows {res}, {st['errors']} errors")
+            if kind != "dense" and not kern["paged_decode_gqa"]:
+                raise AssertionError(f"{phase} {kind}: no paged_decode_gqa launch")
+
+        # tenants: sessions on t0, t1, t2 and the base model at once, one prompt
+        names = [LORA_TENANTS[i][0] for i in range(3)] + [None]
+        tport = nodes["tenants"]["port"]
+
+        async def tenants():
+            clients = {nm: ChainClient([("127.0.0.1", tport)], sampling=greedy, adapter=nm)
+                       for nm in names}
+            return await asyncio.gather(*(clients[nm].generate_ids(serve_p[1],
+                                                                   max_new_tokens=NEW_TOKENS)
+                                          for nm in names))
+
+        got = asyncio.run(tenants())
+        if any(a == got[-1] for a in got[:-1]):
+            raise AssertionError(f"{phase}: a tenant stream equals the base model's: {got}")
+        say(phase, f"tenants node ({' '.join(kinds['tenants'][:4])} t0,t1,t2): prompt "
+                   f"{len(serve_p[1])}, the three tenant streams leave the base session's "
+                   f"(sharing {[first_divergence(a, got[-1]) for a in got[:-1]]} tokens with "
+                   f"it); the base session shares {first_divergence(got[-1], serve_s[1])} with "
+                   "generate_batched's")
+        # a tenant's graphed K-step windows against the eager executor's
+        local = eager([BatchedExecutor(cfg, params, lanes=TENANT_BATCH_LANES,
+                                       max_len=BATCH_MAX_LEN, device=DEVICE,
+                                       adapters=AdapterRegistry(cfg, ",".join(dirs),
+                                                                device=DEVICE))])[0]
+
+        def tenant_kstep(process, sid):
+            r = process(sid, {"tokens": [serve_p[1]], "start_pos": 0, "adapter": "t0",
+                              "real_len": len(serve_p[1])})
+            out_ = [int(np.argmax(np.asarray(r["logits"], np.float32)[0]))]
+            for _ in range(3):
+                w = process(sid, {"tokens": [[out_[-1]]], "decode_steps": KSTEP_WINDOW,
+                                  "start_pos": len(serve_p[1]) + len(out_) - 1})
+                out_ += [int(t) for t in w["tokens"][0]]
+            return out_
+
+        a, b = tenant_kstep(node_process(nodes["tenants"]), "tk"), tenant_kstep(local.process, "tk")
+        del local
+        torch.cuda.empty_cache()
+        st = stats("tenants")
+        kern = {name: k["launches"] for name, k in st["kernels"].items()}
+        say(phase, f"tenants node: t0's graphed K-step windows equal the eager executor's: "
+                   f"{a == b}; launches {kern}; registry {st['executor']['adapters']}")
+        out["graphs"]["tenants"] = check_node_graphs(phase, st, st["executor"]["batched_steps"])
+        if a != b or not kern["fused_lane_delta"] or st["errors"]:
+            raise AssertionError(f"{phase}: tenant windows {a} != eager {b}, or stats {st}")
+
+        for kind in kinds:
+            st = stats(kind)
+            for name, k in st["kernels"].items():
+                launches[name] += k["launches"]
+            for r, v in flash_routes(st).items():
+                routes_all[r] += v
+        stop_nodes(list(nodes.values()))
+        nodes = {}
+
+        # the planted fault: paged K-step windows captured with a frozen fill
+        check_kstep_frozen_fill(phase, lambda: BatchedExecutor(
+            cfg, params, lanes=BATCH_LANES, max_len=BATCH_MAX_LEN, block_size=PAGED_BS,
+            device=DEVICE), serve_p[1])
+        out.update(launches=launches, flash_routes=routes_all,
+                   gemv_routes={name: {"mma": 0, "simt": 0} for name in QMM_KERNEL_OF.values()})
+        return out
+    except BaseException:
+        stop_nodes(list(nodes.values()), show_logs=True)
+        nodes = {}
+        raise
+    finally:
+        stop_nodes(list(nodes.values()))
 
 
 # The anatomy phase: perf/anatomy.profile_step on the whole model at the
@@ -4037,9 +4548,11 @@ CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_q
                "lora": run_lora_cases}
 # --only phases that need the model's split (serve_quant runs int8 and int4;
 # serve_lanes_lora runs serve_lanes first, its baseline; serve_swarm runs
-# serve and serve_lanes first, the streams it is held to)
+# serve and serve_lanes first, the streams it is held to; serve_batch runs
+# generate_batched first, its streams)
 SPLIT_PHASES = ("serve", "serve_quant", "serve_lanes", "serve_lanes_quant", "serve_lanes_lora",
-                "serve_swarm", "generate", "serve_kstep", "anatomy", "profile")
+                "serve_swarm", "generate", "generate_batched", "serve_batch", "serve_kstep",
+                "anatomy", "profile")
 
 
 def main(argv: List[str]) -> int:
@@ -4115,6 +4628,10 @@ def main(argv: List[str]) -> int:
                 if "generate" in split_only:
                     run_generate(card, whole, None)
                     run_generate_quant(card, whole)
+                if {"generate_batched", "serve_batch"} & set(split_only):
+                    gen_b = run_generate_batched(card, whole)
+                    if "serve_batch" in split_only:
+                        run_serve_batch(card, whole, work, gen_b)
                 if "serve_kstep" in split_only:
                     run_serve_kstep(card, whole, parts, work)
                 if "anatomy" in split_only:
@@ -4140,10 +4657,16 @@ def main(argv: List[str]) -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         parts = split_parts(work)
+        whole = whole_model(parts)
+        parts1 = one_stage_parts(work, whole)
+        dirs = write_tenants(work)
         prestart_nodes(parts, work, [
             ([], ""), (["--quant", "int8"], ""), (["--quant", "int4"], ""), (LANE_NODE_ARGS, ""),
             (LANE_NODE_ARGS + ["--quant", "int8"], ""), (profile_node_args(work), "_profile")],
-            swarms=[(parts, "swarm"), (parts, "swarm_lanes"), (None, "swarm_counter")])
+            swarms=[(parts, "swarm"), (parts, "swarm_lanes"), (None, "swarm_counter")],
+            singles=[(parts1, BATCH_NODE_ARGS, "_batch"), (parts1, BATCH_PAGED_ARGS, "_batchp"),
+                     (parts1, WHOLE_LANE_ARGS, "_wlanes"),
+                     (parts1, tenant_batch_args(dirs), "_batcht")])
         lap("split, node start")
         serve = run_serve(card, parts, work)
         lap("serve")
@@ -4158,10 +4681,13 @@ def main(argv: List[str]) -> int:
         lap("serve_lanes_quant")
         lanes_lora = run_serve_lanes_lora(card, parts, work, baseline=lanes)
         lap("serve_lanes_lora")
-        whole = whole_model(parts)
         gen = run_generate(card, whole, serve)
         gen_q = run_generate_quant(card, whole)
         lap("generate, generate_quant")
+        gen_b = run_generate_batched(card, whole)
+        lap("generate_batched")
+        serve_b = run_serve_batch(card, whole, work, gen_b)
+        lap("serve_batch")
         kstep = run_serve_kstep(card, whole, parts, work)
         lap("serve_kstep")
         anat = run_anatomy(card, whole)
@@ -4178,7 +4704,8 @@ def main(argv: List[str]) -> int:
     paths = {"serve": serve, "serve_quant_int8": serve_q["int8"],
              "serve_quant_int4": serve_q["int4"], "serve_lanes": lanes, "serve_swarm": swarm,
              "serve_lanes_quant": lanes_q, "serve_lanes_lora": lanes_lora,
-             "generate": gen, "generate_quant": gen_q, "serve_kstep": kstep,
+             "generate": gen, "generate_quant": gen_q, "generate_batched": gen_b,
+             "serve_batch": serve_b, "serve_kstep": kstep,
              "anatomy": anat, "profile": prof}
 
     def by_path(name):

@@ -38,13 +38,15 @@ on the card one launch of the kernel of csrc/lora_delta.cu per projection
 and layer, on the CPU the reference's gather-then-einsum form.
 
 Fused K-step decode (`decode_k`, `make_decode_k_serve`) runs K decode
-steps with on-device sampling over a dense cache and reads nothing back
-until the window ends. Its body, `decode_step` chained by `decode_window`,
-reads and writes tensors only, so the engine captures it as a CUDA graph;
-`window_bounds` gives every step's kv bound, one rule for every form of
-generation. A chain node's decode step, `stage_step`, keeps the same
-contract (tensors only, a host kv bound), so the stage executors capture
-it too; paged writes are planned on the device (`paged_write_device`).
+steps with on-device sampling over a dense or a paged cache and reads
+nothing back until the window ends. Its body, `decode_step` chained by
+`decode_window`, reads and writes tensors only, so the engines and the
+executors capture it as a CUDA graph (`run_window`); `window_bounds` gives
+every step's kv bound, one rule for every one-session form of generation
+(the lane forms pass a bound of their own: core/batch). A chain node's
+decode step, `stage_step`, keeps the same contract (tensors only, a host
+kv bound), so the stage executors capture it too; paged writes are planned
+on the device (`paged_write_device`).
 
 This slice covers the dense Qwen3/Qwen2-style decoder. MoE, sandwich norms,
 sliding windows and scaled RoPE raise NotImplementedError here (and an
@@ -750,6 +752,7 @@ def decode_step(
     top_n: int = 0,
     want_lp: bool = False,
     adapters=None,
+    table: Optional[torch.Tensor] = None,  # [B, W] int32: the caches are paged pools
 ):
     """One decode step over tensors only: embed, the layers with device
     positions and writes, unembed, the sample from the given uniforms, the
@@ -760,13 +763,20 @@ def decode_step(
 
     A frozen row re-emits its token and computes garbage at its frontier
     slot, which its next real step overwrites before a query reads it; with
-    `eos` a row deactivates the step AFTER it emits its stop token."""
+    `eos` a row deactivates the step AFTER it emits its stop token. Over
+    paged pools (`table`) every row writes through paged_write_device with
+    `active` as its write mask, so an inactive or frozen row writes to the
+    scratch block 0 (blocks are shared property), and attends through the
+    table (paged_decode_gqa); `kv_bound` does not apply there."""
     from inferd_tpu_torch.core import sampling as samplib
 
     hidden = embed(params, tok[:, None], cfg)
+    dest = None
+    if table is not None:
+        dest = paged_write_device(table, k_cache.shape[2], fill, 1, write_mask=active)
     hidden, _, _ = forward_layers(
         params["layers"], cfg, hidden, fill[:, None], k_cache, v_cache, fill,
-        adapters=adapters, kv_bound=kv_bound,
+        block_table=table, paged_write=dest, adapters=adapters, kv_bound=kv_bound,
     )
     last = unembed(params, cfg, hidden)[:, 0]  # [B, V]
     if temperature == 0.0:
@@ -805,6 +815,7 @@ def decode_window(
     top_n: int = 0,
     want_lp: bool = False,
     adapters=None,
+    table: Optional[torch.Tensor] = None,  # [B, W]: paged pools (decode_step)
 ):
     """len(bounds) decode_steps chained on the device, step j from u[j]:
     what run_window runs, eagerly or captured as one graph.
@@ -815,7 +826,7 @@ def decode_window(
         tok, fill, active, lp, ti, tl = decode_step(
             params, cfg, k_cache, v_cache, tok, fill, active, eos,
             None if u is None else u[j], bound, temperature, top_k, top_p, min_p,
-            top_n, want_lp, adapters)
+            top_n, want_lp, adapters, table)
         seq.append(tok)
         lps.append(lp)
         tis.append(ti)
@@ -828,27 +839,38 @@ def run_window(graphs, params: Params, cfg: ModelConfig, cache,
                inputs: Dict[str, torch.Tensor], bounds: Tuple[int, ...],
                sampling: Tuple[float, int, float, float], top_n: int, want_lp: bool,
                adapters=None):
-    """decode_window over a dense `cache` (core.cache.KVCache) from device
-    inputs {"tok", "fill", "active" [B], optional "eos" [B], and "u" [K, B,
-    n] when sampled}: a replay of the graph keyed by (buffer, bounds,
-    sampling, top_n, want_lp, the inputs given) from `graphs` (a utils.cuda_graph.GraphCache),
-    or eager when `graphs` is None. The one window runner: the engine's
-    steps and windows and decode_k (the one-session executor's
-    `decode_steps`) all come here. Returns device tensors the caller owns
-    (seq [K, B], fill', active', lps [K, B], top ids, top lps)."""
+    """decode_window over `cache` (core.cache.KVCache, or a PagedKVCache
+    whose table rides in `inputs`) from device or host-staged inputs
+    {"tok", "fill", "active" [B], optional "eos" [B], "u" [K, B, n] when
+    sampled, "table" [B, W] when paged}: a replay of the graph keyed by
+    (buffer, bounds, sampling, top_n, want_lp, the inputs' names and
+    shapes, the adapter pools' address) from `graphs` (a
+    utils.cuda_graph.GraphCache), or eager when `graphs` is None. The one
+    window runner: the engines' steps and windows, and decode_k (the
+    executors' `decode_steps`), all come here.
+
+    Tenant lanes (`adapters`, the registry's pools plus per-lane "ids"):
+    the ids are a static input, the pools are read by address. The
+    registry allocates them once and writes them in place
+    (runtime/adapters), so the address in the key names them for good.
+    Returns device tensors the caller owns (seq [K, B], fill', active',
+    lps [K, B], top ids, top lps)."""
     from inferd_tpu_torch.utils.cuda_graph import run_step
 
-    if graphs is not None and adapters is not None:
-        raise NotImplementedError(
-            "a graphed window with tenant lanes waits for the lane executors' K-step "
-            "items (ROADMAP A3)")
+    inputs = dict(inputs)
+    pools, pools_at = None, None
+    if adapters is not None:
+        pools = {k: v for k, v in adapters.items() if k != "ids"}
+        inputs["ids"] = adapters["ids"]
+        pools_at = pools["scale"].data_ptr()
 
-    def window(tok, fill, active, eos=None, u=None):
+    def window(tok, fill, active, eos=None, u=None, table=None, ids=None):
+        ads = None if ids is None else {**pools, "ids": ids}
         return decode_window(params, cfg, cache.k, cache.v, tok, fill, active, eos, u, bounds,
-                             *sampling, top_n, want_lp, adapters)
+                             *sampling, top_n, want_lp, ads, table)
 
     key = (cache.k.data_ptr(), tuple(cache.k.shape), bounds, sampling, top_n, want_lp,
-           tuple(sorted(inputs)))
+           tuple((n, tuple(inputs[n].shape)) for n in sorted(inputs)), pools_at)
     out = run_step(graphs, key, window, inputs, cache.k.device)
     return out if graphs is None else tuple(t.clone() for t in out)
 
@@ -874,7 +896,7 @@ def decode_k(
     params: Params,
     cfg: ModelConfig,
     toks,  # [B] int: each row's last emitted token (host or device)
-    cache,  # core.cache.KVCache with batch B (dense)
+    cache,  # core.cache.KVCache with batch B, or a PagedKVCache with a [B, W] table
     lengths,  # [B] HOST ints: each row's KV fill (its next write position)
     active,  # [B] bool (host or device): rows that advance this window
     keys,  # [B, 2] uint32 host keys (core.sampling.split_key chains them)
@@ -888,6 +910,7 @@ def decode_k(
     want_lp: bool = False,
     adapters=None,  # multi-tenant LoRA pools + per-lane ids, for every step
     graphs=None,  # utils.cuda_graph.GraphCache: the window as a graph replay
+    kv_bound: Optional[int] = None,  # dense: one bound for every step (lane forms)
 ):
     """K decode steps with sampling and every KV write on the device: the
     host reads the window's outputs once, at its end (port of
@@ -895,7 +918,8 @@ def decode_k(
 
       * positions and masks come from each row's fill, not cache.length:
         a frozen row computes garbage at its frozen frontier slot, which its
-        next real step overwrites before any query can read it;
+        next real step overwrites before any query can read it (paged: it
+        writes to the scratch block, as an inactive row does);
       * a row's fill advances only while it is active; `n_new` counts those
         advances;
       * with `eos` >= 0 a row deactivates the step AFTER it emits its stop
@@ -906,43 +930,65 @@ def decode_k(
         tokens of K single steps from the same keys.
 
     The host prepares the window (the uploads, every key split, the
-    uniforms of every step, each step's kv bound from window_bounds), then
-    run_window runs decode_window: a replay from `graphs`, or eagerly when
-    it is None. Each row's fill stays on the device
-    (eos can freeze a row), so the attention gets its spans as device
-    columns plus the step's host bound.
+    uniforms of every step, each step's kv bound), then run_window runs
+    decode_window: a replay from `graphs`, or eagerly when it is None. Each
+    row's fill stays on the device (eos can freeze a row), so the attention
+    gets its spans as device columns plus the step's host bound: from
+    window_bounds at the highest ACTIVE row's fill, or `kv_bound` for every
+    step when given (the lane forms: a lane's bits then do not depend on
+    which lanes share its window). A dense row that is inactive writes its
+    garbage at its own fill, clamped to the buffer's last slot (a full idle
+    lane's last slot, which only a replay below it reads, and a replay
+    rewrites it first).
+
+    A paged cache's table (host or device, [B, W], e.g. core.cache.
+    sync_paged's) is a static input of the graph; every step attends through
+    it at its width W, which is the window's bound. The caller has ensured
+    every active row's chain up to fill + k and made those blocks writable
+    (copy-on-write) before the call: decode_k only checks that the window's
+    committing writes stay inside the table (a BufferError before any
+    dispatch).
 
     Returns (cache, seq [k, B], n_new [B], keys' [B, 2], lps [k, B],
     top_ids [k, B, top_n], top_lps [k, B, top_n]); keys' is a host uint32
     array, the rest are tensors on the cache's device. The cache is
-    written in place and its `length` left to the caller. A paged cache
-    raises: its fused window (the lane executors' K-step items, ROADMAP
-    A3) waits for a later slice."""
-    from inferd_tpu_torch.core.cache import PagedKVCache, device_column, host_to_device
+    written in place and its `length` left to the caller."""
+    from inferd_tpu_torch.core.cache import (
+        PagedKVCache, device_column, host_staged, host_to_device)
 
-    if isinstance(cache, PagedKVCache):
-        raise NotImplementedError(
-            "decode_k over a paged cache is not ported yet (ROADMAP A3: the lane "
-            "executors' fused K-step items)"
-        )
     dev = cache.k.device
+    paged = isinstance(cache, PagedKVCache)
     lens_host = np.asarray(lengths, dtype=np.int64).reshape(-1)
     b = lens_host.shape[0]
-    top = int(lens_host.max(initial=0))
-    if top + k > cache.max_len:
-        raise BufferError(f"decode_k: {k} steps from fill {top} past the buffer ({cache.max_len})")
-    lens = host_to_device(lens_host, dev)
-    inputs = {"tok": device_column(toks, b, torch.int64, dev), "fill": lens,
+    act_host = (None if isinstance(active, torch.Tensor) and active.device.type != "cpu"
+                else np.broadcast_to(np.asarray(active, bool), (b,)))
+    live = lens_host if act_host is None else lens_host[act_host]
+    top = int(live.max(initial=0))
+    cap = cache.max_len
+    if top + k > cap:
+        raise BufferError(f"decode_k: {k} steps from fill {top} past the "
+                          f"{'table' if paged else 'buffer'} ({cap})")
+    if not paged and act_host is not None:
+        # an inactive row writes at its fill: keep it inside the buffer
+        lens_host = np.where(act_host, lens_host, np.minimum(lens_host, cap - 1))
+    inputs = {"tok": device_column(toks, b, torch.int64, dev),
+              "fill": host_staged(lens_host, dev),
               "active": device_column(active, b, torch.bool, dev)}
     if eos is not None:
         inputs["eos"] = device_column(eos, b, torch.int64, dev)
+    if paged:
+        inputs["table"] = cache.table
+        bounds = (cap,) * k
+    else:
+        bounds = (window_bounds(top, k, cap) if kv_bound is None
+                  else (min(kv_bound, cap),) * k)
     keys = np.asarray(keys, dtype=np.uint32).reshape(b, 2)
     if temperature != 0.0:
         keys, inputs["u"] = window_uniforms(cfg, keys, k, top_k, dev)
     seq, fill, _act, lps, tis, tls = run_window(
-        graphs, params, cfg, cache, inputs, window_bounds(top, k, cache.max_len),
-        (temperature, top_k, top_p, min_p), top_n, want_lp, adapters)
-    return cache, seq, fill - lens, keys, lps, tis, tls
+        graphs, params, cfg, cache, inputs, bounds, (temperature, top_k, top_p, min_p), top_n,
+        want_lp, adapters)
+    return cache, seq, fill - host_to_device(lens_host, dev), keys, lps, tis, tls
 
 
 def make_decode_k_serve(cfg: ModelConfig):
@@ -950,15 +996,19 @@ def make_decode_k_serve(cfg: ModelConfig):
     (params, cache, toks, lengths, active, keys, eos, k, t, tk, tp, mp,
     ads=None) -> (cache, seq [k, L], n_new [L], keys' [L, 2]): sampling
     parameters per request and a per-lane `eos` [L] that deactivates a
-    lane in the window the step after its stop token. Its consumers (the
-    batched engine, the lane executors' K-step items) land with ROADMAP A3."""
+    lane in the window the step after its stop token. Its consumers are
+    the lane executors' K-step items (runtime/executor.fuse_kstep_group:
+    core/batch.BatchedEngine for runtime/batch_executor, and a whole-model
+    runtime/stage_batch executor); `graphs` and `kv_bound` pass through to
+    decode_k (a graph replay per window on a card; the lanes' bound)."""
 
     def decode_k_serve(params, cache, toks, lengths, active, keys, eos, k: int,
                        temperature: float, top_k: int, top_p: float, min_p: float,
-                       ads=None):
+                       ads=None, graphs=None, kv_bound=None):
         cache, seq, n_new, keys, _lps, _tis, _tls = decode_k(
             params, cfg, toks, cache, lengths, active, keys, k, temperature=temperature,
-            top_k=top_k, top_p=top_p, min_p=min_p, eos=eos, adapters=ads,
+            top_k=top_k, top_p=top_p, min_p=min_p, eos=eos, adapters=ads, graphs=graphs,
+            kv_bound=kv_bound,
         )
         return cache, seq, n_new, keys
 

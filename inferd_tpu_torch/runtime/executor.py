@@ -44,10 +44,20 @@ evicted while its buffer lives (`decode_steps` windows share the cache's
 LRU). With `graphs` set to None the same steps run
 eagerly: the reference the graphs are held to.
 
-`make_executor` routes `--stage-lanes` to the lane-slotted executor of
+`fuse_kstep_group` is the lane executors' K-step dispatch (the
+whole-model runtime/batch_executor and a whole-model runtime/stage_batch):
+co-arrived `decode_steps` items that share a sampling config run as one
+window. The reference's `cache_intact`, which stops a lane window after a
+failed dispatch because its jit had donated (and so invalidated) the
+shared cache, has no counterpart: nothing is donated here, so a failed
+dispatch leaves the buffers valid and the window's other dispatches run.
+
+`make_executor` routes `--batch-lanes` to the whole-model lane executor of
+runtime/batch_executor.py, `--stage-lanes` to the pipeline stage's of
 runtime/stage_batch.py, and `backend="counter"` to CounterStageExecutor
 (models/counter: no weights, for the swarm's distribution logic). Not
-ported yet: ring high-water marks and session fork/export/import.
+ported yet: ring high-water marks and session fork/export/import (ROADMAP
+A4d).
 """
 
 from __future__ import annotations
@@ -222,6 +232,42 @@ def kstep_hi(start: int, n: int, k: int) -> int:
     mark of sliding-window layers, which wait for the model-families
     slice, is advanced by it."""
     return start + min(n + 1, k)
+
+
+def fuse_kstep_group(decode_k_fn, params, cache, lens, lanes: int, grp, ads=None,
+                     graphs=None, kv_bound=None):
+    """One sampling group of co-batched K-step lanes as ONE fused window,
+    the K-step dispatch of both lane executors (port of
+    inferd_tpu/runtime/executor.fuse_kstep_group), so the group's rules
+    have one definition: K is the group's smallest budget-clamped request,
+    each lane keeps its own key, eos and active flag, and the host reads
+    the window's K tokens once.
+
+    decode_k_fn: models/qwen3.make_decode_k_serve's signature (params,
+    cache, toks, lengths, active, keys, eos, k, t, tk, tp, mp, ads=None,
+    graphs=None, kv_bound=None) -> (cache, seq, n_new, keys'). grp:
+    [(lane, token, ks)], every parse_kstep dict of one sampling tuple.
+    `ads`: the adapter pools and per-lane slot ids; `graphs`, `kv_bound`:
+    decode_k's. Returns (kg, seq [kg, L], n_new [L], nkeys [L, 2], cache)
+    with the three arrays on the host."""
+    kg = min(ks["k"] for _lane, _tok, ks in grp)
+    toks = np.zeros((lanes,), np.int64)
+    active = np.zeros((lanes,), bool)
+    eos = np.full((lanes,), -1, np.int64)
+    keys = np.zeros((lanes, 2), np.uint32)
+    sampling = None
+    for lane, token, ks in grp:
+        toks[lane] = token
+        active[lane] = True
+        eos[lane] = ks["eos"]
+        keys[lane] = ks["key"]
+        sampling = ks["sampling"]
+    t, tk, tp, mp = sampling
+    cache, seq, n_new, nkeys = decode_k_fn(params, cache, toks, lens, active, keys, eos, kg,
+                                           t, tk, tp, mp, ads=ads, graphs=graphs,
+                                           kv_bound=kv_bound)
+    seq, n_new = device_to_host(seq, n_new)  # the window's one read
+    return kg, seq, n_new, nkeys, cache
 
 
 def token_graphs_per_slot(initial_kv_len: int, max_len: int) -> int:
@@ -500,28 +546,48 @@ def make_executor(
     kv_blocks: int = 0,
     prefill_chunk: int = 0,
     adapters=None,
+    batch_lanes: int = 0,
+    window_ms: float = 3.0,
     **kw,
 ):
     """The stage's executor: `backend="counter"` the weightless counter
-    model; else with `stage_lanes` > 0 the lane-slotted continuous-batching
-    executor (runtime/stage_batch; `block_size` > 0 pages its KV;
-    `adapters`, a runtime/adapters.AdapterRegistry, serves multi-tenant
-    LoRA), else the one-cache-per-session Qwen3StageExecutor. Refuses the
-    flag combinations the reference node refuses."""
+    model; else with `batch_lanes` > 0 the whole-model continuous-batching
+    executor (runtime/batch_executor, which owns its arrival window of
+    `window_ms`), with `stage_lanes` > 0 the pipeline stage's lane executor
+    (runtime/stage_batch; `block_size` > 0 pages either's KV; `adapters`, a
+    runtime/adapters.AdapterRegistry, serves multi-tenant LoRA on either),
+    else the one-cache-per-session Qwen3StageExecutor. Refuses the flag
+    combinations the reference node refuses."""
     if backend == "counter":
         return CounterStageExecutor(spec)
     if backend != "qwen3":
         raise ValueError(f"unknown executor backend {backend!r} (qwen3 or counter)")
     if stage_params is None:
         raise ValueError("qwen3 backend needs stage params")
-    if block_size > 0 and stage_lanes <= 0:
+    if stage_lanes > 0 and batch_lanes > 0:
+        raise ValueError("--stage-lanes (stage-level continuous batching) is mutually "
+                         "exclusive with --batch-lanes")
+    lanes = stage_lanes > 0 or batch_lanes > 0
+    if block_size > 0 and not lanes:
         raise ValueError(
-            "--paged-kv runs on the lane executors: pair it with --stage-lanes"
+            "--paged-kv runs on the lane executors: pair it with --stage-lanes or --batch-lanes"
         )
-    if adapters is not None and stage_lanes <= 0:
+    if adapters is not None and not lanes:
         raise ValueError(
             "--adapters (multi-tenant batched LoRA) runs on the lane "
-            "executors — pair it with --stage-lanes"
+            "executors — pair it with --stage-lanes or --batch-lanes"
+        )
+    if batch_lanes > 0:
+        from inferd_tpu_torch.runtime.batch_executor import BatchedExecutor
+
+        if spec.num_stages != 1:
+            raise ValueError(
+                "--batch-lanes hosts the WHOLE model, so the swarm topology must be "
+                f"single-stage: needs a 1-stage checkpoint, got stage {spec.stage}/"
+                f"{spec.num_stages}")
+        return BatchedExecutor(
+            cfg, stage_params, lanes=batch_lanes, block_size=block_size, kv_blocks=kv_blocks,
+            prefill_chunk=prefill_chunk, adapters=adapters, window_ms=window_ms, **kw,
         )
     if stage_lanes > 0:
         from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor

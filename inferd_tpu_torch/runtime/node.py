@@ -63,13 +63,14 @@ relays, planned routes and coalesced multi-session relays.
 
 A payload with `decode_steps` K asks a one-stage (whole-model) node for a
 fused window of K decode steps sampled on the device (the one-session
-executor's `_process_decode_k`); the reply's `result` holds the committed
-`tokens`, `real_len`, `decode_steps` and the advanced `key`.
+executor's `_process_decode_k`; on a lane node, a K-step item that
+co-batches with the window's others); the reply's `result` holds the
+committed `tokens`, `real_len`, `decode_steps` and the advanced `key`.
 
 Errors are wire-packed {"error", "code"} bodies with the JAX node's codes:
 409 "wrong_stage" (the chain's address list is stale), 409 "overflow" (KV
 budget, a K-step window's too), 409 "session_state" (out-of-order chunk;
-`decode_steps` to a stage of a multi-stage chain, or to a lane node), 409
+`decode_steps` to a stage of a multi-stage chain), 409
 "no_adapter_registry" (the payload names an adapter and this node serves
 no `--adapters` registry: serving the base model instead would be silent
 tenant corruption), 409 "unknown_adapter" (a name outside the catalog), 503
@@ -78,14 +79,18 @@ live node for the next stage), 502 (next hop unreachable), 500 on a
 compute failure.
 
 Requests are served on threads (ThreadingHTTPServer). With the one-cache-
-per-session executor, compute is serialized under one node lock. With the
-lane executor (runtime/stage_batch, `--stage-lanes`), the node holds no
-lock around compute (the executor has its own) and attaches an arrival
-window (runtime/window): single-token decode steps of concurrent sessions
-join it and run as ONE device step, whose results return to their own
-handler threads. Prefill chunks go straight to the executor's `process`.
-A handler relays only after its compute returned: neither the compute
-lock nor the window is held across a downstream hop.
+per-session executor, compute is serialized under one node lock. The lane
+executors (`threadsafe`) have locks of their own and the node holds none
+around their compute. To the pipeline stage's (runtime/stage_batch,
+`--stage-lanes`) the node attaches an arrival window (runtime/window):
+decode steps of concurrent sessions join it and run as ONE device step,
+whose results return to their own handler threads; prefill chunks go
+straight to the executor's `process`. The whole-model one
+(runtime/batch_executor, `--batch-lanes`) owns its window, so every
+request goes straight to its `process` and the node wraps it in no window
+of its own (a decode step would otherwise queue twice). A handler relays
+only after its compute returned: neither the compute lock nor a window is
+held across a downstream hop.
 """
 
 from __future__ import annotations
@@ -156,7 +161,7 @@ class Node:
 
     def __init__(
         self,
-        executor,  # Qwen3StageExecutor, BatchedStageExecutor (lanes) or CounterStageExecutor
+        executor,  # Qwen3StageExecutor, BatchedStageExecutor, BatchedExecutor or the counter
         host: str = "127.0.0.1",
         port: int = 0,
         window_ms: float = 2.0,
@@ -176,6 +181,8 @@ class Node:
         self.window: Optional[WindowedBatcher] = None
         if isinstance(executor, BatchedStageExecutor):
             self._attach_window(executor, window_ms)
+        # the executors that take no lock of the node's (the lane executors)
+        self._serial = not getattr(executor, "threadsafe", False)
         self._compute_lock = threading.Lock()  # around the per-session executor only
         self._stats_lock = threading.Lock()
         self.forward_passes = 0
@@ -463,7 +470,7 @@ class Node:
                 code="no_adapter_registry",
             )
         try:
-            if self.window is None:
+            if self._serial:
                 with span("node.lock_wait"):
                     self._compute_lock.acquire()
                 try:
@@ -471,7 +478,7 @@ class Node:
                         result = self.executor.process(session_id, payload)
                 finally:
                     self._compute_lock.release()
-            elif _is_decode_step(payload):
+            elif self.window is not None and _is_decode_step(payload):
                 with span("window.wait"):
                     result = self.window.submit((session_id, payload))
             else:
@@ -619,11 +626,12 @@ class Node:
     def stats(self) -> Dict[str, Any]:
         """Counters, the device's name, the quantization and the stage's
         parameter bytes as stored, each kernel's launch count in this
-        process and the executor's stats (for the lane executor: co-batched
-        steps and tokens, mean co-batch, prefill dispatches and tokens, and
-        the block pool's gauges when paged, the adapter registry's with
-        --adapters)."""
-        lock = self._compute_lock if self.window is None else contextlib.nullcontext()
+        process and the executor's stats (for the lane executors: co-batched
+        dispatches and tokens, mean co-batch, prefill dispatches and tokens,
+        graphs, and the block pool's gauges when paged, the adapter
+        registry's with --adapters; the whole-model one adds its window's
+        `window`), and the node's arrival window's (`window`, stage lanes)."""
+        lock = self._compute_lock if self._serial else contextlib.nullcontext()
         with lock:
             executor = self.executor.stats()
             kernels = {
@@ -671,6 +679,7 @@ class Node:
             "gossip_port": self.dht.port,
             "kernels": kernels,
             "executor": executor,
+            "window": None if self.window is None else self.window.stats(),
             "memory": memory,
             "dht": dht,
         }

@@ -12,22 +12,29 @@ lock it pulls the batch with `drain_pending()`, so entries arriving
 mid-step join the next step instead of fragmenting into mini-batches queued
 on the device lock. It owns the drained entries end to end (each one's
 result or error, and its event). If run_batch raises, whatever it did not
-drain fails with that error.
+drain fails with that error. Both owners of a window use it: runtime/node
+for the pipeline stage's lane executor, and the whole-model
+runtime/batch_executor for its own.
+
+The reference's other mode, `swap_in_run=False` (the flusher takes the
+pending list when it wakes, before it holds the device), is not ported:
+sessions whose steps arrive further apart than the window then form a
+convoy of one-entry batches queued on the device lock, and stay in it,
+where the drain takes every step that arrived while the device was busy.
 
 The window wait ends early once every live idle session's entry is pending
 (`gang_target`), which merges phase-offset session cohorts into one
-lockstep co-batch; it is skipped when `co_possible()` says no co-arrival
-can come.
+lockstep co-batch; without a gang target it is a plain `sleep(window_s)`.
+It is skipped when `co_possible()` says no co-arrival can come.
+
+`n_steps` and `n_served` count the drains that took entries and the
+entries they took (`stats()`); an executor that serves more than one token
+per entry (a K-step window) or fails entries adjusts `n_served`
+(`count_served`) so it counts tokens.
 
 `invalidate(pred, error)` lets session teardown fail entries that are still
 waiting in the window (never started), so a freed lane can be reused
 without a stale write racing its new owner.
-
-The reference's `swap_in_run=False` flush (the batch swapped out when the
-flusher wakes) and its plain `sleep(window_s)` wait without a gang target
-serve the whole-model batch executor, which is not ported; stage-level
-continuous batching (runtime/node + runtime/stage_batch) uses only this
-mode. Co-batch counters live in the executor (`BatchedStageExecutor.stats`).
 
 The reference's lock-order-checking proxies and its `window.stall` journal
 event wait for the observability slice; a stalled flusher still raises
@@ -57,7 +64,7 @@ class WindowedBatcher:
         window_s: float,
         run_batch: Callable[[], None],
         co_possible: Callable[[], bool],
-        gang_target: Callable[[], int],
+        gang_target: Optional[Callable[[], int]] = None,
         wait_timeout_s: float = 120.0,
     ):
         self.window_s = window_s
@@ -68,6 +75,8 @@ class WindowedBatcher:
         self._mu = threading.Lock()
         self._pending: List[Entry] = []
         self._flusher_active = False
+        self.n_steps = 0  # batches taken
+        self.n_served = 0  # entries (tokens, as the executor adjusts it) in them
 
     def _wait(self, entry: Entry, where: str) -> Any:
         entry.event.wait(timeout=self._wait_timeout_s)
@@ -89,7 +98,9 @@ class WindowedBatcher:
         if not i_flush:
             return self._wait(entry, "co_arrival")
 
-        if wait:
+        if wait and self._gang_target is None:
+            time.sleep(self.window_s)
+        elif wait:
             # bounded gang wait: poll until every live idle session's step is
             # pending or the window cap elapses
             deadline = time.monotonic() + self.window_s
@@ -124,6 +135,18 @@ class WindowedBatcher:
                 entry.event.set()
         return self._wait(entry, "flush")
 
+    def count_served(self, delta: int) -> None:
+        """Adjust `n_served` by the executor's count: tokens, not entries."""
+        with self._mu:
+            self.n_served += delta
+
+    def stats(self) -> dict:
+        """Batches taken, entries (tokens) served, and their mean."""
+        with self._mu:
+            steps, served = self.n_steps, self.n_served
+        return {"batched_steps": steps, "batched_tokens": served,
+                "mean_batch": round(served / steps, 3) if steps else 0.0}
+
     def drain_pending(self) -> List[Entry]:
         """Atomically take every live entry still waiting in the window.
 
@@ -133,7 +156,11 @@ class WindowedBatcher:
         result or error AND its `event` when the step completes."""
         with self._mu:
             batch, self._pending = self._pending, []
-        return [e for e in batch if e.error is None]
+            live = [e for e in batch if e.error is None]
+            if live:
+                self.n_steps += 1
+                self.n_served += len(live)
+        return live
 
     def invalidate(self, pred: Callable[[Any], bool], error: Exception) -> None:
         """Fail waiting entries whose payload matches `pred` (they have not

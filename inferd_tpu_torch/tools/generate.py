@@ -1,22 +1,26 @@
 """Local generation CLI: run a model end to end in this process, on the card
-by default (port of inferd_tpu/tools/generate.py, its plain engine).
+by default (port of inferd_tpu/tools/generate.py, its plain and batched
+engines).
 
 Builds a preset from seeded random weights, optionally merges a peft LoRA
-adapter and quantizes, then generates with core.generate.Engine: prefill,
-on-device sampling, and `--chunk` fused decode steps per host read. Prints
-the new ids (or the decoded text with `--prompt`) on stdout and the rate
-on stderr.
+adapter and quantizes, then generates with `--engine plain`
+(core.generate.Engine: prefill, on-device sampling, and `--chunk` fused
+decode steps per host read) or `--engine batched` (core.batch.
+BatchedEngine with `--lanes` lanes: the prompt through generate_all, the
+batched engine's loop, `--chunk` steps per window). Prints the new ids (or
+the decoded text with `--prompt`) on stdout and the rate on stderr.
 
 Usage:
   python -m inferd_tpu_torch.tools.generate --model qwen3-0.6b --random-init \\
       --prompt-ids 3,7,11 --max-new-tokens 16 [--chunk 8] [--device cuda|cpu] \\
+      [--engine plain|batched [--lanes 4]] \\
       [--quant none|int8|int8-kernel|int4] [--kv-dtype model|float8_e4m3fn] \\
       [--attn auto|flash|xla] [--lora DIR] [--pin-prefix-ids 3,7 --max-pins 4] \\
       [--temperature 0.6 --top-k 20 --top-p 0.95 --min-p 0 --seed 0] [--max-len 2048]
 
 Not ported yet, and refused with the ROADMAP item that brings them:
-`--engine batched` (A3), `--engine speculative` (A7), `--quant w8a8` (A6)
-and weights from a checkpoint, i.e. running without `--random-init` (A5).
+`--engine speculative` (A7), `--quant w8a8` (A6) and weights from a
+checkpoint, i.e. running without `--random-init` (A5).
 """
 
 from __future__ import annotations
@@ -35,7 +39,6 @@ from inferd_tpu_torch.ops import quant
 from inferd_tpu_torch.utils.platform import DEVICE_CHOICES, resolve_device
 
 _NOT_PORTED = {
-    ("engine", "batched"): "--engine batched (the batched engine) is not ported yet: ROADMAP A3",
     ("engine", "speculative"): "--engine speculative is not ported yet: ROADMAP A7",
     ("quant", "w8a8"): "--quant w8a8 is not ported yet: ROADMAP A6",
 }
@@ -51,6 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-ids", default="", help="comma-separated token ids")
     ap.add_argument("--max-new-tokens", type=int, default=32)
     ap.add_argument("--engine", default="plain", choices=["plain", "batched", "speculative"])
+    ap.add_argument("--lanes", type=int, default=4, help="batched: lanes")
     ap.add_argument("--chunk", type=int, default=1,
                     help="fused decode steps per host read (powers of two)")
     ap.add_argument("--lora", default="", help="peft LoRA adapter dir merged into the weights")
@@ -93,6 +97,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     except RuntimeError as e:  # no card: say so, never fall back to the CPU
         ap.error(str(e))
 
+    from inferd_tpu_torch.core.batch import BatchedEngine
     from inferd_tpu_torch.core.generate import Engine
     from inferd_tpu_torch.models import qwen3
 
@@ -128,12 +133,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         eos = tokenizer.eos_token_id
 
     t0 = time.perf_counter()
-    eng = Engine(cfg, params, max_len=args.max_len, sampling_cfg=sampling,
-                 max_pins=args.max_pins)
-    if args.pin_prefix_ids:
-        eng.pin_prefix(_ids(args.pin_prefix_ids))
-    out = eng.generate(prompt_ids, args.max_new_tokens, eos_token_id=eos, seed=args.seed,
-                       chunk=args.chunk)
+    if args.engine == "batched":
+        if args.pin_prefix_ids:
+            ap.error("--pin-prefix-ids pins into the plain engine only")
+        beng = BatchedEngine(cfg, params, lanes=args.lanes, max_len=args.max_len,
+                             sampling_cfg=sampling, device=device)
+        out = beng.generate_all([prompt_ids], args.max_new_tokens, eos_token_id=eos,
+                                seed=args.seed, chunk=args.chunk)[0]
+    else:
+        eng = Engine(cfg, params, max_len=args.max_len, sampling_cfg=sampling,
+                     max_pins=args.max_pins)
+        if args.pin_prefix_ids:
+            eng.pin_prefix(_ids(args.pin_prefix_ids))
+        out = eng.generate(prompt_ids, args.max_new_tokens, eos_token_id=eos, seed=args.seed,
+                           chunk=args.chunk)
     dt = time.perf_counter() - t0
 
     if tokenizer is not None:

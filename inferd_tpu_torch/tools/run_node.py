@@ -15,19 +15,24 @@ Usage:
       --port 6050 [--device cuda|cpu] [--max-len 4096] \\
       [--gossip-port 7050] [--bootstrap host:port[,host:port...]] \\
       [--capacity 4] \\
-      [--stage-lanes N [--window-ms W] [--paged-kv BS [--kv-blocks K]] \\
-       [--prefill-chunk C] [--adapters DIR[,DIR...] [--adapter-slots N]]] \\
+      [--stage-lanes N | --batch-lanes N] [--window-ms W] \\
+      [--paged-kv BS [--kv-blocks K]] [--prefill-chunk C] \\
+      [--adapters DIR[,DIR...] [--adapter-slots N]] \\
       [--quant none|int8|int8-kernel|int4] [--lora DIR] \\
       [--enable-profiling [--profile-dir DIR]]
 
 With --stage-lanes the stage serves its sessions from lanes of one shared
 KV cache, and co-arriving decode steps of concurrent sessions run as one
-device step (stage-level continuous batching); --paged-kv pages that cache.
+device step (stage-level continuous batching); --batch-lanes does the same
+for the whole model from a 1-stage checkpoint (runtime/batch_executor,
+whole-model continuous batching; the two are exclusive); --paged-kv pages
+the lanes' cache. Either lane node also serves `decode_steps` windows when
+it holds the whole model.
 With --quant the stage's linear weights are quantized at load (the
 checkpoint stays bf16 on disk) and its decode GEMVs run the kernels of
 csrc/qmatmul.cu, on either executor. --lora merges one peft adapter into the
 stage's weights at load, before --quant, on either executor; --adapters
-serves many on lane nodes, each session's own adapter added per lane by the
+serves many on either lane node, each session's own adapter added per lane by the
 kernel of csrc/lora_delta.cu (the two are exclusive). --enable-profiling
 opens POST /profile: torch.profiler traces of the node on demand, under
 --profile-dir.
@@ -110,16 +115,22 @@ def build_parser() -> argparse.ArgumentParser:
         "sessions run as ONE device step per arrival window (0 = off)",
     )
     ap.add_argument(
+        "--batch-lanes", type=int, default=0,
+        help="whole-model continuous batching: serve a 1-stage checkpoint with this "
+        "many session lanes; concurrent decode steps coalesce into one device step "
+        "(0 = off; exclusive with --stage-lanes)",
+    )
+    ap.add_argument(
         "--window-ms", type=float, default=2.0,
-        help="arrival-window length for --stage-lanes decode co-batching; a solo "
-        "session never pays it",
+        help="arrival-window length for --stage-lanes / --batch-lanes decode "
+        "co-batching; a solo session never pays it",
     )
     ap.add_argument(
         "--paged-kv", type=int, default=0,
         help="paged KV block size in tokens (0 = dense lane slab). Lanes map to "
         "chains of fixed-size pool blocks through a block table: allocation and "
         "eviction become per-block, and sessions sharing a cached prompt prefix "
-        "map its blocks read-only (copy-on-write). Needs --stage-lanes",
+        "map its blocks read-only (copy-on-write). Needs --stage-lanes or --batch-lanes",
     )
     ap.add_argument(
         "--kv-blocks", type=int, default=0,
@@ -152,7 +163,8 @@ def build_parser() -> argparse.ArgumentParser:
         "this node's adapter CATALOG. Sessions admitted with an `adapter` envelope "
         "key decode with that adapter's weights via the batched unmerged apply — "
         "heterogeneous-adapter sessions co-batch in ONE device step; adapters "
-        "hot-load/evict through a refcounted slot registry. Needs --stage-lanes; "
+        "hot-load/evict through a refcounted slot registry. Needs --stage-lanes or "
+        "--batch-lanes; "
         "mutually exclusive with --lora",
     )
     ap.add_argument(
@@ -206,16 +218,17 @@ def make_node(args: argparse.Namespace) -> Node:
                                     needs_head=spec.is_last)
     registry = None
     if args.adapters:
-        if args.stage_lanes <= 0:  # before reading the catalog
+        if args.stage_lanes <= 0 and args.batch_lanes <= 0:  # before reading the catalog
             raise ValueError("--adapters (multi-tenant batched LoRA) runs on the lane "
-                             "executors — pair it with --stage-lanes")
+                             "executors — pair it with --stage-lanes or --batch-lanes")
         registry = AdapterRegistry(cfg, args.adapters, slots=args.adapter_slots,
                                    start_layer=spec.start_layer, end_layer=spec.end_layer + 1,
                                    owner=owner, device=device)
     executor = make_executor(
         cfg, spec, params, max_len=args.max_len,
         stage_lanes=args.stage_lanes, block_size=args.paged_kv, kv_blocks=args.kv_blocks,
-        prefill_chunk=args.prefill_chunk, adapters=registry,
+        prefill_chunk=args.prefill_chunk, adapters=registry, batch_lanes=args.batch_lanes,
+        window_ms=args.window_ms,
     )
     if device.type == "cuda":
         from inferd_tpu_torch.ops import build

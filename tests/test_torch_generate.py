@@ -237,9 +237,22 @@ def test_cli_generates_on_cpu(capsys):
                          "--seed", "3"]) == 0
 
 
+@pytest.mark.parametrize("chunk", ["1", "4"])
+def test_cli_batched_engine_generates_solo_greedy_tokens(capsys, chunk):
+    """`--engine batched` runs the prompt through BatchedEngine.generate_all:
+    the solo engine's greedy tokens, at chunk 1 and 4."""
+    assert gen_cli.main(["--random-init", "--prompt-ids", "3,7,11", "--max-new-tokens", "9",
+                         "--engine", "batched", "--lanes", "2", "--chunk", chunk,
+                         "--device", "cpu", "--temperature", "0", "--max-len", "64"]) == 0
+    out = capsys.readouterr()
+    ids = [int(x) for x in out.out.split("[", 1)[1].split("]")[0].split(",")]
+    params = tq.init_params(tcfg.TINY, torch.Generator().manual_seed(0))
+    eng = tgen.Engine(tcfg.TINY, params, max_len=64, sampling_cfg=GREEDY_T)
+    assert ids == eng.generate([3, 7, 11], 9) and "tok/s on cpu" in out.err
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--engine", "batched"], "A3"), (["--engine", "speculative"], "A7"),
-    (["--quant", "w8a8"], "A6"), ([], "A5"),
+    (["--engine", "speculative"], "A7"), (["--quant", "w8a8"], "A6"), ([], "A5"),
 ])
 def test_cli_refuses_what_is_not_ported(capsys, argv, item):
     extra = [] if item == "A5" else ["--random-init"]

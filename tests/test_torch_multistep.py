@@ -261,9 +261,9 @@ def test_decode_k_counts_eos_token_then_freezes(solo):
     np.testing.assert_array_equal(keys2, keys)
     with pytest.raises(BufferError):
         tq.decode_k(tp, tcfg.TINY, [1], tc, [30], [True], key0, 4)
-    paged = PagedKVCache.create(tcfg.TINY, L, 1, 32, block_size=16)
-    with pytest.raises(NotImplementedError, match="paged"):
-        tq.decode_k(tp, tcfg.TINY, [1], paged, [4], [True], key0, 2)
+    paged = PagedKVCache.create(tcfg.TINY, L, 1, 32, block_size=16)  # a 2-block table
+    with pytest.raises(BufferError, match="table"):
+        tq.decode_k(tp, tcfg.TINY, [1], paged, [30], [True], key0, 4)
 
 
 def _post(node, body):

@@ -640,3 +640,68 @@ def test_sessions_and_buffers_under_concurrent_steps_and_teardown(params):
     assert len(ex.sessions) == 0 and st["allocated"] == st["free"] + st["released"]
     free = {c.k.data_ptr() for v in ex.buffers._free.values() for c in v}
     assert {k[0] for k in ex.graphs._entries} <= free
+
+
+# -- whole-model lanes (runtime/batch_executor, core/batch) ----------------------------
+
+
+@pytest.mark.parametrize("block_size", [0, 8])
+def test_batch_lanes_kstep_windows_with_a_tenant_graphed_equal_eager(params, tenant, block_size):
+    """The whole-model lane executor with a tenant: a base and a tenant
+    session each run decode_steps 4 windows (paged: across blocks of 8)
+    and single-token steps. The graphed executor's results equal the eager
+    one's exactly, greedy tokens equal the JAX BatchedExecutor's, the
+    tenant's stream leaves the base's, and the tenant window replays a
+    graph keyed by the adapter pools."""
+    from inferd_tpu.runtime.batch_executor import BatchedExecutor as JBatched
+    from inferd_tpu_torch.runtime.batch_executor import BatchedExecutor
+
+    jp, tp = params
+    kw = dict(lanes=4, max_len=128, window_ms=1.0, block_size=block_size)
+    jex = JBatched(jcfg.TINY, jp, adapters=JRegistry(jcfg.TINY, tenant), **kw)
+    eager, graphed = (BatchedExecutor(tcfg.TINY, tp, adapters=AdapterRegistry(tcfg.TINY, tenant),
+                                      **kw) for _ in range(2))
+    graphed.graphs = _graphs()
+    prompt = np.random.default_rng(7).integers(0, 256, 13).tolist()
+    streams = {}
+    for sid, stamp in (("b", {}), ("t", {"adapter": "ten0"})):
+        pl = {"tokens": [prompt], "start_pos": 0, "real_len": len(prompt), **stamp}
+        outs = [ex.process(sid, pl) for ex in (jex, eager, graphed)]
+        _same(outs[2], outs[1])
+        out = [int(np.argmax(_np(outs[0]["logits"])[0]))]
+        for _ in range(3):
+            pl = {"tokens": [[out[-1]]], "start_pos": len(prompt) + len(out) - 1,
+                  "decode_steps": 4}
+            rs = [ex.process(sid, pl) for ex in (jex, eager, graphed)]
+            assert rs[1] == rs[2] and rs[1]["tokens"] == [list(map(int, rs[0]["tokens"][0]))]
+            out += rs[1]["tokens"][0]
+        pl = {"tokens": [[out[-1]]], "start_pos": len(prompt) + len(out) - 1, "real_len": 1}
+        outs = [ex.process(sid, pl) for ex in (jex, eager, graphed)]
+        _same(outs[2], outs[1])
+        np.testing.assert_allclose(_np(outs[1]["logits"]), _np(outs[0]["logits"]), atol=ATOL)
+        streams[sid] = out
+    assert streams["t"] != streams["b"] and len(set(streams["b"])) > 2
+    keys = list(graphed.graphs._entries)
+    # a tenant window: run_window's key (8 fields) ends in the pools' address
+    assert any(len(k) == 8 and k[-1] is not None for k in keys)
+    st = graphed.stats()["graphs"]
+    assert st["replays"] >= 2 and st["captures"] == len(keys)
+
+
+def test_batched_engine_graphed_windows_equal_eager(params):
+    """BatchedEngine.generate_all with its windows graphed (the fake
+    backend) gives the eager engine's streams at chunk 1 and 4, sampled,
+    and replays its graphs."""
+    from inferd_tpu_torch.core.batch import BatchedEngine
+
+    sc = tcfg.SamplingConfig(**SAMPLING)
+    prompts = [np.random.default_rng(i).integers(0, 256, n).tolist()
+               for i, n in enumerate((5, 17, 30))]
+    eager = BatchedEngine(tcfg.TINY, params[1], lanes=2, max_len=64, sampling_cfg=sc)
+    graphed = BatchedEngine(tcfg.TINY, params[1], lanes=2, max_len=64, sampling_cfg=sc)
+    graphed.graphs = _graphs()
+    for chunk in (1, 4):
+        want = eager.generate_all(prompts, max_new_tokens=9, seed=3, chunk=chunk)
+        assert graphed.generate_all(prompts, max_new_tokens=9, seed=3, chunk=chunk) == want
+    st = graphed.graph_stats()
+    assert st["captures"] <= 4 and st["replays"] >= 4 * st["captures"]
