@@ -85,6 +85,29 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               trace [0, 1, 2]; the per-token latency of relay against chain
               on the seed and A, in interleaved pairs of 8- and 32-token runs
               (utils.profiling.paired_delta_stats)
+  serve_overload
+              the relay's overload plane on the serve parts: stage-0 entries
+              E0, E1 and E2 (--chaos delay_ms=400), stage-1 replicas R1 (a
+              paged lane node whose small pool two resident sessions put
+              under its --admission-reserve) and R2 (--capacity 1), and four
+              counter stages (a seed hedging with --hedge-mode any, a sound
+              and a stalled --chaos stall_p=1 stage-1 replica). Checks: a
+              spent deadline answers 408 at E0's entry, no node computing;
+              one that expires in E2's compute answers 408 post-compute,
+              nothing relayed; R1's residents' decode steps are served while
+              its record gossips shed: 1; the serve prompts at once through
+              E0: R1 sheds new sessions (503 busy, retry_after in (0.05, 5])
+              and the client's restarts land them on R2, every stream the
+              serve phase's chain stream; a session that fails over from E0
+              to E1 is rescued chunk by chunk to E0 through its gossiped
+              `sess` (each an E0 graph replay), token-exact; E0 killed
+              mid-session: E1's rescue fails, 409, one restart, token-exact;
+              the relay per token with a deadline on every envelope against
+              without (paired_delta_stats); on the counter stages, hedges win
+              over the stall within the 5% budget, then a 300 ms deadline
+              toward it answers 408 in time; no model node hedges; launches
+              exact per node for the steps each served, every decode step a
+              capture or a replay
   serve_quant_int8, serve_quant_int4
               the serve traffic on two run_node --quant int8 (then int4)
               processes: streams equal in-process quantized executors'; the
@@ -214,9 +237,10 @@ Run from the root of a checkout: python3 chip_smoke.py
 Exits non-zero without a CUDA device, and outside a checkout.
 `--only paged,lora` (any of flash, paged, qmm, lora, and on a fresh split
 serve, serve_quant, serve_lanes, serve_lanes_quant, serve_lanes_lora,
-serve_swarm, generate, generate_batched, serve_batch, serve_kstep, anatomy,
-profile: serve_quant runs int8 and int4, serve_lanes_lora runs serve_lanes
-first, serve_swarm runs serve and serve_lanes first, generate runs the
+serve_swarm, serve_overload, generate, generate_batched, serve_batch,
+serve_kstep, anatomy, profile: serve_quant runs int8 and int4,
+serve_lanes_lora runs serve_lanes first, serve_swarm runs serve and
+serve_lanes first, serve_overload runs serve first, generate runs the
 generate and generate_quant phases, serve_batch runs generate_batched
 first) builds the kernels and runs those phases alone, with no result
 lines.
@@ -230,6 +254,7 @@ import dataclasses
 import json
 import math
 import os
+import random
 import shutil
 import socket
 import statistics
@@ -2863,24 +2888,60 @@ SWARM_TIMING_STEPS = (8, 32)  # relay against chain: new tokens of the short and
 SWARM_TIMING_PAIRS = 3
 
 
+# serve_overload's nodes. R1, a paged lane replica of stage 1 whose pool of
+# OVERLOAD_KV_BLOCKS blocks (one the scratch) two resident serve sessions
+# (300 and 700 tokens: 10 + 22 blocks) put under its admission reserve
+# (int(0.6 x 65) = 39 free: 32 free then, 42 or 54 with either alone); its
+# long window makes its shed's Retry-After (window x (1 + inflight/cap))
+# outlast the shed wave's sessions on R2, whose capacity 1 makes new
+# sessions leave it for R1 once it holds three at once.
+OVERLOAD_KV_BLOCKS = 65
+OVERLOAD_RESERVE = 0.6
+OVERLOAD_WINDOW_MS = 3000
+OVERLOAD_R1_ARGS = ["--stage-lanes", str(LANES), "--paged-kv", str(PAGED_BS), "--prefill-chunk",
+                    str(LANE_PREFILL_CHUNK), "--window-ms", str(OVERLOAD_WINDOW_MS),
+                    "--kv-blocks", str(OVERLOAD_KV_BLOCKS), "--admission-reserve",
+                    str(OVERLOAD_RESERVE)]
+OVERLOAD_RESIDENT_STEPS = 2  # decode steps of each resident on R1, co-batched
+OVERLOAD_SHED_RETRIES = 4  # the shed wave's session restarts at most
+OVERLOAD_RESCUE_AFTER = 8  # tokens before the client fails over to E1
+OVERLOAD_POST_COMPUTE_DEADLINE_S = 0.15  # ahead of E2's 400 ms chaos delay
+OVERLOAD_STALL_DEADLINE_S = 0.3  # toward the stalled counter replica
+OVERLOAD_HEDGE_MS = 50
+# (common args, [(stage, args)]) of each swarm, the first node its gossip seed
+SWARM_LAYOUTS = {
+    "swarm": ("model", [(0, []), (1, []), (1, [])]),
+    "swarm_lanes": ("model", [(0, LANE_NODE_ARGS), (1, LANE_NODE_ARGS)]),
+    "swarm_counter": ("counter", [(0, []), (1, []), (2, [])]),
+    # serve_overload: entries E0, E1 and E2 (its forwards 400 ms late), R1, R2
+    "overload": ("model", [(0, []), (0, []), (0, ["--chaos", "delay_ms=400"]),
+                           (1, OVERLOAD_R1_ARGS), (1, ["--capacity", "1"])]),
+    # serve_overload's counter stages: a hedging seed, a sound and a stalled
+    # stage-1 replica (whose capacity makes fresh picks favour it), stage 2
+    "overload_counter": ("counter", [
+        (0, ["--hedge-mode", "any", "--hedge-delay-ms", str(OVERLOAD_HEDGE_MS),
+             "--hop-timeout", "5"]),
+        (1, []), (1, ["--chaos", "stall_p=1", "--capacity", "100"]), (2, [])]),
+}
+
+
 def swarm_nodes(parts: Optional[str], work: str, tag: str) -> List[Dict[str, Any]]:
-    """The node processes of one serve_swarm swarm, started now: the first,
-    a stage-0 node, is the gossip seed on a UDP port chosen here; the others
-    bootstrap to it on ephemeral ports. `swarm`: three one-session nodes
-    (stage 0, and stage 1 twice: replicas A and B); `swarm_lanes`: a lane
-    pair (LANE_NODE_ARGS); `swarm_counter`: three counter stages."""
+    """The node processes of one swarm of SWARM_LAYOUTS, started now: the
+    first, a stage-0 node, is the gossip seed on a UDP port chosen here; the
+    others bootstrap to it on ephemeral ports. `swarm`: three one-session
+    nodes (stage 0, and stage 1 twice: replicas A and B); `swarm_lanes`: a
+    lane pair (LANE_NODE_ARGS); `swarm_counter`: three counter stages;
+    `overload` and `overload_counter`: serve_overload's."""
     seed_port = free_udp_port()
-    if tag == "swarm_counter":
-        common, stages = ["--backend", "counter", "--num-stages", "3"], [0, 1, 2]
-    else:
-        common = ["--parts", parts, "--max-len", str(MAX_LEN)]
-        common += LANE_NODE_ARGS if tag == "swarm_lanes" else []
-        stages = [0, 1] if tag == "swarm_lanes" else [0, 1, 1]
+    kind, layout = SWARM_LAYOUTS[tag]
+    common = (["--backend", "counter", "--num-stages", "3"] if kind == "counter"
+              else ["--parts", parts, "--max-len", str(MAX_LEN)])
     nodes = []
-    for i, stage in enumerate(stages):
+    for i, (stage, extra) in enumerate(layout):
         gossip = (["--gossip-port", str(seed_port)] if i == 0
                   else ["--bootstrap", f"127.0.0.1:{seed_port}"])
-        nodes.append(launch_node(stage, os.path.join(work, f"{tag}{i}.log"), common + gossip))
+        nodes.append(launch_node(stage, os.path.join(work, f"{tag}{i}.log"),
+                                 common + extra + gossip))
     return nodes
 
 
@@ -2911,7 +2972,7 @@ def post_wire(port: int, path: str, body: Dict[str, Any]):
     from inferd_tpu_torch.client.base import http_post
     from inferd_tpu_torch.runtime import wire
 
-    status, raw = http_post(f"http://127.0.0.1:{port}{path}", wire.pack(body), 300.0)
+    status, raw, _ = http_post(f"http://127.0.0.1:{port}{path}", wire.pack(body), 300.0)
     return status, wire.unpack(raw)
 
 
@@ -3220,6 +3281,482 @@ def run_serve_swarm(card: str, parts: str, work: str, serve, lanes) -> Dict[str,
         raise
     finally:
         stop_nodes(one + lane + counter)
+
+
+def overload_client(entry, log: List[Dict[str, Any]], sampling):
+    """A SwarmClient entering at `entry` that logs each /forward step it
+    sends: the stage-0 node that computes it (its entry, or `stage0_port`
+    while set: a chunk E1 rescues to E0 is E0's), its size and start, the
+    answer's status, code and retry_after, and the last stage that served
+    it. `sids` lists its sessions in order."""
+    import numpy as np
+
+    from inferd_tpu_torch.client.base import ServerError
+    from inferd_tpu_torch.client.swarm_client import SwarmClient
+
+    class Recorder(SwarmClient):
+        stage0_port: Optional[int] = None
+
+        async def _step(self, session_id, tokens, start_pos):
+            if not self.sids or self.sids[-1] != session_id:
+                self.sids.append(session_id)
+            row = {"sid": session_id, "entry": self.entry_nodes[0][1],
+                   "stage0": self.stage0_port or self.entry_nodes[0][1], "n": len(tokens),
+                   "start": start_pos, "status": 200, "code": None, "retry_after": None,
+                   "served_by": None}
+            log.append(row)
+            try:
+                resp = await self._post("/forward", self._forward_env(session_id, tokens,
+                                                                      start_pos))
+            except ServerError as e:
+                row.update(status=e.status, code=e.code, retry_after=e.retry_after)
+                raise
+            row["served_by"] = resp["served_by"]
+            return np.asarray(resp["result_for_user"]["logits"])[0]
+
+    c = Recorder([("127.0.0.1", entry["port"])], sampling=sampling, prefill_chunk=512)
+    c.sids = []
+    return c
+
+
+def overload_passes(log: List[Dict[str, Any]]) -> Dict[Any, Dict[str, int]]:
+    """Per node port (stage 0) and node id (the last stage), the prefill and
+    decode passes the logged steps made it compute: an answered step on its
+    stage-0 node and on the replica that served it; a shed one (503 busy) on
+    its stage-0 node only; a refused one (409, 408) nowhere."""
+    out: Dict[Any, Dict[str, int]] = {}
+    for r in log:
+        kind = "decode" if r["n"] == 1 and r["start"] > 0 else "prefill"
+        at = []
+        if r["status"] == 200:
+            at = [r["stage0"], r["served_by"]]
+        elif r["status"] == 503 and r["code"] == "busy":
+            at = [r["stage0"]]
+        for node in at:
+            out.setdefault(node, {"prefill": 0, "decode": 0})[kind] += 1
+    return out
+
+
+def run_serve_overload(card: str, parts: str, work: str, serve) -> Dict[str, Any]:
+    """The `serve_overload` phase: the relay's overload plane on the serve
+    parts (deadlines, admission shedding with Retry-After, session rescue,
+    restarts) and, on counter stages, hedged decode relays and a deadline
+    on a stall; every stream token-exact against the serve phase's chain
+    streams, every kernel launch accounted for."""
+    import threading
+
+    import numpy as np
+
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.control.dht import sess_hash
+    from inferd_tpu_torch.utils.profiling import paired_delta_stats
+
+    phase = "serve_overload"
+    cfg = get_config(MODEL)
+    layers = cfg.num_layers // 2
+    greedy = SamplingConfig(temperature=0.0)
+    prompts = serve_prompts(cfg.vocab_size)
+    model: List[Dict[str, Any]] = []
+    counter: List[Dict[str, Any]] = []
+    log: List[Dict[str, Any]] = []
+
+    def node_id(n):
+        return f"127.0.0.1:{n['port']}"
+
+    def stats(n):
+        return http_get_json(f"http://127.0.0.1:{n['port']}/stats")
+
+    def counters(st):
+        return st["metrics"]["counters"]
+
+    def forward(n, env):
+        return post_wire(n["port"], "/forward", env)
+
+    def tokens_env(sid, toks, start, **kw):
+        return {"session_id": sid, "stage": 0, "task_id": sid,
+                "payload": {"tokens": np.asarray([toks], np.int32), "start_pos": start,
+                            "real_len": len(toks)}, **kw}
+
+    def generate(client, prompt, new=NEW_TOKENS, **kw):
+        async def go():
+            async with client as c:
+                return await c.generate_ids(prompt, max_new_tokens=new, **kw)
+
+        return asyncio.run(go())
+
+    def wait_for(cond, what, timeout_s=15.0):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout_s:
+            if cond():
+                return time.perf_counter() - t0
+            time.sleep(0.05)
+        raise TimeoutError(f"{phase}: {what} after {timeout_s}s")
+
+    def advertised(holder, viewer, sid):
+        """Whether `viewer`'s gossip view has `holder` advertising `sid`."""
+        rec = stats(viewer)["dht"]["0"].get(node_id(holder), {})
+        return sess_hash(sid) in rec.get("sess", [])
+
+    try:
+        model = take_swarm(parts, work, "overload")
+        counter = take_swarm(None, work, "overload_counter")
+        t0 = time.perf_counter()
+        for n in model + counter:
+            wait_ready(n)
+        converged = [wait_gossip(phase, nodes) for nodes in (model, counter)]
+        e0, e1, e2, r1, r2 = model
+        seed, good, stalled, last = counter
+        names = {node_id(n): nm for n, nm in zip(model, ("E0", "E1", "E2", "R1", "R2"))}
+        fresh = [stats(n) for n in model + counter]
+        for st in fresh:
+            if any(k["launches"] for k in st["kernels"].values()) or st["forward_passes"]:
+                raise AssertionError(f"{phase}: a node did work before the phase: {st}")
+        say(phase, f"{len(model) + len(counter)} run_node processes ready in "
+                   f"{time.perf_counter() - t0:.1f}s (E0, E1, E2 --chaos delay_ms=400; R1 "
+                   f"{' '.join(OVERLOAD_R1_ARGS)}; R2 --capacity 1; counter: a seed with "
+                   f"--hedge-mode any --hedge-delay-ms {OVERLOAD_HEDGE_MS} --hop-timeout 5, "
+                   "stage-1 replicas sound and --chaos stall_p=1 --capacity 100, stage 2); "
+                   f"gossip full after {', '.join(f'{c:.2f}' for c in converged)} s; device "
+                   "memory reserved per model node, GiB: "
+                   f"{[round(st['memory'].get('reserved', 0) / 2**30, 3) for st in fresh[:5]]}")
+
+        # an expired deadline: 408 at E0's entry, no node computes
+        status, body = forward(e0, tokens_env("dl-entry", prompts[0], 0,
+                                              deadline_ms=(time.time() - 5.0) * 1e3))
+        passes = [stats(n)["forward_passes"] for n in model]
+        if (status != 408 or body.get("code") != "deadline" or "entry" not in body["error"]
+                or any(passes) or counters(stats(e0)).get("deadline.expired.entry") != 1):
+            raise AssertionError(f"{phase}: expired deadline at E0: HTTP {status} {body}, "
+                                 f"passes {passes}")
+        say(phase, f"a spent deadline at E0: HTTP 408 {body['code']!r} ({body['error']}); "
+                   f"no node computed (forward passes {passes})")
+
+        # a deadline that expires during E2's compute: 408 post-compute, no relay
+        t = time.perf_counter()
+        status, body = forward(e2, tokens_env(
+            "dl-compute", prompts[0], 0,
+            deadline_ms=(time.time() + OVERLOAD_POST_COMPUTE_DEADLINE_S) * 1e3))
+        took = time.perf_counter() - t
+        after = [stats(n)["forward_passes"] for n in model]
+        if (status != 408 or body.get("code") != "deadline" or "post-compute" not in body["error"]
+                or after != [0, 0, 1, 0, 0]
+                or counters(stats(e2)).get("deadline.expired.post-compute") != 1):
+            raise AssertionError(f"{phase}: deadline in E2's compute: HTTP {status} {body}, "
+                                 f"passes {after}")
+        post_wire(e2["port"], "/end_session", {"session_id": "dl-compute", "stage": 0})
+        say(phase, f"a deadline {OVERLOAD_POST_COMPUTE_DEADLINE_S * 1e3:.0f} ms ahead through "
+                   f"E2 (400 ms chaos delay): HTTP 408 after {took * 1e3:.1f} ms "
+                   f"({body['error']}); E2 computed, R1 and R2 did not (forward passes {after})")
+
+        # two resident serve sessions put R1's pool under its reserve
+        residents = {}
+        for i, p in enumerate((prompts[2], prompts[3])):
+            sid = f"resident-{i}"
+            status, s0 = forward(e1, dict(tokens_env(sid, p, 0), relay=False))
+            status1, s1 = forward(r1, {"session_id": sid, "stage": 1, "relay": False,
+                                       "payload": s0.get("result")})
+            logits = np.asarray(s1["result"]["logits"]) if status1 == 200 else None
+            if status != 200 or logits is None or not np.isfinite(logits).all():
+                raise AssertionError(f"{phase}: resident {sid}: HTTP {status} / {status1} {s1}")
+            residents[sid] = (len(p), int(np.argmax(logits[0])))
+        r1_st = stats(r1)
+        pool = r1_st["executor"]["paged"]
+        reserve = max(1, int(OVERLOAD_RESERVE * OVERLOAD_KV_BLOCKS))
+        own = r1_st["dht"]["1"][node_id(r1)]
+        if not pool["blocks_free"] < reserve or own.get("shed") != 1:
+            raise AssertionError(f"{phase}: R1 after two residents: pool {pool}, reserve "
+                                 f"{reserve}, its record {own}")
+        # their decode steps (mid-session chunks) are never shed, and co-batch
+        # (twice each, at once: two co-batched dispatches, a capture and a replay)
+        for _ in range(OVERLOAD_RESIDENT_STEPS):
+            hidden = {}
+            for sid, (pos, tok) in residents.items():
+                status, s0 = forward(e1, dict(tokens_env(sid, [tok], pos), relay=False))
+                hidden[sid] = s0["result"]
+            answers: Dict[str, Any] = {}
+
+            def step(sid):
+                answers[sid] = forward(r1, {"session_id": sid, "stage": 1, "relay": False,
+                                            "payload": hidden[sid]})
+
+            threads = [threading.Thread(target=step, args=(sid,)) for sid in residents]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=60)
+            if sorted(a[0] for a in answers.values()) != [200, 200]:
+                raise AssertionError(f"{phase}: R1 refused a resident's decode step: {answers}")
+            residents = {sid: (pos + 1, int(np.argmax(np.asarray(
+                answers[sid][1]["result"]["logits"])[0]))) for sid, (pos, _) in residents.items()}
+        waited = wait_for(lambda: stats(e0)["dht"]["1"][node_id(r1)].get("shed") == 1,
+                          "R1's shed flag in E0's view")
+        say(phase, f"two resident sessions ({len(prompts[2])} and {len(prompts[3])} prompt "
+                   f"tokens) on R1: blocks free {pool['blocks_free']} of {pool['blocks_total']} "
+                   f"< reserve {reserve}; R1's record carries shed: 1 (in E0's view after "
+                   f"{waited:.2f} s); their decode steps answered 200, not shed")
+
+        # the serve prompts at once through E0: R1 sheds, restarts land on R2
+        wave_logs = [[] for _ in prompts]
+        marks: List[List[Any]] = [[] for _ in prompts]
+        t = time.perf_counter()
+
+        async def wave():
+            async def one(i, p):
+                c = overload_client(e0, wave_logs[i], greedy)
+                async with c:
+                    # a restart may meet R1 again while E0's gossip view still
+                    # shows R2 at its wave load (E0 ranks by gossiped load)
+                    return await c.generate_ids(p, max_new_tokens=NEW_TOKENS,
+                                                on_token=marks[i].append,
+                                                session_retries=OVERLOAD_SHED_RETRIES)
+
+            return await asyncio.gather(*(one(i, p) for i, p in enumerate(prompts)))
+
+        streams = asyncio.run(wave())
+        wave_s = time.perf_counter() - t
+        for p, got, want in zip(prompts, streams, serve["streams"]):
+            if got != want:
+                raise AssertionError(f"{phase}: shed wave stream of prompt {len(p)} != the "
+                                     "serve phase's chain stream from token "
+                                     f"{first_divergence(got, want)}")
+        sheds = [r for lg in wave_logs for r in lg if r["status"] != 200]
+        served_r1 = [r for lg in wave_logs for r in lg if r["served_by"] == node_id(r1)]
+        finals_on_r2 = all(all(r["served_by"] == node_id(r2) for r in lg
+                               if r["sid"] == lg[-1]["sid"]) for lg in wave_logs)
+        r1_c = counters(stats(r1))
+        if (not sheds or any((r["status"], r["code"]) != (503, "busy")
+                             or not 0.05 < (r["retry_after"] or 0) <= 5.0 for r in sheds)
+                or served_r1 or not finals_on_r2 or r1_c.get("admission.shed", 0) != len(sheds)
+                or any(m.count(None) != sum(1 for r in lg if r["status"] != 200)
+                       for m, lg in zip(marks, wave_logs))):
+            raise AssertionError(f"{phase}: shed wave: sheds {sheds}, steps served by R1 "
+                                 f"{len(served_r1)}, final attempts on R2 {finals_on_r2}, R1 "
+                                 f"counters {r1_c}")
+        log += [r for lg in wave_logs for r in lg]
+        restarts = [m.count(None) for m in marks]
+        say(phase, f"the serve prompts at once through E0 in {wave_s:.2f} s: R1 shed "
+                   f"{len(sheds)} new session(s) with HTTP 503 busy, retry_after "
+                   f"{[r['retry_after'] for r in sheds]} s; restarts per prompt {restarts}, "
+                   f"each on R2; every stream equals the serve phase's chain stream; R1 "
+                   f"computed no wave step")
+
+        # rescue: a session entering at E0 fails over to E1 after a few tokens
+        e0_before: Dict[str, Any] = {}
+        rescue_log: List[Dict[str, Any]] = []
+        c = overload_client(e0, rescue_log, greedy)
+
+        stamps: List[float] = []
+
+        def fail_over(tok):
+            stamps.append(time.perf_counter())
+            if tok is not None and len(c.sids) == 1 and len(rescue_log) == (
+                    -(-len(prompts[2]) // 512) + OVERLOAD_RESCUE_AFTER - 1):
+                sid = c.sids[-1]
+                wait_for(lambda: advertised(e0, e1, sid), "E0's advert of the session at E1")
+                e0_before.update(stats(e0)["executor"]["graphs"])
+                c.entry_nodes = [("127.0.0.1", e1["port"])]
+                c.stage0_port = e0["port"]  # E1 relays each chunk to E0, which computes it
+                stamps.append(time.perf_counter())  # the wait for the advert is not a step
+
+        e1_before = counters(stats(e1)).get("sessions.rescue_relay", 0)
+        got = generate(c, prompts[2], on_token=fail_over)
+        sent_e1 = sum(1 for r in rescue_log if r["entry"] == e1["port"])
+        e0_graphs = stats(e0)["executor"]["graphs"]
+        rescued = counters(stats(e1)).get("sessions.rescue_relay", 0) - e1_before
+        replays = e0_graphs["replays"] - e0_before.get("replays", 0)
+        captures = e0_graphs["captures"] - e0_before.get("captures", 0)
+        if (got != serve["streams"][2] or rescued != sent_e1 or not sent_e1
+                or captures or replays != sent_e1
+                or stats(e1)["executor"]["sessions"] != len(residents)):
+            raise AssertionError(f"{phase}: rescue: stream equal {got == serve['streams'][2]}, "
+                                 f"{sent_e1} chunks to E1, rescue relays {rescued}, E0 graphs "
+                                 f"+{captures} captures +{replays} replays")
+        log += rescue_log
+        # per token: E0's own steps before the switch, E1 -> E0 bounces after it
+        k = OVERLOAD_RESCUE_AFTER
+        direct = statistics.median(b - a for a, b in zip(stamps[:k - 1], stamps[1:k])) * 1e3
+        bounced = statistics.median(b - a for a, b in zip(stamps[k:-1], stamps[k + 1:])) * 1e3
+        timing_rescue = {"direct_ms_per_token": direct, "rescued_ms_per_token": bounced}
+        say(phase, f"rescue: after {k} tokens the client entered at E1; E1 relayed all "
+                   f"{sent_e1} later chunks to E0 through its `sess` advert "
+                   f"(sessions.rescue_relay {rescued:.0f}), each an E0 graph replay (+{replays}, "
+                   f"+{captures} captures); the stream equals the serve chain stream; median "
+                   f"ms per token entering at E0 {direct:.3f}, rescued through E1 "
+                   f"{bounced:.3f} ({bounced / direct:.3f}x) ({card})")
+
+        # the relay's ms/token with a deadline on every envelope against without
+        prompt = np.random.default_rng(4).integers(0, cfg.vocab_size, SWARM_TIMING_PROMPT).tolist()
+        short, long_ = SWARM_TIMING_STEPS
+        arms = {"deadline": {"deadline_s": 60.0}, "none": {}}
+        outs = {}
+        for name, kw in arms.items():
+            outs[name] = generate(overload_client(e0, log, greedy), prompt, new=long_, **kw)
+        if outs["deadline"] != outs["none"]:
+            raise AssertionError(f"{phase}: the timing prompt's streams differ with a deadline")
+        times: Dict[str, Any] = {name: ([], []) for name in arms}
+        for i in range(SWARM_TIMING_PAIRS):
+            for name in (list(arms) if i % 2 == 0 else list(reversed(arms))):
+                for n in ((short, long_) if i % 2 == 0 else (long_, short)):
+                    t = time.perf_counter()
+                    generate(overload_client(e0, log, greedy), prompt, new=n, **arms[name])
+                    times[name][0 if n == short else 1].append(time.perf_counter() - t)
+        timing: Dict[str, Any] = {}
+        for name, (ts, tl) in times.items():
+            per, n_valid, spread, _ = paired_delta_stats(ts, tl, short, long_)
+            timing[name] = {"ms_per_token": per * 1e3, "valid_pairs": n_valid,
+                            "spread_pt": spread}
+        ratio = timing["deadline"]["ms_per_token"] / timing["none"]["ms_per_token"]
+        timing["deadline_over_none"] = ratio
+        say(phase, f"relay per token through E0 and R2, {SWARM_TIMING_PAIRS} interleaved pairs "
+                   f"of {short}- and {long_}-token runs each: with a deadline on every envelope "
+                   f"{timing['deadline']['ms_per_token']:.3f} ms/token ("
+                   f"{timing['deadline']['valid_pairs']} valid, spread "
+                   f"{timing['deadline']['spread_pt']}%), without "
+                   f"{timing['none']['ms_per_token']:.3f} ms/token ("
+                   f"{timing['none']['valid_pairs']} valid, spread "
+                   f"{timing['none']['spread_pt']}%): ratio {ratio:.4f} ({card})")
+
+        # a rescue that fails: E0 killed mid-session, E1 answers 409, one restart
+        e0_final: Dict[str, Any] = {}
+        fail_log: List[Dict[str, Any]] = []
+        c = overload_client(e0, fail_log, greedy)
+        seen: List[Any] = []
+
+        kill_marks: Dict[str, float] = {}
+
+        def kill_e0(tok):
+            seen.append(tok)
+            now = time.perf_counter()
+            if tok is None:
+                kill_marks["restart"] = now
+            elif seen[-2:-1] == [None]:
+                kill_marks["first_after"] = now
+            if tok is not None and len(c.sids) == 1 and len(seen) == OVERLOAD_RESCUE_AFTER:
+                sid = c.sids[-1]
+                wait_for(lambda: advertised(e0, e1, sid), "E0's advert of the session at E1")
+                e0_final.update(stats(e0))
+                e0["proc"].kill()
+                e0["proc"].wait(timeout=30)
+                c.entry_nodes = [("127.0.0.1", e1["port"])]
+                kill_marks["killed"] = time.perf_counter()
+
+        e1_failed = counters(stats(e1)).get("sessions.rescue_failed", 0)
+        got = generate(c, prompts[1], on_token=kill_e0, retry_rng=random.Random(0))
+        refused = [r for r in fail_log if r["status"] != 200]
+        failed = counters(stats(e1)).get("sessions.rescue_failed", 0) - e1_failed
+        if (got != serve["streams"][1] or seen.count(None) != 1 or failed < 1
+                or [(r["status"], r["code"]) for r in refused] != [(409, "session_state")]
+                or len(c.sids) != 2):
+            raise AssertionError(f"{phase}: failed rescue: stream equal "
+                                 f"{got == serve['streams'][1]}, restarts {seen.count(None)}, "
+                                 f"rescue_failed +{failed}, refused {refused}, sessions {c.sids}")
+        log += fail_log
+        restart_s = {"to_409_and_backoff": kill_marks["restart"] - kill_marks["killed"],
+                     "to_first_token": kill_marks["first_after"] - kill_marks["killed"]}
+        say(phase, f"E0 killed (SIGKILL) after {OVERLOAD_RESCUE_AFTER} tokens of a session: "
+                   f"E1 counted sessions.rescue_failed +{failed:.0f} and answered 409 "
+                   "session_state; the client restarted once (on_token(None) once) through "
+                   "E1, whose re-prefill ran eagerly; the stream equals the serve chain "
+                   f"stream; from the kill to the restart {restart_s['to_409_and_backoff']:.3f} s "
+                   f"(the rescue's bounces and the client's backoff), to the restart's first "
+                   f"token {restart_s['to_first_token']:.3f} s ({card})")
+
+        # counter stages: hedges win over the stall, then a deadline on it
+        def hedge_env(i, **kw):
+            return {"session_id": f"hedge-{i}", "stage": 1, "task_id": f"h{i}", "rescued": True,
+                    "payload": {"state": 1, "trace": [0], "start_pos": 5, "real_len": 1}, **kw}
+
+        hedged, i = [], 0
+        while True:
+            b = stats(seed)["hedge_budget"]
+            if b["fired"] + 1 > 0.05 * (b["primary"] + 1) + 2 or i >= 20:
+                break
+            t = time.perf_counter()
+            status, body = forward(seed, hedge_env(i))
+            took = time.perf_counter() - t
+            r = body.get("result_for_user", {}) if status == 200 else {}
+            if r.get("state") != 3 or r.get("trace") != [0, 1, 2]:
+                raise AssertionError(f"{phase}: counter envelope {i}: HTTP {status} {body}")
+            hedged.append(took * 1e3)
+            i += 1
+        sc = counters(stats(seed))
+        b = stats(seed)["hedge_budget"]
+        if not sc.get("hedge.fired") or sc.get("hedge.won") != sc.get("hedge.fired") or (
+                b["fired"] > 0.05 * b["primary"] + 2):
+            raise AssertionError(f"{phase}: hedges on the counter seed: {sc}, budget {b}")
+        t = time.perf_counter()
+        status, body = forward(seed, hedge_env(
+            "dl", deadline_ms=(time.time() + OVERLOAD_STALL_DEADLINE_S) * 1e3))
+        took = time.perf_counter() - t
+        st_seed = stats(seed)
+        if (status != 408 or body.get("code") != "deadline"
+                or took > OVERLOAD_STALL_DEADLINE_S + 0.15 or st_seed["dead_hops"] != 1):
+            raise AssertionError(f"{phase}: a deadline toward the stall: HTTP {status} {body} "
+                                 f"after {took:.3f} s, {st_seed['dead_hops']} dead hops")
+        say(phase, f"counter seed: {len(hedged)} decode envelopes, each answered by its hedge "
+                   f"when the stalled replica was picked: hedge.fired {sc['hedge.fired']:.0f} == "
+                   f"hedge.won {sc['hedge.won']:.0f} (<= 0.05 x {b['primary']} primaries + 2), "
+                   f"answers in {[round(x, 1) for x in hedged]} ms (hedge delay "
+                   f"{OVERLOAD_HEDGE_MS} ms); then, the budget spent, an envelope with a "
+                   f"{OVERLOAD_STALL_DEADLINE_S * 1e3:.0f} ms deadline met the stall: HTTP 408 "
+                   f"after {took * 1e3:.1f} ms ({body['error']}), not the 5 s hop timeout")
+
+        # every model node's launches: exact for the steps it served
+        for sid, (pos, _) in residents.items():
+            for n, stage in ((e1, 0), (r1, 1)):
+                post_wire(n["port"], "/end_session", {"session_id": sid, "stage": stage,
+                                                      "relay": False})
+        final = {"E0": e0_final, **{nm: stats(n) for nm, n in (("E1", e1), ("E2", e2),
+                                                                ("R1", r1), ("R2", r2))}}
+        passes = overload_passes(log)
+        extra = {"E1": {"prefill": 2, "decode": 2 * OVERLOAD_RESIDENT_STEPS},
+                 "E2": {"prefill": 1, "decode": 0}}
+        node_graphs, launches, routes = [], None, {"split": 0, "mma": 0}
+        for nm, st in final.items():
+            if counters(st).get("hedge.fired"):
+                raise AssertionError(f"{phase}: {nm} hedged on the model path: {counters(st)}")
+            for k, v in flash_routes(st).items():
+                routes[k] += v
+            launches = {k: (launches or {}).get(k, 0) + v["launches"]
+                        for k, v in st["kernels"].items()}
+            if nm == "R1":
+                ex = st["executor"]
+                split, want_split = paged_splits(phase, st, cfg)
+                want = {"paged": layers * ex["batched_steps"], "mma": layers * ex["prefill_steps"]}
+                got_ = {"paged": st["kernels"]["paged_decode_gqa"]["launches"],
+                        "mma": flash_routes(st)["mma"]}
+                if got_ != want or split != want_split or flash_routes(st)["split"]:
+                    raise AssertionError(f"{phase}: R1 launches {got_}, want {want}; split "
+                                         f"{split}, want {want_split}")
+                node_graphs.append(check_node_graphs(phase, st, ex["batched_steps"]))
+                continue
+            port = int(st["node_id"].rsplit(":", 1)[1])
+            key = port if nm.startswith("E") else st["node_id"]
+            want_p = dict(passes.get(key, {"prefill": 0, "decode": 0}))
+            for k, v in extra.get(nm, {}).items():
+                want_p[k] += v
+            want = {"split": layers * want_p["decode"], "mma": layers * want_p["prefill"]}
+            say(phase, f"{nm} ({st['node_id']}): {st['forward_passes']} passes "
+                       f"({want_p}), flash_gqa routes {flash_routes(st)} (want {want})")
+            if (flash_routes(st) != want
+                    or st["forward_passes"] != want_p["prefill"] + want_p["decode"]):
+                raise AssertionError(f"{phase}: {nm}: routes {flash_routes(st)}, want {want}, "
+                                     f"passes {st['forward_passes']}")
+            if want_p["decode"]:
+                node_graphs.append(check_node_graphs(phase, st, want_p["decode"]))
+        stop_nodes(model + counter)
+        model, counter = [], []
+        return {"launches": launches, "flash_routes": routes,
+                "paged_split": final["R1"]["kernels"]["paged_decode_gqa"]["split_launches"],
+                "gemv_routes": {name: {"mma": 0, "simt": 0} for name in QMM_KERNEL_OF.values()},
+                "graphs": node_graphs, "timing": timing, "sheds": len(sheds),
+                "rescue": timing_rescue, "restart_s": restart_s}
+    except BaseException:
+        stop_nodes(model + counter, show_logs=True)
+        model, counter = [], []
+        raise
+    finally:
+        stop_nodes(model + counter)
 
 
 # -- generate, generate_quant, serve_kstep, cli: the whole model in one process --
@@ -3725,7 +4262,7 @@ def node_process(node: Dict[str, Any], stage: int = 0):
     from inferd_tpu_torch.runtime import wire
 
     def process(sid, payload):
-        status, raw = http_post(f"http://127.0.0.1:{node['port']}/forward", wire.pack(
+        status, raw, _ = http_post(f"http://127.0.0.1:{node['port']}/forward", wire.pack(
             {"session_id": sid, "stage": stage, "relay": False, "payload": payload}), 300.0)
         body = wire.unpack(raw)
         if status != 200:
@@ -4437,7 +4974,7 @@ def run_profile(card: str, parts: str, work: str) -> Dict[str, Any]:
         # starts its own trace, the first one's comes back empty (graphed
         # nodes or not), so each node is traced around a request of its own
         for n in nodes:
-            status, raw = http_post(f"http://127.0.0.1:{n['port']}/profile", wire.pack(
+            status, raw, _ = http_post(f"http://127.0.0.1:{n['port']}/profile", wire.pack(
                 {"action": "window", "seconds": PROFILE_WINDOW_S, "capture_id": "smoke"}), 60.0)
             reply = wire.unpack(raw)
             if status != 200 or not reply.get("ok"):
@@ -4548,11 +5085,11 @@ CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_q
                "lora": run_lora_cases}
 # --only phases that need the model's split (serve_quant runs int8 and int4;
 # serve_lanes_lora runs serve_lanes first, its baseline; serve_swarm runs
-# serve and serve_lanes first, the streams it is held to; serve_batch runs
-# generate_batched first, its streams)
+# serve and serve_lanes first, the streams it is held to; serve_overload runs
+# serve first; serve_batch runs generate_batched first, its streams)
 SPLIT_PHASES = ("serve", "serve_quant", "serve_lanes", "serve_lanes_quant", "serve_lanes_lora",
-                "serve_swarm", "generate", "generate_batched", "serve_batch", "serve_kstep",
-                "anatomy", "profile")
+                "serve_swarm", "serve_overload", "generate", "generate_batched", "serve_batch",
+                "serve_kstep", "anatomy", "profile")
 
 
 def main(argv: List[str]) -> int:
@@ -4608,7 +5145,7 @@ def main(argv: List[str]) -> int:
             try:
                 parts = split_parts(work)
                 serve = None
-                if "serve" in split_only or "serve_swarm" in split_only:
+                if {"serve", "serve_swarm", "serve_overload"} & set(split_only):
                     serve = run_serve(card, parts, work)
                 if "serve_quant" in split_only:
                     for q in ("int8", "int4"):
@@ -4618,6 +5155,10 @@ def main(argv: List[str]) -> int:
                     lanes = run_serve_lanes(card, parts, work)
                 if "serve_swarm" in split_only:
                     run_serve_swarm(card, parts, work, serve, lanes)
+                if "serve_overload" in split_only:
+                    t_overload = time.perf_counter()
+                    run_serve_overload(card, parts, work, serve)
+                    say("time", f"serve_overload: {time.perf_counter() - t_overload:.1f}s")
                 if "serve_lanes_quant" in split_only:
                     run_serve_lanes(card, parts, work, quant_flag="int8", baseline=lanes)
                 if "serve_lanes_lora" in split_only:
@@ -4663,7 +5204,8 @@ def main(argv: List[str]) -> int:
         prestart_nodes(parts, work, [
             ([], ""), (["--quant", "int8"], ""), (["--quant", "int4"], ""), (LANE_NODE_ARGS, ""),
             (LANE_NODE_ARGS + ["--quant", "int8"], ""), (profile_node_args(work), "_profile")],
-            swarms=[(parts, "swarm"), (parts, "swarm_lanes"), (None, "swarm_counter")],
+            swarms=[(parts, "swarm"), (parts, "swarm_lanes"), (None, "swarm_counter"),
+                    (parts, "overload"), (None, "overload_counter")],
             singles=[(parts1, BATCH_NODE_ARGS, "_batch"), (parts1, BATCH_PAGED_ARGS, "_batchp"),
                      (parts1, WHOLE_LANE_ARGS, "_wlanes"),
                      (parts1, tenant_batch_args(dirs), "_batcht")])
@@ -4677,6 +5219,8 @@ def main(argv: List[str]) -> int:
         lap("serve_lanes")
         swarm = run_serve_swarm(card, parts, work, serve, lanes)
         lap("serve_swarm")
+        overload = run_serve_overload(card, parts, work, serve)
+        lap("serve_overload")
         lanes_q = run_serve_lanes(card, parts, work, quant_flag="int8", baseline=lanes)
         lap("serve_lanes_quant")
         lanes_lora = run_serve_lanes_lora(card, parts, work, baseline=lanes)
@@ -4703,6 +5247,7 @@ def main(argv: List[str]) -> int:
         shutil.rmtree(work, ignore_errors=True)
     paths = {"serve": serve, "serve_quant_int8": serve_q["int8"],
              "serve_quant_int4": serve_q["int4"], "serve_lanes": lanes, "serve_swarm": swarm,
+             "serve_overload": overload,
              "serve_lanes_quant": lanes_q, "serve_lanes_lora": lanes_lora,
              "generate": gen, "generate_quant": gen_q, "generate_batched": gen_b,
              "serve_batch": serve_b, "serve_kstep": kstep,

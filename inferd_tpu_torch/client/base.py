@@ -7,14 +7,20 @@ HTTP runs on the standard library (http.client), on worker threads, so the
 event loop never blocks.
 
 Per-token logprobs (`logprob_sink`, `top_n`, `top_sink`) come from the
-logits the client samples from. Not ported in this slice: prefix pins,
-session-restart retries and retry budgets, deadlines and tracing.
+logits the client samples from. A generation that fails mid-way with a
+retryable error restarts under a fresh session (`session_retries`), paced
+by full-jitter backoff, a busy node's `retry_after` and the process's
+retry budget; `deadline_s` stamps an end-to-end deadline into every wire
+envelope the generation sends (`deadline_wire`). Not ported yet: prefix
+pins, standby resume offers (`resume_from`) and tracing.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import http.client
+import random
 import urllib.parse
 import uuid
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -23,20 +29,59 @@ import numpy as np
 
 from inferd_tpu_torch.config import SamplingConfig
 from inferd_tpu_torch.runtime import wire
+from inferd_tpu_torch.utils import retry as retrylib
 
 
 class ServerError(RuntimeError):
     """Non-200 wire response. `code` is the node's machine-readable error
-    class; `retryable` says whether a fresh session could possibly help."""
+    class; `retryable` says whether restarting the generation under a fresh
+    session could possibly help; `retry_after` (seconds, optional) is a busy
+    node's pacing hint: the retry loop waits at least that long."""
 
-    def __init__(self, message: str, status: int, code: Optional[str] = None):
+    def __init__(self, message: str, status: int, code: Optional[str] = None,
+                 retry_after: Optional[float] = None):
         super().__init__(message)
         self.status = status
         self.code = code
+        self.retry_after = retry_after
 
     @property
     def retryable(self) -> bool:
+        # 5xx: transient trouble on a node (a compute crash, a dead next hop,
+        # a shed). "session_state": the session's KV is gone or out of order
+        # where the chunk landed; a fresh session rebuilds it. Everything else
+        # (overflow, wrong_stage, a malformed request, an expired deadline)
+        # is deterministic for the request: a retry cannot succeed.
         return self.status >= 500 or self.code == "session_state"
+
+
+# The end-to-end deadline of the generation running in THIS asyncio task
+# (generate_ids sets it from deadline_s). A context variable, not a client
+# attribute, so concurrent generations on one client each carry their own;
+# it carries into asyncio.to_thread. Transports splat deadline_wire() into
+# their envelopes: without a deadline the key is absent and the envelope is
+# byte-identical to one from a client without deadlines.
+_DEADLINE_MS: "contextvars.ContextVar[Optional[float]]" = contextvars.ContextVar(
+    "inferd_deadline_ms", default=None
+)
+
+
+def current_deadline_ms() -> Optional[float]:
+    """The active generation's absolute deadline (epoch ms), or None."""
+    return _DEADLINE_MS.get()
+
+
+def deadline_wire() -> Dict[str, float]:
+    """{"deadline_ms": ...} for the active deadline, {} when none rides."""
+    d = _DEADLINE_MS.get()
+    return {retrylib.DEADLINE_KEY: d} if d is not None else {}
+
+
+def _deadline_error(detail: str) -> ServerError:
+    """The client's own 408: not retryable (status < 500, code not
+    session_state): once the budget is gone another attempt only wastes
+    work."""
+    return ServerError(f"deadline exceeded: {detail}", 408, code="deadline")
 
 
 def sample_np(
@@ -95,9 +140,9 @@ def _softmax(x: np.ndarray) -> np.ndarray:
     return e / e.sum()
 
 
-def http_post(url: str, body: bytes, timeout_s: float) -> Tuple[int, bytes]:
+def http_post(url: str, body: bytes, timeout_s: float) -> Tuple[int, bytes, Any]:
     """Blocking POST on http.client (which never consults proxy settings:
-    chain nodes are addressed directly). Returns (status, body)."""
+    chain nodes are addressed directly). Returns (status, body, headers)."""
     u = urllib.parse.urlsplit(url)
     if u.scheme != "http" or not u.hostname:
         raise ValueError(f"unsupported URL {url!r}")
@@ -106,7 +151,7 @@ def http_post(url: str, body: bytes, timeout_s: float) -> Tuple[int, bytes]:
         conn.request("POST", u.path or "/", body=body,
                      headers={"Content-Type": "application/octet-stream"})
         resp = conn.getresponse()
-        return resp.status, resp.read()
+        return resp.status, resp.read(), resp.headers
     finally:
         conn.close()
 
@@ -152,8 +197,17 @@ class GenerationClient:
 
     async def _post_url(self, url: str, body: Dict[str, Any]) -> Dict[str, Any]:
         """POST a wire envelope off the event loop; a non-200 reply raises
-        ServerError with the node's error code."""
-        status, raw = await asyncio.to_thread(http_post, url, wire.pack(body), self.timeout_s)
+        ServerError with the node's error code and `retry_after` (from the
+        body, else the Retry-After header). With a deadline riding, a spent
+        budget fails here without a request, and the timeout is what is
+        left of it (plus a beat for the node's own 408 to come back)."""
+        timeout_s = self.timeout_s
+        rem = retrylib.remaining_s(_DEADLINE_MS.get())
+        if rem is not None:
+            if rem <= 0:
+                raise _deadline_error(f"before POST {url}")
+            timeout_s = min(timeout_s, rem + 0.25)
+        status, raw, headers = await asyncio.to_thread(http_post, url, wire.pack(body), timeout_s)
         try:
             data = wire.unpack(raw)
         except ValueError:
@@ -162,7 +216,14 @@ class GenerationClient:
         if status != 200:
             detail = data.get("error", data) if isinstance(data, dict) else data
             code = data.get("code") if isinstance(data, dict) else None
-            raise ServerError(f"{url} error {status}: {detail}", status, code)
+            ra = data.get("retry_after") if isinstance(data, dict) else None
+            if ra is None:
+                ra = headers.get("Retry-After")
+            try:
+                ra = None if ra is None else float(ra)
+            except (TypeError, ValueError):
+                ra = None
+            raise ServerError(f"{url} error {status}: {detail}", status, code, retry_after=ra)
         return data
 
     # -- public API ----------------------------------------------------------
@@ -173,23 +234,95 @@ class GenerationClient:
         max_new_tokens: int = 64,
         eos_token_id: Optional[int] = None,
         seed: int = 0,
+        session_retries: int = 2,
+        retry_delay_s: float = 1.0,
         sampling: Optional[SamplingConfig] = None,
         on_token=None,
         logprob_sink: Optional[List[float]] = None,
         top_n: int = 0,
         top_sink: Optional[List] = None,
+        deadline_s: Optional[float] = None,
+        retry_cap_s: float = 8.0,
+        retry_rng: Optional[random.Random] = None,
+        retry_budget: Optional[retrylib.RetryBudget] = None,
     ) -> List[int]:
         """Prefill + token-by-token decode under a fresh session; returns the
         new ids. `on_token` (sync callable) sees each id as it is sampled.
-        `logprob_sink` (cleared first) collects each emitted token's model
-        log-probability (log-softmax of the raw logits), and `top_sink` the
-        top-`top_n` (ids, logprobs) per step, both from the logits the
-        token was sampled from. The session's server-side KV is dropped at
-        the end, success or not."""
+        `logprob_sink` (cleared at the start of every attempt) collects each
+        emitted token's model log-probability (log-softmax of the raw
+        logits), and `top_sink` the top-`top_n` (ids, logprobs) per step,
+        both from the logits the token was sampled from. The session's
+        server-side KV is dropped at the end of each attempt, success or
+        not.
+
+        A failure mid-way (a node died and its KV with it, a shed, a session
+        the serving replica does not hold) restarts the WHOLE generation
+        under a fresh session, up to `session_retries` times; the tokens come
+        out the same for the same seed. `on_token` sees None before a
+        retried attempt (the tokens it saw are void). Only retryable
+        ServerErrors and transport failures restart. The wait before retry
+        n is full-jitter backoff (uniform up to min(retry_cap_s,
+        retry_delay_s x 2^(n-1)); `retry_rng` seeds it), raised to a busy
+        node's `retry_after`; each retry spends a token of `retry_budget`
+        (default: the process's shared bucket), and a dry bucket raises the
+        original error. `deadline_s` stamps an absolute `deadline_ms` into
+        every envelope: hops fail fast with a 408 `deadline` once it is
+        spent, and a retry whose wait would outlast it raises that 408."""
         if not prompt_ids:
             raise ValueError("prompt_ids must be non-empty")
-        prompt = [int(t) for t in prompt_ids]
-        s = sampling or self.sampling
+        budget = retry_budget or retrylib.DEFAULT_RETRY_BUDGET
+        dl_token = None
+        if deadline_s is not None:
+            dl_token = _DEADLINE_MS.set(retrylib.deadline_ms_from_now(deadline_s))
+        try:
+            last_err: Optional[Exception] = None
+            for attempt in range(1 + session_retries):
+                if attempt:
+                    assert last_err is not None
+                    if not budget.try_acquire():
+                        raise last_err  # a dry bucket: the failure itself, not a storm
+                    delay = retrylib.backoff_delay(attempt, retry_delay_s, retry_cap_s,
+                                                   retry_rng)
+                    ra = getattr(last_err, "retry_after", None)
+                    if ra is not None:
+                        delay = max(delay, float(ra))  # a shedding node said when
+                    rem = retrylib.remaining_s(_DEADLINE_MS.get())
+                    if rem is not None and rem <= delay:
+                        raise _deadline_error(
+                            "retry pacing exceeds the remaining budget") from last_err
+                    await asyncio.sleep(delay)
+                    if on_token is not None:
+                        on_token(None)
+                try:
+                    return await self._generate_once(
+                        [int(t) for t in prompt_ids], max_new_tokens, eos_token_id, seed,
+                        sampling or self.sampling, on_token, logprob_sink, top_n, top_sink)
+                except ServerError as e:
+                    if not e.retryable:
+                        raise
+                    last_err = e
+                except (ConnectionError, OSError, asyncio.TimeoutError,
+                        http.client.HTTPException) as e:
+                    last_err = e  # the transport died: a dead entry or next hop
+            assert last_err is not None
+            raise last_err
+        finally:
+            if dl_token is not None:
+                _DEADLINE_MS.reset(dl_token)
+
+    async def _generate_once(
+        self,
+        prompt: List[int],
+        max_new_tokens: int,
+        eos_token_id: Optional[int],
+        seed: int,
+        s: SamplingConfig,
+        on_token,
+        logprob_sink: Optional[List[float]],
+        top_n: int,
+        top_sink: Optional[List],
+    ) -> List[int]:
+        """One attempt of generate_ids under a fresh session."""
         session_id = str(uuid.uuid4())
         rng = np.random.default_rng(seed)
         out: List[int] = []
@@ -221,6 +354,6 @@ class GenerationClient:
         finally:
             try:
                 await self._end_session(session_id)
-            except (OSError, ServerError, ValueError):
+            except (OSError, ServerError, ValueError, http.client.HTTPException):
                 pass  # best effort: nodes TTL-sweep orphaned sessions
         return out

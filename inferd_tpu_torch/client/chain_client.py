@@ -11,7 +11,8 @@ A client bound to a tenant adapter (`adapter=`) stamps the `adapter` key on
 the first chunk's payload (start_pos 0) to EVERY stage: each stage binds
 the session's slot at admission. The reference client stamps the entry hop
 only and the swarm relay carries the key on; here the client drives each
-stage itself, so it carries the key on.
+stage itself, so it carries the key on. A generation's deadline rides each
+hop's envelope as `deadline_ms` (absent without one).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from inferd_tpu_torch.client.base import GenerationClient
+from inferd_tpu_torch.client.base import GenerationClient, deadline_wire
 from inferd_tpu_torch.config import SamplingConfig
 
 
@@ -64,6 +65,7 @@ class ChainClient(GenerationClient):
                 "stage": stage,
                 "relay": False,
                 "payload": payload,
+                **deadline_wire(),  # every hop re-derives its budget from one deadline
             }
             result = (await self._post(addr, "/forward", env))["result"]
             if "logits" in result:

@@ -9,9 +9,11 @@ whichever replicas the nodes picked for the session. A client bound to a
 tenant adapter stamps the `adapter` key on the first chunk only (start_pos
 0): the relay carries it to every later stage.
 
-Not ported yet: the disaggregated prefill/decode and server-side generate
-paths (they need session export/import and /generate), deadlines, tracing
-and the tokenizer front end.
+A generation's deadline (generate_ids(deadline_s=...)) rides every
+envelope as `deadline_ms`; without one the envelope is byte-identical to
+a client's without deadlines. Not ported yet: the disaggregated
+prefill/decode and server-side generate paths (they need session
+export/import and /generate), tracing and the tokenizer front end.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from inferd_tpu_torch.client.base import GenerationClient, ServerError
+from inferd_tpu_torch.client.base import GenerationClient, ServerError, deadline_wire
 from inferd_tpu_torch.config import SamplingConfig
 
 log = logging.getLogger(__name__)
@@ -66,7 +68,8 @@ class SwarmClient(GenerationClient):
 
     def _forward_env(self, session_id: str, tokens: List[int], start_pos: int) -> Dict[str, Any]:
         """The /forward envelope of one chunk, to stage 0, relaying (no
-        `relay` key: the node's default); `adapter` on the first chunk only."""
+        `relay` key: the node's default); `adapter` on the first chunk only,
+        `deadline_ms` while a deadline is active."""
         return {
             "task_id": str(uuid.uuid4()),
             "session_id": session_id,
@@ -78,6 +81,7 @@ class SwarmClient(GenerationClient):
                 **({"adapter": self.adapter}
                    if self.adapter is not None and start_pos == 0 else {}),
             },
+            **deadline_wire(),
         }
 
     async def _step(self, session_id: str, tokens: List[int], start_pos: int) -> np.ndarray:

@@ -28,6 +28,7 @@ and the store is a state machine that replays byte for byte under a seed.
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import random
 import select
@@ -45,6 +46,14 @@ DEFAULT_TTL_S = 15.0
 GOSSIP_PERIOD_S = 1.0
 GOSSIP_FANOUT = 3
 MAX_DATAGRAM = 65535
+
+
+def sess_hash(session_id: str) -> str:
+    """The short stable hash a node's record advertises for each session
+    whose KV it holds (the `sess` list): 64 bits of blake2b, hex, as the
+    reference's. A collision's worst case routes a chunk to a replica
+    without the session, which answers 409 and the client restarts."""
+    return hashlib.blake2b(session_id.encode(), digest_size=8).hexdigest()
 
 
 class Record:

@@ -77,6 +77,16 @@ def min_load_node(
     return ranked[0]
 
 
+def _ranked_view(value: Dict[str, Any], held: int, new_session: bool) -> Dict[str, Any]:
+    """The record as find_best_node ranks it: `held` sessions added to its
+    load and, for a new session, a shedding replica's ADMISSION_PENALTY
+    added in load/cap units."""
+    extra = float(held)
+    if new_session and under_admission_watermark(value):
+        extra += ADMISSION_PENALTY * max(int(value.get("cap", 1)), 1)
+    return dict(value, load=float(value.get("load", 0)) + extra) if extra else value
+
+
 class PathFinder:
     """Routing decisions over the swarm store."""
 
@@ -121,18 +131,21 @@ class PathFinder:
 
     def find_best_node(
         self, stage: int, exclude: Optional[set] = None,
-        held: Optional[Dict[str, int]] = None,
+        held: Optional[Dict[str, int]] = None, new_session: bool = False,
     ) -> Tuple[str, Dict[str, Any]]:
         """The min-load live node for `stage`, and its record. `held` (node
         id -> sessions the caller routed there and has not ended) is added
         to each record's gossiped load for the ranking: the caller's own
-        picks are news the gossip has not carried yet. While the stage has
-        no node, call `on_empty_stage(stage)` (if set) and retry after
-        retry_delay_s, up to `retries` times; then raise NoNodeForStage."""
+        picks are news the gossip has not carried yet. For a `new_session`
+        a replica under its admission watermark (it would shed the session)
+        ranks ADMISSION_PENALTY worse, as the reference's route planner
+        charges it. While the stage has no node, call `on_empty_stage(stage)`
+        (if set) and retry after retry_delay_s, up to `retries` times; then
+        raise NoNodeForStage."""
         for attempt in range(self.retries + 1):
             stage_map = self.dht.get_stage(stage)
-            view = {n: dict(v, load=float(v.get("load", 0)) + held[n])
-                    if held and held.get(n) else v for n, v in stage_map.items()}
+            view = {n: _ranked_view(v, held.get(n, 0) if held else 0, new_session)
+                    for n, v in stage_map.items()}
             try:
                 nid, _ = min_load_node(view, exclude)
                 return nid, stage_map[nid]

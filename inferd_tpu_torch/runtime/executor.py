@@ -146,6 +146,12 @@ class SessionStore:
         self._release(gone)
         return sum(c is not None for c in gone)
 
+    def ids(self) -> List[str]:
+        """Live session ids in the order they were admitted (the node
+        advertises the newest in its gossip record's `sess`)."""
+        with self._lock:
+            return list(self._caches)
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._caches)

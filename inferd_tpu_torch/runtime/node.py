@@ -25,8 +25,10 @@ Endpoints, wire-compatible with the JAX node for these topologies:
                      that holds the session's next stage
   GET  /health       JSON: status, stage, device
   GET  /stats        JSON: counters (forward passes, relays, dead hops), the
-                     device's name, the serving quantization and the
-                     stage's parameter bytes as stored, each kernel's launch
+                     overload plane's `metrics` (counters and histograms),
+                     `hedge_budget` and `retry_budget`, the device's name,
+                     the serving quantization and the stage's parameter
+                     bytes as stored, each kernel's launch
                      count in this process, the executor's stats, the
                      card's allocated and reserved bytes (`memory`), and
                      the gossip view `dht` {stage: {"host:port": record}}
@@ -58,8 +60,42 @@ with no live replica answers 503 after the PathFinder's retries. An
 envelope for another stage is relayed to a replica of it (not to this
 node), or refused with 409 "wrong_stage" in chain mode. The first chunk's
 `adapter` key rides the relay, so every stage binds the session's adapter.
-Not ported yet: deadlines, admission shedding, session rescue, hedged
-relays, planned routes and coalesced multi-session relays.
+
+The overload plane (the reference's `_forward_inner` and relay):
+  * deadlines: an envelope's absolute `deadline_ms` (epoch ms) is checked
+    at entry, in the rescue loop, before each relay attempt and after
+    compute; a spent one answers 408 "deadline" (`deadline.expired` and
+    `deadline.expired.<where>` count it), and each hop's HTTP timeout is
+    min(hop_timeout_s, what is left + 50 ms). The relay carries the key on.
+  * admission shedding: while a paged pool has fewer free blocks than
+    admission_reserve x its blocks, a NEW session (start_pos 0) is shed
+    with 503 "busy" and `retry_after` (`_retry_after_s`, in the body and as
+    an integer Retry-After header), and the record gossips `shed: 1`; a
+    new session's fresh pick ranks a shedding replica ADMISSION_PENALTY
+    worse. Mid-session chunks are never shed.
+  * session rescue: the record gossips `sess`, the hashes of the newest
+    128 sessions whose KV this node holds (control/dht.sess_hash). A
+    mid-session chunk for a session this node does not hold goes, marked
+    `rescued`, to the replica that advertises it (up to rescue_bounces
+    one-bounce relays 0.15 s apart, each after the first paid from the
+    node's retry budget), else it is served here and answers 409 for the
+    client to restart; `_pick_next` takes the advertised holder (tier 2)
+    when it remembers no replica for the session, and /end_session
+    forwards an end for a session held elsewhere to its holder.
+  * hedged decode relays: a single-token decode relay whose primary has
+    not answered within the hedge delay (hedge_delay_ms, or 0: the p95 of
+    this node's hop times over the trailing 60 s, 250 ms without any, at
+    most half the hop timeout) sends the same bytes to a second replica
+    (hedge_mode "advertised": one whose record advertises the session;
+    "any": the best other one; "off"), within 5% extra load (a ratio
+    budget). The primary's answer, whatever it is, settles the exchange;
+    the hedge's only with a 200, which repoints the session's affinity.
+    The loser's connection is closed.
+  * chaos (utils/chaos.py, run_node --chaos): faults injected before each
+    forward's compute; `crash()` stops serving and closes every socket
+    without a tombstone, like a killed process.
+Not ported yet: planned routes, coalesced multi-session relays, /drain and
+standby holders.
 
 A payload with `decode_steps` K asks a one-stage (whole-model) node for a
 fused window of K decode steps sampled on the device (the one-session
@@ -74,9 +110,10 @@ budget, a K-step window's too), 409 "session_state" (out-of-order chunk;
 "no_adapter_registry" (the payload names an adapter and this node serves
 no `--adapters` registry: serving the base model instead would be silent
 tenant corruption), 409 "unknown_adapter" (a name outside the catalog), 503
-"busy" (every lane, or every adapter slot, held by live sessions), 503 (no
-live node for the next stage), 502 (next hop unreachable), 500 on a
-compute failure.
+"busy" (every lane, or every adapter slot, held by live sessions; or a new
+session shed, with `retry_after`), 503 (no live node for the next stage),
+502 (next hop unreachable), 408 "deadline" (the envelope's deadline is
+spent), 500 on a compute failure or a chaos drop.
 
 Requests are served on threads (ThreadingHTTPServer). With the one-cache-
 per-session executor, compute is serialized under one node lock. The lane
@@ -99,7 +136,10 @@ import contextlib
 import http.client
 import json
 import logging
+import math
 import os
+import select
+import socket
 import threading
 import time
 import uuid
@@ -110,7 +150,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from inferd_tpu_torch.client.base import http_post
-from inferd_tpu_torch.control.dht import SwarmDHT
+from inferd_tpu_torch.control.dht import SwarmDHT, sess_hash
 from inferd_tpu_torch.control.path_finder import NoNodeForStage, PathFinder, node_addr
 from inferd_tpu_torch.ops import attention as attention_ops
 from inferd_tpu_torch.ops import lora, qmatmul
@@ -119,6 +159,9 @@ from inferd_tpu_torch.runtime import wire
 from inferd_tpu_torch.runtime.adapters import AdapterCapacityError, UnknownAdapterError
 from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor, CapacityError
 from inferd_tpu_torch.runtime.window import WindowedBatcher
+from inferd_tpu_torch.utils import retry as retrylib
+from inferd_tpu_torch.utils.chaos import Chaos, ChaosDrop
+from inferd_tpu_torch.utils.metrics import Metrics, TrailingWindow
 from inferd_tpu_torch.utils.platform import device_name
 from inferd_tpu_torch.utils.profiling import Profiler, span
 
@@ -128,13 +171,28 @@ FORWARD_PATH = "/forward"
 END_SESSION_PATH = "/end_session"
 PROFILE_PATH = "/profile"
 
-Reply = Tuple[int, str, bytes]  # (status, content type, body)
+Reply = Tuple  # (status, content type, body[, headers])
 _WIRE = "application/octet-stream"
 SWEEP_INTERVAL_S = 30.0  # how often /forward drops sessions idle past their TTL
+AFFINITY_MAX_AGE_S = 3600.0  # the sweep drops affinity entries unused this long
 HOP_TIMEOUT_S = 120.0  # one relay hop's HTTP timeout (the reference's)
 RELAY_ATTEMPTS = 2  # picks per relay: the first, and one past a dead hop
 SESSION_NEXT_CAP = 8192  # (session, stage) -> next-hop affinity entries kept
 HELD_WINDOW_S = 600.0  # an affinity entry idle this long no longer counts as a held session
+SESS_ADVERTISED = 128  # the newest sessions a record's `sess` lists
+RESCUE_PAUSE_S = 0.15  # between rescue bounces
+HEDGE_MODES = ("advertised", "any", "off")
+HEDGE_FALLBACK_S = 0.25  # the hedge delay while no hop time is in the window
+TRAILING_WINDOW_S = 60.0  # the hedge delay's window of hop times
+
+
+def _start_pos(payload) -> int:
+    """A payload's start_pos, or -1 when it has none (or a malformed one:
+    the guarded compute reports that)."""
+    try:
+        return int(payload.get("start_pos", -1))
+    except (TypeError, ValueError, AttributeError):
+        return -1
 
 
 def _is_decode_step(payload) -> bool:
@@ -155,6 +213,68 @@ def _is_decode_step(payload) -> bool:
         return False  # malformed payloads fail in the guarded compute
 
 
+class _HopPost:
+    """One /forward POST to a peer, sent at once, whose reply is awaited in
+    steps (`ready`, then `read`), so a hedge can go out beside it while it
+    is slow; `close` ends it on this side (a hedge's loser)."""
+
+    def __init__(self, value: Dict[str, Any], body: bytes, timeout_s: float):
+        host, port = node_addr(value)
+        self.deadline = time.monotonic() + timeout_s
+        self.conn = http.client.HTTPConnection(host, port, timeout=timeout_s)
+        try:
+            self.conn.request("POST", FORWARD_PATH, body=body,
+                              headers={"Content-Type": _WIRE})
+        except BaseException:
+            self.conn.close()
+            raise
+
+    def fileno(self) -> int:  # select() waits on the connection's socket
+        return self.conn.sock.fileno()
+
+    def ready(self, wait_s: float) -> bool:
+        """Whether the reply (or the peer's close) arrived within wait_s."""
+        return bool(select.select([self], [], [], max(0.0, wait_s))[0])
+
+    def read(self) -> Tuple[int, bytes]:
+        """(status, body), waiting at most until the POST's timeout runs out."""
+        self.conn.sock.settimeout(max(0.001, self.deadline - time.monotonic()))
+        resp = self.conn.getresponse()
+        return resp.status, resp.read()
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+class _Server(ThreadingHTTPServer):
+    """The node's HTTP server, which knows its open connections so that
+    crash() can cut them as a killed process's die."""
+
+    daemon_threads = True
+
+    def __init__(self, *args, **kw):
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
+        super().__init__(*args, **kw)
+
+    def process_request(self, request, client_address):
+        with self._conns_lock:
+            self._conns.add(request)
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request):
+        with self._conns_lock:
+            self._conns.discard(request)
+        super().shutdown_request(request)
+
+    def cut_connections(self) -> None:
+        with self._conns_lock:
+            conns = list(self._conns)
+        for c in conns:
+            with contextlib.suppress(OSError):
+                c.shutdown(socket.SHUT_RDWR)
+
+
 class Node:
     """One stage: an executor behind a small HTTP server, a member of the
     swarm through its gossip store."""
@@ -172,13 +292,22 @@ class Node:
         bootstrap: Sequence[Tuple[str, int]] = (),  # gossip seeds
         capacity: int = 4,  # the advertised task capacity (`cap`)
         model_name: str = "",  # the advertised model
+        hop_timeout_s: float = HOP_TIMEOUT_S,  # a relay hop's HTTP timeout
+        hedge_delay_ms: float = 0.0,  # 0: adaptive (the trailing hop p95)
+        hedge_mode: str = "advertised",  # HEDGE_MODES
+        admission_reserve: float = 0.05,  # shed new sessions under this free-block share
+        rescue_bounces: int = 6,  # one-bounce rescue relays before a 409
+        chaos: Optional[Chaos] = None,  # faults injected before each forward
     ):
+        if hedge_mode not in HEDGE_MODES:
+            raise ValueError(f"hedge_mode {hedge_mode!r} not in {HEDGE_MODES}")
         self.executor = executor
         self.spec = executor.spec
         self.quant = quant
         self.param_bytes = quantized_bytes(executor.params)
         self.device = device_name(executor.device)
         self.window: Optional[WindowedBatcher] = None
+        self.window_ms = window_ms
         if isinstance(executor, BatchedStageExecutor):
             self._attach_window(executor, window_ms)
         # the executors that take no lock of the node's (the lane executors)
@@ -188,8 +317,8 @@ class Node:
         self.forward_passes = 0
         self.errors = 0
         self._last_sweep = time.monotonic()
-        self._server = ThreadingHTTPServer((host, port), _handler_for(self))
-        self._server.daemon_threads = True
+        self._server = _Server((host, port), _handler_for(self))
+        self._stopped = False
         self.host, self.port = self._server.server_address[:2]
         self.node_id = f"{self.host}:{self.port}"
         self._thread: Optional[threading.Thread] = None
@@ -208,6 +337,20 @@ class Node:
         self.inflight = 0  # /forward requests in this node now: the announced load
         self.relays = 0  # envelopes this node relayed (one per relay, whatever its attempts)
         self.dead_hops = 0  # relay attempts that met a transport failure
+        # the overload plane
+        self.metrics = Metrics()
+        self.hop_times = TrailingWindow(TRAILING_WINDOW_S)  # the adaptive hedge delay's window
+        self.hop_timeout_s = hop_timeout_s
+        self.hedge_delay_ms = hedge_delay_ms
+        self.hedge_mode = hedge_mode
+        self.hedge_budget = retrylib.RatioBudget(ratio=0.05, burst=2)  # hedges <= 5% extra
+        self.retry_budget = retrylib.RetryBudget(rate_per_s=4.0, burst=16)  # rescue bounces
+        self.admission_reserve = admission_reserve
+        self.rescue_bounces = max(1, int(rescue_bounces))
+        self.chaos = chaos
+        if chaos is not None and chaos.crash_after:
+            # crash off the handler thread that tripped it (crash() cuts it too)
+            chaos.on_crash = lambda: threading.Thread(target=self.crash, daemon=True).start()
 
     def _attach_window(self, executor: BatchedStageExecutor, window_ms: float) -> None:
         """Give the lane executor its arrival window: co-arriving decode
@@ -277,20 +420,46 @@ class Node:
 
     def stop(self) -> None:
         """Withdraw from the swarm (a tombstone), stop the gossip thread,
-        stop serving and release the sockets; a trace still running is
-        stopped and written."""
+        release any chaos-stalled request, stop serving and release the
+        sockets; a trace still running is stopped and written."""
+        if self._stopped:
+            return
+        self._stopped = True
         self.dht.withdraw()
         self.dht.stop()
-        self._server.shutdown()
-        self._server.server_close()
-        if self._thread is not None:
-            self._thread.join(timeout=10)
-            self._thread = None
+        if self.chaos is not None:
+            self.chaos.cancel_stalls()  # a stalled handler must not outlive the node
+        self._close_server()
         if self.profiler.active_dir is not None:
             try:
                 self.profiler.stop()
             except RuntimeError:  # a window's timer stopped it meanwhile
                 pass
+
+    def crash(self) -> None:
+        """Die like a killed process: no tombstone (peers learn of it when
+        its record's TTL runs out), every open connection cut, the sessions'
+        KV lost with the node. Fault injection (chaos crash_after, tests);
+        a node leaves the swarm with stop()."""
+        if self._stopped:
+            return
+        self._stopped = True
+        self.dht.kill()
+        self._server.cut_connections()  # before a released stall could answer
+        if self.chaos is not None:
+            self.chaos.cancel_stalls()
+        self._close_server(cut=True)  # and whatever arrived meanwhile
+
+    def _close_server(self, cut: bool = False) -> None:
+        """Stop accepting, cut the open connections when `cut`, close."""
+        if self._thread is not None:
+            self._server.shutdown()
+        if cut:
+            self._server.cut_connections()
+        self._server.server_close()
+        if self._thread is not None and self._thread is not threading.current_thread():
+            self._thread.join(timeout=10)
+        self._thread = None
 
     # -- membership -----------------------------------------------------------
 
@@ -299,7 +468,7 @@ class Node:
         gossip thread carries it at its next period."""
         with self._stats_lock:
             load = self.inflight
-        self.dht.announce({
+        record = {
             "name": self.node_id,
             "stage": self.spec.stage,
             "load": load,
@@ -307,7 +476,56 @@ class Node:
             "host": self.host,
             "port": self.port,
             "model": self.model_name,
-        }, urgent=urgent)
+        }
+        # the reference's optional keys, in its order; absent when false or
+        # empty, so a record with nothing shed and no session held is the
+        # same bytes as before the overload plane
+        if self._pool_under_reserve() is not None:
+            record["shed"] = 1
+        sess = self._advertised_sessions()
+        if sess:
+            record["sess"] = sess
+        self.dht.announce(record, urgent=urgent)
+
+    def _advertised_sessions(self) -> list:
+        """Hashes of the newest SESS_ADVERTISED sessions whose KV lives here,
+        sorted: a peer that meets a chunk of one of them (a failed-over entry,
+        a relay whose affinity died) routes it here instead of answering 409."""
+        ids = getattr(getattr(self.executor, "sessions", None), "ids", None)
+        if not callable(ids):
+            return []
+        return sorted(sess_hash(s) for s in ids()[-SESS_ADVERTISED:])
+
+    def _pool_under_reserve(self):
+        """(free, total, reserve) while the paged block pool has fewer free
+        blocks than its admission reserve, else None (also without a pool)."""
+        pool = getattr(self.executor, "pool", None)
+        if pool is None:
+            return None
+        total, free = int(pool.num_blocks), int(pool.blocks_free)
+        reserve = max(1, int(self.admission_reserve * total))
+        return (free, total, reserve) if free < reserve else None
+
+    def _retry_after_s(self) -> float:
+        """A shed's Retry-After: about one arrival window per unit of queue
+        pressure (inflight / cap), at least 50 ms, at most 5 s, so shed
+        clients come back spread over a few windows, not as one wave."""
+        with self._stats_lock:
+            inflight = self.inflight
+        base = max(self.window_ms / 1e3, 0.05)
+        return round(min(5.0, base * (1.0 + inflight / max(1, self.capacity))), 3)
+
+    def _holds_session(self, session_id: str) -> bool:
+        store = getattr(self.executor, "sessions", None)
+        return store is not None and session_id in store
+
+    def _gossip_session_holder(self, session_id: str, stage: int, exclude=None) -> Optional[str]:
+        """A live replica of `stage` whose record advertises the session."""
+        h = sess_hash(session_id)
+        for nid, value in self.dht.get_stage(stage).items():
+            if not (exclude and nid in exclude) and h in (value.get("sess") or ()):
+                return nid
+        return None
 
     def _add_inflight(self, n: int) -> None:
         with self._stats_lock:
@@ -316,15 +534,25 @@ class Node:
 
     # -- next hops ------------------------------------------------------------
 
-    def _pick_next(self, session_id: Optional[str], stage: int, exclude=None):
-        """The next replica for (session, stage): (1) the replica this node
-        routed the session to before, while its record lives and it is not
-        excluded (its KV is there), else (4) the min-load live replica,
-        outside the dead-peer cooldown where the stage allows, each
-        replica's gossiped load counted with the sessions this node holds
-        on it (`_held`). The pick is remembered for the session. Raises
-        NoNodeForStage."""
+    def _pick_next(self, session_id: Optional[str], stage: int, exclude=None,
+                   prefer: Optional[str] = None, new_session: bool = False):
+        """The next replica for (session, stage): `prefer` (a replica the
+        caller verified, the rescue's holder) while its record lives and it
+        is not excluded; else (1) the replica this node routed the session
+        to before, while its record lives and it is not excluded (its KV is
+        there); else (2) a replica whose record advertises the session;
+        else (4) the min-load live replica, outside the dead-peer cooldown
+        where the stage allows, each replica's gossiped load counted with
+        the sessions this node holds on it (`_held`), a shedding one ranked
+        worse for a `new_session`. The pick is remembered for the session.
+        Raises NoNodeForStage."""
         key = (session_id, stage) if session_id else None
+        if prefer is not None and not (exclude and prefer in exclude):
+            value = self.dht.get_stage(stage).get(prefer)
+            if value is not None:
+                if key is not None:
+                    self._remember(key, prefer)
+                return prefer, value
         if key is not None:
             with self._affinity_lock:
                 nid, _ = self._session_next.get(key, (None, 0.0))
@@ -334,12 +562,20 @@ class Node:
                     self._remember(key, nid)
                     return nid, value
                 # the remembered replica is gone and the session's KV with it:
-                # a fresh pick (a mid-session chunk there answers 409)
+                # a replica advertising the session, else a fresh pick (a
+                # mid-session chunk there answers 409)
                 with self._affinity_lock:
                     self._session_next.pop(key, None)
+            nid = self._gossip_session_holder(session_id, stage, exclude)
+            value = self.dht.get_stage(stage).get(nid) if nid is not None else None
+            if value is not None:
+                self.metrics.inc("route.sess_gossip")
+                self._remember(key, nid)
+                return nid, value
         with self._pick_lock:
             nid, value = self.path_finder.find_best_node(
-                stage, exclude=self._with_cooldown(stage, exclude), held=self._held(stage))
+                stage, exclude=self._with_cooldown(stage, exclude), held=self._held(stage),
+                new_session=new_session)
             if key is not None:
                 self._remember(key, nid)
         return nid, value
@@ -374,27 +610,47 @@ class Node:
 
     def _note_peer_failure(self, node_id: str) -> None:
         """Start a peer's dead-peer cooldown: fresh picks steer around it."""
+        self.metrics.inc("peer.cooldown")
         self.path_finder.note_peer_dead(node_id)
 
-    def _relay(self, env: Dict[str, Any], stage: int, exclude=None) -> Reply:
+    def _relay(self, env: Dict[str, Any], stage: int, exclude=None,
+               prefer: Optional[str] = None, phase: str = "relay",
+               attempts: int = RELAY_ATTEMPTS) -> Reply:
         """Send `env` to a replica of `stage` and answer with its reply, status
         and raw body untouched. The envelope is packed once; a transport
-        failure re-picks once without the dead peer. Raises NoNodeForStage
-        when the stage has no live replica to pick."""
+        failure re-picks without the dead peer, up to `attempts` picks (the
+        rescue's one-bounce relays take one, to its `prefer`red holder).
+        Each attempt first checks the envelope's deadline (408) and clamps
+        its timeout to what is left of it; a plain relay of a decode step
+        may hedge (`_relay_exchange`). Raises NoNodeForStage when the stage
+        has no live replica to pick."""
         exclude = set(exclude or ())
         session_id = env.get("session_id")
+        deadline_ms = env.get(retrylib.DEADLINE_KEY)
+        payload = env.get("payload")
+        may_hedge = (phase == "relay" and prefer is None and self.hedge_mode != "off"
+                     and _is_decode_step(payload))
+        new_session = _start_pos(payload) == 0
         with span("wire.pack"):
             body = wire.pack(env)
         with self._stats_lock:
             self.relays += 1
+        self.hedge_budget.note()  # one primary send: the hedges' denominator
         last_err: Optional[Exception] = None
-        for _ in range(RELAY_ATTEMPTS):
-            node_id, value = self._pick_next(session_id, stage, exclude)
-            host, port = node_addr(value)
+        for attempt in range(attempts):
+            node_id, value = self._pick_next(session_id, stage, exclude,
+                                             prefer=prefer if attempt == 0 else None,
+                                             new_session=new_session)
+            rem = retrylib.remaining_s(deadline_ms)
+            if rem is not None and rem <= 0:
+                return self._deadline_error("relay")
+            # +50 ms: the next node's own 408 wins the race with this timeout
+            timeout_s = self.hop_timeout_s if rem is None else min(self.hop_timeout_s, rem + 0.05)
             try:
                 with span("relay.hop"):
-                    status, raw = http_post(f"http://{host}:{port}{FORWARD_PATH}", body,
-                                            HOP_TIMEOUT_S)
+                    status, raw = self._relay_exchange(
+                        body, stage, node_id, value, timeout_s, session_id, exclude,
+                        allow_hedge=may_hedge and attempt == 0)
             except (OSError, http.client.HTTPException, ValueError) as e:
                 last_err = e
                 self._note_peer_failure(node_id)
@@ -404,6 +660,7 @@ class Node:
                         self._session_next.pop((session_id, stage), None)
                 with self._stats_lock:
                     self.dead_hops += 1
+                self.metrics.inc("hop.dead")
                 log.warning("next hop %s for stage %d unreachable: %s", node_id, stage, e)
                 continue
             if status >= 500 and status != 503:
@@ -413,6 +670,104 @@ class Node:
             return status, _WIRE, raw
         return self._error(502, f"next hop unreachable: {last_err}")
 
+    def _relay_exchange(self, body: bytes, stage: int, node_id: str, value: Dict[str, Any],
+                        timeout_s: float, session_id: Optional[str], exclude: set,
+                        allow_hedge: bool) -> Tuple[int, bytes]:
+        """One hop: POST `body` to `node_id`; with `allow_hedge`, when it has
+        not answered within the hedge delay and a target and budget exist,
+        POST the same bytes to the hedge target too. The primary's answer,
+        whatever it is, settles the exchange at once (a 409 or 500 must reach
+        the caller's bookkeeping about the replica it picked); the hedge's
+        only with a 200, which repoints the session's affinity to the hedge.
+        The loser's connection is closed. When neither answers, the
+        primary's failure is raised. Transport failures raise."""
+        if not allow_hedge:
+            host, port = node_addr(value)
+            status, raw, _ = http_post(f"http://{host}:{port}{FORWARD_PATH}", body, timeout_s)
+            return status, raw
+        primary = _HopPost(value, body, timeout_s)
+        try:
+            if not primary.ready(self._hedge_delay_s(timeout_s)):
+                target = self._hedge_target(session_id, stage, {node_id, *exclude})
+                if target is not None and self.hedge_budget.try_acquire():
+                    return self._hedged(primary, target, body, stage, session_id, timeout_s)
+            return primary.read()
+        finally:
+            primary.close()
+
+    def _hedged(self, primary: _HopPost, target, body: bytes, stage: int,
+                session_id: Optional[str], timeout_s: float) -> Tuple[int, bytes]:
+        """The primary is slow: send the hedge and take the first definitive
+        answer (see _relay_exchange)."""
+        hid, hvalue = target
+        self.metrics.inc("hedge.fired")
+        log.info("hedging stage %d for session %s at %s", stage, session_id, hid)
+        try:
+            hedge = _HopPost(hvalue, body, timeout_s)
+        except (OSError, http.client.HTTPException):
+            return primary.read()  # the hedge target is gone: the primary alone
+        pending = [primary, hedge]
+        failure: Optional[Exception] = None
+        try:
+            while pending:
+                wait = min(p.deadline for p in pending) - time.monotonic()
+                ready = select.select(pending, [], [], max(0.0, wait))[0]
+                if not ready:  # the earlier deadline passed
+                    late = [p for p in pending if p.deadline <= time.monotonic()] or pending[:1]
+                    for p in late:
+                        pending.remove(p)
+                        if p is primary:
+                            failure = socket.timeout("primary hop timed out")
+                    continue
+                for p in ready:
+                    pending.remove(p)
+                    try:
+                        status, raw = p.read()
+                    except (OSError, http.client.HTTPException) as e:
+                        if p is primary:
+                            failure = e
+                        continue
+                    if p is primary:  # it answered: the hedge only covers silence
+                        self.metrics.inc("hedge.cancelled")
+                        return status, raw
+                    if status == 200:
+                        self.metrics.inc("hedge.won")
+                        if session_id is not None:  # the winner serves the session now
+                            self._remember((session_id, stage), hid)
+                        return status, raw
+        finally:
+            hedge.close()
+        raise failure if failure is not None else OSError("hedged hop: no answer")
+
+    def _hedge_delay_s(self, timeout_s: float) -> float:
+        """How long the primary has before the hedge: hedge_delay_ms when
+        set, else the p95 of this node's hop times over the trailing window
+        (HEDGE_FALLBACK_S while it is empty), at most half the hop timeout."""
+        if self.hedge_delay_ms > 0:
+            d = self.hedge_delay_ms / 1e3
+        else:
+            p95 = self.hop_times.quantile(0.95)
+            d = HEDGE_FALLBACK_S if p95 is None else p95 / 1e3
+        return max(0.001, min(d, timeout_s * 0.5))
+
+    def _hedge_target(self, session_id: Optional[str], stage: int, exclude: set):
+        """(node_id, record) to hedge at, or None: with "advertised" only a
+        replica whose record advertises the session's KV (the step is then
+        truly idempotent); with "any" the best-ranked other replica (a
+        stateless backend)."""
+        if self.hedge_mode == "any":
+            ranked = self.path_finder.find_ranked(stage, exclude=exclude)
+            return ranked[0] if ranked else None
+        if session_id is None:
+            return None
+        nid = self._gossip_session_holder(session_id, stage, exclude=exclude)
+        value = self.dht.get_stage(stage).get(nid) if nid is not None else None
+        return None if value is None else (nid, value)
+
+    def _observe_hop(self, ms: float) -> None:
+        self.metrics.observe("hop.relay_ms", ms)
+        self.hop_times.observe(ms)
+
     @staticmethod
     def _is_final(result: Dict[str, Any]) -> bool:
         """A result for the user, not for a next stage: logits (the last
@@ -421,13 +776,28 @@ class Node:
 
     # -- endpoints ------------------------------------------------------------
 
-    def _error(self, status: int, message: str, code: Optional[str] = None) -> Reply:
+    def _error(self, status: int, message: str, code: Optional[str] = None,
+               retry_after: Optional[float] = None) -> Reply:
+        """A wire-packed {"error", "code"} reply; a shed's `retry_after`
+        (seconds) rides the body and, rounded up to whole seconds as HTTP
+        wants it, the Retry-After header."""
         with self._stats_lock:
             self.errors += 1
         body: Dict[str, Any] = {"error": message}
         if code:
             body["code"] = code
-        return status, _WIRE, wire.pack(body)
+        if retry_after is None:
+            return status, _WIRE, wire.pack(body)
+        body["retry_after"] = retry_after
+        return (status, _WIRE, wire.pack(body),
+                {"Retry-After": str(max(0, math.ceil(retry_after)))})
+
+    def _deadline_error(self, where: str) -> Reply:
+        """The 408 "deadline": the request's budget is spent, so no replica
+        could answer it in time (the client does not retry it)."""
+        self.metrics.inc("deadline.expired")
+        self.metrics.inc(f"deadline.expired.{where}")
+        return self._error(408, f"deadline exceeded ({where})", code="deadline")
 
     def forward(self, body: bytes) -> Reply:
         try:
@@ -448,6 +818,10 @@ class Node:
         session_id = env.get("session_id") or str(uuid.uuid4())
         task_id = env.get("task_id") or str(uuid.uuid4())
         relay = env.get("relay", True)
+        deadline_ms = env.get(retrylib.DEADLINE_KEY)
+        rem = retrylib.remaining_s(deadline_ms)
+        if rem is not None and rem <= 0:  # before any relay, rescue or compute
+            return self._deadline_error("entry")
         if stage != self.spec.stage:
             if not relay:
                 return self._error(
@@ -461,6 +835,29 @@ class Node:
             except NoNodeForStage as e:
                 return self._error(503, str(e))
         payload = env.get("payload") or {}
+        start_pos = _start_pos(payload)
+        if start_pos == 0:
+            # a new session asks for KV it keeps for its whole life: shed it
+            # while the block pool is under its reserve (a mid-session chunk
+            # never is: finishing it frees blocks)
+            low = self._pool_under_reserve()
+            if low is not None:
+                self.metrics.inc("admission.shed")
+                return self._error(
+                    503, f"KV block pool low: {low[0]} free of {low[1]} (admission "
+                         f"reserve {low[2]})", code="busy", retry_after=self._retry_after_s())
+        if (relay and not env.get("rescued") and start_pos > 0
+                and env.get("session_id") is not None and not self._holds_session(session_id)):
+            rescued = self._rescue(env, session_id, stage, deadline_ms)
+            if rescued is not None:
+                return rescued
+        self.metrics.inc("forward.requests")
+        if self.chaos is not None:
+            try:
+                self.chaos.before_forward()
+            except ChaosDrop as e:
+                self.metrics.inc("chaos.dropped")
+                return self._error(500, str(e))
         if (isinstance(payload, dict) and payload.get("adapter") is not None
                 and getattr(self.executor, "adapters", None) is None):
             return self._error(
@@ -517,7 +914,12 @@ class Node:
                     "result_for_user": result,
                     "served_by": self.node_id,
                 })
-        if isinstance(payload, dict) and payload.get("start_pos", -1) == 0:
+        rem = retrylib.remaining_s(deadline_ms)
+        if rem is not None and rem <= 0:
+            # the budget died during compute: relaying would be dead work
+            # for every later stage
+            return self._deadline_error("post-compute")
+        if start_pos == 0:
             # every stage binds the session's adapter at admission: the first
             # chunk's key rides the relay
             ad = payload.get("adapter")
@@ -525,10 +927,59 @@ class Node:
                 result["adapter"] = ad
         next_env = {"task_id": task_id, "session_id": session_id, "stage": stage + 1,
                     "payload": result}
+        if deadline_ms is not None:
+            next_env[retrylib.DEADLINE_KEY] = deadline_ms
+        t1 = time.perf_counter()
         try:
-            return self._relay(next_env, stage + 1)
+            reply = self._relay(next_env, stage + 1)
         except NoNodeForStage as e:
             return self._error(503, f"no next node: {e}")
+        self._observe_hop((time.perf_counter() - t1) * 1e3)
+        return reply
+
+    def _rescue(self, env: Dict[str, Any], session_id: str, stage: int,
+                deadline_ms) -> Optional[Reply]:
+        """A mid-session chunk for a session this node does not hold (the
+        client failed over to another entry, or a relay's affinity died with
+        a node): relay it, marked `rescued` so it bounces once only, to the
+        replica whose record advertises the session. Up to rescue_bounces
+        tries RESCUE_PAUSE_S apart, each after the first paid from the
+        retry budget. The holder's reply below 500 is the answer; None when
+        none came (the chunk is then served here, and answers 409)."""
+        last = "no holder advertised"
+        attempts = 0
+        for bounce in range(self.rescue_bounces):
+            if self._holds_session(session_id):
+                return None  # the session arrived here meanwhile: serve it
+            rem = retrylib.remaining_s(deadline_ms)
+            if rem is not None and rem <= 0:
+                return self._deadline_error("rescue")
+            if bounce and not self.retry_budget.try_acquire():
+                # bounces are retries too: the budget bounds a dead stage's rate
+                self.metrics.inc("rescue.budget_denied")
+                last = "rescue retry budget denied"
+                break
+            attempts = bounce + 1
+            holder = self._gossip_session_holder(session_id, stage, exclude={self.node_id})
+            if holder is not None:
+                self.metrics.inc("sessions.rescue_relay")
+                t = time.perf_counter()
+                try:
+                    reply = self._relay({**env, "rescued": True}, stage, exclude={self.node_id},
+                                        prefer=holder, phase="rescue", attempts=1)
+                except NoNodeForStage:
+                    reply, last = None, "no node for stage"
+                else:
+                    self._observe_hop((time.perf_counter() - t) * 1e3)
+                    if reply[0] < 500:
+                        return reply
+                    last = f"holder {holder} answered {reply[0]}"
+            time.sleep(RESCUE_PAUSE_S)  # a stale advert: wait, look again
+        if not self._holds_session(session_id):
+            self.metrics.inc("sessions.rescue_failed")
+            log.warning("session %s: rescue failed after %d bounces (%s)", session_id,
+                        attempts, last)
+        return None
 
     def profile(self, body: bytes) -> Reply:
         """POST /profile: start, stop, or a window that stops itself (the
@@ -591,15 +1042,33 @@ class Node:
             session_id = env["session_id"]
         except (ValueError, TypeError, KeyError, UnicodeDecodeError) as e:
             return self._error(400, f"bad end_session: {e}")
+        relay = env.get("relay", True)
+        if relay and not env.get("rescued") and not self._holds_session(session_id):
+            # the session's KV for this stage lives on another replica (the
+            # client ended it through a failed-over entry): end it there now,
+            # not at its idle TTL; one bounce, best effort
+            holder = self._gossip_session_holder(session_id, self.spec.stage,
+                                                 exclude={self.node_id})
+            value = self.dht.get_stage(self.spec.stage).get(holder) if holder else None
+            if value is not None:
+                host, port = node_addr(value)
+                try:
+                    status, raw, _ = http_post(f"http://{host}:{port}{END_SESSION_PATH}",
+                                               wire.pack({**env, "rescued": True}),
+                                               self.hop_timeout_s)
+                    return status, _WIRE, raw
+                except (OSError, http.client.HTTPException, ValueError):
+                    pass  # the holder is gone: its sweep or death took the KV
         self.executor.end_session(session_id)
+        self.announce(urgent=False)  # stop advertising the session
         stage = int(env.get("stage", self.spec.stage))
-        if env.get("relay", True) and stage + 1 < self.spec.num_stages:
+        if relay and stage + 1 < self.spec.num_stages:
             try:
                 _, value = self._pick_next(session_id, stage + 1)
                 host, port = node_addr(value)
                 http_post(f"http://{host}:{port}{END_SESSION_PATH}",
                           wire.pack({"session_id": session_id, "stage": stage + 1}),
-                          HOP_TIMEOUT_S)
+                          self.hop_timeout_s)
             except (NoNodeForStage, OSError, http.client.HTTPException, ValueError):
                 pass
             with self._affinity_lock:
@@ -607,12 +1076,18 @@ class Node:
         return 200, _WIRE, wire.pack({"ok": True})
 
     def _maybe_sweep(self) -> None:
+        """Every SWEEP_INTERVAL_S: drop sessions idle past their TTL, and
+        affinity entries unused for AFFINITY_MAX_AGE_S."""
         with self._stats_lock:
             now = time.monotonic()
             if now - self._last_sweep < SWEEP_INTERVAL_S:
                 return
             self._last_sweep = now
         self.executor.sessions.sweep()
+        cutoff = now - AFFINITY_MAX_AGE_S
+        with self._affinity_lock:  # least recently used first
+            while self._session_next and next(iter(self._session_next.values()))[1] < cutoff:
+                self._session_next.popitem(last=False)
 
     def health(self) -> Dict[str, Any]:
         return {
@@ -630,7 +1105,9 @@ class Node:
         dispatches and tokens, mean co-batch, prefill dispatches and tokens,
         graphs, and the block pool's gauges when paged, the adapter
         registry's with --adapters; the whole-model one adds its window's
-        `window`), and the node's arrival window's (`window`, stage lanes)."""
+        `window`), the node's arrival window's (`window`, stage lanes), and
+        the overload plane's counters and histograms (`metrics`) and its
+        hedge and retry budgets."""
         lock = self._compute_lock if self._serial else contextlib.nullcontext()
         with lock:
             executor = self.executor.stats()
@@ -682,17 +1159,26 @@ class Node:
             "window": None if self.window is None else self.window.stats(),
             "memory": memory,
             "dht": dht,
+            "metrics": self.metrics.snapshot(),
+            "hedge_budget": self.hedge_budget.stats(),
+            "retry_budget": self.retry_budget.stats(),
         }
 
 
 def _handler_for(node: Node):
     class Handler(BaseHTTPRequestHandler):
-        def _reply(self, status: int, ctype: str, body: bytes) -> None:
-            self.send_response(status)
-            self.send_header("Content-Type", ctype)
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+        def _reply(self, status: int, ctype: str, body: bytes,
+                   headers: Optional[Dict[str, str]] = None) -> None:
+            try:
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
+                self.end_headers()
+                self.wfile.write(body)
+            except OSError:  # the caller is gone (a hedge's loser, a crash)
+                self.close_connection = True
 
         def do_POST(self) -> None:  # noqa: N802 (http.server's naming)
             with span("http.request"):

@@ -19,7 +19,9 @@ Usage:
       [--paged-kv BS [--kv-blocks K]] [--prefill-chunk C] \\
       [--adapters DIR[,DIR...] [--adapter-slots N]] \\
       [--quant none|int8|int8-kernel|int4] [--lora DIR] \\
-      [--enable-profiling [--profile-dir DIR]]
+      [--enable-profiling [--profile-dir DIR]] \\
+      [--hop-timeout S] [--hedge-delay-ms D] [--hedge-mode advertised|any|off] \\
+      [--admission-reserve F] [--rescue-bounces N] [--chaos SPEC]
 
 With --stage-lanes the stage serves its sessions from lanes of one shared
 KV cache, and co-arriving decode steps of concurrent sessions run as one
@@ -36,6 +38,13 @@ serves many on either lane node, each session's own adapter added per lane by th
 kernel of csrc/lora_delta.cu (the two are exclusive). --enable-profiling
 opens POST /profile: torch.profiler traces of the node on demand, under
 --profile-dir.
+The overload plane's knobs (runtime/node.py): --hop-timeout bounds each
+relay hop (a request's deadline bounds it further), --hedge-delay-ms and
+--hedge-mode shape hedged decode relays, --admission-reserve is the free
+share of a paged pool under which new sessions are shed (503 busy with
+Retry-After), --rescue-bounces caps a failed-over chunk's relays to the
+replica advertising its session, and --chaos injects faults
+(utils/chaos.py; resilience testing only).
 
 A swarm: start the stage-0 seed with --gossip-port P, every other node
 with --bootstrap <seed host>:P (each with a gossip port of its own, or 0
@@ -65,6 +74,7 @@ from inferd_tpu_torch.parallel.stages import (
 from inferd_tpu_torch.runtime.adapters import AdapterRegistry
 from inferd_tpu_torch.runtime.executor import make_executor
 from inferd_tpu_torch.runtime.node import Node
+from inferd_tpu_torch.utils.chaos import Chaos
 from inferd_tpu_torch.utils.platform import DEVICE_CHOICES, resolve_device
 
 DEFAULT_HTTP_PORT = 6050
@@ -180,12 +190,55 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--profile-dir", default="profiles",
                     help="directory the /profile traces land under (default profiles/)")
+    ap.add_argument(
+        "--hop-timeout", type=float,
+        default=float(os.environ.get("INFERD_HOP_TIMEOUT", "120")),
+        help="per-hop relay timeout in seconds (env INFERD_HOP_TIMEOUT); with a "
+        "deadline-carrying request the hop waits at most what is left of it",
+    )
+    ap.add_argument(
+        "--hedge-delay-ms", type=float,
+        default=float(os.environ.get("INFERD_HEDGE_DELAY_MS", "0")),
+        help="hedged decode relays: wait this long on the primary before sending "
+        "the same envelope to a second replica (env INFERD_HEDGE_DELAY_MS; 0 = "
+        "adaptive, the trailing 60 s p95 of this node's hop times); hedges stay "
+        "within 5%% extra load",
+    )
+    ap.add_argument(
+        "--hedge-mode", default=os.environ.get("INFERD_HEDGE_MODE", "advertised"),
+        choices=["advertised", "any", "off"],
+        help="where a hedge may go: 'advertised' (default) = only a replica whose "
+        "gossip record advertises the session's KV; 'any' = the best-ranked other "
+        "replica (stateless backends); 'off' = never hedge",
+    )
+    ap.add_argument(
+        "--admission-reserve", type=float,
+        default=float(os.environ.get("INFERD_ADMISSION_RESERVE", "0.05")),
+        help="shed NEW sessions (503 'busy' + Retry-After) while the --paged-kv "
+        "block pool has fewer than this fraction of its blocks free (env "
+        "INFERD_ADMISSION_RESERVE)",
+    )
+    ap.add_argument(
+        "--rescue-bounces", type=int,
+        default=int(os.environ.get("INFERD_RESCUE_BOUNCES", "6")),
+        help="how many times a mid-session chunk that lands on a replica without "
+        "its KV is relayed to the replica advertising it before the client's "
+        "409 and restart (env INFERD_RESCUE_BOUNCES)",
+    )
+    ap.add_argument(
+        "--chaos", default=os.environ.get("INFERD_CHAOS", ""),
+        help="fault injection spec, e.g. 'drop=0.2,delay_ms=50' or 'stall_p=1' "
+        "(env INFERD_CHAOS; utils/chaos.py) — resilience testing only",
+    )
     return ap
 
 
 def make_node(args: argparse.Namespace) -> Node:
     swarm = dict(gossip_port=args.gossip_port, bootstrap=parse_bootstrap(args.bootstrap),
-                 capacity=args.capacity)
+                 capacity=args.capacity, hop_timeout_s=args.hop_timeout,
+                 hedge_delay_ms=args.hedge_delay_ms, hedge_mode=args.hedge_mode,
+                 admission_reserve=args.admission_reserve,
+                 rescue_bounces=args.rescue_bounces, chaos=Chaos.parse(args.chaos))
     if args.backend == "counter":
         if args.parts:
             raise ValueError("--backend counter takes no --parts (it has no weights)")

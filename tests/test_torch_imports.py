@@ -70,6 +70,9 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
     }
     want = {n[: -len(".__init__")] if n.endswith(".__init__") else n for n in want}
     assert want <= names, sorted(want - names)
+    # the overload plane's stdlib-only copies, named: a client imports them alone
+    assert {"inferd_tpu_torch.utils.retry", "inferd_tpu_torch.utils.metrics",
+            "inferd_tpu_torch.utils.chaos"} <= names
 
 
 def _imports(tree):
