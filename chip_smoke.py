@@ -6,7 +6,13 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
   gpu         the card's name and power limit (nvidia-smi), torch and CUDA
               versions; TF32 off for every comparison
   build       build every CUDA kernel from the sources in this checkout, all
-              at once (one nvcc each), with ptxas's registers and spills
+              at once (one nvcc each), with ptxas's registers and spills, and
+              beside them the wire's native codec (csrc/wirecodec.cpp, the host
+              C++ compiler), so the node processes find it built
+  codec       the native wire codec against the pure-Python one in this
+              process, in interleaved rounds: pack and unpack of a decode
+              envelope (a bf16 hidden row), a coalesced window of 8 rows and
+              the last stage's logits reply (~600 KB); equal bytes
   kernels     every kernel against its plain PyTorch version on the card, at
               the main path's shapes (Qwen3-0.6B: bf16, Nq 16, Nkv 8, D 128)
               and feature cases; the per-row error against a stated
@@ -79,9 +85,17 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               executor.buffers beside the device memory reserved); replica B
               killed with no tombstone: two new sessions complete on A,
               token-exact, with one dead hop counted, and B's record leaves
-              the seed's view within the TTL; a relay-mode --stage-lanes pair
-              serves the serve_lanes traffic token-exact with split paged
-              launches; a 3-stage --backend counter swarm answers state 3,
+              the seed's view within the TTL; a relay-mode --stage-lanes pair,
+              started from a manifest written by the port's to_yaml
+              (--manifest, --name) and bootstrapped to a tools/seed process
+              whose view must list both, serves the serve_lanes traffic
+              token-exact with every launch accounted for per node, its
+              stage 0 relaying each window's decode steps as one coalesced
+              POST (hop.coalesced >= 1, stage 1's multi envelopes and frames
+              equal to stage 0's coalesced POSTs and sessions, no fallback,
+              POSTs per session decode step printed), then the cli phase's
+              tools/send --entry through it; every node's wire codec
+              native; a 3-stage --backend counter swarm answers state 3,
               trace [0, 1, 2]; the per-token latency of relay against chain
               on the seed and A, in interleaved pairs of 8- and 32-token runs
               (utils.profiling.paired_delta_stats)
@@ -208,6 +222,11 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               every window a capture or a replay; stage 0 of the two-stage
               chain answers
               decode_steps with 409 session_state ("single-stage")
+  serve_fp8   one greedy request (the 300-token serve prompt, 32 tokens) to a
+              one-stage run_node --kv-dtype float8_e4m3fn node: token-exact
+              against the same executor in this process with fp8 KV and its
+              graphs off; flash_gqa launches exact per route, every decode
+              step a capture or a replay
   anatomy     perf.anatomy.profile_step on the whole model at the headline
               regime's context: bf16, --quant int8 and paged (bs 32): each
               phase's device ms (short and long loops of it captured as
@@ -228,17 +247,22 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               replays, the results' .cpu(); each node replayed its graphs
   cli         python -m inferd_tpu_torch.tools.generate --model qwen3-0.6b
               --random-init --prompt-ids ... --max-new-tokens 16 --chunk 8 as a
-              subprocess, on the card by default: exit 0, 16 ids
+              subprocess, on the card by default: exit 0, 16 ids; and (inside
+              serve_swarm, while its lane pair serves) python -m
+              inferd_tpu_torch.tools.send --entry against it: exit 0 and the
+              pair's greedy stream
 
-Then one JSON line listing every kernel, the nvidia-smi line, and last:
+Then a `wire` line (the codec's times and the lane pair's coalesced
+relay counts as JSON), one JSON line listing every kernel, the nvidia-smi
+line, and last:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Run from the root of a checkout: python3 chip_smoke.py
 Exits non-zero without a CUDA device, and outside a checkout.
-`--only paged,lora` (any of flash, paged, qmm, lora, and on a fresh split
-serve, serve_quant, serve_lanes, serve_lanes_quant, serve_lanes_lora,
+`--only paged,lora` (any of flash, paged, qmm, lora, codec, and on a fresh
+split serve, serve_quant, serve_lanes, serve_lanes_quant, serve_lanes_lora,
 serve_swarm, serve_overload, generate, generate_batched, serve_batch,
-serve_kstep, anatomy, profile: serve_quant runs int8 and int4,
+serve_kstep, serve_fp8, anatomy, profile: serve_quant runs int8 and int4,
 serve_lanes_lora runs serve_lanes first, serve_swarm runs serve and
 serve_lanes first, serve_overload runs serve first, generate runs the
 generate and generate_quant phases, serve_batch runs generate_batched
@@ -1405,17 +1429,41 @@ def free_udp_port() -> int:
         return s.getsockname()[1]
 
 
-def launch_node(stage: int, log_name: str, args) -> Dict[str, Any]:
+def launch_node(stage: int, log_name: str, args, identity=None) -> Dict[str, Any]:
     """One run_node process for `stage` on a free port, on DEVICE, its
-    gossip on an ephemeral UDP port unless `args` names one."""
+    gossip on an ephemeral UDP port unless `args` names one; `identity`
+    (e.g. --manifest M --name N) in place of --stage."""
     port = free_port()
     log = open(log_name, "w")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "inferd_tpu_torch.tools.run_node", "--stage", str(stage),
+        [sys.executable, "-m", "inferd_tpu_torch.tools.run_node",
+         *(identity or ["--stage", str(stage)]),
          "--port", str(port), "--device", DEVICE, "--gossip-port", "0", *args],
         cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
     )
     return {"proc": proc, "port": port, "log": log, "stage": stage}
+
+
+def launch_seed(log_name: str) -> Dict[str, Any]:
+    """One tools/seed process (a bare gossip peer) on a free UDP port; its
+    stdout (the ready line, then a line per change of its view) in the log."""
+    port = free_udp_port()
+    log = open(log_name, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "inferd_tpu_torch.tools.seed", "--port", str(port), "--host",
+         "127.0.0.1"], cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+    )
+    return {"proc": proc, "port": port, "log": log, "stage": "seed"}
+
+
+def seed_lines(seed: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """The JSON lines a tools/seed process printed so far."""
+    out = []
+    with open(seed["log"].name, errors="replace") as f:
+        for ln in f:
+            if ln.startswith("{"):
+                out.append(json.loads(ln))
+    return out
 
 
 def start_node(parts: str, stage: int, log_dir: str, extra=(), tag: str = "") -> Dict[str, Any]:
@@ -1484,6 +1532,11 @@ def wait_ready(node: Dict[str, Any], timeout_s: float = 300.0) -> None:
     while time.monotonic() < deadline:
         if node["proc"].poll() is not None:
             raise RuntimeError(f"node {node['stage']} exited with {node['proc'].returncode}")
+        if node["stage"] == "seed":  # no HTTP: its ready line
+            if any(d.get("ready") for d in seed_lines(node)):
+                return
+            time.sleep(0.2)
+            continue
         try:
             http_get_json(f"http://127.0.0.1:{node['port']}/health", timeout=2.0)
             return
@@ -2908,6 +2961,8 @@ OVERLOAD_RESCUE_AFTER = 8  # tokens before the client fails over to E1
 OVERLOAD_POST_COMPUTE_DEADLINE_S = 0.15  # ahead of E2's 400 ms chaos delay
 OVERLOAD_STALL_DEADLINE_S = 0.3  # toward the stalled counter replica
 OVERLOAD_HEDGE_MS = 50
+# swarms started from a manifest and a tools/seed process (swarm_nodes)
+MANIFEST_SWARMS = ("swarm_lanes",)
 # (common args, [(stage, args)]) of each swarm, the first node its gossip seed
 SWARM_LAYOUTS = {
     "swarm": ("model", [(0, []), (1, []), (1, [])]),
@@ -2925,24 +2980,53 @@ SWARM_LAYOUTS = {
 }
 
 
+def write_manifest(work: str, tag: str, layout) -> str:
+    """The YAML manifest of a swarm of SWARM_LAYOUTS (MODEL split evenly
+    over its stages, a node named {tag}{i} per entry), written by the port's
+    Manifest.to_yaml."""
+    from inferd_tpu_torch.config import get_config
+    from inferd_tpu_torch.parallel.stages import Manifest, NodeSpec
+
+    num_stages = max(stage for stage, _ in layout) + 1
+    specs = Manifest.even_split(MODEL, num_stages).stage_specs()
+    if get_config(MODEL).num_layers != specs[-1].end_layer + 1:
+        raise AssertionError(f"{MODEL}: an even split of {num_stages} misses layers")
+    nodes = [NodeSpec(f"{tag}{i}", stage, specs[stage].start_layer, specs[stage].end_layer)
+             for i, (stage, _) in enumerate(layout)]
+    path = os.path.join(work, f"{tag}.yaml")
+    with open(path, "w") as f:
+        f.write(Manifest(MODEL, num_stages, nodes).to_yaml())
+    return path
+
+
 def swarm_nodes(parts: Optional[str], work: str, tag: str) -> List[Dict[str, Any]]:
     """The node processes of one swarm of SWARM_LAYOUTS, started now: the
     first, a stage-0 node, is the gossip seed on a UDP port chosen here; the
     others bootstrap to it on ephemeral ports. `swarm`: three one-session
     nodes (stage 0, and stage 1 twice: replicas A and B); `swarm_lanes`: a
-    lane pair (LANE_NODE_ARGS); `swarm_counter`: three counter stages;
+    lane pair (LANE_NODE_ARGS) deployed as users deploy: each node's stage
+    from a manifest (--manifest, --name), both bootstrapping to a tools/seed
+    process, the swarm's LAST entry; `swarm_counter`: three counter stages;
     `overload` and `overload_counter`: serve_overload's."""
     seed_port = free_udp_port()
     kind, layout = SWARM_LAYOUTS[tag]
     common = (["--backend", "counter", "--num-stages", "3"] if kind == "counter"
               else ["--parts", parts, "--max-len", str(MAX_LEN)])
+    seed, manifest = None, None
+    if tag in MANIFEST_SWARMS:
+        seed = launch_seed(os.path.join(work, f"{tag}_seed.log"))
+        manifest = write_manifest(work, tag, layout)
     nodes = []
     for i, (stage, extra) in enumerate(layout):
-        gossip = (["--gossip-port", str(seed_port)] if i == 0
-                  else ["--bootstrap", f"127.0.0.1:{seed_port}"])
+        if seed is not None:
+            gossip = ["--bootstrap", f"127.0.0.1:{seed['port']}"]
+        else:
+            gossip = (["--gossip-port", str(seed_port)] if i == 0
+                      else ["--bootstrap", f"127.0.0.1:{seed_port}"])
+        identity = None if manifest is None else ["--manifest", manifest, "--name", f"{tag}{i}"]
         nodes.append(launch_node(stage, os.path.join(work, f"{tag}{i}.log"),
-                                 common + extra + gossip))
-    return nodes
+                                 common + extra + gossip, identity=identity))
+    return nodes + ([seed] if seed is not None else [])
 
 
 def wait_gossip(phase: str, nodes: List[Dict[str, Any]], timeout_s: float = 30.0) -> float:
@@ -2999,6 +3083,7 @@ def run_serve_swarm(card: str, parts: str, work: str, serve, lanes) -> Dict[str,
     one: List[Dict[str, Any]] = []
     lane: List[Dict[str, Any]] = []
     counter: List[Dict[str, Any]] = []
+    lane_seed: List[Dict[str, Any]] = []
 
     def url(n):
         return ("127.0.0.1", n["port"])
@@ -3034,16 +3119,35 @@ def run_serve_swarm(card: str, parts: str, work: str, serve, lanes) -> Dict[str,
     try:
         one = take_swarm(parts, work, "swarm")
         lane = take_swarm(parts, work, "swarm_lanes")
+        lane_seed = [lane.pop()]  # the tools/seed process, the swarm's last entry
         counter = take_swarm(parts, work, "swarm_counter")
         t0 = time.perf_counter()
-        for n in one + lane + counter:
+        for n in one + lane + counter + lane_seed:
             wait_ready(n)
         converged = [wait_gossip(phase, nodes) for nodes in (one, lane, counter)]
         say(phase, f"{len(one) + len(lane) + len(counter)} run_node --device {DEVICE} processes "
                    f"in three swarms (one-session: stage 0 seed + stage-1 replicas A, B; "
-                   f"lanes: {' '.join(LANE_NODE_ARGS)}; counter: 3 stages) ready in "
+                   f"lanes: {' '.join(LANE_NODE_ARGS)}, started with --manifest and --name "
+                   f"and bootstrapped to a tools/seed process; counter: 3 stages) ready in "
                    f"{time.perf_counter() - t0:.1f}s; every gossip view full after "
                    f"{', '.join(f'{c:.2f}' for c in converged)} s")
+        want_view = {str(n["stage"]): [node_id(n)] for n in lane}
+        deadline = time.monotonic() + 10.0
+        views = [d["view"] for d in seed_lines(lane_seed[0]) if "view" in d]
+        while (not views or views[-1] != want_view) and time.monotonic() < deadline:
+            time.sleep(0.2)
+            views = [d["view"] for d in seed_lines(lane_seed[0]) if "view" in d]
+        lane_recs = stats(lane[:1])[0]["dht"]
+        names = sorted(r["name"] for recs in lane_recs.values() for r in recs.values())
+        say(phase, f"the lane pair's tools/seed view {views[-1] if views else None} (want "
+                   f"{want_view}); the pair's records named {names} from the manifest")
+        if not views or views[-1] != want_view or names != ["swarm_lanes0", "swarm_lanes1"]:
+            raise AssertionError(f"{phase}: the seed's views {views}, record names {names}")
+        codecs = {st["node_id"]: st["wire_codec"] for st in stats(one + lane + counter)}
+        say(phase, f"wire codec per node: {codecs}")
+        if set(codecs.values()) != {"native"}:
+            raise AssertionError(f"{phase}: a node packs with another codec than the native "
+                                 f"one: {codecs}")
         for st in stats(one + lane + counter):  # fresh processes: every count starts at 0
             if any(k["launches"] for k in st["kernels"].values()) or st["forward_passes"]:
                 raise AssertionError(f"{phase}: a node did work before the main path: {st}")
@@ -3187,27 +3291,82 @@ def run_serve_swarm(card: str, parts: str, work: str, serve, lanes) -> Dict[str,
         say(phase, f"replica B killed (no tombstone): two new sessions at once completed on A, "
                    f"token-exact; the seed counted {st0['dead_hops']} dead hop")
 
-        # the lane pair, relaying: serve_lanes' traffic
+        # the lane pair, relaying: serve_lanes' traffic; stage 0's flush relays
+        # each window's decode steps as one coalesced POST per next hop
+        t_lanes = time.perf_counter()
         lane_streams = run(swarm_client(lane), lanes["prompts"], concurrent=True)
+        lane_wall = time.perf_counter() - t_lanes
         for p, a_, b_ in zip(lanes["prompts"], lane_streams, lanes["streams"]):
             if a_ != b_:
                 raise AssertionError(f"{phase}: lane relay stream of prompt {len(p)} != "
                                      f"serve_lanes' from token {first_divergence(a_, b_)}")
+        pieces = [len(c[j:j + LANE_PREFILL_CHUNK]) for p in lanes["prompts"]
+                  for c in (p[i:i + 512] for i in range(0, len(p), 512))
+                  for j in range(0, len(c), LANE_PREFILL_CHUNK)]
+        chunks = sum(-(-len(p) // 512) for p in lanes["prompts"])  # the client's chunks
+        session_steps = len(lanes["prompts"]) * (NEW_TOKENS - 1)
         lane_split = 0
-        for st in stats(lane):
+        lane_st = stats(lane)
+        for st in lane_st:
             ex = st["executor"]
             split, want_split = paged_splits(phase, st, cfg)
             lane_split += split
             node_graphs.append(check_node_graphs(phase, st, ex["batched_steps"]))
-            paged = st["kernels"]["paged_decode_gqa"]["launches"]
-            if split != want_split or st["errors"] or paged != layers * ex["batched_steps"]:
-                raise AssertionError(f"{phase}: lane node {st['node_id']}: paged launches "
-                                     f"{paged}, {ex['batched_steps']} dispatches, split {split} "
-                                     f"(want {want_split}), {st['errors']} errors")
+            kern = {name: k["launches"] for name, k in st["kernels"].items()}
+            want = dict.fromkeys(kern, 0)
+            want.update(flash_gqa=layers * ex["prefill_steps"],
+                        paged_decode_gqa=layers * ex["batched_steps"])
+            routes = flash_routes(st)
+            want_routes = {"split": 0, "mma": layers * ex["prefill_steps"]}
+            say(phase, f"lane node stage {st['stage']}: {ex['prefill_steps']} prefill dispatches "
+                       f"(want {len(pieces)}), {ex['batched_steps']} decode dispatches for "
+                       f"{ex['batched_tokens']} session steps (want {session_steps}); launches "
+                       f"{kern} (want {want}: {kern == want}); flash_gqa routes {routes} (want "
+                       f"{want_routes})")
+            if (split != want_split or st["errors"] or kern != want or routes != want_routes
+                    or ex["prefill_steps"] != len(pieces)
+                    or ex["batched_tokens"] != session_steps):
+                raise AssertionError(f"{phase}: lane node {st['node_id']}: launches {kern} "
+                                     f"(want {want}), routes {routes}, split {split} (want "
+                                     f"{want_split}), {ex['prefill_steps']} prefill dispatches, "
+                                     f"{ex['batched_tokens']} session steps, {st['errors']} "
+                                     "errors")
         if not lane_split:
             raise AssertionError(f"{phase}: the lane pair launched no split paged_decode_gqa")
+        c0, c1 = (st["metrics"]["counters"] for st in lane_st)
+        coalesced = int(c0.get("hop.coalesced", 0))
+        sessions = int(c0.get("hop.coalesced_sessions", 0))
+        posts = int(c0.get("hop.count", 0))
+        decode_posts = posts - chunks  # a prefill chunk's relay is a single POST
+        coalesce = {
+            "posts": posts, "coalesced": coalesced, "coalesced_sessions": sessions,
+            "fallback": int(c0.get("hop.coalesced_fallback", 0)),
+            "relays": lane_st[0]["relays"],
+            "multi_envelopes": int(c1.get("forward.multi_envelopes", 0)),
+            "multi_frames": int(c1.get("forward.multi_frames", 0)),
+            "posts_per_session_step": decode_posts / session_steps,
+            "sessions_per_coalesced_post": sessions / max(coalesced, 1),
+            "mean_cobatch": [st["executor"]["mean_batch"] for st in lane_st],
+            "tokens_per_s": sum(len(x) for x in lane_streams) / lane_wall,
+        }
         say(phase, f"relay-mode lane pair: {len(lanes['prompts'])} concurrent sessions equal "
-                   f"serve_lanes' streams; paged split launches {lane_split}")
+                   f"serve_lanes' streams; paged split launches {lane_split}; stage 0 relayed "
+                   f"{session_steps} session decode steps and {chunks} prompt chunks in "
+                   f"{posts} POSTs ({coalesced} coalesced carrying {sessions} sessions, "
+                   f"{coalesce['sessions_per_coalesced_post']:.2f} per POST; "
+                   f"{coalesce['fallback']} fallbacks): "
+                   f"{coalesce['posts_per_session_step']:.3f} stage-0 -> stage-1 POSTs per "
+                   f"session decode step; stage 1 took {coalesce['multi_envelopes']} multi "
+                   f"envelopes of {coalesce['multi_frames']} frames; mean co-batch "
+                   f"{coalesce['mean_cobatch']}; aggregate {coalesce['tokens_per_s']:.1f} tok/s "
+                   f"({card})")
+        if (coalesced < 1 or coalesce["fallback"] or coalesce["multi_envelopes"] != coalesced
+                or coalesce["multi_frames"] != sessions
+                or coalesce["relays"] != chunks + session_steps
+                or posts - coalesced + sessions != coalesce["relays"]):
+            raise AssertionError(f"{phase}: the lane pair's coalesced relay: {coalesce}")
+        # the network CLI as a user runs it, through the same pair
+        run_cli_send(card, lane[0]["port"], lanes["prompts"][2], lanes["streams"][2])
 
         # the counter swarm: three stages, entered right and wrong
         for entry in (counter[0], counter[2]):
@@ -3270,17 +3429,18 @@ def run_serve_swarm(card: str, parts: str, work: str, serve, lanes) -> Dict[str,
                 launches[name] += k["launches"]
             for r, v in flash_routes(st).items():
                 routes[r] += v
-        stop_nodes(one + lane + counter)
-        one, lane, counter = [], [], []
+        stop_nodes(one + lane + counter + lane_seed)
+        one, lane, counter, lane_seed = [], [], [], []
         return {"launches": launches, "flash_routes": routes, "paged_split": lane_split,
                 "gemv_routes": {name: {"mma": 0, "simt": 0} for name in QMM_KERNEL_OF.values()},
-                "graphs": node_graphs, "timing": timing, "b_expired_s": expired[0]}
+                "graphs": node_graphs, "timing": timing, "b_expired_s": expired[0],
+                "coalesce": coalesce}
     except BaseException:
-        stop_nodes(one + lane + counter, show_logs=True)
-        one, lane, counter = [], [], []
+        stop_nodes(one + lane + counter + lane_seed, show_logs=True)
+        one, lane, counter, lane_seed = [], [], [], []
         raise
     finally:
-        stop_nodes(one + lane + counter)
+        stop_nodes(one + lane + counter + lane_seed)
 
 
 def overload_client(entry, log: List[Dict[str, Any]], sampling):
@@ -3305,13 +3465,15 @@ def overload_client(entry, log: List[Dict[str, Any]], sampling):
                    "start": start_pos, "status": 200, "code": None, "retry_after": None,
                    "served_by": None}
             log.append(row)
+            t0 = time.perf_counter()
             try:
                 resp = await self._post("/forward", self._forward_env(session_id, tokens,
                                                                       start_pos))
             except ServerError as e:
-                row.update(status=e.status, code=e.code, retry_after=e.retry_after)
+                row.update(status=e.status, code=e.code, retry_after=e.retry_after,
+                           ms=(time.perf_counter() - t0) * 1e3)
                 raise
-            row["served_by"] = resp["served_by"]
+            row.update(served_by=resp["served_by"], ms=(time.perf_counter() - t0) * 1e3)
             return np.asarray(resp["result_for_user"]["logits"])[0]
 
     c = Recorder([("127.0.0.1", entry["port"])], sampling=sampling, prefill_chunk=512)
@@ -3658,8 +3820,9 @@ def run_serve_overload(card: str, parts: str, work: str, serve) -> Dict[str, Any
                    "session_state; the client restarted once (on_token(None) once) through "
                    "E1, whose re-prefill ran eagerly; the stream equals the serve chain "
                    f"stream; from the kill to the restart {restart_s['to_409_and_backoff']:.3f} s "
-                   f"(the rescue's bounces and the client's backoff), to the restart's first "
-                   f"token {restart_s['to_first_token']:.3f} s ({card})")
+                   f"(the rescue's bounces and the client's backoff; the refused step's round "
+                   f"trip {refused[0]['ms']:.1f} ms), to the restart's first token "
+                   f"{restart_s['to_first_token']:.3f} s ({card})")
 
         # counter stages: hedges win over the stall, then a deadline on it
         def hedge_env(i, **kw):
@@ -5056,6 +5219,154 @@ def run_cli(card: str) -> None:
         raise AssertionError(f"{phase}: {r.stdout!r} {r.stderr[-2000:]!r}")
 
 
+def run_cli_send(card: str, entry_port: int, prompt: List[int], want: List[int]) -> None:
+    """The `cli` phase's network half: tools/send --entry as a subprocess
+    against a live swarm (serve_swarm's lane pair, while it serves), greedy:
+    exit 0 and the stream the swarm gave the same prompt."""
+    phase = "cli"
+    cmd = [sys.executable, "-m", "inferd_tpu_torch.tools.send", "--entry",
+           f"127.0.0.1:{entry_port}", "--prompt-ids", ",".join(map(str, prompt)),
+           "--max-new-tokens", str(len(want)), "--temperature", "0"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"{phase}: tools/send exit {r.returncode}\n{r.stderr[-4000:]}")
+    ids = json.loads(r.stdout.split("generated ids:", 1)[1].strip().splitlines()[0])
+    say(phase, f"python -m inferd_tpu_torch.tools.send --entry ... --prompt-ids <{len(prompt)} "
+               f"ids> --max-new-tokens {len(want)} --temperature 0: exit 0 in "
+               f"{time.perf_counter() - t0:.1f}s with {len(ids)} ids, equal to the swarm's "
+               f"stream: {ids == want} ({card})")
+    if ids != want:
+        raise AssertionError(f"{phase}: tools/send printed {ids}, want {want}")
+
+
+CODEC_PAIRS = 5  # interleaved rounds of native and Python per operation
+
+
+def run_codec() -> List[Dict[str, Any]]:
+    """The `codec` phase: the wire's native codec (csrc/wirecodec.cpp)
+    against its pure-Python codec on the envelopes the lane pair sends: a
+    decode step's (bf16 hidden row [1, 1, 1024]), a coalesced window's (8
+    rows) and the last stage's reply ([1, 151936] f32 logits, ~600 KB);
+    pack and unpack each, host clock per call, the two codecs in turns in one
+    process (the median of CODEC_PAIRS rounds). The bytes must be equal."""
+    import torch
+
+    from inferd_tpu_torch import native
+    from inferd_tpu_torch.config import get_config
+    from inferd_tpu_torch.runtime import wire
+
+    phase = "codec"
+    card = nvidia_smi_line()
+    cfg = get_config(MODEL)
+    g = torch.Generator().manual_seed(0)
+    row = {"task_id": "t", "session_id": "s", "stage": 1, "deadline_ms": 1.7e12,
+           "payload": {"hidden": torch.randn(1, 1, cfg.hidden_size, generator=g)
+                       .to(torch.bfloat16), "start_pos": 700, "real_len": 1}}
+    cases = {
+        "decode_envelope": (row, 2000),
+        "coalesced_8": (wire.coalesce_forward([dict(row, session_id=f"s{i}")
+                                               for i in range(LANES)]), 1000),
+        "logits_reply": ({"task_id": "t", "session_id": "s", "served_by": "127.0.0.1:1",
+                          "result_for_user": {"logits": torch.randn(1, cfg.vocab_size,
+                                                                    generator=g)}}, 200),
+    }
+    codec = native.load(wire.tensor_parts, wire.tensor_build)
+    fns = {"native": (codec.pack, codec.unpack), "python": (wire.pack_python,
+                                                            wire.unpack_python)}
+    rows = []
+    for name, (payload, iters) in cases.items():
+        blob = codec.pack(payload)
+        if blob != wire.pack_python(payload):
+            raise AssertionError(f"{phase}: {name}: native bytes != Python bytes")
+        times: Dict[str, List[float]] = {f"{c}_{op}": [] for c in fns for op in ("pack",
+                                                                                "unpack")}
+        for i in range(CODEC_PAIRS):
+            for c in (("native", "python") if i % 2 == 0 else ("python", "native")):
+                pack, unpack = fns[c]
+                for op, fn, arg in (("pack", pack, payload), ("unpack", unpack, blob)):
+                    fn(arg)  # warm
+                    t0 = time.perf_counter()
+                    for _ in range(iters):
+                        fn(arg)
+                    times[f"{c}_{op}"].append((time.perf_counter() - t0) / iters * 1e6)
+        us = {k: statistics.median(v) for k, v in times.items()}
+        rows.append(dict({"case": name, "bytes": len(blob)}, **{f"{k}_us": v
+                                                              for k, v in us.items()}))
+        say(phase, f"{name} ({len(blob)} bytes): pack native {us['native_pack']:.2f} us, "
+                   f"Python {us['python_pack']:.2f} us ({us['python_pack'] / us['native_pack']:.2f}x); "
+                   f"unpack native {us['native_unpack']:.2f} us, Python "
+                   f"{us['python_unpack']:.2f} us "
+                   f"({us['python_unpack'] / us['native_unpack']:.2f}x); median of "
+                   f"{CODEC_PAIRS} interleaved rounds of {iters} calls (host clock, {card})")
+    return rows
+
+
+FP8_NODE_ARGS = ["--kv-dtype", "float8_e4m3fn"]
+
+
+def run_serve_fp8(card: str, params, work: str, serve=None) -> Dict[str, Any]:
+    """The `serve_fp8` phase: one greedy request to a one-stage run_node
+    --kv-dtype float8_e4m3fn node, token-exact against the same executor
+    with the same fp8 KV config in this process, its graphs off; flash_gqa
+    launches exact per route (fp8 K/V) and every decode step a graph
+    capture or a replay."""
+    import dataclasses as dc
+
+    from inferd_tpu_torch.client.chain_client import ChainClient
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.parallel.stages import StageSpec
+    from inferd_tpu_torch.runtime.executor import Qwen3StageExecutor
+
+    phase = "serve_fp8"
+    cfg = dc.replace(get_config(MODEL), kv_dtype="float8_e4m3fn")
+    greedy = SamplingConfig(temperature=0.0)
+    prompt = serve_prompts(cfg.vocab_size)[2]
+    node: Optional[Dict[str, Any]] = None
+    try:
+        node = start_single(one_stage_parts(work, params), work, FP8_NODE_ARGS, "_fp8")
+        wait_ready(node)
+        before = http_get_json(f"http://127.0.0.1:{node['port']}/stats")
+        if any(k["launches"] for k in before["kernels"].values()) or before["forward_passes"]:
+            raise AssertionError(f"{phase}: the node did work before the main path: {before}")
+
+        async def go(client):
+            async with client as c:
+                return await c.generate_ids(prompt, max_new_tokens=NEW_TOKENS)
+
+        got = asyncio.run(go(ChainClient([("127.0.0.1", node["port"])], sampling=greedy,
+                                         prefill_chunk=512)))
+        local = eager([Qwen3StageExecutor(cfg, StageSpec(0, 1, 0, cfg.num_layers - 1), params,
+                                          max_len=MAX_LEN)])
+        want = asyncio.run(go(make_local_client(local, greedy)))
+        st = http_get_json(f"http://127.0.0.1:{node['port']}/stats")
+        kern = {name: k["launches"] for name, k in st["kernels"].items()}
+        routes = flash_routes(st)
+        chunks = -(-len(prompt) // 512)
+        bf16 = ("" if serve is None else f"; its first {first_divergence(got, serve['streams'][2])}"
+                f" tokens equal the bf16 serve stream's")
+        want_routes = {"split": cfg.num_layers * (NEW_TOKENS - 1), "mma": cfg.num_layers * chunks}
+        say(phase, f"prompt {len(prompt)} tokens, {NEW_TOKENS} greedy tokens through run_node "
+                   f"{' '.join(FP8_NODE_ARGS)}: the node's stream equals the in-process eager "
+                   f"executor's with fp8 KV: {got == want}; launches {kern}; flash_gqa routes "
+                   f"{routes} (want {want_routes}){bf16} ({card})")
+        node_graphs = check_node_graphs(phase, st, NEW_TOKENS - 1)
+        if (got != want or routes != want_routes or kern["flash_gqa"] != sum(want_routes.values())
+                or any(v for name, v in kern.items() if name != "flash_gqa") or st["errors"]):
+            raise AssertionError(f"{phase}: stream {got} (want {want}), stats {st}")
+        del local
+        return {"launches": kern, "flash_routes": routes, "gemv_routes": gemv_routes(st),
+                "graphs": node_graphs}
+    except BaseException:
+        if node is not None:
+            stop_nodes([node], show_logs=True)
+            node = None
+        raise
+    finally:
+        if node is not None:
+            stop_nodes([node])
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -5082,14 +5393,14 @@ def ptxas_report(log: str) -> List[str]:
 
 
 CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_qmm_cases,
-               "lora": run_lora_cases}
+               "lora": run_lora_cases, "codec": run_codec}
 # --only phases that need the model's split (serve_quant runs int8 and int4;
 # serve_lanes_lora runs serve_lanes first, its baseline; serve_swarm runs
 # serve and serve_lanes first, the streams it is held to; serve_overload runs
 # serve first; serve_batch runs generate_batched first, its streams)
 SPLIT_PHASES = ("serve", "serve_quant", "serve_lanes", "serve_lanes_quant", "serve_lanes_lora",
                 "serve_swarm", "serve_overload", "generate", "generate_batched", "serve_batch",
-                "serve_kstep", "anatomy", "profile")
+                "serve_kstep", "serve_fp8", "anatomy", "profile")
 
 
 def main(argv: List[str]) -> int:
@@ -5125,15 +5436,23 @@ def main(argv: List[str]) -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
+    from inferd_tpu_torch import native
     from inferd_tpu_torch.ops import build
 
-    with ThreadPoolExecutor(len(build.KERNELS)) as pool:  # one nvcc per source, all at once
+    # one nvcc per source and the wire codec's C++ compiler, all at once (the
+    # node processes then find the codec built)
+    with ThreadPoolExecutor(len(build.KERNELS) + 1) as pool:
+        codec = pool.submit(native.build)
         infos = dict(zip(build.KERNELS, pool.map(build.build, build.KERNELS)))
+        codec_info = codec.result()
     for name, info in infos.items():
         regs = ptxas_report(info["log"])
         say("build", f"{name}: {os.path.relpath(info['path'], REPO)} "
                      f"({'built' if info['built'] else 'cached'} in {info['seconds']:.1f}s); "
                      f"ptxas ({len(regs)} kernels): {regs}")
+    say("build", f"wire codec: {os.path.relpath(codec_info['path'], REPO)} "
+                 f"({'built' if codec_info['built'] else 'cached'} in "
+                 f"{codec_info['seconds']:.1f}s with {native.compiler()})")
 
     if only:  # a partial run: the named phases, no serve phases and no result lines
         for name in only:
@@ -5175,6 +5494,8 @@ def main(argv: List[str]) -> int:
                         run_serve_batch(card, whole, work, gen_b)
                 if "serve_kstep" in split_only:
                     run_serve_kstep(card, whole, parts, work)
+                if "serve_fp8" in split_only:
+                    run_serve_fp8(card, whole, work, serve)
                 if "anatomy" in split_only:
                     run_anatomy(card, whole)
                 del whole
@@ -5194,6 +5515,8 @@ def main(argv: List[str]) -> int:
     qmm_cases = run_qmm_cases()
     lora_cases = run_lora_cases()
     lap("kernel cases")
+    codec_rows = run_codec()
+    lap("codec")
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -5208,7 +5531,7 @@ def main(argv: List[str]) -> int:
                     (parts, "overload"), (None, "overload_counter")],
             singles=[(parts1, BATCH_NODE_ARGS, "_batch"), (parts1, BATCH_PAGED_ARGS, "_batchp"),
                      (parts1, WHOLE_LANE_ARGS, "_wlanes"),
-                     (parts1, tenant_batch_args(dirs), "_batcht")])
+                     (parts1, tenant_batch_args(dirs), "_batcht"), (parts1, FP8_NODE_ARGS, "_fp8")])
         lap("split, node start")
         serve = run_serve(card, parts, work)
         lap("serve")
@@ -5234,6 +5557,8 @@ def main(argv: List[str]) -> int:
         lap("serve_batch")
         kstep = run_serve_kstep(card, whole, parts, work)
         lap("serve_kstep")
+        fp8 = run_serve_fp8(card, whole, work, serve)
+        lap("serve_fp8")
         anat = run_anatomy(card, whole)
         lap("anatomy")
         del whole
@@ -5250,7 +5575,7 @@ def main(argv: List[str]) -> int:
              "serve_overload": overload,
              "serve_lanes_quant": lanes_q, "serve_lanes_lora": lanes_lora,
              "generate": gen, "generate_quant": gen_q, "generate_batched": gen_b,
-             "serve_batch": serve_b, "serve_kstep": kstep,
+             "serve_batch": serve_b, "serve_kstep": kstep, "serve_fp8": fp8,
              "anatomy": anat, "profile": prof}
 
     def by_path(name):
@@ -5363,6 +5688,7 @@ def main(argv: List[str]) -> int:
                                       plan=lora_y["plan"],
                                       shape="the main case with y= (bf16), in place")}),
     ]}
+    say("wire", json.dumps({"codec": codec_rows, "coalesce": swarm["coalesce"]}))
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels))
     print(card)

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from inferd_tpu_torch.config import ModelConfig
+from inferd_tpu_torch.core import prefix as prefixlib
 
 
 @dataclasses.dataclass
@@ -566,6 +567,25 @@ class BlockPool:
     @property
     def pins_resident(self) -> int:
         return sum(1 for e in self._index.values() if e.pinned)
+
+    def digest_keys(self, limit: int = 0) -> List[bytes]:
+        """The indexed prefix keys a gossiped digest lists (core.prefix.
+        make_digest): pinned entries first (resident by contract), then the
+        most recently used, up to `limit` (0: prefix.DIGEST_MAX_KEYS). Keys
+        are chained, so each names its whole prefix; the MRU order makes the
+        digest follow the hot working set when the index outgrows it."""
+        if limit <= 0:
+            limit = prefixlib.DIGEST_MAX_KEYS
+        out: List[bytes] = [k for k, e in self._index.items() if e.pinned][:limit]
+        if len(out) < limit:
+            seen = set(out)
+            for k in reversed(self._index):  # most recently used first
+                if k in seen:
+                    continue
+                out.append(k)
+                if len(out) >= limit:
+                    break
+        return out
 
     def block_stats(self) -> Dict[str, Any]:
         return {

@@ -35,8 +35,7 @@ On a card every decode step and K-step window replays a captured CUDA
 graph (the engine's GraphCache); `graphs = None` gives the eager steps.
 
 Not ported: lane-batched speculation (`enable_spec` raises, ROADMAP A7),
-session fork, export and import (A4d), `anatomy_target` and
-`prefix_digest` (A4b, A9).
+session fork, export and import (A4d) and `anatomy_target` (A9).
 """
 
 from __future__ import annotations

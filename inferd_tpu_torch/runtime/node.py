@@ -25,6 +25,7 @@ Endpoints, wire-compatible with the JAX node for these topologies:
                      that holds the session's next stage
   GET  /health       JSON: status, stage, device
   GET  /stats        JSON: counters (forward passes, relays, dead hops), the
+                     wire codec in use (`wire_codec`), the
                      overload plane's `metrics` (counters and histograms),
                      `hedge_budget` and `retry_budget`, the device's name,
                      the serving quantization and the stage's parameter
@@ -48,7 +49,10 @@ Membership. The node owns a gossip store (control/dht.SwarmDHT) and a
 PathFinder over it. It announces {name, stage, load, cap, host, port,
 model} at start (urgent) and at stop (a tombstone), and again, not urgent,
 whenever its load (the /forward requests in flight) changes; the gossip
-thread carries that. The next hop (`_pick_next`) is the session's
+thread carries that. `name` is the node's manifest name (run_node --name),
+else its host:port. A whole-model paged lane node adds `pfx`, the digest of
+the prompt prefixes its block pool holds (core/prefix.make_digest), which
+an entry router scores a new prompt against (prefix.AffinityProbe). The next hop (`_pick_next`) is the session's
 remembered replica for that stage while its record lives (an LRU of 8192
 (session, stage) pairs: its KV lives there), else the min-load live
 replica, passing over peers in their dead-peer cooldown unless none else
@@ -94,8 +98,31 @@ The overload plane (the reference's `_forward_inner` and relay):
   * chaos (utils/chaos.py, run_node --chaos): faults injected before each
     forward's compute; `crash()` stops serving and closes every socket
     without a tombstone, like a killed process.
-Not ported yet: planned routes, coalesced multi-session relays, /drain and
-standby holders.
+Not ported yet: planned routes (ROADMAP A4c), /drain (A4c) and standby
+holders (A4d).
+
+The coalesced relay (the reference's `_relay_window` and
+`_handle_multi_forward`). On a `--stage-lanes` node the window's flush
+relays the entries it computed: final results, chain-mode entries and
+errors go back to their handler threads; every other entry's deadline is
+checked (408 "deadline", post-compute), its next hop picked (`_pick_next`)
+and the entries grouped by it. A group of one takes the ordinary `_relay`
+(a hedge included); a larger one goes as ONE `wire.coalesce_forward` POST,
+each frame with its own `deadline_ms`, the groups concurrently. Each
+entry's handler answers its downstream (status, body) untouched. A group
+whose POST fails in transport, answers other than 200 or sends a malformed
+multi reply falls back to concurrent per-session `_relay`s
+(`hop.coalesced_fallback`, one warning). `hop.count` counts the relay POSTs
+(`hop.coalesced`, `hop.coalesced_sessions` the coalesced ones and their
+sessions). A /forward whose envelope holds `multi` is split
+(`wire.split_forward`, 400 "bad multi envelope" when that fails), its
+frames run through the ordinary forward path concurrently, on threads, so
+that they co-arrive in this node's window and co-batch (rescue, deadlines,
+chaos and admission per frame), and the answer is {"multi": [{"status",
+"body"}...]} in frame order (`forward.multi_envelopes`, `.multi_frames`).
+The flush runs on a handler thread that holds neither the window (its
+flusher slot is free again before the step) nor the executor's lock nor
+the device while it waits on a hop: the next window computes meanwhile.
 
 A payload with `decode_steps` K asks a one-stage (whole-model) node for a
 fused window of K decode steps sampled on the device (the one-session
@@ -121,18 +148,19 @@ executors (`threadsafe`) have locks of their own and the node holds none
 around their compute. To the pipeline stage's (runtime/stage_batch,
 `--stage-lanes`) the node attaches an arrival window (runtime/window):
 decode steps of concurrent sessions join it and run as ONE device step,
-whose results return to their own handler threads; prefill chunks go
-straight to the executor's `process`. The whole-model one
-(runtime/batch_executor, `--batch-lanes`) owns its window, so every
-request goes straight to its `process` and the node wraps it in no window
-of its own (a decode step would otherwise queue twice). A handler relays
-only after its compute returned: neither the compute lock nor a window is
-held across a downstream hop.
+whose results the flush relays (the coalesced relay above) or returns to
+their own handler threads; prefill chunks go straight to the executor's
+`process`. The whole-model one (runtime/batch_executor, `--batch-lanes`)
+owns its window, so every request goes straight to its `process` and the
+node wraps it in no window of its own (a decode step would otherwise queue
+twice). Neither the compute lock nor a window is held across a downstream
+hop.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import http.client
 import json
 import logging
@@ -145,7 +173,7 @@ import time
 import uuid
 from collections import Counter, OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -211,6 +239,29 @@ def _is_decode_step(payload) -> bool:
         return int(n) == 1
     except (TypeError, ValueError, AttributeError, IndexError):
         return False  # malformed payloads fail in the guarded compute
+
+
+class _Relayed:
+    """A window entry's answer that the flush already has: its downstream
+    reply (or a 408/503 of this node's), which the handler sends as is."""
+
+    __slots__ = ("reply",)
+
+    def __init__(self, reply: Tuple):
+        self.reply = reply
+
+
+def _run_all(jobs: Sequence[Callable[[], None]]) -> None:
+    """Run the jobs concurrently, the first on this thread and each other on
+    a thread of its own, and return when all have. A job reports through
+    its own state and must not raise."""
+    threads = [threading.Thread(target=job, daemon=True) for job in jobs[1:]]
+    for t in threads:
+        t.start()
+    if jobs:
+        jobs[0]()
+    for t in threads:
+        t.join()
 
 
 class _HopPost:
@@ -298,6 +349,7 @@ class Node:
         admission_reserve: float = 0.05,  # shed new sessions under this free-block share
         rescue_bounces: int = 6,  # one-bounce rescue relays before a 409
         chaos: Optional[Chaos] = None,  # faults injected before each forward
+        name: Optional[str] = None,  # the record's name (run_node --name), else host:port
     ):
         if hedge_mode not in HEDGE_MODES:
             raise ValueError(f"hedge_mode {hedge_mode!r} not in {HEDGE_MODES}")
@@ -308,6 +360,7 @@ class Node:
         self.device = device_name(executor.device)
         self.window: Optional[WindowedBatcher] = None
         self.window_ms = window_ms
+        self.hop_timeout_s = hop_timeout_s
         if isinstance(executor, BatchedStageExecutor):
             self._attach_window(executor, window_ms)
         # the executors that take no lock of the node's (the lane executors)
@@ -321,6 +374,7 @@ class Node:
         self._stopped = False
         self.host, self.port = self._server.server_address[:2]
         self.node_id = f"{self.host}:{self.port}"
+        self.name = name or self.node_id
         self._thread: Optional[threading.Thread] = None
         self.enable_profiling = enable_profiling
         self.profiler = Profiler(base_dir=profile_dir)
@@ -340,7 +394,6 @@ class Node:
         # the overload plane
         self.metrics = Metrics()
         self.hop_times = TrailingWindow(TRAILING_WINDOW_S)  # the adaptive hedge delay's window
-        self.hop_timeout_s = hop_timeout_s
         self.hedge_delay_ms = hedge_delay_ms
         self.hedge_mode = hedge_mode
         self.hedge_budget = retrylib.RatioBudget(ratio=0.05, burst=2)  # hedges <= 5% extra
@@ -365,6 +418,8 @@ class Node:
             # gang formation: wait (up to window_ms) for every live idle
             # session's step, which merges phase-offset cohorts
             gang_target=executor.gang_target,
+            # the flush relays its entries: two hop attempts may pass first
+            wait_timeout_s=2 * self.hop_timeout_s + 30,
         )
         executor.on_drop = lambda sid: self.window.invalidate(
             lambda payload, _sid=sid: payload[0] == _sid,
@@ -372,15 +427,15 @@ class Node:
         )
 
     def _run_stage_window(self) -> None:
-        """WindowedBatcher flush callback (worker thread, no locks held):
-        ONE co-batched device step for every co-arrived decode entry. The
-        batch is drained once the executor holds the device (continuous
-        batching: it forms when the step takes the device, not when the
-        flusher wakes); the drained entries are ours to deliver, results and
-        events. Per-entry failures set entry.error (one stale session must
-        not fail its co-batch). Every result returns to its own handler
-        thread, which relays it when the envelope asks: this thread never
-        waits on a downstream hop."""
+        """WindowedBatcher flush callback (a handler thread, no locks held):
+        ONE co-batched device step for every co-arrived decode entry, then
+        the relay of the entries that go on (`_relay_window`). The batch is
+        drained once the executor holds the device (continuous batching: it
+        forms when the step takes the device, not when the flusher wakes);
+        the drained entries are ours to deliver, results and events.
+        Per-entry failures set entry.error (one stale session must not fail
+        its co-batch). Final results and chain-mode entries return to their
+        handler threads as computed."""
         drained: list = []
 
         def drain():
@@ -390,20 +445,109 @@ class Node:
 
         try:
             outs = self.executor.process_batch([], drain=drain)
+            relays = []
             for e, out in zip(drained, outs):
                 if isinstance(out, Exception):
                     e.error = out
+                elif e.payload[2].get("relay", True) and not self._is_final(out):
+                    relays.append((e, out))
                 else:
                     e.result = out
+            if relays:
+                self._relay_window(relays)
         except Exception as exc:
             for e in drained:
-                e.error = exc
+                if e.error is None and e.result is None:
+                    e.error = exc
             raise
         finally:
             for e in drained:
                 if e.error is None and e.result is None:
                     e.error = RuntimeError("window flush dropped an entry")
                 e.event.set()
+
+    def _relay_window(self, relays) -> None:
+        """Relay one flushed window's entries that go on: each one's deadline
+        checked, its next hop picked, the entries grouped by hop; a group of
+        one takes `_relay`, a larger one ONE coalesced POST (`_relay_group`),
+        the groups concurrently. Sets each entry's result or error."""
+        groups: "OrderedDict[str, Tuple[Dict[str, Any], list]]" = OrderedDict()
+        for e, result in relays:
+            session_id, _payload, env = e.payload
+            try:
+                next_env = self._next_env(env, session_id, result)
+                rem = retrylib.remaining_s(next_env.get(retrylib.DEADLINE_KEY))
+                if rem is not None and rem <= 0:
+                    e.result = _Relayed(self._deadline_error("post-compute"))
+                    continue
+                nid, value = self._pick_next(session_id, next_env["stage"])
+            except NoNodeForStage as exc:
+                e.result = _Relayed(self._error(503, f"no next node: {exc}"))
+                continue
+            except Exception as exc:  # the entry fails alone
+                e.error = exc
+                continue
+            groups.setdefault(nid, (value, []))[1].append((e, next_env))
+        _run_all([functools.partial(self._relay_entry, *members[0]) if len(members) == 1
+                  else functools.partial(self._relay_group, nid, value, members)
+                  for nid, (value, members) in groups.items()])
+
+    def _relay_entry(self, e, next_env: Dict[str, Any]) -> None:
+        """One window entry's ordinary relay (the bytes a lone session sends)."""
+        t1 = time.perf_counter()
+        try:
+            reply = self._relay(next_env, next_env["stage"])
+        except NoNodeForStage as exc:
+            e.result = _Relayed(self._error(503, f"no next node: {exc}"))
+            return
+        except Exception as exc:
+            e.error = exc
+            return
+        self._observe_hop((time.perf_counter() - t1) * 1e3)
+        e.result = _Relayed(reply)
+
+    def _relay_group(self, nid: str, value: Dict[str, Any], members: list) -> None:
+        """ONE coalesced POST for a group sharing its next hop; each member
+        gets its frame's (status, body). A transport failure, an answer
+        other than 200 or a malformed multi reply falls back to concurrent
+        per-session relays: coalescing is never a new failure mode."""
+        envs = [ne for _e, ne in members]
+        deadlines = [retrylib.remaining_s(ne.get(retrylib.DEADLINE_KEY)) for ne in envs]
+        timeout_s = self.hop_timeout_s
+        if None not in deadlines:  # +50 ms: the next node's own 408s win the race
+            timeout_s = min(timeout_s, max(deadlines) + 0.05)
+        t1 = time.perf_counter()
+        try:
+            with span("wire.pack"):
+                body = wire.pack(wire.coalesce_forward(envs))
+            self.metrics.inc("hop.count")
+            self.metrics.inc("hop.coalesced")
+            self.metrics.inc("hop.coalesced_sessions", len(members))
+            with self._stats_lock:
+                self.relays += len(members)
+            host, port = node_addr(value)
+            with span("relay.hop"):
+                status, raw, _ = http_post(f"http://{host}:{port}{FORWARD_PATH}", body,
+                                           timeout_s)
+            if status != 200:
+                raise RuntimeError(f"answered {status}")
+            reply = wire.unpack(raw)
+            frames = reply.get(wire.MULTI_KEY) if isinstance(reply, dict) else None
+            if (not isinstance(frames, list) or len(frames) != len(members)
+                    or not all(isinstance(fr, dict) and type(fr.get("status")) is int
+                               and isinstance(fr.get("body"), bytes) for fr in frames)):
+                raise ValueError("malformed multi reply")
+        except Exception as exc:
+            log.warning("coalesced relay of %d sessions to %s failed (%s); per-session "
+                        "fallback", len(members), nid, exc)
+            self.metrics.inc("hop.coalesced_fallback")
+            _run_all([functools.partial(self._relay_entry, e, ne) for e, ne in members])
+            return
+        self._observe_hop((time.perf_counter() - t1) * 1e3)
+        if any(fr["status"] >= 500 and fr["status"] != 503 for fr in frames):
+            self._note_peer_failure(nid)  # as _relay: it answered, broken
+        for (e, _ne), fr in zip(members, frames):
+            e.result = _Relayed((fr["status"], _WIRE, fr["body"]))
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -469,7 +613,7 @@ class Node:
         with self._stats_lock:
             load = self.inflight
         record = {
-            "name": self.node_id,
+            "name": self.name,
             "stage": self.spec.stage,
             "load": load,
             "cap": self.capacity,
@@ -478,8 +622,12 @@ class Node:
             "model": self.model_name,
         }
         # the reference's optional keys, in its order; absent when false or
-        # empty, so a record with nothing shed and no session held is the
-        # same bytes as before the overload plane
+        # empty, so a record with no digest, nothing shed and no session held
+        # is the same bytes as before them
+        digest = getattr(self.executor, "prefix_digest", None)
+        pfx = digest() if callable(digest) else None
+        if pfx:
+            record["pfx"] = pfx
         if self._pool_under_reserve() is not None:
             record["shed"] = 1
         sess = self._advertised_sessions()
@@ -633,6 +781,7 @@ class Node:
         new_session = _start_pos(payload) == 0
         with span("wire.pack"):
             body = wire.pack(env)
+        self.metrics.inc("hop.count")
         with self._stats_lock:
             self.relays += 1
         self.hedge_budget.note()  # one primary send: the hedges' denominator
@@ -805,14 +954,47 @@ class Node:
                 env = wire.unpack(body)
             if not isinstance(env, dict):
                 raise ValueError("envelope is not a dict")
-            stage = int(env.get("stage", 0))
+            multi = env.get(wire.MULTI_KEY) is not None
+            stage = None if multi else int(env.get("stage", 0))
         except (ValueError, TypeError, UnicodeDecodeError) as e:
             return self._error(400, f"bad envelope: {e}")
+        if multi:
+            return self._forward_multi(env)
         self._add_inflight(1)
         try:
             return self._forward(env, stage)
         finally:
             self._add_inflight(-1)
+
+    def _forward_multi(self, env: Dict[str, Any]) -> Reply:
+        """A coalesced relay envelope: split it, run every frame through the
+        ordinary forward path at once (on a lane node they co-arrive in the
+        window and co-batch), answer {"multi": [{"status", "body"}...]} in
+        frame order."""
+        try:
+            frames = wire.split_forward(env)
+            stage = int(env.get("stage", 0))
+        except (ValueError, TypeError) as e:
+            return self._error(400, f"bad multi envelope: {e}")
+        self.metrics.inc("forward.multi_envelopes")
+        self.metrics.inc("forward.multi_frames", len(frames))
+        replies: List[Optional[Reply]] = [None] * len(frames)
+
+        def one(i: int) -> None:
+            try:
+                replies[i] = self._forward(frames[i], stage)
+            except Exception as e:  # a frame fails alone
+                log.exception("multi frame %d failed", i)
+                replies[i] = self._error(500, f"frame failed: {e}")
+
+        self._add_inflight(len(frames))
+        try:
+            _run_all([functools.partial(one, i) for i in range(len(frames))])
+        finally:
+            self._add_inflight(-len(frames))
+        with span("wire.pack"):
+            return 200, _WIRE, wire.pack(
+                {wire.MULTI_KEY: [{"status": r[0], "body": r[2]} for r in replies]})
 
     def _forward(self, env: Dict[str, Any], stage: int) -> Reply:
         session_id = env.get("session_id") or str(uuid.uuid4())
@@ -877,7 +1059,8 @@ class Node:
                     self._compute_lock.release()
             elif self.window is not None and _is_decode_step(payload):
                 with span("window.wait"):
-                    result = self.window.submit((session_id, payload))
+                    result = self.window.submit(
+                        (session_id, payload, dict(env, task_id=task_id, relay=relay)))
             else:
                 with span("executor.process"):
                     result = self.executor.process(session_id, payload)
@@ -897,6 +1080,8 @@ class Node:
         except Exception as e:  # compute failure: report it, keep serving
             log.exception("stage compute failed")
             return self._error(500, f"stage compute failed: {e}")
+        if isinstance(result, _Relayed):  # the window's flush relayed it
+            return result.reply
         if not relay:  # chain mode: this stage's result goes back to the client
             with span("wire.pack"):
                 return 200, _WIRE, wire.pack({
@@ -925,10 +1110,7 @@ class Node:
             ad = payload.get("adapter")
             if ad is not None:
                 result["adapter"] = ad
-        next_env = {"task_id": task_id, "session_id": session_id, "stage": stage + 1,
-                    "payload": result}
-        if deadline_ms is not None:
-            next_env[retrylib.DEADLINE_KEY] = deadline_ms
+        next_env = self._next_env(dict(env, task_id=task_id), session_id, result)
         t1 = time.perf_counter()
         try:
             reply = self._relay(next_env, stage + 1)
@@ -936,6 +1118,16 @@ class Node:
             return self._error(503, f"no next node: {e}")
         self._observe_hop((time.perf_counter() - t1) * 1e3)
         return reply
+
+    def _next_env(self, env: Dict[str, Any], session_id: str,
+                  result: Dict[str, Any]) -> Dict[str, Any]:
+        """The envelope that carries this stage's `result` to the next
+        stage; the deadline rides on."""
+        next_env = {"task_id": env.get("task_id"), "session_id": session_id,
+                    "stage": int(env.get("stage", 0)) + 1, "payload": result}
+        if env.get(retrylib.DEADLINE_KEY) is not None:
+            next_env[retrylib.DEADLINE_KEY] = env[retrylib.DEADLINE_KEY]
+        return next_env
 
     def _rescue(self, env: Dict[str, Any], session_id: str, stage: int,
                 deadline_ms) -> Optional[Reply]:
@@ -1154,6 +1346,7 @@ class Node:
             "inflight": inflight,
             "affinity": affinity,
             "gossip_port": self.dht.port,
+            "wire_codec": wire.codec_name(),
             "kernels": kernels,
             "executor": executor,
             "window": None if self.window is None else self.window.stats(),

@@ -55,11 +55,11 @@ hot-loaded before any executor lock; each dispatch hands the forward the
 pools plus every lane's slot id, so a window mixing tenants is one
 dispatch, and a dispatch whose lanes all ride slot 0 carries no adapter
 operand at all. Paged prefix keys are salted with the adapter's name, so
-tenants never share prefix KV.
+tenants never share prefix KV. A whole-model paged executor gossips its
+hot prefix keys (`prefix_digest`, the record's `pfx`).
 
 Not ported in this slice: `fork_session` (and with it the fork-time
-adapter binding; ROADMAP A4d), `anatomy_target` and `prefix_digest` (A4b,
-A9).
+adapter binding; ROADMAP A4d) and `anatomy_target` (A9).
 """
 
 from __future__ import annotations
@@ -583,6 +583,23 @@ class LaneExecutor(AdapterBindingMixin):
             self.pool.unpin(prefixlib.block_keys([int(t) for t in prefix_ids],
                                                  self.pool.block_size))
 
+    def prefix_digest(self) -> Optional[Dict[str, Any]]:
+        """The gossip-ready digest of the pool's hot prefix index
+        (prefix.make_digest over BlockPool.digest_keys: pinned entries first,
+        then the most recently used), the record's `pfx` that entry routers
+        score cache affinity against. None on the dense layout, on a stage
+        that is not the whole model (its index keys hash token ids it never
+        sees: an inner stage's are hidden rows) and for an empty index: the
+        key is then left out of the record, never sent empty."""
+        if self.pool is None or not (self.spec.is_first and self.spec.is_last):
+            return None
+        with self._mu:
+            keys = self.pool.digest_keys(prefixlib.DIGEST_GOSSIP_KEYS)
+            bs = self.pool.block_size
+        if not keys:
+            return None
+        return prefixlib.make_digest(keys, bs)
+
     # -- not ported: each names the ROADMAP item that brings it ---------------
 
     def fork_session(self, new_session_id: str, parent_session_id: str, prefix_len: int):
@@ -599,9 +616,6 @@ class LaneExecutor(AdapterBindingMixin):
 
     def anatomy_target(self):
         raise NotImplementedError("the live step anatomy is not ported yet: ROADMAP A9")
-
-    def prefix_digest(self):
-        raise NotImplementedError("the gossiped prefix digest is not ported yet: ROADMAP A4b")
 
     # -- node surfaces (sweep, /stats) ---------------------------------------
 

@@ -21,17 +21,36 @@ bfloat16, which numpy lacks without ml_dtypes: it comes back as a torch
 bfloat16 tensor built from the raw bytes, bit-exact. Nothing on the wire is
 ever executed; dtype names are checked against an allowlist.
 
-Not ported in this slice: the native C++ codec, the legacy msgpack
-envelopes and the coalesced multi-session envelopes.
+Two codecs write and read v1, byte for byte the same: the native one
+(csrc/wirecodec.cpp, built at first use by inferd_tpu_torch/native; the
+default) and the pure-Python one below (`pack_python`, `unpack_python`),
+which INFERD_NATIVE=0 selects, read on every call. A native codec that
+fails to build raises; there is no silent fallback. `codec_name()` names
+the one in use.
+
+The legacy envelopes: msgpack maps whose tensors are {"__nd__": 1, "dtype",
+"shape", "data"} dicts, written by older nodes. `unpack` reads a frame
+without the v1 magic as one (bfloat16 again as a torch tensor), through the
+port's own msgpack subset (utils/msgpack_lite.py), and `pack_legacy` writes
+the bytes the reference's `msgpack.packb(..., default=_encode_hook,
+use_bin_type=True)` writes; INFERD_WIRE=legacy makes `pack` emit them,
+read on every call as in the reference (a rolling upgrade's escape hatch).
+
+The coalesced relay's multi-session envelopes (`coalesce_forward`,
+`split_forward`, `MULTI_KEY`) are described below, where they are defined.
 """
 
 from __future__ import annotations
 
+import os
 import struct
-from typing import Any, List, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from inferd_tpu_torch import native
+from inferd_tpu_torch.utils import msgpack_lite
 
 MAGIC = b"IW\x01"
 
@@ -95,11 +114,48 @@ def tensor_build(name: str, shape: Tuple[int, ...], data: Any) -> Any:
     return a.reshape(shape)
 
 
-# -- pack ----------------------------------------------------------------------
+# -- codec selection -------------------------------------------------------------
+
+
+def codec_name() -> str:
+    """The v1 codec `pack` and `unpack` use now (INFERD_NATIVE, read per
+    call): "native", or "python" under INFERD_NATIVE=0."""
+    return "python" if os.environ.get("INFERD_NATIVE", "1") == "0" else "native"
+
+
+def _native_codec():
+    """The native codec module, or None when the Python codec is selected."""
+    return native.load(tensor_parts, tensor_build) if codec_name() == "native" else None
+
+
+def _emit_legacy() -> bool:
+    return os.environ.get("INFERD_WIRE", "v1").lower() == "legacy"
 
 
 def pack(obj: Any) -> bytes:
-    """Serialize a nested payload (dicts/lists/scalars/tensors) to bytes."""
+    """Serialize a nested payload (dicts/lists/scalars/tensors) to bytes: a v1
+    frame, or a legacy msgpack envelope under INFERD_WIRE=legacy."""
+    if _emit_legacy():
+        return pack_legacy(obj)
+    codec = _native_codec()
+    return pack_python(obj) if codec is None else codec.pack(obj)
+
+
+def unpack(data: bytes) -> Any:
+    """Deserialize a v1 frame or a legacy msgpack envelope; tensors come back
+    as numpy arrays (bf16 as torch tensors). Never executes code."""
+    data = bytes(data)
+    if data[:3] != MAGIC:
+        return unpack_legacy(data)
+    codec = _native_codec()
+    return unpack_python(data) if codec is None else codec.unpack(data)
+
+
+# -- the pure-Python v1 codec ------------------------------------------------------
+
+
+def pack_python(obj: Any) -> bytes:
+    """The pure-Python v1 codec's `pack` (the native codec's bytes)."""
     chunks: List[bytes] = [MAGIC]
     _pack_value(chunks, obj, 0)
     return b"".join(chunks)
@@ -164,12 +220,8 @@ def _pack_value(chunks: List[Any], obj: Any, depth: int) -> None:
         chunks.append(data)
 
 
-# -- unpack --------------------------------------------------------------------
-
-
-def unpack(data: bytes) -> Any:
-    """Deserialize a v1 frame; tensors come back as numpy arrays (bf16 as
-    torch tensors). Never executes code."""
+def unpack_python(data: bytes) -> Any:
+    """The pure-Python v1 codec's `unpack`."""
     data = bytes(data)
     if data[:3] != MAGIC:
         raise ValueError("bad wire magic/version")
@@ -251,3 +303,122 @@ def _unpack_value(data: bytes, pos: int, depth: int) -> Tuple[Any, int]:
         arr = tensor_build(name, shape, memoryview(data)[pos : pos + nbytes])
         return arr, pos + nbytes
     raise ValueError(f"unknown wire tag {tag}")
+
+
+# -- legacy msgpack envelopes ------------------------------------------------------
+
+TENSOR_KEY = "__nd__"
+
+
+def _encode_hook(obj: Any) -> Dict[str, Any]:
+    """A tensor as the legacy envelope's dict (the reference's _encode_hook)."""
+    name, shape, buf = tensor_parts(obj)
+    return {TENSOR_KEY: 1, "dtype": name, "shape": list(shape), "data": buf.tobytes()}
+
+
+def _decode_hook(obj: Dict[Any, Any]) -> Any:
+    if obj.get(TENSOR_KEY) != 1:
+        return obj
+    try:
+        name, shape, data = obj["dtype"], obj["shape"], obj["data"]
+    except KeyError as e:
+        raise ValueError(f"legacy tensor without {e}") from None
+    if not isinstance(name, str) or not isinstance(shape, list) or not isinstance(data, bytes):
+        raise ValueError("malformed legacy tensor")
+    return tensor_build(name, tuple(shape), data)
+
+
+def pack_legacy(obj: Any) -> bytes:
+    """The legacy msgpack envelope of `obj` (the reference's pack_legacy)."""
+    return msgpack_lite.packb(obj, default=_encode_hook)
+
+
+def unpack_legacy(data: bytes) -> Any:
+    """Read a legacy msgpack envelope, its tensor dicts checked against the
+    dtype allowlist and their shapes."""
+    return msgpack_lite.unpackb(data, object_hook=_decode_hook)
+
+
+# -- multi-session /forward envelopes (the coalesced relay) -------------------------
+#
+# When a lane node co-batches the decode steps of N sessions into one device
+# step and their next hop is the same replica, the relay ships ONE envelope
+# instead of N:
+#
+#   {"stage": s, "multi": [frame, ...], "hidden": [N, 1, H]}
+#
+# where each frame is the session's single-session envelope without its
+# hidden rows ({"task_id", "session_id", "payload": {"start_pos",
+# "real_len"}, "deadline_ms", ...}). The receiver splits it back into N
+# single-session envelopes (`split_forward`), runs them as it runs any, and
+# answers with one multi REPLY aligned with the frames:
+#
+#   {"multi": [{"status": int, "body": bytes}, ...]}
+#
+# `body` is the wire-packed reply the session's own relay would have got.
+# Both wire generations carry these (plain dicts, lists, tensors and
+# bytes), and a node that never coalesces sends the single-session bytes it
+# always did: a coalescing node falls back to per-session relays when a
+# peer refuses the multi form.
+
+MULTI_KEY = "multi"
+
+# single-session envelope keys that do not ride a frame (carried once at the
+# top level, or rebuilt by split_forward)
+_FRAME_EXCLUDE = ("payload", "stage", MULTI_KEY)
+
+
+def _stack_rows(rows: Sequence[Any]) -> Any:
+    """Concatenate decode rows along dim 0: torch when any row is a tensor
+    (bf16 has no numpy dtype), numpy otherwise."""
+    if any(isinstance(r, torch.Tensor) for r in rows):
+        return torch.cat([torch.as_tensor(r).cpu() for r in rows], dim=0)
+    return np.concatenate([np.asarray(r) for r in rows], axis=0)
+
+
+def coalesce_forward(envs: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """ONE multi-session envelope from N >= 2 single-session /forward
+    envelopes for the SAME stage whose payloads are single-token decode
+    activations ({"hidden": [1, 1, H], "start_pos", "real_len"})."""
+    if len(envs) < 2:
+        raise ValueError("coalesce_forward needs >= 2 envelopes")
+    stage = envs[0].get("stage")
+    frames, rows = [], []
+    for e in envs:
+        if e.get("stage") != stage:
+            raise ValueError("coalesce_forward: mixed stages")
+        p = dict(e.get("payload") or {})
+        h = p.pop("hidden")
+        if not isinstance(h, torch.Tensor):
+            h = np.asarray(h)
+        if h.ndim != 3 or h.shape[0] != 1 or h.shape[1] != 1:
+            raise ValueError(f"coalesce_forward: not a decode row {tuple(h.shape)}")
+        rows.append(h)
+        frame = {k: v for k, v in e.items() if k not in _FRAME_EXCLUDE}
+        frame["payload"] = p
+        frames.append(frame)
+    return {"stage": stage, MULTI_KEY: frames, "hidden": _stack_rows(rows)}
+
+
+def split_forward(env: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Inverse of coalesce_forward: N single-session /forward envelopes from
+    one multi envelope, the frame/row alignment checked."""
+    frames = env.get(MULTI_KEY)
+    hidden = env.get("hidden")
+    if not isinstance(hidden, torch.Tensor):
+        hidden = np.asarray(hidden)
+    if not isinstance(frames, list) or not frames:
+        raise ValueError("multi envelope without frames")
+    if hidden.ndim != 3 or hidden.shape[0] != len(frames):
+        raise ValueError(f"multi envelope: {len(frames)} frames vs hidden {tuple(hidden.shape)}")
+    out = []
+    for i, frame in enumerate(frames):
+        if not isinstance(frame, dict):
+            raise ValueError("multi frame is not a dict")
+        e = {k: v for k, v in frame.items() if k != "payload"}
+        e["stage"] = env.get("stage")
+        p = dict(frame.get("payload") or {})
+        p["hidden"] = hidden[i:i + 1]
+        e["payload"] = p
+        out.append(e)
+    return out

@@ -12,7 +12,8 @@ pipeline's depth).
 
 Usage:
   python -m inferd_tpu_torch.tools.run_node --parts parts/ --stage 0 \\
-      --port 6050 [--device cuda|cpu] [--max-len 4096] \\
+      --port 6050 [--device cuda|cpu] [--max-len 4096] [--kv-dtype model|float8_e4m3fn] \\
+      [--manifest cluster.yaml --name node0] [--model PRESET] [--log-level INFO] \\
       [--gossip-port 7050] [--bootstrap host:port[,host:port...]] \\
       [--capacity 4] \\
       [--stage-lanes N | --batch-lanes N] [--window-ms W] \\
@@ -49,8 +50,25 @@ replica advertising its session, and --chaos injects faults
 A swarm: start the stage-0 seed with --gossip-port P, every other node
 with --bootstrap <seed host>:P (each with a gossip port of its own, or 0
 for an ephemeral one), and send requests to any stage-0 node with
-client/swarm_client.SwarmClient. The defaults of --gossip-port and
---bootstrap come from GOSSIP_PORT and BOOTSTRAP_NODES.
+client/swarm_client.SwarmClient or tools/send. The defaults of
+--gossip-port and --bootstrap come from GOSSIP_PORT and BOOTSTRAP_NODES. A
+standalone gossip seed (tools/seed) gives the nodes a bootstrap address
+that outlives any of them.
+
+A node's identity, each with the reference's precedence, flag > environment
+> manifest > default: --name (NODE_NAME) is its name in the --manifest
+(the cluster's YAML topology, parallel/stages.Manifest) and in its gossip
+record (default: its host:port); --stage (INITIAL_STAGE), else the
+manifest entry's stage, else 0. With a manifest the checkpoint must hold
+the manifest's model, stage count and layer range for that stage. Without
+one, --model (when given) must name the checkpoint's model. --kv-dtype
+(INFERD_KV_DTYPE) stores the KV cache as float8_e4m3fn; the counter
+backend keeps no KV and refuses it.
+
+  python -m inferd_tpu_torch.tools.seed --port 7050
+  python -m inferd_tpu_torch.tools.run_node --manifest examples/cluster.yaml \\
+      --name node1 --parts parts/ --port 6051 --gossip-port 0 \\
+      --bootstrap 127.0.0.1:7050
 
   python -m inferd_tpu_torch.tools.run_node --backend counter --num-stages 3 \\
       --stage 0 --port 6050 --gossip-port 7050 --device cpu
@@ -59,17 +77,19 @@ client/swarm_client.SwarmClient. The defaults of --gossip-port and
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import logging
 import os
 import signal
 import threading
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 from inferd_tpu_torch.config import get_config
 from inferd_tpu_torch.ops import lora as loralib
 from inferd_tpu_torch.ops import quant
 from inferd_tpu_torch.parallel.stages import (
-    StageSpec, load_stage_checkpoint, stage_checkpoint_path,
+    Manifest, StageSpec, load_stage_checkpoint, stage_checkpoint_path,
 )
 from inferd_tpu_torch.runtime.adapters import AdapterRegistry
 from inferd_tpu_torch.runtime.executor import make_executor
@@ -102,7 +122,16 @@ def build_parser() -> argparse.ArgumentParser:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--parts", default="", help="directory of stage_NNN.msgpack files "
                     "(required but with --backend counter)")
-    ap.add_argument("--stage", type=int, required=True, help="stage this node serves")
+    ap.add_argument("--manifest", default="", help="cluster topology YAML (the stage table "
+                    "this node's --name looks up)")
+    ap.add_argument("--name", default=os.environ.get("NODE_NAME"),
+                    help="this node's name in the manifest and its gossip record (env "
+                    "NODE_NAME; default: its host:port)")
+    ap.add_argument("--model", default="",
+                    help="model preset without a manifest: the checkpoint must hold it")
+    ap.add_argument("--stage", type=int, default=None,
+                    help="stage this node serves (env INITIAL_STAGE; default: the manifest "
+                    "entry's, else 0)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=DEFAULT_HTTP_PORT)
     ap.add_argument("--backend", default="qwen3", choices=["qwen3", "counter"],
@@ -118,6 +147,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=DEVICE_CHOICES,
                     help="device that runs the stage (default cuda)")
     ap.add_argument("--max-len", type=int, default=4096, help="per-session KV budget (tokens)")
+    ap.add_argument(
+        "--kv-dtype", default=os.environ.get("INFERD_KV_DTYPE", "model"),
+        choices=["model", "float8_e4m3fn"],
+        help="KV cache storage dtype (env INFERD_KV_DTYPE): float8_e4m3fn halves the "
+        "per-token KV read that dominates long-context decode",
+    )
     ap.add_argument(
         "--stage-lanes", type=int, default=0,
         help="stage-level continuous batching: serve this node's pipeline stage "
@@ -230,33 +265,84 @@ def build_parser() -> argparse.ArgumentParser:
         help="fault injection spec, e.g. 'drop=0.2,delay_ms=50' or 'stall_p=1' "
         "(env INFERD_CHAOS; utils/chaos.py) — resilience testing only",
     )
+    ap.add_argument("--log-level", default="INFO", help="logging level (default INFO)")
     return ap
 
 
+class Identity(NamedTuple):
+    """Who a node is: its record's name (None: its host:port), its stage, and
+    the manifest it was resolved from (None without one)."""
+
+    name: Optional[str]
+    stage: int
+    manifest: Optional[Manifest]
+
+    def stage_spec(self) -> Optional[StageSpec]:
+        """The manifest's spec of this node's stage (None without one)."""
+        return None if self.manifest is None else self.manifest.stage_spec(self.stage)
+
+
+def resolve_identity(args: argparse.Namespace) -> Identity:
+    """The node's name and stage with the reference's precedence: --name >
+    NODE_NAME; --stage > INITIAL_STAGE > the manifest entry > 0."""
+    manifest = None
+    if args.manifest:
+        manifest = Manifest.from_yaml(args.manifest)
+        manifest.validate()
+        if not args.name:
+            raise ValueError("--name (or NODE_NAME) is required with --manifest")
+    stage = args.stage
+    if stage is None:
+        env_stage = os.environ.get("INITIAL_STAGE")
+        if env_stage is not None:
+            stage = int(env_stage)
+        elif manifest is not None:
+            stage = manifest.node(args.name).stage
+        else:
+            stage = 0
+    if manifest is not None and not 0 <= stage < manifest.num_stages:
+        raise ValueError(f"stage {stage} outside the manifest's {manifest.num_stages} stages")
+    return Identity(args.name or None, stage, manifest)
+
+
 def make_node(args: argparse.Namespace) -> Node:
+    ident = resolve_identity(args)
     swarm = dict(gossip_port=args.gossip_port, bootstrap=parse_bootstrap(args.bootstrap),
                  capacity=args.capacity, hop_timeout_s=args.hop_timeout,
                  hedge_delay_ms=args.hedge_delay_ms, hedge_mode=args.hedge_mode,
                  admission_reserve=args.admission_reserve,
-                 rescue_bounces=args.rescue_bounces, chaos=Chaos.parse(args.chaos))
+                 rescue_bounces=args.rescue_bounces, chaos=Chaos.parse(args.chaos),
+                 name=ident.name)
     if args.backend == "counter":
         if args.parts:
             raise ValueError("--backend counter takes no --parts (it has no weights)")
-        if not 0 <= args.stage < args.num_stages:
-            raise ValueError(f"--stage {args.stage} outside --num-stages {args.num_stages}")
+        if args.kv_dtype != "model":
+            raise ValueError("--kv-dtype: the counter backend keeps no KV cache")
+        num_stages = args.num_stages if ident.manifest is None else ident.manifest.num_stages
+        if not 0 <= ident.stage < num_stages:
+            raise ValueError(f"--stage {ident.stage} outside --num-stages {num_stages}")
         resolve_device(args.device)  # the same refusal without a card as every node
-        spec = StageSpec(args.stage, args.num_stages, 0, 0)
+        spec = StageSpec(ident.stage, num_stages, 0, 0)
         return Node(make_executor(None, spec, backend="counter"), host=args.host,
                     port=args.port, model_name="counter", **swarm)
     if not args.parts:
         raise ValueError("--parts is required with --backend qwen3")
     device = resolve_device(args.device)
     params, spec, model_name = load_stage_checkpoint(
-        stage_checkpoint_path(args.parts, args.stage), device=device
+        stage_checkpoint_path(args.parts, ident.stage), device=device
     )
-    if spec.stage != args.stage:
-        raise ValueError(f"{args.parts}: checkpoint holds stage {spec.stage}, not {args.stage}")
+    if spec.stage != ident.stage:
+        raise ValueError(f"{args.parts}: checkpoint holds stage {spec.stage}, not {ident.stage}")
+    want = ident.stage_spec()
+    if want is not None and (want != spec or ident.manifest.model_name != model_name):
+        raise ValueError(f"{args.parts}: checkpoint holds {model_name} {spec}, the manifest "
+                         f"{args.manifest} says {ident.manifest.model_name} {want}")
+    if want is None and args.model and args.model != model_name:
+        raise ValueError(f"{args.parts}: checkpoint holds {model_name}, not --model "
+                         f"{args.model}")
     cfg = get_config(model_name)
+    if args.kv_dtype != "model":
+        cfg = dataclasses.replace(cfg, kv_dtype=args.kv_dtype)
     owner = f"{args.host}:{args.port} stage {spec.stage}"
     loralib.check_exclusive_modes(args.lora, args.adapters, owner=owner)
     if args.lora:
@@ -301,13 +387,17 @@ def make_node(args: argparse.Namespace) -> Node:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
+    # force: an import may have configured the root logger already
+    logging.basicConfig(level=args.log_level.upper(), force=True,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     node = make_node(args)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
     node.start()
     print(json.dumps({
-        "ready": True, "host": node.host, "port": node.port, "stage": node.spec.stage,
+        "ready": True, "name": node.name, "host": node.host, "port": node.port,
+        "stage": node.spec.stage,
         "layers": [node.spec.start_layer, node.spec.end_layer], "device": node.device,
         "gossip_port": node.dht.port,
     }), flush=True)

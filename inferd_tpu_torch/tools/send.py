@@ -1,0 +1,151 @@
+"""Network generation CLI: drive a running swarm (or a fixed chain) from the
+command line (port of inferd_tpu/tools/send.py, its --entry and --chain
+topologies).
+
+The tool sends bytes only: the nodes compute, the client here samples on
+the host, so there is no --device. `--entry` enters at stage-0 nodes and
+lets the swarm relay (client/swarm_client.SwarmClient); `--chain` drives
+each stage's server in order itself (client/chain_client.ChainClient). The
+new ids print as `generated ids: [...]` (the decoded text with --prompt),
+or one by one as they are sampled with --stream.
+
+  python -m inferd_tpu_torch.tools.send --entry 127.0.0.1:6050 --prompt-ids 3,7,11
+  python -m inferd_tpu_torch.tools.send --chain 127.0.0.1:6050,127.0.0.1:6051 \\
+      --prompt-ids 3,7,11 --temperature 0 --max-new-tokens 16
+
+Not ported yet, and refused with the ROADMAP item that brings them:
+`--routed` (the D*-Lite-planned chain, A4c), `--pin-prefix-ids` and
+`--server-side` (prefix pins and /generate, A4d).
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import sys
+from typing import List, Optional, Tuple
+
+_NOT_PORTED = {
+    "routed": "--routed (a D*-Lite-planned chain) is not ported yet: ROADMAP A4c",
+    "pin_prefix_ids": "--pin-prefix-ids (server-side prefix pins) is not ported yet: ROADMAP A4d",
+    "server_side": "--server-side (POST /generate) is not ported yet: ROADMAP A4d",
+}
+
+
+def parse_addrs(value: str) -> List[Tuple[str, int]]:
+    out = []
+    for part in value.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        host, _, port = part.rpartition(":")
+        if not host:
+            raise ValueError(f"{part!r} is not host:port")
+        out.append((host, int(port)))
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="send", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    g = ap.add_mutually_exclusive_group(required=True)
+    g.add_argument("--entry", default="",
+                   help="comma-separated stage-0 entry nodes (swarm relay topology)")
+    g.add_argument("--chain", default="",
+                   help="comma-separated per-stage servers in order (fixed chain)")
+    g.add_argument("--routed", default="", help="not ported yet (ROADMAP A4c)")
+    ap.add_argument("--num-stages", type=int, default=0, help="pipeline depth for --routed")
+    ap.add_argument("--prompt", default="", help="text prompt (needs a tokenizer)")
+    ap.add_argument("--prompt-ids", default="", help="comma-separated token ids")
+    ap.add_argument("--tokenizer", default="", help="HF tokenizer name or path for --prompt")
+    ap.add_argument("--max-new-tokens", type=int, default=50)
+    ap.add_argument("--temperature", type=float, default=0.6)
+    ap.add_argument("--top-k", type=int, default=20)
+    ap.add_argument("--top-p", type=float, default=0.95)
+    ap.add_argument("--min-p", type=float, default=0.0,
+                    help="min-p filtering: drop tokens below min_p * max-prob")
+    ap.add_argument("--logprobs", action="store_true",
+                    help="also print each token's model log-probability (without --stream)")
+    ap.add_argument("--top-logprobs", type=int, default=0,
+                    help="also print the top-N alternatives and their logprobs per step "
+                    "(without --stream)")
+    ap.add_argument("--seed", type=int, default=0, help="the sampler's seed")
+    ap.add_argument("--prefill-chunk", type=int, default=512)
+    ap.add_argument("--session-retries", type=int, default=2)
+    ap.add_argument("--timeout", type=float, default=300.0)
+    ap.add_argument("--pin-prefix-ids", default="", help="not ported yet (ROADMAP A4d)")
+    ap.add_argument("--server-side", action="store_true", help="not ported yet (ROADMAP A4d)")
+    ap.add_argument("--stream", action="store_true",
+                    help="print each token as the client samples it")
+    return ap
+
+
+async def _drive(args, client, ids: List[int], eos: Optional[int], tokenizer) -> None:
+    def show(tok):
+        if tok is None:
+            print("\n[restart]", flush=True)
+        elif tokenizer is not None:
+            print(tokenizer.decode([tok]), end="", flush=True)
+        else:
+            print(tok, end=" ", flush=True)
+
+    # a streamed run never prints the sinks: no per-token log-softmax for them
+    lps = [] if (args.logprobs and not args.stream) else None
+    tops = [] if (args.top_logprobs and not args.stream) else None
+    async with client as c:
+        out = await c.generate_ids(
+            ids, max_new_tokens=args.max_new_tokens, eos_token_id=eos, seed=args.seed,
+            session_retries=args.session_retries, on_token=show if args.stream else None,
+            logprob_sink=lps, top_n=args.top_logprobs, top_sink=tops)
+    if args.stream:
+        print()
+        return
+    if tokenizer is not None:
+        print(tokenizer.decode(out))
+    else:
+        print("generated ids:", out)
+    if lps is not None:
+        print("logprobs:", [round(x, 4) for x in lps])
+    if tops is not None:
+        for step, (ti, tl) in enumerate(tops):
+            print(f"top[{step}]:", list(zip(ti, [round(x, 4) for x in tl])))
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    for flag, msg in _NOT_PORTED.items():
+        if getattr(args, flag):
+            ap.error(msg)
+
+    from inferd_tpu_torch.config import SamplingConfig
+
+    sampling = SamplingConfig(temperature=args.temperature, top_k=args.top_k,
+                              top_p=args.top_p, min_p=args.min_p)
+    tokenizer = None
+    if args.prompt_ids:
+        ids, eos = [int(t) for t in args.prompt_ids.split(",")], None
+    elif args.prompt:
+        from inferd_tpu_torch.core.tokenizer import Tokenizer
+
+        tokenizer = Tokenizer(args.tokenizer or None)
+        ids = tokenizer.apply_chat_template([{"role": "user", "content": args.prompt}],
+                                            add_generation_prompt=True)
+        eos = tokenizer.eos_token_id
+    else:
+        ap.error("need --prompt or --prompt-ids")
+    kw = dict(sampling=sampling, timeout_s=args.timeout, prefill_chunk=args.prefill_chunk)
+    if args.entry:
+        from inferd_tpu_torch.client.swarm_client import SwarmClient
+
+        client = SwarmClient(parse_addrs(args.entry), **kw)
+    else:
+        from inferd_tpu_torch.client.chain_client import ChainClient
+
+        client = ChainClient(parse_addrs(args.chain), **kw)
+    asyncio.run(_drive(args, client, ids, eos, tokenizer))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,27 +1,31 @@
 """A msgpack subset on the standard library: what the swarm's gossip frames
 hold (nil, bool, int, float64, str, bin, array and map).
 
-`packb(obj)` writes the bytes `msgpack.packb(obj, use_bin_type=True)`
-writes for such a value: the smallest integer form (positive values
+`packb(obj, default=None)` writes the bytes `msgpack.packb(obj,
+default=default, use_bin_type=True)` writes for such a value: the
+smallest integer form (positive values
 unsigned, negative ones signed), floats as float64, str as fixstr / str8 /
 str16 / str32, bytes as bin8 / bin16 / bin32, lists and tuples as arrays,
-dicts as maps in their own order. `unpackb(data)` reads those forms (and
-float32) back as `msgpack.unpackb(data, raw=False)` does: arrays as lists,
-str as str, bin as bytes. It refuses, with `UnpackError`, what a peer
+dicts as maps in their own order; any other object goes through
+`default` first (the legacy wire envelopes' tensor hook). `unpackb(data,
+object_hook=None)` reads those forms (and float32) back as
+`msgpack.unpackb(data, object_hook=object_hook, raw=False)` does: arrays
+as lists, str as str, bin as bytes, each map through `object_hook` once
+its entries are read. It refuses, with `UnpackError`, what a peer
 must not be able to slip in: extension types, the reserved byte 0xc1,
 a frame cut short, a length or count past the bytes that are left,
 nesting deeper than 64, map keys other than str or bytes, and bytes left
 over after the value.
 
-The reference gossips with the msgpack package over UDP; the port's
-serving path does without it, and this codec keeps the two on the same
-wire.
+The reference gossips with the msgpack package over UDP and still reads
+(and on request writes) msgpack /forward envelopes; the port does without
+the package, and this codec keeps the two on the same wires.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 MAX_DEPTH = 64
 
@@ -42,13 +46,14 @@ _d = struct.Struct(">d")
 _f = struct.Struct(">f")
 
 
-def packb(obj: Any) -> bytes:
+def packb(obj: Any, default: Optional[Callable[[Any], Any]] = None) -> bytes:
     out: List[bytes] = []
-    _pack(obj, out, 0)
+    _pack(obj, out, 0, default)
     return b"".join(out)
 
 
-def _pack(obj: Any, out: List[bytes], depth: int) -> None:
+def _pack(obj: Any, out: List[bytes], depth: int,
+          default: Optional[Callable[[Any], Any]] = None) -> None:
     if depth > MAX_DEPTH:
         raise ValueError("msgpack_lite: nesting deeper than %d" % MAX_DEPTH)
     if obj is None:
@@ -86,12 +91,14 @@ def _pack(obj: Any, out: List[bytes], depth: int) -> None:
     elif isinstance(obj, (list, tuple)):
         out.append(_head(len(obj), 0x90, b"\xdc", b"\xdd"))
         for v in obj:
-            _pack(v, out, depth + 1)
+            _pack(v, out, depth + 1, default)
     elif isinstance(obj, dict):
         out.append(_head(len(obj), 0x80, b"\xde", b"\xdf"))
         for k, v in obj.items():
-            _pack(k, out, depth + 1)
-            _pack(v, out, depth + 1)
+            _pack(k, out, depth + 1, default)
+            _pack(v, out, depth + 1, default)
+    elif default is not None:
+        _pack(default(obj), out, depth + 1, default)
     else:
         raise TypeError(f"msgpack_lite: cannot serialize {type(obj).__name__}")
 
@@ -136,9 +143,9 @@ def _pack_int(v: int) -> bytes:
     raise OverflowError(f"msgpack_lite: int {v} out of range")
 
 
-def unpackb(data: bytes) -> Any:
+def unpackb(data: bytes, object_hook: Optional[Callable[[dict], Any]] = None) -> Any:
     buf = memoryview(bytes(data))
-    obj, at = _unpack(buf, 0, 0)
+    obj, at = _unpack(buf, 0, 0, object_hook)
     if at != len(buf):
         raise UnpackError(f"msgpack_lite: {len(buf) - at} bytes after the value")
     return obj
@@ -166,7 +173,7 @@ _SIZED = {0xD9: (_B, True), 0xDA: (_H, True), 0xDB: (_I, True),
 _COUNTED = {0xDC: (_H, False), 0xDD: (_I, False), 0xDE: (_H, True), 0xDF: (_I, True)}
 
 
-def _unpack(buf: memoryview, at: int, depth: int) -> Tuple[Any, int]:
+def _unpack(buf: memoryview, at: int, depth: int, hook=None) -> Tuple[Any, int]:
     if depth > MAX_DEPTH:
         raise UnpackError("msgpack_lite: nesting deeper than %d" % MAX_DEPTH)
     if at >= len(buf):
@@ -180,9 +187,9 @@ def _unpack(buf: memoryview, at: int, depth: int) -> Tuple[Any, int]:
     if 0xA0 <= t <= 0xBF:
         return _str(buf, at, t & 0x1F)
     if 0x90 <= t <= 0x9F:
-        return _array(buf, at, t & 0x0F, depth)
+        return _array(buf, at, t & 0x0F, depth, hook)
     if 0x80 <= t <= 0x8F:
-        return _map(buf, at, t & 0x0F, depth)
+        return _map(buf, at, t & 0x0F, depth, hook)
     if t == 0xC0:
         return None, at
     if t == 0xC2:
@@ -201,7 +208,7 @@ def _unpack(buf: memoryview, at: int, depth: int) -> Tuple[Any, int]:
     if t in _COUNTED:
         s, is_map = _COUNTED[t]
         n, at = _num(s, buf, at)
-        return (_map if is_map else _array)(buf, at, n, depth)
+        return (_map if is_map else _array)(buf, at, n, depth, hook)
     raise UnpackError(f"msgpack_lite: type byte 0x{t:02x} is not accepted "
                       "(extension types and 0xc1 are refused)")
 
@@ -214,23 +221,23 @@ def _str(buf: memoryview, at: int, n: int) -> Tuple[str, int]:
         raise UnpackError(f"msgpack_lite: str is not utf-8: {e}") from None
 
 
-def _array(buf: memoryview, at: int, n: int, depth: int) -> Tuple[list, int]:
+def _array(buf: memoryview, at: int, n: int, depth: int, hook=None) -> Tuple[list, int]:
     if n > len(buf) - at:  # every element takes at least one byte
         raise UnpackError(f"msgpack_lite: array of {n} in {len(buf) - at} bytes")
     out = []
     for _ in range(n):
-        v, at = _unpack(buf, at, depth + 1)
+        v, at = _unpack(buf, at, depth + 1, hook)
         out.append(v)
     return out, at
 
 
-def _map(buf: memoryview, at: int, n: int, depth: int) -> Tuple[dict, int]:
+def _map(buf: memoryview, at: int, n: int, depth: int, hook=None) -> Tuple[Any, int]:
     if 2 * n > len(buf) - at:  # every entry takes at least two bytes
         raise UnpackError(f"msgpack_lite: map of {n} in {len(buf) - at} bytes")
     out = {}
     for _ in range(n):
-        k, at = _unpack(buf, at, depth + 1)
+        k, at = _unpack(buf, at, depth + 1, hook)
         if not isinstance(k, (str, bytes)):
             raise UnpackError(f"msgpack_lite: map key of type {type(k).__name__}")
-        out[k], at = _unpack(buf, at, depth + 1)
-    return out, at
+        out[k], at = _unpack(buf, at, depth + 1, hook)
+    return (out if hook is None else hook(out)), at

@@ -332,8 +332,14 @@ def test_batch_lanes_node_serves_chain_client_and_busy(tiny):
 ])
 def test_what_moves_elsewhere_raises_naming_its_item(tiny, call, item):
     ex = BatchedExecutor(tcfg.TINY, tiny[1], lanes=1, max_len=32)
+    if item in LANDED:  # ported since: no refusal (the digest is None on a dense slab)
+        assert call(ex) is None
+        return
     with pytest.raises(NotImplementedError, match=item):
         call(ex)
+
+
+LANDED = ("A4b",)  # ROADMAP items of the cases above that have landed
 
 
 def test_kstep_window_committing_no_token_fails_its_items(tiny):

@@ -73,6 +73,9 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
     # the overload plane's stdlib-only copies, named: a client imports them alone
     assert {"inferd_tpu_torch.utils.retry", "inferd_tpu_torch.utils.metrics",
             "inferd_tpu_torch.utils.chaos"} <= names
+    # the wire's native codec loader and the deployment tools
+    assert {"inferd_tpu_torch.native", "inferd_tpu_torch.tools.seed",
+            "inferd_tpu_torch.tools.send"} <= names
 
 
 def _imports(tree):
@@ -95,14 +98,11 @@ def _imports(tree):
 @pytest.mark.parametrize("path", _port_sources())
 def test_port_source_names_no_forbidden_module(path):
     """Static check, imports inside functions included: nothing of JAX or
-    the JAX package anywhere; PyYAML only inside the manifest YAML I/O,
-    which the serving path never calls."""
+    the JAX package anywhere, and none of the forbidden packages (the
+    manifest YAML too is read and written by the port's own code)."""
     with open(os.path.join(REPO, path)) as f:
         tree = ast.parse(f.read(), filename=path)
-    for mod, func in _imports(tree):
+    for mod, _func in _imports(tree):
         root = mod.split(".")[0]
         assert not (mod == "inferd_tpu" or mod.startswith("inferd_tpu.")), (path, mod)
-        if root == "yaml":
-            assert func in ("from_yaml", "to_yaml"), (path, func)
-            continue
         assert root not in FORBIDDEN_ROOTS, (path, mod)
