@@ -2943,11 +2943,13 @@ SWARM_TIMING_PAIRS = 3
 
 # serve_overload's nodes. R1, a paged lane replica of stage 1 whose pool of
 # OVERLOAD_KV_BLOCKS blocks (one the scratch) two resident serve sessions
-# (300 and 700 tokens: 10 + 22 blocks) put under its admission reserve
-# (int(0.6 x 65) = 39 free: 32 free then, 42 or 54 with either alone); its
-# long window makes its shed's Retry-After (window x (1 + inflight/cap))
-# outlast the shed wave's sessions on R2, whose capacity 1 makes new
-# sessions leave it for R1 once it holds three at once.
+# (300 and 700 tokens: 10 + 22 blocks, 10 + 23 after their decode steps)
+# put under its admission reserve (int(0.6 x 65) = 39 free: 32 free then,
+# 31 after, 41 or 54 with either alone); its long window makes its shed's
+# Retry-After (window x (1 + inflight/cap)) outlast the shed wave's sessions
+# on R2, whose capacity 1 makes new sessions leave it for R1 once it holds
+# three at once (a new session's plan charges R1 ADMISSION_PENALTY, two of
+# R2's sessions, and its svc_ms / 100 ms).
 OVERLOAD_KV_BLOCKS = 65
 OVERLOAD_RESERVE = 0.6
 OVERLOAD_WINDOW_MS = 3000
@@ -2955,7 +2957,10 @@ OVERLOAD_R1_ARGS = ["--stage-lanes", str(LANES), "--paged-kv", str(PAGED_BS), "-
                     str(LANE_PREFILL_CHUNK), "--window-ms", str(OVERLOAD_WINDOW_MS),
                     "--kv-blocks", str(OVERLOAD_KV_BLOCKS), "--admission-reserve",
                     str(OVERLOAD_RESERVE)]
-OVERLOAD_RESIDENT_STEPS = 2  # decode steps of each resident on R1, co-batched
+# decode steps of each resident on R1, co-batched: enough that R1's svc_ms
+# (an EWMA, 0.8 old) has shed its first forwards' start-up time and shows its
+# steady cost when the shed wave is planned
+OVERLOAD_RESIDENT_STEPS = 12
 OVERLOAD_SHED_RETRIES = 4  # the shed wave's session restarts at most
 OVERLOAD_RESCUE_AFTER = 8  # tokens before the client fails over to E1
 OVERLOAD_POST_COMPUTE_DEADLINE_S = 0.15  # ahead of E2's 400 ms chaos delay
@@ -3058,6 +3063,92 @@ def post_wire(port: int, path: str, body: Dict[str, Any]):
 
     status, raw, _ = http_post(f"http://127.0.0.1:{port}{path}", wire.pack(body), 300.0)
     return status, wire.unpack(raw)
+
+
+def check_planned_routes(phase: str, st: Dict[str, Any], sessions: int) -> Dict[str, Any]:
+    """The seed's planned-route counts from its /stats: a route planned and
+    followed for each of its `sessions` new sessions, none stale and no plan
+    failed (both replicas live)."""
+    c = st["metrics"]["counters"]
+    seen = {k: int(c.get(f"route.{k}", 0)) for k in ("planned", "followed", "stale",
+                                                      "plan_failed")}
+    seen.update(planner=st["routes"]["planner"], recent=st["routes"]["recent"])
+    if (seen["planned"] != sessions or seen["followed"] != sessions or seen["stale"]
+            or seen["plan_failed"]):
+        raise AssertionError(f"{phase}: the seed's route counts {seen}, want {sessions} "
+                             "planned and followed, none stale or failed")
+    return seen
+
+
+def wait_svc_ms(phase: str, seed: Dict[str, Any], replicas: List[str],
+                timeout_s: float = 10.0) -> Dict[str, float]:
+    """Each replica's svc_ms in the seed's gossip view, once every record
+    carries one."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        view = http_get_json(f"http://127.0.0.1:{seed['port']}/stats")["dht"]["1"]
+        svc = {nid: view.get(nid, {}).get("svc_ms") for nid in replicas}
+        if all(isinstance(v, (int, float)) and v > 0 for v in svc.values()):
+            return svc
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{phase}: svc_ms in the seed's view {svc}")
+        time.sleep(0.1)
+
+
+def run_routed_client(phase: str, card: str, gossip_port: int, prompts, streams,
+                      names: Dict[str, str]) -> None:
+    """RoutedChainClient over a records-less gossip observer bootstrapped to
+    the seed's port: each prompt in turn, its chain planned per session by
+    D*-Lite, token-exact to the serve phase's chain streams."""
+    from inferd_tpu_torch.client.routed_client import RoutedChainClient
+    from inferd_tpu_torch.config import SamplingConfig
+    from inferd_tpu_torch.control.dht import SwarmDHT
+
+    dht = SwarmDHT("chip-smoke-observer", 0, bootstrap=[("127.0.0.1", gossip_port)],
+                   host="127.0.0.1")
+    dht.start()
+    try:
+        t0 = time.perf_counter()
+        while len(dht.get_stage(1)) < len(names) or not dht.get_stage(0):
+            if time.perf_counter() - t0 > 15.0:
+                raise AssertionError(f"{phase}: the observer's view {dht.get_all(2)}")
+            time.sleep(0.1)
+        view_s = time.perf_counter() - t0
+        client = RoutedChainClient(dht, 2, sampling=SamplingConfig(temperature=0.0),
+                                   prefill_chunk=512)
+        finals: Dict[str, Any] = {}
+
+        async def last_hop(session_id, completed_stage):
+            if completed_stage == 1:  # the first pass is done: the plan's final stats
+                finals[session_id] = (client.planner_stats(session_id),
+                                      [nid for nid, _ in client._plans[session_id].chain])
+
+        client.hop_hook = last_hop
+
+        async def go():
+            async with client as c:
+                return [await c.generate_ids(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+
+        t1 = time.perf_counter()
+        got = asyncio.run(go())
+        wall = time.perf_counter() - t1
+    finally:
+        dht.stop()
+    for p, a_, b_ in zip(prompts, got, streams):
+        if a_ != b_:
+            raise AssertionError(f"{phase}: routed client stream of prompt {len(p)} != the "
+                                 f"serve phase's chain stream from token "
+                                 f"{first_divergence(a_, b_)}")
+    plans = list(finals.values())
+    chains = [names.get(chain[1], chain[1]) for _, chain in plans]
+    stats0 = plans[0][0]
+    say(phase, f"RoutedChainClient (observer view full after {view_s:.2f} s): "
+               f"{len(prompts)} prompts in turn in {wall:.2f} s, token-exact to the serve "
+               f"streams; stage-1 replica per session {chains}; the first session's planner: "
+               f"{stats0['builds']} build, {stats0['refreshes']} refreshes, "
+               f"{stats0['cost_updates']} cost updates, expansions at build "
+               f"{stats0['expansions_build']} against at replan {stats0['expansions_replan']} "
+               f"({card})")
 
 
 def run_serve_swarm(card: str, parts: str, work: str, serve, lanes) -> Dict[str, Any]:
@@ -3188,6 +3279,21 @@ def run_serve_swarm(card: str, parts: str, work: str, serve, lanes) -> Dict[str,
                                  f"concurrent {conc_served} passes: want whole sessions "
                                  f"({per} passes) on each replica, and both serving when "
                                  "the sessions run at once")
+        routes_seen = check_planned_routes(phase, conc[0], 2 * len(prompts))
+        replica_names = {node_id(rep_a): "A", node_id(rep_b): "B"}
+        recent = [{s: replica_names.get(nid, nid) for s, nid in r["route"].items()}
+                  for r in routes_seen["recent"][-len(prompts):]]
+        say(phase, f"the seed planned {routes_seen['planned']} routes for its "
+                   f"{2 * len(prompts)} new sessions and followed {routes_seen['followed']} "
+                   f"(stale {routes_seen['stale']}, plan failures {routes_seen['plan_failed']}); "
+                   f"the first concurrent session's chain {recent[0]} (stage: replica), the "
+                   f"last's {recent[-1]}; the planner's stats {routes_seen['planner']}")
+        svc = wait_svc_ms(phase, seed, [node_id(rep_a), node_id(rep_b)])
+        for n, st in zip((rep_a, rep_b), conc[1:]):
+            step = st["metrics"]["histograms"]["stage.compute_ms"]
+            say(phase, f"replica {replica_names[node_id(n)]}: svc_ms {svc[node_id(n)]} in the "
+                       f"seed's view; its stage steps in this phase: {step['count']} forwards, "
+                       f"mean {step['mean_ms']:.3f} ms, p50 <= {step['p50_ms']} ms ({card})")
         sessions = [2 * len(prompts), whole[0][0] + whole[1][0], whole[0][1] + whole[1][1]]
         node_graphs = []
         for st, n_sessions in zip(conc, sessions):
@@ -3254,15 +3360,38 @@ def run_serve_swarm(card: str, parts: str, work: str, serve, lanes) -> Dict[str,
                 raise AssertionError(f"{phase}: {b_['node_id']}: buffers {buf} after {sessions} "
                                      "sessions grew")
 
-        # planted fault: replica B dies with no tombstone, once the seed's view
-        # has both replicas idle (a load frozen in B's last record would steer
-        # new sessions away from it, and no hop would meet the dead peer)
+        # planned chains from a client: RoutedChainClient over an observer of the
+        # seed's gossip, then tools/send --routed as a user runs it
+        gossip_port = stats([seed])[0]["gossip_port"]
+        run_routed_client(phase, card, gossip_port, prompts, serve["streams"], replica_names)
+        run_cli_send_routed(card, gossip_port, prompts[0], serve["streams"][0])
+        routes_seen = check_planned_routes(phase, stats([seed])[0],
+                                           2 * len(prompts) + SWARM_GROW_SESSIONS)
+        say(phase, f"before the kill the seed planned {routes_seen['planned']} routes for its "
+                   f"{2 * len(prompts) + SWARM_GROW_SESSIONS} new sessions, followed "
+                   f"{routes_seen['followed']}, stale {routes_seen['stale']}, plan failures "
+                   f"{routes_seen['plan_failed']}")
+
+        # planted fault: a replica dies with no tombstone, once the seed's view
+        # has both replicas idle (a load frozen in its last record would steer
+        # new sessions away from it, and no hop would meet the dead peer); the
+        # one the seed's planner would route the next new session to, by the
+        # same node cost (an svc_ms the other replica's routed sessions left
+        # lower would steer them away too). It is replica B from here on.
+        from inferd_tpu_torch.control.dstar import node_cost
+
         deadline = time.monotonic() + 10.0
         while time.monotonic() < deadline:
             view = stats([seed])[0]["dht"]["1"]
             if all(view.get(node_id(n), {}).get("load") == 0 for n in (rep_a, rep_b)):
                 break
             time.sleep(0.1)
+        costs = {replica_names[node_id(n)]: node_cost(view[node_id(n)]) for n in (rep_a, rep_b)}
+        if costs["A"] < costs["B"]:
+            rep_a, rep_b = rep_b, rep_a
+            one = [seed, rep_a, rep_b]
+        say(phase, f"node costs in the seed's view before the kill {costs}: replica "
+                   f"{replica_names[node_id(rep_b)]} dies (B from here on)")
         b_stats = stats([rep_b])[0]
         rep_b["proc"].kill()
         rep_b["proc"].wait(timeout=30)
@@ -3288,8 +3417,11 @@ def run_serve_swarm(card: str, parts: str, work: str, serve, lanes) -> Dict[str,
                                  f"1), B's record in the seed's view: {b_listed}")
         watcher = threading.Thread(target=watch, daemon=True)
         watcher.start()
+        c0 = st0["metrics"]["counters"]
         say(phase, f"replica B killed (no tombstone): two new sessions at once completed on A, "
-                   f"token-exact; the seed counted {st0['dead_hops']} dead hop")
+                   f"token-exact; the seed counted {st0['dead_hops']} dead hop; route.stale "
+                   f"{c0.get('route.stale', 0):.0f}, the planner's kills "
+                   f"{(st0['routes']['planner'] or {}).get('kills')}")
 
         # the lane pair, relaying: serve_lanes' traffic; stage 0's flush relays
         # each window's decode steps as one coalesced POST per next hop
@@ -3652,10 +3784,14 @@ def run_serve_overload(card: str, parts: str, work: str, serve) -> Dict[str, Any
                 answers[sid][1]["result"]["logits"])[0]))) for sid, (pos, _) in residents.items()}
         waited = wait_for(lambda: stats(e0)["dht"]["1"][node_id(r1)].get("shed") == 1,
                           "R1's shed flag in E0's view")
+        r1_svc = round(stats(r1)["svc_ms"], 3)
+        wait_for(lambda: stats(e0)["dht"]["1"][node_id(r1)].get("svc_ms") == r1_svc,
+                 "R1's svc_ms in E0's view")
         say(phase, f"two resident sessions ({len(prompts[2])} and {len(prompts[3])} prompt "
                    f"tokens) on R1: blocks free {pool['blocks_free']} of {pool['blocks_total']} "
                    f"< reserve {reserve}; R1's record carries shed: 1 (in E0's view after "
-                   f"{waited:.2f} s); their decode steps answered 200, not shed")
+                   f"{waited:.2f} s); their {OVERLOAD_RESIDENT_STEPS} decode steps each "
+                   f"answered 200, not shed; R1's svc_ms {r1_svc} in E0's view")
 
         # the serve prompts at once through E0: R1 sheds, restarts land on R2
         wave_logs = [[] for _ in prompts]
@@ -3667,7 +3803,8 @@ def run_serve_overload(card: str, parts: str, work: str, serve) -> Dict[str, Any
                 c = overload_client(e0, wave_logs[i], greedy)
                 async with c:
                     # a restart may meet R1 again while E0's gossip view still
-                    # shows R2 at its wave load (E0 ranks by gossiped load)
+                    # shows R2 at its wave load (E0 plans over gossiped load and
+                    # the sessions it holds)
                     return await c.generate_ids(p, max_new_tokens=NEW_TOKENS,
                                                 on_token=marks[i].append,
                                                 session_retries=OVERLOAD_SHED_RETRIES)
@@ -3696,11 +3833,18 @@ def run_serve_overload(card: str, parts: str, work: str, serve) -> Dict[str, Any
                                  f"counters {r1_c}")
         log += [r for lg in wave_logs for r in lg]
         restarts = [m.count(None) for m in marks]
+        # a restart is every session of a prompt after its first; one that met
+        # R1 again was shed again
+        met_r1 = sum(1 for lg in wave_logs for sid in dict.fromkeys(r["sid"] for r in lg)
+                     if sid != lg[0]["sid"]
+                     and any(r["sid"] == sid and r["status"] != 200 for r in lg))
+        e0_routes = {k: int(v) for k, v in counters(stats(e0)).items() if k.startswith("route.")}
         say(phase, f"the serve prompts at once through E0 in {wave_s:.2f} s: R1 shed "
                    f"{len(sheds)} new session(s) with HTTP 503 busy, retry_after "
                    f"{[r['retry_after'] for r in sheds]} s; restarts per prompt {restarts}, "
                    f"each on R2; every stream equals the serve phase's chain stream; R1 "
-                   f"computed no wave step")
+                   f"computed no wave step; restarts that met R1 again: {met_r1} of "
+                   f"{sum(restarts)}; E0's route counts {e0_routes}")
 
         # rescue: a session entering at E0 fails over to E1 after a few tokens
         e0_before: Dict[str, Any] = {}
@@ -5238,6 +5382,28 @@ def run_cli_send(card: str, entry_port: int, prompt: List[int], want: List[int])
                f"stream: {ids == want} ({card})")
     if ids != want:
         raise AssertionError(f"{phase}: tools/send printed {ids}, want {want}")
+
+
+def run_cli_send_routed(card: str, gossip_port: int, prompt: List[int],
+                        want: List[int]) -> None:
+    """tools/send --routed as a subprocess against serve_swarm's one-session
+    swarm (its seed's gossip port), greedy: exit 0 and the swarm's stream."""
+    phase = "cli"
+    cmd = [sys.executable, "-m", "inferd_tpu_torch.tools.send", "--routed",
+           f"127.0.0.1:{gossip_port}", "--num-stages", "2", "--prompt-ids",
+           ",".join(map(str, prompt)), "--max-new-tokens", str(len(want)), "--temperature", "0"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"{phase}: tools/send --routed exit {r.returncode}\n"
+                             f"{r.stderr[-4000:]}")
+    ids = json.loads(r.stdout.split("generated ids:", 1)[1].strip().splitlines()[0])
+    say(phase, f"python -m inferd_tpu_torch.tools.send --routed 127.0.0.1:<seed gossip port> "
+               f"--num-stages 2 --prompt-ids <{len(prompt)} ids> --max-new-tokens {len(want)} "
+               f"--temperature 0: exit 0 in {time.perf_counter() - t0:.1f}s with {len(ids)} "
+               f"ids, equal to the swarm's stream: {ids == want} ({card})")
+    if ids != want:
+        raise AssertionError(f"{phase}: tools/send --routed printed {ids}, want {want}")
 
 
 CODEC_PAIRS = 5  # interleaved rounds of native and Python per operation

@@ -31,8 +31,10 @@ Endpoints, wire-compatible with the JAX node for these topologies:
                      the serving quantization and the stage's parameter
                      bytes as stored, each kernel's launch
                      count in this process, the executor's stats, the
-                     card's allocated and reserved bytes (`memory`), and
-                     the gossip view `dht` {stage: {"host:port": record}}
+                     card's allocated and reserved bytes (`memory`), the
+                     gossip view `dht` {stage: {"host:port": record}}, the
+                     announced `svc_ms`, and `routes`: the planner's stats
+                     and the newest planned routes
   POST /profile      {"action": "start" [, "name"]} | {"action": "stop"} |
                      {"action": "window", "seconds" S [, "capture_id"]}:
                      an on-demand torch.profiler trace of this process
@@ -50,15 +52,38 @@ PathFinder over it. It announces {name, stage, load, cap, host, port,
 model} at start (urgent) and at stop (a tombstone), and again, not urgent,
 whenever its load (the /forward requests in flight) changes; the gossip
 thread carries that. `name` is the node's manifest name (run_node --name),
-else its host:port. A whole-model paged lane node adds `pfx`, the digest of
-the prompt prefixes its block pool holds (core/prefix.make_digest), which
-an entry router scores a new prompt against (prefix.AffinityProbe). The next hop (`_pick_next`) is the session's
-remembered replica for that stage while its record lives (an LRU of 8192
-(session, stage) pairs: its KV lives there), else the min-load live
-replica, passing over peers in their dead-peer cooldown unless none else
-is left. A relay (`_relay`) packs the envelope once and makes up to two
-attempts: a transport failure excludes the peer, starts its cooldown and
-drops the session's affinity; a 5xx other than 503 starts the cooldown;
+else its host:port. Once it has computed, the record adds `svc_ms`: an EWMA
+(0.8 old, 0.2 new) of a forward's compute time, without the wait for the
+node's compute lock or its stage window (each entry of a window step counts
+that step's time from the moment it holds the device; a whole-model lane
+node's own window is inside its executor's call), which the chain planner
+charges as latency. A
+whole-model paged lane node adds `pfx`, the digest of the prompt prefixes
+its block pool holds (core/prefix.make_digest), which an entry router
+scores a new prompt against (prefix.AffinityProbe).
+
+Planned routes. A relayed envelope at start_pos 0 with no `route`, on a
+stage before the last, is a new session entering here: the node plans its
+whole downstream chain (`_plan_route`, PathFinder.find_best_chain over the
+long-lived D*-Lite planner) and puts it on the envelope as `route`
+{str(stage): node_id}, which every later envelope of that pass carries on
+(`route.planned`, or `route.plan_failed` and the per-hop pick). The plan
+counts, as the fresh pick does, the sessions this node has routed or
+planned through each replica and not ended, and charges a shedding replica
+ADMISSION_PENALTY; plan and record are one step under the pick lock, so
+sessions arriving together see each other's plans. The next hop
+(`_pick_next`) is (1) the session's remembered replica for that stage while
+its record lives (an LRU of 8192 (session, stage) pairs: its KV lives
+there), else (2) a replica advertising the session, else (3) the route's
+replica while it lives, is not excluded and is not in its dead-peer
+cooldown (`route.followed`; else `route.stale`), else (4) the min-load
+live replica, passing over peers in their dead-peer cooldown unless none
+else is left. A relay that finds a
+peer dead also folds the death into the plan (`kill_node`).
+
+A relay (`_relay`) packs the envelope once and makes up to two attempts: a
+transport failure excludes the peer, starts its cooldown and drops the
+session's affinity; a 5xx other than 503 starts the cooldown;
 when both attempts fail the answer is 502 "next hop unreachable". A stage
 with no live replica answers 503 after the PathFinder's retries. An
 envelope for another stage is relayed to a replica of it (not to this
@@ -75,8 +100,8 @@ The overload plane (the reference's `_forward_inner` and relay):
     admission_reserve x its blocks, a NEW session (start_pos 0) is shed
     with 503 "busy" and `retry_after` (`_retry_after_s`, in the body and as
     an integer Retry-After header), and the record gossips `shed: 1`; a
-    new session's fresh pick ranks a shedding replica ADMISSION_PENALTY
-    worse. Mid-session chunks are never shed.
+    new session's plan and fresh pick charge a shedding replica
+    ADMISSION_PENALTY. Mid-session chunks are never shed.
   * session rescue: the record gossips `sess`, the hashes of the newest
     128 sessions whose KV this node holds (control/dht.sess_hash). A
     mid-session chunk for a session this node does not hold goes, marked
@@ -98,8 +123,7 @@ The overload plane (the reference's `_forward_inner` and relay):
   * chaos (utils/chaos.py, run_node --chaos): faults injected before each
     forward's compute; `crash()` stops serving and closes every socket
     without a tombstone, like a killed process.
-Not ported yet: planned routes (ROADMAP A4c), /drain (A4c) and standby
-holders (A4d).
+Not ported yet: /drain (ROADMAP A4c, part c2) and standby holders (A4d).
 
 The coalesced relay (the reference's `_relay_window` and
 `_handle_multi_forward`). On a `--stage-lanes` node the window's flush
@@ -171,7 +195,7 @@ import socket
 import threading
 import time
 import uuid
-from collections import Counter, OrderedDict
+from collections import Counter, OrderedDict, deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -206,7 +230,9 @@ AFFINITY_MAX_AGE_S = 3600.0  # the sweep drops affinity entries unused this long
 HOP_TIMEOUT_S = 120.0  # one relay hop's HTTP timeout (the reference's)
 RELAY_ATTEMPTS = 2  # picks per relay: the first, and one past a dead hop
 SESSION_NEXT_CAP = 8192  # (session, stage) -> next-hop affinity entries kept
-HELD_WINDOW_S = 600.0  # an affinity entry idle this long no longer counts as a held session
+HELD_WINDOW_S = 600.0  # an affinity entry or a plan this old no longer counts as a held session
+ROUTES_SHOWN = 16  # the newest planned routes /stats lists
+SVC_EWMA_KEEP = 0.8  # svc_ms's EWMA: the old value's weight (the reference's)
 SESS_ADVERTISED = 128  # the newest sessions a record's `sess` lists
 RESCUE_PAUSE_S = 0.15  # between rescue bounces
 HEDGE_MODES = ("advertised", "any", "off")
@@ -386,8 +412,13 @@ class Node:
         # (session_id, stage) -> (the replica that holds the session's KV
         # there, when this node last routed the session to it)
         self._session_next: "OrderedDict[Tuple[str, int], Tuple[str, float]]" = OrderedDict()
+        # session -> (its planned route {str(stage): node_id}, when planned):
+        # held sessions for later plans and picks until the session ends
+        self._planned: "OrderedDict[str, Tuple[Dict[str, str], float]]" = OrderedDict()
+        self._recent_routes: deque = deque(maxlen=ROUTES_SHOWN)
         self._affinity_lock = threading.Lock()
-        self._pick_lock = threading.Lock()  # a fresh pick and its record, as one step
+        self._pick_lock = threading.Lock()  # a fresh pick or a plan and its record, as one step
+        self._svc_ewma: Optional[float] = None  # the announced svc_ms
         self.inflight = 0  # /forward requests in this node now: the announced load
         self.relays = 0  # envelopes this node relayed (one per relay, whatever its attempts)
         self.dead_hops = 0  # relay attempts that met a transport failure
@@ -437,14 +468,20 @@ class Node:
         its co-batch). Final results and chain-mode entries return to their
         handler threads as computed."""
         drained: list = []
+        t0: List[float] = []
 
-        def drain():
+        def drain():  # called once the executor holds the device
+            if not t0:
+                t0.append(time.perf_counter())
             extra = self.window.drain_pending()
             drained.extend(extra)
             return [(e.payload[0], e.payload[1]) for e in extra]
 
         try:
             outs = self.executor.process_batch([], drain=drain)
+            if t0:  # each entry of the step counts the step's time
+                self._note_compute((time.perf_counter() - t0[0]) * 1e3,
+                                   sum(not isinstance(o, Exception) for o in outs))
             relays = []
             for e, out in zip(drained, outs):
                 if isinstance(out, Exception):
@@ -480,7 +517,8 @@ class Node:
                 if rem is not None and rem <= 0:
                     e.result = _Relayed(self._deadline_error("post-compute"))
                     continue
-                nid, value = self._pick_next(session_id, next_env["stage"])
+                nid, value = self._pick_next(session_id, next_env["stage"],
+                                             route=next_env.get("route"))
             except NoNodeForStage as exc:
                 e.result = _Relayed(self._error(503, f"no next node: {exc}"))
                 continue
@@ -622,8 +660,12 @@ class Node:
             "model": self.model_name,
         }
         # the reference's optional keys, in its order; absent when false or
-        # empty, so a record with no digest, nothing shed and no session held
-        # is the same bytes as before them
+        # empty (svc_ms until the first compute), so such a record is the
+        # same bytes as before them
+        with self._stats_lock:
+            svc = self._svc_ewma
+        if svc is not None:
+            record["svc_ms"] = round(svc, 3)
         digest = getattr(self.executor, "prefix_digest", None)
         pfx = digest() if callable(digest) else None
         if pfx:
@@ -675,6 +717,17 @@ class Node:
                 return nid
         return None
 
+    def _note_compute(self, ms: float, n: int = 1) -> None:
+        """`n` forwards' compute took `ms` each: fold them into svc_ms and
+        the `stage.compute_ms` histogram."""
+        for _ in range(n):
+            self.metrics.observe("stage.compute_ms", ms)
+        with self._stats_lock:
+            for _ in range(n):
+                self._svc_ewma = (ms if self._svc_ewma is None
+                                  else SVC_EWMA_KEEP * self._svc_ewma
+                                  + (1.0 - SVC_EWMA_KEEP) * ms)
+
     def _add_inflight(self, n: int) -> None:
         with self._stats_lock:
             self.inflight += n
@@ -683,17 +736,21 @@ class Node:
     # -- next hops ------------------------------------------------------------
 
     def _pick_next(self, session_id: Optional[str], stage: int, exclude=None,
-                   prefer: Optional[str] = None, new_session: bool = False):
+                   prefer: Optional[str] = None, new_session: bool = False,
+                   route: Optional[Dict[str, str]] = None):
         """The next replica for (session, stage): `prefer` (a replica the
         caller verified, the rescue's holder) while its record lives and it
         is not excluded; else (1) the replica this node routed the session
         to before, while its record lives and it is not excluded (its KV is
         there); else (2) a replica whose record advertises the session;
-        else (4) the min-load live replica, outside the dead-peer cooldown
-        where the stage allows, each replica's gossiped load counted with
-        the sessions this node holds on it (`_held`), a shedding one ranked
-        worse for a `new_session`. The pick is remembered for the session.
-        Raises NoNodeForStage."""
+        else (3) the planned `route`'s replica for the stage while its record
+        lives and it is neither excluded nor inside its dead-peer cooldown
+        (`route.followed`; `route.stale` otherwise); else (4) the min-load
+        live replica, outside the dead-peer cooldown where the stage allows,
+        each replica's gossiped load counted with the sessions this node
+        holds on it (`_held`), a shedding one ranked worse for a
+        `new_session`. The pick is remembered for the session. Raises
+        NoNodeForStage."""
         key = (session_id, stage) if session_id else None
         if prefer is not None and not (exclude and prefer in exclude):
             value = self.dht.get_stage(stage).get(prefer)
@@ -720,6 +777,19 @@ class Node:
                 self.metrics.inc("route.sess_gossip")
                 self._remember(key, nid)
                 return nid, value
+        if route:
+            nid = route.get(str(stage))
+            value = self.dht.get_stage(stage).get(nid) if nid else None
+            if (value is not None and not (exclude and nid in exclude)
+                    and nid not in self.path_finder.cooling()):
+                self.metrics.inc("route.followed")
+                if key is not None:
+                    self._remember(key, nid)
+                return nid, value
+            # the planned replica died, failed this relay or was seen dead
+            # since the plan (a route steers; no KV of the session is there
+            # yet): the fresh pick, which affinity then pins
+            self.metrics.inc("route.stale")
         with self._pick_lock:
             nid, value = self.path_finder.find_best_node(
                 stage, exclude=self._with_cooldown(stage, exclude), held=self._held(stage),
@@ -728,6 +798,35 @@ class Node:
                 self._remember(key, nid)
         return nid, value
 
+    def _plan_route(self, start_stage: int, session_id: str) -> Optional[Dict[str, str]]:
+        """A new session's route {str(stage): node_id} for stages
+        start_stage..last (PathFinder.find_best_chain), planned over the
+        records with this node's held sessions added to their loads and
+        shedding replicas charged ADMISSION_PENALTY, and recorded for the
+        session as one step under the pick lock. None when no complete chain
+        exists (the caller keeps the per-hop pick). Tenant sessions plan
+        with no affinity until AdapterAffinity is ported (ROADMAP A4e)."""
+        with self._pick_lock:
+            try:
+                chain = self.path_finder.find_best_chain(
+                    start_stage, held=self._held(), new_session=True)
+            except NoNodeForStage:
+                self.metrics.inc("route.plan_failed")
+                return None
+            except Exception:
+                log.exception("chain planning failed; per-hop fallback")
+                self.metrics.inc("route.plan_failed")
+                return None
+            route = {str(s): nid for s, (nid, _) in enumerate(chain, start=start_stage)}
+            with self._affinity_lock:
+                self._planned[session_id] = (route, time.monotonic())
+                self._planned.move_to_end(session_id)
+                while len(self._planned) > SESSION_NEXT_CAP:
+                    self._planned.popitem(last=False)
+                self._recent_routes.append({"session": session_id, "route": route})
+        self.metrics.inc("route.planned")
+        return route
+
     def _remember(self, key: Tuple[str, int], nid: str) -> None:
         with self._affinity_lock:
             self._session_next[key] = (nid, time.monotonic())
@@ -735,15 +834,23 @@ class Node:
             while len(self._session_next) > SESSION_NEXT_CAP:
                 self._session_next.popitem(last=False)
 
-    def _held(self, stage: int) -> Dict[str, int]:
-        """Sessions this node routed to each replica of `stage` and has not
-        ended, routed within HELD_WINDOW_S. The gossiped load reaches this
+    def _held(self, stage: Optional[int] = None) -> Dict[str, int]:
+        """Sessions this node routed (its affinity entries) or planned
+        through each replica (of `stage`, or of every stage) and has not
+        ended, within HELD_WINDOW_S; where both name a replica for a
+        session and stage, the routed one. The gossiped load reaches this
         node a gossip period late and counts requests, not sessions: new
         sessions entering here at once would all pick the same replica."""
         cutoff = time.monotonic() - HELD_WINDOW_S
+        held: Dict[Tuple[str, int], str] = {}
         with self._affinity_lock:
-            return Counter(nid for (_, s), (nid, t) in self._session_next.items()
-                           if s == stage and t >= cutoff)
+            for sid, (route, t) in self._planned.items():
+                if t >= cutoff:
+                    held.update(((sid, int(s)), nid) for s, nid in route.items()
+                                if stage is None or int(s) == stage)
+            held.update(((sid, s), nid) for (sid, s), (nid, t) in self._session_next.items()
+                        if (stage is None or s == stage) and t >= cutoff)
+        return Counter(held.values())
 
     def _with_cooldown(self, stage: int, exclude):
         """The exclude set of a fresh pick, with the peers inside their
@@ -776,6 +883,7 @@ class Node:
         session_id = env.get("session_id")
         deadline_ms = env.get(retrylib.DEADLINE_KEY)
         payload = env.get("payload")
+        route = env.get("route")
         may_hedge = (phase == "relay" and prefer is None and self.hedge_mode != "off"
                      and _is_decode_step(payload))
         new_session = _start_pos(payload) == 0
@@ -789,7 +897,7 @@ class Node:
         for attempt in range(attempts):
             node_id, value = self._pick_next(session_id, stage, exclude,
                                              prefer=prefer if attempt == 0 else None,
-                                             new_session=new_session)
+                                             new_session=new_session, route=route)
             rem = retrylib.remaining_s(deadline_ms)
             if rem is not None and rem <= 0:
                 return self._deadline_error("relay")
@@ -1028,6 +1136,13 @@ class Node:
                 return self._error(
                     503, f"KV block pool low: {low[0]} free of {low[1]} (admission "
                          f"reserve {low[2]})", code="busy", retry_after=self._retry_after_s())
+        if (relay and start_pos == 0 and "route" not in env
+                and stage + 1 < self.spec.num_stages):
+            # a new session enters the swarm here: plan its downstream chain,
+            # which rides its envelopes (a failed plan leaves the per-hop pick)
+            route = self._plan_route(stage + 1, session_id)
+            if route:
+                env["route"] = route
         if (relay and not env.get("rescued") and start_pos > 0
                 and env.get("session_id") is not None and not self._holds_session(session_id)):
             rescued = self._rescue(env, session_id, stage, deadline_ms)
@@ -1053,17 +1168,21 @@ class Node:
                 with span("node.lock_wait"):
                     self._compute_lock.acquire()
                 try:
+                    t0 = time.perf_counter()
                     with span("executor.process"):
                         result = self.executor.process(session_id, payload)
+                    self._note_compute((time.perf_counter() - t0) * 1e3)
                 finally:
                     self._compute_lock.release()
             elif self.window is not None and _is_decode_step(payload):
-                with span("window.wait"):
+                with span("window.wait"):  # the flush notes the step's time
                     result = self.window.submit(
                         (session_id, payload, dict(env, task_id=task_id, relay=relay)))
             else:
+                t0 = time.perf_counter()
                 with span("executor.process"):
                     result = self.executor.process(session_id, payload)
+                self._note_compute((time.perf_counter() - t0) * 1e3)
             with self._stats_lock:
                 self.forward_passes += 1
             self._maybe_sweep()
@@ -1122,9 +1241,11 @@ class Node:
     def _next_env(self, env: Dict[str, Any], session_id: str,
                   result: Dict[str, Any]) -> Dict[str, Any]:
         """The envelope that carries this stage's `result` to the next
-        stage; the deadline rides on."""
+        stage; the planned route and the deadline ride on."""
         next_env = {"task_id": env.get("task_id"), "session_id": session_id,
                     "stage": int(env.get("stage", 0)) + 1, "payload": result}
+        if "route" in env:
+            next_env["route"] = env["route"]
         if env.get(retrylib.DEADLINE_KEY) is not None:
             next_env[retrylib.DEADLINE_KEY] = env[retrylib.DEADLINE_KEY]
         return next_env
@@ -1265,11 +1386,13 @@ class Node:
                 pass
             with self._affinity_lock:
                 self._session_next.pop((session_id, stage + 1), None)
+        with self._affinity_lock:
+            self._planned.pop(session_id, None)
         return 200, _WIRE, wire.pack({"ok": True})
 
     def _maybe_sweep(self) -> None:
         """Every SWEEP_INTERVAL_S: drop sessions idle past their TTL, and
-        affinity entries unused for AFFINITY_MAX_AGE_S."""
+        affinity entries unused and plans made AFFINITY_MAX_AGE_S ago."""
         with self._stats_lock:
             now = time.monotonic()
             if now - self._last_sweep < SWEEP_INTERVAL_S:
@@ -1280,6 +1403,8 @@ class Node:
         with self._affinity_lock:  # least recently used first
             while self._session_next and next(iter(self._session_next.values()))[1] < cutoff:
                 self._session_next.popitem(last=False)
+            while self._planned and next(iter(self._planned.values()))[1] < cutoff:
+                self._planned.popitem(last=False)
 
     def health(self) -> Dict[str, Any]:
         return {
@@ -1324,6 +1449,9 @@ class Node:
             relays, dead_hops, inflight = self.relays, self.dead_hops, self.inflight
         with self._affinity_lock:
             affinity = len(self._session_next)
+            recent = list(self._recent_routes)
+        with self._stats_lock:
+            svc = self._svc_ewma
         dht = {str(stage): recs
                for stage, recs in self.dht.get_all(self.spec.num_stages).items()}
         memory = {}
@@ -1355,6 +1483,8 @@ class Node:
             "metrics": self.metrics.snapshot(),
             "hedge_budget": self.hedge_budget.stats(),
             "retry_budget": self.retry_budget.stats(),
+            "svc_ms": svc,
+            "routes": {"planner": self.path_finder.planner_stats(), "recent": recent},
         }
 
 

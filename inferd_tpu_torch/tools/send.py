@@ -1,21 +1,26 @@
 """Network generation CLI: drive a running swarm (or a fixed chain) from the
-command line (port of inferd_tpu/tools/send.py, its --entry and --chain
-topologies).
+command line (port of inferd_tpu/tools/send.py, its --entry, --chain and
+--routed topologies).
 
 The tool sends bytes only: the nodes compute, the client here samples on
 the host, so there is no --device. `--entry` enters at stage-0 nodes and
 lets the swarm relay (client/swarm_client.SwarmClient); `--chain` drives
-each stage's server in order itself (client/chain_client.ChainClient). The
-new ids print as `generated ids: [...]` (the decoded text with --prompt),
-or one by one as they are sampled with --stream.
+each stage's server in order itself (client/chain_client.ChainClient);
+`--routed` joins the swarm's gossip at the given UDP addresses as an
+observer, waits up to 10 s for every stage of --num-stages to show, and
+drives a chain that D*-Lite plans per session over the live view
+(client/routed_client.RoutedChainClient). The new ids print as
+`generated ids: [...]` (the decoded text with --prompt), or one by one as
+they are sampled with --stream.
 
   python -m inferd_tpu_torch.tools.send --entry 127.0.0.1:6050 --prompt-ids 3,7,11
   python -m inferd_tpu_torch.tools.send --chain 127.0.0.1:6050,127.0.0.1:6051 \\
       --prompt-ids 3,7,11 --temperature 0 --max-new-tokens 16
+  python -m inferd_tpu_torch.tools.send --routed 127.0.0.1:7050 --num-stages 2 \\
+      --prompt-ids 3,7,11
 
 Not ported yet, and refused with the ROADMAP item that brings them:
-`--routed` (the D*-Lite-planned chain, A4c), `--pin-prefix-ids` and
-`--server-side` (prefix pins and /generate, A4d).
+`--pin-prefix-ids` and `--server-side` (prefix pins and /generate, A4d).
 """
 
 from __future__ import annotations
@@ -23,10 +28,13 @@ from __future__ import annotations
 import argparse
 import asyncio
 import sys
+import time
+import uuid
 from typing import List, Optional, Tuple
 
+ROUTED_WAIT_S = 10.0  # how long --routed waits for every stage to show in its view
+
 _NOT_PORTED = {
-    "routed": "--routed (a D*-Lite-planned chain) is not ported yet: ROADMAP A4c",
     "pin_prefix_ids": "--pin-prefix-ids (server-side prefix pins) is not ported yet: ROADMAP A4d",
     "server_side": "--server-side (POST /generate) is not ported yet: ROADMAP A4d",
 }
@@ -53,7 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated stage-0 entry nodes (swarm relay topology)")
     g.add_argument("--chain", default="",
                    help="comma-separated per-stage servers in order (fixed chain)")
-    g.add_argument("--routed", default="", help="not ported yet (ROADMAP A4c)")
+    g.add_argument("--routed", default="",
+                   help="comma-separated gossip (UDP) bootstrap addresses: the chain is "
+                   "planned per session by D*-Lite over the live swarm view (needs "
+                   "--num-stages)")
     ap.add_argument("--num-stages", type=int, default=0, help="pipeline depth for --routed")
     ap.add_argument("--prompt", default="", help="text prompt (needs a tokenizer)")
     ap.add_argument("--prompt-ids", default="", help="comma-separated token ids")
@@ -135,6 +146,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         ap.error("need --prompt or --prompt-ids")
     kw = dict(sampling=sampling, timeout_s=args.timeout, prefill_chunk=args.prefill_chunk)
+    if args.routed:
+        return _routed(ap, args, kw, ids, eos, tokenizer)
     if args.entry:
         from inferd_tpu_torch.client.swarm_client import SwarmClient
 
@@ -144,6 +157,31 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         client = ChainClient(parse_addrs(args.chain), **kw)
     asyncio.run(_drive(args, client, ids, eos, tokenizer))
+    return 0
+
+
+def _routed(ap, args, kw, ids: List[int], eos: Optional[int], tokenizer) -> int:
+    """--routed: a records-less gossip observer bootstrapped to the given
+    addresses (an ephemeral UDP port), a RoutedChainClient over it once
+    every stage shows; 1 when the view does not fill within ROUTED_WAIT_S."""
+    from inferd_tpu_torch.client.routed_client import RoutedChainClient
+    from inferd_tpu_torch.control.dht import SwarmDHT
+
+    if args.num_stages < 1:
+        ap.error("--routed needs --num-stages")
+    dht = SwarmDHT(f"send-{uuid.uuid4().hex[:8]}", 0, bootstrap=parse_addrs(args.routed))
+    dht.start()
+    try:
+        deadline = time.monotonic() + ROUTED_WAIT_S
+        while not all(dht.get_all(args.num_stages)[s] for s in range(args.num_stages)):
+            if time.monotonic() >= deadline:
+                print("swarm view never converged via --routed bootstrap", file=sys.stderr)
+                return 1
+            time.sleep(0.1)
+        client = RoutedChainClient(dht, args.num_stages, **kw)
+        asyncio.run(_drive(args, client, ids, eos, tokenizer))
+    finally:
+        dht.stop()
     return 0
 
 

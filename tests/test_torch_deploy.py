@@ -186,7 +186,7 @@ def test_send_entry_and_chain_print_the_jax_stream(tiny_swarm, expected, capsys)
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--routed", "127.0.0.1:7050", "--num-stages", "2"], "A4c"),
+    (["--routed", "127.0.0.1:1", "--num-stages", "2", "--server-side"], "A4d"),
     (["--entry", "127.0.0.1:1", "--pin-prefix-ids", "3,7"], "A4d"),
     (["--entry", "127.0.0.1:1", "--server-side"], "A4d"),
 ])

@@ -76,6 +76,8 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
     # the wire's native codec loader and the deployment tools
     assert {"inferd_tpu_torch.native", "inferd_tpu_torch.tools.seed",
             "inferd_tpu_torch.tools.send"} <= names
+    # the chain planner and the routed client
+    assert {"inferd_tpu_torch.control.dstar", "inferd_tpu_torch.client.routed_client"} <= names
 
 
 def _imports(tree):

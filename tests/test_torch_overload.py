@@ -428,11 +428,13 @@ def test_deadline_expired_at_entry_fails_before_any_work():
         assert status == 200 and body["result_for_user"]["state"] == 2
         assert wire.unpack(seen[-1])["deadline_ms"] == dl
         # without one, the relayed envelope is the bytes it was before deadlines
+        # (a new session's: the planned route rides it)
         status, body, _ = _post(nodes[0], "/forward", _counter_env("plain"))
         relayed = wire.unpack(seen[-1])
         assert status == 200 and "deadline_ms" not in relayed
+        assert relayed["route"] == {"1": nodes[1].node_id}
         assert seen[-1] == wire.pack({"task_id": "t", "session_id": "plain", "stage": 1,
-                                      "payload": relayed["payload"]})
+                                      "payload": relayed["payload"], "route": relayed["route"]})
     finally:
         _stop(nodes)
 

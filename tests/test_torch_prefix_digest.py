@@ -168,8 +168,8 @@ def test_paged_lane_node_gossips_the_reference_digest(tiny, tmp_path):
         dense.announce()
         rec = node.dht.get_stage(0)[node.node_id]
         assert rec["pfx"] == ref.prefix_digest()
-        assert list(rec) == ["name", "stage", "load", "cap", "host", "port", "model", "pfx",
-                             "sess"]
+        assert list(rec) == ["name", "stage", "load", "cap", "host", "port", "model", "svc_ms",
+                             "pfx", "sess"]
         assert rec["name"] == "lanes-a"
         drec = dense.dht.get_stage(0)[dense.node_id]
         assert "pfx" not in drec and drec["name"] == dense.node_id
