@@ -122,6 +122,36 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               toward it answers 408 in time; no model node hedges; launches
               exact per node for the steps each served, every decode step a
               capture or a replay
+  serve_elastic
+              rebalancing and drain on the serve parts: four one-session
+              graphed nodes, A0 and A1 on stage 0, B and C on stage 1, each
+              with --rebalance-period 2 (its balancer live) and --capacity 16
+              (four sessions at once never reach the balancer's imbalance
+              threshold, so only the phase's own moves happen). Checks: the
+              serve prompts through A0 in turn and at once, token-exact, B
+              and C both serving; POST /drain to C while a chain session
+              (A0, C) holds it after 3 tokens: ok, draining, resident >= 1,
+              handed_off 0, the session's remaining tokens served by C,
+              token-exact; a new session's envelope to C answers 503
+              "draining" with Retry-After; A0's view shows C draining: 1;
+              four new sessions through A0 all go to B; C stops (a
+              tombstone); after a session of its own on stage 0, POST
+              /reassign {"stage": 1} to A1: stage 1, migrations 1, one
+              reshard.ms_to_serving (load, warm-up and release times and the
+              allocator's bytes before the load, after the warm-up and after
+              the release printed), the release freed at least 0.9 x its old
+              stage's weights and its allocated bytes less its KV buffers
+              are within ELASTIC_MEMORY_MARGIN of B's; A0's view shows stage
+              1 = {B, A1}; four sessions at once through A0 token-exact on B
+              and A1, A1's decode steps (and its warm-up's) captures or
+              replays; A0 killed (SIGKILL): once its record leaves B's and
+              A1's views, the serve prompts through the smaller id of the two
+              as stage-0 envelopes: exactly that node adopts stage 0 (its
+              balancer's tick or the relay's empty-stage hook; stage.adopt.*
+              printed), the other stays on stage 1, token-exact; the seconds
+              from the kill to the adoption and to the first token; every
+              node's flash_gqa launches = 14 x (its forward passes + 2 per
+              migration, the warm-up's first chunk and decode step)
   serve_quant_int8, serve_quant_int4
               the serve traffic on two run_node --quant int8 (then int4)
               processes: streams equal in-process quantized executors'; the
@@ -252,6 +282,17 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               inferd_tpu_torch.tools.send --entry against it: exit 0 and the
               pair's greedy stream
 
+Balancers: every node runs one (run_node's default --rebalance-period 10).
+The swarms with a stage of two or more replicas, serve_swarm's one-session
+swarm and serve_overload's two, take --rebalance-period 3600, longer than
+their phase: a tick that read a transient load skew (an entry's in-flight
+requests gossiped before its replicas') could move a replica mid-phase and
+break the phase's per-node pass counts. The other phases' layouts cannot
+move: one replica per stage (a balancer never leaves its stage's last
+replica), and the two-node chains of the serve, lane, quant, profile and
+whole-model phases do not even share a gossip view. Every phase's nodes but
+serve_elastic's read `migrations` 0 in /stats when the phase stops them.
+
 Then a `wire` line (the codec's times and the lane pair's coalesced
 relay counts as JSON), one JSON line listing every kernel, the nvidia-smi
 line, and last:
@@ -261,13 +302,13 @@ Run from the root of a checkout: python3 chip_smoke.py
 Exits non-zero without a CUDA device, and outside a checkout.
 `--only paged,lora` (any of flash, paged, qmm, lora, codec, and on a fresh
 split serve, serve_quant, serve_lanes, serve_lanes_quant, serve_lanes_lora,
-serve_swarm, serve_overload, generate, generate_batched, serve_batch,
-serve_kstep, serve_fp8, anatomy, profile: serve_quant runs int8 and int4,
-serve_lanes_lora runs serve_lanes first, serve_swarm runs serve and
-serve_lanes first, serve_overload runs serve first, generate runs the
-generate and generate_quant phases, serve_batch runs generate_batched
-first) builds the kernels and runs those phases alone, with no result
-lines.
+serve_swarm, serve_overload, serve_elastic, generate, generate_batched,
+serve_batch, serve_kstep, serve_fp8, anatomy, profile: serve_quant runs int8
+and int4, serve_lanes_lora runs serve_lanes first, serve_swarm runs serve and
+serve_lanes first, serve_overload and serve_elastic run serve first, generate
+runs the generate and generate_quant phases, serve_batch runs
+generate_batched first) builds the kernels and runs those phases alone, with
+no result lines.
 """
 
 from __future__ import annotations
@@ -1547,7 +1588,22 @@ def wait_ready(node: Dict[str, Any], timeout_s: float = 300.0) -> None:
 
 def stop_nodes(nodes: List[Dict[str, Any]], show_logs: bool = False) -> None:
     """Stop the node processes; with show_logs, print each log's tail (the
-    run failed and the work directory holding the logs is about to go)."""
+    run failed and the work directory holding the logs is about to go).
+    Otherwise every live node but serve_elastic's must first read
+    `migrations` 0 in its /stats: no balancer moved it in its phase."""
+    moved = {}
+    checked = 0
+    for n in nodes:
+        if show_logs or n["stage"] == "seed" or n.get("elastic") or n["proc"].poll() is not None:
+            continue
+        try:
+            counters = http_get_json(f"http://127.0.0.1:{n['port']}/stats")["metrics"]["counters"]
+        except (OSError, RuntimeError, ValueError) as e:  # stopped below all the same
+            moved[n["port"]] = f"/stats failed: {e}"
+            continue
+        checked += 1
+        if counters.get("migrations", 0):
+            moved[n["port"]] = counters
     for n in nodes:
         if n["proc"].poll() is None:
             n["proc"].terminate()
@@ -1562,6 +1618,11 @@ def stop_nodes(nodes: List[Dict[str, Any]], show_logs: bool = False) -> None:
             with open(n["log"].name, errors="replace") as f:
                 tail = f.read()[-4000:]
             print(f"--- node {n['stage']} log tail ---\n{tail}", file=sys.stderr)
+    if moved:
+        raise AssertionError(f"nodes that migrated outside serve_elastic, or did not answer: "
+                             f"{moved}")
+    if checked:
+        say("nodes", f"{checked} node processes stopped, each with migrations 0")
 
 
 def make_local_client(executors, sampling, adapter=None, prefill_chunk: int = 512):
@@ -2966,6 +3027,22 @@ OVERLOAD_RESCUE_AFTER = 8  # tokens before the client fails over to E1
 OVERLOAD_POST_COMPUTE_DEADLINE_S = 0.15  # ahead of E2's 400 ms chaos delay
 OVERLOAD_STALL_DEADLINE_S = 0.3  # toward the stalled counter replica
 OVERLOAD_HEDGE_MS = 50
+# serve_elastic's nodes: A0 and A1 on stage 0, B and C on stage 1, one-session
+# and graphed, their balancers every 2 s (jittered). A capacity of 16 keeps a
+# stage's load/cap at most 4/16 under the phase's four sessions at once, under
+# the balancer's 0.5 imbalance threshold, so only the phase's /reassign and the
+# adoption of the emptied stage 0 move a node
+ELASTIC_REBALANCE_S = 2
+ELASTIC_ARGS = ["--rebalance-period", str(ELASTIC_REBALANCE_S), "--capacity", "16"]
+ELASTIC_DRAIN_AFTER = 3  # tokens of C's resident session before the drain
+# the reassigned node's allocated bytes less its KV buffers, against a node
+# started on stage 1 (B) in the same state: within this margin, so the old
+# stage's weights, KV buffers and graphs are not still held (its weights
+# alone are ~0.7 GiB)
+ELASTIC_MEMORY_MARGIN = 64 * 2**20
+# the balancer's period of the swarms whose layout it could move (a stage
+# with two replicas): longer than their phase (chip_smoke's docstring)
+STILL_REBALANCE_S = 3600
 # swarms started from a manifest and a tools/seed process (swarm_nodes)
 MANIFEST_SWARMS = ("swarm_lanes",)
 # (common args, [(stage, args)]) of each swarm, the first node its gossip seed
@@ -2982,7 +3059,13 @@ SWARM_LAYOUTS = {
         (0, ["--hedge-mode", "any", "--hedge-delay-ms", str(OVERLOAD_HEDGE_MS),
              "--hop-timeout", "5"]),
         (1, []), (1, ["--chaos", "stall_p=1", "--capacity", "100"]), (2, [])]),
+    # serve_elastic: A0, A1, B, C
+    "elastic": ("model", [(0, ELASTIC_ARGS), (0, ELASTIC_ARGS), (1, ELASTIC_ARGS),
+                          (1, ELASTIC_ARGS)]),
 }
+# swarms with a stage of two replicas or more, which a balancer's tick under
+# a transient load skew could reshape mid-phase
+STILL_SWARMS = ("swarm", "overload", "overload_counter")
 
 
 def write_manifest(work: str, tag: str, layout) -> str:
@@ -3017,6 +3100,8 @@ def swarm_nodes(parts: Optional[str], work: str, tag: str) -> List[Dict[str, Any
     kind, layout = SWARM_LAYOUTS[tag]
     common = (["--backend", "counter", "--num-stages", "3"] if kind == "counter"
               else ["--parts", parts, "--max-len", str(MAX_LEN)])
+    if tag in STILL_SWARMS:
+        common += ["--rebalance-period", str(STILL_REBALANCE_S)]
     seed, manifest = None, None
     if tag in MANIFEST_SWARMS:
         seed = launch_seed(os.path.join(work, f"{tag}_seed.log"))
@@ -3031,6 +3116,7 @@ def swarm_nodes(parts: Optional[str], work: str, tag: str) -> List[Dict[str, Any
         identity = None if manifest is None else ["--manifest", manifest, "--name", f"{tag}{i}"]
         nodes.append(launch_node(stage, os.path.join(work, f"{tag}{i}.log"),
                                  common + extra + gossip, identity=identity))
+        nodes[-1]["elastic"] = tag == "elastic"  # its nodes migrate by design
     return nodes + ([seed] if seed is not None else [])
 
 
@@ -4064,6 +4150,312 @@ def run_serve_overload(card: str, parts: str, work: str, serve) -> Dict[str, Any
         raise
     finally:
         stop_nodes(model + counter)
+
+
+# -- serve_elastic: drain, live stage migration, empty-stage adoption ------------
+
+
+def drive(client, prompts, concurrent: bool = False, new: int = NEW_TOKENS,
+          marks: Optional[List[float]] = None, **kw) -> List[List[int]]:
+    """Greedy streams of `prompts` through `client`, in turn or all at once;
+    `marks` collects the wall time (time.time()) of every token."""
+    def on_token(tok):
+        if marks is not None and tok is not None:
+            marks.append(time.time())
+
+    async def go():
+        async with client as c:
+            if concurrent:
+                return await asyncio.gather(*(c.generate_ids(p, max_new_tokens=new, **kw)
+                                              for p in prompts))
+            return [await c.generate_ids(p, max_new_tokens=new, on_token=on_token, **kw)
+                    for p in prompts]
+
+    return asyncio.run(go())
+
+
+def check_streams(phase: str, what: str, prompts, got, want) -> None:
+    for p, a_, b_ in zip(prompts, got, want):
+        if a_ != b_:
+            raise AssertionError(f"{phase}: {what}: the stream of prompt {len(p)} differs from "
+                                 f"the serve phase's chain stream from token "
+                                 f"{first_divergence(a_, b_)}")
+
+
+def kv_held(st: Dict[str, Any]) -> int:
+    """A one-session node's KV buffer bytes: its live sessions' and its idle
+    pool's."""
+    ex = st["executor"]
+    return int(ex["kv_bytes"]) + int(ex["buffers"]["free_bytes"])
+
+
+def run_serve_elastic(card: str, parts: str, work: str, serve) -> Dict[str, Any]:
+    """The `serve_elastic` phase: four one-session graphed nodes, A0 and A1 on
+    stage 0, B and C on stage 1, their balancers every ELASTIC_REBALANCE_S:
+    C drains while it holds a session, A1 is reassigned to stage 1 while it
+    serves, and when A0 dies the min-id of B and A1 adopts the empty stage
+    0; every stream token-exact against the serve phase's chain streams."""
+    import numpy as np
+
+    from inferd_tpu_torch.client.base import http_post
+    from inferd_tpu_torch.client.chain_client import ChainClient
+    from inferd_tpu_torch.client.swarm_client import SwarmClient
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.runtime import wire
+
+    phase = "serve_elastic"
+    cfg = get_config(MODEL)
+    layers = cfg.num_layers // 2
+    greedy = SamplingConfig(temperature=0.0)
+    prompts = serve_prompts(cfg.vocab_size)
+    per = [-(-len(p) // 512) + NEW_TOKENS - 1 for p in prompts]  # a session's passes per stage
+    nodes: List[Dict[str, Any]] = []
+    final: Dict[str, Dict[str, Any]] = {}  # each node's last /stats
+
+    def url(n):
+        return ("127.0.0.1", n["port"])
+
+    def nid(n):
+        return f"127.0.0.1:{n['port']}"
+
+    def stats(n):
+        return http_get_json(f"http://127.0.0.1:{n['port']}/stats")
+
+    def passes(n):
+        return stats(n)["forward_passes"]
+
+    def swarm_client(n, **kw):
+        return SwarmClient([url(n)], sampling=greedy, prefill_chunk=512, **kw)
+
+    def chain_client(*ns):
+        return ChainClient([url(n) for n in ns], sampling=greedy, prefill_chunk=512)
+
+    def view(n, stage):
+        return stats(n)["dht"].get(str(stage), {})
+
+    def wait_for(what: str, cond, timeout_s: float) -> float:
+        t0 = time.perf_counter()
+        while not cond():
+            if time.perf_counter() - t0 > timeout_s:
+                raise AssertionError(f"{phase}: {what} not within {timeout_s} s")
+            time.sleep(0.1)
+        return time.perf_counter() - t0
+
+    def launches_exact(name: str, st: Dict[str, Any]) -> None:
+        """flash_gqa launched 14 times for every forward pass and for each
+        migration's two warm-up passes (a first chunk and a decode step)."""
+        mig = int(st["metrics"]["counters"].get("migrations", 0))
+        want = layers * (st["forward_passes"] + 2 * mig)
+        got = st["kernels"]["flash_gqa"]["launches"]
+        say(phase, f"{name}: stage {st['stage']}, {st['forward_passes']} passes, {mig} "
+                   f"migrations: flash_gqa launches {got} (want {want}), routes "
+                   f"{flash_routes(st)}")
+        if got != want:
+            raise AssertionError(f"{phase}: {name}: flash_gqa launches {got}, want {want}")
+
+    try:
+        nodes = take_swarm(parts, work, "elastic")
+        a0, a1, b, c = nodes
+        names = {nid(a0): "A0", nid(a1): "A1", nid(b): "B", nid(c): "C"}
+        t0 = time.perf_counter()
+        for n in nodes:
+            wait_ready(n)
+        converged = wait_gossip(phase, nodes)
+        say(phase, f"4 run_node --device {DEVICE} {' '.join(ELASTIC_ARGS)} processes (A0, A1 on "
+                   f"stage 0; B, C on stage 1) ready in {time.perf_counter() - t0:.1f}s; every "
+                   f"gossip view full after {converged:.2f} s; ids {names}")
+        for n in nodes:  # fresh processes: every count starts at 0
+            st = stats(n)
+            if any(k["launches"] for k in st["kernels"].values()) or st["forward_passes"]:
+                raise AssertionError(f"{phase}: a node did work before the phase: {st}")
+
+        # 1. warm: the serve prompts through A0 in turn, then four at once
+        before = {n["port"]: passes(n) for n in (b, c)}
+        seq = drive(swarm_client(a0), prompts)
+        conc = drive(swarm_client(a0), prompts, concurrent=True)
+        check_streams(phase, "warm, in turn", prompts, seq, serve["streams"])
+        check_streams(phase, "warm, at once", prompts, conc, serve["streams"])
+        served = {names[nid(n)]: passes(n) - before[n["port"]] for n in (b, c)}
+        say(phase, f"warm: the serve prompts through A0 in turn and then at once, token-exact; "
+                   f"stage-1 passes {served} (sessions of {per} passes)")
+        if not all(served.values()) or sum(served.values()) != 2 * sum(per):
+            raise AssertionError(f"{phase}: warm: stage-1 passes {served}")
+
+        # 2. drain C while it holds a session
+        drained: Dict[str, Any] = {}
+        c_before = passes(c)
+        toks: List[int] = []
+
+        def drain_at(tok):
+            toks.append(tok)
+            if len(toks) == ELASTIC_DRAIN_AFTER:
+                t = time.perf_counter()
+                drained["reply"] = post_wire(c["port"], "/drain", {"wait_s": 2.0})
+                drained["ms"] = (time.perf_counter() - t) * 1e3
+
+        async def resident():
+            async with chain_client(a0, c) as cl:
+                return await cl.generate_ids(prompts[1], max_new_tokens=NEW_TOKENS,
+                                             on_token=drain_at)
+
+        got = asyncio.run(resident())
+        check_streams(phase, "C's resident session across the drain", prompts[1:2], [got],
+                      serve["streams"][1:2])
+        status, drain_reply = drained["reply"]
+        c_served = passes(c) - c_before
+        say(phase, f"drain: POST /drain {{'wait_s': 2}} to C after {ELASTIC_DRAIN_AFTER} tokens "
+                   f"of a chain session through A0 and C: HTTP {status} {drain_reply} in "
+                   f"{drained['ms']:.1f} ms; C served the session's remaining tokens, token-exact "
+                   f"({c_served} passes, want {per[1]})")
+        if (status != 200 or not drain_reply.get("ok") or drain_reply.get("draining") is not True
+                or drain_reply.get("resident", 0) < 1 or drain_reply.get("handed_off") != 0
+                or c_served != per[1] or None in toks):
+            raise AssertionError(f"{phase}: drain reply {status} {drain_reply}, C served "
+                                 f"{c_served}")
+        env = {"session_id": "elastic-new", "stage": 1, "relay": False,
+               "payload": {"hidden": np.zeros((1, 1, cfg.hidden_size), np.float32),
+                           "start_pos": 0, "real_len": 1}}
+        status, raw, headers = http_post(f"http://127.0.0.1:{c['port']}/forward",
+                                         wire.pack(env), 30.0)
+        body = wire.unpack(raw)
+        retry = headers.get("Retry-After")
+        say(phase, f"a new session's chain envelope to C: HTTP {status} {body}, Retry-After "
+                   f"{retry}")
+        if status != 503 or body.get("code") != "draining" or retry is None:
+            raise AssertionError(f"{phase}: a new session at the draining C: {status} {body}")
+        wait_for("C's draining: 1 in A0's view",
+                 lambda: view(a0, 1).get(nid(c), {}).get("draining") == 1, 5.0)
+        b_before, c_before = passes(b), passes(c)
+        after = drive(swarm_client(a0), prompts)
+        check_streams(phase, "four new sessions during the drain", prompts, after,
+                      serve["streams"])
+        b_served, c_served = passes(b) - b_before, passes(c) - c_before
+        say(phase, f"four new sessions through A0 in turn during the drain: token-exact, B "
+                   f"{b_served} passes (want {sum(per)}), C {c_served} (want 0); C's record "
+                   f"in A0's view: draining 1")
+        if b_served != sum(per) or c_served:
+            raise AssertionError(f"{phase}: during the drain B served {b_served}, C {c_served}")
+        final["C"] = stats(c)
+        stop_nodes([c])
+        gone = wait_for("C's tombstone in A0's view", lambda: nid(c) not in view(a0, 1), 10.0)
+        say(phase, f"C stopped: its record left A0's view after {gone:.2f} s (a tombstone)")
+
+        # 3. reassign A1 to stage 1, after a session of its own on stage 0
+        got = drive(chain_client(a1, b), prompts[2:3])
+        check_streams(phase, "a chain session through A1 on stage 0", prompts[2:3], got,
+                      serve["streams"][2:3])
+        st0 = stats(a1)
+        t = time.perf_counter()
+        status, reply = post_wire(a1["port"], "/reassign", {"stage": 1})
+        wall_ms = (time.perf_counter() - t) * 1e3
+        st1, st_b = stats(a1), stats(b)
+        mig = st1["last_migration"] or {}
+        hist = st1["metrics"]["histograms"].get("reshard.ms_to_serving", {})
+        gib = 2.0**30
+        mem = {k: {m: round(v / gib, 3) for m, v in d.items()}
+               for k, d in mig.get("memory", {}).items()}
+        say(phase, f"reassign: POST /reassign {{'stage': 1}} to A1: HTTP {status} {reply} in "
+                   f"{wall_ms:.1f} ms; A1's /stats: stage {st1['stage']}, migrations "
+                   f"{st1['metrics']['counters'].get('migrations')}, reshard.ms_to_serving "
+                   f"{hist}; load {mig.get('load_ms', 0):.1f} ms, warm-up "
+                   f"{mig.get('warmup_ms', 0):.1f} ms, serving after "
+                   f"{mig.get('ms_to_serving', 0):.1f} ms, release "
+                   f"{mig.get('release_ms', 0):.1f} ms (released: {mig.get('released')}); "
+                   f"memory GiB {mem} ({card})")
+        if (status != 200 or reply != {"ok": True, "stage": 1} or st1["stage"] != 1
+                or st1["metrics"]["counters"].get("migrations") != 1 or hist.get("count") != 1
+                or not mig.get("released")):
+            raise AssertionError(f"{phase}: reassign {status} {reply}; A1 {st1['stage']} "
+                                 f"{st1['metrics']}, {mig}")
+        old_bytes = st0["quantized_bytes"]
+        freed = mig["memory"]["after_warmup"]["allocated"] - mig["memory"]["after_release"][
+            "allocated"]
+        non_kv = {"A1": st1["memory"]["allocated"] - kv_held(st1),
+                  "B": st_b["memory"]["allocated"] - kv_held(st_b)}
+        diff = non_kv["A1"] - non_kv["B"]
+        say(phase, f"A1's release freed {freed / gib:.3f} GiB (its stage-0 weights "
+                   f"{old_bytes / gib:.3f} GiB); allocated less KV buffers: A1 "
+                   f"{non_kv['A1'] / gib:.3f} GiB, B (started on stage 1) "
+                   f"{non_kv['B'] / gib:.3f} GiB: A1 - B = {diff / 2**20:.1f} MiB (margin "
+                   f"{ELASTIC_MEMORY_MARGIN / 2**20:.0f} MiB) ({card})")
+        if freed < 0.9 * old_bytes or abs(diff) > ELASTIC_MEMORY_MARGIN:
+            raise AssertionError(f"{phase}: A1 still holds its old stage: freed {freed}, "
+                                 f"non-KV {non_kv}")
+        seen = wait_for("stage 1 = {B, A1} in A0's view",
+                        lambda: set(view(a0, 1)) == {nid(b), nid(a1)}, SWARM_TTL_S)
+        a1_before, b_before = passes(a1), passes(b)
+        conc = drive(swarm_client(a0), prompts, concurrent=True)
+        check_streams(phase, "four sessions at once after the reassign", prompts, conc,
+                      serve["streams"])
+        st_a1 = stats(a1)
+        a1_served, b_served = st_a1["forward_passes"] - a1_before, passes(b) - b_before
+        a1_sessions = whole_sessions(a1_served, per)
+        say(phase, f"A0's view showed stage 1 = {{B, A1}} {seen:.2f} s after the reassign; four "
+                   f"sessions at once through A0: token-exact, stage-1 passes A1 {a1_served}, B "
+                   f"{b_served} ({a1_sessions} whole sessions on A1)")
+        if not a1_served or not b_served or a1_sessions is None:
+            raise AssertionError(f"{phase}: after the reassign A1 served {a1_served}, B "
+                                 f"{b_served}")
+        # A1's stage-1 graphs: its warm-up's decode step and every decode step since
+        check_node_graphs(phase, st_a1, a1_sessions * (NEW_TOKENS - 1) + 1)
+
+        # 4. A0 dies; the min-id of B and A1 adopts the empty stage 0
+        final["A0"] = stats(a0)
+        a0["proc"].kill()
+        a0["proc"].wait(timeout=30)
+        t_kill = time.time()
+        left = wait_for("A0's record leaving B's and A1's views",
+                        lambda: all(nid(a0) not in view(n, 0) for n in (b, a1)),
+                        SWARM_TTL_S + 10)
+        entry = min((b, a1), key=nid)
+        marks: List[float] = []
+        got = drive(swarm_client(entry), prompts, marks=marks, session_retries=4,
+                    retry_delay_s=0.5)
+        check_streams(phase, "after the adoption", prompts, got, serve["streams"])
+        st = {name: stats(n) for name, n in (("B", b), ("A1", a1))}
+        stages = {name: s["stage"] for name, s in st.items()}
+        adopters = [name for name, s in st.items() if s["stage"] == 0]
+        adopt = {name: {k: v for k, v in s["metrics"]["counters"].items()
+                        if k.startswith("stage.adopt.") or k.startswith("migrations")}
+                 for name, s in st.items()}
+        at = (st[adopters[0]]["last_migration"] or {}) if len(adopters) == 1 else {}
+        say(phase, f"A0 killed: its record left both views {left:.1f} s later; the serve "
+                   f"prompts through {names[nid(entry)]} (the smaller id), token-exact; stages "
+                   f"{stages}; counters {adopt}; the adoption served "
+                   f"{at.get('at', t_kill) - t_kill:.1f} s after the kill (load "
+                   f"{at.get('load_ms', 0):.1f} ms, warm-up {at.get('warmup_ms', 0):.1f} ms), "
+                   f"the first token {marks[0] - t_kill:.1f} s after it ({card})")
+        want_migrations = {"B": 0, "A1": 1}
+        want_migrations[names[nid(entry)]] += 1
+        got_migrations = {name: int(s["metrics"]["counters"].get("migrations", 0))
+                          for name, s in st.items()}
+        if (adopters != [names[nid(entry)]] or sorted(stages.values()) != [0, 1]
+                or got_migrations != want_migrations):
+            raise AssertionError(f"{phase}: adoption: stages {stages}, migrations "
+                                 f"{got_migrations} (want {want_migrations}), entry "
+                                 f"{names[nid(entry)]}")
+        final.update(st)
+        for name in ("A0", "A1", "B", "C"):
+            launches_exact(name, final[name])
+        stop_nodes(nodes)
+        nodes = []
+        launches = dict.fromkeys(final["B"]["kernels"], 0)
+        routes = {"split": 0, "mma": 0}
+        for fst in final.values():
+            for name, k in fst["kernels"].items():
+                launches[name] += k["launches"]
+            for r, v in flash_routes(fst).items():
+                routes[r] += v
+        return {"launches": launches, "flash_routes": routes,
+                "gemv_routes": {name: {"mma": 0, "simt": 0} for name in QMM_KERNEL_OF.values()},
+                "migration": mig, "adoption_s": at.get("at", t_kill) - t_kill,
+                "first_token_s": marks[0] - t_kill, "drain": drain_reply}
+    except BaseException:
+        stop_nodes(nodes, show_logs=True)
+        nodes = []
+        raise
+    finally:
+        stop_nodes(nodes)
 
 
 # -- generate, generate_quant, serve_kstep, cli: the whole model in one process --
@@ -5562,11 +5954,12 @@ CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_q
                "lora": run_lora_cases, "codec": run_codec}
 # --only phases that need the model's split (serve_quant runs int8 and int4;
 # serve_lanes_lora runs serve_lanes first, its baseline; serve_swarm runs
-# serve and serve_lanes first, the streams it is held to; serve_overload runs
-# serve first; serve_batch runs generate_batched first, its streams)
+# serve and serve_lanes first, the streams it is held to; serve_overload and
+# serve_elastic run serve first; serve_batch runs generate_batched first, its
+# streams)
 SPLIT_PHASES = ("serve", "serve_quant", "serve_lanes", "serve_lanes_quant", "serve_lanes_lora",
-                "serve_swarm", "serve_overload", "generate", "generate_batched", "serve_batch",
-                "serve_kstep", "serve_fp8", "anatomy", "profile")
+                "serve_swarm", "serve_overload", "serve_elastic", "generate", "generate_batched",
+                "serve_batch", "serve_kstep", "serve_fp8", "anatomy", "profile")
 
 
 def main(argv: List[str]) -> int:
@@ -5630,7 +6023,7 @@ def main(argv: List[str]) -> int:
             try:
                 parts = split_parts(work)
                 serve = None
-                if {"serve", "serve_swarm", "serve_overload"} & set(split_only):
+                if {"serve", "serve_swarm", "serve_overload", "serve_elastic"} & set(split_only):
                     serve = run_serve(card, parts, work)
                 if "serve_quant" in split_only:
                     for q in ("int8", "int4"):
@@ -5644,6 +6037,10 @@ def main(argv: List[str]) -> int:
                     t_overload = time.perf_counter()
                     run_serve_overload(card, parts, work, serve)
                     say("time", f"serve_overload: {time.perf_counter() - t_overload:.1f}s")
+                if "serve_elastic" in split_only:
+                    t_elastic = time.perf_counter()
+                    run_serve_elastic(card, parts, work, serve)
+                    say("time", f"serve_elastic: {time.perf_counter() - t_elastic:.1f}s")
                 if "serve_lanes_quant" in split_only:
                     run_serve_lanes(card, parts, work, quant_flag="int8", baseline=lanes)
                 if "serve_lanes_lora" in split_only:
@@ -5690,14 +6087,20 @@ def main(argv: List[str]) -> int:
         whole = whole_model(parts)
         parts1 = one_stage_parts(work, whole)
         dirs = write_tenants(work)
+        free, total = torch.cuda.mem_get_info()
+        say("nodes", f"the card before the node processes start: {free / 2**30:.2f} GiB free of "
+                     f"{total / 2**30:.2f} GiB ({card})")
         prestart_nodes(parts, work, [
             ([], ""), (["--quant", "int8"], ""), (["--quant", "int4"], ""), (LANE_NODE_ARGS, ""),
             (LANE_NODE_ARGS + ["--quant", "int8"], ""), (profile_node_args(work), "_profile")],
             swarms=[(parts, "swarm"), (parts, "swarm_lanes"), (None, "swarm_counter"),
-                    (parts, "overload"), (None, "overload_counter")],
+                    (parts, "overload"), (None, "overload_counter"), (parts, "elastic")],
             singles=[(parts1, BATCH_NODE_ARGS, "_batch"), (parts1, BATCH_PAGED_ARGS, "_batchp"),
                      (parts1, WHOLE_LANE_ARGS, "_wlanes"),
                      (parts1, tenant_batch_args(dirs), "_batcht"), (parts1, FP8_NODE_ARGS, "_fp8")])
+        free, _ = torch.cuda.mem_get_info()
+        say("nodes", f"the card with every node process started: {free / 2**30:.2f} GiB free "
+                     f"({card})")
         lap("split, node start")
         serve = run_serve(card, parts, work)
         lap("serve")
@@ -5710,6 +6113,8 @@ def main(argv: List[str]) -> int:
         lap("serve_swarm")
         overload = run_serve_overload(card, parts, work, serve)
         lap("serve_overload")
+        elastic = run_serve_elastic(card, parts, work, serve)
+        lap("serve_elastic")
         lanes_q = run_serve_lanes(card, parts, work, quant_flag="int8", baseline=lanes)
         lap("serve_lanes_quant")
         lanes_lora = run_serve_lanes_lora(card, parts, work, baseline=lanes)
@@ -5738,7 +6143,7 @@ def main(argv: List[str]) -> int:
         shutil.rmtree(work, ignore_errors=True)
     paths = {"serve": serve, "serve_quant_int8": serve_q["int8"],
              "serve_quant_int4": serve_q["int4"], "serve_lanes": lanes, "serve_swarm": swarm,
-             "serve_overload": overload,
+             "serve_overload": overload, "serve_elastic": elastic,
              "serve_lanes_quant": lanes_q, "serve_lanes_lora": lanes_lora,
              "generate": gen, "generate_quant": gen_q, "generate_batched": gen_b,
              "serve_batch": serve_b, "serve_kstep": kstep, "serve_fp8": fp8,

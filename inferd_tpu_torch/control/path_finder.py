@@ -4,10 +4,11 @@ dead-peer cooldown, and the whole-chain route of a new session from the
 long-lived D*-Lite planner (control/dstar.py).
 
 Reads are local merges on the gossip store (control/dht.py): a pick or a
-plan costs no network round trip. The empty-stage adoption hook that the
-balancer supplies waits for the port's rebalancing slice (ROADMAP A4c,
-part c2); here `on_empty_stage` is whatever the caller passes (the node
-passes none).
+plan costs no network round trip. While a stage has no live replica,
+find_best_node calls `on_empty_stage(stage)` before each retry; the node
+passes its balancer's `adopt_stage` (control/balance.py), which may migrate
+the node itself to that stage. The hook runs on the caller's thread, and
+the caller must hold no lock that the migration takes.
 """
 
 from __future__ import annotations
@@ -186,7 +187,12 @@ class PathFinder:
         a replica under its admission watermark (it would shed the session)
         ranks ADMISSION_PENALTY worse. While the stage has no node, call
         `on_empty_stage(stage)` (if set) and retry after retry_delay_s, up
-        to `retries` times; then raise NoNodeForStage."""
+        to `retries` times; then raise NoNodeForStage. A hook that returns
+        True moved the caller itself to the stage: it is not called again,
+        and the remaining attempts run without the waits (the caller, when
+        it excludes itself, then serves the request; the reference waits
+        them out)."""
+        adopted = False
         for attempt in range(self.retries + 1):
             stage_map = self.dht.get_stage(stage)
             view = {n: _ranked_view(v, held.get(n, 0) if held else 0, new_session)
@@ -197,9 +203,10 @@ class PathFinder:
             except NoNodeForStage:
                 if attempt == self.retries:
                     raise NoNodeForStage(f"no live node for stage {stage}") from None
-                if self.on_empty_stage is not None:
-                    self.on_empty_stage(stage)
-                self._sleep(self.retry_delay_s)
+                if self.on_empty_stage is not None and not adopted:
+                    adopted = self.on_empty_stage(stage) is True
+                if not adopted:
+                    self._sleep(self.retry_delay_s)
         raise NoNodeForStage(f"stage {stage}")  # unreachable
 
     def find_best_chain(

@@ -33,8 +33,22 @@ Endpoints, wire-compatible with the JAX node for these topologies:
                      count in this process, the executor's stats, the
                      card's allocated and reserved bytes (`memory`), the
                      gossip view `dht` {stage: {"host:port": record}}, the
-                     announced `svc_ms`, and `routes`: the planner's stats
-                     and the newest planned routes
+                     announced `svc_ms`, `routes`: the planner's stats
+                     and the newest planned routes, and the elasticity
+                     plane's `draining`, `rebalance_period_s` and
+                     `last_migration` (its stages, times and memory)
+  POST /reassign     {"stage": N}: migrate this node to stage N (below) ->
+                     {"ok": true, "stage": N}; 400 for a bad body or a stage
+                     out of range, 500 "reassign failed: ..." when the
+                     migration raises (no stage loader, a load, build or
+                     warm-up that fails: the node keeps its old stage)
+  POST /drain        [{"wait_s": S}]: stop admitting new sessions (503
+                     "draining" with `retry_after`), gossip `draining: 1`,
+                     wait up to S seconds (default 5) while /forward requests
+                     are in flight -> {"ok", "draining", "resident",
+                     "handed_off": 0}; idempotent, and a garbage body still
+                     drains. Resident sessions are served here until they
+                     end: nothing is handed off (ROADMAP A4d)
   POST /profile      {"action": "start" [, "name"]} | {"action": "stop"} |
                      {"action": "window", "seconds" S [, "capture_id"]}:
                      an on-demand torch.profiler trace of this process
@@ -123,7 +137,43 @@ The overload plane (the reference's `_forward_inner` and relay):
   * chaos (utils/chaos.py, run_node --chaos): faults injected before each
     forward's compute; `crash()` stops serving and closes every socket
     without a tombstone, like a killed process.
-Not ported yet: /drain (ROADMAP A4c, part c2) and standby holders (A4d).
+  * drain: after POST /drain a new session (start_pos 0) is shed with 503
+    "draining" and `retry_after`, ahead of the pool check; mid-session
+    chunks are served. `admission.shed` counts every shed and
+    `admission.shed.<code>` each code's.
+Not ported yet: standby holders and session handoff (ROADMAP A4d).
+
+Elasticity (the reference's balancer and live stage migration). A node
+built with a stage loader (`load_stage(stage) -> executor`; run_node builds
+it from --parts and the node's own flags) can change its stage while it
+serves: `change_stage` loads the target's executor and warms it up off the
+serving path (a throwaway session's first chunk and one decode step, so
+the first decode graph is captured and the kernels built before any
+request sees it), swaps it in with its spec and, on a --stage-lanes node, a
+new arrival window, drops the chain planner, announces at once, counts
+`migrations` and observes `reshard.ms_to_serving`, and releases the old
+executor once no call holds it: every reference dropped, its cycles
+collected and the caching allocator's blocks given back to the card, under
+the capture lock (utils/cuda_graph). A failed load, build or warm-up fails
+the migration: the node keeps serving its old stage (the reference swallows
+a failed warm-up; the port's rule is the kernel or an error). Requests that
+took the old executor finish on it (a use count per executor, taken around
+each compute; the old window flushes its pending entries to the old
+executor); a chunk for the old stage that arrives after the swap is relayed
+to a replica of it. The migration takes the balancer's `_migrating` (its
+caller's) and its own `_migration_lock`, both without blocking (a second
+migration meanwhile fails), and `_exec_cond` briefly; never `_pick_lock` or
+`_affinity_lock`, so the PathFinder's empty-stage hook may run a whole
+migration from a relay's fresh pick, which holds the pick lock.
+The balancer (control/balance.Balancer) runs on a thread every
+rebalance_period_s (jittered) and migrates this node toward a starved or
+hot stage; its `adopt_stage` is the PathFinder's empty-stage hook. A node
+of stage S that relays a stage-T envelope, finds stage T empty and is moved
+to T by that hook during the relay's retries serves the envelope itself.
+Each decision counts `stage.adopt.<reason>` (empty_stage, rebalance,
+path_finder_empty_stage) until the event journal is ported (ROADMAP A9).
+A migration strands the old stage's resident sessions: their next chunk
+answers 409 at the old stage's other replica and the client restarts them.
 
 The coalesced relay (the reference's `_relay_window` and
 `_handle_multi_forward`). On a `--stage-lanes` node the window's flush
@@ -195,13 +245,16 @@ import socket
 import threading
 import time
 import uuid
+import weakref
 from collections import Counter, OrderedDict, deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from inferd_tpu_torch.client.base import http_post
+from inferd_tpu_torch.control.balance import Balancer
 from inferd_tpu_torch.control.dht import SwarmDHT, sess_hash
 from inferd_tpu_torch.control.path_finder import NoNodeForStage, PathFinder, node_addr
 from inferd_tpu_torch.ops import attention as attention_ops
@@ -213,6 +266,7 @@ from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor, CapacityE
 from inferd_tpu_torch.runtime.window import WindowedBatcher
 from inferd_tpu_torch.utils import retry as retrylib
 from inferd_tpu_torch.utils.chaos import Chaos, ChaosDrop
+from inferd_tpu_torch.utils.cuda_graph import release_device_memory
 from inferd_tpu_torch.utils.metrics import Metrics, TrailingWindow
 from inferd_tpu_torch.utils.platform import device_name
 from inferd_tpu_torch.utils.profiling import Profiler, span
@@ -222,6 +276,8 @@ log = logging.getLogger(__name__)
 FORWARD_PATH = "/forward"
 END_SESSION_PATH = "/end_session"
 PROFILE_PATH = "/profile"
+REASSIGN_PATH = "/reassign"
+DRAIN_PATH = "/drain"
 
 Reply = Tuple  # (status, content type, body[, headers])
 _WIRE = "application/octet-stream"
@@ -238,6 +294,14 @@ RESCUE_PAUSE_S = 0.15  # between rescue bounces
 HEDGE_MODES = ("advertised", "any", "off")
 HEDGE_FALLBACK_S = 0.25  # the hedge delay while no hop time is in the window
 TRAILING_WINDOW_S = 60.0  # the hedge delay's window of hop times
+DRAIN_WAIT_S = 5.0  # /drain's default wait for the /forward requests in flight
+WARMUP_SESSION = "__warmup__"
+# reshard.ms_to_serving's buckets: wider than the hop histograms', so a slow
+# migration's quantiles do not saturate at the default 10 s cap
+RESHARD_BOUNDS_MS = [100, 250, 500, 1000, 2500, 5000, 10_000, 30_000, 60_000, 120_000,
+                     300_000, 600_000]
+RETIRE_WAIT_S = 300.0  # how long a migration waits for the old executor's calls to end
+RETIRE_REF_WAIT_S = 10.0  # and then for the last reference to it to go (longer off-thread)
 
 
 def _start_pos(payload) -> int:
@@ -288,6 +352,33 @@ def _run_all(jobs: Sequence[Callable[[], None]]) -> None:
         jobs[0]()
     for t in threads:
         t.join()
+
+
+def warm_up(executor) -> None:
+    """A freshly loaded executor's first steps, off the serving path: a
+    throwaway session's first chunk (two tokens; past the first stage two
+    rows of zero hidden state) and one decode step, then the session ends.
+    So the new stage's first decode graph is captured and its kernels built
+    before any request sees it. The counter model takes one counter step.
+    Raises whatever the executor raises: a migration whose warm-up fails
+    does not happen."""
+    spec, cfg = executor.spec, getattr(executor, "cfg", None)
+
+    def chunk(n: int, start: int) -> Dict[str, Any]:
+        if cfg is None:
+            return {"state": spec.stage, "start_pos": start, "real_len": n}
+        if spec.is_first:
+            return {"tokens": np.ones((1, n), np.int32), "start_pos": start, "real_len": n}
+        return {"hidden": torch.zeros((1, n, cfg.hidden_size)), "start_pos": start,
+                "real_len": n}
+
+    try:
+        executor.process(WARMUP_SESSION, chunk(2, 0))
+        if cfg is not None:
+            executor.process(WARMUP_SESSION, chunk(1, 2))
+    finally:
+        with contextlib.suppress(Exception):  # a failed step's error is the one raised
+            executor.end_session(WARMUP_SESSION)
 
 
 class _HopPost:
@@ -376,6 +467,8 @@ class Node:
         rescue_bounces: int = 6,  # one-bounce rescue relays before a 409
         chaos: Optional[Chaos] = None,  # faults injected before each forward
         name: Optional[str] = None,  # the record's name (run_node --name), else host:port
+        load_stage: Optional[Callable[[int], Any]] = None,  # stage -> its executor (migrations)
+        rebalance_period_s: float = 10.0,  # the balancer's period
     ):
         if hedge_mode not in HEDGE_MODES:
             raise ValueError(f"hedge_mode {hedge_mode!r} not in {HEDGE_MODES}")
@@ -384,13 +477,21 @@ class Node:
         self.quant = quant
         self.param_bytes = quantized_bytes(executor.params)
         self.device = device_name(executor.device)
-        self.window: Optional[WindowedBatcher] = None
         self.window_ms = window_ms
         self.hop_timeout_s = hop_timeout_s
-        if isinstance(executor, BatchedStageExecutor):
-            self._attach_window(executor, window_ms)
-        # the executors that take no lock of the node's (the lane executors)
-        self._serial = not getattr(executor, "threadsafe", False)
+        self.window: Optional[WindowedBatcher] = (
+            self._attach_window(executor) if isinstance(executor, BatchedStageExecutor) else None)
+        # the elasticity plane: the executor, its spec and window are swapped
+        # together under _exec_cond, which also guards the calls each executor
+        # has in flight (_uses; _tls.uses: this thread's)
+        self.load_stage = load_stage
+        self.rebalance_period_s = rebalance_period_s
+        self._exec_cond = threading.Condition(threading.Lock())
+        self._uses: Dict[Any, int] = {}
+        self._tls = threading.local()
+        self._migration_lock = threading.Lock()
+        self.last_migration: Optional[Dict[str, Any]] = None
+        self._draining = False
         self._compute_lock = threading.Lock()  # around the per-session executor only
         self._stats_lock = threading.Lock()
         self.forward_passes = 0
@@ -408,7 +509,12 @@ class Node:
         self.capacity = capacity
         self.model_name = model_name
         self.dht = SwarmDHT(self.node_id, gossip_port, bootstrap=list(bootstrap), host=host)
-        self.path_finder = PathFinder(self.dht, self.spec.num_stages)
+        self.balancer = Balancer(self.dht, self.spec.num_stages,
+                                 get_own_stage=lambda: self.spec.stage,
+                                 change_stage=self.change_stage, period_s=rebalance_period_s,
+                                 on_event=self._balancer_event)
+        self.path_finder = PathFinder(self.dht, self.spec.num_stages,
+                                      on_empty_stage=self._adopt_empty_stage)
         # (session_id, stage) -> (the replica that holds the session's KV
         # there, when this node last routed the session to it)
         self._session_next: "OrderedDict[Tuple[str, int], Tuple[str, float]]" = OrderedDict()
@@ -436,12 +542,14 @@ class Node:
             # crash off the handler thread that tripped it (crash() cuts it too)
             chaos.on_crash = lambda: threading.Thread(target=self.crash, daemon=True).start()
 
-    def _attach_window(self, executor: BatchedStageExecutor, window_ms: float) -> None:
-        """Give the lane executor its arrival window: co-arriving decode
-        steps of different sessions become ONE process_batch step."""
-        self.window = WindowedBatcher(
-            window_ms / 1e3,
-            self._run_stage_window,
+    def _attach_window(self, executor: BatchedStageExecutor) -> WindowedBatcher:
+        """The lane executor's arrival window, bound to it: co-arriving
+        decode steps of different sessions become ONE process_batch step of
+        this executor (a migration gives the new executor a window of its
+        own, and the old one flushes what it holds to the old executor)."""
+        window = WindowedBatcher(
+            self.window_ms / 1e3,
+            lambda: self._run_stage_window(executor, window),
             # lock-free live-session count: a solo session must not pay the
             # window (and co_possible runs under the batcher's lock: taking
             # the executor's lock there would invert on_drop -> invalidate)
@@ -452,12 +560,13 @@ class Node:
             # the flush relays its entries: two hop attempts may pass first
             wait_timeout_s=2 * self.hop_timeout_s + 30,
         )
-        executor.on_drop = lambda sid: self.window.invalidate(
+        executor.on_drop = lambda sid: window.invalidate(
             lambda payload, _sid=sid: payload[0] == _sid,
             ValueError(f"session {sid} ended mid-request"),
         )
+        return window
 
-    def _run_stage_window(self) -> None:
+    def _run_stage_window(self, executor, window: WindowedBatcher) -> None:
         """WindowedBatcher flush callback (a handler thread, no locks held):
         ONE co-batched device step for every co-arrived decode entry, then
         the relay of the entries that go on (`_relay_window`). The batch is
@@ -473,12 +582,12 @@ class Node:
         def drain():  # called once the executor holds the device
             if not t0:
                 t0.append(time.perf_counter())
-            extra = self.window.drain_pending()
+            extra = window.drain_pending()
             drained.extend(extra)
             return [(e.payload[0], e.payload[1]) for e in extra]
 
         try:
-            outs = self.executor.process_batch([], drain=drain)
+            outs = executor.process_batch([], drain=drain)
             if t0:  # each entry of the step counts the step's time
                 self._note_compute((time.perf_counter() - t0[0]) * 1e3,
                                    sum(not isinstance(o, Exception) for o in outs))
@@ -591,13 +700,14 @@ class Node:
 
     def start(self) -> "Node":
         """Start the gossip store (a failed bind raises), announce this node,
-        and serve on a background thread; returns self."""
+        serve on a background thread and start the balancer; returns self."""
         self.dht.start()
         self.announce()
         self._thread = threading.Thread(
             target=self._server.serve_forever, name=f"node-{self.port}", daemon=True
         )
         self._thread.start()
+        self.balancer.start()
         return self
 
     def stop(self) -> None:
@@ -607,6 +717,7 @@ class Node:
         if self._stopped:
             return
         self._stopped = True
+        self.balancer.stop()
         self.dht.withdraw()
         self.dht.stop()
         if self.chaos is not None:
@@ -627,6 +738,7 @@ class Node:
             return
         self._stopped = True
         self.dht.kill()
+        self.balancer.stop()
         self._server.cut_connections()  # before a released stall could answer
         if self.chaos is not None:
             self.chaos.cancel_stalls()
@@ -650,9 +762,10 @@ class Node:
         gossip thread carries it at its next period."""
         with self._stats_lock:
             load = self.inflight
+        ex = self.executor
         record = {
             "name": self.name,
-            "stage": self.spec.stage,
+            "stage": ex.spec.stage,
             "load": load,
             "cap": self.capacity,
             "host": self.host,
@@ -666,30 +779,33 @@ class Node:
             svc = self._svc_ewma
         if svc is not None:
             record["svc_ms"] = round(svc, 3)
-        digest = getattr(self.executor, "prefix_digest", None)
+        digest = getattr(ex, "prefix_digest", None)
         pfx = digest() if callable(digest) else None
         if pfx:
             record["pfx"] = pfx
-        if self._pool_under_reserve() is not None:
+        if self._pool_under_reserve(ex) is not None:
             record["shed"] = 1
-        sess = self._advertised_sessions()
+        if self._draining:  # both routers leave a draining replica out
+            record["draining"] = 1
+        sess = self._advertised_sessions(ex)
         if sess:
             record["sess"] = sess
         self.dht.announce(record, urgent=urgent)
 
-    def _advertised_sessions(self) -> list:
+    def _advertised_sessions(self, ex=None) -> list:
         """Hashes of the newest SESS_ADVERTISED sessions whose KV lives here,
         sorted: a peer that meets a chunk of one of them (a failed-over entry,
         a relay whose affinity died) routes it here instead of answering 409."""
-        ids = getattr(getattr(self.executor, "sessions", None), "ids", None)
+        ids = getattr(getattr(self.executor if ex is None else ex, "sessions", None), "ids", None)
         if not callable(ids):
             return []
         return sorted(sess_hash(s) for s in ids()[-SESS_ADVERTISED:])
 
-    def _pool_under_reserve(self):
-        """(free, total, reserve) while the paged block pool has fewer free
-        blocks than its admission reserve, else None (also without a pool)."""
-        pool = getattr(self.executor, "pool", None)
+    def _pool_under_reserve(self, ex=None):
+        """(free, total, reserve) while the paged block pool of `ex` (the
+        node's executor by default) has fewer free blocks than its admission
+        reserve, else None (also without a pool)."""
+        pool = getattr(self.executor if ex is None else ex, "pool", None)
         if pool is None:
             return None
         total, free = int(pool.num_blocks), int(pool.blocks_free)
@@ -704,6 +820,18 @@ class Node:
             inflight = self.inflight
         base = max(self.window_ms / 1e3, 0.05)
         return round(min(5.0, base * (1.0 + inflight / max(1, self.capacity))), 3)
+
+    def _admission_shed(self, ex) -> Optional[Tuple[str, str]]:
+        """(code, message) when a NEW session must be shed, else None:
+        "draining" after POST /drain, "busy" while the paged pool is under
+        its admission reserve."""
+        if self._draining:
+            return "draining", "node is draining: not admitting new sessions"
+        low = self._pool_under_reserve(ex)
+        if low is not None:
+            return "busy", (f"KV block pool low: {low[0]} free of {low[1]} (admission "
+                            f"reserve {low[2]})")
+        return None
 
     def _holds_session(self, session_id: str) -> bool:
         store = getattr(self.executor, "sessions", None)
@@ -1112,32 +1240,38 @@ class Node:
         rem = retrylib.remaining_s(deadline_ms)
         if rem is not None and rem <= 0:  # before any relay, rescue or compute
             return self._deadline_error("entry")
-        if stage != self.spec.stage:
+        ex = self.executor  # and its spec: a migration swaps both at once
+        if stage != ex.spec.stage:
             if not relay:
                 return self._error(
                     409,
-                    f"wrong stage: this node serves {self.spec.stage}, not {stage}",
+                    f"wrong stage: this node serves {ex.spec.stage}, not {stage}",
                     code="wrong_stage",
                 )
             # a node of another stage: relay to one of that stage, never back here
+            del ex  # the relay's empty-stage hook may migrate this node
             try:
                 return self._relay(env, stage, exclude={self.node_id})
             except NoNodeForStage as e:
-                return self._error(503, str(e))
+                if stage != self.spec.stage:
+                    return self._error(503, str(e))
+                # the empty-stage hook moved this node to `stage` during the
+                # relay's retries: serve the envelope here
+                return self._forward(env, stage)
         payload = env.get("payload") or {}
         start_pos = _start_pos(payload)
         if start_pos == 0:
             # a new session asks for KV it keeps for its whole life: shed it
-            # while the block pool is under its reserve (a mid-session chunk
-            # never is: finishing it frees blocks)
-            low = self._pool_under_reserve()
-            if low is not None:
+            # while the node drains or the block pool is under its reserve
+            # (a mid-session chunk never is: finishing it frees blocks)
+            shed = self._admission_shed(ex)
+            if shed is not None:
+                code, message = shed
                 self.metrics.inc("admission.shed")
-                return self._error(
-                    503, f"KV block pool low: {low[0]} free of {low[1]} (admission "
-                         f"reserve {low[2]})", code="busy", retry_after=self._retry_after_s())
+                self.metrics.inc(f"admission.shed.{code}")
+                return self._error(503, message, code=code, retry_after=self._retry_after_s())
         if (relay and start_pos == 0 and "route" not in env
-                and stage + 1 < self.spec.num_stages):
+                and stage + 1 < ex.spec.num_stages):
             # a new session enters the swarm here: plan its downstream chain,
             # which rides its envelopes (a failed plan leaves the per-hop pick)
             route = self._plan_route(stage + 1, session_id)
@@ -1156,36 +1290,39 @@ class Node:
                 self.metrics.inc("chaos.dropped")
                 return self._error(500, str(e))
         if (isinstance(payload, dict) and payload.get("adapter") is not None
-                and getattr(self.executor, "adapters", None) is None):
+                and getattr(ex, "adapters", None) is None):
             return self._error(
                 409,
                 f"payload names adapter {payload.get('adapter')!r} but this "
                 "replica serves no adapter registry (--adapters)",
                 code="no_adapter_registry",
             )
+        held, window = self._begin_use(ex)
+        if not held:  # migrated since: the envelope goes where its stage is served now
+            del ex
+            return self._forward(env, stage)
         try:
-            if self._serial:
+            if not getattr(ex, "threadsafe", False):
                 with span("node.lock_wait"):
                     self._compute_lock.acquire()
                 try:
                     t0 = time.perf_counter()
                     with span("executor.process"):
-                        result = self.executor.process(session_id, payload)
+                        result = ex.process(session_id, payload)
                     self._note_compute((time.perf_counter() - t0) * 1e3)
                 finally:
                     self._compute_lock.release()
-            elif self.window is not None and _is_decode_step(payload):
+            elif window is not None and _is_decode_step(payload):
                 with span("window.wait"):  # the flush notes the step's time
-                    result = self.window.submit(
+                    result = window.submit(
                         (session_id, payload, dict(env, task_id=task_id, relay=relay)))
             else:
                 t0 = time.perf_counter()
                 with span("executor.process"):
-                    result = self.executor.process(session_id, payload)
+                    result = ex.process(session_id, payload)
                 self._note_compute((time.perf_counter() - t0) * 1e3)
             with self._stats_lock:
                 self.forward_passes += 1
-            self._maybe_sweep()
         except BufferError as e:
             return self._error(409, str(e), code="overflow")
         except (CapacityError, AdapterCapacityError) as e:
@@ -1199,6 +1336,9 @@ class Node:
         except Exception as e:  # compute failure: report it, keep serving
             log.exception("stage compute failed")
             return self._error(500, f"stage compute failed: {e}")
+        finally:
+            self._end_use(ex)
+        self._maybe_sweep()
         if isinstance(result, _Relayed):  # the window's flush relayed it
             return result.reply
         if not relay:  # chain mode: this stage's result goes back to the client
@@ -1230,6 +1370,7 @@ class Node:
             if ad is not None:
                 result["adapter"] = ad
         next_env = self._next_env(dict(env, task_id=task_id), session_id, result)
+        del ex, window  # nothing of this call holds the executor across the hop
         t1 = time.perf_counter()
         try:
             reply = self._relay(next_env, stage + 1)
@@ -1372,7 +1513,14 @@ class Node:
                     return status, _WIRE, raw
                 except (OSError, http.client.HTTPException, ValueError):
                     pass  # the holder is gone: its sweep or death took the KV
-        self.executor.end_session(session_id)
+        ex = self.executor
+        held, _ = self._begin_use(ex)
+        if held:  # else the node migrated: the session died with the old stage's executor
+            try:
+                ex.end_session(session_id)
+            finally:
+                self._end_use(ex)
+        del ex
         self.announce(urgent=False)  # stop advertising the session
         stage = int(env.get("stage", self.spec.stage))
         if relay and stage + 1 < self.spec.num_stages:
@@ -1398,13 +1546,235 @@ class Node:
             if now - self._last_sweep < SWEEP_INTERVAL_S:
                 return
             self._last_sweep = now
-        self.executor.sessions.sweep()
+        ex = self.executor
+        held, _ = self._begin_use(ex)
+        if held:
+            try:
+                ex.sessions.sweep()
+            finally:
+                self._end_use(ex)
+        del ex
         cutoff = now - AFFINITY_MAX_AGE_S
         with self._affinity_lock:  # least recently used first
             while self._session_next and next(iter(self._session_next.values()))[1] < cutoff:
                 self._session_next.popitem(last=False)
             while self._planned and next(iter(self._planned.values()))[1] < cutoff:
                 self._planned.popitem(last=False)
+
+    # -- elasticity: migration, reassign, drain -----------------------------------
+
+    def _thread_uses(self) -> Dict[int, int]:
+        uses = getattr(self._tls, "uses", None)
+        if uses is None:
+            uses = self._tls.uses = {}
+        return uses
+
+    def _begin_use(self, ex) -> Tuple[bool, Optional[WindowedBatcher]]:
+        """Take a use of `ex` for one call while it is still the node's
+        executor: (True, its window), else (False, None): a migration swapped
+        it out meanwhile."""
+        with self._exec_cond:
+            if self.executor is not ex:
+                return False, None
+            self._uses[ex] = self._uses.get(ex, 0) + 1
+            window = self.window
+        mine = self._thread_uses()
+        mine[id(ex)] = mine.get(id(ex), 0) + 1
+        return True, window
+
+    def _end_use(self, ex) -> None:
+        mine = self._thread_uses()
+        mine[id(ex)] -= 1
+        if not mine[id(ex)]:
+            del mine[id(ex)]
+        with self._exec_cond:
+            n = self._uses[ex] - 1
+            if n:
+                self._uses[ex] = n
+            else:
+                del self._uses[ex]
+                self._exec_cond.notify_all()
+
+    def _memory(self) -> Dict[str, int]:
+        """The caching allocator's allocated and reserved bytes in this
+        process (empty off the card)."""
+        dev = self.executor.device
+        if dev.type != "cuda":
+            return {}
+        return {"allocated": torch.cuda.memory_allocated(dev),
+                "reserved": torch.cuda.memory_reserved(dev)}
+
+    def _balancer_event(self, etype: str, **attrs: Any) -> None:
+        """The balancer's decisions, counted by reason (`stage.adopt.<reason>`)
+        until the event journal is ported (ROADMAP A9)."""
+        if etype == "stage.adopt":
+            self.metrics.inc(f"stage.adopt.{attrs.get('reason')}")
+
+    def _adopt_empty_stage(self, stage: int) -> bool:
+        """The PathFinder's empty-stage hook: the balancer's adopt_stage, a
+        failed migration logged (the relay's retries go on). It runs inside
+        a request whose frames may still reference the old executor, so a
+        migration it makes releases that executor on a thread of its own."""
+        self._tls.defer_release = True
+        try:
+            return self.balancer.adopt_stage(stage)
+        except Exception:
+            log.exception("adopting empty stage %d failed", stage)
+            return False
+        finally:
+            self._tls.defer_release = False
+
+    def change_stage(self, target: int) -> None:
+        """Live migration to stage `target`, in the reference's order: load
+        the target's executor (`load_stage`) and warm it up (`warm_up`) off
+        the serving path; swap it in with its spec, its parameter bytes and,
+        on a lane node, a new arrival window; drop the chain
+        planner (planned from the old stage's view); announce at once; count
+        `migrations` and observe `reshard.ms_to_serving`; then release the
+        old executor once no call holds it (`_release`). The compute lock
+        mode goes with the executor (`threadsafe`: the lane executors take
+        no lock of the node's). A load, build or
+        warm-up that raises raises here (`migrations.failed`), and the node
+        goes on serving its old stage, unswapped.
+
+        Locks: `_migration_lock`, taken without blocking (a second migration
+        meanwhile raises), and `_exec_cond` for the swap; never `_pick_lock`
+        or `_affinity_lock`, so the PathFinder's empty-stage hook may run a
+        migration from inside a relay's fresh pick. `last_migration` (and
+        /stats) records its stages, its end (epoch seconds), the load, warm-up
+        and release times and the allocator's bytes before the load, after
+        the warm-up and after the release."""
+        if not self._migration_lock.acquire(blocking=False):
+            raise RuntimeError("a stage migration is already running")
+        try:
+            old = self.executor
+            if target == old.spec.stage:
+                return
+            if self.load_stage is None:
+                raise RuntimeError("this node has no stage loader")
+            t0 = time.perf_counter()
+            record: Dict[str, Any] = {"from": old.spec.stage, "to": target,
+                                      "memory": {"before_load": self._memory()}}
+            try:
+                new = self.load_stage(target)
+                t1 = time.perf_counter()
+                warm_up(new)
+            except Exception:
+                self.metrics.inc("migrations.failed")
+                new = None
+                release_device_memory()  # what the failed load left
+                raise
+            t2 = time.perf_counter()
+            record["memory"]["after_warmup"] = self._memory()
+            window = self._attach_window(new) if isinstance(new, BatchedStageExecutor) else None
+            with self._exec_cond:
+                self.executor, self.spec, self.window = new, new.spec, window
+                self.param_bytes = quantized_bytes(new.params)
+            del new, window
+            self.path_finder.planner = None
+            self.announce()
+            ms = (time.perf_counter() - t0) * 1e3
+            self.metrics.inc("migrations")
+            self.metrics.observe("reshard.ms_to_serving", ms, bounds_ms=RESHARD_BOUNDS_MS)
+            record.update(at=time.time(), ms_to_serving=ms, load_ms=(t1 - t0) * 1e3,
+                          warmup_ms=(t2 - t1) * 1e3)
+            self.last_migration = record
+            log.info("node %s migrated from stage %d to %d (serving in %.2f s)", self.node_id,
+                     record["from"], target, ms / 1e3)
+            ref = weakref.ref(old)
+            defer = (self._thread_uses().get(id(old), 0) > 0
+                     or getattr(self._tls, "defer_release", False))
+            del old
+            if defer:
+                # a request on this thread still holds the old executor (an
+                # adoption from the relay's hook): release it once that ends
+                threading.Thread(target=self._release, args=(ref, record, RETIRE_WAIT_S),
+                                 daemon=True, name="release-old-stage").start()
+            else:
+                self._release(ref, record, RETIRE_REF_WAIT_S)
+        finally:
+            self._migration_lock.release()
+
+    def _release(self, ref, record: Dict[str, Any], ref_wait_s: float) -> None:
+        """Free the old executor `ref` points to once no call holds it and
+        nothing references it (its graphs, buffers and weights): wait for its
+        calls to end, then collect and empty the allocator's cache
+        (utils/cuda_graph.release_device_memory) until it is gone, for at most
+        `ref_wait_s`. Records the release's time and memory in a copy of
+        `record` that replaces it as `last_migration` (/stats may be
+        serializing the one it holds)."""
+        t0 = time.perf_counter()
+        with self._exec_cond:
+            if not self._exec_cond.wait_for(lambda: not self._uses.get(ref()),
+                                            timeout=RETIRE_WAIT_S):
+                log.warning("the old stage's executor is still in use after %.0f s",
+                            RETIRE_WAIT_S)
+        deadline = time.monotonic() + ref_wait_s
+        pause = 0.02
+        while True:
+            release_device_memory()
+            if ref() is None or time.monotonic() > deadline:
+                break
+            time.sleep(pause)
+            pause = min(pause * 2, 0.5)
+        released = ref() is None
+        if not released:
+            log.warning("the old stage's executor is still referenced: its memory stays")
+        done = dict(record, released=released, release_ms=(time.perf_counter() - t0) * 1e3,
+                    memory=dict(record["memory"], after_release=self._memory()))
+        if self.last_migration is record:  # not a later migration's
+            self.last_migration = done
+
+    def reassign(self, body: bytes) -> Reply:
+        """POST /reassign {"stage": N}: an operator's migration."""
+        try:
+            env = wire.unpack(body)
+            target = int(env["stage"])
+        except Exception as e:
+            return self._error(400, f"bad reassign request: {e}")
+        if not 0 <= target < self.spec.num_stages:
+            return self._error(400, f"stage {target} out of range")
+        try:
+            self.change_stage(target)
+        except Exception as e:
+            log.exception("reassign failed")
+            return self._error(500, f"reassign failed: {e}")
+        return 200, _WIRE, wire.pack({"ok": True, "stage": target})
+
+    def drain(self, body: bytes) -> Reply:
+        """POST /drain [{"wait_s": S}]: the first call sets the drain (new
+        sessions shed with 503 "draining", `drain.requests`, the record's
+        `draining: 1` announced at once); every call waits up to S seconds
+        (default DRAIN_WAIT_S) while /forward requests are in flight and
+        answers the resident sessions. Nothing is handed off (ROADMAP A4d):
+        residents are served here until they end."""
+        env: Dict[str, Any] = {}
+        try:
+            parsed = wire.unpack(body) if body else None
+            if isinstance(parsed, dict):
+                env = parsed
+        except Exception:
+            pass  # an empty or garbage body still means "drain"
+        try:
+            wait_s = float(env.get("wait_s", DRAIN_WAIT_S))
+        except (TypeError, ValueError):
+            wait_s = DRAIN_WAIT_S
+        with self._stats_lock:
+            first, self._draining = not self._draining, True
+        if first:
+            self.metrics.inc("drain.requests")
+            log.info("node %s draining", self.node_id)
+            self.announce()  # urgent: routers leave it out within a gossip beat
+        deadline = time.monotonic() + max(0.0, wait_s)
+        while time.monotonic() < deadline:
+            with self._stats_lock:
+                if not self.inflight:
+                    break
+            time.sleep(0.05)
+        store = getattr(self.executor, "sessions", None)
+        resident = len(store) if store is not None else 0
+        return 200, _WIRE, wire.pack({"ok": True, "draining": True, "resident": resident,
+                                      "handed_off": 0})
 
     def health(self) -> Dict[str, Any]:
         return {
@@ -1425,9 +1795,11 @@ class Node:
         `window`), the node's arrival window's (`window`, stage lanes), and
         the overload plane's counters and histograms (`metrics`) and its
         hedge and retry budgets."""
-        lock = self._compute_lock if self._serial else contextlib.nullcontext()
+        ex = self.executor
+        lock = (contextlib.nullcontext() if getattr(ex, "threadsafe", False)
+                else self._compute_lock)
         with lock:
-            executor = self.executor.stats()
+            executor = ex.stats()
             kernels = {
                 "flash_gqa": {"launches": attention_ops.flash_gqa.launches,
                               "split_launches": attention_ops.flash_gqa.split_launches,
@@ -1452,18 +1824,16 @@ class Node:
             recent = list(self._recent_routes)
         with self._stats_lock:
             svc = self._svc_ewma
-        dht = {str(stage): recs
-               for stage, recs in self.dht.get_all(self.spec.num_stages).items()}
-        memory = {}
-        if self.executor.device.type == "cuda":  # the caching allocator's bytes, this process
-            memory = {"allocated": torch.cuda.memory_allocated(self.executor.device),
-                      "reserved": torch.cuda.memory_reserved(self.executor.device)}
+        spec = ex.spec
+        window = self.window
+        del ex
+        dht = {str(stage): recs for stage, recs in self.dht.get_all(spec.num_stages).items()}
         return {
             "node_id": self.node_id,
-            "stage": self.spec.stage,
-            "num_stages": self.spec.num_stages,
-            "start_layer": self.spec.start_layer,
-            "end_layer": self.spec.end_layer,
+            "stage": spec.stage,
+            "num_stages": spec.num_stages,
+            "start_layer": spec.start_layer,
+            "end_layer": spec.end_layer,
             "device": self.device,
             "quant": self.quant,
             "quantized_bytes": self.param_bytes,
@@ -1477,14 +1847,17 @@ class Node:
             "wire_codec": wire.codec_name(),
             "kernels": kernels,
             "executor": executor,
-            "window": None if self.window is None else self.window.stats(),
-            "memory": memory,
+            "window": None if window is None else window.stats(),
+            "memory": self._memory(),
             "dht": dht,
             "metrics": self.metrics.snapshot(),
             "hedge_budget": self.hedge_budget.stats(),
             "retry_budget": self.retry_budget.stats(),
             "svc_ms": svc,
             "routes": {"planner": self.path_finder.planner_stats(), "recent": recent},
+            "draining": self._draining,
+            "rebalance_period_s": self.rebalance_period_s,
+            "last_migration": self.last_migration,
         }
 
 
@@ -1513,6 +1886,10 @@ def _handler_for(node: Node):
                     self._reply(*node.end_session(body))
                 elif self.path == PROFILE_PATH:
                     self._reply(*node.profile(body))
+                elif self.path == REASSIGN_PATH:
+                    self._reply(*node.reassign(body))
+                elif self.path == DRAIN_PATH:
+                    self._reply(*node.drain(body))
                 else:
                     self._reply(*node._error(404, f"no endpoint {self.path}"))
 

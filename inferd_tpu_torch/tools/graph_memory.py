@@ -41,7 +41,7 @@ FILL = 300
 
 class StreamPerWarmup(CudaBackend):
     def warmup(self, fn):
-        self.side = None  # a new side stream for this warm-up
+        self.side = torch.cuda.Stream()  # a new side stream for this warm-up
         return super().warmup(fn)
 
 

@@ -15,7 +15,7 @@ Usage:
       --port 6050 [--device cuda|cpu] [--max-len 4096] [--kv-dtype model|float8_e4m3fn] \\
       [--manifest cluster.yaml --name node0] [--model PRESET] [--log-level INFO] \\
       [--gossip-port 7050] [--bootstrap host:port[,host:port...]] \\
-      [--capacity 4] \\
+      [--capacity 4] [--rebalance-period 10] \\
       [--stage-lanes N | --batch-lanes N] [--window-ms W] \\
       [--paged-kv BS [--kv-blocks K]] [--prefill-chunk C] \\
       [--adapters DIR[,DIR...] [--adapter-slots N]] \\
@@ -46,6 +46,13 @@ share of a paged pool under which new sessions are shed (503 busy with
 Retry-After), --rescue-bounces caps a failed-over chunk's relays to the
 replica advertising its session, and --chaos injects faults
 (utils/chaos.py; resilience testing only).
+
+Elasticity: every --rebalance-period seconds (jittered) the node's balancer
+may migrate it to a stage that has no live replica or carries much more
+load than its own (control/balance.py); POST /reassign {"stage": N} migrates
+it at once and POST /drain stops it admitting new sessions. A migration
+loads the target stage's checkpoint from the same --parts with the same
+flags (load_executor), builds its kernels and warms it up before it serves.
 
 A swarm: start the stage-0 seed with --gossip-port P, every other node
 with --bootstrap <seed host>:P (each with a gossip port of its own, or 0
@@ -83,7 +90,7 @@ import logging
 import os
 import signal
 import threading
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 from inferd_tpu_torch.config import get_config
 from inferd_tpu_torch.ops import lora as loralib
@@ -144,6 +151,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--bootstrap", default=os.environ.get("BOOTSTRAP_NODES", ""),
                     help="comma-separated host:port gossip seeds (env BOOTSTRAP_NODES)")
     ap.add_argument("--capacity", type=int, default=4, help="advertised task capacity")
+    ap.add_argument("--rebalance-period", type=float, default=10.0,
+                    help="seconds between the balancer's passes (jittered): each may migrate "
+                    "this node to a starved or hot stage (control/balance.py)")
     ap.add_argument("--device", default="cuda", choices=DEVICE_CHOICES,
                     help="device that runs the stage (default cuda)")
     ap.add_argument("--max-len", type=int, default=4096, help="per-session KV budget (tokens)")
@@ -305,41 +315,49 @@ def resolve_identity(args: argparse.Namespace) -> Identity:
     return Identity(args.name or None, stage, manifest)
 
 
-def make_node(args: argparse.Namespace) -> Node:
-    ident = resolve_identity(args)
-    swarm = dict(gossip_port=args.gossip_port, bootstrap=parse_bootstrap(args.bootstrap),
-                 capacity=args.capacity, hop_timeout_s=args.hop_timeout,
-                 hedge_delay_ms=args.hedge_delay_ms, hedge_mode=args.hedge_mode,
-                 admission_reserve=args.admission_reserve,
-                 rescue_bounces=args.rescue_bounces, chaos=Chaos.parse(args.chaos),
-                 name=ident.name)
+def load_executor(args: argparse.Namespace, ident: Identity, stage: int,
+                  model: Optional[str] = None) -> Tuple[Any, str]:
+    """(executor, model name) serving `stage` behind the node's flags: the
+    weightless counter model with --backend counter, else the stage's
+    checkpoint from --parts with --lora merged, --quant applied, the
+    --adapters registry bound, --kv-dtype, the lane, paged, prefill and
+    --max-len flags, and on a card the kernels it runs built (a kernel that
+    cannot build fails the load). The one load of a node's start and of its
+    stage migrations (`Node.load_stage`). At start (`model` None) the
+    checkpoint must hold the manifest's model and layer range for the
+    node's stage, else the --model when given; a migration passes the
+    node's model, which the target's checkpoint must hold (the manifest's
+    stage is the node's first, and a migration leaves it on purpose)."""
     if args.backend == "counter":
         if args.parts:
             raise ValueError("--backend counter takes no --parts (it has no weights)")
         if args.kv_dtype != "model":
             raise ValueError("--kv-dtype: the counter backend keeps no KV cache")
         num_stages = args.num_stages if ident.manifest is None else ident.manifest.num_stages
-        if not 0 <= ident.stage < num_stages:
-            raise ValueError(f"--stage {ident.stage} outside --num-stages {num_stages}")
+        if not 0 <= stage < num_stages:
+            raise ValueError(f"--stage {stage} outside --num-stages {num_stages}")
         resolve_device(args.device)  # the same refusal without a card as every node
-        spec = StageSpec(ident.stage, num_stages, 0, 0)
-        return Node(make_executor(None, spec, backend="counter"), host=args.host,
-                    port=args.port, model_name="counter", **swarm)
+        return make_executor(None, StageSpec(stage, num_stages, 0, 0), backend="counter"), "counter"
     if not args.parts:
         raise ValueError("--parts is required with --backend qwen3")
     device = resolve_device(args.device)
     params, spec, model_name = load_stage_checkpoint(
-        stage_checkpoint_path(args.parts, ident.stage), device=device
+        stage_checkpoint_path(args.parts, stage), device=device
     )
-    if spec.stage != ident.stage:
-        raise ValueError(f"{args.parts}: checkpoint holds stage {spec.stage}, not {ident.stage}")
-    want = ident.stage_spec()
-    if want is not None and (want != spec or ident.manifest.model_name != model_name):
-        raise ValueError(f"{args.parts}: checkpoint holds {model_name} {spec}, the manifest "
-                         f"{args.manifest} says {ident.manifest.model_name} {want}")
-    if want is None and args.model and args.model != model_name:
-        raise ValueError(f"{args.parts}: checkpoint holds {model_name}, not --model "
-                         f"{args.model}")
+    if spec.stage != stage:
+        raise ValueError(f"{args.parts}: checkpoint holds stage {spec.stage}, not {stage}")
+    if model is not None:
+        if model_name != model:
+            raise ValueError(f"{args.parts}: stage {stage}'s checkpoint holds {model_name}, not "
+                             f"this node's {model}")
+    else:
+        want = ident.stage_spec()
+        if want is not None and (want != spec or ident.manifest.model_name != model_name):
+            raise ValueError(f"{args.parts}: checkpoint holds {model_name} {spec}, the manifest "
+                             f"{args.manifest} says {ident.manifest.model_name} {want}")
+        if want is None and args.model and args.model != model_name:
+            raise ValueError(f"{args.parts}: checkpoint holds {model_name}, not --model "
+                             f"{args.model}")
     cfg = get_config(model_name)
     if args.kv_dtype != "model":
         cfg = dataclasses.replace(cfg, kv_dtype=args.kv_dtype)
@@ -372,7 +390,7 @@ def make_node(args: argparse.Namespace) -> Node:
     if device.type == "cuda":
         from inferd_tpu_torch.ops import build
 
-        # a kernel that cannot build fails the node now
+        # a kernel that cannot build fails the load now
         build.load("flash_gqa")
         if args.paged_kv > 0:
             build.load("paged_decode")
@@ -380,9 +398,26 @@ def make_node(args: argparse.Namespace) -> Node:
             build.load("qmatmul")
         if registry is not None:
             build.load("lora_delta")
+    return executor, model_name
+
+
+def make_node(args: argparse.Namespace) -> Node:
+    ident = resolve_identity(args)
+    executor, model_name = load_executor(args, ident, ident.stage)
+
+    def load_stage(stage: int):
+        return load_executor(args, ident, stage, model=model_name)[0]
+
     return Node(executor, host=args.host, port=args.port, window_ms=args.window_ms,
                 quant=args.quant, enable_profiling=args.enable_profiling,
-                profile_dir=args.profile_dir, model_name=model_name, **swarm)
+                profile_dir=args.profile_dir, model_name=model_name,
+                gossip_port=args.gossip_port, bootstrap=parse_bootstrap(args.bootstrap),
+                capacity=args.capacity, hop_timeout_s=args.hop_timeout,
+                hedge_delay_ms=args.hedge_delay_ms, hedge_mode=args.hedge_mode,
+                admission_reserve=args.admission_reserve,
+                rescue_bounces=args.rescue_bounces, chaos=Chaos.parse(args.chaos),
+                name=ident.name, load_stage=load_stage,
+                rebalance_period_s=args.rebalance_period)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -71,6 +71,18 @@ collection frees there (an executor dropped with its graphs) resets its
 graph while the stream captures, which CUDA refuses, and the capture
 fails. CudaBackend holds the collector off until the capture ends; what
 it would have freed is freed at a later collection.
+
+Several caches in one process (a node migrating between stages holds the
+old stage's executor and the new one's for a while): captures are
+serialized process-wide by CAPTURE_LOCK, which a cache holds from the
+warm-up through the capture to the LRU's eviction, and under which `drop`
+frees graphs. torch.cuda.graph empties the caching allocator as a capture
+begins, which the allocator refuses while another capture is underway, so
+two captures must never overlap; `release_device_memory` (gc, then the
+allocator's unused blocks back to the card, after an executor is dropped)
+takes the same lock. Every warm-up runs on the process's one side stream
+(`side_stream`), so a new cache adds no stream, and no cuBLAS workspace
+with it.
 """
 
 from __future__ import annotations
@@ -86,6 +98,31 @@ from inferd_tpu_torch.utils.profiling import span
 
 Counter = Tuple[Any, str]  # (wrapper function, attribute name)
 
+# one capture at a time in this process, and no release of the caching
+# allocator's blocks during one (see the module docstring)
+CAPTURE_LOCK = threading.RLock()
+_side: List[Any] = []  # the process's warm-up stream, made at the first warm-up
+
+
+def side_stream():
+    """The stream every CudaBackend warm-up of this process runs on (one
+    card per process, as every node)."""
+    if not _side:
+        _side.append(torch.cuda.Stream())
+    return _side[0]
+
+
+def release_device_memory() -> None:
+    """After an executor was dropped: a cyclic collection (an executor and
+    its graphs and buffers form cycles), then the caching allocator's unused
+    blocks back to the card, under CAPTURE_LOCK. A no-op for the card when
+    CUDA was never initialized in this process."""
+    with CAPTURE_LOCK:
+        gc.collect()
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
 
 def kernel_counters() -> List[Counter]:
     """Every kernel wrapper's launch and route counters."""
@@ -100,7 +137,8 @@ def kernel_counters() -> List[Counter]:
 
 class CudaBackend:
     """Warm-up and capture on the card (torch.cuda.graphs); every graph it
-    captures shares one memory pool, every warm-up one side stream."""
+    captures shares one memory pool, and every warm-up runs on the
+    process's side stream (`side_stream`)."""
 
     def __init__(self):
         self.pool = None
@@ -109,7 +147,7 @@ class CudaBackend:
     def warmup(self, fn: Callable[[], Any]) -> Any:
         cur = torch.cuda.current_stream()
         if self.side is None:
-            self.side = torch.cuda.Stream()
+            self.side = side_stream()
         side = self.side
         side.wait_stream(cur)
         with torch.cuda.stream(side):
@@ -213,7 +251,7 @@ class GraphCache:
         """Drop every entry whose key satisfies `pred` (their graphs, static
         buffers and what `fn` closes over go with them); returns how many,
         each counted in `evictions`."""
-        with self._lock:
+        with CAPTURE_LOCK, self._lock:
             dead = [k for k in self._entries if pred(k)]
             for k in dead:
                 del self._entries[k]
@@ -224,17 +262,18 @@ class GraphCache:
         static = {name: (value.clone() if self.device is None
                          else value.to(self.device, copy=True))
                   for name, value in inputs.items()}
-        result = self._backend.warmup(lambda: fn(**static))
-        before = self._snapshot()
-        graph, outputs = self._backend.capture(lambda: fn(**static))
-        delta = [a - b for a, b in zip(self._snapshot(), before)]
-        self._add(delta, -1)  # the capture launched nothing
-        with self._lock:
-            self._entries[key] = _Entry(graph, fn, static, outputs, delta)
-            self.captures += 1
-            while len(self._entries) > self.max_graphs:
-                self._entries.popitem(last=False)
-                self.evictions += 1
+        with CAPTURE_LOCK:
+            result = self._backend.warmup(lambda: fn(**static))
+            before = self._snapshot()
+            graph, outputs = self._backend.capture(lambda: fn(**static))
+            delta = [a - b for a, b in zip(self._snapshot(), before)]
+            self._add(delta, -1)  # the capture launched nothing
+            with self._lock:
+                self._entries[key] = _Entry(graph, fn, static, outputs, delta)
+                self.captures += 1
+                while len(self._entries) > self.max_graphs:
+                    self._entries.popitem(last=False)
+                    self.evictions += 1
         return result
 
     def capture_only(self, key: Hashable, fn: Callable[..., Any],

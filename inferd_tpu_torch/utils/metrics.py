@@ -24,8 +24,8 @@ _DEFAULT_BOUNDS_MS = [
 class Histogram:
     """Fixed-bucket latency histogram (milliseconds) with quantile estimates."""
 
-    def __init__(self):
-        self.bounds = list(_DEFAULT_BOUNDS_MS)
+    def __init__(self, bounds_ms: Optional[List[float]] = None):
+        self.bounds = list(_DEFAULT_BOUNDS_MS if bounds_ms is None else bounds_ms)
         self.counts = [0] * (len(self.bounds) + 1)
         self.total = 0
         self.sum_ms = 0.0
@@ -83,11 +83,15 @@ class Metrics:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0.0) + value
 
-    def observe(self, name: str, value_ms: float) -> None:
+    def observe(self, name: str, value_ms: float,
+                bounds_ms: Optional[List[float]] = None) -> None:
+        """`bounds_ms` applies when this call creates the histogram: a long
+        interval (a stage migration's seconds) takes wider buckets than the
+        default 10 s cap, or its quantiles would saturate to inf."""
         with self._lock:
             h = self.histograms.get(name)
             if h is None:
-                h = self.histograms[name] = Histogram()
+                h = self.histograms[name] = Histogram(bounds_ms)
         h.observe(value_ms)
 
     def snapshot(self) -> Dict[str, object]:

@@ -78,6 +78,8 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
             "inferd_tpu_torch.tools.send"} <= names
     # the chain planner and the routed client
     assert {"inferd_tpu_torch.control.dstar", "inferd_tpu_torch.client.routed_client"} <= names
+    # the elasticity policies
+    assert {"inferd_tpu_torch.control.balance", "inferd_tpu_torch.control.autoscale"} <= names
 
 
 def _imports(tree):

@@ -77,8 +77,10 @@ def expected(jp):
 
 
 def _node(stage, *args, seed=None):
+    # the balancer's period outlasts the test (the reference's test nodes'):
+    # a tick under a transient load skew would move a replica mid-test
     argv = ["--stage", str(stage), "--port", "0", "--gossip-port", "0", "--device", "cpu",
-            *args]
+            "--rebalance-period", "600", *args]
     if seed is not None:
         argv += ["--bootstrap", f"127.0.0.1:{seed.dht.port}"]
     node = run_node.make_node(run_node.build_parser().parse_args(argv))
