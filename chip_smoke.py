@@ -9,6 +9,12 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               at once (one nvcc each), with ptxas's registers and spills, and
               beside them the wire's native codec (csrc/wirecodec.cpp, the host
               C++ compiler), so the node processes find it built
+  sim         the fleet simulator (inferd_tpu_torch.sim) replays the
+              committed fixtures of tests/data/sim/ (the two slow 1000-node
+              sweeps skipped) through the port's control plane, on the
+              host's CPU: a line per fixture (PASS or FAIL, goodput or event
+              count, wall ms) and the total; any FAIL fails the run. No
+              process started, no card memory used
   codec       the native wire codec against the pure-Python one in this
               process, in interleaved rounds: pack and unpack of a decode
               envelope (a bf16 hidden row), a coalesced window of 8 rows and
@@ -189,6 +195,24 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               without a registry; exact launch counts (98 per dispatch that
               carries a tenant lane, none for all-base dispatches; paged split
               launches as in serve_lanes); 3 loads per node
+  serve_tenant_routes
+              the adapter plane across nodes: 3 fresh --stage-lanes 8
+              --paged-kv 32 --adapters t0,t1,t2 processes (a stage-0 entry,
+              stage-1 replicas A and B) bootstrapped to a tools/seed
+              process. t0 is warmed on B through a fixed chain (entry, B),
+              one session on each t0 prompt (and up to 3 more while B's
+              gossiped svc_ms, a fresh process's graph captures in its
+              EWMA, still outweighs the affinity bonus); once the entry's
+              gossip shows B's `ada` holding t0 and A's `[]`, and a t0
+              plan's first-stage cost is lower at B, 4 new t0 sessions run one after another through a
+              SwarmClient at the entry, each planned by the entry with t0's
+              AdapterAffinity. Checks: every such route (the entry's /stats
+              routes) names B; A loads no adapter and launches no
+              fused_lane_delta, B and the entry do; the t0 streams equal
+              serve_lanes_lora's t0 streams on the same prompts; a base
+              session after them is planned by cost alone (to A, whose
+              record carries no svc_ms) and its stream equals serve_lanes';
+              exact launch counts per node as in serve_lanes_lora
   generate    the whole model in this process (the serve checkpoints joined,
               bf16) through core.generate.Engine, whose decode steps and
               K-step windows replay captured CUDA graphs: on the serve
@@ -300,11 +324,13 @@ line, and last:
 
 Run from the root of a checkout: python3 chip_smoke.py
 Exits non-zero without a CUDA device, and outside a checkout.
-`--only paged,lora` (any of flash, paged, qmm, lora, codec, and on a fresh
+`--only paged,lora` (any of flash, paged, qmm, lora, codec, sim, and on a fresh
 split serve, serve_quant, serve_lanes, serve_lanes_quant, serve_lanes_lora,
+serve_tenant_routes,
 serve_swarm, serve_overload, serve_elastic, generate, generate_batched,
 serve_batch, serve_kstep, serve_fp8, anatomy, profile: serve_quant runs int8
-and int4, serve_lanes_lora runs serve_lanes first, serve_swarm runs serve and
+and int4, serve_lanes_lora runs serve_lanes first, serve_tenant_routes runs
+serve_lanes and serve_lanes_lora first, serve_swarm runs serve and
 serve_lanes first, serve_overload and serve_elastic run serve first, generate
 runs the generate and generate_quant phases, serve_batch runs
 generate_batched first) builds the kernels and runs those phases alone, with
@@ -2979,11 +3005,233 @@ def run_serve_lanes_lora(card: str, parts: str, work: str, baseline) -> Dict[str
                              for r in ("mma", "simt")} for name in QMM_KERNEL_OF.values()}
         out = {"launches": launches, "flash_routes": route_launches, "gemv_routes": gemv_total,
                "paged_split": paged_split, "mean_batch": mean_batches,
-               "tokens_per_s": total / wall, "graphs": node_graphs}
+               "tokens_per_s": total / wall, "graphs": node_graphs, "names": names,
+               "streams": streams, "dirs": dirs}
         out["paged_e2e"] = check_teacher_forced(phase, "paged lanes", cfg, loaded, PAGED_BS,
                                                 prompts, streams, LORA_E2E_FAULTS,
                                                 lora=(dirs, names))
         return out
+    except BaseException:
+        stop_nodes(nodes, show_logs=True)
+        nodes = []
+        raise
+    finally:
+        stop_nodes(nodes)
+
+
+# serve_tenant_routes: the t0 prompts of serve_lanes_lora (LANE_PROMPT_LENS
+# 16 and 300), in the order the planned sessions run, and the base session's
+TENANT_ROUTE_PROMPTS = (0, 4, 0, 4)
+TENANT_BASE_PROMPT = 1
+# more warm sessions on B while its gossiped svc_ms still outweighs the
+# affinity bonus (a fresh process's graph captures ride its svc_ms EWMA for
+# a few dozen forwards, ~113 ms once on a card shared with 39 processes)
+TENANT_EXTRA_WARM = 3
+
+
+def wait_view(phase: str, entry_port: int, want: Callable[[Dict[str, Any]], bool], what: str,
+              timeout_s: float = 15.0) -> Dict[str, Any]:
+    """The entry's gossip view of stage 1 ({node_id: record}, its /stats)
+    once `want` holds of it."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        view = http_get_json(f"http://127.0.0.1:{entry_port}/stats")["dht"].get("1", {})
+        if want(view):
+            return view
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{phase}: {what}: the entry's stage-1 view {view}")
+        time.sleep(0.05)
+
+
+def run_serve_tenant_routes(card: str, parts: str, work: str, lanes, lanes_lora) -> Dict[str, Any]:
+    """The `serve_tenant_routes` phase: tenant sessions planned to the
+    stage-1 replica whose gossiped `ada` holds their adapter. `lanes` and
+    `lanes_lora` are serve_lanes' and serve_lanes_lora's results from this
+    run: the base and the tenant streams the served ones are held to."""
+    import torch
+
+    from inferd_tpu_torch.client.chain_client import ChainClient
+    from inferd_tpu_torch.client.swarm_client import SwarmClient
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.control.dstar import node_cost
+    from inferd_tpu_torch.runtime.adapters import AdapterAffinity
+
+    phase = "serve_tenant_routes"
+    cfg = get_config(MODEL)
+    greedy = SamplingConfig(temperature=0.0)
+    t_phase = time.perf_counter()
+    prompts, names = lanes["prompts"], lanes_lora["names"]
+    if any(names[i] != "t0" for i in TENANT_ROUTE_PROMPTS) or names[TENANT_BASE_PROMPT] == "t0":
+        raise AssertionError(f"{phase}: serve_lanes_lora's bindings {names}")
+    n_targets = len(set().union(*(t for _, _, t in LORA_TENANTS)))
+    node_args = LANE_NODE_ARGS + ["--adapters", ",".join(lanes_lora["dirs"]), "--max-len",
+                                  str(MAX_LEN), "--parts", parts, "--rebalance-period",
+                                  str(STILL_REBALANCE_S)]
+    nodes: List[Dict[str, Any]] = []
+    try:
+        seed = launch_seed(os.path.join(work, "tenant_seed.log"))
+        nodes.append(seed)
+        nodes += [launch_node(stage, os.path.join(work, f"tenant{i}.log"),
+                              node_args + ["--bootstrap", f"127.0.0.1:{seed['port']}"])
+                  for i, stage in enumerate((0, 1, 1))]
+        entry, a, b = nodes[1:]
+        for n in nodes:
+            wait_ready(n)
+        ids = {"A": f"127.0.0.1:{a['port']}", "B": f"127.0.0.1:{b['port']}"}
+        label = {v: k for k, v in ids.items()}
+        gossip_s = wait_gossip(phase, [entry, a, b])
+        say(phase, f"3 run_node --device {DEVICE} {' '.join(LANE_NODE_ARGS)} --adapters t0,t1,t2 "
+                   f"processes and a tools/seed ready in {time.perf_counter() - t_phase:.1f}s, "
+                   f"gossip full {gossip_s:.2f}s later")
+
+        def stats():
+            return {k: http_get_json(f"http://127.0.0.1:{n['port']}/stats")
+                    for k, n in (("entry", entry), ("A", a), ("B", b))}
+
+        before = stats()  # fresh processes: every count starts at 0
+        for st in before.values():
+            ex = st["executor"]
+            if (any(k["launches"] for k in st["kernels"].values()) or st["forward_passes"]
+                    or ex["adapters"]["loads"]):
+                raise AssertionError(f"{phase}: nodes did work before the main path: {before}")
+        view = wait_view(phase, entry["port"], lambda v: all(
+            v.get(nid, {}).get("ada") == [] for nid in ids.values()), "no empty ada")
+
+        def serve(client, p):
+            async def go():
+                async with client as c:
+                    return await c.generate_ids(p, max_new_tokens=NEW_TOKENS)
+
+            return asyncio.run(go())
+
+        def idle(v):
+            return all(v.get(nid, {}).get("load") == 0 for nid in ids.values())
+
+        chain = [("127.0.0.1", entry["port"]), ("127.0.0.1", b["port"])]
+        aff = AdapterAffinity("t0")
+
+        def warm_view():
+            return wait_view(phase, entry["port"], lambda v: idle(v) and "t0" in v.get(
+                ids["B"], {}).get("ada", ()) and v.get(ids["A"], {}).get("ada") == [],
+                "t0 not gossiped resident on B alone")
+
+        def costs(view):
+            return {k: round(node_cost(view[nid], affinity=aff), 4) for k, nid in ids.items()}
+
+        # t0 warmed on B through a fixed chain, on both prompts, so every
+        # table width the planned sessions meet has its graph captured
+        warm_idx = sorted(set(TENANT_ROUTE_PROMPTS))
+        warm = [serve(ChainClient(chain, sampling=greedy, prefill_chunk=512, adapter="t0"),
+                      prompts[i]) for i in warm_idx]
+        view = warm_view()
+        for _ in range(TENANT_EXTRA_WARM):
+            if costs(view)["B"] < costs(view)["A"]:
+                break
+            say(phase, f"B's svc_ms {view[ids['B']].get('svc_ms')} still outweighs the affinity "
+                       f"bonus (tenant costs {costs(view)}): one more warm session on B")
+            warm_idx.append(TENANT_ROUTE_PROMPTS[0])
+            warm.append(serve(ChainClient(chain, sampling=greedy, prefill_chunk=512,
+                                          adapter="t0"), prompts[warm_idx[-1]]))
+            view = warm_view()
+        say(phase, f"t0 warmed on B through the fixed chain (entry, B), {len(warm)} sessions; the "
+                   f"entry's view: B ada {view[ids['B']]['ada']} svc_ms "
+                   f"{view[ids['B']].get('svc_ms')}, A ada {view[ids['A']]['ada']} svc_ms "
+                   f"{view[ids['A']].get('svc_ms')}; a t0 plan's first-stage costs {costs(view)}")
+        if not costs(view)["B"] < costs(view)["A"]:
+            raise AssertionError(f"{phase}: B's svc_ms outweighs the affinity bonus after "
+                                 f"{len(warm)} warm sessions: costs {costs(view)}")
+        got, t_sessions = [], time.perf_counter()
+        for i in TENANT_ROUTE_PROMPTS:
+            view = wait_view(phase, entry["port"], idle, "replicas not idle")
+            say(phase, f"before the t0 session on prompt {len(prompts[i])}: the entry's "
+                       f"first-stage costs {costs(view)}")
+            got.append(serve(SwarmClient([chain[0]], sampling=greedy, prefill_chunk=512,
+                                         adapter="t0"), prompts[i]))
+        tenant_s = time.perf_counter() - t_sessions
+        routes = [r["route"] for r in http_get_json(
+            f"http://127.0.0.1:{entry['port']}/stats")["routes"]["recent"]]
+        say(phase, f"{len(got)} t0 sessions through a SwarmClient at the entry in {tenant_s:.2f}s; "
+                   f"planned stage-1 replicas {[label.get(r.get('1'), r) for r in routes]}")
+        if routes != [{"1": ids["B"]}] * len(TENANT_ROUTE_PROMPTS):
+            raise AssertionError(f"{phase}: tenant routes {routes}, want B ({ids['B']}) each")
+        for i, s_ in zip(warm_idx + list(TENANT_ROUTE_PROMPTS), warm + got):
+            if s_ != lanes_lora["streams"][i]:
+                raise AssertionError(f"{phase}: t0 stream of prompt {len(prompts[i])} != "
+                                     f"serve_lanes_lora's from token "
+                                     f"{first_divergence(s_, lanes_lora['streams'][i])}")
+        say(phase, f"the {len(warm) + len(got)} t0 streams equal serve_lanes_lora's t0 streams on "
+                   "the same prompts, token for token")
+        wait_view(phase, entry["port"], idle, "replicas not idle")
+        base = serve(SwarmClient([chain[0]], sampling=greedy, prefill_chunk=512),
+                     prompts[TENANT_BASE_PROMPT])
+        base_route = http_get_json(
+            f"http://127.0.0.1:{entry['port']}/stats")["routes"]["recent"][-1]["route"]
+        if base_route != {"1": ids["A"]} or base != lanes["streams"][TENANT_BASE_PROMPT]:
+            raise AssertionError(f"{phase}: the base session's route {base_route} (want A, "
+                                 f"{ids['A']}: no svc_ms), its stream equal to serve_lanes': "
+                                 f"{base == lanes['streams'][TENANT_BASE_PROMPT]}")
+        say(phase, "a base session after them is planned by cost alone, to A (no svc_ms in its "
+                   "record), and its stream equals serve_lanes' on the same prompt")
+        after = stats()
+
+        def pieces(idx):
+            return [len(c[j:j + LANE_PREFILL_CHUNK]) for i in idx
+                    for c in (prompts[i][k:k + 512] for k in range(0, len(prompts[i]), 512))
+                    for j in range(0, len(c), LANE_PREFILL_CHUNK)]
+
+        tenant_idx = tuple(warm_idx) + TENANT_ROUTE_PROMPTS
+        served_by = {"entry": (tenant_idx, (TENANT_BASE_PROMPT,)), "B": (tenant_idx, ()),
+                     "A": ((), (TENANT_BASE_PROMPT,))}
+        launches = dict.fromkeys(after["entry"]["kernels"], 0)
+        route_launches = {"split": 0, "mma": 0}
+        paged_split = 0
+        for key, st in after.items():
+            ex = st["executor"]
+            layers = st["end_layer"] - st["start_layer"] + 1
+            kern = {name: k["launches"] for name, k in st["kernels"].items()}
+            steps, toks = ex["batched_steps"], ex["batched_tokens"]
+            a_dec, a_pre = ex["adapter_steps"], ex["adapter_prefill_steps"]
+            tenants, bases = served_by[key]
+            want = {"flash_gqa": layers * ex["prefill_steps"], "paged_decode_gqa": layers * steps,
+                    "w8a16_matmul": 0, "w4a16_matvec": 0,
+                    "fused_lane_delta": layers * n_targets * (a_dec + a_pre)}
+            routes_k = flash_routes(st)
+            want_routes = {"split": 0, "mma": layers * ex["prefill_steps"]}
+            split, want_split = paged_splits(phase, st, cfg)
+            check_node_graphs(phase, st, steps)
+            say(phase, f"node {key} (stage {st['stage']}): {steps} decode dispatches ({a_dec} with "
+                       f"t0), {ex['prefill_steps']} prefill dispatches ({a_pre} of t0); launches "
+                       f"{kern} (want {want}: {kern == want}); registry {ex['adapters']}")
+            loads = 1 if tenants else 0
+            if (kern != want or (kern["fused_lane_delta"] > 0) != bool(tenants)
+                    or ex["prefill_steps"] != len(pieces(tenants + bases))
+                    or a_pre != len(pieces(tenants))
+                    or toks != (len(tenants) + len(bases)) * (NEW_TOKENS - 1)
+                    or ex["adapters"]["loads"] != loads or routes_k != want_routes
+                    or split != want_split or st["errors"]):
+                raise AssertionError(
+                    f"{phase}: node {key}: launches {kern} (want {want}), prefill dispatches "
+                    f"{ex['prefill_steps']} ({a_pre} of t0), {toks} decode steps, registry "
+                    f"{ex['adapters']} (want {loads} loads), flash routes {routes_k}, paged "
+                    f"split {split} (want {want_split}), {st['errors']} errors")
+            for name, v in kern.items():
+                launches[name] += v
+            for r, v in routes_k.items():
+                route_launches[r] += v
+            paged_split += split
+        lane_delta = {k: st["kernels"]["fused_lane_delta"]["launches"] for k, st in after.items()}
+        devices = {k: st["device"] for k, st in after.items()}
+        say(phase, f"fused_lane_delta launches {lane_delta}: on the holder B and the entry, none "
+                   f"on A; every count the kernels' own (none fell back); nodes on {devices}")
+        if set(devices.values()) != {torch.cuda.get_device_name(0)}:
+            raise AssertionError(f"{phase}: a node off the card: {devices}")
+        gemv_total = {name: {r: sum(gemv_routes(st)[name][r] for st in after.values())
+                             for r in ("mma", "simt")} for name in QMM_KERNEL_OF.values()}
+        stop_nodes(nodes)
+        nodes = []
+        return {"launches": launches, "flash_routes": route_launches, "gemv_routes": gemv_total,
+                "paged_split": paged_split, "routes": routes,
+                "wall_s": time.perf_counter() - t_phase}
     except BaseException:
         stop_nodes(nodes, show_logs=True)
         nodes = []
@@ -5950,16 +6198,78 @@ def ptxas_report(log: str) -> List[str]:
     return out
 
 
+SIM_FIXTURES = os.path.join(REPO, "tests", "data", "sim")
+
+
+def cpu_name() -> str:
+    """The host CPU's model and core count, beside the simulator's wall times."""
+    import platform
+
+    model = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.lower().startswith(("model name", "cpu model", "hardware"))), "")
+    except OSError:
+        pass
+    return f"{model or platform.processor() or platform.machine()}, {os.cpu_count()} cores"
+
+
+def run_sim() -> List[Dict[str, Any]]:
+    """The `sim` phase: the port's fleet simulator replays the committed
+    fixtures (the slow 1000-node sweeps skipped) on the host's CPU; any
+    fixture off its gates or its pinned expect (trace hash included) fails."""
+    import torch
+
+    from inferd_tpu_torch.sim import scenario as simlib
+
+    phase = "sim"
+    mem0 = torch.cuda.memory_allocated()
+    paths = simlib.fixture_paths(SIM_FIXTURES)
+    slow = len(simlib.fixture_paths(SIM_FIXTURES, include_slow=True)) - len(paths)
+    rows, failed = [], []
+    t_all = time.perf_counter()
+    for path in paths:
+        name = os.path.basename(path)
+        t0 = time.perf_counter()
+        try:
+            ok, failures, m = simlib.check_fixture(path)
+        except Exception as e:  # a broken fixture is a failure of the phase
+            ok, failures, m = False, [f"error: {type(e).__name__}: {e}"], {}
+        ms = (time.perf_counter() - t0) * 1e3
+        gp = m.get("goodput_ratio")
+        events = m.get("trace", {}).get("events")
+        summary = f"goodput={gp}" if gp is not None else f"events={events}"
+        say(phase, f"{'PASS' if ok else 'FAIL'} {name} ({summary}, trace "
+                   f"{m.get('trace', {}).get('hash')}) {ms:.1f} ms wall")
+        for msg in failures:
+            say(phase, f"    {msg}")
+        rows.append({"fixture": name, "ok": ok, "wall_ms": ms})
+        if not ok:
+            failed.append(name)
+    total = time.perf_counter() - t_all
+    say(phase, f"{len(paths)} fixtures ({slow} slow skipped), {len(paths) - len(failed)} PASS, in "
+               f"{total:.2f}s wall on the host CPU ({cpu_name()}); no card memory used: "
+               f"{torch.cuda.memory_allocated() == mem0}")
+    if not paths or failed:
+        raise AssertionError(f"{phase}: fixtures failed: {failed or 'none found'}")
+    if torch.cuda.memory_allocated() != mem0:
+        raise AssertionError(f"{phase}: the simulator allocated card memory")
+    return rows
+
+
 CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_qmm_cases,
-               "lora": run_lora_cases, "codec": run_codec}
+               "lora": run_lora_cases, "codec": run_codec, "sim": run_sim}
 # --only phases that need the model's split (serve_quant runs int8 and int4;
-# serve_lanes_lora runs serve_lanes first, its baseline; serve_swarm runs
+# serve_lanes_lora runs serve_lanes first, its baseline; serve_tenant_routes
+# runs serve_lanes and serve_lanes_lora first, its streams; serve_swarm runs
 # serve and serve_lanes first, the streams it is held to; serve_overload and
 # serve_elastic run serve first; serve_batch runs generate_batched first, its
 # streams)
 SPLIT_PHASES = ("serve", "serve_quant", "serve_lanes", "serve_lanes_quant", "serve_lanes_lora",
-                "serve_swarm", "serve_overload", "serve_elastic", "generate", "generate_batched",
-                "serve_batch", "serve_kstep", "serve_fp8", "anatomy", "profile")
+                "serve_tenant_routes", "serve_swarm", "serve_overload", "serve_elastic",
+                "generate", "generate_batched", "serve_batch", "serve_kstep", "serve_fp8",
+                "anatomy", "profile")
 
 
 def main(argv: List[str]) -> int:
@@ -6029,7 +6339,8 @@ def main(argv: List[str]) -> int:
                     for q in ("int8", "int4"):
                         run_serve(card, parts, work, quant_flag=q)
                 lanes = None
-                if {"serve_lanes", "serve_lanes_lora", "serve_swarm"} & set(split_only):
+                if {"serve_lanes", "serve_lanes_lora", "serve_swarm",
+                        "serve_tenant_routes"} & set(split_only):
                     lanes = run_serve_lanes(card, parts, work)
                 if "serve_swarm" in split_only:
                     run_serve_swarm(card, parts, work, serve, lanes)
@@ -6043,8 +6354,12 @@ def main(argv: List[str]) -> int:
                     say("time", f"serve_elastic: {time.perf_counter() - t_elastic:.1f}s")
                 if "serve_lanes_quant" in split_only:
                     run_serve_lanes(card, parts, work, quant_flag="int8", baseline=lanes)
-                if "serve_lanes_lora" in split_only:
-                    run_serve_lanes_lora(card, parts, work, baseline=lanes)
+                if {"serve_lanes_lora", "serve_tenant_routes"} & set(split_only):
+                    lanes_lora = run_serve_lanes_lora(card, parts, work, baseline=lanes)
+                    if "serve_tenant_routes" in split_only:
+                        t_tenant = run_serve_tenant_routes(card, parts, work, lanes,
+                                                           lanes_lora)["wall_s"]
+                        say("time", f"serve_tenant_routes: {t_tenant:.1f}s")
                 if "profile" in split_only:
                     run_profile(card, parts, work)
                 whole = whole_model(parts)
@@ -6080,6 +6395,8 @@ def main(argv: List[str]) -> int:
     lap("kernel cases")
     codec_rows = run_codec()
     lap("codec")
+    run_sim()
+    lap("sim")
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -6119,6 +6436,8 @@ def main(argv: List[str]) -> int:
         lap("serve_lanes_quant")
         lanes_lora = run_serve_lanes_lora(card, parts, work, baseline=lanes)
         lap("serve_lanes_lora")
+        tenant = run_serve_tenant_routes(card, parts, work, lanes, lanes_lora)
+        lap("serve_tenant_routes")
         gen = run_generate(card, whole, serve)
         gen_q = run_generate_quant(card, whole)
         lap("generate, generate_quant")
@@ -6145,7 +6464,8 @@ def main(argv: List[str]) -> int:
              "serve_quant_int4": serve_q["int4"], "serve_lanes": lanes, "serve_swarm": swarm,
              "serve_overload": overload, "serve_elastic": elastic,
              "serve_lanes_quant": lanes_q, "serve_lanes_lora": lanes_lora,
-             "generate": gen, "generate_quant": gen_q, "generate_batched": gen_b,
+             "serve_tenant_routes": tenant, "generate": gen, "generate_quant": gen_q,
+             "generate_batched": gen_b,
              "serve_batch": serve_b, "serve_kstep": kstep, "serve_fp8": fp8,
              "anatomy": anat, "profile": prof}
 

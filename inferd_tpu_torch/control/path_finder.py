@@ -230,13 +230,19 @@ class PathFinder:
         stage only, by node_cost with the affinity term: the layered graph
         is complete between layers, so the chain's cost decomposes per
         stage, and this is the optimum of the affinity-weighted graph
-        without touching the planner's edges per session."""
+        without touching the planner's edges per session. That term charges
+        a shedding replica ADMISSION_PENALTY itself, so the re-rank reads the
+        entry's records with the held sessions added but without the view's
+        shed charge: a shedding replica is charged once, not twice."""
         snapshot = self._without_cooling(self.dht.get_all(self.num_stages))
         view = snapshot
         if held or new_session:
             view = {s: {n: _ranked_view(v, held.get(n, 0) if held else 0, new_session)
                         for n, v in stage_map.items()}
                     for s, stage_map in snapshot.items()}
+        entry = snapshot.get(start_stage, {})
+        if affinity is not None and held:
+            entry = {n: _ranked_view(v, held.get(n, 0), False) for n, v in entry.items()}
         with self._plan_lock:
             try:
                 if self.planner is None or self.planner.start_stage != start_stage:
@@ -253,12 +259,13 @@ class PathFinder:
                 for stage in range(start_stage, self.num_stages):
                     if not view.get(stage):
                         raise NoNodeForStage(f"stage {stage}") from None
-                    nid, _ = min_load_node(
-                        view[stage], affinity=affinity if stage == start_stage else None)
+                    if affinity is not None and stage == start_stage:
+                        nid, _ = min_load_node(entry, affinity=affinity)
+                    else:
+                        nid, _ = min_load_node(view[stage])
                     chain.append((nid, snapshot[stage][nid]))
                 return chain
         if affinity is not None and chain:
-            entry = view.get(start_stage, {})
             if len(entry) > 1:
                 best = min(entry, key=lambda n: node_cost(entry[n], affinity=affinity))
                 if (best != chain[0][0]

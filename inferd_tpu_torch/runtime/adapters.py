@@ -24,11 +24,19 @@ being written has no live reference, and the copy and every dispatch run
 on the same CUDA stream, so dispatches enqueued before the copy read the
 old rows and later ones the new.
 
-Not ported in this slice: `AdapterAffinity`, `combine_affinity`,
-`resident_names` and its gossip cap `ADA_GOSSIP_MAX`, `resident_count` and
-`registry_can_serve` (routing, gossip and standby replication wait for the
-swarm plane); the event journal (`on_event` stays a plain callable hook)
-and lockwatch.
+Routing across nodes: a replica gossips its resident names as a bounded
+`ada` field (`resident_names`, runtime/node.announce), and
+`AdapterAffinity` plugs into the duck-typed `affinity=` seam both routers
+score prefix digests through (control/path_finder._rank_key and
+control/dstar.node_cost): a holder earns the bounded CACHE_AFFINITY_BONUS,
+suppressed on a shedding or draining replica and dominated by the outlier
+penalty, so a cold healthy replica still beats a sick holder, and a miss is
+a hot-load on the landing replica, never a reject. `combine_affinity`
+composes it with the prefix probe; `registry_can_serve` is the standby
+receiver's check. The fleet simulator imports the scorers too.
+
+Not ported: the event journal (`on_event` stays a plain callable hook) and
+lockwatch.
 """
 
 from __future__ import annotations
@@ -49,6 +57,14 @@ from inferd_tpu_torch.ops import lora as loralib
 from inferd_tpu_torch.utils import safetensors_io
 
 
+#: Resident-adapter names a replica gossips (the `ada` record field). Names
+#: are short operator-chosen ids, so 32 of them stay well under the `pfx`
+#: digest's wire budget; a replica with more residents advertises its most
+#: recently used ones (stale affinity only ever misses a bonus: the landing
+#: replica hot-loads).
+ADA_GOSSIP_MAX = 32
+
+
 class AdapterCapacityError(RuntimeError):
     """Every slot is held by a live session or a pin: transient
     backpressure (the node maps it to a retryable 503 `busy`)."""
@@ -59,6 +75,61 @@ class UnknownAdapterError(ValueError):
     permanent configuration or routing error. The node maps it to a
     non-retryable 409 `unknown_adapter`, never the `session_state` code
     that would send the client into a restart loop failing identically."""
+
+
+class AdapterAffinity:
+    """One session's adapter-affinity matcher against gossiped `ada` fields,
+    duck-typed like core.prefix.AffinityProbe (`depth_frac(record)` in
+    0..1), so both routers apply the same bounded bonus."""
+
+    def __init__(self, name: str):
+        self.name = str(name)
+
+    def depth_frac(self, record: Dict[str, Any]) -> float:
+        ada = record.get("ada")
+        if not isinstance(ada, (list, tuple)):
+            return 0.0
+        return 1.0 if self.name in ada else 0.0
+
+
+class _MaxAffinity:
+    """The max over several affinity scorers (prefix digest and adapter
+    residency): the combined bonus never exceeds one CACHE_AFFINITY_BONUS."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def depth_frac(self, record: Dict[str, Any]) -> float:
+        best = 0.0
+        for p in self.parts:
+            try:
+                best = max(best, float(p.depth_frac(record)))
+            except Exception:
+                continue  # a malformed record must never break routing
+        return best
+
+
+def combine_affinity(*parts):
+    """One affinity object over the scorers that are not None (None when
+    none is): what a router passes as `affinity=` for a session with both a
+    prompt prefix probe and a tenant adapter."""
+    live = [p for p in parts if p is not None]
+    if not live:
+        return None
+    if len(live) == 1:
+        return live[0]
+    return _MaxAffinity(live)
+
+
+def registry_can_serve(executor, name: Optional[str]) -> bool:
+    """Could `executor` ever bind adapter `name` (None, a base session:
+    always)? What a standby receiver checks before it keeps a tenant
+    session's shadow: a peer without a registry, or whose catalog lacks the
+    name, would decline at promotion anyway."""
+    if name is None:
+        return True
+    reg = getattr(executor, "adapters", None)
+    return reg is not None and str(name) in reg.catalog
 
 
 def parse_adapter_dirs(spec: str) -> Dict[str, str]:
@@ -444,6 +515,18 @@ class AdapterRegistry:
                 return None
             return {"a": dict(self._pools["a"]), "b": dict(self._pools["b"]),
                     "scale": self._pools["scale"]}
+
+    def resident_names(self) -> List[str]:
+        """The resident tenant adapters, least recently used first, at most
+        the last ADA_GOSSIP_MAX (the most recently touched survive the cap):
+        the gossiped `ada` field."""
+        with self._mu:
+            names = [n for n in self._idle_since if n in self._slot_of]
+        return names[-ADA_GOSSIP_MAX:]
+
+    def resident_count(self) -> int:
+        with self._mu:
+            return len(self._slot_of)
 
     def stats(self) -> Dict[str, Any]:
         with self._mu:

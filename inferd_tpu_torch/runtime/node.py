@@ -74,7 +74,11 @@ node's own window is inside its executor's call), which the chain planner
 charges as latency. A
 whole-model paged lane node adds `pfx`, the digest of the prompt prefixes
 its block pool holds (core/prefix.make_digest), which an entry router
-scores a new prompt against (prefix.AffinityProbe).
+scores a new prompt against (prefix.AffinityProbe). A node with an adapter
+registry (--adapters) adds `ada`, its resident tenant adapters (at most
+ADA_GOSSIP_MAX, least recently used first), `[]` when none is resident, as
+the key's presence marks the capability; without a registry the key is
+left out, so such a record is the bytes it was before the key existed.
 
 Planned routes. A relayed envelope at start_pos 0 with no `route`, on a
 stage before the last, is a new session entering here: the node plans its
@@ -85,12 +89,15 @@ long-lived D*-Lite planner) and puts it on the envelope as `route`
 counts, as the fresh pick does, the sessions this node has routed or
 planned through each replica and not ended, and charges a shedding replica
 ADMISSION_PENALTY; plan and record are one step under the pick lock, so
-sessions arriving together see each other's plans. The next hop
-(`_pick_next`) is (1) the session's remembered replica for that stage while
-its record lives (an LRU of 8192 (session, stage) pairs: its KV lives
-there), else (2) a replica advertising the session, else (3) the route's
-replica while it lives, is not excluded and is not in its dead-peer
-cooldown (`route.followed`; else `route.stale`), else (4) the min-load
+sessions arriving together see each other's plans. A tenant session (its
+first chunk's payload names an `adapter`) plans with that adapter's
+AdapterAffinity: the route's first stage prefers a replica whose `ada`
+holds it, by the bounded cache-affinity bonus (a miss hot-loads there).
+The next hop (`_pick_next`) is (1) the session's remembered replica for
+that stage while its record lives (an LRU of 8192 (session, stage) pairs:
+its KV lives there), else (2) a replica advertising the session, else (3)
+the route's replica while it lives, is not excluded and is not in its
+dead-peer cooldown (`route.followed`; else `route.stale`), else (4) the min-load
 live replica, passing over peers in their dead-peer cooldown unless none
 else is left. A relay that finds a
 peer dead also folds the death into the plan (`kill_node`).
@@ -261,7 +268,9 @@ from inferd_tpu_torch.ops import attention as attention_ops
 from inferd_tpu_torch.ops import lora, qmatmul
 from inferd_tpu_torch.ops.quant import quantized_bytes
 from inferd_tpu_torch.runtime import wire
-from inferd_tpu_torch.runtime.adapters import AdapterCapacityError, UnknownAdapterError
+from inferd_tpu_torch.runtime.adapters import (
+    AdapterAffinity, AdapterCapacityError, UnknownAdapterError,
+)
 from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor, CapacityError
 from inferd_tpu_torch.runtime.window import WindowedBatcher
 from inferd_tpu_torch.utils import retry as retrylib
@@ -783,6 +792,9 @@ class Node:
         pfx = digest() if callable(digest) else None
         if pfx:
             record["pfx"] = pfx
+        ada = self._adapter_digest(ex)
+        if ada is not None:
+            record["ada"] = ada
         if self._pool_under_reserve(ex) is not None:
             record["shed"] = 1
         if self._draining:  # both routers leave a draining replica out
@@ -791,6 +803,15 @@ class Node:
         if sess:
             record["sess"] = sess
         self.dht.announce(record, urgent=urgent)
+
+    def _adapter_digest(self, ex) -> Optional[List[str]]:
+        """The `ada` field: the resident tenant adapters (at most
+        ADA_GOSSIP_MAX), which entry routers score a tenant session's
+        adapter against (AdapterAffinity); or None, the key left out, on a
+        node without --adapters. An empty registry announces [], since the
+        key's presence marks the capability."""
+        reg = getattr(ex, "adapters", None)
+        return None if reg is None else reg.resident_names()
 
     def _advertised_sessions(self, ex=None) -> list:
         """Hashes of the newest SESS_ADVERTISED sessions whose KV lives here,
@@ -926,18 +947,20 @@ class Node:
                 self._remember(key, nid)
         return nid, value
 
-    def _plan_route(self, start_stage: int, session_id: str) -> Optional[Dict[str, str]]:
+    def _plan_route(self, start_stage: int, session_id: str,
+                    affinity: Any = None) -> Optional[Dict[str, str]]:
         """A new session's route {str(stage): node_id} for stages
         start_stage..last (PathFinder.find_best_chain), planned over the
         records with this node's held sessions added to their loads and
         shedding replicas charged ADMISSION_PENALTY, and recorded for the
-        session as one step under the pick lock. None when no complete chain
-        exists (the caller keeps the per-hop pick). Tenant sessions plan
-        with no affinity until AdapterAffinity is ported (ROADMAP A4e)."""
+        session as one step under the pick lock. `affinity` (a tenant
+        session's AdapterAffinity) re-ranks the route's first stage by the
+        bounded bonus of a replica gossiping the adapter resident. None when
+        no complete chain exists (the caller keeps the per-hop pick)."""
         with self._pick_lock:
             try:
                 chain = self.path_finder.find_best_chain(
-                    start_stage, held=self._held(), new_session=True)
+                    start_stage, affinity=affinity, held=self._held(), new_session=True)
             except NoNodeForStage:
                 self.metrics.inc("route.plan_failed")
                 return None
@@ -1274,7 +1297,10 @@ class Node:
                 and stage + 1 < ex.spec.num_stages):
             # a new session enters the swarm here: plan its downstream chain,
             # which rides its envelopes (a failed plan leaves the per-hop pick)
-            route = self._plan_route(stage + 1, session_id)
+            adapter = payload.get("adapter")
+            route = self._plan_route(
+                stage + 1, session_id,
+                affinity=None if adapter is None else AdapterAffinity(str(adapter)))
             if route:
                 env["route"] = route
         if (relay and not env.get("rescued") and start_pos > 0

@@ -208,19 +208,20 @@ def build_parser() -> argparse.ArgumentParser:
         "not ported yet and fails at start",
     )
     ap.add_argument(
-        "--lora", default="",
+        "--lora", default=os.environ.get("INFERD_LORA", ""),
         help="peft LoRA adapter directory merged into this node's stage weights at "
-        "load time, before quantization; mutually exclusive with --adapters",
+        "load time, before quantization (env INFERD_LORA); mutually exclusive with "
+        "--adapters",
     )
     ap.add_argument(
-        "--adapters", default="",
+        "--adapters", default=os.environ.get("INFERD_ADAPTERS", ""),
         help="multi-tenant LoRA: comma-separated peft adapter directories forming "
-        "this node's adapter CATALOG. Sessions admitted with an `adapter` envelope "
-        "key decode with that adapter's weights via the batched unmerged apply — "
-        "heterogeneous-adapter sessions co-batch in ONE device step; adapters "
-        "hot-load/evict through a refcounted slot registry. Needs --stage-lanes or "
-        "--batch-lanes; "
-        "mutually exclusive with --lora",
+        "this node's adapter CATALOG (env INFERD_ADAPTERS). Sessions admitted with "
+        "an `adapter` envelope key decode with that adapter's weights via the "
+        "batched unmerged apply — heterogeneous-adapter sessions co-batch in ONE "
+        "device step; adapters hot-load/evict through a refcounted slot registry "
+        "and replicas gossip residency (`ada`) for affinity routing. Needs "
+        "--stage-lanes or --batch-lanes; mutually exclusive with --lora",
     )
     ap.add_argument(
         "--adapter-slots", type=int, default=0,

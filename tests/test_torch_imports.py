@@ -78,6 +78,10 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
             "inferd_tpu_torch.tools.send"} <= names
     # the chain planner and the routed client
     assert {"inferd_tpu_torch.control.dstar", "inferd_tpu_torch.client.routed_client"} <= names
+    # the fleet simulator: no reference sim, no msgpack package
+    assert {"inferd_tpu_torch.sim", "inferd_tpu_torch.sim.core", "inferd_tpu_torch.sim.fleet",
+            "inferd_tpu_torch.sim.scenario", "inferd_tpu_torch.sim.scenarios",
+            "inferd_tpu_torch.sim.__main__"} <= names
     # the elasticity policies
     assert {"inferd_tpu_torch.control.balance", "inferd_tpu_torch.control.autoscale"} <= names
 
