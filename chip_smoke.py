@@ -121,7 +121,8 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               serve phase's chain stream; a session that fails over from E0
               to E1 is rescued chunk by chunk to E0 through its gossiped
               `sess` (each an E0 graph replay), token-exact; E0 killed
-              mid-session: E1's rescue fails, 409, one restart, token-exact;
+              mid-session: E1's rescue fails, 409, one restart, token-exact,
+              within 15 s of the kill (E1's rescue.bounce_ms printed);
               the relay per token with a deadline on every envelope against
               without (paired_delta_stats); on the counter stages, hedges win
               over the stall within the 5% budget, then a 300 ms deadline
@@ -135,14 +136,19 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               (four sessions at once never reach the balancer's imbalance
               threshold, so only the phase's own moves happen). Checks: the
               serve prompts through A0 in turn and at once, token-exact, B
-              and C both serving; POST /drain to C while a chain session
-              (A0, C) holds it after 3 tokens: ok, draining, resident >= 1,
-              handed_off 0, the session's remaining tokens served by C,
-              token-exact; a new session's envelope to C answers 503
+              and C both serving; POST /drain to C after 3 tokens of a
+              session through A0 routed to C: ok, draining, resident 1,
+              handed_off 1 (C's drain.handed_off, B's sessions.imported), C
+              served the passes before the drain and B, through C's rescue,
+              the rest, token-exact with no client restart; a new session's
+              envelope to C answers 503
               "draining" with Retry-After; A0's view shows C draining: 1;
               four new sessions through A0 all go to B; C stops (a
-              tombstone); after a session of its own on stage 0, POST
-              /reassign {"stage": 1} to A1: stage 1, migrations 1, one
+              tombstone); after a chain session through A1 and B, and 3
+              tokens of a session entering A1 (stage 0, routed to B), POST
+              /reassign {"stage": 1} to A1, which hands
+              the session to A0 (A0 serves the rest, token-exact, no client
+              restart): stage 1, migrations 1, one
               reshard.ms_to_serving (load, warm-up and release times and the
               allocator's bytes before the load, after the warm-up and after
               the release printed), the release freed at least 0.9 x its old
@@ -213,6 +219,37 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               session after them is planned by cost alone (to A, whose
               record carries no svc_ms) and its stream equals serve_lanes';
               exact launch counts per node as in serve_lanes_lora
+  serve_sessions
+              sessions that move, on fresh processes after
+              serve_tenant_routes' stop: a swarm of one-session graphed nodes
+              S0 (stage 0, the seed, the default hedge mode), S1a and S1b (stage
+              1), and two
+              whole-model --batch-lanes 8 --paged-kv 32 nodes P and Q.
+              Checks: four prompts extending a 300-token prefix pinned by a
+              SwarmClient fork on both stages (fork.ok 4 on S0 and S1a) and
+              prefill only their suffix, token-exact against the same
+              prompts unpinned (the time to the first token of both
+              printed); after the pin's /end_session a fork misses
+              (fork.miss 1), the pin drops and the prompt prefills in full,
+              token-exact; generate_ids_disaggregated through S1a hands the
+              session's stage-1 KV to S1b (/export_session), which decodes
+              on token-exact (handoff.bytes and handoff.ms printed); POST
+              /generate on S0 with pin_prefix_len 300, plain and streamed,
+              and tools/send --server-side --pin-prefix-ids (a subprocess,
+              exit 0) give the same streams, forked on the node's one pin;
+              S1b stopped (SIGTERM) after 4 tokens of a session it holds
+              hands it to S1a, token-exact with no client restart; on P, a
+              288-token pinned prefix and four forks prefill only the pin
+              and the suffixes, token-exact against Q's unforked streams; a
+              fork of a P session with a partial tail block, stepped in
+              lockstep with its parent, gives bit-equal logits (its tail's
+              copy lands before its first graphed step); a session prefilled
+              on P and exported to Q decodes on Q token-exact. Every node's
+              flash_gqa launches (split: its decode steps, mma: its prompt
+              chunks, x 14 layers on the swarm, x 28 on P and Q) and
+              paged_decode_gqa launches (28 x its decode dispatches, the
+              split ones by paged_plan) exact; every decode step a capture
+              or a replay
   generate    the whole model in this process (the serve checkpoints joined,
               bf16) through core.generate.Engine, whose decode steps and
               K-step windows replay captured CUDA graphs: on the serve
@@ -308,7 +345,8 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
 
 Balancers: every node runs one (run_node's default --rebalance-period 10).
 The swarms with a stage of two or more replicas, serve_swarm's one-session
-swarm and serve_overload's two, take --rebalance-period 3600, longer than
+swarm, serve_overload's two and serve_sessions', take --rebalance-period
+3600, longer than
 their phase: a tick that read a transient load skew (an entry's in-flight
 requests gossiped before its replicas') could move a replica mid-phase and
 break the phase's per-node pass counts. The other phases' layouts cannot
@@ -326,7 +364,7 @@ Run from the root of a checkout: python3 chip_smoke.py
 Exits non-zero without a CUDA device, and outside a checkout.
 `--only paged,lora` (any of flash, paged, qmm, lora, codec, sim, and on a fresh
 split serve, serve_quant, serve_lanes, serve_lanes_quant, serve_lanes_lora,
-serve_tenant_routes,
+serve_tenant_routes, serve_sessions,
 serve_swarm, serve_overload, serve_elastic, generate, generate_batched,
 serve_batch, serve_kstep, serve_fp8, anatomy, profile: serve_quant runs int8
 and int4, serve_lanes_lora runs serve_lanes first, serve_tenant_routes runs
@@ -3275,6 +3313,10 @@ OVERLOAD_RESCUE_AFTER = 8  # tokens before the client fails over to E1
 OVERLOAD_POST_COMPUTE_DEADLINE_S = 0.15  # ahead of E2's 400 ms chaos delay
 OVERLOAD_STALL_DEADLINE_S = 0.3  # toward the stalled counter replica
 OVERLOAD_HEDGE_MS = 50
+# E0's kill to the client's restart: ~8x the 1.76-1.86 s the runs measured
+# (the rescue's bounces, E1's 409 and the client's backoff); one run's 64.8 s
+# had nothing to bound it (ROADMAP C5)
+OVERLOAD_RESTART_BOUND_S = 15.0
 # serve_elastic's nodes: A0 and A1 on stage 0, B and C on stage 1, one-session
 # and graphed, their balancers every 2 s (jittered). A capacity of 16 keeps a
 # stage's load/cap at most 4/16 under the phase's four sessions at once, under
@@ -3288,6 +3330,17 @@ ELASTIC_DRAIN_AFTER = 3  # tokens of C's resident session before the drain
 # stage's weights, KV buffers and graphs are not still held (its weights
 # alone are ~0.7 GiB)
 ELASTIC_MEMORY_MARGIN = 64 * 2**20
+# serve_sessions: a shared prefix and the suffixes of the prompts that extend
+# it (every chunk >= 16 rows: the tensor cores' route); the swarm's client
+# prefills in chunks of the prefix, so a pinned and an unpinned session
+# compute the same chunks; the paged pair's prefix is block-aligned, so a
+# prefix-index hit recomputes exactly the chunk the pin's prefill ran last
+SESS_PREFIX = 300
+SESS_PAGED_PREFIX = 288
+SESS_SUFFIXES = (16, 40, 100, 200)
+SESS_STOP_AFTER = 4  # tokens of a session before its stage-1 holder stops
+SESS_TAIL_STEPS = 2  # the paged parent's decode steps before its tail fork
+SESS_TAIL_ROUNDS = 4  # lockstep steps of the parent and the tail child
 # the balancer's period of the swarms whose layout it could move (a stage
 # with two replicas): longer than their phase (chip_smoke's docstring)
 STILL_REBALANCE_S = 3600
@@ -3310,10 +3363,15 @@ SWARM_LAYOUTS = {
     # serve_elastic: A0, A1, B, C
     "elastic": ("model", [(0, ELASTIC_ARGS), (0, ELASTIC_ARGS), (1, ELASTIC_ARGS),
                           (1, ELASTIC_ARGS)]),
+    # serve_sessions: S0, S1a, S1b, on the default hedge mode (advertised):
+    # after a handoff S0 must neither hedge a step to the new holder while
+    # the old one's advert lingers nor keep relaying through the old one
+    # (a step run twice breaks the phase's exact launch counts)
+    "sessions": ("model", [(0, []), (1, []), (1, [])]),
 }
 # swarms with a stage of two replicas or more, which a balancer's tick under
 # a transient load skew could reshape mid-phase
-STILL_SWARMS = ("swarm", "overload", "overload_counter")
+STILL_SWARMS = ("swarm", "overload", "overload_counter", "sessions")
 
 
 def write_manifest(work: str, tag: str, layout) -> str:
@@ -4301,6 +4359,14 @@ def run_serve_overload(card: str, parts: str, work: str, serve) -> Dict[str, Any
                    f"(the rescue's bounces and the client's backoff; the refused step's round "
                    f"trip {refused[0]['ms']:.1f} ms), to the restart's first token "
                    f"{restart_s['to_first_token']:.3f} s ({card})")
+        bounces = stats(e1)["metrics"]["histograms"].get("rescue.bounce_ms")
+        say(phase, f"E1's rescue bounces (rescue.bounce_ms, every bounce's relay): {bounces}; "
+                   f"the kill-to-restart bound {OVERLOAD_RESTART_BOUND_S} s")
+        if restart_s["to_409_and_backoff"] > OVERLOAD_RESTART_BOUND_S:
+            raise AssertionError(f"{phase}: {restart_s['to_409_and_backoff']:.3f} s from E0's "
+                                 f"kill to the client's restart, past the "
+                                 f"{OVERLOAD_RESTART_BOUND_S} s bound; E1's rescue bounces "
+                                 f"{bounces}; the refused steps {refused}")
 
         # counter stages: hedges win over the stall, then a deadline on it
         def hedge_env(i, **kw):
@@ -4404,22 +4470,39 @@ def run_serve_overload(card: str, parts: str, work: str, serve) -> Dict[str, Any
 
 
 def drive(client, prompts, concurrent: bool = False, new: int = NEW_TOKENS,
-          marks: Optional[List[float]] = None, **kw) -> List[List[int]]:
+          marks: Optional[List[float]] = None, on_token=None, **kw) -> List[List[int]]:
     """Greedy streams of `prompts` through `client`, in turn or all at once;
-    `marks` collects the wall time (time.time()) of every token."""
-    def on_token(tok):
+    `marks` collects the wall time (time.time()) of every token, and
+    `on_token` (in turn only) sees each token too."""
+    def tick(tok):
         if marks is not None and tok is not None:
             marks.append(time.time())
+        if on_token is not None:
+            on_token(tok)
 
     async def go():
         async with client as c:
             if concurrent:
                 return await asyncio.gather(*(c.generate_ids(p, max_new_tokens=new, **kw)
                                               for p in prompts))
-            return [await c.generate_ids(p, max_new_tokens=new, on_token=on_token, **kw)
+            return [await c.generate_ids(p, max_new_tokens=new, on_token=tick, **kw)
                     for p in prompts]
 
     return asyncio.run(go())
+
+
+def routed_swarm_client(entry: int, route: Dict[str, str], sampling, **kw):
+    """A SwarmClient entering at the node on port `entry` whose envelopes
+    carry `route` ({str(stage): node_id}): the relay follows it for a new
+    session (the planner's route, here chosen by the phase), so a phase
+    knows which replica holds the session's KV."""
+    from inferd_tpu_torch.client.swarm_client import SwarmClient
+
+    class Routed(SwarmClient):
+        def _forward_env(self, session_id, tokens, start_pos):
+            return dict(super()._forward_env(session_id, tokens, start_pos), route=route)
+
+    return Routed([("127.0.0.1", entry)], sampling=sampling, **kw)
 
 
 def check_streams(phase: str, what: str, prompts, got, want) -> None:
@@ -4440,9 +4523,11 @@ def kv_held(st: Dict[str, Any]) -> int:
 def run_serve_elastic(card: str, parts: str, work: str, serve) -> Dict[str, Any]:
     """The `serve_elastic` phase: four one-session graphed nodes, A0 and A1 on
     stage 0, B and C on stage 1, their balancers every ELASTIC_REBALANCE_S:
-    C drains while it holds a session, A1 is reassigned to stage 1 while it
-    serves, and when A0 dies the min-id of B and A1 adopts the empty stage
-    0; every stream token-exact against the serve phase's chain streams."""
+    C drains while it holds a session and hands it to B, A1 is reassigned to
+    stage 1 while it holds a stage-0 session and hands it to A0 (both
+    sessions go on with no client restart), and when A0 dies the min-id of
+    B and A1 adopts the empty stage 0; every stream token-exact against the
+    serve phase's chain streams."""
     import numpy as np
 
     from inferd_tpu_torch.client.base import http_post
@@ -4471,6 +4556,9 @@ def run_serve_elastic(card: str, parts: str, work: str, serve) -> Dict[str, Any]
 
     def passes(n):
         return stats(n)["forward_passes"]
+
+    def counters(st):
+        return st["metrics"]["counters"]
 
     def swarm_client(n, **kw):
         return SwarmClient([url(n)], sampling=greedy, prefill_chunk=512, **kw)
@@ -4529,9 +4617,11 @@ def run_serve_elastic(card: str, parts: str, work: str, serve) -> Dict[str, Any]
         if not all(served.values()) or sum(served.values()) != 2 * sum(per):
             raise AssertionError(f"{phase}: warm: stage-1 passes {served}")
 
-        # 2. drain C while it holds a session
+        # 2. drain C while it holds a session: C hands it to B, and its next
+        # steps, relayed by A0, reach B: through C's rescue while A0's view
+        # holds C's advert of the session, then straight (route.sess_moved)
         drained: Dict[str, Any] = {}
-        c_before = passes(c)
+        c_before, b_before = passes(c), passes(b)
         toks: List[int] = []
 
         def drain_at(tok):
@@ -4541,25 +4631,32 @@ def run_serve_elastic(card: str, parts: str, work: str, serve) -> Dict[str, Any]
                 drained["reply"] = post_wire(c["port"], "/drain", {"wait_s": 2.0})
                 drained["ms"] = (time.perf_counter() - t) * 1e3
 
-        async def resident():
-            async with chain_client(a0, c) as cl:
-                return await cl.generate_ids(prompts[1], max_new_tokens=NEW_TOKENS,
-                                             on_token=drain_at)
-
-        got = asyncio.run(resident())
-        check_streams(phase, "C's resident session across the drain", prompts[1:2], [got],
+        got = drive(routed_swarm_client(a0["port"], {"1": nid(c)}, greedy, prefill_chunk=512),
+                    prompts[1:2], on_token=drain_at)
+        check_streams(phase, "C's resident session across the drain", prompts[1:2], got,
                       serve["streams"][1:2])
         status, drain_reply = drained["reply"]
-        c_served = passes(c) - c_before
+        st_c, st_b = stats(c), stats(b)
+        c_served, b_served = st_c["forward_passes"] - c_before, st_b["forward_passes"] - b_before
+        c_count, b_count = counters(st_c), counters(st_b)
+        moved = counters(stats(a0)).get("route.sess_moved", 0)
+        want_c = per[1] - (NEW_TOKENS - ELASTIC_DRAIN_AFTER)  # its chunks and the steps before
         say(phase, f"drain: POST /drain {{'wait_s': 2}} to C after {ELASTIC_DRAIN_AFTER} tokens "
-                   f"of a chain session through A0 and C: HTTP {status} {drain_reply} in "
-                   f"{drained['ms']:.1f} ms; C served the session's remaining tokens, token-exact "
-                   f"({c_served} passes, want {per[1]})")
+                   f"of a session through A0 routed to C: HTTP {status} {drain_reply} in "
+                   f"{drained['ms']:.1f} ms; C's drain.handed_off "
+                   f"{c_count.get('drain.handed_off')}, B's sessions.imported "
+                   f"{b_count.get('sessions.imported')}; C served {c_served} passes (want "
+                   f"{want_c}), B the remaining {b_served} (want {per[1] - want_c}), "
+                   f"{c_count.get('sessions.rescue_relay', 0):.0f} of them through C's rescue, "
+                   f"the rest relayed straight to B (A0's route.sess_moved {moved:.0f}); "
+                   f"token-exact, client restarts {toks.count(None)}")
         if (status != 200 or not drain_reply.get("ok") or drain_reply.get("draining") is not True
-                or drain_reply.get("resident", 0) < 1 or drain_reply.get("handed_off") != 0
-                or c_served != per[1] or None in toks):
+                or drain_reply.get("resident") != 1 or drain_reply.get("handed_off") != 1
+                or c_count.get("drain.handed_off") != 1 or b_count.get("sessions.imported") != 1
+                or c_served != want_c or b_served != per[1] - want_c or None in toks
+                or moved < 1):
             raise AssertionError(f"{phase}: drain reply {status} {drain_reply}, C served "
-                                 f"{c_served}")
+                                 f"{c_served}, B {b_served}, restarts {toks.count(None)}")
         env = {"session_id": "elastic-new", "stage": 1, "relay": False,
                "payload": {"hidden": np.zeros((1, 1, cfg.hidden_size), np.float32),
                            "start_pos": 0, "real_len": 1}}
@@ -4588,24 +4685,58 @@ def run_serve_elastic(card: str, parts: str, work: str, serve) -> Dict[str, Any]
         gone = wait_for("C's tombstone in A0's view", lambda: nid(c) not in view(a0, 1), 10.0)
         say(phase, f"C stopped: its record left A0's view after {gone:.2f} s (a tombstone)")
 
-        # 3. reassign A1 to stage 1, after a session of its own on stage 0
+        # 3. reassign A1 to stage 1 while it holds a stage-0 session, after a
+        # whole session of its own on stage 0 (its svc_ms, which a migration
+        # keeps, then no longer carries its first forward's captures): A1
+        # hands the resident to A0, and its next steps, entering A1, reach A0
         got = drive(chain_client(a1, b), prompts[2:3])
         check_streams(phase, "a chain session through A1 on stage 0", prompts[2:3], got,
                       serve["streams"][2:3])
-        st0 = stats(a1)
-        t = time.perf_counter()
-        status, reply = post_wire(a1["port"], "/reassign", {"stage": 1})
-        wall_ms = (time.perf_counter() - t) * 1e3
+        reassigned: Dict[str, Any] = {}
+        a0_before = passes(a0)
+        toks = []
+
+        def reassign_at(tok):
+            toks.append(tok)
+            if len(toks) == ELASTIC_DRAIN_AFTER:
+                reassigned["st0"] = stats(a1)
+                t = time.perf_counter()
+                reassigned["reply"] = post_wire(a1["port"], "/reassign", {"stage": 1})
+                reassigned["ms"] = (time.perf_counter() - t) * 1e3
+
+        got = drive(routed_swarm_client(a1["port"], {"1": nid(b)}, greedy, prefill_chunk=512),
+                    prompts[2:3], on_token=reassign_at)
+        check_streams(phase, "A1's stage-0 session across its reassign", prompts[2:3], got,
+                      serve["streams"][2:3])
+        st0 = reassigned["st0"]
+        status, reply = reassigned["reply"]
+        wall_ms = reassigned["ms"]
         st1, st_b = stats(a1), stats(b)
+        a0_took = passes(a0) - a0_before
+        a0_count = counters(stats(a0))
+        want_a1 = 2 * per[2] - (NEW_TOKENS - ELASTIC_DRAIN_AFTER)  # and the chain session's
+        say(phase, f"reassign with a resident: A1 served {st0['forward_passes']} stage-0 passes "
+                   f"(want {want_a1}) of a chain session and of a session routed A1 -> B, then "
+                   f"handed the second to A0 (A1's sessions.exported "
+                   f"{counters(st1).get('sessions.exported')}, A0's sessions.imported "
+                   f"{a0_count.get('sessions.imported')}), which served the remaining {a0_took} "
+                   f"(want {NEW_TOKENS - ELASTIC_DRAIN_AFTER}); token-exact, client restarts "
+                   f"{toks.count(None)}")
+        if (st0["forward_passes"] != want_a1 or a0_took != NEW_TOKENS - ELASTIC_DRAIN_AFTER
+                or None in toks
+                or a0_count.get("sessions.imported") != 1
+                or counters(st1).get("sessions.exported") != 1):
+            raise AssertionError(f"{phase}: the reassign's handoff: A1 {st0['forward_passes']}, "
+                                 f"A0 {a0_took}, restarts {toks.count(None)}, {a0_count}")
         mig = st1["last_migration"] or {}
         hist = st1["metrics"]["histograms"].get("reshard.ms_to_serving", {})
         gib = 2.0**30
         mem = {k: {m: round(v / gib, 3) for m, v in d.items()}
                for k, d in mig.get("memory", {}).items()}
         say(phase, f"reassign: POST /reassign {{'stage': 1}} to A1: HTTP {status} {reply} in "
-                   f"{wall_ms:.1f} ms; A1's /stats: stage {st1['stage']}, migrations "
-                   f"{st1['metrics']['counters'].get('migrations')}, reshard.ms_to_serving "
-                   f"{hist}; load {mig.get('load_ms', 0):.1f} ms, warm-up "
+                   f"{wall_ms:.1f} ms (the handoff included); A1's /stats: stage {st1['stage']}, "
+                   f"migrations {st1['metrics']['counters'].get('migrations')}, "
+                   f"reshard.ms_to_serving {hist}; load {mig.get('load_ms', 0):.1f} ms, warm-up "
                    f"{mig.get('warmup_ms', 0):.1f} ms, serving after "
                    f"{mig.get('ms_to_serving', 0):.1f} ms, release "
                    f"{mig.get('release_ms', 0):.1f} ms (released: {mig.get('released')}); "
@@ -4698,6 +4829,384 @@ def run_serve_elastic(card: str, parts: str, work: str, serve) -> Dict[str, Any]
                 "gemv_routes": {name: {"mma": 0, "simt": 0} for name in QMM_KERNEL_OF.values()},
                 "migration": mig, "adoption_s": at.get("at", t_kill) - t_kill,
                 "first_token_s": marks[0] - t_kill, "drain": drain_reply}
+    except BaseException:
+        stop_nodes(nodes, show_logs=True)
+        nodes = []
+        raise
+    finally:
+        stop_nodes(nodes)
+
+
+def run_serve_sessions(card: str, parts: str, parts1: str, work: str) -> Dict[str, Any]:
+    """The `serve_sessions` phase: sessions that move, on fresh processes.
+
+    Swarm: S0 (stage 0) and S1a, S1b (stage 1), one-session graphed nodes. A
+    SESS_PREFIX-token prefix pinned through a SwarmClient, then the prompts
+    that extend it fork it on both stages and prefill only their suffix,
+    token-exact against the same prompts unpinned; a fork after the pin's
+    end misses and prefills in full; generate_ids_disaggregated hands a
+    session from S1a to S1b (/export_session); POST /generate on S0 with
+    pin_prefix_len, plain and streamed, and tools/send --server-side
+    --pin-prefix-ids give the client loop's ids; stop() of S1b hands its
+    resident session to S1a. Paged: P and Q, whole-model --batch-lanes
+    --paged-kv nodes: a pinned prefix and its forks on P against unforked
+    streams on Q, a tail-block fork stepped in lockstep with its parent
+    (bit-exact logits), and a session exported P -> Q. Every node's
+    flash_gqa (split and mma) and paged_decode_gqa launches are exact."""
+    import numpy as np
+
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+
+    phase = "serve_sessions"
+    cfg = get_config(MODEL)
+    layers, whole_layers = cfg.num_layers // 2, cfg.num_layers
+    greedy = SamplingConfig(temperature=0.0)
+    rng = np.random.default_rng(19)
+    prefix = rng.integers(0, cfg.vocab_size, SESS_PREFIX).tolist()
+    prompts = [prefix + rng.integers(0, cfg.vocab_size, n).tolist() for n in SESS_SUFFIXES]
+    paged_prompts = [p[:SESS_PAGED_PREFIX] + p[SESS_PREFIX:] for p in prompts]
+    dec = NEW_TOKENS - 1
+    nodes: List[Dict[str, Any]] = []
+    t_phase = time.perf_counter()
+
+    def nid(n):
+        return f"127.0.0.1:{n['port']}"
+
+    def stats(n):
+        return http_get_json(f"http://127.0.0.1:{n['port']}/stats")
+
+    def counter(st, name):
+        return int(st["metrics"]["counters"].get(name, 0))
+
+    def client(n, route=None, chunk=SESS_PREFIX):
+        return routed_swarm_client(n["port"], route or {}, greedy, prefill_chunk=chunk)
+
+    def timed(cl, prompt, on_token=None):
+        """(ids, seconds to the first token, seconds in all) of one
+        generation."""
+        marks: List[float] = []
+
+        def tick(tok):
+            marks.append(time.perf_counter())
+            if on_token is not None:
+                on_token(tok)
+
+        async def go():
+            async with cl as c:
+                t = time.perf_counter()
+                ids = await c.generate_ids(prompt, max_new_tokens=NEW_TOKENS, on_token=tick)
+                return ids, marks[0] - t, time.perf_counter() - t
+
+        return asyncio.run(go())
+
+    try:
+        nodes = take_swarm(parts, work, "sessions")
+        s0, s1a, s1b = nodes
+        pq = [start_single(parts1, work, BATCH_PAGED_ARGS, tag) for tag in ("_sessP", "_sessQ")]
+        nodes += pq
+        p_node, q_node = pq
+        for n in nodes:
+            wait_ready(n)
+        converged = wait_gossip(phase, [s0, s1a, s1b])
+        names = {nid(s0): "S0", nid(s1a): "S1a", nid(s1b): "S1b"}
+        say(phase, f"5 fresh run_node --device {DEVICE} processes (S0, S1a, S1b; P, Q with "
+                   f"{' '.join(BATCH_PAGED_ARGS)}) ready in {time.perf_counter() - t_phase:.1f}s; "
+                   f"the swarm's gossip views full after {converged:.2f}s")
+        # what each one-session node computes: prompt chunks (the tensor
+        # cores' route) and decode steps (the split route)
+        want = {name: {"chunks": 0, "decode": 0} for name in ("S0", "S1a", "S1b")}
+
+        def add(name, chunks=0, decode=0):
+            want[name]["chunks"] += chunks
+            want[name]["decode"] += decode
+
+        via_a = {"1": nid(s1a)}
+        # 1. the prompts unpinned, then pinned: both stages fork, the suffix prefills
+        refs, ref_ttft = [], []
+        for p in prompts:
+            ids, ttft, _ = timed(client(s0, via_a), p)
+            refs.append(ids)
+            ref_ttft.append(ttft)
+            for name in ("S0", "S1a"):
+                add(name, 2, dec)
+        pinned = client(s0, via_a)
+        forked, fork_ttft = [], []
+        before = {n["port"]: stats(n) for n in (s0, s1a)}
+
+        async def forks():
+            async with pinned as c:
+                await c.pin_prefix(prefix)
+                for p in prompts:
+                    t = time.perf_counter()
+                    first: List[float] = []
+                    forked.append(await c.generate_ids(
+                        p, max_new_tokens=NEW_TOKENS,
+                        on_token=lambda tok: first.append(time.perf_counter())))
+                    fork_ttft.append(first[0] - t)
+                parent, _ = c.pinned_parent(prefix)
+                # the pin's parent ends: the next fork misses, and prefills in full
+                await c._end_session(parent)
+                miss = await c.generate_ids(prompts[0], max_new_tokens=NEW_TOKENS)
+                return miss, c.pinned_parent(prefix)
+
+        miss, left = asyncio.run(forks())
+        for name in ("S0", "S1a"):
+            add(name, 1 + len(prompts), len(prompts) * dec)  # the pin, each suffix
+            add(name, 2, dec)  # the miss
+        after = {n["port"]: stats(n) for n in (s0, s1a)}
+        fork_ok = {names[nid(n)]: counter(after[n["port"]], "fork.ok")
+                   - counter(before[n["port"]], "fork.ok") for n in (s0, s1a)}
+        fork_miss = counter(after[s0["port"]], "fork.miss") - counter(before[s0["port"]],
+                                                                       "fork.miss")
+        check_streams(phase, "forked on the pin", prompts, forked, refs)
+        check_streams(phase, "a fork that missed", prompts[:1], [miss], refs[:1])
+        say(phase, f"{len(prompts)} prompts of a {SESS_PREFIX}-token prefix and {SESS_SUFFIXES} "
+                   f"more: pinned, each forked on both stages (fork.ok {fork_ok}, want "
+                   f"{len(prompts)} each), token-exact against the same prompts unpinned; the "
+                   f"first token after {[round(t * 1e3, 1) for t in fork_ttft]} ms forked "
+                   f"against {[round(t * 1e3, 1) for t in ref_ttft]} ms unpinned (the fork's "
+                   f"saved prefill of {SESS_PREFIX} tokens; the first unpinned session paid "
+                   f"the fresh processes' first captures); after the pin's /end_session a "
+                   f"fork missed (fork.miss {fork_miss}), the pin was dropped "
+                   f"({left is None}) and the prompt prefilled in full, token-exact ({card})")
+        if fork_ok != {"S0": len(prompts), "S1a": len(prompts)} or fork_miss != 1 or left:
+            raise AssertionError(f"{phase}: fork.ok {fork_ok}, fork.miss {fork_miss}, pin {left}")
+
+        # 2. a session prefilled through S1a and handed, at stage 1, to S1b
+        async def disagg():
+            async with client(s1a, via_a) as c:
+                return await c.generate_ids_disaggregated(prompts[1], ("127.0.0.1", s1b["port"]),
+                                                          max_new_tokens=NEW_TOKENS)
+
+        got = asyncio.run(disagg())
+        check_streams(phase, "disaggregated S1a -> S1b", prompts[1:2], [got], refs[1:2])
+        add("S0", 2, dec)
+        add("S1a", 2)
+        add("S1b", 0, dec)
+        st_a = stats(s1a)
+        h = st_a["metrics"]["histograms"].get("handoff.ms", {})
+        handoff = {"bytes": counter(st_a, "handoff.bytes"), "ms": h.get("mean_ms"),
+                   "sessions": counter(st_a, "sessions.handed_off")}
+        say(phase, f"generate_ids_disaggregated: prefill through S1a, /export_session of its "
+                   f"stage-1 KV ({len(prompts[1])} slots) to S1b, {dec} decode steps on S1b: "
+                   f"token-exact; handoff.bytes {handoff['bytes']}, handoff.ms {h} ({card})")
+        if handoff["sessions"] != 1 or counter(stats(s1b), "sessions.imported") != 1:
+            raise AssertionError(f"{phase}: the disaggregated handoff {handoff}")
+
+        # 3. POST /generate on S0: the node pins and forks on its own
+        before = {n["port"]: stats(n)["forward_passes"] for n in (s1a, s1b)}
+
+        async def server_side():
+            async with client(s0) as c:
+                plain = await c.generate_server_side(prompts[0], max_new_tokens=NEW_TOKENS,
+                                                     pin_prefix_len=SESS_PREFIX)
+                streamed: List[int] = []
+                ids = await c.generate_server_side_stream(
+                    prompts[1], streamed.append, max_new_tokens=NEW_TOKENS,
+                    pin_prefix_len=SESS_PREFIX)
+                return plain, ids, streamed
+
+        plain, ids, streamed = asyncio.run(server_side())
+        check_streams(phase, "POST /generate", prompts[:2], [plain, ids], refs[:2])
+        if streamed != ids:
+            raise AssertionError(f"{phase}: the streamed lines {streamed}, the done line {ids}")
+        cmd = [sys.executable, "-m", "inferd_tpu_torch.tools.send", "--entry", nid(s0),
+               "--prompt-ids", ",".join(map(str, prompts[2])), "--pin-prefix-ids",
+               ",".join(map(str, prefix)), "--server-side", "--max-new-tokens",
+               str(NEW_TOKENS), "--temperature", "0"]
+        r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"{phase}: tools/send --server-side exit {r.returncode}\n"
+                                 f"{r.stderr[-4000:]}")
+        sent = json.loads(r.stdout.split("generated ids:", 1)[1].strip().splitlines()[0])
+        check_streams(phase, "tools/send --server-side --pin-prefix-ids", prompts[2:3], [sent],
+                      refs[2:3])
+        moved = {names[nid(n)]: stats(n)["forward_passes"] - before[n["port"]]
+                 for n in (s1a, s1b)}
+        x = [name for name, v in moved.items() if v]
+        if len(x) != 1:
+            raise AssertionError(f"{phase}: /generate's stage-1 passes {moved}: want one replica")
+        for name in ("S0", x[0]):
+            add(name, 1 + 3, 3 * dec)  # the node's pin, three forked suffixes
+        st0 = stats(s0)
+        gen = {k: counter(st0, k) for k in ("generate.requests", "generate.tokens",
+                                             "generate.errors")}
+        say(phase, f"POST /generate to S0 with pin_prefix_len {SESS_PREFIX}: plain and streamed "
+                   f"({len(streamed)} ndjson token lines), and tools/send --server-side "
+                   f"--pin-prefix-ids: exit 0; all three token-exact, forked on S0 and {x[0]} "
+                   f"(the node's one pin); S0's {gen}, generate.wall_ms "
+                   f"{st0['metrics']['histograms'].get('generate.wall_ms')} ({card})")
+        if gen != {"generate.requests": 3, "generate.tokens": 3 * NEW_TOKENS,
+                   "generate.errors": 0}:
+            raise AssertionError(f"{phase}: S0's generate counters {gen}")
+
+        # 4. stop() of S1b while it holds a session: S1a adopts it
+        final: Dict[str, Dict[str, Any]] = {}
+        stopped: Dict[str, float] = {}
+        toks: List[int] = []
+
+        def stop_at(tok):
+            toks.append(tok)
+            if len(toks) == SESS_STOP_AFTER:
+                final["S1b"] = stats(s1b)
+                t = time.perf_counter()
+                s1b["proc"].terminate()
+                s1b["proc"].wait(timeout=60)
+                stopped["s"] = time.perf_counter() - t
+
+        got, _, _ = timed(client(s0, {"1": nid(s1b)}), prompts[3], on_token=stop_at)
+        check_streams(phase, "S1b's resident across its stop", prompts[3:4], [got], refs[3:4])
+        add("S0", 2, dec)
+        add("S1b", 2, SESS_STOP_AFTER - 1)
+        add("S1a", 0, dec - (SESS_STOP_AFTER - 1))
+        imported = counter(stats(s1a), "sessions.imported")
+        want_imported = 1 + (x[0] == "S1b")  # and /generate's pin, when S1b held it
+        say(phase, f"S1b stopped (SIGTERM, {stopped['s']:.2f}s to exit) after "
+                   f"{SESS_STOP_AFTER} tokens of a session routed to it: S1a's "
+                   f"sessions.imported {imported} (want {want_imported}), the stream "
+                   f"token-exact with client restarts {toks.count(None)}")
+        if imported != want_imported or None in toks:
+            raise AssertionError(f"{phase}: S1b's stop: S1a imported {imported}, restarts "
+                                 f"{toks.count(None)}")
+
+        # 5. paged: forks of a pinned prefix on P against unforked streams on Q
+        q_refs = [timed(client(q_node, chunk=SESS_PAGED_PREFIX), p)[0] for p in paged_prompts]
+        cow: List[Dict[str, int]] = []
+
+        def watch(tok):
+            if len(cow) < len(forked_p) + 1:
+                cow.append(stats(p_node)["executor"]["paged"])
+
+        forked_p: List[List[int]] = []
+        p_before = stats(p_node)["executor"]
+
+        async def paged_forks():
+            async with client(p_node, chunk=SESS_PAGED_PREFIX) as c:
+                await c.pin_prefix(paged_prompts[0][:SESS_PAGED_PREFIX])
+                for p in paged_prompts:
+                    forked_p.append(await c.generate_ids(p, max_new_tokens=NEW_TOKENS,
+                                                         on_token=watch))
+
+        asyncio.run(paged_forks())
+        check_streams(phase, "paged forks on P against Q", paged_prompts, forked_p, q_refs)
+        p_mid = stats(p_node)
+        p_prefilled = p_mid["executor"]["prefill_tokens"] - p_before["prefill_tokens"]
+        want_prefilled = SESS_PAGED_PREFIX + sum(SESS_SUFFIXES)
+        say(phase, f"P: a {SESS_PAGED_PREFIX}-token prefix pinned, {len(paged_prompts)} forks "
+                   f"(fork.ok {counter(p_mid, 'fork.ok')}) prefilled {p_prefilled} tokens (want "
+                   f"{want_prefilled}: the pin and the suffixes), token-exact against Q's "
+                   f"unforked streams; P's block pool while each fork ran "
+                   f"{[(c['cow_shared'], c['blocks_used']) for c in cow]} (cow_shared, "
+                   f"blocks_used)")
+        if (counter(p_mid, "fork.ok") != len(paged_prompts) or p_prefilled != want_prefilled
+                or not all(c["cow_shared"] > 0 for c in cow)):
+            raise AssertionError(f"{phase}: P's forks {p_mid['metrics']}, prefilled "
+                                 f"{p_prefilled}, pool {cow}")
+
+        # a fork with a partial tail block, stepped in lockstep with its parent
+        def fwd(sid, toks_, start):
+            st, body = post_wire(p_node["port"], "/forward", {
+                "session_id": sid, "stage": 0, "relay": False,
+                "payload": {"tokens": np.asarray([toks_], np.int32), "start_pos": start,
+                            "real_len": len(toks_)}})
+            if st != 200:
+                raise AssertionError(f"{phase}: /forward {sid} at {start}: {st} {body}")
+            return np.asarray(body["result"]["logits"], np.float32)[0]
+
+        logits = fwd("tail-parent", prompts[0], 0)
+        pos = len(prompts[0])
+        for _ in range(SESS_TAIL_STEPS):
+            logits = fwd("tail-parent", [int(np.argmax(logits))], pos)
+            pos += 1
+        status, reply = post_wire(p_node["port"], "/fork_session", {
+            "session_id": "tail-child", "parent_session_id": "tail-parent", "prefix_len": pos,
+            "stage": 0, "relay": False})
+        pending = stats(p_node)["executor"]["paged"]
+        same = []
+        for _ in range(SESS_TAIL_ROUNDS):
+            tok = int(np.argmax(logits))
+            logits = fwd("tail-parent", [tok], pos)
+            child = fwd("tail-child", [tok], pos)
+            same.append(logits.tobytes() == child.tobytes())
+            pos += 1
+        for sid in ("tail-parent", "tail-child"):
+            post_wire(p_node["port"], "/end_session", {"session_id": sid, "stage": 0})
+        say(phase, f"a fork of a {len(prompts[0]) + SESS_TAIL_STEPS}-slot parent on P "
+                   f"({(len(prompts[0]) + SESS_TAIL_STEPS) % PAGED_BS} slots in its copied tail "
+                   f"block): {status} {reply}, pool {pending}; {SESS_TAIL_ROUNDS} lockstep steps "
+                   f"from the parent's tokens: the child's logits bit-equal the parent's {same}")
+        if status != 200 or not reply.get("ok") or not all(same):
+            raise AssertionError(f"{phase}: the tail fork {status} {reply}, equal {same}")
+
+        # a session exported P -> Q, decoded on Q
+        async def export_pq():
+            async with client(p_node, chunk=SESS_PAGED_PREFIX) as c:
+                return await c.generate_ids_disaggregated(
+                    paged_prompts[1], ("127.0.0.1", q_node["port"]), max_new_tokens=NEW_TOKENS)
+
+        got = asyncio.run(export_pq())
+        check_streams(phase, "exported P -> Q", paged_prompts[1:2], [got], q_refs[1:2])
+        st_p = stats(p_node)
+        say(phase, f"a paged session exported P -> Q: handoff.bytes "
+                   f"{counter(st_p, 'handoff.bytes')}, handoff.ms "
+                   f"{st_p['metrics']['histograms'].get('handoff.ms')}; Q decoded on, "
+                   f"token-exact against its own stream ({card})")
+
+        # exact launches per node
+        for n in (s0, s1a):
+            final[names[nid(n)]] = stats(n)
+        final["P"], final["Q"] = stats(p_node), stats(q_node)
+        relay = {k: counter(final["S0"], k) for k in ("route.sess_moved", "hedge.fired")}
+        bounced = {nm: counter(final[nm], "sessions.rescue_relay") for nm in ("S1a", "S1b")}
+        say(phase, f"S0 on the default hedge mode: {relay} (the relay followed the handed-off "
+                   f"sessions, no step hedged to a new holder); stage-1 steps bounced through "
+                   f"an old holder's rescue {bounced}")
+        if relay["route.sess_moved"] < 1 or relay["hedge.fired"]:
+            raise AssertionError(f"{phase}: S0's relay after the handoffs {relay}")
+        launches = dict.fromkeys(final["S0"]["kernels"], 0)
+        routes = {"split": 0, "mma": 0}
+        paged_split = 0
+        for name, st in final.items():
+            kern = {k: v["launches"] for k, v in st["kernels"].items()}
+            got_routes = flash_routes(st)
+            if name in want:
+                w = want[name]
+                want_kern = dict.fromkeys(kern, 0)
+                want_kern["flash_gqa"] = layers * (w["chunks"] + w["decode"])
+                want_routes = {"split": layers * w["decode"], "mma": layers * w["chunks"]}
+                passes = w["chunks"] + w["decode"]
+                check_node_graphs(phase, st, w["decode"])
+            else:
+                ex = st["executor"]
+                want_kern = dict.fromkeys(kern, 0)
+                want_kern["flash_gqa"] = whole_layers * ex["prefill_steps"]
+                want_kern["paged_decode_gqa"] = whole_layers * ex["batched_steps"]
+                want_routes = {"split": 0, "mma": whole_layers * ex["prefill_steps"]}
+                passes = st["forward_passes"]
+                split, want_split = paged_splits(phase, st, cfg)
+                paged_split += split
+                check_node_graphs(phase, st, ex["batched_steps"])
+                if split != want_split:
+                    raise AssertionError(f"{phase}: {name}: paged splits {split}, want "
+                                         f"{want_split}")
+                w = {"prefill_steps": ex["prefill_steps"], "decode_steps": ex["batched_steps"]}
+            say(phase, f"{name}: {st['forward_passes']} passes (want {passes}; {w}); launches "
+                       f"{kern} (want {want_kern}); flash_gqa routes {got_routes} (want "
+                       f"{want_routes})")
+            if kern != want_kern or got_routes != want_routes or st["forward_passes"] != passes:
+                raise AssertionError(f"{phase}: {name}: launches {kern}, routes {got_routes}, "
+                                     f"passes {st['forward_passes']}")
+            for k, v in kern.items():
+                launches[k] += v
+            for r_, v in got_routes.items():
+                routes[r_] += v
+        stop_nodes(nodes)
+        nodes = []
+        wall = time.perf_counter() - t_phase
+        return {"launches": launches, "flash_routes": routes, "paged_split": paged_split,
+                "gemv_routes": {name: {"mma": 0, "simt": 0} for name in QMM_KERNEL_OF.values()},
+                "handoff": handoff, "fork_ttft_s": fork_ttft, "unpinned_ttft_s": ref_ttft,
+                "wall_s": wall}
     except BaseException:
         stop_nodes(nodes, show_logs=True)
         nodes = []
@@ -6267,7 +6776,8 @@ CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_q
 # serve_elastic run serve first; serve_batch runs generate_batched first, its
 # streams)
 SPLIT_PHASES = ("serve", "serve_quant", "serve_lanes", "serve_lanes_quant", "serve_lanes_lora",
-                "serve_tenant_routes", "serve_swarm", "serve_overload", "serve_elastic",
+                "serve_tenant_routes", "serve_sessions", "serve_swarm", "serve_overload",
+                "serve_elastic",
                 "generate", "generate_batched", "serve_batch", "serve_kstep", "serve_fp8",
                 "anatomy", "profile")
 
@@ -6363,6 +6873,10 @@ def main(argv: List[str]) -> int:
                 if "profile" in split_only:
                     run_profile(card, parts, work)
                 whole = whole_model(parts)
+                if "serve_sessions" in split_only:
+                    t_sessions = run_serve_sessions(card, parts, one_stage_parts(work, whole),
+                                                    work)["wall_s"]
+                    say("time", f"serve_sessions: {t_sessions:.1f}s")
                 if "generate" in split_only:
                     run_generate(card, whole, None)
                     run_generate_quant(card, whole)
@@ -6438,6 +6952,8 @@ def main(argv: List[str]) -> int:
         lap("serve_lanes_lora")
         tenant = run_serve_tenant_routes(card, parts, work, lanes, lanes_lora)
         lap("serve_tenant_routes")
+        sessions = run_serve_sessions(card, parts, parts1, work)
+        lap("serve_sessions")
         gen = run_generate(card, whole, serve)
         gen_q = run_generate_quant(card, whole)
         lap("generate, generate_quant")
@@ -6464,7 +6980,8 @@ def main(argv: List[str]) -> int:
              "serve_quant_int4": serve_q["int4"], "serve_lanes": lanes, "serve_swarm": swarm,
              "serve_overload": overload, "serve_elastic": elastic,
              "serve_lanes_quant": lanes_q, "serve_lanes_lora": lanes_lora,
-             "serve_tenant_routes": tenant, "generate": gen, "generate_quant": gen_q,
+             "serve_tenant_routes": tenant, "serve_sessions": sessions, "generate": gen,
+             "generate_quant": gen_q,
              "generate_batched": gen_b,
              "serve_batch": serve_b, "serve_kstep": kstep, "serve_fp8": fp8,
              "anatomy": anat, "profile": prof}

@@ -11,8 +11,17 @@ logits the client samples from. A generation that fails mid-way with a
 retryable error restarts under a fresh session (`session_retries`), paced
 by full-jitter backoff, a busy node's `retry_after` and the process's
 retry budget; `deadline_s` stamps an end-to-end deadline into every wire
-envelope the generation sends (`deadline_wire`). Not ported yet: prefix
-pins, standby resume offers (`resume_from`) and tracing.
+envelope the generation sends (`deadline_wire`). `on_token` may be a
+plain or an async callable.
+
+Prefix pins (`pin_prefix`): a prompt prefix prefilled once under a
+long-lived session whose per-stage KV is the shared prefix cache; a later
+generation whose prompt starts with a pinned prefix forks it (`_fork_session`,
+each topology's transport) and prefills only its suffix. A clean miss
+(`ok: False`: the parent is gone) unpins and prefills in full; a transport
+failure keeps the pin and prefills in full once. At most `max_pins` pins
+are held (least recently used out); `__aexit__` ends them. Not ported yet:
+standby resume offers (`resume_from`, ROADMAP A4d part d2) and tracing.
 """
 
 from __future__ import annotations
@@ -23,11 +32,13 @@ import http.client
 import random
 import urllib.parse
 import uuid
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from inferd_tpu_torch.config import SamplingConfig
+from inferd_tpu_torch.core import prefix as prefixlib
 from inferd_tpu_torch.runtime import wire
 from inferd_tpu_torch.utils import retry as retrylib
 
@@ -134,6 +145,13 @@ def top_logprobs_np(logits: np.ndarray, n: int):
     return idx.astype(int).tolist(), lps[idx].tolist()
 
 
+async def _emit(cb, token) -> None:
+    """Call a plain or async on_token callback."""
+    r = cb(token)
+    if asyncio.iscoroutine(r):
+        await r
+
+
 def _softmax(x: np.ndarray) -> np.ndarray:
     m = np.max(x[np.isfinite(x)]) if np.any(np.isfinite(x)) else 0.0
     e = np.exp(np.clip(x - m, -700, 0))
@@ -177,12 +195,24 @@ class GenerationClient:
         self.adapter = adapter
         # long prompts prefill in sequential chunks of this many tokens
         self.prefill_chunk = max(1, prefill_chunk)
+        # pinned prefixes: prefix ids -> (the pinned session, its last-token
+        # logits); LRU-capped, since each pin holds a session on every stage
+        self._pins: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self.max_pins = 8
+        self._pin_lock = asyncio.Lock()
 
     async def __aenter__(self) -> "GenerationClient":
         return self
 
     async def __aexit__(self, *exc) -> None:
-        return None  # every request opens and closes its own connection
+        """End the pinned sessions (every request opens and closes its own
+        connection: nothing else to close)."""
+        while self._pins:
+            _, (sid, _logits) = self._pins.popitem(last=False)
+            try:
+                await self._end_session(sid)
+            except Exception:
+                pass  # best effort: nodes TTL-sweep orphaned sessions
 
     # -- transport interface (subclass responsibility) ----------------------
 
@@ -192,6 +222,12 @@ class GenerationClient:
 
     async def _end_session(self, session_id: str) -> None:
         raise NotImplementedError
+
+    async def _fork_session(self, new_session_id: str, parent_session_id: str,
+                            prefix_len: int) -> bool:
+        """Seed a new session from a parent's KV prefix on every stage.
+        Default: unsupported (the caller prefills in full)."""
+        return False
 
     # -- shared helpers ------------------------------------------------------
 
@@ -226,6 +262,44 @@ class GenerationClient:
             raise ServerError(f"{url} error {status}: {detail}", status, code, retry_after=ra)
         return data
 
+    # -- prefix pins ----------------------------------------------------------
+
+    def pinned_parent(self, prefix_ids: Sequence[int]):
+        """(the pinned session, its last-token logits) of a held pin, or None."""
+        return self._pins.get(prefixlib.normalize_ids(prefix_ids))
+
+    async def pin_prefix(self, prefix_ids: Sequence[int]) -> None:
+        """Prefill `prefix_ids` under a dedicated long-lived session whose
+        per-stage KV becomes a shared prefix cache: later generations whose
+        prompt starts with these ids fork it instead of prefilling them.
+        Single-flight: concurrent pins of one prefix run one prefill."""
+        ids = prefixlib.normalize_ids(prefix_ids)
+        if ids in self._pins:
+            self._pins.move_to_end(ids)
+            return
+        async with self._pin_lock:
+            if ids in self._pins:
+                self._pins.move_to_end(ids)
+                return
+            sid = str(uuid.uuid4())
+            pos = 0
+            logits: Optional[np.ndarray] = None
+            for i in range(0, len(ids), self.prefill_chunk):
+                chunk = list(ids[i:i + self.prefill_chunk])
+                logits = await self._step(sid, chunk, pos)
+                pos += len(chunk)
+            assert logits is not None
+            self._pins[ids] = (sid, logits)
+            while len(self._pins) > self.max_pins:
+                _, (old, _l) = self._pins.popitem(last=False)
+                try:
+                    await self._end_session(old)
+                except Exception:
+                    pass  # best effort: nodes TTL-sweep orphaned sessions
+
+    def _longest_pin(self, prompt_ids: List[int]):
+        return prefixlib.longest_prefix_match(self._pins, prompt_ids)
+
     # -- public API ----------------------------------------------------------
 
     async def generate_ids(
@@ -247,7 +321,8 @@ class GenerationClient:
         retry_budget: Optional[retrylib.RetryBudget] = None,
     ) -> List[int]:
         """Prefill + token-by-token decode under a fresh session; returns the
-        new ids. `on_token` (sync callable) sees each id as it is sampled.
+        new ids. `on_token` (a plain or async callable) sees each id as it is
+        sampled.
         `logprob_sink` (cleared at the start of every attempt) collects each
         emitted token's model log-probability (log-softmax of the raw
         logits), and `top_sink` the top-`top_n` (ids, logprobs) per step,
@@ -292,7 +367,7 @@ class GenerationClient:
                             "retry pacing exceeds the remaining budget") from last_err
                     await asyncio.sleep(delay)
                     if on_token is not None:
-                        on_token(None)
+                        await _emit(on_token, None)
                 try:
                     return await self._generate_once(
                         [int(t) for t in prompt_ids], max_new_tokens, eos_token_id, seed,
@@ -322,7 +397,8 @@ class GenerationClient:
         top_n: int,
         top_sink: Optional[List],
     ) -> List[int]:
-        """One attempt of generate_ids under a fresh session."""
+        """One attempt of generate_ids under a fresh session: the fork of the
+        longest held pin the prompt starts with, else a full prefill."""
         session_id = str(uuid.uuid4())
         rng = np.random.default_rng(seed)
         out: List[int] = []
@@ -333,7 +409,25 @@ class GenerationClient:
         try:
             pos = 0
             logits: Optional[np.ndarray] = None
-            for i in range(0, len(prompt), self.prefill_chunk):
+            pin = self._longest_pin(prompt)
+            if pin is not None:
+                parent, pin_logits = self._pins[pin]
+                self._pins.move_to_end(pin)
+                forked = transient = False
+                try:
+                    forked = await self._fork_session(session_id, parent, len(pin))
+                except Exception:
+                    transient = True  # the transport failed: the parent may live
+                if forked:
+                    pos, logits = len(pin), pin_logits  # as is when the prompt IS the pin
+                else:
+                    if not transient:
+                        self._pins.pop(pin, None)  # a clean miss: the parent is gone
+                    try:  # stages that did fork
+                        await self._end_session(session_id)
+                    except Exception:
+                        pass
+            for i in range(pos, len(prompt), self.prefill_chunk):
                 chunk = prompt[i : i + self.prefill_chunk]
                 logits = await self._step(session_id, chunk, pos)
                 pos += len(chunk)
@@ -346,7 +440,7 @@ class GenerationClient:
                 if top_sink is not None:
                     top_sink.append(top_logprobs_np(logits, top_n))
                 if on_token is not None:
-                    on_token(tok)
+                    await _emit(on_token, tok)
                 if len(out) >= max_new_tokens or tok == eos_token_id:
                     break
                 logits = await self._step(session_id, [tok], pos)

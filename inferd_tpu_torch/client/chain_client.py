@@ -12,7 +12,8 @@ the first chunk's payload (start_pos 0) to EVERY stage: each stage binds
 the session's slot at admission. The reference client stamps the entry hop
 only and the swarm relay carries the key on; here the client drives each
 stage itself, so it carries the key on. A generation's deadline rides each
-hop's envelope as `deadline_ms` (absent without one).
+hop's envelope as `deadline_ms` (absent without one). A pinned prefix
+forks on every stage server at once (`_fork_session`).
 """
 
 from __future__ import annotations
@@ -92,6 +93,26 @@ class ChainClient(GenerationClient):
             *(one(s, a) for s, a in enumerate(self.server_addrs)),
             return_exceptions=True,  # best effort: nodes TTL-sweep orphans
         )
+
+    async def _fork_session(self, new_session_id: str, parent_session_id: str,
+                            prefix_len: int) -> bool:
+        """Fork the parent's KV prefix on EVERY stage server (the client
+        addresses each itself). A stage's clean `ok: False` makes the fork a
+        miss (the caller ends the stages that forked and prefills); a
+        transport failure is raised (the parent may be fine: the pin stays)."""
+        async def one(stage: int, addr: Tuple[str, int]):
+            return await self._post(addr, "/fork_session", {
+                "session_id": new_session_id, "parent_session_id": parent_session_id,
+                "prefix_len": prefix_len, "stage": stage, "relay": False})
+
+        results = await asyncio.gather(*(one(s, a) for s, a in enumerate(self.server_addrs)),
+                                       return_exceptions=True)
+        if any(isinstance(r, dict) and not r.get("ok") for r in results):
+            return False
+        for r in results:
+            if isinstance(r, BaseException):
+                raise r
+        return True
 
     async def end_session(self, session_id: str) -> None:
         await self._end_session(session_id)

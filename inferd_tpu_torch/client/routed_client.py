@@ -19,8 +19,9 @@ inferd_tpu/client/routed_client.py).
 A stage with no live replica in the view is a retryable 503 `no_chain`.
 `planner_stats(session_id)` gives the D*-Lite counters (expansions at build
 against at replan), and `hop_hook` (an async callable (session_id,
-completed_stage)) runs between first-pass hops. Not ported yet: forks on
-the committed chain (ROADMAP A4d).
+completed_stage)) runs between first-pass hops. A pinned prefix forks on
+the parent's committed chain (where its KV lives), and the child inherits
+that chain, committed.
 """
 
 from __future__ import annotations
@@ -216,6 +217,30 @@ class RoutedChainClient(GenerationClient):
               for stage, (_, value) in enumerate(plan.chain)),
             return_exceptions=True,  # best effort: nodes sweep idle sessions
         )
+
+    async def _fork_session(self, new_session_id: str, parent_session_id: str,
+                            prefix_len: int) -> bool:
+        """Fork on the PARENT's committed chain, every stage at once; the
+        child inherits the chain. A parent without one, or a stage's clean
+        `ok: False`, is a miss; a transport failure is raised."""
+        parent = self._plans.get(parent_session_id)
+        if parent is None or not parent.committed:
+            return False
+        results = await asyncio.gather(*(
+            self._post(node_addr(value), "/fork_session", {
+                "session_id": new_session_id, "parent_session_id": parent_session_id,
+                "prefix_len": prefix_len, "stage": stage, "relay": False})
+            for stage, (_, value) in enumerate(parent.chain)), return_exceptions=True)
+        if any(isinstance(r, dict) and not r.get("ok") for r in results):
+            return False
+        for r in results:
+            if isinstance(r, BaseException):
+                raise r
+        child = _SessionPlan(None)
+        child.chain = list(parent.chain)
+        child.committed = True
+        self._plans[new_session_id] = child
+        return True
 
     async def end_session(self, session_id: str) -> None:
         await self._end_session(session_id)

@@ -44,8 +44,10 @@ and `lane_prefill` below are their bodies, shared with the pipeline
 stage's lane executor (runtime/stage_batch). A paged engine serves only
 through them: its library loop raises, as the reference's does.
 
-Not ported here: the reference's `fork_lane` (session fork, ROADMAP A4d),
-lane-batched speculation (A7), and sliding-window rings (A5).
+`fork_lane` seeds a lane with another's first slots (a session fork on the
+dense layout, runtime/batch_executor; the paged layout forks through
+core.cache.BlockPool.fork_lane). Not ported here: lane-batched speculation
+(A7) and sliding-window rings (A5).
 """
 
 from __future__ import annotations
@@ -192,6 +194,16 @@ class BatchedEngine:
 
     def graph_stats(self) -> Dict[str, int]:
         return graph_stats(self.graphs)
+
+    @torch.no_grad()
+    def fork_lane(self, src: int, dst: int, m: int) -> None:
+        """Copy the first `m` KV slots of lane `src` into lane `dst`, in
+        place on the device (a session fork on the dense slab). The caller
+        manages the lanes' bookkeeping and holds the device lock."""
+        if self.pool is not None:
+            raise RuntimeError("a paged engine forks through core.cache.BlockPool.fork_lane")
+        self.cache.k[:, dst, :m] = self.cache.k[:, src, :m]
+        self.cache.v[:, dst, :m] = self.cache.v[:, src, :m]
 
     # -- lane management -----------------------------------------------------
 

@@ -22,8 +22,10 @@ block: unallocated table entries point at it, and it is never attended.
 staged per dispatch (`sync_paged`) and copied once to the device: straight
 into a lane executor's decode graph's static table.
 
-Ring buffers for sliding-window layers, `fork_lane` and session
-export/import wait for later slices.
+A session's KV leaves a device for a handoff through `kv_to_host` (one
+transfer of its K and V), and a paged lane forks another's prefix with
+`BlockPool.fork_lane` (full blocks shared read-only, the partial tail block
+copied). Ring buffers for sliding-window layers wait for a later slice.
 """
 
 from __future__ import annotations
@@ -216,6 +218,20 @@ def device_to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
         at += t.numel()
         out.append(a.astype(np.float32 if t.is_floating_point() else np.int64))
     return out
+
+
+def kv_to_host(k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K and V (two slices of one device's buffers, any layout) as host
+    tensors of their own dtype, in ONE transfer: stacked on the device (a
+    1-byte dtype as its uint8 view: fp8 has no stack kernel on every
+    build), copied once, split again. Host tensors come back as copies:
+    the caller owns them."""
+    byte = k.element_size() == 1
+    pair = torch.stack([k.view(torch.uint8), v.view(torch.uint8)] if byte else [k, v])
+    pair = pair.cpu() if pair.device.type != "cpu" else pair
+    if byte:
+        pair = pair.view(k.dtype)
+    return pair[0], pair[1]
 
 
 def lane_slice(cache: KVCache, lane: int) -> KVCache:
@@ -519,6 +535,30 @@ class BlockPool:
         cannot recycle the block under the pending copy."""
         self.refcount[src] += 1
         self._pending_copies.append((src, dst))
+
+    def fork_lane(self, src: int, dst: int, prefix_len: int, owner: str = "") -> None:
+        """Seed the FRESH lane `dst` with lane `src`'s first `prefix_len`
+        positions: full blocks map read-only (refcount raised; copy-on-write
+        at a later divergent write), and a partial tail block gets a private
+        copy, queued for `drain_copies`, which every dispatch applies before
+        it reads the lane. Raises BufferError (nothing claimed) when the
+        pool has no block for the tail."""
+        if self.lane_blocks[dst] != 0:
+            raise ValueError(f"fork_lane: lane {dst} is not empty")
+        full = int(prefix_len) // self.block_size
+        tail = None
+        if prefix_len % self.block_size:
+            tail = self._alloc(owner)  # first: an exhaustion leaves dst empty
+        for j in range(full):
+            b = int(self.table[src, j])
+            self.table[dst, j] = b
+            self.refcount[b] += 1
+        self.lane_shared[dst] = full
+        self.lane_blocks[dst] = full
+        if tail is not None:
+            self._queue_copy(int(self.table[src, full]), tail)
+            self.table[dst, full] = tail
+            self.lane_blocks[dst] = full + 1
 
     def drain_copies(self) -> List[Tuple[int, int]]:
         """Take the queued CoW (src, dst) copies; the caller applies them on

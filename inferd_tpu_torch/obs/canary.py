@@ -12,6 +12,14 @@ from __future__ import annotations
 from statistics import median
 from typing import Any, Dict, List, Tuple
 
+#: The header that marks a probe's request as synthetic: a node leaves it
+#: out of the user-facing generate.* series.
+CANARY_HEADER = "X-Inferd-Canary"
+
+#: One latency ladder for the canary's histograms and the node's generate.*
+#: series, so probe and user latency compare bucket for bucket.
+CHAIN_BOUNDS_MS = [5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000, 10000, 30000, 60000]
+
 #: Extra cost of an outlier-flagged replica: any healthy peer beats it, and
 #: a stage whose every replica is flagged stays routable.
 OUTLIER_PENALTY = 2.0

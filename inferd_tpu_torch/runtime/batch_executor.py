@@ -34,23 +34,43 @@ device steps here are the BatchedEngine's serving entries.
 On a card every decode step and K-step window replays a captured CUDA
 graph (the engine's GraphCache); `graphs = None` gives the eager steps.
 
-Not ported: lane-batched speculation (`enable_spec` raises, ROADMAP A7),
-session fork, export and import (A4d) and `anatomy_target` (A9).
+Sessions that move: `fork_session` forks a parent lane's prefix, on the
+paged layout block by block (runtime/stage_batch.LaneExecutor) and on the
+dense one by a device copy of the prefix into the child's lane;
+`export_sessions` ships live sessions as runtime/handoff payloads (a paged
+session gathered through its chain, one gather and one transfer per
+session, into the dense schema, so paged and dense replicas exchange
+sessions freely), stamped with the session's `adapter`; `import_session`
+adopts one into a free lane (paged: a fresh chain), binding the tenant's
+adapter slot or declining. Not ported: lane-batched speculation
+(`enable_spec` raises, ROADMAP A7), the standby replication surface
+`export_session_delta` (A4d, part d2) and `anatomy_target` (A9).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
 
 from inferd_tpu_torch.config import ModelConfig
 from inferd_tpu_torch.core.batch import BatchedEngine
+from inferd_tpu_torch.core.cache import host_to_device, kv_to_host
 from inferd_tpu_torch.parallel.stages import StageSpec
+from inferd_tpu_torch.runtime import handoff
 from inferd_tpu_torch.runtime.stage_batch import CapacityError, LaneExecutor
 from inferd_tpu_torch.runtime.window import WindowedBatcher
 
 __all__ = ["BatchedExecutor", "CapacityError"]
 
 Params = Dict[str, Any]
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A 1-byte (fp8) tensor as its uint8 view, others as they are: indexed
+    gathers and writes have no fp8 kernel on every build."""
+    return t.view(torch.uint8) if t.element_size() == 1 else t
 
 
 class BatchedExecutor(LaneExecutor):
@@ -168,6 +188,159 @@ class BatchedExecutor(LaneExecutor):
                         served_tokens += res["real_len"]
                     e.event.set()
                 self._batcher.count_served(served_tokens - len(entries))
+
+    # -- sessions that move (runtime/handoff) ---------------------------------
+
+    def fork_session(self, new_session_id: str, parent_session_id: str, prefix_len: int) -> bool:
+        """Seed a new session's lane with the parent lane's first `prefix_len`
+        slots: paged, block by block (LaneExecutor.fork_session); dense, a
+        device copy of those slots into a lane claimed
+        without evicting the parent. False on any miss (an unknown, short
+        or tenant parent; no claimable lane): the caller prefills in full."""
+        if self.pool is not None:
+            return super().fork_session(new_session_id, parent_session_id, prefix_len)
+        if prefix_len <= 0:
+            return False
+        with self._dev_lock:  # the lock order of _prefill_solo
+            with self._mu:
+                if self._session_adapter.get(parent_session_id):
+                    return False
+                plane = self._sessions.get(parent_session_id)
+                if (plane is None or self.lengths[plane] < prefix_len
+                        or new_session_id in self._sessions):
+                    return False
+                try:
+                    lane = self._lane_for(new_session_id, new_ok=True,
+                                          protect=(parent_session_id,))
+                except CapacityError:
+                    return False
+                # in flight while the copy runs outside _mu: a concurrent
+                # claim must not evict the child and take its lane mid-fork
+                self._inflight[new_session_id] = 1
+            try:
+                self.engine.fork_lane(plane, lane, prefix_len)
+                with self._mu:
+                    self.lengths[lane] = prefix_len
+            finally:
+                with self._mu:
+                    self._finish_locked(new_session_id, lane)
+        return True
+
+    def export_sessions(self, only: Optional[str] = None):
+        """Live sessions' lane KV as handoff payloads [(sid, payload)] (`only`:
+        one session), read with the device quiet: a paged pool's queued
+        copies (a fork's tail, a CoW split) land first, or the export would
+        read blocks not yet written. A paged session is gathered through its
+        chain on the device (never the whole pool to the host) into the dense
+        schema; every session's K/V reach the host in one transfer."""
+        out = []
+        with self._dev_lock, torch.no_grad():
+            if self.pool is not None:
+                self._sync_paged()
+            with self._mu:
+                for sid, lane in list(self._sessions.items()):
+                    if only is not None and sid != only:
+                        continue
+                    n = self.lengths[lane]
+                    if n == 0:
+                        continue
+                    cache = self.cache
+                    if self.pool is None:
+                        k, v = cache.k[:, lane:lane + 1, :n], cache.v[:, lane:lane + 1, :n]
+                    else:
+                        nb = self.pool.blocks_for(n)
+                        chain = host_to_device(self.pool.table[lane, :nb].astype(np.int64),
+                                               cache.k.device)
+                        k, v = (_bytes(pool)[:, chain].view(pool.dtype)
+                                .reshape(pool.shape[0], 1, -1, *pool.shape[3:])[:, :, :n]
+                                for pool in (cache.k, cache.v))
+                    k, v = kv_to_host(k, v)
+                    out.append((sid, self._stamp_adapter(sid, handoff.encode(k, v, n))))
+        return out
+
+    def _stamp_adapter(self, sid: str, payload: Dict[str, Any]) -> Dict[str, Any]:
+        """Ride the session's adapter binding on its payload (caller holds
+        _mu): the importer binds the tenant's adapter or declines; a base
+        session's payload gains no key."""
+        name = self._session_adapter.get(sid)
+        if name is not None:
+            payload["adapter"] = name
+        return payload
+
+    def session_lengths(self) -> Dict[str, int]:
+        """{session_id: committed KV length} of the live lanes: what a drain
+        compares after its snapshot flew (no KV is read)."""
+        with self._mu:
+            return {sid: int(self.lengths[lane]) for sid, lane in self._sessions.items()
+                    if self.lengths[lane] > 0}
+
+    def export_session_delta(self, session_id: str, since: int):
+        raise NotImplementedError("standby replication is not ported yet: ROADMAP A4d (d2)")
+
+    def import_session(self, session_id: str, payload: Dict[str, Any]) -> bool:
+        """Adopt a shipped session into a free lane (a same-model replica;
+        runtime/handoff.decode fails closed on any mismatch BEFORE a lane is
+        claimed). A tenant payload (`adapter`) binds the tenant's registry
+        slot (hot-loading it, before any executor lock) or declines: an
+        adopted tenant session must never resume on the base weights. Dense:
+        the K/V are copied into the lane's row; paged: a fresh chain is
+        allocated and the K/V scattered into its blocks. Never replaces a
+        live session of the same id; a failure midway drops the half-adopted
+        lane."""
+        dec = handoff.decode(payload, self.cfg, self.cfg.num_layers, self.max_len)
+        if dec is None:
+            return False
+        ad_name = payload.get("adapter")
+        if ad_name is not None:
+            if self.adapters is None:
+                return False
+            ad_name = str(ad_name)
+            try:
+                self.adapters.acquire(ad_name)
+            except Exception:
+                return False
+        k, v, n = dec["k"], dec["v"], dec["n"]
+        with self._dev_lock, self._mu, torch.no_grad():
+            if session_id in self._sessions:
+                lane = None
+            else:
+                try:
+                    lane = self._lane_for(session_id, new_ok=True)
+                except CapacityError:
+                    lane = None
+            if lane is None:
+                if ad_name is not None:
+                    self.adapters.release(ad_name)
+                return False
+            if ad_name is not None:  # bound first: the rollback's drop releases it
+                self._session_adapter[session_id] = ad_name
+                self._lane_slot[lane] = self.adapters.slot_of(ad_name)
+            try:
+                self._write_lane(lane, k[:, 0, :n], v[:, 0, :n], n, session_id)
+            except Exception:
+                self._drop_locked(session_id)
+                return False
+            self.lengths[lane] = n
+        return True
+
+    def _write_lane(self, lane: int, k: torch.Tensor, v: torch.Tensor, n: int,
+                    session_id: str) -> None:
+        """An adopted session's K/V [L, n, Nkv, D] into its lane (under the
+        device lock and _mu): the dense row's first n slots, or a fresh
+        chain's blocks, padded to whole blocks, in one indexed write."""
+        cache = self.cache
+        if self.pool is None:
+            cache.k[:, lane, :n] = k.to(cache.k.device)
+            cache.v[:, lane, :n] = v.to(cache.v.device)
+            return
+        self.pool.ensure(lane, n, owner=f"session {session_id}, lane {lane}")
+        bs, nb = self.pool.block_size, self.pool.blocks_for(n)
+        chain = host_to_device(self.pool.table[lane, :nb].astype(np.int64), cache.k.device)
+        for pool, x in ((cache.k, k), (cache.v, v)):
+            blocks = torch.zeros((x.shape[0], nb * bs, *x.shape[2:]), dtype=pool.dtype,
+                                 device=pool.device)
+            blocks[:, :n] = x.to(pool.device)
+            _bytes(pool)[:, chain] = _bytes(blocks.reshape(x.shape[0], nb, bs, *x.shape[2:]))
 
     def stats(self) -> Dict[str, Any]:
         """Co-batching as LaneExecutor counts it (decode dispatches and the

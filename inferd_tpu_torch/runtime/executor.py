@@ -55,9 +55,21 @@ dispatch leaves the buffers valid and the window's other dispatches run.
 `make_executor` routes `--batch-lanes` to the whole-model lane executor of
 runtime/batch_executor.py, `--stage-lanes` to the pipeline stage's of
 runtime/stage_batch.py, and `backend="counter"` to CounterStageExecutor
-(models/counter: no weights, for the swarm's distribution logic). Not
-ported yet: ring high-water marks and session fork/export/import (ROADMAP
-A4d).
+(models/counter: no weights, for the swarm's distribution logic).
+
+Sessions that move (the reference's fork_session, export_sessions and
+import_session; runtime/handoff is the payload). A fork seeds a new session
+with a live one's first slots, an import adopts a shipped session: either
+takes a buffer of its own from the BufferPool, at its own bucket, and
+copies into it, never a view of another session's buffer (a torch slice is
+a view, where the reference's JAX slice is a copy: the child's first step
+would write into the parent's KV, or into a buffer a captured graph reads
+by address). So a forked or imported session's first decode step captures
+or replays a graph like any other. An export pulls each session's K/V,
+sliced to its length, to the host in one transfer; `session_lengths`
+reads every session's length without touching its KV. Not ported yet:
+ring high-water marks (A5) and the standby replication surface
+`export_session_delta` (ROADMAP A4d, part d2).
 """
 
 from __future__ import annotations
@@ -75,10 +87,12 @@ from inferd_tpu_torch.config import ModelConfig
 from inferd_tpu_torch.core import sampling as samplib
 from inferd_tpu_torch.core.cache import (
     BufferPool, KVCache, device_to_host, grow, host_staged, host_to_device, kv_slot_bytes,
+    kv_to_host,
 )
 from inferd_tpu_torch.core.generate import bucket_len
 from inferd_tpu_torch.models import qwen3
 from inferd_tpu_torch.parallel.stages import StageSpec
+from inferd_tpu_torch.runtime import handoff
 from inferd_tpu_torch.utils.cuda_graph import GraphCache, graph_stats, run_step
 from inferd_tpu_torch.utils.profiling import span
 
@@ -145,6 +159,12 @@ class SessionStore:
             gone = [self._pop_idle_locked(s) for s in stale]
         self._release(gone)
         return sum(c is not None for c in gone)
+
+    def lengths(self) -> Dict[str, int]:
+        """{session_id: KV length} of the sessions holding any KV (their
+        idle clocks untouched)."""
+        with self._lock:
+            return {sid: int(c.length) for sid, c in self._caches.items() if c.length > 0}
 
     def ids(self) -> List[str]:
         """Live session ids in the order they were admitted (the node
@@ -514,6 +534,82 @@ class Qwen3StageExecutor:
     def end_session(self, session_id: str) -> None:
         self.sessions.drop(session_id)
 
+    # -- sessions that move (runtime/handoff) ---------------------------------
+
+    def export_sessions(self, only: Optional[str] = None):
+        """Every live session's KV as handoff payloads [(sid, payload)], K/V
+        sliced to the session's length and pulled to the host in one
+        transfer each (core.cache.kv_to_host); `only` exports one session
+        (the deliberate prefill-to-decode handoff). Each session is read
+        under its own lock, so no step of it runs meanwhile."""
+        out = []
+        for sid in self.sessions.ids():
+            if only is not None and sid != only:
+                continue
+            with self.sessions.lock_for(sid), torch.no_grad():
+                cur = self.sessions.get(sid)
+                if cur is None or cur.length == 0:
+                    continue
+                n = cur.length
+                k, v = kv_to_host(cur.k[:, :, :n], cur.v[:, :, :n])
+            out.append((sid, handoff.encode(k, v, n)))
+        return out
+
+    def session_lengths(self) -> Dict[str, int]:
+        """{session_id: committed KV length}: what a drain compares after
+        its snapshot flew (no KV is read)."""
+        return self.sessions.lengths()
+
+    def export_session_delta(self, session_id: str, since: int):
+        raise NotImplementedError("standby replication is not ported yet: ROADMAP A4d (d2)")
+
+    def import_session(self, session_id: str, payload: Dict[str, Any]) -> bool:
+        """Adopt a shipped session's KV (the sender serves the same stage, so
+        the layer and head shapes must match; runtime/handoff.decode fails
+        closed on any mismatch) into a pooled buffer of max(initial_kv_len,
+        bucket_len(n)). Declines a tenant session's payload (`adapter`):
+        this executor has no registry, and its KV was built with the
+        adapter. Never replaces a live session of the same id."""
+        if payload.get("adapter") is not None:
+            return False
+        dec = handoff.decode(payload, self.cfg, self.spec.num_layers, self.max_len)
+        if dec is None:
+            return False
+        k, v, n = dec["k"], dec["v"], dec["n"]
+        with self.sessions.lock_for(session_id), torch.no_grad():
+            if self.sessions.get(session_id) is not None:
+                return False
+            cache = self.buffers.take(1, max(self.initial_kv_len, bucket_len(n)))
+            t = min(k.shape[2], cache.max_len)
+            cache.k[:, :, :t] = k[:, :, :t].to(self.device)
+            cache.v[:, :, :t] = v[:, :, :t].to(self.device)
+            cache.length = n
+            self.sessions.put(session_id, cache)
+        return True
+
+    def fork_session(self, new_session_id: str, parent_session_id: str, prefix_len: int) -> bool:
+        """Seed a NEW session's KV with the first `prefix_len` slots of a live
+        session's (stage-local prefix caching: every stage of the pipeline
+        forks the same parent, the client or the relay drives it). The child
+        takes a pooled buffer at its own bucket (a long-running parent does
+        not make every child carry its buffer) and the prefix is copied
+        into it, under the parent's lock. False when the parent is unknown
+        here or too short: the caller prefills in full."""
+        if prefix_len <= 0:
+            return False
+        with self.sessions.lock_for(parent_session_id), torch.no_grad():
+            parent = self.sessions.get(parent_session_id)
+            if parent is None or parent.length < prefix_len:
+                return False
+            child = self.buffers.take(
+                1, min(max(self.initial_kv_len, bucket_len(prefix_len)), parent.max_len))
+            child.k[:, :, :prefix_len] = parent.k[:, :, :prefix_len]
+            child.v[:, :, :prefix_len] = parent.v[:, :, :prefix_len]
+            child.length = prefix_len
+        with self.sessions.lock_for(new_session_id):
+            self.sessions.put(new_session_id, child)
+        return True
+
     def stats(self) -> Dict[str, Any]:
         return {"sessions": len(self.sessions), "kv_bytes": self.sessions.kv_bytes(),
                 "buffers": self.buffers.stats(), "graphs": graph_stats(self.graphs)}
@@ -537,6 +633,11 @@ class CounterStageExecutor:
 
     def end_session(self, session_id: str) -> None:
         self.sessions.drop(session_id)
+
+    def fork_session(self, new_session_id: str, parent_session_id: str, prefix_len: int) -> bool:
+        """The counter's state rides the payload, not the session: nothing to
+        copy."""
+        return True
 
     def stats(self) -> Dict[str, Any]:
         return {"sessions": len(self.sessions)}

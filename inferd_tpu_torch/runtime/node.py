@@ -45,10 +45,42 @@ Endpoints, wire-compatible with the JAX node for these topologies:
   POST /drain        [{"wait_s": S}]: stop admitting new sessions (503
                      "draining" with `retry_after`), gossip `draining: 1`,
                      wait up to S seconds (default 5) while /forward requests
-                     are in flight -> {"ok", "draining", "resident",
-                     "handed_off": 0}; idempotent, and a garbage body still
-                     drains. Resident sessions are served here until they
-                     end: nothing is handed off (ROADMAP A4d)
+                     are in flight, then hand the resident sessions off (the
+                     session handoff below) -> {"ok", "draining",
+                     "resident", "handed_off"}; idempotent, and a garbage
+                     body still drains. A resident no replica adopts is
+                     served here until it ends
+  POST /fork_session {"session_id", "parent_session_id", "prefix_len",
+                     "stage", "relay"}: seed a new session with the first
+                     prefix_len slots of the parent's KV here and, with
+                     relay, on every later stage, each hop along the
+                     parent's route (the replica that holds its KV: one
+                     attempt, no re-pick), the child's route pinned to the
+                     same replicas -> {"ok", "stage"}; ok only when every
+                     stage forked (`fork.ok`, `fork.miss`); a clean ok
+                     false is a miss (the client prefills), a 502 a hop
+                     that failed in transport
+  POST /export_session {"session_id", "target_host", "target_port"}: ship
+                     the session's KV to the target's /import_session, then
+                     end it here (the disaggregated prefill-to-decode
+                     handoff) -> {"ok", "bytes", "ms"} (`handoff.bytes`,
+                     `handoff.ms`, `sessions.handed_off`); 404
+                     "unknown_session", 501 "no_export" (an executor that
+                     cannot export: the stage lanes, the counter), 502
+                     "import_failed" (the target declined, or answered a
+                     body that is not an ok)
+  POST /import_session {"session_id", "stage", "k", "v", "length"
+                     [, "kv_dtype"][, "adapter"]}: adopt a session's KV
+                     (runtime/handoff) -> {"ok"}; 409 "wrong_stage" for
+                     another stage's; an adoption counts
+                     `sessions.imported` and announces at once, so the new
+                     holder's `sess` advert goes out before the session's
+                     next chunk
+  POST /generate     {"prompt_ids", "max_new_tokens", "sampling", "seed",
+                     "eos_token_id", "pin_prefix_len", "logprobs",
+                     "top_logprobs", "deadline_ms", "stream"}: the node runs
+                     the client's token loop against itself (one round trip
+                     for the caller; the section below)
   POST /profile      {"action": "start" [, "name"]} | {"action": "stop"} |
                      {"action": "window", "seconds" S [, "capture_id"]}:
                      an on-demand torch.profiler trace of this process
@@ -130,14 +162,18 @@ The overload plane (the reference's `_forward_inner` and relay):
     one-bounce relays 0.15 s apart, each after the first paid from the
     node's retry budget), else it is served here and answers 409 for the
     client to restart; `_pick_next` takes the advertised holder (tier 2)
-    when it remembers no replica for the session, and /end_session
+    when it remembers no replica for the session, and in place of the
+    remembered one when that no longer advertises it and another does
+    (the session was handed off: `route.sess_moved`), and /end_session
     forwards an end for a session held elsewhere to its holder.
   * hedged decode relays: a single-token decode relay whose primary has
     not answered within the hedge delay (hedge_delay_ms, or 0: the p95 of
     this node's hop times over the trailing 60 s, 250 ms without any, at
     most half the hop timeout) sends the same bytes to a second replica
-    (hedge_mode "advertised": one whose record advertises the session;
-    "any": the best other one; "off"), within 5% extra load (a ratio
+    (hedge_mode "advertised": one whose record advertises the session
+    while the primary's does not, since two adverts are a handoff in
+    flight whose old holder bounces the step to the new one; "any": the
+    best other one; "off"), within 5% extra load (a ratio
     budget). The primary's answer, whatever it is, settles the exchange;
     the hedge's only with a 200, which repoints the session's affinity.
     The loser's connection is closed.
@@ -148,7 +184,40 @@ The overload plane (the reference's `_forward_inner` and relay):
     "draining" and `retry_after`, ahead of the pool check; mid-session
     chunks are served. `admission.shed` counts every shed and
     `admission.shed.<code>` each code's.
-Not ported yet: standby holders and session handoff (ROADMAP A4d).
+Not ported yet: standby holders (ROADMAP A4d, part d2).
+
+The session handoff (the reference's `_export_and_handoff`,
+`_drain_handoff`, `_handoff_sessions`). An executor with `export_sessions`
+(the one-session executor, the whole-model lane executor; not the stage
+lanes, as in the reference) ships its sessions' KV to the other live
+replicas of the stage, each session on a thread of its own, to each
+replica in turn until one adopts it (`sessions.exported`); a tenant
+session's payload goes only to replicas whose record has `ada`. On /drain,
+after the settle wait, every resident session is offered, and the local
+copy of each adopted one is dropped only when a second export shows its
+length unchanged: a decode step that advanced it while the snapshot was in
+flight keeps it here (`drain.handed_off` counts the drops). A migration
+hands the old executor's sessions to the old stage's replicas after the
+swap, while a use of the old executor is still held (its KV is read before
+`_release` can free it). stop() hands off after the server closes (no chunk
+can advance a session after its snapshot) and before the gossip store
+stops. crash() hands off nothing.
+
+Server-side generation (POST /generate, the reference's regular,
+non-speculative path; its speculative routes wait for ROADMAP A7). The node
+keeps ONE self-pointed SwarmClient for every request, so the prefixes it
+pins (`pin_prefix_len`) live across requests; the client runs on an event
+loop of its own thread (the server is threaded), each request's coroutine
+submitted to it, both closed in stop() (the pins ended first). A draining
+node sheds it with 503 "draining"; a spent `deadline_ms` answers 408
+"deadline", and the rest of it bounds the loop. The reply is {"ids",
+"session_tokens"[, "logprobs"][, "top_logprobs"][,
+"ignored_sampling_keys"]}; with `stream` it is chunked ndjson: {"t": id}
+per token (with "lp"/"top" when asked), {"restart": true} when a failure
+restarts the loop, and {"done": true, "ids"} (or {"error"}) last. Each
+request folds into `generate.requests`, `generate.errors` (5xx), and for a
+success `generate.wall_ms`, `generate.tokens`, `generate.tpot_ms`,
+`generate.ttft_ms` (streamed), unless it carries X-Inferd-Canary.
 
 Elasticity (the reference's balancer and live stage migration). A node
 built with a stage loader (`load_stage(stage) -> executor`; run_node builds
@@ -179,8 +248,9 @@ of stage S that relays a stage-T envelope, finds stage T empty and is moved
 to T by that hook during the relay's retries serves the envelope itself.
 Each decision counts `stage.adopt.<reason>` (empty_stage, rebalance,
 path_finder_empty_stage) until the event journal is ported (ROADMAP A9).
-A migration strands the old stage's resident sessions: their next chunk
-answers 409 at the old stage's other replica and the client restarts them.
+A migration hands the old stage's resident sessions to its other replicas
+(the session handoff above); a session none adopts answers 409 there and
+its client restarts it.
 
 The coalesced relay (the reference's `_relay_window` and
 `_handle_multi_forward`). On a `--stage-lanes` node the window's flush
@@ -240,13 +310,16 @@ hop.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
+import dataclasses
 import functools
 import http.client
 import json
 import logging
 import math
 import os
+import queue
 import select
 import socket
 import threading
@@ -260,10 +333,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from inferd_tpu_torch.client.base import http_post
+from inferd_tpu_torch.client.base import ServerError, http_post
+from inferd_tpu_torch.config import SamplingConfig
 from inferd_tpu_torch.control.balance import Balancer
 from inferd_tpu_torch.control.dht import SwarmDHT, sess_hash
 from inferd_tpu_torch.control.path_finder import NoNodeForStage, PathFinder, node_addr
+from inferd_tpu_torch.obs.canary import CANARY_HEADER, CHAIN_BOUNDS_MS
 from inferd_tpu_torch.ops import attention as attention_ops
 from inferd_tpu_torch.ops import lora, qmatmul
 from inferd_tpu_torch.ops.quant import quantized_bytes
@@ -287,6 +362,10 @@ END_SESSION_PATH = "/end_session"
 PROFILE_PATH = "/profile"
 REASSIGN_PATH = "/reassign"
 DRAIN_PATH = "/drain"
+FORK_SESSION_PATH = "/fork_session"
+EXPORT_SESSION_PATH = "/export_session"
+IMPORT_SESSION_PATH = "/import_session"
+GENERATE_PATH = "/generate"
 
 Reply = Tuple  # (status, content type, body[, headers])
 _WIRE = "application/octet-stream"
@@ -311,6 +390,10 @@ RESHARD_BOUNDS_MS = [100, 250, 500, 1000, 2500, 5000, 10_000, 30_000, 60_000, 12
                      300_000, 600_000]
 RETIRE_WAIT_S = 300.0  # how long a migration waits for the old executor's calls to end
 RETIRE_REF_WAIT_S = 10.0  # and then for the last reference to it to go (longer off-thread)
+RESCUE_BOUNCE_BOUNDS_MS = [1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000, 10_000,
+                           30_000, 60_000, 120_000]
+HANDOFF_TIMEOUT_S = 10.0  # one /import_session POST of a handoff (a dying peer must not stall stop())
+GENERATE_BOUNDS_MS = CHAIN_BOUNDS_MS  # the generate.* histograms' buckets (the canary's ladder)
 
 
 def _start_pos(payload) -> int:
@@ -547,6 +630,10 @@ class Node:
         self.admission_reserve = admission_reserve
         self.rescue_bounces = max(1, int(rescue_bounces))
         self.chaos = chaos
+        # /generate's self-pointed client and its event loop's thread, made at
+        # the first request: (loop, thread, client)
+        self._gen: Optional[Tuple[asyncio.AbstractEventLoop, threading.Thread, Any]] = None
+        self._gen_lock = threading.Lock()
         if chaos is not None and chaos.crash_after:
             # crash off the handler thread that tripped it (crash() cuts it too)
             chaos.on_crash = lambda: threading.Thread(target=self.crash, daemon=True).start()
@@ -720,18 +807,25 @@ class Node:
         return self
 
     def stop(self) -> None:
-        """Withdraw from the swarm (a tombstone), stop the gossip thread,
-        release any chaos-stalled request, stop serving and release the
-        sockets; a trace still running is stopped and written."""
+        """Leave the swarm gracefully: stop the balancer, end /generate's
+        pinned sessions and close its client, withdraw (a tombstone), release
+        any chaos-stalled request, stop serving and release the sockets, hand
+        the resident sessions to the stage's other replicas (after the server
+        closed: no chunk can advance a session past its snapshot), then stop
+        the gossip thread; a trace still running is stopped and written."""
         if self._stopped:
             return
         self._stopped = True
         self.balancer.stop()
+        self._close_generate()
         self.dht.withdraw()
-        self.dht.stop()
         if self.chaos is not None:
             self.chaos.cancel_stalls()  # a stalled handler must not outlive the node
         self._close_server()
+        try:
+            self._export_and_handoff(self.executor, self.spec.stage)
+        finally:
+            self.dht.stop()
         if self.profiler.active_dir is not None:
             try:
                 self.profiler.stop()
@@ -748,6 +842,7 @@ class Node:
         self._stopped = True
         self.dht.kill()
         self.balancer.stop()
+        self._close_generate(end_pins=False)  # the pinned sessions die with the node
         self._server.cut_connections()  # before a released stall could answer
         if self.chaos is not None:
             self.chaos.cancel_stalls()
@@ -891,7 +986,9 @@ class Node:
         caller verified, the rescue's holder) while its record lives and it
         is not excluded; else (1) the replica this node routed the session
         to before, while its record lives and it is not excluded (its KV is
-        there); else (2) a replica whose record advertises the session;
+        there), or the replica the session moved to when the remembered one
+        no longer advertises it and another does (`_moved_holder`); else (2)
+        a replica whose record advertises the session;
         else (3) the planned `route`'s replica for the stage while its record
         lives and it is neither excluded nor inside its dead-peer cooldown
         (`route.followed`; `route.stale` otherwise); else (4) the min-load
@@ -913,6 +1010,9 @@ class Node:
             if nid is not None:
                 value = self.dht.get_stage(stage).get(nid)
                 if value is not None and not (exclude and nid in exclude):
+                    moved = self._moved_holder(session_id, stage, nid, value, exclude)
+                    if moved is not None:
+                        nid, value = moved
                     self._remember(key, nid)
                     return nid, value
                 # the remembered replica is gone and the session's KV with it:
@@ -946,6 +1046,22 @@ class Node:
             if key is not None:
                 self._remember(key, nid)
         return nid, value
+
+    def _moved_holder(self, session_id: str, stage: int, nid: str, value: Dict[str, Any],
+                      exclude) -> Optional[Tuple[str, Dict[str, Any]]]:
+        """(node_id, record) of the replica the session moved to, when the
+        remembered replica `nid` no longer advertises it and another live
+        one does (a handoff: export, drain, migration or stop); else None.
+        Without this every later step would bounce through the old holder's
+        rescue."""
+        if sess_hash(session_id) in (value.get("sess") or ()):
+            return None
+        holder = self._gossip_session_holder(session_id, stage, {nid, *(exclude or ())})
+        hvalue = self.dht.get_stage(stage).get(holder) if holder is not None else None
+        if hvalue is None:
+            return None  # not advertised yet (a new session) or not at all
+        self.metrics.inc("route.sess_moved")
+        return holder, hvalue
 
     def _plan_route(self, start_stage: int, session_id: str,
                     affinity: Any = None) -> Optional[Dict[str, str]]:
@@ -1096,7 +1212,7 @@ class Node:
         primary = _HopPost(value, body, timeout_s)
         try:
             if not primary.ready(self._hedge_delay_s(timeout_s)):
-                target = self._hedge_target(session_id, stage, {node_id, *exclude})
+                target = self._hedge_target(session_id, stage, value, {node_id, *exclude})
                 if target is not None and self.hedge_budget.try_acquire():
                     return self._hedged(primary, target, body, stage, session_id, timeout_s)
             return primary.read()
@@ -1158,15 +1274,19 @@ class Node:
             d = HEDGE_FALLBACK_S if p95 is None else p95 / 1e3
         return max(0.001, min(d, timeout_s * 0.5))
 
-    def _hedge_target(self, session_id: Optional[str], stage: int, exclude: set):
+    def _hedge_target(self, session_id: Optional[str], stage: int,
+                      primary: Dict[str, Any], exclude: set):
         """(node_id, record) to hedge at, or None: with "advertised" only a
-        replica whose record advertises the session's KV (the step is then
-        truly idempotent); with "any" the best-ranked other replica (a
-        stateless backend)."""
+        replica whose record advertises the session's KV while the
+        `primary`'s record does not (two adverts are a handoff in flight:
+        a primary whose copy just left bounces the step to the other
+        advertiser by its rescue, and a hedge there would run the step
+        twice); with "any" the best-ranked other replica (a stateless
+        backend)."""
         if self.hedge_mode == "any":
             ranked = self.path_finder.find_ranked(stage, exclude=exclude)
             return ranked[0] if ranked else None
-        if session_id is None:
+        if session_id is None or sess_hash(session_id) in (primary.get("sess") or ()):
             return None
         nid = self._gossip_session_holder(session_id, stage, exclude=exclude)
         value = self.dht.get_stage(stage).get(nid) if nid is not None else None
@@ -1449,8 +1569,11 @@ class Node:
                                         prefer=holder, phase="rescue", attempts=1)
                 except NoNodeForStage:
                     reply, last = None, "no node for stage"
-                else:
-                    self._observe_hop((time.perf_counter() - t) * 1e3)
+                ms = (time.perf_counter() - t) * 1e3
+                # every bounce, failed ones too, in buckets wide enough for a hung hop
+                self.metrics.observe("rescue.bounce_ms", ms, bounds_ms=RESCUE_BOUNCE_BOUNDS_MS)
+                if reply is not None:
+                    self._observe_hop(ms)
                     if reply[0] < 500:
                         return reply
                     last = f"holder {holder} answered {reply[0]}"
@@ -1655,9 +1778,12 @@ class Node:
         the target's executor (`load_stage`) and warm it up (`warm_up`) off
         the serving path; swap it in with its spec, its parameter bytes and,
         on a lane node, a new arrival window; drop the chain
-        planner (planned from the old stage's view); announce at once; count
-        `migrations` and observe `reshard.ms_to_serving`; then release the
-        old executor once no call holds it (`_release`). The compute lock
+        planner (planned from the old stage's view); announce at once; hand
+        the old executor's sessions to the old stage's other replicas (a use
+        of it held from before the swap, so its KV is read before it can be
+        freed); count `migrations` and observe `reshard.ms_to_serving` (up to
+        the announce); then release the old executor once no call holds it
+        (`_release`). The compute lock
         mode goes with the executor (`threadsafe`: the lane executors take
         no lock of the node's). A load, build or
         warm-up that raises raises here (`migrations.failed`), and the node
@@ -1693,13 +1819,23 @@ class Node:
             t2 = time.perf_counter()
             record["memory"]["after_warmup"] = self._memory()
             window = self._attach_window(new) if isinstance(new, BatchedStageExecutor) else None
-            with self._exec_cond:
-                self.executor, self.spec, self.window = new, new.spec, window
-                self.param_bytes = quantized_bytes(new.params)
-            del new, window
-            self.path_finder.planner = None
-            self.announce()
-            ms = (time.perf_counter() - t0) * 1e3
+            # a use of the old executor for the handoff below: _release must
+            # not free its KV before the export has read it
+            self._begin_use(old)
+            try:
+                with self._exec_cond:
+                    self.executor, self.spec, self.window = new, new.spec, window
+                    self.param_bytes = quantized_bytes(new.params)
+                del new, window
+                self.path_finder.planner = None
+                self.announce()
+                ms = (time.perf_counter() - t0) * 1e3
+                # the old stage's sessions go to its other replicas: their next
+                # chunk, relayed from here or met by a failed-over entry, finds
+                # the new holder by its `sess` advert
+                self._export_and_handoff(old, record["from"])
+            finally:
+                self._end_use(old)
             self.metrics.inc("migrations")
             self.metrics.observe("reshard.ms_to_serving", ms, bounds_ms=RESHARD_BOUNDS_MS)
             record.update(at=time.time(), ms_to_serving=ms, load_ms=(t1 - t0) * 1e3,
@@ -1771,9 +1907,10 @@ class Node:
         """POST /drain [{"wait_s": S}]: the first call sets the drain (new
         sessions shed with 503 "draining", `drain.requests`, the record's
         `draining: 1` announced at once); every call waits up to S seconds
-        (default DRAIN_WAIT_S) while /forward requests are in flight and
-        answers the resident sessions. Nothing is handed off (ROADMAP A4d):
-        residents are served here until they end."""
+        (default DRAIN_WAIT_S) while /forward requests are in flight, hands
+        the resident sessions off (`_drain_handoff`) and answers how many
+        were resident and how many went. A resident no replica adopts is
+        served here until it ends."""
         env: Dict[str, Any] = {}
         try:
             parsed = wire.unpack(body) if body else None
@@ -1799,8 +1936,427 @@ class Node:
             time.sleep(0.05)
         store = getattr(self.executor, "sessions", None)
         resident = len(store) if store is not None else 0
+        handed = self._drain_handoff()
         return 200, _WIRE, wire.pack({"ok": True, "draining": True, "resident": resident,
-                                      "handed_off": 0})
+                                      "handed_off": handed})
+
+    # -- sessions that move: fork, export, import, the handoff ---------------------
+
+    def _call_executor(self, fn: Callable[[Any], Any]) -> Tuple[bool, Any]:
+        """(True, fn(executor)) under a use of the node's executor and, for
+        the one-session executor, the compute lock; (False, None) when a
+        migration swapped the executor out meanwhile."""
+        ex = self.executor
+        held, _ = self._begin_use(ex)
+        if not held:
+            return False, None
+        try:
+            if getattr(ex, "threadsafe", False):
+                return True, fn(ex)
+            with self._compute_lock:
+                return True, fn(ex)
+        finally:
+            self._end_use(ex)
+
+    def import_session(self, body: bytes) -> Reply:
+        """POST /import_session: adopt a session's KV shipped by a replica of
+        this node's stage (runtime/handoff)."""
+        try:
+            env = wire.unpack(body)
+            session_id = env["session_id"]
+            stage = int(env["stage"])
+        except Exception as e:
+            return self._error(400, f"bad import_session: {e}")
+        if stage != self.spec.stage:
+            return self._error(409, f"wrong stage: this node serves {self.spec.stage}, not "
+                                    f"{stage}", code="wrong_stage")
+        ok = False
+        try:
+            held, res = self._call_executor(
+                lambda ex: getattr(ex, "import_session", None) is not None
+                and ex.import_session(session_id, env))
+            ok = held and bool(res)
+        except Exception:
+            log.exception("import_session failed")
+        if ok:
+            self.metrics.inc("sessions.imported")
+            # urgent: the session's next chunk finds its new holder by the advert
+            self.announce()
+        return 200, _WIRE, wire.pack({"ok": ok})
+
+    def export_session(self, body: bytes) -> Reply:
+        """POST /export_session: ship one session to a target replica's
+        /import_session and, once it adopted it, end it here."""
+        try:
+            env = wire.unpack(body)
+            session_id = env["session_id"]
+            host, port = str(env["target_host"]), int(env["target_port"])
+        except Exception as e:
+            return self._error(400, f"bad export_session: {e}")
+        if getattr(self.executor, "export_sessions", None) is None:
+            return self._error(501, "this executor cannot export sessions", code="no_export")
+        t0 = time.perf_counter()
+        try:
+            held, exported = self._call_executor(lambda ex: ex.export_sessions(only=session_id))
+        except Exception as e:
+            log.exception("export_session failed")
+            return self._error(500, f"export failed: {e}")
+        if not exported:
+            return self._error(404, f"no session {session_id} here", code="unknown_session")
+        sid, payload = exported[0]
+        stage = self.spec.stage
+        packed = wire.pack({"session_id": sid, "stage": stage, **payload})
+        try:
+            status, raw, _ = http_post(f"http://{host}:{port}{IMPORT_SESSION_PATH}", packed,
+                                       self.hop_timeout_s)
+        except (OSError, http.client.HTTPException, ValueError) as e:
+            return self._error(502, f"target unreachable: {e}")
+        try:
+            resp = wire.unpack(raw) if status == 200 else None
+        except Exception:
+            resp = None  # a garbage 200 body is a decline, not a 500
+        if not (isinstance(resp, dict) and resp.get("ok")):
+            return self._error(502, f"target declined the session: {resp}",
+                               code="import_failed")
+        try:  # the target owns it now: the lane or buffer frees here
+            self._call_executor(lambda ex: ex.end_session(session_id))
+        except Exception:
+            log.exception("local end_session after the handoff failed")
+        ms = (time.perf_counter() - t0) * 1e3
+        self.metrics.inc("handoff.bytes", len(packed))
+        self.metrics.observe("handoff.ms", ms)
+        self.metrics.inc("sessions.handed_off")
+        self.announce()  # stop advertising the departed session now
+        return 200, _WIRE, wire.pack({"ok": True, "bytes": len(packed), "ms": round(ms, 3)})
+
+    def fork_session(self, body: bytes) -> Reply:
+        """POST /fork_session: fork here and, with relay, along the parent's
+        route to the last stage; an envelope for another stage is relayed
+        to it (409 "wrong_stage" in chain mode)."""
+        try:
+            env = wire.unpack(body)
+            new_sid = env["session_id"]
+            parent_sid = env["parent_session_id"]
+            prefix_len = int(env["prefix_len"])
+            stage = int(env.get("stage", self.spec.stage))
+        except Exception as e:
+            return self._error(400, f"bad fork_session: {e}")
+        relay = env.get("relay", True)
+        if stage != self.spec.stage:
+            if not relay:
+                return self._error(409, f"wrong stage: this node serves {self.spec.stage}, "
+                                        f"not {stage}", code="wrong_stage")
+            return self._relay_fork(env, stage)
+        ok = False
+        try:
+            held, res = self._call_executor(
+                lambda ex: getattr(ex, "fork_session", None) is not None
+                and ex.fork_session(new_sid, parent_sid, prefix_len))
+            ok = held and bool(res)
+        except Exception:
+            log.exception("fork_session failed")
+        self.metrics.inc("fork.ok" if ok else "fork.miss")
+        if ok:
+            self.announce(urgent=False)  # the child's KV lives here now
+        if not ok or not relay or stage + 1 >= self.spec.num_stages:
+            return 200, _WIRE, wire.pack({"ok": ok, "stage": stage})
+        # the later stages fork the same parent; a chain forked part of the
+        # way answers ok false, and the client's end_session cleans it up
+        return self._relay_fork(dict(env, stage=stage + 1), stage + 1)
+
+    def _relay_fork(self, env: Dict[str, Any], stage: int) -> Reply:
+        """Relay a fork to the replica of `stage` on the PARENT's route (the
+        one holding its KV) and pin the child's route to it. One attempt, no
+        re-pick: another replica would answer a clean ok false, and the
+        client would unpin a prefix that lives; a transport failure answers
+        502, which the client takes as transient (pin kept, one full
+        prefill)."""
+        new_sid = env.get("session_id")
+        try:
+            node_id, value = self._pick_next(env.get("parent_session_id"), stage)
+        except NoNodeForStage as e:
+            return self._error(503, f"no node for the fork's stage {stage}: {e}")
+        host, port = node_addr(value)
+        try:
+            status, raw, _ = http_post(f"http://{host}:{port}{FORK_SESSION_PATH}",
+                                       wire.pack(env), self.hop_timeout_s)
+        except (OSError, http.client.HTTPException, ValueError) as e:
+            self.metrics.inc("hop.dead")
+            self._note_peer_failure(node_id)
+            return self._error(502, f"fork hop unreachable: {e}")
+        if status == 200 and new_sid is not None:
+            self._remember((new_sid, stage), node_id)
+        return status, _WIRE, raw
+
+    def _handoff_sessions(self, exported, stage: int) -> List[str]:
+        """Ship exported sessions [(sid, payload)] to the live replicas of
+        `stage` other than this node, each session on a thread of its own and
+        to each replica in turn until one adopts it; a tenant session's
+        payload only to replicas whose record has `ada` (a replica without
+        an adapter registry would decline it). Best effort: a session no
+        replica adopts restarts at its client. Returns the adopted ids."""
+        replicas = {nid: val for nid, val in self.dht.get_stage(stage).items()
+                    if nid != self.node_id}
+        if not replicas or not exported:
+            return []
+        adopted: List[str] = []
+        lock = threading.Lock()
+
+        def ship(sid: str, payload: Dict[str, Any]) -> None:
+            try:
+                body = wire.pack({"session_id": sid, "stage": stage, **payload})
+            except Exception:
+                log.exception("session %s: handoff payload does not pack", sid)
+                return
+            targets = [(n, v) for n, v in replicas.items()
+                       if payload.get("adapter") is None or "ada" in v]
+            for nid, val in targets:
+                host, port = node_addr(val)
+                try:
+                    status, raw, _ = http_post(f"http://{host}:{port}{IMPORT_SESSION_PATH}",
+                                               body, min(self.hop_timeout_s, HANDOFF_TIMEOUT_S))
+                    resp = wire.unpack(raw) if status == 200 else None
+                except Exception:  # this replica is dead or broken: the next one
+                    continue
+                if isinstance(resp, dict) and resp.get("ok"):
+                    self.metrics.inc("sessions.exported")
+                    with lock:
+                        adopted.append(sid)
+                    return
+
+        _run_all([functools.partial(ship, sid, p) for sid, p in exported])
+        return adopted
+
+    def _export_and_handoff(self, ex, stage: int) -> None:
+        """Export `ex`'s sessions and hand them to `stage`'s other replicas
+        (stop() and a migration; the caller holds whatever keeps `ex`
+        alive). Best effort: a failure leaves the sessions to their clients'
+        restarts."""
+        export = getattr(ex, "export_sessions", None)
+        if export is None:
+            return
+        try:
+            self._handoff_sessions(export(), stage)
+        except Exception:
+            log.exception("session handoff failed (clients will restart)")
+
+    def _drain_handoff(self) -> int:
+        """Offer every resident session to the stage's other replicas and
+        drop the local copy of each adopted one whose length is unchanged
+        since its export (`session_lengths`, no KV read): a decode step may
+        have advanced it while the snapshot was in flight, and then it is
+        served here (the adopter's stale copy ages out). Returns how many
+        were dropped."""
+        if getattr(self.executor, "export_sessions", None) is None:
+            return 0
+        try:
+            held, exported = self._call_executor(lambda ex: ex.export_sessions())
+        except Exception:
+            log.exception("drain export failed (residents stay here)")
+            return 0
+        if not exported:
+            return 0
+        length = {sid: int(p.get("length", -1)) for sid, p in exported}
+        dropped = 0
+        for sid in self._handoff_sessions(exported, self.spec.stage):
+            try:
+                def drop_if_unchanged(ex, sid=sid):
+                    if ex.session_lengths().get(sid) != length[sid]:
+                        return False
+                    ex.end_session(sid)
+                    return True
+
+                held, gone = self._call_executor(drop_if_unchanged)
+            except Exception:
+                log.exception("drain: session %s stays here", sid)
+                continue
+            dropped += bool(held and gone)
+        if dropped:
+            self.metrics.inc("drain.handed_off", dropped)
+            self.announce()  # stop advertising the departed sessions now
+        return dropped
+
+    # -- server-side generation: POST /generate ------------------------------------
+
+    def _generate_client(self):
+        """(loop, client): the node's one self-pointed SwarmClient on an event
+        loop of its own thread, made at the first request."""
+        from inferd_tpu_torch.client.swarm_client import SwarmClient
+
+        with self._gen_lock:
+            if self._gen is None:
+                loop = asyncio.new_event_loop()
+                thread = threading.Thread(target=loop.run_forever, daemon=True,
+                                          name=f"generate-{self.port}")
+                thread.start()
+                client = SwarmClient([(self.host, self.port)], timeout_s=self.hop_timeout_s)
+                asyncio.run_coroutine_threadsafe(client.__aenter__(), loop).result()
+                self._gen = (loop, thread, client)
+            return self._gen[0], self._gen[2]
+
+    def _close_generate(self, end_pins: bool = True) -> None:
+        """End the generate client's pinned sessions (with `end_pins`), close
+        it and stop its loop and thread."""
+        with self._gen_lock:
+            gen, self._gen = self._gen, None
+        if gen is None:
+            return
+        loop, thread, client = gen
+        if end_pins:
+            try:
+                asyncio.run_coroutine_threadsafe(client.__aexit__(None, None, None),
+                                                 loop).result(timeout=self.hop_timeout_s)
+            except Exception:
+                log.exception("closing the generate client failed")
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=10)
+        if not thread.is_alive():
+            loop.close()
+
+    def generate(self, body: bytes, headers, write_stream) -> Optional[Reply]:
+        """POST /generate (see the module docstring). Returns the reply, or
+        None when it streamed: `write_stream(lines)` then sent the chunked
+        ndjson lines of the iterator it was given."""
+        sli: Dict[str, Any] = {"t0": time.perf_counter(), "ttft_ms": None, "tokens": 0,
+                               "canary": headers.get(CANARY_HEADER) is not None}
+        status = 500
+        try:
+            reply = self._generate(body, sli, write_stream)
+            status = 200 if reply is None else reply[0]
+            return reply
+        finally:
+            self._record_generate(sli, status)
+
+    def _record_generate(self, sli: Dict[str, Any], status: int) -> None:
+        """Fold one /generate into the generate.* series (a canary's never):
+        every request counts, a 5xx (or a stream's error line) counts as an
+        error, and only a success observes its latency."""
+        if sli["canary"]:
+            return
+        m = self.metrics
+        m.inc("generate.requests")
+        if sli.get("error"):
+            status = 500
+        if status >= 400:
+            if status >= 500:
+                m.inc("generate.errors")
+            return
+        wall_ms = (time.perf_counter() - sli["t0"]) * 1e3
+        m.observe("generate.wall_ms", wall_ms, bounds_ms=GENERATE_BOUNDS_MS)
+        n = int(sli.get("tokens") or 0)
+        if n > 0:
+            m.inc("generate.tokens", n)
+            m.observe("generate.tpot_ms", wall_ms / n)
+        if sli.get("ttft_ms") is not None:
+            m.observe("generate.ttft_ms", sli["ttft_ms"], bounds_ms=GENERATE_BOUNDS_MS)
+
+    def _generate(self, body: bytes, sli: Dict[str, Any], write_stream) -> Optional[Reply]:
+        if self._draining:  # a /generate is a new session by definition
+            return self._error(503, "node is draining: not accepting new generations",
+                               code="draining", retry_after=self._retry_after_s())
+        try:
+            env = wire.unpack(body)
+            ids = [int(t) for t in env["prompt_ids"]]
+            if not ids:
+                raise ValueError("prompt_ids must be non-empty")
+            max_new = int(env.get("max_new_tokens", 50))
+            seed = int(env.get("seed", 0))
+            eos = env.get("eos_token_id")
+            eos = None if eos is None else int(eos)
+            pin_len = int(env.get("pin_prefix_len", 0))
+            stream = bool(env.get("stream", False))
+            want_lp = bool(env.get("logprobs", False))
+            top_n = int(env.get("top_logprobs", 0))
+            if not 0 <= top_n <= 64:
+                raise ValueError(f"top_logprobs {top_n} out of range [0, 64]")
+            # unknown sampling keys (a newer client's) are ignored and echoed
+            known = {f.name for f in dataclasses.fields(SamplingConfig)}
+            raw = dict(env.get("sampling") or {})
+            ignored = sorted(set(raw) - known)
+            if ignored:
+                log.warning("ignoring unknown sampling keys %s", ignored)
+            sampling = SamplingConfig(**{k: v for k, v in raw.items() if k in known})
+        except Exception as e:
+            return self._error(400, f"bad generate request: {e}")
+        if not 0 <= pin_len <= len(ids):
+            return self._error(400, f"pin_prefix_len {pin_len} out of range")
+        rem = retrylib.remaining_s(env.get(retrylib.DEADLINE_KEY))
+        if rem is not None and rem <= 0:
+            return self._deadline_error("generate")
+        if self._stopped:  # stop() closed the client: make no new one
+            return self._error(503, "node is stopping")
+        # the reference's speculative routes (spec_draft_layers > 0) come
+        # first here; the port never sets it before ROADMAP A7
+        loop, client = self._generate_client()
+        lps = [] if want_lp else None
+        tops = [] if top_n else None
+
+        async def run(on_token=None):
+            if pin_len:
+                await client.pin_prefix(ids[:pin_len])
+            return await client.generate_ids(
+                ids, max_new_tokens=max_new, eos_token_id=eos, seed=seed, sampling=sampling,
+                on_token=on_token, logprob_sink=lps, top_n=top_n, top_sink=tops,
+                deadline_s=rem)
+
+        if stream:
+            write_stream(self._generate_lines(loop, run, sli, lps, tops, ignored))
+            return None
+        try:
+            out = asyncio.run_coroutine_threadsafe(run(), loop).result()
+        except ServerError as e:  # the inner status and code pass through
+            return self._error(e.status, str(e), code=e.code)
+        except Exception as e:
+            return self._error(500, f"generation failed: {e}")
+        sli["tokens"] = len(out)
+        reply: Dict[str, Any] = {"ids": out, "session_tokens": len(out)}
+        if lps is not None:
+            reply["logprobs"] = lps
+        if tops is not None:
+            reply["top_logprobs"] = [list(t) for t in tops]
+        if ignored:
+            reply["ignored_sampling_keys"] = ignored
+        return 200, _WIRE, wire.pack(reply)
+
+    def _generate_lines(self, loop, run, sli, lps, tops, ignored):
+        """The streamed /generate's ndjson lines, as the loop produces them:
+        the tokens come from the loop's thread through a queue."""
+        lines: "queue.Queue[Optional[bytes]]" = queue.Queue()
+
+        def on_token(tok):
+            if tok is None:  # a restart: the tokens streamed so far are void
+                line: Dict[str, Any] = {"restart": True}
+                sli["tokens"], sli["ttft_ms"] = 0, None
+            else:
+                line = {"t": int(tok)}
+                if sli["ttft_ms"] is None:
+                    sli["ttft_ms"] = (time.perf_counter() - sli["t0"]) * 1e3
+                sli["tokens"] += 1
+                if lps is not None:  # the loop fills the sinks before the hook
+                    line["lp"] = lps[-1]
+                if tops is not None:
+                    line["top"] = list(tops[-1])
+            lines.put(json.dumps(line).encode() + b"\n")
+
+        fut = asyncio.run_coroutine_threadsafe(run(on_token), loop)
+        fut.add_done_callback(lambda _f: lines.put(None))
+        while True:
+            line = lines.get()
+            if line is None:
+                break
+            yield line
+        try:
+            done: Dict[str, Any] = {"done": True, "ids": fut.result()}
+            if lps is not None:
+                done["logprobs"] = lps
+            if tops is not None:
+                done["top_logprobs"] = [list(t) for t in tops]
+            if ignored:
+                done["ignored_sampling_keys"] = ignored
+        except Exception as e:  # the 200 went out: the failure is the last line
+            sli["error"] = True
+            done = {"error": f"{type(e).__name__}: {e}"[:300]}
+        yield json.dumps(done).encode() + b"\n"
 
     def health(self) -> Dict[str, Any]:
         return {
@@ -1902,6 +2458,25 @@ def _handler_for(node: Node):
             except OSError:  # the caller is gone (a hedge's loser, a crash)
                 self.close_connection = True
 
+        def _stream(self, lines) -> None:
+            """A chunked ndjson response (HTTP/1.1 for this reply; the
+            connection closes after it), one chunk per line of `lines`."""
+            self.protocol_version = "HTTP/1.1"
+            self.close_connection = True
+            try:
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-ndjson")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.send_header("Connection", "close")
+                self.end_headers()
+                for line in lines:
+                    self.wfile.write(b"%x\r\n%s\r\n" % (len(line), line))
+                    self.wfile.flush()
+                self.wfile.write(b"0\r\n\r\n")
+            except OSError:  # the caller hung up: the loop runs out on its own
+                for _ in lines:
+                    pass
+
         def do_POST(self) -> None:  # noqa: N802 (http.server's naming)
             with span("http.request"):
                 n = int(self.headers.get("Content-Length") or 0)
@@ -1916,6 +2491,16 @@ def _handler_for(node: Node):
                     self._reply(*node.reassign(body))
                 elif self.path == DRAIN_PATH:
                     self._reply(*node.drain(body))
+                elif self.path == FORK_SESSION_PATH:
+                    self._reply(*node.fork_session(body))
+                elif self.path == EXPORT_SESSION_PATH:
+                    self._reply(*node.export_session(body))
+                elif self.path == IMPORT_SESSION_PATH:
+                    self._reply(*node.import_session(body))
+                elif self.path == GENERATE_PATH:
+                    reply = node.generate(body, self.headers, self._stream)
+                    if reply is not None:
+                        self._reply(*reply)
                 else:
                     self._reply(*node._error(404, f"no endpoint {self.path}"))
 

@@ -58,8 +58,13 @@ operand at all. Paged prefix keys are salted with the adapter's name, so
 tenants never share prefix KV. A whole-model paged executor gossips its
 hot prefix keys (`prefix_digest`, the record's `pfx`).
 
-Not ported in this slice: `fork_session` (and with it the fork-time
-adapter binding; ROADMAP A4d) and `anatomy_target` (A9).
+Sessions that move: `fork_session` forks a paged parent's prefix block by
+block (the dense stage lanes answer False, as the reference's do). Session
+export and import are the whole-model executor's
+(runtime/batch_executor.BatchedExecutor): the reference's stage-lane
+executor has none, so a `--stage-lanes` node answers /export_session with
+501 `no_export` and hands nothing off on drain, migration or stop. Not
+ported: `anatomy_target` (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -600,19 +605,42 @@ class LaneExecutor(AdapterBindingMixin):
             return None
         return prefixlib.make_digest(keys, bs)
 
-    # -- not ported: each names the ROADMAP item that brings it ---------------
+    # -- session fork (paged) -------------------------------------------------
 
-    def fork_session(self, new_session_id: str, parent_session_id: str, prefix_len: int):
-        raise NotImplementedError("session fork is not ported yet: ROADMAP A4d")
-
-    def export_sessions(self, only: Optional[str] = None):
-        raise NotImplementedError("session export is not ported yet: ROADMAP A4d")
-
-    def export_session_delta(self, session_id: str, since: int):
-        raise NotImplementedError("session export is not ported yet: ROADMAP A4d")
-
-    def import_session(self, session_id: str, payload: Dict[str, Any]):
-        raise NotImplementedError("session import is not ported yet: ROADMAP A4d")
+    def fork_session(self, new_session_id: str, parent_session_id: str, prefix_len: int) -> bool:
+        """Seed a new session with the parent's first `prefix_len` positions
+        on the paged layout: the parent's full blocks map READ-ONLY into the
+        child's lane (refcounts raised, copy-on-write at a divergent write)
+        and only the partial tail block is copied, queued for the next
+        dispatch's sync (core.cache.BlockPool.fork_lane), which every
+        dispatch that reads the lane runs first. False on every miss, and
+        the caller prefills in full: no pool (the dense stage lanes, as in
+        the reference), an unknown or short parent, a parent bound to an
+        adapter (the fork admits the child without one: decoding tenant KV
+        on the base weights would diverge silently), no lane free of
+        in-flight work (the parent is never evicted for its child), no
+        block for the tail."""
+        if self.pool is None or prefix_len <= 0:
+            return False
+        with self._mu:
+            if self._session_adapter.get(parent_session_id):
+                return False
+            plane = self._sessions.get(parent_session_id)
+            if (plane is None or self.lengths[plane] < prefix_len
+                    or new_session_id in self._sessions):
+                return False
+            try:
+                lane = self._lane_for(new_session_id, new_ok=True, protect=(parent_session_id,))
+            except CapacityError:
+                return False
+            try:
+                self.pool.fork_lane(plane, lane, prefix_len,
+                                    owner=f"session {new_session_id}, lane {lane}")
+            except BufferError:
+                self._drop_locked(new_session_id)
+                return False
+            self.lengths[lane] = prefix_len
+        return True
 
     def anatomy_target(self):
         raise NotImplementedError("the live step anatomy is not ported yet: ROADMAP A9")

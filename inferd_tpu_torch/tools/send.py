@@ -13,14 +13,20 @@ drives a chain that D*-Lite plans per session over the live view
 `generated ids: [...]` (the decoded text with --prompt), or one by one as
 they are sampled with --stream.
 
+`--pin-prefix-ids` pins those ids as a shared prefix first (the prompt
+must start with them): the generation forks the pinned session's KV on
+every stage instead of prefilling it. `--server-side` (with --entry only)
+POSTs /generate and lets the entry node run the token loop (one round
+trip; with --stream, chunked ndjson lines as the node samples them), the
+pin then held by the node.
+
   python -m inferd_tpu_torch.tools.send --entry 127.0.0.1:6050 --prompt-ids 3,7,11
   python -m inferd_tpu_torch.tools.send --chain 127.0.0.1:6050,127.0.0.1:6051 \\
       --prompt-ids 3,7,11 --temperature 0 --max-new-tokens 16
   python -m inferd_tpu_torch.tools.send --routed 127.0.0.1:7050 --num-stages 2 \\
       --prompt-ids 3,7,11
-
-Not ported yet, and refused with the ROADMAP item that brings them:
-`--pin-prefix-ids` and `--server-side` (prefix pins and /generate, A4d).
+  python -m inferd_tpu_torch.tools.send --entry 127.0.0.1:6050 --prompt-ids 3,7,11,5 \\
+      --pin-prefix-ids 3,7,11 --server-side
 """
 
 from __future__ import annotations
@@ -33,11 +39,6 @@ import uuid
 from typing import List, Optional, Tuple
 
 ROUTED_WAIT_S = 10.0  # how long --routed waits for every stage to show in its view
-
-_NOT_PORTED = {
-    "pin_prefix_ids": "--pin-prefix-ids (server-side prefix pins) is not ported yet: ROADMAP A4d",
-    "server_side": "--server-side (POST /generate) is not ported yet: ROADMAP A4d",
-}
 
 
 def parse_addrs(value: str) -> List[Tuple[str, int]]:
@@ -84,14 +85,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-chunk", type=int, default=512)
     ap.add_argument("--session-retries", type=int, default=2)
     ap.add_argument("--timeout", type=float, default=300.0)
-    ap.add_argument("--pin-prefix-ids", default="", help="not ported yet (ROADMAP A4d)")
-    ap.add_argument("--server-side", action="store_true", help="not ported yet (ROADMAP A4d)")
+    ap.add_argument("--pin-prefix-ids", default="",
+                    help="comma-separated token ids to pin as a shared prefix before "
+                    "generating: each stage forks the pinned KV instead of prefilling it "
+                    "(the prompt must start with these ids)")
+    ap.add_argument("--server-side", action="store_true",
+                    help="--entry only: POST /generate and let the node run the token loop "
+                    "(one round trip)")
     ap.add_argument("--stream", action="store_true",
-                    help="print each token as the client samples it")
+                    help="print each token as it is sampled (with --server-side: as the "
+                    "node's chunked ndjson lines arrive)")
     return ap
 
 
-async def _drive(args, client, ids: List[int], eos: Optional[int], tokenizer) -> None:
+def _pin_ids(args) -> List[int]:
+    return [int(t) for t in args.pin_prefix_ids.split(",")] if args.pin_prefix_ids else []
+
+
+async def _drive(args, client, ids: List[int], eos: Optional[int], tokenizer) -> int:
+    pin_ids = _pin_ids(args)
+
     def show(tok):
         if tok is None:
             print("\n[restart]", flush=True)
@@ -104,13 +117,25 @@ async def _drive(args, client, ids: List[int], eos: Optional[int], tokenizer) ->
     lps = [] if (args.logprobs and not args.stream) else None
     tops = [] if (args.top_logprobs and not args.stream) else None
     async with client as c:
-        out = await c.generate_ids(
-            ids, max_new_tokens=args.max_new_tokens, eos_token_id=eos, seed=args.seed,
-            session_retries=args.session_retries, on_token=show if args.stream else None,
-            logprob_sink=lps, top_n=args.top_logprobs, top_sink=tops)
+        if args.server_side and args.stream:
+            out = await c.generate_server_side_stream(
+                ids, show, max_new_tokens=args.max_new_tokens, eos_token_id=eos,
+                seed=args.seed, pin_prefix_len=len(pin_ids))
+        elif args.server_side:
+            out = await c.generate_server_side(
+                ids, max_new_tokens=args.max_new_tokens, eos_token_id=eos, seed=args.seed,
+                pin_prefix_len=len(pin_ids), logprob_sink=lps,
+                top_logprobs=args.top_logprobs if tops is not None else 0, top_sink=tops)
+        else:
+            if pin_ids:
+                await c.pin_prefix(pin_ids)
+            out = await c.generate_ids(
+                ids, max_new_tokens=args.max_new_tokens, eos_token_id=eos, seed=args.seed,
+                session_retries=args.session_retries, on_token=show if args.stream else None,
+                logprob_sink=lps, top_n=args.top_logprobs, top_sink=tops)
     if args.stream:
         print()
-        return
+        return 0
     if tokenizer is not None:
         print(tokenizer.decode(out))
     else:
@@ -120,14 +145,12 @@ async def _drive(args, client, ids: List[int], eos: Optional[int], tokenizer) ->
     if tops is not None:
         for step, (ti, tl) in enumerate(tops):
             print(f"top[{step}]:", list(zip(ti, [round(x, 4) for x in tl])))
+    return 0
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    for flag, msg in _NOT_PORTED.items():
-        if getattr(args, flag):
-            ap.error(msg)
 
     from inferd_tpu_torch.config import SamplingConfig
 
@@ -145,6 +168,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         eos = tokenizer.eos_token_id
     else:
         ap.error("need --prompt or --prompt-ids")
+    # the reference's checks, before any topology is joined
+    if args.server_side and not args.entry:
+        print("--server-side needs --entry (swarm topology)", file=sys.stderr)
+        return 2
+    pin_ids = _pin_ids(args)
+    if pin_ids and ids[:len(pin_ids)] != pin_ids:
+        print("prompt does not start with --pin-prefix-ids", file=sys.stderr)
+        return 2
     kw = dict(sampling=sampling, timeout_s=args.timeout, prefill_chunk=args.prefill_chunk)
     if args.routed:
         return _routed(ap, args, kw, ids, eos, tokenizer)
@@ -156,8 +187,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         from inferd_tpu_torch.client.chain_client import ChainClient
 
         client = ChainClient(parse_addrs(args.chain), **kw)
-    asyncio.run(_drive(args, client, ids, eos, tokenizer))
-    return 0
+    return asyncio.run(_drive(args, client, ids, eos, tokenizer))
 
 
 def _routed(ap, args, kw, ids: List[int], eos: Optional[int], tokenizer) -> int:
@@ -179,10 +209,9 @@ def _routed(ap, args, kw, ids: List[int], eos: Optional[int], tokenizer) -> int:
                 return 1
             time.sleep(0.1)
         client = RoutedChainClient(dht, args.num_stages, **kw)
-        asyncio.run(_drive(args, client, ids, eos, tokenizer))
+        return asyncio.run(_drive(args, client, ids, eos, tokenizer))
     finally:
         dht.stop()
-    return 0
 
 
 if __name__ == "__main__":

@@ -15,7 +15,8 @@ held to the reference's behaviour and to the JAX package's greedy streams
     old stage; a bad or out-of-range stage answers 400; a node without a
     stage loader answers 500 and adopts nothing;
   * POST /drain sheds new sessions with 503 "draining" and Retry-After,
-    serves the resident session token-exact, gossips `draining: 1`, takes
+    serves the resident session no replica adopts token-exact, gossips
+    `draining: 1`, takes
     the node out of ranked_nodes, and is idempotent;
   * a relayed load skew on a counter swarm moves the min-id replica of the
     cold stage once, and it does not move back within its dwell.
@@ -426,7 +427,12 @@ def test_a_node_without_a_loader_answers_500_and_adopts_nothing():
 
 
 def test_drain_sheds_new_sessions_and_serves_its_resident(parts, prompt, expected):
-    nodes = _swarm([(0, ()), (0, ()), (1, ())], ("--parts", parts, "--max-len", "64"))
+    """No replica can adopt the resident (the other stage-0 replica runs the
+    stage lanes, which import nothing), so the drain hands nothing off and
+    serves it here to its end (tests/test_torch_session_nodes.py drains a
+    resident to a replica that adopts it)."""
+    lanes = ("--stage-lanes", "2")
+    nodes = _swarm([(0, ()), (0, lanes), (1, ())], ("--parts", parts, "--max-len", "64"))
     e, e2, r = nodes
     try:
         drained = {}
