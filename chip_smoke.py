@@ -250,6 +250,41 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               paged_decode_gqa launches (28 x its decode dispatches, the
               split ones by paged_plan) exact; every decode step a capture
               or a replay
+  serve_standby
+              crash-tolerant sessions, on fresh processes after
+              serve_sessions' stop: one-session graphed nodes S0 (stage 0)
+              and R1a, R1b, R1c (stage 1), all run_node --standby-repl
+              --repl-interval 0.05 (three stage-1 replicas: each case kills
+              one, and a standby must outlive both). The 300-token serve
+              prompt, 32 greedy tokens through a SwarmClient into S0 with
+              stage 1 routed to a chosen replica: unkilled on R1a (the
+              reference), 4 tokens on R1b and on R1c (a standby has served
+              before, as a live replica has), then (a) routed to R1a, SIGKILLed after 8 tokens once its
+              standby's shadow (/stats repl.shadows) reaches the committed
+              slots: token-exact, 0 restarts, the standby's repl.promotions
+              1 and repl.resumed_tokens the frontier, no offer; (b) routed
+              to another replica, SIGSTOPped at each token from the 8th on
+              until its standby's frontier F lags the committed pos, then
+              SIGKILLed: the step at pos answers 409 with resume_from F, the
+              client re-sends the pos - F tokens once and goes on (the steps
+              after the kill checked), repl.offers 1, repl.tail_tokens pos -
+              F, one promotion, 0 restarts, the logits after the kill within
+              5% of max |logit| of the reference's and the stream
+              token-exact but where the reference's top-2 gap is inside that
+              tolerance (the least gap printed). Between the cases, in this
+              process, two paged --batch-lanes executors (bs 32, eager): the
+              deltas ship full blocks only, realign a foreign frontier, and
+              concatenate to export_sessions' payload bit for bit; the
+              StandbyStore's payload imported into the second continues 8
+              lockstep steps bit-equal to the unmoved lane, paged_decode_gqa
+              launches exact. Printed: kill to the next token beside
+              serve_overload's kill to the restart's first token, the
+              holder's repl.ships and repl.bytes, its first ship's bytes and
+              ms, repl.lock_ms (the session lock held per delta export) and
+              repl.export_ms (the export with its lock wait), decode
+              ms/token before the kill.
+              Every node's flash_gqa launches exact per route (from the
+              steps it computed), every decode step a capture or a replay
   generate    the whole model in this process (the serve checkpoints joined,
               bf16) through core.generate.Engine, whose decode steps and
               K-step windows replay captured CUDA graphs: on the serve
@@ -345,9 +380,8 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
 
 Balancers: every node runs one (run_node's default --rebalance-period 10).
 The swarms with a stage of two or more replicas, serve_swarm's one-session
-swarm, serve_overload's two and serve_sessions', take --rebalance-period
-3600, longer than
-their phase: a tick that read a transient load skew (an entry's in-flight
+swarm, serve_overload's two, serve_sessions' and serve_standby's, take
+--rebalance-period 3600, longer than their phase: a tick that read a transient load skew (an entry's in-flight
 requests gossiped before its replicas') could move a replica mid-phase and
 break the phase's per-node pass counts. The other phases' layouts cannot
 move: one replica per stage (a balancer never leaves its stage's last
@@ -364,7 +398,7 @@ Run from the root of a checkout: python3 chip_smoke.py
 Exits non-zero without a CUDA device, and outside a checkout.
 `--only paged,lora` (any of flash, paged, qmm, lora, codec, sim, and on a fresh
 split serve, serve_quant, serve_lanes, serve_lanes_quant, serve_lanes_lora,
-serve_tenant_routes, serve_sessions,
+serve_tenant_routes, serve_sessions, serve_standby,
 serve_swarm, serve_overload, serve_elastic, generate, generate_batched,
 serve_batch, serve_kstep, serve_fp8, anatomy, profile: serve_quant runs int8
 and int4, serve_lanes_lora runs serve_lanes first, serve_tenant_routes runs
@@ -3341,6 +3375,17 @@ SESS_SUFFIXES = (16, 40, 100, 200)
 SESS_STOP_AFTER = 4  # tokens of a session before its stage-1 holder stops
 SESS_TAIL_STEPS = 2  # the paged parent's decode steps before its tail fork
 SESS_TAIL_ROUNDS = 4  # lockstep steps of the parent and the tail child
+# serve_standby: every node replicates its sessions every 50 ms; the serve
+# prompt of 300 tokens, the holder killed after 8 tokens (case (b): the
+# first token from there on whose standby lags); the paged pair's session
+# grows from 300 slots to 320 (10 full blocks of 32) before it moves, then
+# 8 lockstep steps
+STANDBY_ARGS = ["--standby-repl", "--repl-interval", "0.05"]
+STANDBY_PROMPT = 2
+STANDBY_KILL_AFTER = 8
+STANDBY_WARM_TOKENS = 4  # each other stage-1 replica's first generation, before the cases
+STANDBY_PAGED_STEPS = 20
+STANDBY_PAGED_TAIL = 8
 # the balancer's period of the swarms whose layout it could move (a stage
 # with two replicas): longer than their phase (chip_smoke's docstring)
 STILL_REBALANCE_S = 3600
@@ -3368,10 +3413,15 @@ SWARM_LAYOUTS = {
     # the old one's advert lingers nor keep relaying through the old one
     # (a step run twice breaks the phase's exact launch counts)
     "sessions": ("model", [(0, []), (1, []), (1, [])]),
+    # serve_standby: S0 and stage-1 replicas R1a, R1b, R1c, all replicating:
+    # each case kills the replica holding its session, and a standby must
+    # outlive both kills
+    "standby": ("model", [(0, STANDBY_ARGS), (1, STANDBY_ARGS), (1, STANDBY_ARGS),
+                          (1, STANDBY_ARGS)]),
 }
 # swarms with a stage of two replicas or more, which a balancer's tick under
 # a transient load skew could reshape mid-phase
-STILL_SWARMS = ("swarm", "overload", "overload_counter", "sessions")
+STILL_SWARMS = ("swarm", "overload", "overload_counter", "sessions", "standby")
 
 
 def write_manifest(work: str, tag: str, layout) -> str:
@@ -5215,6 +5265,446 @@ def run_serve_sessions(card: str, parts: str, parts1: str, work: str) -> Dict[st
         stop_nodes(nodes)
 
 
+def standby_client(entry: int, route: Dict[str, str], log: List[Dict[str, Any]], sampling):
+    """A SwarmClient into the node on port `entry` whose new sessions take
+    `route`'s replicas (routed_swarm_client), logging every step it sends:
+    its start and rows, the answer's status and `resume_from`, the stage-1
+    node that computed it (`served_by`), its logits and when it was sent."""
+    import numpy as np
+
+    from inferd_tpu_torch.client.base import ServerError
+    from inferd_tpu_torch.client.swarm_client import SwarmClient
+
+    class Logged(SwarmClient):
+        def _forward_env(self, session_id, tokens, start_pos):
+            return dict(super()._forward_env(session_id, tokens, start_pos), route=route)
+
+        async def _step(self, session_id, tokens, start_pos):
+            row = {"sid": session_id, "start": start_pos, "n": len(tokens), "status": 200,
+                   "resume_from": None, "served_by": None, "t": time.perf_counter()}
+            log.append(row)
+            try:
+                resp = await self._post("/forward", self._forward_env(session_id, tokens,
+                                                                      start_pos))
+            except ServerError as e:
+                row.update(status=e.status, resume_from=e.resume_from)
+                raise
+            logits = np.asarray(resp["result_for_user"]["logits"], np.float32)[0]
+            row.update(served_by=resp["served_by"], logits=logits)
+            return logits
+
+    return Logged([("127.0.0.1", entry)], sampling=sampling, prefill_chunk=512)
+
+
+def standby_paged_check(phase: str, card: str, params) -> Dict[str, Any]:
+    """Two whole-model paged BatchedExecutors (bs PAGED_BS, eager) in this
+    process: a session's deltas at several frontiers, a non-aligned one
+    among them, ship full blocks only and concatenate to export_sessions'
+    payload bit for bit; the StandbyStore's payload, imported into the
+    second executor at a block-aligned length, continues bit-exact with the
+    unmoved lane for STANDBY_PAGED_TAIL lockstep steps, with
+    paged_decode_gqa launches exact."""
+    import numpy as np
+    import torch
+
+    from inferd_tpu_torch.config import get_config
+    from inferd_tpu_torch.ops import attention as A
+    from inferd_tpu_torch.ops.attention import paged_plan
+    from inferd_tpu_torch.runtime.batch_executor import BatchedExecutor
+    from inferd_tpu_torch.runtime.repl import StandbyStore
+
+    cfg = get_config(MODEL)
+    lanes = 2
+    prompt = serve_prompts(cfg.vocab_size)[STANDBY_PROMPT]
+    a, b = eager([BatchedExecutor(cfg, params, lanes=lanes, max_len=1024, block_size=PAGED_BS,
+                                  device=DEVICE) for _ in range(2)])
+    reset_kernel_counts()
+
+    def step(ex, toks, pos):
+        out = ex.process("s", {"tokens": np.asarray([toks], np.int32), "start_pos": pos,
+                               "real_len": len(toks)})
+        return np.asarray(out["logits"].float().cpu(), np.float32)[0]
+
+    store = StandbyStore()
+    shipped: List[tuple] = []
+
+    def ship(frontier):
+        d = a.export_session_delta("s", frontier)
+        if d is None:
+            shipped.append((frontier, None))
+            return frontier
+        ok, have = store.apply("s", 0, d)
+        shipped.append((d["start"], d["length"]))
+        if not ok or d["start"] % PAGED_BS or d["length"] % PAGED_BS:
+            raise AssertionError(f"{phase}: paged delta {d['start']}-{d['length']} ok {ok}")
+        return have
+
+    logits = step(a, prompt, 0)
+    pos = len(prompt)
+    frontier = ship(0)
+    for i in range(STANDBY_PAGED_STEPS):
+        logits = step(a, [int(np.argmax(logits))], pos)
+        pos += 1
+        if pos % 10 == 0 or i == STANDBY_PAGED_STEPS - 1:
+            frontier = ship(frontier)
+    full = dict(a.export_sessions(only="s"))["s"]
+    foreign = a.export_session_delta("s", PAGED_BS + 5)  # a frontier inside block 1
+    got = store.payload("s")
+    n = got["length"]
+    exact = (n == pos and torch.equal(got["k"], full["k"][:, :, :n])
+             and torch.equal(got["v"], full["v"][:, :, :n])
+             and (foreign["start"], foreign["length"]) == (PAGED_BS, n)
+             and torch.equal(foreign["k"], full["k"][:, :, PAGED_BS:n]))
+    if not b.import_session("s", got):
+        raise AssertionError(f"{phase}: the paged import declined the store's payload")
+    launches0, split0 = A.paged_decode_gqa.launches, A.paged_decode_gqa.split_launches
+    widths0 = [dict(ex.stats()["decode_widths"]) for ex in (a, b)]
+    same = []
+    for _ in range(STANDBY_PAGED_TAIL):
+        tok = int(np.argmax(logits))
+        logits = step(a, [tok], pos)
+        same.append(logits.tobytes() == step(b, [tok], pos).tobytes())
+        pos += 1
+    launched = A.paged_decode_gqa.launches - launches0
+    split = A.paged_decode_gqa.split_launches - split0
+    want_split = 0
+    for ex, w0 in zip((a, b), widths0):
+        for w, c in ex.stats()["decode_widths"].items():
+            if paged_plan(lanes, cfg.num_kv_heads, int(w), PAGED_BS, cfg.torch_dtype).splits > 1:
+                want_split += cfg.num_layers * (c - w0.get(w, 0))
+    counts = kernel_counts()
+    want_all = cfg.num_layers * (STANDBY_PAGED_STEPS + 2 * STANDBY_PAGED_TAIL)
+    say(phase, f"paged pair in this process (eager, bs {PAGED_BS}): deltas shipped (start, "
+               f"length) {shipped}, full blocks only; their concatenation equals "
+               f"export_sessions' {n} slots bit for bit, and a frontier of {PAGED_BS + 5} "
+               f"ships from {PAGED_BS}: {exact}; imported into a second executor, "
+               f"{STANDBY_PAGED_TAIL} lockstep steps bit-equal to the unmoved lane {same}; "
+               f"paged_decode_gqa launches {counts['launches']['paged_decode_gqa']} (want "
+               f"{want_all}), in the lockstep {launched} (want "
+               f"{2 * cfg.num_layers * STANDBY_PAGED_TAIL}), split {split} (want {want_split}) "
+               f"({card})")
+    if (not exact or not all(same) or counts["launches"]["paged_decode_gqa"] != want_all
+            or launched != 2 * cfg.num_layers * STANDBY_PAGED_TAIL or split != want_split):
+        raise AssertionError(f"{phase}: the paged check: exact {exact}, lockstep {same}, "
+                             f"launches {counts}, split {split} want {want_split}")
+    del a, b
+    torch.cuda.empty_cache()
+    return dict(counts, paged_split=A.paged_decode_gqa.split_launches)
+
+
+def run_serve_standby(card: str, parts: str, params, work: str,
+                      overload: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """The `serve_standby` phase: crash-tolerant sessions on fresh processes.
+
+    S0 (stage 0) and R1a, R1b, R1c (stage 1), one-session graphed nodes, every
+    one with --standby-repl --repl-interval 0.05. The 300-token serve prompt,
+    32 greedy tokens through a SwarmClient into S0, its stage 1 routed to a
+    chosen replica: once unkilled on R1a (the reference), STANDBY_WARM_TOKENS
+    on each other replica (a process's first compute and graph capture is
+    no part of a promotion's cost), then (a) routed to R1a,
+    SIGKILLed after STANDBY_KILL_AFTER tokens once its standby's shadow
+    reaches the committed length: the standby promotes the exact bytes and
+    the stream is token-exact with no restart; (b) routed to another
+    replica, stopped (SIGSTOP) at the first token from there on whose
+    standby's frontier F lags, then SIGKILLed: the standby offers a resume
+    from F, the client re-sends the pos - F tokens past it, and the stream
+    is held teacher-forced to the reference's logits (LOGIT_TOL), token-exact
+    but where the reference's top-2 gap is inside that tolerance. Between the
+    cases the paged in-process check (standby_paged_check). Every node's
+    flash_gqa launches exact per route and every decode step a capture or a
+    replay; 0 restarts; one promotion per case."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.core.generate import bucket_len
+    from inferd_tpu_torch.ops.attention import flash_plan
+
+    phase = "serve_standby"
+    cfg = get_config(MODEL)
+    layers = cfg.num_layers // 2
+    greedy = SamplingConfig(temperature=0.0)
+    prompt = serve_prompts(cfg.vocab_size)[STANDBY_PROMPT]
+    nodes: List[Dict[str, Any]] = []
+    logs: List[List[Dict[str, Any]]] = []
+    final: Dict[str, Dict[str, Any]] = {}
+    t_phase = time.perf_counter()
+
+    def nid(n):
+        return f"127.0.0.1:{n['port']}"
+
+    def stats(n):
+        return http_get_json(f"http://127.0.0.1:{n['port']}/stats")
+
+    def counter(st, name):
+        return int(st["metrics"]["counters"].get(name, 0))
+
+    def shadow(n, sid):
+        try:
+            return stats(n)["repl"]["shadows"].get(sid)
+        except (OSError, RuntimeError):
+            return None
+
+    def run(holder, on_token=None, new=NEW_TOKENS):
+        """One generation of the prompt, stage 1 routed to `holder`: (ids, the
+        step log, the (time, token) of every token)."""
+        log: List[Dict[str, Any]] = []
+        marks: List[tuple] = []
+
+        def tick(tok):
+            marks.append((time.perf_counter(), tok))
+            if on_token is not None:
+                on_token(tok, log)
+
+        ids = drive(standby_client(s0["port"], {"1": nid(holder)}, log, greedy), [prompt],
+                    new=new, on_token=tick)[0]
+        logs.append(log)
+        return ids, log, marks
+
+    def per_token(log):
+        """The logits each token was sampled from, in stream order: a step's
+        whose rows reach past every answered step before it (a resume's
+        re-sent tail reaches no further, and its logits are dropped)."""
+        out, hi = [], 0
+        for r in log:
+            if r["status"] == 200 and r["start"] + r["n"] > hi:
+                out.append(r["logits"])
+                hi = r["start"] + r["n"]
+        return out
+
+    try:
+        nodes = take_swarm(parts, work, "standby")
+        s0, r1a, r1b, r1c = nodes
+        for n in nodes:
+            wait_ready(n)
+        converged = wait_gossip(phase, nodes)
+        names = {nid(s0): "S0", nid(r1a): "R1a", nid(r1b): "R1b", nid(r1c): "R1c"}
+        by_name = {"S0": s0, "R1a": r1a, "R1b": r1b, "R1c": r1c}
+        say(phase, f"4 fresh run_node --device {DEVICE} {' '.join(STANDBY_ARGS)} processes (S0; "
+                   f"R1a, R1b, R1c) ready in {time.perf_counter() - t_phase:.1f}s; gossip views "
+                   f"full after {converged:.2f}s")
+        ref, ref_log, ref_marks = run(r1a)
+        ref_logits = per_token(ref_log)
+        for n in (r1b, r1c):  # a standby that promotes has served before, as a live one has
+            run(n, new=STANDBY_WARM_TOKENS)
+        ms_tok = statistics.median(b_[0] - a_[0] for a_, b_ in zip(ref_marks[1:-1],
+                                                                  ref_marks[2:])) * 1e3
+        cases: Dict[str, Dict[str, Any]] = {}
+
+        def kill_case(case: str, holder, lag: bool):
+            """The on_token callback of one case: from STANDBY_KILL_AFTER
+            tokens on, find the holder's standby and kill the holder once its
+            frontier equals the committed length (a) or lags it (b)."""
+            rec = cases[case] = {"holder": names[nid(holder)], "seen": []}
+            others = [n for n in (r1a, r1b, r1c) if n is not holder
+                      and n["proc"].poll() is None]
+
+            def on_token(tok, log):
+                rec["seen"].append(tok)
+                if tok is None or "killed" in rec or len(rec["seen"]) < STANDBY_KILL_AFTER:
+                    return
+                sid = log[-1]["sid"]
+                pos = len(prompt) + len(rec["seen"]) - 1  # the holder's committed slots
+                st = stats(holder)
+                if not lag:
+                    deadline = time.monotonic() + 10.0
+                    while time.monotonic() < deadline:
+                        got = {names[nid(n)]: shadow(n, sid) for n in others}
+                        if pos in got.values():
+                            break
+                        time.sleep(0.01)
+                    else:
+                        raise AssertionError(f"{phase} ({case}): no shadow reached {pos}: {got}")
+                else:
+                    holder["proc"].send_signal(signal.SIGSTOP)  # no ship from here on
+                    time.sleep(0.05)  # a ship in flight lands or dies
+                    got = {names[nid(n)]: shadow(n, sid) for n in others}
+                    lagging = [v for v in got.values() if v is not None and 0 < v < pos]
+                    if not lagging:
+                        holder["proc"].send_signal(signal.SIGCONT)
+                        return
+                standby = max(got, key=lambda k: got[k] or -1)
+                rec.update(sid=sid, pos=pos, F=got[standby], standby=standby,
+                           at_token=len(rec["seen"]), holder_stats=st,
+                           survivor_before=stats(by_name[standby]), log_at=len(log))
+                holder["proc"].send_signal(signal.SIGKILL)  # reaped after the run
+                rec["killed"] = time.perf_counter()
+                final[rec["holder"]] = st
+
+            return on_token
+
+        # case (a): the shadow caught up, the exact bytes promoted
+        got_a, log_a, marks_a = run(r1a, kill_case("a", r1a, lag=False))
+        r1a["proc"].wait(timeout=30)
+        a_ = cases["a"]
+        a_["survivor_after"] = stats(by_name[a_["standby"]])
+        # while the dead holder's record expires from S0's view: the paged check
+        paged = standby_paged_check(phase, card, params)
+        deadline = time.monotonic() + SWARM_TTL_S + 10
+        while nid(r1a) in stats(s0)["dht"].get("1", {}):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{phase}: R1a's record outlived its TTL in S0's view")
+            time.sleep(0.2)
+        # case (b): a lagging frontier, the tail re-sent
+        y = next(n for n in (r1b, r1c) if names[nid(n)] != a_["standby"])
+        got_b, log_b, marks_b = run(y, kill_case("b", y, lag=True))
+        b_ = cases.get("b", {})
+        if "killed" not in b_:
+            raise AssertionError(f"{phase}: case (b) found no lagging standby before the end")
+        y["proc"].wait(timeout=30)
+        b_["survivor_after"] = stats(by_name[b_["standby"]])
+
+        lines = []
+        for case, got, log, marks in (("a", got_a, log_a, marks_a), ("b", got_b, log_b, marks_b)):
+            c = cases[case]
+            delta = {k: counter(c["survivor_after"], f"repl.{k}")
+                     - counter(c["survivor_before"], f"repl.{k}")
+                     for k in ("promotions", "resumed_tokens", "offers", "tail_tokens", "stale")}
+            post = [(r["start"], r["n"], r["status"], r["resume_from"]) for r in
+                    log[c["log_at"]:c["log_at"] + 3]]
+            next_tok = next(t for t, tok in marks if t > c["killed"] and tok is not None)
+            # the tokens before the first kill check (case (b) stops the holder at each later one)
+            pre = [t for t, tok in marks if tok is not None][:STANDBY_KILL_AFTER]
+            hst = c["holder_stats"]
+            h = hst["metrics"]["histograms"]
+            c.update(delta=delta, kill_to_next_token_s=next_tok - c["killed"],
+                     decode_ms_per_token=statistics.median(
+                         b2 - a2 for a2, b2 in zip(pre[1:-1], pre[2:])) * 1e3,
+                     ships=counter(hst, "repl.ships"), bytes=counter(hst, "repl.bytes"),
+                     first_ship=hst["repl"]["first_ship"], lock_ms=h.get("repl.lock_ms"),
+                     export_ms=h.get("repl.export_ms"), ship_ms=h.get("repl.ship_ms"))
+            want_post = ([(c["pos"], 1, 200, None)] if case == "a" else
+                         [(c["pos"], 1, 409, c["F"]), (c["F"], c["pos"] - c["F"], 200, None),
+                          (c["pos"], 1, 200, None)])
+            restarts = c["seen"].count(None)
+            bad = []
+            if restarts or post[:len(want_post)] != want_post:
+                bad.append(f"restarts {restarts}, the steps after the kill {post} (want "
+                           f"{want_post})")
+            if delta["promotions"] != 1 or delta["resumed_tokens"] != c["F"] or delta["stale"]:
+                bad.append(f"{c['standby']}'s repl counters {delta}")
+            if c["F"] < len(prompt):
+                bad.append(f"the frontier {c['F']} below the prompt's {len(prompt)} slots")
+            if case == "a":
+                if got != ref or delta["offers"]:
+                    bad.append(f"case (a) stream equal {got == ref}, offers {delta['offers']}")
+                tf = "token-exact"
+            else:
+                if delta["offers"] < 1 or delta["tail_tokens"] != c["pos"] - c["F"]:
+                    bad.append(f"offers {delta['offers']}, tail tokens {delta['tail_tokens']} "
+                               f"(want {c['pos'] - c['F']})")
+                gl = per_token(log)
+                d = first_divergence(got, ref)
+                if d < c["at_token"]:
+                    raise AssertionError(f"{phase} (b): the stream left the reference at token "
+                                         f"{d}, before the kill")
+                errs = [float(np.max(np.abs(g_ - r_)) / np.max(np.abs(r_)))
+                        for g_, r_ in zip(gl[c["at_token"]:d + 1], ref_logits[c["at_token"]:d + 1])]
+                gaps = [float(np.diff(np.sort(r_)[-2:])[0] / np.max(np.abs(r_)))
+                        for r_ in ref_logits[c["at_token"]:]]
+                c.update(max_logit_err=max(errs), min_top2_gap=min(gaps), diverged_at=d)
+                gap_d = gaps[d - c["at_token"]] if d < len(ref) else None
+                if max(errs) > LOGIT_TOL:
+                    bad.append(f"teacher-forced logits {max(errs):.4%} of max |logit| past "
+                               f"{LOGIT_TOL:.0%}")
+                if d < len(ref) and gaps[d - c["at_token"]] > LOGIT_TOL:
+                    bad.append(f"the stream left the reference at token {d}, where its top-2 "
+                               f"gap {gaps[d - c['at_token']]:.4%} is outside {LOGIT_TOL:.0%}")
+                left = ("token-exact" if gap_d is None else
+                        f"left the reference at token {d}, where its top-2 gap is {gap_d:.4%}")
+                tf = (f"teacher-forced after the kill: logits within {max(errs):.4%} of max "
+                      f"|logit| (tol {LOGIT_TOL:.0%}), the reference's least top-2 gap there "
+                      f"{min(gaps):.4%}, stream {left}")
+            lines.append(
+                f"case ({case}): {c['holder']} killed (SIGKILL) after {c['at_token']} tokens "
+                f"(committed {c['pos']} slots, {c['standby']}'s shadow {c['F']}): {tf}; "
+                f"restarts {restarts}; {c['standby']}'s {delta}; the steps after the kill "
+                f"(start, rows, status, resume_from) {post}; kill to the next token "
+                f"{c['kill_to_next_token_s']:.3f} s; {c['holder']}'s repl.ships {c['ships']}, "
+                f"repl.bytes {c['bytes']}, first ship {c['first_ship']}, repl.lock_ms "
+                f"{c['lock_ms']}, repl.export_ms {c['export_ms']}, repl.ship_ms "
+                f"{c['ship_ms']}; decode "
+                f"{c['decode_ms_per_token']:.2f} ms/token before the kill ({card})")
+            if bad:
+                raise AssertionError(f"{phase} ({case}): " + "; ".join(bad))
+        for ln in lines:
+            say(phase, ln)
+        ov = (overload or {}).get("restart_s", {}).get("to_first_token")
+        say(phase, f"kill to the next token: case (a) {cases['a']['kill_to_next_token_s']:.3f} s, "
+                   f"case (b) {cases['b']['kill_to_next_token_s']:.3f} s, against "
+                   f"serve_overload's kill to the restart's first token "
+                   f"{'not run' if ov is None else f'{ov:.3f} s'}; the unkilled stream "
+                   f"{ms_tok:.2f} ms/token ({card})")
+
+        # exact launches per node, from the steps each computed: S0 every step
+        # it answered or relayed to a resume offer, a stage-1 node those it
+        # served; a chunk of n rows on flash_plan's route, a token step split
+        for n in (s0, r1a, r1b, r1c):
+            name = names[nid(n)]
+            if name not in final:
+                final[name] = stats(n)
+        computed = {name: {"split": 0, "mma": 0, "decode": 0} for name in final}
+        for log in logs:
+            for r in log:
+                rows = 1 if r["n"] == 1 else bucket_len(r["n"])  # a chunk pads to its bucket
+                route = flash_plan(1, rows, rows, cfg.num_heads, cfg.num_kv_heads,
+                                   torch.bfloat16, 0, rows).route
+                at = []
+                if r["status"] == 200:
+                    at = ["S0", names[r["served_by"]]]
+                elif r["resume_from"] is not None:
+                    at = ["S0"]
+                for name in at:
+                    computed[name][route] += 1
+                    computed[name]["decode"] += r["n"] == 1
+        launches = dict.fromkeys(final["S0"]["kernels"], 0)
+        routes = {"split": 0, "mma": 0}
+        for name, st in sorted(final.items()):
+            w = computed[name]
+            kern = {k: v["launches"] for k, v in st["kernels"].items()}
+            want_kern = dict.fromkeys(kern, 0)
+            want_kern["flash_gqa"] = layers * (w["split"] + w["mma"])
+            want_routes = {"split": layers * w["split"], "mma": layers * w["mma"]}
+            got_routes = flash_routes(st)
+            say(phase, f"{name}: {st['forward_passes']} passes ({w}), rescue relays "
+                       f"{counter(st, 'sessions.rescue_relay')}; launches {kern} (want "
+                       f"{want_kern}); flash_gqa routes {got_routes} (want {want_routes})")
+            if w["decode"]:
+                check_node_graphs(phase, st, w["decode"])
+            if (kern != want_kern or got_routes != want_routes
+                    or st["forward_passes"] != w["split"] + w["mma"]):
+                raise AssertionError(f"{phase}: {name}: launches {kern}, routes {got_routes}, "
+                                     f"passes {st['forward_passes']}, want {w}")
+            for k, v in kern.items():
+                launches[k] += v
+            for r_, v in got_routes.items():
+                routes[r_] += v
+        for k, v in paged["launches"].items():
+            launches[k] += v
+        for r_, v in paged["flash_routes"].items():
+            routes[r_] += v
+        stop_nodes(nodes)
+        nodes = []
+        return {"launches": launches, "flash_routes": routes, "paged_split": paged["paged_split"],
+                "gemv_routes": {name: {"mma": 0, "simt": 0} for name in QMM_KERNEL_OF.values()},
+                "cases": {k: {x: v[x] for x in ("holder", "standby", "pos", "F", "at_token",
+                                                "kill_to_next_token_s", "ships", "bytes",
+                                                "first_ship", "lock_ms", "decode_ms_per_token")}
+                          for k, v in cases.items()},
+                "wall_s": time.perf_counter() - t_phase}
+    except BaseException:
+        for n in nodes:  # a holder left stopped must die with the rest
+            if n["proc"].poll() is None:
+                n["proc"].send_signal(signal.SIGCONT)
+        stop_nodes(nodes, show_logs=True)
+        nodes = []
+        raise
+    finally:
+        stop_nodes(nodes)
+
+
 # -- generate, generate_quant, serve_kstep, cli: the whole model in one process --
 
 GEN_CHUNK = 8  # fused decode steps per host read in the chunked runs (generate(chunk=8))
@@ -6776,8 +7266,8 @@ CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_q
 # serve_elastic run serve first; serve_batch runs generate_batched first, its
 # streams)
 SPLIT_PHASES = ("serve", "serve_quant", "serve_lanes", "serve_lanes_quant", "serve_lanes_lora",
-                "serve_tenant_routes", "serve_sessions", "serve_swarm", "serve_overload",
-                "serve_elastic",
+                "serve_tenant_routes", "serve_sessions", "serve_standby", "serve_swarm",
+                "serve_overload", "serve_elastic",
                 "generate", "generate_batched", "serve_batch", "serve_kstep", "serve_fp8",
                 "anatomy", "profile")
 
@@ -6854,9 +7344,10 @@ def main(argv: List[str]) -> int:
                     lanes = run_serve_lanes(card, parts, work)
                 if "serve_swarm" in split_only:
                     run_serve_swarm(card, parts, work, serve, lanes)
+                overload = None
                 if "serve_overload" in split_only:
                     t_overload = time.perf_counter()
-                    run_serve_overload(card, parts, work, serve)
+                    overload = run_serve_overload(card, parts, work, serve)
                     say("time", f"serve_overload: {time.perf_counter() - t_overload:.1f}s")
                 if "serve_elastic" in split_only:
                     t_elastic = time.perf_counter()
@@ -6877,6 +7368,9 @@ def main(argv: List[str]) -> int:
                     t_sessions = run_serve_sessions(card, parts, one_stage_parts(work, whole),
                                                     work)["wall_s"]
                     say("time", f"serve_sessions: {t_sessions:.1f}s")
+                if "serve_standby" in split_only:
+                    t_standby = run_serve_standby(card, parts, whole, work, overload)["wall_s"]
+                    say("time", f"serve_standby: {t_standby:.1f}s")
                 if "generate" in split_only:
                     run_generate(card, whole, None)
                     run_generate_quant(card, whole)
@@ -6954,6 +7448,8 @@ def main(argv: List[str]) -> int:
         lap("serve_tenant_routes")
         sessions = run_serve_sessions(card, parts, parts1, work)
         lap("serve_sessions")
+        standby = run_serve_standby(card, parts, whole, work, overload)
+        lap("serve_standby")
         gen = run_generate(card, whole, serve)
         gen_q = run_generate_quant(card, whole)
         lap("generate, generate_quant")
@@ -6980,7 +7476,8 @@ def main(argv: List[str]) -> int:
              "serve_quant_int4": serve_q["int4"], "serve_lanes": lanes, "serve_swarm": swarm,
              "serve_overload": overload, "serve_elastic": elastic,
              "serve_lanes_quant": lanes_q, "serve_lanes_lora": lanes_lora,
-             "serve_tenant_routes": tenant, "serve_sessions": sessions, "generate": gen,
+             "serve_tenant_routes": tenant, "serve_sessions": sessions,
+             "serve_standby": standby, "generate": gen,
              "generate_quant": gen_q,
              "generate_batched": gen_b,
              "serve_batch": serve_b, "serve_kstep": kstep, "serve_fp8": fp8,
@@ -7069,6 +7566,7 @@ def main(argv: List[str]) -> int:
             "launches_split": sum(res["paged_split"] for res in paths.values()
                                   if "paged_split" in res),
         }, **timed(paged_main),  # library_ms None: no single PyTorch call computes it
+            gather_sdpa_yardstick_ms=paged_main["gather_sdpa_yardstick_ms"],
             plan=paged_main["plan"],
             shape=f"{PAGED_MAIN_CASE}: B 8, bs 32, MB 32, kv_len {paged_main['kv_len']}, "
                   "Nq 16, Nkv 8, D 128, bf16"),

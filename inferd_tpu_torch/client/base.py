@@ -20,8 +20,14 @@ generation whose prompt starts with a pinned prefix forks it (`_fork_session`,
 each topology's transport) and prefills only its suffix. A clean miss
 (`ok: False`: the parent is gone) unpins and prefills in full; a transport
 failure keeps the pin and prefills in full once. At most `max_pins` pins
-are held (least recently used out); `__aexit__` ends them. Not ported yet:
-standby resume offers (`resume_from`, ROADMAP A4d part d2) and tracing.
+are held (least recently used out); `__aexit__` ends them.
+
+Standby resume offers (crash-tolerant sessions, runtime/repl): a
+`session_state` 409 carrying `resume_from` F means the replica that
+answered holds the session's replicated KV up to F; the step re-sends only
+the tokens from F to its own start (`_step_resuming`, in `prefill_chunk`
+pieces, at most RESUMES times per generation) and is tried again, with the
+same session and every token already emitted kept. Not ported yet: tracing.
 """
 
 from __future__ import annotations
@@ -43,18 +49,24 @@ from inferd_tpu_torch.runtime import wire
 from inferd_tpu_torch.utils import retry as retrylib
 
 
+RESUMES = 4  # resume offers one generation acts on before it restarts instead
+
+
 class ServerError(RuntimeError):
     """Non-200 wire response. `code` is the node's machine-readable error
     class; `retryable` says whether restarting the generation under a fresh
     session could possibly help; `retry_after` (seconds, optional) is a busy
-    node's pacing hint: the retry loop waits at least that long."""
+    node's pacing hint: the retry loop waits at least that long;
+    `resume_from` (a `session_state` 409's) is a standby's replicated
+    frontier: the generation re-sends only the tokens past it."""
 
     def __init__(self, message: str, status: int, code: Optional[str] = None,
-                 retry_after: Optional[float] = None):
+                 retry_after: Optional[float] = None, resume_from: Optional[int] = None):
         super().__init__(message)
         self.status = status
         self.code = code
         self.retry_after = retry_after
+        self.resume_from = resume_from
 
     @property
     def retryable(self) -> bool:
@@ -259,7 +271,13 @@ class GenerationClient:
                 ra = None if ra is None else float(ra)
             except (TypeError, ValueError):
                 ra = None
-            raise ServerError(f"{url} error {status}: {detail}", status, code, retry_after=ra)
+            rf = data.get("resume_from") if isinstance(data, dict) else None
+            try:
+                rf = None if rf is None else int(rf)
+            except (TypeError, ValueError):
+                rf = None
+            raise ServerError(f"{url} error {status}: {detail}", status, code, retry_after=ra,
+                              resume_from=rf)
         return data
 
     # -- prefix pins ----------------------------------------------------------
@@ -385,6 +403,31 @@ class GenerationClient:
             if dl_token is not None:
                 _DEADLINE_MS.reset(dl_token)
 
+    async def _step_resuming(self, session_id: str, tokens: List[int], pos: int,
+                             known: List[int], resumes: List[int]) -> np.ndarray:
+        """`_step`, acting on a standby's resume offer: on a ServerError whose
+        `resume_from` F is below `pos`, re-send known[F:pos] (`known`: the
+        stream's tokens, prompt and sampled, by position) in prefill_chunk
+        pieces, then the step again. A re-sent piece may meet another
+        stage's standby with a lower frontier: its own offer walks the
+        resume point back (the recursion). `resumes` is the generation's
+        budget of offers; past it, or for any other error, the error goes
+        to generate_ids' restart loop."""
+        try:
+            return await self._step(session_id, tokens, pos)
+        except ServerError as e:
+            f = e.resume_from
+            if f is None or not 0 <= f < pos or resumes[0] <= 0:
+                raise
+            resumes[0] -= 1
+            p = f
+            replay = known[f:pos]
+            for i in range(0, len(replay), self.prefill_chunk):
+                chunk = replay[i:i + self.prefill_chunk]
+                await self._step_resuming(session_id, chunk, p, known, resumes)
+                p += len(chunk)
+            return await self._step_resuming(session_id, tokens, pos, known, resumes)
+
     async def _generate_once(
         self,
         prompt: List[int],
@@ -402,6 +445,8 @@ class GenerationClient:
         session_id = str(uuid.uuid4())
         rng = np.random.default_rng(seed)
         out: List[int] = []
+        known = list(prompt)  # the stream by position: what a resume re-sends
+        resumes = [RESUMES]
         if logprob_sink is not None:
             logprob_sink.clear()
         if top_sink is not None:
@@ -429,12 +474,13 @@ class GenerationClient:
                         pass
             for i in range(pos, len(prompt), self.prefill_chunk):
                 chunk = prompt[i : i + self.prefill_chunk]
-                logits = await self._step(session_id, chunk, pos)
+                logits = await self._step_resuming(session_id, chunk, pos, known, resumes)
                 pos += len(chunk)
             assert logits is not None
             while True:
                 tok = sample_np(logits, rng, s.temperature, s.top_k, s.top_p, s.min_p)
                 out.append(tok)
+                known.append(tok)
                 if logprob_sink is not None:
                     logprob_sink.append(logprob_np(logits, tok))
                 if top_sink is not None:
@@ -443,7 +489,7 @@ class GenerationClient:
                     await _emit(on_token, tok)
                 if len(out) >= max_new_tokens or tok == eos_token_id:
                     break
-                logits = await self._step(session_id, [tok], pos)
+                logits = await self._step_resuming(session_id, [tok], pos, known, resumes)
                 pos += 1
         finally:
             try:

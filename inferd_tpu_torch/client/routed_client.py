@@ -13,8 +13,11 @@ inferd_tpu/client/routed_client.py).
   * Once the first pass returns logits the chain is FROZEN for the session:
     every stage holds its KV, so later chunks and decode steps go where it
     lives. A frozen hop that fails in transport or with a retryable error
-    moves to a replica whose record advertises the session (`sess`), when
-    one does; else a retryable 503 `no_holder` restarts the session.
+    moves to a replica whose record advertises the session (`sess`), else
+    its replicated prefix (`standby`: it promotes the shadow, or offers a
+    resume), when one does; else a retryable 503 `no_holder` restarts the
+    session. A standby's resume offer (`resume_from`) is no hop failure:
+    it goes up to the base's `_step_resuming`, which re-sends the tail.
 
 A stage with no live replica in the view is a retryable 503 `no_chain`.
 `planner_stats(session_id)` gives the D*-Lite counters (expansions at build
@@ -180,20 +183,24 @@ class RoutedChainClient(GenerationClient):
         """Whether a committed hop's failure is worth a holder lookup: the
         peer died in transport (refused, reset, timed out, a garbled body)
         or answered a retryable error (a 5xx, or `session_state`: it lost
-        the session's KV, which another replica may hold)."""
+        the session's KV, which another replica may hold), unless the error
+        is a resume offer, which the base's `_step_resuming` acts on."""
         if isinstance(e, (OSError, TimeoutError, http.client.HTTPException, ValueError)):
             return True
-        return isinstance(e, ServerError) and e.retryable
+        return isinstance(e, ServerError) and e.retryable and e.resume_from is None
 
     def _find_session_holder(self, session_id: str, stage: int, exclude: str,
                              cause: Exception) -> Tuple[str, Dict[str, Any]]:
         """A live replica of `stage` other than `exclude` whose record
-        advertises the session; else a retryable 503 `no_holder`, and
-        generate_ids restarts the session."""
+        advertises the session (`sess`), else its replicated prefix
+        (`standby`); else a retryable 503 `no_holder`, and generate_ids
+        restarts the session."""
         h = sess_hash(session_id)
-        for nid, value in self.dht.get_stage(stage).items():
-            if nid != exclude and h in (value.get("sess") or ()):
-                return nid, value
+        replicas = self.dht.get_stage(stage).items()
+        for key in ("sess", "standby"):
+            for nid, value in replicas:
+                if nid != exclude and h in (value.get(key) or ()):
+                    return nid, value
         raise ServerError(
             f"the stage-{stage} hop failed ({cause}) and no replica advertises the "
             "session: restarting it", 503, code="no_holder") from cause

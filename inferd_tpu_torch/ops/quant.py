@@ -25,7 +25,7 @@ launches the hand-written decode GEMV (`csrc/qmatmul.cu`) or raises; more
 rows, stacked weights and CPU tensors take the reference's plain product
 (its XLA sibling) in PyTorch. There is no other route and no fallback.
 
-Not ported here (ROADMAP A5): w8a8 (the reference's `QDOT_MODE="int8"`: a
+Not ported here (ROADMAP A6): w8a8 (the reference's `QDOT_MODE="int8"`: a
 dynamic int8 x int8 product), `qeinsum` (MoE experts) and the autotune
 registry with its "slower than bf16" warning. With no w8a8 and no
 registry, the reference's `QDOT_MODE` has nothing left to choose, so the
@@ -172,7 +172,7 @@ INT4_MODE = "grouped"
 def _w8a8_error() -> NotImplementedError:
     return NotImplementedError(
         "w8a8 (dynamic int8 activations) is not ported yet: it waits for a later "
-        "slice (ROADMAP A5); serve --quant int8, int8-kernel or int4"
+        "slice (ROADMAP A6); serve --quant int8, int8-kernel or int4"
     )
 
 

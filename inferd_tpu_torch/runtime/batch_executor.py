@@ -42,13 +42,15 @@ session gathered through its chain, one gather and one transfer per
 session, into the dense schema, so paged and dense replicas exchange
 sessions freely), stamped with the session's `adapter`; `import_session`
 adopts one into a free lane (paged: a fresh chain), binding the tenant's
-adapter slot or declining. Not ported: lane-batched speculation
-(`enable_spec` raises, ROADMAP A7), the standby replication surface
-`export_session_delta` (A4d, part d2) and `anatomy_target` (A9).
+adapter slot or declining; `export_session_delta` ships a session's KV
+past a replication frontier (runtime/repl): paged, the full blocks past it
+through the chain; dense, the slab's new slots. Not ported: lane-batched
+speculation (`enable_spec` raises, ROADMAP A7) and `anatomy_target` (A9).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -59,6 +61,7 @@ from inferd_tpu_torch.core.batch import BatchedEngine
 from inferd_tpu_torch.core.cache import host_to_device, kv_to_host
 from inferd_tpu_torch.parallel.stages import StageSpec
 from inferd_tpu_torch.runtime import handoff
+from inferd_tpu_torch.runtime.repl import START_KEY
 from inferd_tpu_torch.runtime.stage_batch import CapacityError, LaneExecutor
 from inferd_tpu_torch.runtime.window import WindowedBatcher
 
@@ -108,6 +111,7 @@ class BatchedExecutor(LaneExecutor):
         self.pool = self.engine.pool
         self._decode_k_fn = self.engine._decode_k_serve
         self._init_lanes(session_ttl_s, prefill_chunk, adapters)
+        self.delta_lock_ms: Optional[float] = None  # the last delta export's device-lock hold
         self._batcher = WindowedBatcher(
             window_ms / 1e3, self._run_decode_batch,
             # a solo session should not pay the window
@@ -248,15 +252,21 @@ class BatchedExecutor(LaneExecutor):
                     if self.pool is None:
                         k, v = cache.k[:, lane:lane + 1, :n], cache.v[:, lane:lane + 1, :n]
                     else:
-                        nb = self.pool.blocks_for(n)
-                        chain = host_to_device(self.pool.table[lane, :nb].astype(np.int64),
-                                               cache.k.device)
-                        k, v = (_bytes(pool)[:, chain].view(pool.dtype)
-                                .reshape(pool.shape[0], 1, -1, *pool.shape[3:])[:, :, :n]
-                                for pool in (cache.k, cache.v))
+                        k, v = (x[:, :, :n] for x in
+                                self._chain_kv(lane, 0, self.pool.blocks_for(n)))
                     k, v = kv_to_host(k, v)
                     out.append((sid, self._stamp_adapter(sid, handoff.encode(k, v, n))))
         return out
+
+    def _chain_kv(self, lane: int, lo: int, hi: int):
+        """K and V of blocks [lo, hi) of a paged lane's chain, [L, 1, (hi -
+        lo) x block_size, Nkv, D] on the device: one gather of just those
+        blocks, never the whole pool to the host."""
+        cache = self.cache
+        chain = host_to_device(self.pool.table[lane, lo:hi].astype(np.int64), cache.k.device)
+        return tuple(_bytes(pool)[:, chain].view(pool.dtype)
+                     .reshape(pool.shape[0], 1, -1, *pool.shape[3:])
+                     for pool in (cache.k, cache.v))
 
     def _stamp_adapter(self, sid: str, payload: Dict[str, Any]) -> Dict[str, Any]:
         """Ride the session's adapter binding on its payload (caller holds
@@ -275,7 +285,57 @@ class BatchedExecutor(LaneExecutor):
                     if self.lengths[lane] > 0}
 
     def export_session_delta(self, session_id: str, since: int):
-        raise NotImplementedError("standby replication is not ported yet: ROADMAP A4d (d2)")
+        """The incremental export of standby replication (runtime/repl): the
+        handoff payload of the session's slots [since, length) plus
+        START_KEY, stamped with its adapter, or None when there is nothing
+        new. A PAGED lane ships exactly the full blocks past the frontier
+        (the tail block is still being written: it ships once it fills, so a
+        standby's loss is bounded by block_size on top of the tick), a
+        foreign frontier realigned down to a block boundary, gathered
+        through its chain on the device after the queued copies land; a
+        dense lane ships its slab delta. The nothing-new check takes _mu
+        alone: a tick polls every resident session and must not contend for
+        the device lock to learn that no block or slot completed. The device
+        lock's hold is kept in `delta_lock_ms` (the node's `repl.lock_ms`)."""
+        since = max(0, int(since))
+        with self._mu:
+            lane = self._sessions.get(session_id)
+            if lane is None:
+                return None
+            n = int(self.lengths[lane])
+            if self.pool is not None:
+                bs = self.pool.block_size
+                if (n // bs) * bs <= (since // bs) * bs:
+                    return None
+            elif n <= since:
+                return None
+        with self._dev_lock, torch.no_grad():
+            t0 = time.perf_counter()
+            if self.pool is not None:
+                self._sync_paged()  # queued copies (a fork's tail, a CoW split) land first
+            with self._mu:
+                lane = self._sessions.get(session_id)
+                if lane is None:
+                    return None
+                n = int(self.lengths[lane])
+                cache = self.cache
+                if self.pool is None:
+                    if n <= since:
+                        return None
+                    end = n
+                    k, v = cache.k[:, lane:lane + 1, since:n], cache.v[:, lane:lane + 1, since:n]
+                else:
+                    bs = self.pool.block_size
+                    since = (since // bs) * bs  # a foreign frontier restarts block-aligned
+                    end = (n // bs) * bs
+                    if end <= since:
+                        return None
+                    k, v = self._chain_kv(lane, since // bs, end // bs)
+                k, v = kv_to_host(k, v)
+                payload = self._stamp_adapter(session_id, handoff.encode(k, v, end))
+            self.delta_lock_ms = (time.perf_counter() - t0) * 1e3
+        payload[START_KEY] = since
+        return payload
 
     def import_session(self, session_id: str, payload: Dict[str, Any]) -> bool:
         """Adopt a shipped session into a free lane (a same-model replica;

@@ -67,9 +67,10 @@ would write into the parent's KV, or into a buffer a captured graph reads
 by address). So a forked or imported session's first decode step captures
 or replays a graph like any other. An export pulls each session's K/V,
 sliced to its length, to the host in one transfer; `session_lengths`
-reads every session's length without touching its KV. Not ported yet:
-ring high-water marks (A5) and the standby replication surface
-`export_session_delta` (ROADMAP A4d, part d2).
+reads every session's length without touching its KV, and
+`export_session_delta` exports the slots past a replication frontier the
+same way (runtime/repl, standby replication). Not ported yet: ring
+high-water marks (A5).
 """
 
 from __future__ import annotations
@@ -93,6 +94,7 @@ from inferd_tpu_torch.core.generate import bucket_len
 from inferd_tpu_torch.models import qwen3
 from inferd_tpu_torch.parallel.stages import StageSpec
 from inferd_tpu_torch.runtime import handoff
+from inferd_tpu_torch.runtime.repl import START_KEY
 from inferd_tpu_torch.utils.cuda_graph import GraphCache, graph_stats, run_step
 from inferd_tpu_torch.utils.profiling import span
 
@@ -351,6 +353,7 @@ class Qwen3StageExecutor:
         # one graphed step at a time, its outputs read before the next: the
         # graphs share one memory pool (utils/cuda_graph)
         self._step_lock = threading.Lock()
+        self.delta_lock_ms: Optional[float] = None  # the last delta export's lock hold
         if self.device.type == "cuda":
             self.graphs = GraphCache(
                 max_graphs=max_sessions * token_graphs_per_slot(initial_kv_len, max_len),
@@ -561,7 +564,25 @@ class Qwen3StageExecutor:
         return self.sessions.lengths()
 
     def export_session_delta(self, session_id: str, since: int):
-        raise NotImplementedError("standby replication is not ported yet: ROADMAP A4d (d2)")
+        """The incremental export of standby replication (runtime/repl): the
+        handoff payload of the session's slots [since, length) plus
+        START_KEY, or None when the session is unknown here or holds nothing
+        past `since`; `since` 0 gives export_sessions' payload. Read as
+        export_sessions reads: under the session's lock (no step of it runs
+        meanwhile), in one transfer; the lock covers only that copy, whose
+        hold `delta_lock_ms` keeps (the node's `repl.lock_ms`)."""
+        since = max(0, int(since))
+        with self.sessions.lock_for(session_id), torch.no_grad():
+            t0 = time.perf_counter()
+            cur = self.sessions.get(session_id)
+            if cur is None or cur.length <= since:
+                return None
+            n = cur.length
+            k, v = kv_to_host(cur.k[:, :, since:n], cur.v[:, :, since:n])
+            self.delta_lock_ms = (time.perf_counter() - t0) * 1e3
+        payload = handoff.encode(k, v, n)
+        payload[START_KEY] = since
+        return payload
 
     def import_session(self, session_id: str, payload: Dict[str, Any]) -> bool:
         """Adopt a shipped session's KV (the sender serves the same stage, so

@@ -9,7 +9,8 @@ whole-model lane executor produce and consume it, and the node's
 payload, byte for byte through runtime/wire.
 
 K/V are batch-1 host tensors [L, 1, n, Nkv, D], sliced to the populated
-prefix. bf16 travels as the wire carries it (a torch bf16 tensor on
+prefix. Standby replication (runtime/repl) ships the same payload over the
+slots [start, length) of a session, with its `start` beside it. bf16 travels as the wire carries it (a torch bf16 tensor on
 unpack, an ml_dtypes array on the reference's side). fp8 KV, which the
 wire does not carry, travels as a same-shape uint8 byte view plus the
 dtype's name, and `decode` views it back through FP8_DTYPES, an allowlist
@@ -51,7 +52,7 @@ def encode(k: torch.Tensor, v: torch.Tensor, length: int) -> Dict[str, Any]:
     return payload
 
 
-def _as_tensor(x: Any) -> torch.Tensor:
+def as_tensor(x: Any) -> torch.Tensor:
     """A wire value as a CPU tensor: torch as it is, numpy copied when the
     array is read-only (a wire frame's buffer)."""
     if isinstance(x, torch.Tensor):
@@ -67,8 +68,8 @@ def decode(payload: Dict[str, Any], cfg: ModelConfig, num_layers: int,
     dtype), "n"}, or None on ANY mismatch: adopting a malformed or
     wrong-layout payload fails closed, never corrupts."""
     try:
-        k = _as_tensor(payload["k"])
-        v = _as_tensor(payload["v"])
+        k = as_tensor(payload["k"])
+        v = as_tensor(payload["v"])
         n = int(payload["length"])
     except Exception:
         return None

@@ -36,7 +36,10 @@ Endpoints, wire-compatible with the JAX node for these topologies:
                      announced `svc_ms`, `routes`: the planner's stats
                      and the newest planned routes, and the elasticity
                      plane's `draining`, `rebalance_period_s` and
-                     `last_migration` (its stages, times and memory)
+                     `last_migration` (its stages, times and memory), and
+                     with --standby-repl `repl` (frontiers tracked,
+                     bytes shipped, ship errors, shadows and their bytes
+                     held here, the first ship)
   POST /reassign     {"stage": N}: migrate this node to stage N (below) ->
                      {"ok": true, "stage": N}; 400 for a bad body or a stage
                      out of range, 500 "reassign failed: ..." when the
@@ -69,6 +72,12 @@ Endpoints, wire-compatible with the JAX node for these topologies:
                      cannot export: the stage lanes, the counter), 502
                      "import_failed" (the target declined, or answered a
                      body that is not an ok)
+  POST /replicate_session {"session_id", "stage", "start", "k", "v",
+                     "length"[, "kv_dtype"][, "adapter"]} | {"session_id",
+                     "stage", "drop": true}: one standby replication delta
+                     (below) -> {"ok": true, "length"} or {"ok": false,
+                     "have"[, "serving"][, "unservable"]}; 501 "repl_off"
+                     without --standby-repl, 409 "wrong_stage"
   POST /import_session {"session_id", "stage", "k", "v", "length"
                      [, "kv_dtype"][, "adapter"]}: adopt a session's KV
                      (runtime/handoff) -> {"ok"}; 409 "wrong_stage" for
@@ -165,7 +174,10 @@ The overload plane (the reference's `_forward_inner` and relay):
     when it remembers no replica for the session, and in place of the
     remembered one when that no longer advertises it and another does
     (the session was handed off: `route.sess_moved`), and /end_session
-    forwards an end for a session held elsewhere to its holder.
+    forwards an end for a session held elsewhere to its holder. When no
+    live replica advertises the session, a replica advertising its
+    replicated prefix (`standby`, below) is the rescue's target, and the
+    rescue stops bouncing as soon as this node holds the shadow itself.
   * hedged decode relays: a single-token decode relay whose primary has
     not answered within the hedge delay (hedge_delay_ms, or 0: the p95 of
     this node's hop times over the trailing 60 s, 250 ms without any, at
@@ -184,7 +196,36 @@ The overload plane (the reference's `_forward_inner` and relay):
     "draining" and `retry_after`, ahead of the pool check; mid-session
     chunks are served. `admission.shed` counts every shed and
     `admission.shed.<code>` each code's.
-Not ported yet: standby holders (ROADMAP A4d, part d2).
+
+Crash-tolerant sessions (runtime/repl; run_node --standby-repl, off by
+default, and --repl-interval). A replication thread ticks every
+repl_interval_s: each resident session's KV past its frontier
+(`export_session_delta`) goes, one POST /replicate_session per session, to a
+sticky standby, a live replica of the same stage other than this node
+(ranked_nodes' order, a shedding one passed over, a tenant session's only
+to a record with `ada`), and a peer that fails or declines a ship is passed
+over for peer_cooldown_s. A standby keeps the deltas on the host
+(StandbyStore) and gossips the hashes of the sessions it shadows as
+`standby`, after `sess` (absent without the flag or without shadows, so
+such a record is the bytes it was before). A chunk of a session this node
+does not hold, past the rescue, meets its shadow here: at start_pos <= the
+frontier F the shadow imports through the ordinary import_session (the
+handoff decoder fails closed) and the chunk is served (`repl.promotions`,
+`repl.resumed_tokens`); past F the answer is 409 "session_state" with
+`resume_from` F (`repl.offers`, `repl.tail_tokens`), and the client re-sends
+only the tokens past F; a shadow the import declines counts `repl.stale`
+and the chunk answers the ordinary 409, which restarts the session. An
+explicit /end_session sends the session's standby a drop notice; a crashed
+node ships nothing; a migration drops the old stage's shadows and
+frontiers. The primary counts `repl.ships`, `repl.bytes`,
+`repl.ship_errors`, `repl.ship_declined` (histograms `repl.export_ms`: a
+delta's read, its lock wait included; `repl.lock_ms`: the executor's lock
+held for it; `repl.ship_ms`: its POST), the standby `repl.recv`, `repl.recv_declined`,
+`repl.standby_swept`; the gauges are `repl.lag_tokens` (set by each tick),
+`repl.standby_sessions` and `repl.standby_bytes` (set when /stats reads
+them). These counters stand in
+for the reference's `standby.*` journal events until the event journal is
+ported (ROADMAP A9).
 
 The session handoff (the reference's `_export_and_handoff`,
 `_drain_handoff`, `_handoff_sessions`). An executor with `export_sessions`
@@ -337,14 +378,15 @@ from inferd_tpu_torch.client.base import ServerError, http_post
 from inferd_tpu_torch.config import SamplingConfig
 from inferd_tpu_torch.control.balance import Balancer
 from inferd_tpu_torch.control.dht import SwarmDHT, sess_hash
-from inferd_tpu_torch.control.path_finder import NoNodeForStage, PathFinder, node_addr
+from inferd_tpu_torch.control.path_finder import NoNodeForStage, PathFinder, node_addr, ranked_nodes
 from inferd_tpu_torch.obs.canary import CANARY_HEADER, CHAIN_BOUNDS_MS
 from inferd_tpu_torch.ops import attention as attention_ops
 from inferd_tpu_torch.ops import lora, qmatmul
 from inferd_tpu_torch.ops.quant import quantized_bytes
+from inferd_tpu_torch.runtime import repl as repllib
 from inferd_tpu_torch.runtime import wire
 from inferd_tpu_torch.runtime.adapters import (
-    AdapterAffinity, AdapterCapacityError, UnknownAdapterError,
+    AdapterAffinity, AdapterCapacityError, UnknownAdapterError, registry_can_serve,
 )
 from inferd_tpu_torch.runtime.stage_batch import BatchedStageExecutor, CapacityError
 from inferd_tpu_torch.runtime.window import WindowedBatcher
@@ -366,6 +408,7 @@ FORK_SESSION_PATH = "/fork_session"
 EXPORT_SESSION_PATH = "/export_session"
 IMPORT_SESSION_PATH = "/import_session"
 GENERATE_PATH = "/generate"
+REPLICATE_SESSION_PATH = "/replicate_session"
 
 Reply = Tuple  # (status, content type, body[, headers])
 _WIRE = "application/octet-stream"
@@ -394,6 +437,7 @@ RESCUE_BOUNCE_BOUNDS_MS = [1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 500
                            30_000, 60_000, 120_000]
 HANDOFF_TIMEOUT_S = 10.0  # one /import_session POST of a handoff (a dying peer must not stall stop())
 GENERATE_BOUNDS_MS = CHAIN_BOUNDS_MS  # the generate.* histograms' buckets (the canary's ladder)
+REPL_PEER_COOLDOWN_S = 10.0  # a standby that failed or declined a ship is passed over this long
 
 
 def _start_pos(payload) -> int:
@@ -561,6 +605,8 @@ class Node:
         name: Optional[str] = None,  # the record's name (run_node --name), else host:port
         load_stage: Optional[Callable[[int], Any]] = None,  # stage -> its executor (migrations)
         rebalance_period_s: float = 10.0,  # the balancer's period
+        standby_repl: bool = False,  # crash-tolerant sessions (runtime/repl)
+        repl_interval_s: float = 0.5,  # seconds between replication ticks
     ):
         if hedge_mode not in HEDGE_MODES:
             raise ValueError(f"hedge_mode {hedge_mode!r} not in {HEDGE_MODES}")
@@ -634,6 +680,21 @@ class Node:
         # the first request: (loop, thread, client)
         self._gen: Optional[Tuple[asyncio.AbstractEventLoop, threading.Thread, Any]] = None
         self._gen_lock = threading.Lock()
+        # crash-tolerant sessions (runtime/repl), off by default: a tick ships
+        # each resident session's KV past its frontier to a same-stage standby
+        # (never this node), and this node keeps its peers' shadows on the
+        # host until a failed-over chunk promotes one
+        self.standby_repl = bool(standby_repl)
+        self.repl_interval_s = repl_interval_s
+        self.peer_cooldown_s = REPL_PEER_COOLDOWN_S
+        self.standby: Optional[repllib.StandbyStore] = (
+            repllib.StandbyStore() if self.standby_repl else None)
+        self.replicator: Optional[repllib.SessionReplicator] = (
+            repllib.SessionReplicator(self._repl_candidates) if self.standby_repl else None)
+        self._repl_peer_cooldown: Dict[str, float] = {}  # standby peer -> until (monotonic)
+        self._repl_stop = threading.Event()
+        self._repl_thread: Optional[threading.Thread] = None
+        self.first_ship: Optional[Dict[str, Any]] = None  # bytes, ms, tokens of the first ship
         if chaos is not None and chaos.crash_after:
             # crash off the handler thread that tripped it (crash() cuts it too)
             chaos.on_crash = lambda: threading.Thread(target=self.crash, daemon=True).start()
@@ -804,6 +865,17 @@ class Node:
         )
         self._thread.start()
         self.balancer.start()
+        if self.standby_repl:
+            if getattr(self.executor, "export_session_delta", None) is None:
+                # the operator asked for crash tolerance, but this executor (the
+                # stage lanes, the counter) exports nothing: say so loudly
+                log.warning("--standby-repl: executor %s has no export_session_delta: this node "
+                            "keeps and promotes its peers' shadows but replicates none of its "
+                            "own sessions (a crash restarts them at their clients)",
+                            type(self.executor).__name__)
+            self._repl_thread = threading.Thread(target=self._repl_loop, daemon=True,
+                                                 name=f"repl-{self.port}")
+            self._repl_thread.start()
         return self
 
     def stop(self) -> None:
@@ -817,6 +889,7 @@ class Node:
             return
         self._stopped = True
         self.balancer.stop()
+        self._stop_repl()
         self._close_generate()
         self.dht.withdraw()
         if self.chaos is not None:
@@ -842,11 +915,20 @@ class Node:
         self._stopped = True
         self.dht.kill()
         self.balancer.stop()
+        self._stop_repl()  # a dead node ships nothing
         self._close_generate(end_pins=False)  # the pinned sessions die with the node
         self._server.cut_connections()  # before a released stall could answer
         if self.chaos is not None:
             self.chaos.cancel_stalls()
         self._close_server(cut=True)  # and whatever arrived meanwhile
+
+    def _stop_repl(self) -> None:
+        """Stop the replication thread (a ship in flight ends first)."""
+        self._repl_stop.set()
+        t = self._repl_thread
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout=HANDOFF_TIMEOUT_S + 5)
+        self._repl_thread = None
 
     def _close_server(self, cut: bool = False) -> None:
         """Stop accepting, cut the open connections when `cut`, close."""
@@ -897,6 +979,12 @@ class Node:
         sess = self._advertised_sessions(ex)
         if sess:
             record["sess"] = sess
+        if self.standby is not None:
+            # the replicated sessions held here, only with --standby-repl and
+            # shadows held: a record without them is the bytes it was before
+            stand = sorted(sess_hash(s) for s in self.standby.ids()[-SESS_ADVERTISED:])
+            if stand:
+                record["standby"] = stand
         self.dht.announce(record, urgent=urgent)
 
     def _adapter_digest(self, ex) -> Optional[List[str]]:
@@ -960,6 +1048,27 @@ class Node:
             if not (exclude and nid in exclude) and h in (value.get("sess") or ()):
                 return nid
         return None
+
+    def _gossip_standby_holder(self, session_id: str, stage: int,
+                               exclude=None) -> Optional[str]:
+        """A live replica of `stage` whose record advertises the session's
+        REPLICATED prefix (`standby`); asked only when no live replica
+        advertises it under `sess`: a live holder beats a lagging shadow."""
+        h = sess_hash(session_id)
+        for nid, value in self.dht.get_stage(stage).items():
+            if not (exclude and nid in exclude) and h in (value.get("standby") or ()):
+                return nid
+        return None
+
+    def _standby_len(self, session_id: str, stage: Optional[int] = None) -> Optional[int]:
+        """The replicated frontier of a shadow held here, or None (the plane
+        off, no shadow of the session, or, with `stage`, a shadow of another
+        stage, which no promotion here could use)."""
+        if self.standby is None:
+            return None
+        if stage is not None and self.standby.stage_of(session_id) != stage:
+            return None
+        return self.standby.length(session_id)
 
     def _note_compute(self, ms: float, n: int = 1) -> None:
         """`n` forwards' compute took `ms` each: fold them into svc_ms and
@@ -1305,15 +1414,19 @@ class Node:
     # -- endpoints ------------------------------------------------------------
 
     def _error(self, status: int, message: str, code: Optional[str] = None,
-               retry_after: Optional[float] = None) -> Reply:
+               retry_after: Optional[float] = None, resume_from: Optional[int] = None) -> Reply:
         """A wire-packed {"error", "code"} reply; a shed's `retry_after`
         (seconds) rides the body and, rounded up to whole seconds as HTTP
-        wants it, the Retry-After header."""
+        wants it, the Retry-After header; a standby's resume offer rides
+        `resume_from` (a client that knows it re-sends only the tokens past
+        it, one that does not restarts)."""
         with self._stats_lock:
             self.errors += 1
         body: Dict[str, Any] = {"error": message}
         if code:
             body["code"] = code
+        if resume_from is not None:
+            body["resume_from"] = int(resume_from)
         if retry_after is None:
             return status, _WIRE, wire.pack(body)
         body["retry_after"] = retry_after
@@ -1428,6 +1541,13 @@ class Node:
             rescued = self._rescue(env, session_id, stage, deadline_ms)
             if rescued is not None:
                 return rescued
+        if (start_pos > 0 and env.get("session_id") is not None
+                and not self._holds_session(session_id)):
+            # a shadow of the session here: promote it and serve the chunk, or
+            # offer the client a resume from its frontier
+            promo = self._promote_or_offer(session_id, stage, start_pos)
+            if promo is not None:
+                return promo
         self.metrics.inc("forward.requests")
         if self.chaos is not None:
             try:
@@ -1544,10 +1664,17 @@ class Node:
         a node): relay it, marked `rescued` so it bounces once only, to the
         replica whose record advertises the session. Up to rescue_bounces
         tries RESCUE_PAUSE_S apart, each after the first paid from the
-        retry budget. The holder's reply below 500 is the answer; None when
-        none came (the chunk is then served here, and answers 409)."""
+        retry budget. With no live holder advertised, or once the advertised
+        one failed in this rescue (a killed holder's record outlives it by
+        up to its TTL), a replica advertising the session's shadow
+        (`standby`) is the target: it promotes the shadow or offers a
+        resume (the reference asks it only when no `sess` advert is left).
+        The rescue stops as soon as this node holds the shadow itself. The
+        holder's reply below 500 is the answer; None when none came (the
+        chunk is then served here: a promotion, or a 409)."""
         last = "no holder advertised"
         attempts = 0
+        failed: set = set()  # holders that failed in this rescue
         for bounce in range(self.rescue_bounces):
             if self._holds_session(session_id):
                 return None  # the session arrived here meanwhile: serve it
@@ -1561,6 +1688,14 @@ class Node:
                 break
             attempts = bounce + 1
             holder = self._gossip_session_holder(session_id, stage, exclude={self.node_id})
+            standby_kind = False
+            if holder is None or holder in failed:
+                # no live holder: a replica holding the session's replicated
+                # prefix promotes it (or offers the client a resume)
+                shadow = self._gossip_standby_holder(session_id, stage,
+                                                     exclude={self.node_id})
+                if shadow is not None:
+                    holder, standby_kind = shadow, True
             if holder is not None:
                 self.metrics.inc("sessions.rescue_relay")
                 t = time.perf_counter()
@@ -1575,10 +1710,18 @@ class Node:
                 if reply is not None:
                     self._observe_hop(ms)
                     if reply[0] < 500:
+                        if standby_kind:  # the standby answered: the session's next
+                            self._remember((session_id, stage), holder)  # chunks go there
                         return reply
                     last = f"holder {holder} answered {reply[0]}"
+                failed.add(holder)
+            if self._standby_len(session_id, stage) is not None:
+                # the advertised holder is gone and THIS node holds the
+                # session's shadow: every further bounce only adds to the
+                # recovery time, promote here
+                break
             time.sleep(RESCUE_PAUSE_S)  # a stale advert: wait, look again
-        if not self._holds_session(session_id):
+        if not self._holds_session(session_id) and self._standby_len(session_id, stage) is None:
             self.metrics.inc("sessions.rescue_failed")
             log.warning("session %s: rescue failed after %d bounces (%s)", session_id,
                         attempts, last)
@@ -1671,6 +1814,12 @@ class Node:
                 self._end_use(ex)
         del ex
         self.announce(urgent=False)  # stop advertising the session
+        standby = self.replicator.pop_standby(session_id) if self.replicator else None
+        if standby is not None:
+            # an EXPLICIT end frees the session's shadow now, on a thread of its
+            # own; a mere loss of residency keeps it (it may be the only copy)
+            threading.Thread(target=self._send_standby_drop,
+                             args=(session_id, standby, self.spec.stage), daemon=True).start()
         stage = int(env.get("stage", self.spec.stage))
         if relay and stage + 1 < self.spec.num_stages:
             try:
@@ -1703,6 +1852,10 @@ class Node:
             finally:
                 self._end_use(ex)
         del ex
+        if self.standby is not None:
+            swept = self.standby.sweep()
+            if swept:
+                self.metrics.inc("repl.standby_swept", swept)
         cutoff = now - AFFINITY_MAX_AGE_S
         with self._affinity_lock:  # least recently used first
             while self._session_next and next(iter(self._session_next.values()))[1] < cutoff:
@@ -1827,6 +1980,12 @@ class Node:
                     self.executor, self.spec, self.window = new, new.spec, window
                     self.param_bytes = quantized_bytes(new.params)
                 del new, window
+                if self.standby is not None:
+                    # shadows and frontiers belong to the old stage: no import
+                    # here could use them, and advertised under the new stage
+                    # they would mislead the peers' rescues
+                    self.standby.clear()
+                    self.replicator.clear()
                 self.path_finder.planner = None
                 self.announce()
                 ms = (time.perf_counter() - t0) * 1e3
@@ -2176,6 +2335,227 @@ class Node:
             self.announce()  # stop advertising the departed sessions now
         return dropped
 
+    # -- crash-tolerant sessions: standby replication (runtime/repl) ---------------
+
+    def _repl_candidates(self) -> List[Tuple[str, Dict[str, Any]]]:
+        """The replicator's standby candidates: this stage's live replicas in
+        ranked_nodes' order, without this node (anti-affinity: the standby
+        must outlive the primary) and without the peers cooling down after a
+        failed or declined ship, unless only those are left."""
+        now = time.monotonic()
+        self._repl_peer_cooldown = {nid: t for nid, t in self._repl_peer_cooldown.items()
+                                    if t > now}
+        stage_map = self.dht.get_stage(self.spec.stage)
+        cands = ranked_nodes(stage_map, exclude={self.node_id, *self._repl_peer_cooldown})
+        if not cands and len(stage_map) > 1:
+            # every peer cooling down: a recently flaky standby beats none
+            cands = ranked_nodes(stage_map, exclude={self.node_id})
+        return cands
+
+    def _repl_loop(self) -> None:
+        """The replication thread: a tick every repl_interval_s, and the
+        sessions' and shadows' sweep (_maybe_sweep) on it, so an idle standby
+        sweeps too. Best effort: a failed tick costs only replication lag."""
+        while not self._repl_stop.wait(self.repl_interval_s):
+            try:
+                self._repl_tick()
+                self._maybe_sweep()
+            except Exception:
+                log.exception("standby replication tick failed")
+
+    def _repl_tick(self) -> None:
+        """Ship each resident session's KV past its frontier to its sticky
+        standby (SessionReplicator.plan), one POST /replicate_session per
+        session; nothing while the node drains."""
+        assert self.replicator is not None
+        ex = self.executor
+        if (getattr(ex, "export_session_delta", None) is None
+                or getattr(ex, "session_lengths", None) is None or self._draining):
+            return
+        held, lengths = self._held_call(ex, lambda e: e.session_lengths())
+        if not held:
+            return
+        # sessions that merely lost residency (an eviction, a handoff) are
+        # forgotten silently: their shadows stay, a continuing stream may
+        # promote them; an explicit end sends a drop notice (end_session)
+        self.replicator.prune(lengths)
+        self.metrics.set_gauge("repl.lag_tokens", self.replicator.lag_tokens(lengths))
+        ad_fn = getattr(ex, "session_adapters", None)
+        adapters = ad_fn() if ad_fn is not None else None
+        stage = ex.spec.stage
+        for sid, standby, frontier in self.replicator.plan(lengths, adapters):
+            if self._repl_stop.is_set():
+                return
+            rec = self.dht.get_stage(stage).get(standby)
+            if rec is None:
+                self.replicator.note_standby_dead(sid)
+                continue
+            t0 = time.perf_counter()
+            held, delta = self._held_call(ex, lambda e: e.export_session_delta(sid, frontier))
+            if not held or delta is None:
+                continue  # migrated meanwhile, or (paged) no full block completed yet
+            self.metrics.observe("repl.export_ms", (time.perf_counter() - t0) * 1e3)
+            if ex.delta_lock_ms is not None:  # the part of it the executor's lock was held
+                self.metrics.observe("repl.lock_ms", ex.delta_lock_ms)
+            body = wire.pack({"session_id": sid, "stage": stage, **delta})
+            host, port = node_addr(rec)
+            t1 = time.perf_counter()
+            try:
+                status, raw, _ = http_post(f"http://{host}:{port}{REPLICATE_SESSION_PATH}", body,
+                                           min(self.hop_timeout_s, HANDOFF_TIMEOUT_S))
+                resp = wire.unpack(raw) if status == 200 else None
+            except (OSError, http.client.HTTPException, ValueError):
+                resp = None
+            if not isinstance(resp, dict):
+                # transport failure, non-200 (e.g. a peer without --standby-repl)
+                # or garbage: re-pick next tick, away from this peer for a while
+                self._repl_ship_failed(sid, standby, count_error=True)
+                continue
+            ok = bool(resp.get("ok"))
+            if not ok and (resp.get("serving") or resp.get("unservable")):
+                # the peer serves this session itself (a handoff put it there)
+                # or can never promote its adapter: a mis-pick, not an error
+                self._repl_ship_failed(sid, standby, count_error=False)
+                continue
+            peer_len = resp.get("length") if ok else resp.get("have")
+            self.replicator.record(sid, standby, ok, peer_len, len(body))
+            if ok:
+                ms = (time.perf_counter() - t1) * 1e3
+                self.metrics.inc("repl.bytes", len(body))
+                self.metrics.inc("repl.ships")
+                self.metrics.observe("repl.ship_ms", ms)
+                if self.first_ship is None:
+                    self.first_ship = {"bytes": len(body), "ms": round(ms, 3),
+                                       "tokens": int(delta["length"]) - frontier}
+            else:
+                self.metrics.inc("repl.ship_declined")
+
+    def _held_call(self, ex, fn: Callable[[Any], Any]) -> Tuple[bool, Any]:
+        """(True, fn(ex)) under a use of `ex` (a migration's release waits for
+        it), no compute lock: the executors' exports take their own locks;
+        (False, None) when `ex` is no longer the node's executor."""
+        held, _ = self._begin_use(ex)
+        if not held:
+            return False, None
+        try:
+            return True, fn(ex)
+        finally:
+            self._end_use(ex)
+
+    def _repl_ship_failed(self, sid: str, standby: str, count_error: bool) -> None:
+        """A standby did not take the delta: forget the pick (the next tick
+        picks again and ships from 0) and cool the peer down, so a dead or
+        declining one is not tried every tick."""
+        assert self.replicator is not None
+        self.replicator.note_standby_dead(sid)
+        self._repl_peer_cooldown[standby] = time.monotonic() + self.peer_cooldown_s
+        if count_error:
+            self.metrics.inc("repl.ship_errors")
+
+    def _send_standby_drop(self, session_id: str, standby: str, stage: int) -> None:
+        """Tell an ended session's standby to drop its shadow (best effort:
+        the standby's TTL sweep is the backstop)."""
+        rec = self.dht.get_stage(stage).get(standby)
+        if rec is None:
+            return
+        host, port = node_addr(rec)
+        try:
+            http_post(f"http://{host}:{port}{REPLICATE_SESSION_PATH}",
+                      wire.pack({"session_id": session_id, "stage": stage, "drop": True}),
+                      min(self.hop_timeout_s, HANDOFF_TIMEOUT_S))
+        except (OSError, http.client.HTTPException, ValueError):
+            pass
+
+    def replicate_session(self, body: bytes) -> Reply:
+        """POST /replicate_session: one replication delta into the standby
+        store (host memory: no lane, no device state until a promotion).
+        {"session_id", "stage", "start", handoff payload} -> {"ok": true,
+        "length": L} or {"ok": false, "have": H} (the primary re-syncs from
+        H); {"drop": true} frees a shadow. 501 "repl_off" without
+        --standby-repl: a node that keeps no shadows says so."""
+        if self.standby is None:
+            return self._error(501, "standby replication disabled (start with --standby-repl)",
+                               code="repl_off")
+        try:
+            env = wire.unpack(body)
+            session_id = env["session_id"]
+            stage = int(env["stage"])
+        except Exception as e:
+            return self._error(400, f"bad replicate_session: {e}")
+        if stage != self.spec.stage:
+            return self._error(409, f"wrong stage: this node serves {self.spec.stage}, not "
+                                    f"{stage}", code="wrong_stage")
+        if env.get("drop"):
+            had = session_id in self.standby
+            self.standby.drop(session_id)
+            if had:
+                self.announce(urgent=False)  # its `standby` advert goes now, not at the TTL
+            return 200, _WIRE, wire.pack({"ok": True, "length": 0})
+        if self._holds_session(session_id):
+            # this node SERVES the session (a handoff put it here): a shadow
+            # of itself is worthless, the primary must pick another standby
+            return 200, _WIRE, wire.pack({"ok": False, "have": 0, "serving": True})
+        if not registry_can_serve(self.executor, env.get("adapter")):
+            # a tenant delta this replica could never promote (no registry,
+            # or a name outside its catalog): decline now, so the primary
+            # picks another standby instead of shipping toward a sure decline
+            self.metrics.inc("repl.recv_declined")
+            return 200, _WIRE, wire.pack({"ok": False, "have": 0, "unservable": True})
+        had = session_id in self.standby
+        ok, have = self.standby.apply(session_id, stage, env)
+        self.metrics.inc("repl.recv" if ok else "repl.recv_declined")
+        if ok and not had:
+            # peers must see the `standby` advert before the primary dies; the
+            # gossip period carries it well inside the record's TTL
+            self.announce(urgent=False)
+        reply = {"ok": True, "length": have} if ok else {"ok": False, "have": have}
+        return 200, _WIRE, wire.pack(reply)
+
+    def _promote_standby(self, session_id: str) -> bool:
+        """Import the shadow into the executor through the ordinary
+        import_session: its decoder (runtime/handoff.decode) is the gate, so
+        a corrupt or wrong-layout shadow is declined, never adopted."""
+        assert self.standby is not None
+        payload = self.standby.payload(session_id)
+        if payload is None:
+            return False
+        try:
+            held, res = self._call_executor(
+                lambda ex: getattr(ex, "import_session", None) is not None
+                and ex.import_session(session_id, payload))
+        except Exception:
+            log.exception("standby promotion import failed")
+            return False
+        return held and bool(res)
+
+    def _promote_or_offer(self, session_id: str, stage: int, start_pos: int) -> Optional[Reply]:
+        """A chunk of a session this node does not hold, against its shadow
+        here: at start_pos <= the frontier F, promote the shadow (None: the
+        caller serves the chunk on the now-resident session; a chunk before
+        F is a replay the executor rolls back to); past F, the resume offer,
+        409 "session_state" with `resume_from` F (a client that knows it
+        re-sends only [F, start_pos); one that does not restarts). A shadow
+        the import declines counts `repl.stale` and stays (a full pool may
+        take it on the client's next try); the caller's 409 restarts the
+        session. None too when there is no usable shadow here."""
+        F = self._standby_len(session_id, stage)
+        if F is None or F <= 0:
+            return None
+        if start_pos > F:
+            self.metrics.inc("repl.offers")
+            self.metrics.inc("repl.tail_tokens", start_pos - F)
+            return self._error(409, f"session {session_id}: standby KV reaches {F} < chunk "
+                                    f"start {start_pos}: resume from {F}",
+                               code="session_state", resume_from=F)
+        if self._promote_standby(session_id):
+            self.standby.drop(session_id)
+            self.metrics.inc("repl.promotions")
+            self.metrics.inc("repl.resumed_tokens", F)
+            self.announce()  # `sess` now names this node: the next chunks come here
+            return None
+        self.metrics.inc("repl.stale")
+        return None
+
     # -- server-side generation: POST /generate ------------------------------------
 
     def _generate_client(self):
@@ -2440,7 +2820,20 @@ class Node:
             "draining": self._draining,
             "rebalance_period_s": self.rebalance_period_s,
             "last_migration": self.last_migration,
+            **({} if self.standby is None else {"repl": self._repl_stats()}),
         }
+
+    def _repl_stats(self) -> Dict[str, Any]:
+        """/stats `repl`: the primary's frontiers and ships, the shadows held
+        here for peers (`shadows`: the newest SESS_ADVERTISED ones' frontiers),
+        the first ship's bytes, ms and tokens."""
+        assert self.replicator is not None and self.standby is not None
+        held = {"standby_sessions": len(self.standby), "standby_bytes": self.standby.bytes_held()}
+        for name, v in held.items():
+            self.metrics.set_gauge(f"repl.{name}", v)
+        shadows = list(self.standby.lengths().items())[-SESS_ADVERTISED:]
+        return {**self.replicator.stats(), **held, "shadows": dict(shadows),
+                "first_ship": self.first_ship}
 
 
 def _handler_for(node: Node):
@@ -2497,6 +2890,8 @@ def _handler_for(node: Node):
                     self._reply(*node.export_session(body))
                 elif self.path == IMPORT_SESSION_PATH:
                     self._reply(*node.import_session(body))
+                elif self.path == REPLICATE_SESSION_PATH:
+                    self._reply(*node.replicate_session(body))
                 elif self.path == GENERATE_PATH:
                     reply = node.generate(body, self.headers, self._stream)
                     if reply is not None:

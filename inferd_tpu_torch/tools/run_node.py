@@ -22,7 +22,8 @@ Usage:
       [--quant none|int8|int8-kernel|int4] [--lora DIR] \\
       [--enable-profiling [--profile-dir DIR]] \\
       [--hop-timeout S] [--hedge-delay-ms D] [--hedge-mode advertised|any|off] \\
-      [--admission-reserve F] [--rescue-bounces N] [--chaos SPEC]
+      [--admission-reserve F] [--rescue-bounces N] [--chaos SPEC] \\
+      [--standby-repl [--repl-interval S]]
 
 With --stage-lanes the stage serves its sessions from lanes of one shared
 KV cache, and co-arriving decode steps of concurrent sessions run as one
@@ -45,7 +46,12 @@ relay hop (a request's deadline bounds it further), --hedge-delay-ms and
 share of a paged pool under which new sessions are shed (503 busy with
 Retry-After), --rescue-bounces caps a failed-over chunk's relays to the
 replica advertising its session, and --chaos injects faults
-(utils/chaos.py; resilience testing only).
+(utils/chaos.py; resilience testing only). --standby-repl replicates each
+resident session's KV to a standby of the same stage every --repl-interval
+seconds (runtime/repl): when the holder crashes, the standby promotes the
+copy and the client re-sends only the tokens past it. A node whose executor
+exports nothing (the stage lanes, the counter) keeps and promotes its
+peers' shadows but replicates none of its own sessions, and logs so.
 
 Elasticity: every --rebalance-period seconds (jittered) the node's balancer
 may migrate it to a stage that has no live replica or carries much more
@@ -265,6 +271,21 @@ def build_parser() -> argparse.ArgumentParser:
         "INFERD_ADMISSION_RESERVE)",
     )
     ap.add_argument(
+        "--standby-repl", action="store_true",
+        default=os.environ.get("INFERD_STANDBY_REPL", "") == "1",
+        help="crash-tolerant sessions: replicate each resident session's completed KV "
+        "to a gossip-chosen standby of the same stage (env INFERD_STANDBY_REPL=1); when "
+        "the holder dies the standby promotes its copy and the client re-sends only the "
+        "tokens past the replicated frontier. Off by default: the wire, the gossip "
+        "records and the metrics are then what they are without it",
+    )
+    ap.add_argument(
+        "--repl-interval", type=float,
+        default=float(os.environ.get("INFERD_REPL_INTERVAL", "0.5")),
+        help="seconds between standby replication ticks (env INFERD_REPL_INTERVAL): the "
+        "tokens committed since the last ship are what a promotion re-prefills",
+    )
+    ap.add_argument(
         "--rescue-bounces", type=int,
         default=int(os.environ.get("INFERD_RESCUE_BOUNCES", "6")),
         help="how many times a mid-session chunk that lands on a replica without "
@@ -418,7 +439,8 @@ def make_node(args: argparse.Namespace) -> Node:
                 admission_reserve=args.admission_reserve,
                 rescue_bounces=args.rescue_bounces, chaos=Chaos.parse(args.chaos),
                 name=ident.name, load_stage=load_stage,
-                rebalance_period_s=args.rebalance_period)
+                rebalance_period_s=args.rebalance_period, standby_repl=args.standby_repl,
+                repl_interval_s=args.repl_interval)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -3,9 +3,9 @@ inferd_tpu/utils/metrics.py's counter and histogram registry), and a
 trailing window of one series.
 
 The node keeps its overload-plane counters here (`deadline.expired`,
-`admission.shed`, `sessions.rescue_relay`, `hedge.fired`, ...) and its
-hop latencies (`hop.relay_ms`); `/stats` reports `Metrics.snapshot()`
-under `metrics`. Standard library only; thread-safe.
+`admission.shed`, `sessions.rescue_relay`, `hedge.fired`, ...), its
+gauges (the standby plane's `repl.lag_tokens`, ...) and its hop latencies
+(`hop.relay_ms`); `/stats` reports `Metrics.snapshot()` under `metrics`. Standard library only; thread-safe.
 """
 
 from __future__ import annotations
@@ -72,16 +72,21 @@ class Histogram:
 
 
 class Metrics:
-    """Named counters and histograms."""
+    """Named counters, gauges and histograms."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.counters: Dict[str, float] = {}
+        self.gauges: Dict[str, float] = {}
         self.histograms: Dict[str, Histogram] = {}
 
     def inc(self, name: str, value: float = 1.0) -> None:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0.0) + value
+
+    def set_gauge(self, name: str, value: float) -> None:
+        with self._lock:
+            self.gauges[name] = float(value)
 
     def observe(self, name: str, value_ms: float,
                 bounds_ms: Optional[List[float]] = None) -> None:
@@ -95,11 +100,15 @@ class Metrics:
         h.observe(value_ms)
 
     def snapshot(self) -> Dict[str, object]:
+        """{"counters", "histograms"} and, once any gauge is set, "gauges"
+        (a node that sets none reports what it did before gauges existed)."""
         with self._lock:
             counters = dict(self.counters)
+            gauges = dict(self.gauges)
             hists = dict(self.histograms)
         return {
             "counters": counters,
+            **({"gauges": gauges} if gauges else {}),
             "histograms": {k: h.summary() for k, h in hists.items()},
         }
 

@@ -324,7 +324,7 @@ def test_batch_lanes_node_serves_chain_client_and_busy(tiny):
              "--device", "cpu", "--batch-lanes", "2"]))
 
 
-def _delta(ex):  # standby replication: A4d's part d2, still to land
+def _delta(ex):  # standby replication (A4d's part d2)
     return ex.export_session_delta("s", 0)
 
 
@@ -336,12 +336,8 @@ def _delta(ex):  # standby replication: A4d's part d2, still to land
 ])
 def test_what_moves_elsewhere_raises_naming_its_item(tiny, call, item):
     ex = BatchedExecutor(tcfg.TINY, tiny[1], lanes=1, max_len=32)
-    if call is _delta:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A4d \(d2\)"):
-            call(ex)
-        return
     if item in LANDED:  # ported since: no refusal, a clean miss on an empty executor (a
-        # False fork or import, no export, no digest on a dense slab)
+        # False fork or import, no export or delta, no digest on a dense slab)
         assert not call(ex)
         return
     with pytest.raises(NotImplementedError, match=item):
