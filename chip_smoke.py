@@ -8,7 +8,9 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
   build       build every CUDA kernel from the sources in this checkout, all
               at once (one nvcc each), with ptxas's registers and spills, and
               beside them the wire's native codec (csrc/wirecodec.cpp, the host
-              C++ compiler), so the node processes find it built
+              C++ compiler); in the full run the split and every prestarted
+              node process start meanwhile, each node waiting on a library's
+              build lock (ops/build) before it loads it
   sim         the fleet simulator (inferd_tpu_torch.sim) replays the
               committed fixtures of tests/data/sim/ (the two slow 1000-node
               sweeps skipped) through the port's control plane, on the
@@ -21,7 +23,10 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               the last stage's logits reply (~600 KB); equal bytes
   kernels     every kernel against its plain PyTorch version on the card, at
               the main path's shapes (Qwen3-0.6B: bf16, Nq 16, Nkv 8, D 128)
-              and feature cases; the per-row error against a stated
+              and feature cases, and at the Llama-3 heads (Nq 32, Nkv 8, D 64
+              and D 128: the decode main case, the lanes' chunk, the route
+              boundary at 4 and 5 positions; paged's main case at D 64);
+              the per-row error against a stated
               tolerance, beside the readings of planted faults that it must
               catch; kernel / plain / library (or yardstick) times from CUDA
               events, and the bound for the work. flash_gqa's cases (each
@@ -154,8 +159,9 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               the release printed), the release freed at least 0.9 x its old
               stage's weights and its allocated bytes less its KV buffers
               are within ELASTIC_MEMORY_MARGIN of B's; A0's view shows stage
-              1 = {B, A1}; four sessions at once through A0 token-exact on B
-              and A1, A1's decode steps (and its warm-up's) captures or
+              1 = {B, A1}; a session pinned to A1 through A0, token-exact
+              (its svc_ms then a stage-1 time); four sessions at once through
+              A0 token-exact on B and A1, A1's decode steps (and its warm-up's) captures or
               replays; A0 killed (SIGKILL): once its record leaves B's and
               A1's views, the serve prompts through the smaller id of the two
               as stage-0 envelopes: exactly that node adopts stage 0 (its
@@ -371,6 +377,28 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               the compute lock, the executor, the layers (and their Python
               alone), the kernel wrappers' checks and launch, the graph
               replays, the results' .cpu(); each node replayed its graphs
+  serve_llama the Llama-3 family from an HF checkpoint, after cli (no other
+              node process up; the card's free memory printed): Llama-3.2-1B
+              (full width, 16 layers, tied head) drawn from a seed on the
+              card and written with HF's names, [out, in], bf16, in two
+              safetensors shards under an HF cache layout (snapshots/<rev>,
+              refs/main; bytes and seconds printed); tools/split_model
+              --weights <snapshot> --device cuda, whose stage files must equal
+              an in-process split of the drawn params byte for byte; the serve
+              checks on its two run_node --device cuda stages (8 + 8 layers):
+              the serve traffic, flash_gqa launches exact per node and route,
+              every decode step a capture or a replay, the streams equal the
+              in-process eager executors', teacher-forced within HIDDEN_TOL and
+              LOGIT_TOL of plain attention with E2E_FAULTS caught, TTFT,
+              tok/s and a stage step's host and device ms; tools/generate
+              --model llama3.2-1b without --random-init (HF_HOME the cache),
+              its ids equal an Engine over load_params of the snapshot (its
+              shared prefix with the chain's stream printed); then
+              Llama-3.1-8B's width (hidden 4096, 32 / 8 heads, intermediate
+              14336, untied head) cut to 4 layers: its checkpoint loaded to the
+              card equals the drawn params, the graphed Engine's greedy stream
+              of the 300-token prompt equals the eager one with flash_gqa
+              launches exact, and teacher-forced it holds the same gates
   cli         python -m inferd_tpu_torch.tools.generate --model qwen3-0.6b
               --random-init --prompt-ids ... --max-new-tokens 16 --chunk 8 as a
               subprocess, on the card by default: exit 0, 16 ids; and (inside
@@ -400,13 +428,14 @@ Exits non-zero without a CUDA device, and outside a checkout.
 split serve, serve_quant, serve_lanes, serve_lanes_quant, serve_lanes_lora,
 serve_tenant_routes, serve_sessions, serve_standby,
 serve_swarm, serve_overload, serve_elastic, generate, generate_batched,
-serve_batch, serve_kstep, serve_fp8, anatomy, profile: serve_quant runs int8
-and int4, serve_lanes_lora runs serve_lanes first, serve_tenant_routes runs
+serve_batch, serve_kstep, serve_fp8, anatomy, profile, serve_llama: serve_quant
+runs int8 and int4, serve_lanes_lora runs serve_lanes first, serve_tenant_routes runs
 serve_lanes and serve_lanes_lora first, serve_swarm runs serve and
 serve_lanes first, serve_overload and serve_elastic run serve first, generate
 runs the generate and generate_quant phases, serve_batch runs
-generate_batched first) builds the kernels and runs those phases alone, with
-no result lines.
+generate_batched first, serve_llama writes its own checkpoint and needs no
+Qwen split) builds the kernels and runs those phases alone, with no result
+lines.
 """
 
 from __future__ import annotations
@@ -497,6 +526,21 @@ CASES: List[Dict[str, Any]] = [
     # the one-session path's first 512-token chunk in its T 1024 buffer
     dict(name="session_chunk_512_T1024", s=512, t=1024, q_start=0, kv_len=512, stream=False),
 ]
+QWEN_HEADS = (16, 8, 128)  # (Nq, Nkv, D) of Qwen3-0.6B: every case above
+# The Llama-3 heads (serve_llama): Llama-3.2-1B's (32, 8, 64) and
+# Llama-3.1-8B's (32, 8, 128), a GQA group of 4. Per head shape: the decode
+# main case, the lanes' chunk, and the route boundary, which moves with the
+# group: 4 positions x 4 heads = 16 packed rows still split KV, 5 (20 rows)
+# take the tensor cores.
+LLAMA_HEADS = {"d64g4": (32, 8, 64), "d128g4": (32, 8, 128)}
+CASES += [dict(c, name=f"{c['name']}_{tag}", heads=heads)
+          for tag, heads in LLAMA_HEADS.items() for c in (
+              dict(name="main_decode_T1024", s=1, t=1024, q_start=731, kv_len=732,
+                   stream=False, blind=("causal_off_by_one",)),
+              dict(name="lanes_chunk_256_T1024", s=256, t=1024, q_start=[444], kv_len=[700],
+                   stream=False),
+              dict(name="route_rows_16", s=4, t=1024, q_start=700, kv_len=704, stream=False),
+              dict(name="route_rows_20", s=5, t=1024, q_start=700, kv_len=705, stream=False))]
 MAIN_CASE = "main_decode_T1024"  # the serve phase's decode step: T = 1024 bucket
 LANES_CHUNK_CASE = "lanes_chunk_256_T1024"  # a lane node's prefill dispatch (tensor cores)
 
@@ -539,6 +583,9 @@ PAGED_CASES: List[Dict[str, Any]] = [
     dict(name="paged_f32", kv_len=[230, 701], dtype="float32", nb=64),
     # one long session among short ones: the imbalance a split chain removes
     dict(name="paged_b8_one_long", kv_len=[4096, 17, 60, 101, 150, 230, 260, 300], nb=200),
+    # the main case at Llama-3.2-1B's heads (D 64, a group of 4)
+    dict(name="paged_main_b8_bs32_d64g4", kv_len=[17, 60, 101, 230, 301, 480, 701, 1000],
+         nb=1025, heads=LLAMA_HEADS["d64g4"]),
 ]
 PAGED_MAIN_CASE = "paged_main_b8_bs32"
 
@@ -792,10 +839,10 @@ def run_kernel_cases() -> List[Dict[str, Any]]:
     from inferd_tpu_torch.ops import attention as A
 
     dev = torch.device(DEVICE)
-    nq, nkv, d = 16, 8, 128
     gen = torch.Generator(device=dev).manual_seed(0)
     results, failures = [], []
     for c in CASES:
+        nq, nkv, d = c.get("heads", QWEN_HEADS)
         b = c.get("b", 1)
         dt = torch.float32 if c.get("dtype") == "float32" else torch.bfloat16
 
@@ -874,7 +921,8 @@ def run_kernel_cases() -> List[Dict[str, Any]]:
         t_bytes, t_ops = w["bytes"] / HBM_BYTES_PER_S, w["flops"] / peak
         row = {
             "case": c["name"], "stream": c["stream"], "B": b, "S": c["s"], "T": c["t"],
-            "route": plan.route, "splits": plan.splits, "ctas": plan.splits * plan.row_tiles * b * nkv,
+            "Nq": nq, "Nkv": nkv, "D": d, "route": plan.route, "splits": plan.splits,
+            "ctas": plan.splits * plan.row_tiles * b * nkv,
             "dtype": str(dt).replace("torch.", "") + ("/fp8-kv" if c.get("fp8") else ""),
             "max_abs_err": err, "row_err": rel, "tol": tol, "faults": faults,
             "blind": list(c.get("blind", ())), "ms": ms, "plain_ms": plain_ms,
@@ -971,10 +1019,10 @@ def run_paged_cases() -> List[Dict[str, Any]]:
     from inferd_tpu_torch.ops import attention as A
 
     dev = torch.device(DEVICE)
-    nq, nkv, d = 16, 8, 128
     gen = torch.Generator(device=dev).manual_seed(1)
     results, failures = [], []
     for c in PAGED_CASES:
+        nq, nkv, d = c.get("heads", QWEN_HEADS)
         q, k_pool, v_pool, table, qpos, kl, kw = paged_inputs(c, nq, nkv, d, gen, dev)
         dt = q.dtype
 
@@ -1038,6 +1086,7 @@ def run_paged_cases() -> List[Dict[str, Any]]:
         t_bytes, t_ops = w["bytes"] / HBM_BYTES_PER_S, w["flops"] / peak
         row = {
             "case": c["name"], "B": len(c["kv_len"]), "MB": table.shape[1], "bs": PAGED_BS,
+            "Nq": nq, "Nkv": nkv, "D": d,
             "kv_len": c["kv_len"], "plan": plan._asdict(),
             "ctas": plan.splits * nkv * len(c["kv_len"]),
             "dtype": str(dt).replace("torch.", "") + ("/fp8-pools" if c.get("fp8") else ""),
@@ -1761,13 +1810,16 @@ def _last_stage_probe_class():
     class LastStageProbe(Qwen3StageExecutor):
         """The last stage's executor, returning its hidden state on every
         real row beside the last real token's logits; its token steps run
-        stage_step as a node's do (eagerly: its graphs are None)."""
+        stage_step as a node's do (eagerly: its graphs are None). A stage
+        that is also the first embeds its tokens (a one-stage model)."""
 
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             self.graphs = None
 
         def _run(self, x, start_pos, cache, real_len):
+            if self.spec.is_first:
+                x = qwen3.embed(self.params, x, self.cfg)
             hidden, _ = qwen3.forward_layers_cached(
                 self.params["layers"], self.cfg, x, start_pos, cache, start_pos)
             last = hidden[:, real_len - 1:real_len]
@@ -1780,7 +1832,7 @@ def _last_stage_probe_class():
             x = x.to(self.device)  # the executor hands a token step's row over on the host
             fill = torch.full((1,), pos, dtype=torch.int64, device=self.device)
             hidden = qwen3.stage_step(self.params, self.cfg, x, cache.k, cache.v, fill,
-                                      first=False, last=False,
+                                      first=self.spec.is_first, last=False,
                                       kv_bound=qwen3.kv_bucket(pos + 1, cache.max_len))
             return {"hidden": hidden, "logits": qwen3.unembed(self.params, self.cfg, hidden)[:, 0]}
 
@@ -1882,17 +1934,17 @@ def check_frozen_fill_caught(phase: str, what: str, make_executors, prompt) -> N
         raise AssertionError(f"{phase}: planted fault frozen_fill passes on {what}")
 
 
-def stage_step_share(phase: str, card: str, loaded, prompt) -> Dict[str, Any]:
-    """One decode step of stage 0 (14 layers, 1 token) on an in-process
+def stage_step_share(phase: str, card: str, loaded, prompt, cfg,
+                     capture: bool = True) -> Dict[str, Any]:
+    """One decode step of stage 0 (its layers, 1 token) on an in-process
     one-session executor, graphed and eager in this call: the host clock
     per step and the device's busy time (device_share), the step replayed
-    at one fill (the upload, the replay or the eager layers, the .cpu())."""
+    at one fill (the upload, the replay or the eager layers, the .cpu());
+    with `capture`, what one more graph costs (capture_cost)."""
     import numpy as np
 
-    from inferd_tpu_torch.config import get_config
     from inferd_tpu_torch.runtime.executor import Qwen3StageExecutor
 
-    cfg = get_config(MODEL)
     params, spec, _ = loaded[0]
     out = {}
     for name, graphed in (("graphed", True), ("eager", False)):
@@ -1906,7 +1958,7 @@ def stage_step_share(phase: str, card: str, loaded, prompt) -> Dict[str, Any]:
                                  f"layers, fill {len(prompt)}), {name}",
                                  lambda ex=ex: ex.process("share", step), 1)
         out[name]["graphs"] = ex.stats()["graphs"]
-        if graphed:
+        if graphed and capture:
             out["capture"] = capture_cost(phase, card, ex, prompt, n=CAPTURE_SESSIONS)
         del ex
     return out
@@ -2258,10 +2310,45 @@ def quantize_loaded(loaded, quant_flag):
              spec, name) for params, spec, name in loaded]
 
 
-def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) -> Dict[str, Any]:
+def check_kernel_path(phase: str, cfg, probe, plain_probe, prompts, streams, plain_ctx, plant,
+                      faults, what: str) -> Dict[str, Any]:
+    """Teacher-forced, the `probe` executors (the kernel path) against
+    `plain_probe` run inside `plain_ctx`: the hidden rows within
+    HIDDEN_TOL and the logits within LOGIT_TOL, and each planted fault
+    (`plant(f)`) outside one of them; every reading printed beside its
+    limit."""
+    with plain_ctx():
+        plain_steps = teacher_forced(plain_probe, prompts, streams)
+    readings = {"sound": compare_steps(teacher_forced(probe, prompts, streams), plain_steps,
+                                       cfg.hidden_size)}
+    for f in faults:
+        with plant(f):
+            readings[f] = compare_steps(teacher_forced(probe, prompts, streams), plain_steps,
+                                        cfg.hidden_size)
+    for name, (h_err, l_err) in readings.items():
+        say(phase, f"kernel path {'' if name == 'sound' else 'with fault ' + name + ' '}vs "
+                   f"{what} over {len(plain_steps)} teacher-forced steps: hidden "
+                   f"row error {h_err:.4g} (tol {HIDDEN_TOL}), logits {l_err:.4%} of max "
+                   f"|logit| (tol {LOGIT_TOL:.0%})")
+    h_err, l_err = readings["sound"]
+    if not (h_err <= HIDDEN_TOL and l_err <= LOGIT_TOL):
+        raise AssertionError(f"{phase}: kernel path vs {what}: hidden {h_err}, logits {l_err}")
+    for f in faults:
+        h_f, l_f = readings[f]
+        if not (h_f > HIDDEN_TOL or l_f > LOGIT_TOL):
+            raise AssertionError(f"{phase}: planted fault {f} passes the checks: hidden {h_f}, "
+                                 f"logits {l_f}")
+    return readings
+
+
+def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None,
+              model: str = MODEL, phase: Optional[str] = None) -> Dict[str, Any]:
     """The `serve` phase, or with quant_flag its `serve_quant` run on
     --quant nodes (the GEMV kernel path then held to the plain-GEMV path,
-    and `baseline`'s bf16 rates printed beside its own)."""
+    and `baseline`'s bf16 rates printed beside its own), or with another
+    `model` and `phase` (serve_llama) the serve checks on that model's
+    parts, without the concurrent waves, the frozen-fill fault and the
+    capture cost, which the serve phase measures once."""
     import numpy as np
     import torch
 
@@ -2274,13 +2361,14 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
 
     LastStageProbe = _last_stage_probe_class()
 
-    phase = "serve" if quant_flag is None else f"serve_quant_{quant_flag}"
+    phase = phase or ("serve" if quant_flag is None else f"serve_quant_{quant_flag}")
     extra = [] if quant_flag is None else ["--quant", quant_flag]
-    cfg = get_config(MODEL)
+    cfg = get_config(model)
+    full = quant_flag is None and model == MODEL  # the serve phase itself
     greedy = SamplingConfig(temperature=0.0)
     nodes: List[Dict[str, Any]] = []
     try:
-        nodes = start_nodes(parts, work, extra)
+        nodes = start_nodes(parts, work, extra, tag="" if model == MODEL else f"_{model}")
         t0 = time.perf_counter()
         for n in nodes:
             wait_ready(n)
@@ -2380,7 +2468,7 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
             for r, v in routes.items():
                 route_launches[r] += v
         extra_out: Dict[str, Any] = {}
-        if quant_flag is None:
+        if full:
             extra_out["concurrent"] = concurrent_waves(phase, card, nodes, prompts, streams,
                                                        greedy)
         stop_nodes(nodes)
@@ -2407,12 +2495,14 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
         say(phase, "served streams (graphed decode steps) equal the in-process eager "
                    f"executors' streams, token for token ({len(prompts)} requests x "
                    f"{NEW_TOKENS} tokens)")
-        if quant_flag is None:
+        if full:
             check_frozen_fill_caught(
                 phase, "one-session executors",
                 lambda: [Qwen3StageExecutor(cfg, spec, params, max_len=MAX_LEN)
                          for params, spec, _ in loaded], prompts[1])
-            extra_out["step_share"] = stage_step_share(phase, card, loaded, prompts[2])
+        if quant_flag is None:
+            extra_out["step_share"] = stage_step_share(phase, card, loaded, prompts[2], cfg,
+                                                       capture=full)
 
         probe = [kernel_ex[0], LastStageProbe(cfg, loaded[1][1], loaded[1][0], max_len=MAX_LEN)]
         if quant_flag is None:  # the kernel path against plain attention
@@ -2426,26 +2516,8 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None) 
         else:  # the GEMV kernels against their plain versions
             plain_probe, plain_ctx, plant, faults, what = probe, plain_gemvs, planted_gemv_fault, \
                 QUANT_E2E_FAULTS, "plain GEMVs"
-        with plain_ctx():
-            plain_steps = teacher_forced(plain_probe, prompts, streams)
-        readings = {"sound": compare_steps(teacher_forced(probe, prompts, streams), plain_steps,
-                                           cfg.hidden_size)}
-        for f in faults:
-            with plant(f):
-                readings[f] = compare_steps(teacher_forced(probe, prompts, streams), plain_steps,
-                                            cfg.hidden_size)
-        for name, (h_err, l_err) in readings.items():
-            say(phase, f"kernel path {'' if name == 'sound' else 'with fault ' + name + ' '}vs "
-                       f"{what} over {len(plain_steps)} teacher-forced steps: hidden "
-                       f"row error {h_err:.4g} (tol {HIDDEN_TOL}), logits {l_err:.4%} of max "
-                       f"|logit| (tol {LOGIT_TOL:.0%})")
-        h_err, l_err = readings.pop("sound")
-        if not (h_err <= HIDDEN_TOL and l_err <= LOGIT_TOL):
-            raise AssertionError(f"kernel path vs {what}: hidden {h_err}, logits {l_err}")
-        for f, (h_f, l_f) in readings.items():
-            if not (h_f > HIDDEN_TOL or l_f > LOGIT_TOL):
-                raise AssertionError(f"planted fault {f} passes the checks: hidden {h_f}, "
-                                     f"logits {l_f}")
+        check_kernel_path(phase, cfg, probe, plain_probe, prompts, streams, plain_ctx, plant,
+                          faults, what)
         del kernel_ex, probe, plain_probe, loaded
         torch.cuda.empty_cache()
         return dict({"launches": launches, "flash_routes": route_launches,
@@ -4812,6 +4884,22 @@ def run_serve_elastic(card: str, parts: str, work: str, serve) -> Dict[str, Any]
                                  f"non-KV {non_kv}")
         seen = wait_for("stage 1 = {B, A1} in A0's view",
                         lambda: set(view(a0, 1)) == {nid(b), nid(a1)}, SWARM_TTL_S)
+
+        # A1's svc_ms still averages its stage-0 computes, prefills included
+        # (a migration keeps the EWMA: PERF.md §7), which can outweigh the
+        # held sessions that spread new ones (one run put all four on B); a
+        # session pinned to A1 first folds stage-1 steps into it, as B's
+        def svc(n):
+            return view(a0, 1).get(nid(n), {}).get("svc_ms")
+
+        svc_old = svc(a1)
+        pinned = drive(routed_swarm_client(a0["port"], {"1": nid(a1)}, greedy,
+                                           prefill_chunk=512), prompts[:1])
+        check_streams(phase, "a session pinned to A1 after the reassign", prompts[:1], pinned,
+                      serve["streams"])
+        wait_for("A1's stage-1 svc_ms in A0's view", lambda: svc(a1) != svc_old, SWARM_TTL_S)
+        say(phase, f"a session pinned to A1 (stage 1) after the reassign: token-exact; svc_ms in "
+                   f"A0's view: A1 {svc_old} before it, {svc(a1)} after, B {svc(b)}")
         a1_before, b_before = passes(a1), passes(b)
         conc = drive(swarm_client(a0), prompts, concurrent=True)
         check_streams(phase, "four sessions at once after the reassign", prompts, conc,
@@ -4826,7 +4914,7 @@ def run_serve_elastic(card: str, parts: str, work: str, serve) -> Dict[str, Any]
             raise AssertionError(f"{phase}: after the reassign A1 served {a1_served}, B "
                                  f"{b_served}")
         # A1's stage-1 graphs: its warm-up's decode step and every decode step since
-        check_node_graphs(phase, st_a1, a1_sessions * (NEW_TOKENS - 1) + 1)
+        check_node_graphs(phase, st_a1, (a1_sessions + 1) * (NEW_TOKENS - 1) + 1)
 
         # 4. A0 dies; the min-id of B and A1 adopts the empty stage 0
         final["A0"] = stats(a0)
@@ -7257,6 +7345,275 @@ def run_sim() -> List[Dict[str, Any]]:
     return rows
 
 
+# -- serve_llama: the Llama-3 family from HF checkpoints ----------------------------
+
+LLAMA_MODEL = "llama3.2-1b"  # served at its published width and depth: 16 layers, 8 + 8
+LLAMA_WIDE = "llama3.1-8b"  # its published width in process, the depth cut
+LLAMA_WIDE_LAYERS = 4
+LLAMA_SEEDS = {LLAMA_MODEL: 21, LLAMA_WIDE: 22}  # the weights' seeds (drawn on the card)
+LLAMA_REV = "5eed" * 10  # the snapshot's revision in the HF cache layout
+LLAMA_SHARDS = 2  # safetensors files per checkpoint: the loader reads a sharded one
+LLAMA_GEN_PROMPT = 2  # the serve prompt (300 tokens) the generate tool and the wide check run
+HF_LAYER_NAMES = {  # the port's stacked layer params -> HF's names ([out, in] when transposed)
+    "input_norm": ("input_layernorm.weight", False),
+    "post_norm": ("post_attention_layernorm.weight", False),
+    "q_proj": ("self_attn.q_proj.weight", True), "k_proj": ("self_attn.k_proj.weight", True),
+    "v_proj": ("self_attn.v_proj.weight", True), "o_proj": ("self_attn.o_proj.weight", True),
+    "gate_proj": ("mlp.gate_proj.weight", True), "up_proj": ("mlp.up_proj.weight", True),
+    "down_proj": ("mlp.down_proj.weight", True),
+}
+
+
+def hf_state_dict(params, cfg) -> Dict[str, Any]:
+    """A Llama model's params as HF's checkpoint holds them: HF's names,
+    linear weights [out, in], bf16, on the host; no lm_head.weight when
+    the head is tied."""
+    import torch
+
+    if set(params["layers"]) != set(HF_LAYER_NAMES):
+        raise AssertionError(f"layer params {sorted(params['layers'])} are not a Llama's")
+
+    def host(t, transpose=False):
+        return (t.T if transpose else t).contiguous().to(torch.bfloat16).cpu()
+
+    sd = {"model.embed_tokens.weight": host(params["embed"]),
+          "model.norm.weight": host(params["final_norm"])}
+    for key, (name, transpose) in HF_LAYER_NAMES.items():
+        for i in range(cfg.num_layers):
+            sd[f"model.layers.{i}.{name}"] = host(params["layers"][key][i], transpose)
+    if "lm_head" in params:
+        sd["lm_head.weight"] = host(params["lm_head"], True)
+    return sd
+
+
+def write_hf_checkpoint(d: str, sd: Dict[str, Any], layers: int) -> int:
+    """`sd` as LLAMA_SHARDS safetensors files in `d`, split by layer as the
+    hub's shards are (the embedding with the first layers, the norm and an
+    untied head with the last), through the port's writer; the bytes
+    written."""
+    from inferd_tpu_torch.utils.safetensors_io import save_file
+
+    os.makedirs(d, exist_ok=True)
+    per = -(-layers // LLAMA_SHARDS)
+
+    def shard(name: str) -> int:
+        if name.startswith("model.layers."):
+            return int(name.split(".")[2]) // per
+        return 0 if "embed_tokens" in name else LLAMA_SHARDS - 1
+
+    total = 0
+    for s in range(LLAMA_SHARDS):
+        path = os.path.join(d, f"model-{s + 1:05d}-of-{LLAMA_SHARDS:05d}.safetensors")
+        save_file({k: v for k, v in sd.items() if shard(k) == s}, path)
+        total += os.path.getsize(path)
+    return total
+
+
+def same_bytes(a: str, b: str) -> bool:
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(64 << 20), fb.read(64 << 20)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def draw_llama(phase: str, card: str, name: str, cfg, d: str):
+    """`cfg`'s params from its seed, on the card, written to `d` as an HF
+    checkpoint (the bytes and seconds printed); returns the params."""
+    import torch
+
+    from inferd_tpu_torch.models import qwen3
+
+    t0 = time.perf_counter()
+    params = qwen3.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(LLAMA_SEEDS[name]),
+                               device=DEVICE)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd = hf_state_dict(params, cfg)
+    nbytes = write_hf_checkpoint(d, sd, cfg.num_layers)
+    t_write = time.perf_counter() - t0
+    say(phase, f"checkpoint of {name} ({cfg.num_layers} layers, hidden {cfg.hidden_size}, heads "
+               f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim}, vocab {cfg.vocab_size}, "
+               f"{'tied' if cfg.tie_word_embeddings else 'untied'} head): {len(sd)} tensors, "
+               f"{nbytes} bytes bf16 in {LLAMA_SHARDS} safetensors files, drawn on the card in "
+               f"{t_draw:.2f} s, moved to the host and written in {t_write:.2f} s "
+               f"({nbytes / t_write / 1e9:.2f} GB/s) ({card})")
+    del sd
+    return params, {"bytes": nbytes, "draw_s": t_draw, "write_s": t_write}
+
+
+def run_serve_llama(card: str, work: str) -> Dict[str, Any]:
+    """The `serve_llama` phase: Llama-3.2-1B from an HF checkpoint through
+    tools/split_model --weights, two run_node stages, the generate tool
+    without --random-init, and Llama-3.1-8B's width in process."""
+    import torch
+
+    from inferd_tpu_torch.config import HF_REPOS, SamplingConfig, get_config
+    from inferd_tpu_torch.core.generate import Engine
+    from inferd_tpu_torch.models.loader import load_params
+    from inferd_tpu_torch.parallel.stages import (Manifest, split_and_save,
+                                                  stage_checkpoint_path)
+    from inferd_tpu_torch.tools import split_model
+
+    phase = "serve_llama"
+    t_phase = time.perf_counter()
+    cfg = get_config(LLAMA_MODEL)
+    greedy = SamplingConfig(temperature=0.0)
+    home = os.path.join(work, "hf")
+    repo = os.path.join(home, "hub",
+                        "models--" + HF_REPOS.get(LLAMA_MODEL, LLAMA_MODEL).replace("/", "--"))
+    snap = os.path.join(repo, "snapshots", LLAMA_REV)
+    params, ckpt = draw_llama(phase, card, LLAMA_MODEL, cfg, snap)
+    os.makedirs(os.path.join(repo, "refs"))
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(LLAMA_REV)
+    # the split the checkpoint must give: the same params split in this
+    # process, their layers in the name order the loader keeps
+    ref_parts = os.path.join(work, "llama_ref_parts")
+    split_and_save(dict(params, layers=dict(sorted(params["layers"].items()))), cfg,
+                   Manifest.even_split(cfg.name, 2), ref_parts)
+    del params
+    torch.cuda.empty_cache()
+    parts = os.path.join(work, "llama_parts")
+    t0 = time.perf_counter()
+    split_model.main(["--model", LLAMA_MODEL, "--stages", "2", "--weights", snap, "--out", parts,
+                      "--device", DEVICE])
+    t_split = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for s in range(2):
+        a, b = stage_checkpoint_path(parts, s), stage_checkpoint_path(ref_parts, s)
+        if not same_bytes(a, b):
+            raise AssertionError(f"{phase}: stage {s} split from the checkpoint differs from the "
+                                 "in-process split of the same params")
+    say(phase, f"tools/split_model --weights <snapshot> --device {DEVICE}: loaded and split in "
+               f"{t_split:.2f} s; both stage files equal the in-process split of the drawn "
+               f"params byte for byte ({os.path.getsize(stage_checkpoint_path(parts, 0))} + "
+               f"{os.path.getsize(stage_checkpoint_path(parts, 1))} bytes)")
+    shutil.rmtree(ref_parts)
+
+    free, total = torch.cuda.mem_get_info()
+    say(phase, f"the card before its node processes start: {free / 2**30:.2f} GiB free of "
+               f"{total / 2**30:.2f} GiB ({card})")
+    serve = run_serve(card, parts, work, model=LLAMA_MODEL, phase=phase)
+
+    # the generate tool without --random-init, from the HF cache, against
+    # an Engine over load_params of the same snapshot
+    prompt = serve_prompts(cfg.vocab_size)[LLAMA_GEN_PROMPT]
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "inferd_tpu_torch.tools.generate", "--model", LLAMA_MODEL,
+         "--prompt-ids", ",".join(map(str, prompt)), "--max-new-tokens", str(NEW_TOKENS),
+         "--temperature", "0", "--max-len", str(MAX_LEN), "--device", DEVICE],
+        cwd=REPO, env=dict(os.environ, HF_HOME=home), capture_output=True, text=True,
+        timeout=600)
+    t_tool = time.perf_counter() - t0
+    if run.returncode != 0 or "generated ids:" not in run.stdout:
+        raise AssertionError(f"{phase}: tools/generate exited {run.returncode}: "
+                             f"{run.stdout[-2000:]} {run.stderr[-4000:]}")
+    tool_ids = json.loads(run.stdout.split("generated ids:", 1)[1].strip())
+    t0 = time.perf_counter()
+    loaded = load_params(cfg, snap, device=DEVICE)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    eng = Engine(cfg, loaded, max_len=MAX_LEN, sampling_cfg=greedy)
+    want = eng.generate(prompt, NEW_TOKENS)
+    del eng, loaded
+    torch.cuda.empty_cache()
+    if tool_ids != want:
+        raise AssertionError(f"{phase}: tools/generate's ids differ from the Engine's from token "
+                             f"{first_divergence(tool_ids, want)}")
+    chain = serve["streams"][LLAMA_GEN_PROMPT]
+    say(phase, f"tools/generate --model {LLAMA_MODEL} (no --random-init, HF_HOME the cache) in "
+               f"{t_tool:.1f} s: exit 0, its {len(tool_ids)} ids equal an Engine over "
+               f"load_params of the snapshot (loaded to the card in {t_load:.2f} s, "
+               f"{ckpt['bytes'] / t_load / 1e9:.2f} GB/s, warm); they share their first "
+               f"{first_divergence(tool_ids, chain)} of {NEW_TOKENS} tokens with the chain's "
+               f"stream of the {len(prompt)}-token prompt (printed, not gated: other buffers, "
+               f"other split plans) ({card})")
+    wide = run_llama_wide(phase, card, work)
+    say(phase, f"lap {time.perf_counter() - t_phase:.1f} s")
+    counts = {k: serve[k] for k in ("launches", "flash_routes", "gemv_routes")}
+    for k in ("launches", "flash_routes"):
+        for name, v in wide[k].items():
+            counts[k][name] += v
+    return dict(counts, streams=serve["streams"], rates=serve["rates"],
+                step_share=serve["step_share"], checkpoint=ckpt, split_s=t_split,
+                load_s=t_load, tool_s=t_tool, wide=wide)
+
+
+def run_llama_wide(phase: str, card: str, work: str) -> Dict[str, Any]:
+    """Llama-3.1-8B's published width (untied head) cut to LLAMA_WIDE_LAYERS
+    layers, in this process: its HF checkpoint loaded to the card equals
+    the drawn params; the Engine's graphed greedy stream equals the eager
+    one with flash_gqa launches exact; teacher-forced, the kernel path
+    holds against plain attention and the planted faults do not."""
+    import torch
+
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.core.generate import Engine
+    from inferd_tpu_torch.models.loader import load_params
+    from inferd_tpu_torch.parallel.stages import StageSpec
+
+    cfg = get_config(LLAMA_WIDE).with_layers(LLAMA_WIDE_LAYERS)
+    d = os.path.join(work, "llama_wide")
+    drawn, ckpt = draw_llama(phase, card, LLAMA_WIDE, cfg, d)
+    t0 = time.perf_counter()
+    params = load_params(cfg, d, device=DEVICE)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    shutil.rmtree(d)
+    differ = [k for k in drawn if k != "layers" and not torch.equal(params[k], drawn[k])]
+    differ += [k for k, v in drawn["layers"].items() if not torch.equal(params["layers"][k], v)]
+    if params.keys() != drawn.keys():
+        differ.append(f"keys {sorted(params)}")
+    del drawn
+    torch.cuda.empty_cache()
+    if differ:
+        raise AssertionError(f"{phase}: {LLAMA_WIDE} loaded params differ from the drawn: {differ}")
+    say(phase, f"{LLAMA_WIDE} x {LLAMA_WIDE_LAYERS} layers: load_params to the card in "
+               f"{t_load:.2f} s ({ckpt['bytes'] / t_load / 1e9:.2f} GB/s, warm), every "
+               f"parameter equal to the drawn one ({card})")
+    prompt = serve_prompts(cfg.vocab_size)[LLAMA_GEN_PROMPT]
+    greedy = SamplingConfig(temperature=0.0)
+    eng = Engine(cfg, params, max_len=MAX_LEN, sampling_cfg=greedy)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    stream = eng.generate(prompt, NEW_TOKENS)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    check_flash_routes(phase, counts, 1, cfg.num_layers)
+    others = {k: v for k, v in counts["launches"].items() if k != "flash_gqa"}
+    if any(others.values()):
+        raise AssertionError(f"{phase}: {LLAMA_WIDE} launched {others}")
+    graphs = eng.graph_stats()
+    eager = Engine(cfg, params, max_len=MAX_LEN, sampling_cfg=greedy)
+    eager.graphs = None
+    e = eager.generate(prompt, NEW_TOKENS)
+    del eng, eager
+    if e != stream:
+        raise AssertionError(f"{phase}: {LLAMA_WIDE}'s graphed stream differs from the eager one "
+                             f"from token {first_divergence(e, stream)}")
+    say(phase, f"{LLAMA_WIDE} x {LLAMA_WIDE_LAYERS}: {NEW_TOKENS} greedy tokens of the "
+               f"{len(prompt)}-token prompt in {wall:.2f} s through the graphed Engine "
+               f"({graphs}), equal to the eager step's stream")
+    LastStageProbe = _last_stage_probe_class()
+    spec = StageSpec(stage=0, num_stages=1, start_layer=0, end_layer=cfg.num_layers - 1)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
+    check_kernel_path(f"{phase} {LLAMA_WIDE}", cfg,
+                      [LastStageProbe(cfg, spec, params, max_len=MAX_LEN)],
+                      [LastStageProbe(plain_cfg, spec, params, max_len=MAX_LEN)],
+                      [prompt], [stream], contextlib.nullcontext, planted_attention_fault,
+                      E2E_FAULTS, "plain attention")
+    del params
+    torch.cuda.empty_cache()
+    return dict(counts, checkpoint=ckpt, load_s=t_load, stream=stream)
+
+
 CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_qmm_cases,
                "lora": run_lora_cases, "codec": run_codec, "sim": run_sim}
 # --only phases that need the model's split (serve_quant runs int8 and int4;
@@ -7264,12 +7621,12 @@ CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_q
 # runs serve_lanes and serve_lanes_lora first, its streams; serve_swarm runs
 # serve and serve_lanes first, the streams it is held to; serve_overload and
 # serve_elastic run serve first; serve_batch runs generate_batched first, its
-# streams)
+# streams; serve_llama writes and splits its own checkpoint)
 SPLIT_PHASES = ("serve", "serve_quant", "serve_lanes", "serve_lanes_quant", "serve_lanes_lora",
                 "serve_tenant_routes", "serve_sessions", "serve_standby", "serve_swarm",
                 "serve_overload", "serve_elastic",
                 "generate", "generate_batched", "serve_batch", "serve_kstep", "serve_fp8",
-                "anatomy", "profile")
+                "anatomy", "profile", "serve_llama")
 
 
 def main(argv: List[str]) -> int:
@@ -7308,26 +7665,39 @@ def main(argv: List[str]) -> int:
     from inferd_tpu_torch import native
     from inferd_tpu_torch.ops import build
 
-    # one nvcc per source and the wire codec's C++ compiler, all at once (the
-    # node processes then find the codec built)
-    with ThreadPoolExecutor(len(build.KERNELS) + 1) as pool:
-        codec = pool.submit(native.build)
-        infos = dict(zip(build.KERNELS, pool.map(build.build, build.KERNELS)))
-        codec_info = codec.result()
-    for name, info in infos.items():
-        regs = ptxas_report(info["log"])
-        say("build", f"{name}: {os.path.relpath(info['path'], REPO)} "
-                     f"({'built' if info['built'] else 'cached'} in {info['seconds']:.1f}s); "
-                     f"ptxas ({len(regs)} kernels): {regs}")
-    say("build", f"wire codec: {os.path.relpath(codec_info['path'], REPO)} "
-                 f"({'built' if codec_info['built'] else 'cached'} in "
-                 f"{codec_info['seconds']:.1f}s with {native.compiler()})")
+    def build_all(meanwhile: Callable[[], Any] = lambda: None) -> Any:
+        """One nvcc per source and the wire codec's C++ compiler, all at
+        once, with `meanwhile` run in this thread as they compile (node
+        processes it starts wait for each library's build lock, then load
+        it); the build report printed; returns what `meanwhile` did."""
+        with ThreadPoolExecutor(len(build.KERNELS) + 1) as pool:
+            codec = pool.submit(native.build)
+            kernels = [pool.submit(build.build, name) for name in build.KERNELS]
+            done = meanwhile()
+            infos = dict(zip(build.KERNELS, (f.result() for f in kernels)))
+            codec_info = codec.result()
+        for name, info in infos.items():
+            regs = ptxas_report(info["log"])
+            say("build", f"{name}: {os.path.relpath(info['path'], REPO)} "
+                         f"({'built' if info['built'] else 'cached'} in {info['seconds']:.1f}s); "
+                         f"ptxas ({len(regs)} kernels): {regs}")
+        say("build", f"wire codec: {os.path.relpath(codec_info['path'], REPO)} "
+                     f"({'built' if codec_info['built'] else 'cached'} in "
+                     f"{codec_info['seconds']:.1f}s with {native.compiler()})")
+        return done
 
     if only:  # a partial run: the named phases, no serve phases and no result lines
+        build_all()
         for name in only:
             if name in CASE_PHASES:
                 CASE_PHASES[name]()
-        split_only = [x for x in only if x in SPLIT_PHASES]
+        split_only = [x for x in only if x in SPLIT_PHASES and x != "serve_llama"]
+        if "serve_llama" in only:
+            work = tempfile.mkdtemp(prefix="chip_smoke_")
+            try:
+                run_serve_llama(card, work)
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
         if split_only:
             work = tempfile.mkdtemp(prefix="chip_smoke_")
             try:
@@ -7396,37 +7766,48 @@ def main(argv: List[str]) -> int:
         say("time", f"{name}: {now - lap_at[0]:.1f}s")
         lap_at[0] = now
 
-    cases = run_kernel_cases()
-    paged_cases = run_paged_cases()
-    qmm_cases = run_qmm_cases()
-    lora_cases = run_lora_cases()
-    lap("kernel cases")
-    codec_rows = run_codec()
-    lap("codec")
-    run_sim()
-    lap("sim")
-
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        parts = split_parts(work)
+        def split_and_start():
+            """The split, and every node process of the serve phases started
+            (prestart_nodes), while nvcc runs: ~40% of the run's time limit
+            would otherwise pass in one then the other."""
+            parts = split_parts(work)
+            parts1 = one_stage_parts(work, whole_model(parts))
+            torch.cuda.empty_cache()  # the card's memory for the node processes
+            dirs = write_tenants(work)
+            free, total = torch.cuda.mem_get_info()
+            say("nodes", f"the card before the node processes start: {free / 2**30:.2f} GiB "
+                         f"free of {total / 2**30:.2f} GiB ({card})")
+            prestart_nodes(parts, work, [
+                ([], ""), (["--quant", "int8"], ""), (["--quant", "int4"], ""),
+                (LANE_NODE_ARGS, ""), (LANE_NODE_ARGS + ["--quant", "int8"], ""),
+                (profile_node_args(work), "_profile")],
+                swarms=[(parts, "swarm"), (parts, "swarm_lanes"), (None, "swarm_counter"),
+                        (parts, "overload"), (None, "overload_counter"), (parts, "elastic")],
+                singles=[(parts1, BATCH_NODE_ARGS, "_batch"),
+                         (parts1, BATCH_PAGED_ARGS, "_batchp"),
+                         (parts1, WHOLE_LANE_ARGS, "_wlanes"),
+                         (parts1, tenant_batch_args(dirs), "_batcht"),
+                         (parts1, FP8_NODE_ARGS, "_fp8")])
+            free, _ = torch.cuda.mem_get_info()
+            say("nodes", f"the card with every node process started: {free / 2**30:.2f} GiB "
+                         f"free ({card})")
+            return parts, parts1
+
+        parts, parts1 = build_all(split_and_start)
+        lap("build, split, node start")
+        # the kernels are timed with the node processes idle beside them
+        cases = run_kernel_cases()
+        paged_cases = run_paged_cases()
+        qmm_cases = run_qmm_cases()
+        lora_cases = run_lora_cases()
+        lap("kernel cases")
+        codec_rows = run_codec()
+        lap("codec")
+        run_sim()
+        lap("sim")
         whole = whole_model(parts)
-        parts1 = one_stage_parts(work, whole)
-        dirs = write_tenants(work)
-        free, total = torch.cuda.mem_get_info()
-        say("nodes", f"the card before the node processes start: {free / 2**30:.2f} GiB free of "
-                     f"{total / 2**30:.2f} GiB ({card})")
-        prestart_nodes(parts, work, [
-            ([], ""), (["--quant", "int8"], ""), (["--quant", "int4"], ""), (LANE_NODE_ARGS, ""),
-            (LANE_NODE_ARGS + ["--quant", "int8"], ""), (profile_node_args(work), "_profile")],
-            swarms=[(parts, "swarm"), (parts, "swarm_lanes"), (None, "swarm_counter"),
-                    (parts, "overload"), (None, "overload_counter"), (parts, "elastic")],
-            singles=[(parts1, BATCH_NODE_ARGS, "_batch"), (parts1, BATCH_PAGED_ARGS, "_batchp"),
-                     (parts1, WHOLE_LANE_ARGS, "_wlanes"),
-                     (parts1, tenant_batch_args(dirs), "_batcht"), (parts1, FP8_NODE_ARGS, "_fp8")])
-        free, _ = torch.cuda.mem_get_info()
-        say("nodes", f"the card with every node process started: {free / 2**30:.2f} GiB free "
-                     f"({card})")
-        lap("split, node start")
         serve = run_serve(card, parts, work)
         lap("serve")
         serve_q = {q: run_serve(card, parts, work, quant_flag=q, baseline=serve)
@@ -7469,6 +7850,10 @@ def main(argv: List[str]) -> int:
         lap("profile")
         run_cli(card)
         lap("cli")
+        # every node process of the phases above has stopped: the Llama
+        # pair and its checks have the card to themselves
+        llama = run_serve_llama(card, work)
+        lap("serve_llama")
     finally:
         stop_prestarted()
         shutil.rmtree(work, ignore_errors=True)
@@ -7481,7 +7866,7 @@ def main(argv: List[str]) -> int:
              "generate_quant": gen_q,
              "generate_batched": gen_b,
              "serve_batch": serve_b, "serve_kstep": kstep, "serve_fp8": fp8,
-             "anatomy": anat, "profile": prof}
+             "anatomy": anat, "profile": prof, "serve_llama": llama}
 
     def by_path(name):
         return {path: r["launches"][name] for path, r in paths.items() if r["launches"][name]}
@@ -7525,14 +7910,18 @@ def main(argv: List[str]) -> int:
     lora_launches = by_path("fused_lane_delta")
     main_case = next(c for c in cases if c["case"] == MAIN_CASE)
     paged_main = next(c for c in paged_cases if c["case"] == PAGED_MAIN_CASE)
+    paged_llama = next(c for c in paged_cases if c["case"] == f"{PAGED_MAIN_CASE}_d64g4")
     paged_launches = by_path("paged_decode_gqa")
     flash_routes_all = {r: sum(res["flash_routes"][r] for res in paths.values())
                         for r in ("split", "mma")}
     lanes_chunk = next(c for c in cases if c["case"] == LANES_CHUNK_CASE)
     def flash_entry(route, replaces, row, shape):
         """One entry per flash_gqa kernel: its Pallas kernel, the launches of
-        its route, the errors of the cases that ran on it, its main case."""
+        its route, the errors of the cases that ran on it, its main case,
+        and beside it the same case at the Llama-3 heads."""
         on_route = [c for c in cases if c["route"] == route]
+        at_llama = {c["case"]: dict(timed(c), shape=f"Nq {c['Nq']}, Nkv {c['Nkv']}, D {c['D']}")
+                    for c in cases if c["case"] in {f"{row['case']}_{t}" for t in LLAMA_HEADS}}
         return dict({
             "name": f"flash_gqa.{route}",
             "route": "cuda",
@@ -7544,7 +7933,7 @@ def main(argv: List[str]) -> int:
             "max_abs_err": max(c["max_abs_err"] for c in on_route),
             "max_row_err": max(c["row_err"] for c in on_route
                                if c["dtype"].startswith("bfloat16")),
-        }, **timed(row), shape=shape)
+        }, **timed(row), shape=shape, **at_llama)
 
     kernels = {"kernels": [
         # the one wrapper's two kernels: split-KV (with its combine) for
@@ -7569,7 +7958,8 @@ def main(argv: List[str]) -> int:
             gather_sdpa_yardstick_ms=paged_main["gather_sdpa_yardstick_ms"],
             plan=paged_main["plan"],
             shape=f"{PAGED_MAIN_CASE}: B 8, bs 32, MB 32, kv_len {paged_main['kv_len']}, "
-                  "Nq 16, Nkv 8, D 128, bf16"),
+                  "Nq 16, Nkv 8, D 128, bf16",
+            **{paged_llama["case"]: dict(timed(paged_llama), shape="Nq 32, Nkv 8, D 64")}),
         # library_ms: torch's own weight-only quantized product on the same
         # weight (library_call); dequant_matmul_yardstick_ms is torch.matmul
         # against the weight dequantized beforehand, what --quant none pays

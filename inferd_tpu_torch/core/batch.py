@@ -47,7 +47,7 @@ through them: its library loop raises, as the reference's does.
 `fork_lane` seeds a lane with another's first slots (a session fork on the
 dense layout, runtime/batch_executor; the paged layout forks through
 core.cache.BlockPool.fork_lane). Not ported here: lane-batched speculation
-(A7) and sliding-window rings (A5).
+(A7) and sliding-window rings (A5b).
 """
 
 from __future__ import annotations

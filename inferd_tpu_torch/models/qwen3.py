@@ -48,10 +48,11 @@ decode step, `stage_step`, keeps the same contract (tensors only, a host
 kv bound), so the stage executors capture it too; paged writes are planned
 on the device (`paged_write_device`).
 
-This slice covers the dense Qwen3/Qwen2-style decoder. MoE, sandwich norms,
-sliding windows and scaled RoPE raise NotImplementedError here (and an
-adapter operand on such a config raises, as in the reference); tensor/
-expert parallelism waits for a later slice.
+This slice covers the dense decoder of the Qwen3, Qwen2 and Llama-3
+families, with unscaled, llama3 or yarn RoPE. MoE layers, sandwich norms
+and sliding windows raise NotImplementedError naming the ROADMAP item that
+brings them (an adapter operand on such a config raises, as in the
+reference); tensor/expert parallelism waits for a later slice.
 """
 
 from __future__ import annotations
@@ -71,19 +72,20 @@ from inferd_tpu_torch.utils.profiling import span
 
 Params = Dict[str, Any]
 Positions = Union[torch.Tensor, int, None]
+ROPE_SCALINGS = ("none", "llama3", "yarn")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for architecture features this slice of the port lacks."""
     missing = []
     if cfg.is_moe:
-        missing.append("MoE layers (model-families slice)")
+        missing.append("MoE layers (ROADMAP A5c)")
     if cfg.sandwich_norm:
-        missing.append("sandwich norms (model-families slice)")
+        missing.append("sandwich norms (ROADMAP A5b)")
     if cfg.sliding_window:
-        missing.append("sliding-window layers and ring KV (model-families slice)")
-    if cfg.rope_scaling != "none":
-        missing.append(f"{cfg.rope_scaling} RoPE scaling (model-families slice)")
+        missing.append("sliding-window layers and ring KV (ROADMAP A5b)")
+    if cfg.rope_scaling not in ROPE_SCALINGS:
+        missing.append(f"{cfg.rope_scaling} RoPE scaling")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: " + "; ".join(missing)
@@ -189,6 +191,56 @@ def act_fn(cfg: ModelConfig):
     return F.silu
 
 
+def _scaled_inv_freq(inv_freq: torch.Tensor, head_dim: int, theta: float,
+                     cfg: ModelConfig) -> Tuple[torch.Tensor, float]:
+    """(inv_freq under cfg.rope_scaling, the factor cos and sin carry).
+
+    "llama3" (Llama-3.1+, HF rope_utils): bands whose wavelength exceeds
+    `rope_original_max_position / low_freq_factor` are slowed by
+    `rope_scaling_factor`, bands shorter than `.. / high_freq_factor` keep
+    their frequency, and a smooth ramp joins them. "yarn" (GPT-OSS, HF
+    _compute_yarn_parameters): each band blends its frequency with the
+    factor-slowed one along a ramp between the beta_fast and beta_slow
+    rotation counts over the pretraining window, and cos and sin carry the
+    attention factor (0.1 * ln(factor) + 1 unless the config sets one).
+
+    Every constant is a host float from the config and every step a tensor
+    op in float32, in the reference's order, so a captured step replays it
+    unchanged and the CPU matches XLA's arithmetic."""
+    if cfg.rope_scaling == "yarn":
+        orig = float(cfg.rope_original_max_position)
+
+        def corr_dim(rot: float) -> float:
+            return (head_dim * math.log(orig / (rot * 2 * math.pi))) / (2 * math.log(theta))
+
+        low, high = corr_dim(cfg.rope_beta_fast), corr_dim(cfg.rope_beta_slow)
+        if cfg.rope_truncate:
+            low, high = math.floor(low), math.ceil(high)
+        low, high = max(low, 0.0), min(high, head_dim - 1.0)
+        if low == high:
+            high += 0.001
+        band = torch.arange(head_dim // 2, dtype=torch.float32, device=inv_freq.device)
+        ramp = ((band - low) / (high - low)).clamp(0.0, 1.0)
+        extrap = 1.0 - ramp  # 1 where the band keeps its frequency
+        inv_freq = (inv_freq / cfg.rope_scaling_factor) * (1.0 - extrap) + inv_freq * extrap
+        return inv_freq, cfg.rope_attention_factor or (
+            0.1 * math.log(cfg.rope_scaling_factor) + 1.0)
+    if cfg.rope_scaling == "llama3":
+        factor, orig = cfg.rope_scaling_factor, cfg.rope_original_max_position
+        lo_f, hi_f = cfg.rope_low_freq_factor, cfg.rope_high_freq_factor
+        # a scalar over a tensor is a reciprocal and a product in torch:
+        # divide full tensors instead, one rounding as in the reference
+        wavelen = torch.full_like(inv_freq, 2.0 * math.pi) / inv_freq
+        smooth = (torch.full_like(wavelen, orig) / wavelen - lo_f) / (hi_f - lo_f)
+        return torch.where(
+            wavelen > orig / lo_f,
+            inv_freq / factor,  # long wavelengths: slowed
+            torch.where(wavelen < orig / hi_f, inv_freq,  # short wavelengths: kept
+                        (1 - smooth) * inv_freq / factor + smooth * inv_freq),
+        ), 1.0
+    return inv_freq, 1.0
+
+
 def rope_cos_sin(
     positions: torch.Tensor,  # [B, S] absolute positions
     head_dim: int,
@@ -196,14 +248,19 @@ def rope_cos_sin(
     cfg: Optional[ModelConfig] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables [B, S, head_dim] in float32, duplicated-halves layout
-    (emb = concat(freqs, freqs)); unscaled RoPE only in this slice."""
-    if cfg is not None and cfg.rope_scaling != "none":
+    (emb = concat(freqs, freqs)), with cfg.rope_scaling applied
+    (_scaled_inv_freq)."""
+    if cfg is not None and cfg.rope_scaling not in ROPE_SCALINGS:
         check_supported(cfg)
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
-    inv_freq = 1.0 / (theta ** exps)
+    inv_freq, attn_factor = 1.0 / (theta ** exps), 1.0
+    if cfg is not None:
+        inv_freq, attn_factor = _scaled_inv_freq(inv_freq, head_dim, theta, cfg)
     angles = positions.float()[..., None] * inv_freq  # [B, S, D/2]
     emb = torch.cat([angles, angles], dim=-1)
-    return torch.cos(emb), torch.sin(emb)
+    if attn_factor == 1.0:  # no multiply: two kernels fewer in every step
+        return torch.cos(emb), torch.sin(emb)
+    return torch.cos(emb) * attn_factor, torch.sin(emb) * attn_factor
 
 
 def _to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -5,9 +5,11 @@ into a shared library with a plain C interface that the kernel's wrapper
 loads with ctypes. Libraries land in `inferd_tpu_torch/_build/` (listed in
 .gitignore) under a name keyed on a hash of the source and the compiler
 flags, so a fresh checkout builds them itself and a changed source never
-loads a stale binary. A build writes to a temporary name and renames into
-place, so processes that start together (two stage nodes on one host) may
-race safely.
+loads a stale binary. A build holds an exclusive lock on
+`_build/<name>.lock`, writes to a temporary name and renames into place, so
+processes that start together (stage nodes on one host, or nodes started
+while another process builds) compile each kernel once: the others wait
+for the lock and load the library it left.
 
 This is the only module that calls nvcc. It raises when nvcc is missing or
 a build fails; nothing falls back to another implementation.
@@ -16,6 +18,7 @@ a build fails; nothing falls back to another implementation.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -68,13 +71,25 @@ def build(name: str) -> dict:
     "seconds", "built", "log"}; `log` holds nvcc's -Xptxas -v report."""
     path = library_path(name)
     log_path = path[:-3] + ".log"
-    if os.path.exists(path):
+
+    def built() -> dict:
         log = ""
         if os.path.exists(log_path):
             with open(log_path) as f:
                 log = f.read()
         return {"path": path, "seconds": 0.0, "built": False, "log": log}
+
+    if os.path.exists(path):
+        return built()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes, or the process dies
+        if os.path.exists(path):  # another process built it while this one waited
+            return built()
+        return _compile(name, path, log_path)
+
+
+def _compile(name: str, path: str, log_path: str) -> dict:
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -86,10 +101,10 @@ def build(name: str) -> dict:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise RuntimeError(f"nvcc failed building {name} (rc {proc.returncode}):\n{log}")
-    os.replace(tmp, path)
     with open(tmp + ".log", "w") as f:
         f.write(log)
     os.replace(tmp + ".log", log_path)
+    os.replace(tmp, path)  # last: a library that exists has its log beside it
     return {"path": path, "seconds": time.perf_counter() - t0, "built": True, "log": log}
 
 

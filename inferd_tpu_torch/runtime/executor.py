@@ -70,7 +70,7 @@ sliced to its length, to the host in one transfer; `session_lengths`
 reads every session's length without touching its KV, and
 `export_session_delta` exports the slots past a replication frontier the
 same way (runtime/repl, standby replication). Not ported yet: ring
-high-water marks (A5).
+high-water marks (A5b).
 """
 
 from __future__ import annotations
@@ -257,8 +257,8 @@ def kstep_hi(start: int, n: int, k: int) -> int:
     """The highest slot a K-step window wrote, plus one: the `n` committed
     writes and, when eos froze the row early, the ONE frozen-frontier slot
     it kept rewriting (a frozen row does not advance). The ring high-water
-    mark of sliding-window layers, which wait for the model-families
-    slice, is advanced by it."""
+    mark of sliding-window layers, which wait for ROADMAP A5b, is
+    advanced by it."""
     return start + min(n + 1, k)
 
 

@@ -17,7 +17,7 @@ dtype's name, and `decode` views it back through FP8_DTYPES, an allowlist
 of torch dtypes: a name off the list is a mismatch, never a getattr.
 
 Ring payloads (`k_loc`, `v_loc`, `hi`: the sliding-window layers' rings)
-wait for the model-families slice (ROADMAP A5): the port keeps no rings, so
+wait for ROADMAP A5b (sliding windows and ring KV): the port keeps no rings, so
 `decode` refuses a payload that carries them, as the reference's refuses a
 ring payload for a layout without rings.
 """
@@ -84,7 +84,7 @@ def decode(payload: Dict[str, Any], cfg: ModelConfig, num_layers: int,
     elif not k.is_floating_point():
         return None  # integer K/V without its dtype's name
     if "k_loc" in payload or "v_loc" in payload:
-        return None  # ring layers: a layout this port does not keep (A5)
+        return None  # ring layers: a layout this port does not keep (A5b)
     expect = (num_layers, 1, cfg.num_kv_heads, cfg.head_dim)
     got = (k.shape[0], k.shape[1], k.shape[3], k.shape[4])
     if got != expect or k.shape[2] < n or n <= 0 or n > max_len:

@@ -29,7 +29,7 @@ Segments stay host tensors of their own dtype (bf16, or an fp8 cache's
 uint8 view named by `kv_dtype`), so a promoted payload is bit for bit what
 the primary shipped. Ring fields (`k_loc`, `v_loc`, `hi`: the sliding-window
 layers' rings) are refused, as runtime/handoff refuses them, until the
-model-families slice (ROADMAP A5). The store's lock is a plain
+ring KV slice (ROADMAP A5b). The store's lock is a plain
 threading.Lock (the reference's lock watchdog is ROADMAP A9's).
 """
 

@@ -2,7 +2,9 @@
 by default (port of inferd_tpu/tools/generate.py, its plain and batched
 engines).
 
-Builds a preset from seeded random weights, optionally merges a peft LoRA
+Loads a preset's checkpoint from the local HF cache (models/loader: the
+preset's repo under $HF_HOME, safetensors, no download), or with
+`--random-init` draws seeded random weights; optionally merges a peft LoRA
 adapter and quantizes, then generates with `--engine plain`
 (core.generate.Engine: prefill, on-device sampling, and `--chunk` fused
 decode steps per host read) or `--engine batched` (core.batch.
@@ -11,7 +13,7 @@ batched engine's loop, `--chunk` steps per window). Prints the new ids (or
 the decoded text with `--prompt`) on stdout and the rate on stderr.
 
 Usage:
-  python -m inferd_tpu_torch.tools.generate --model qwen3-0.6b --random-init \\
+  python -m inferd_tpu_torch.tools.generate --model llama3.2-1b [--random-init] \\
       --prompt-ids 3,7,11 --max-new-tokens 16 [--chunk 8] [--device cuda|cpu] \\
       [--engine plain|batched [--lanes 4]] \\
       [--quant none|int8|int8-kernel|int4] [--kv-dtype model|float8_e4m3fn] \\
@@ -19,8 +21,9 @@ Usage:
       [--temperature 0.6 --top-k 20 --top-p 0.95 --min-p 0 --seed 0] [--max-len 2048]
 
 Not ported yet, and refused with the ROADMAP item that brings them:
-`--engine speculative` (A7), `--quant w8a8` (A6) and weights from a
-checkpoint, i.e. running without `--random-init` (A5).
+`--engine speculative` (A7) and `--quant w8a8` (A6). Without a local
+checkpoint (and without `--random-init`) the tool stops with exit 2 and
+names where it looked: it never falls back to random weights.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", default="tiny")
     ap.add_argument("--random-init", action="store_true",
-                    help="seeded random weights (required: checkpoint loading is not ported)")
+                    help="seeded random weights instead of the preset's local checkpoint")
     ap.add_argument("--prompt", default="", help="text prompt (needs a tokenizer)")
     ap.add_argument("--prompt-ids", default="", help="comma-separated token ids")
     ap.add_argument("--max-new-tokens", type=int, default=32)
@@ -88,8 +91,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     for (flag, value), msg in _NOT_PORTED.items():
         if getattr(args, flag) == value:
             ap.error(msg)
-    if not args.random_init:
-        ap.error("loading checkpoint weights is not ported yet (ROADMAP A5): pass --random-init")
     if not (args.prompt_ids or args.prompt):
         ap.error("need --prompt or --prompt-ids")
     try:
@@ -99,7 +100,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from inferd_tpu_torch.core.batch import BatchedEngine
     from inferd_tpu_torch.core.generate import Engine
-    from inferd_tpu_torch.models import qwen3
+    from inferd_tpu_torch.models import loader, qwen3
 
     cfg = get_config(args.model)
     if args.kv_dtype != "model":
@@ -108,8 +109,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn)
     sampling = SamplingConfig(temperature=args.temperature, top_k=args.top_k,
                               top_p=args.top_p, min_p=args.min_p)
-    # the weights' seed is fixed, as the reference's --random-init; --seed samples
-    params = qwen3.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    if args.random_init:
+        # the weights' seed is fixed, as the reference's --random-init; --seed samples
+        params = qwen3.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                                   device=device)
+    else:
+        try:
+            params = loader.load_params(cfg, device=device)
+        except FileNotFoundError:  # no checkpoint: stop, never random weights in its place
+            ap.error(f"no checkpoint for {cfg.name}: {loader.searched(cfg.name)}; "
+                     "pass --random-init for seeded random weights")
     if args.lora:
         params = loralib.merge_adapter(params, loralib.load_adapter(cfg, args.lora))
     params = quant.apply_quant_mode(args.quant, params,

@@ -7,11 +7,14 @@ end]} (offsets into the data section, which follows the header), plus an
 optional "__metadata__" map of strings to strings; then the tensors' raw
 little-endian bytes, packed back to back.
 
-Dtypes handled: F32, F16 and BF16 (what peft adapters hold). Tensors come
-back as numpy arrays; BF16 has no numpy type without ml_dtypes, so it is
-widened to float32 through its 16-bit pattern (`uint16 << 16`), which is
-exact. The writer takes numpy arrays and torch tensors (a bf16 tensor is
-written as its raw 16-bit pattern).
+Dtypes handled: F32, F16 and BF16 (what peft adapters and dense HF
+checkpoints hold); any other raises. `get_tensor` returns a numpy array;
+BF16 has no numpy type without ml_dtypes, so it is widened to float32
+through its 16-bit pattern (`uint16 << 16`), which is exact. `get_torch`
+returns a torch tensor in the file's own dtype, a BF16 one over the file's
+bytes: the same values at half the host memory of the widened array, which
+is what a model checkpoint wants. The writer takes numpy arrays and torch
+tensors (a bf16 tensor is written as its raw 16-bit pattern).
 """
 
 from __future__ import annotations
@@ -65,25 +68,45 @@ class SafeOpen:
     def metadata(self) -> Optional[Dict[str, str]]:
         return self._meta
 
-    def get_tensor(self, name: str) -> np.ndarray:
+    def _read(self, name: str) -> tuple:
+        """(dtype code, shape, the tensor's bytes as a bytearray), its byte
+        count checked against its shape."""
         info = self._header[name]
         code, shape = info["dtype"], tuple(int(d) for d in info["shape"])
+        if code != "BF16" and code not in _NP_DTYPES:
+            raise ValueError(f"safetensors: dtype {code} of {name!r} is not supported")
         begin, end = (int(o) for o in info["data_offsets"])
+        raw = bytearray(end - begin)
         with open(self.path, "rb") as f:
             f.seek(self._data_start + begin)
-            raw = f.read(end - begin)
-        if len(raw) != end - begin:
+            got = f.readinto(raw)
+        if got != end - begin:
             raise ValueError(f"safetensors: {name!r} runs past the end of {self.path}")
+        item = 2 if code == "BF16" else np.dtype(_NP_DTYPES[code]).itemsize
+        if len(raw) != int(np.prod(shape, dtype=np.int64)) * item:
+            raise ValueError(
+                f"safetensors: {name!r} has {len(raw)} bytes for shape {shape} {code}")
+        return code, shape, raw
+
+    def get_tensor(self, name: str) -> np.ndarray:
+        code, shape, raw = self._read(name)
         if code == "BF16":
             bits = np.frombuffer(raw, dtype="<u2").astype(np.uint32) << 16
             return bits.view(np.float32).reshape(shape)
-        if code not in _NP_DTYPES:
-            raise ValueError(f"safetensors: dtype {code} of {name!r} is not supported")
         dt = np.dtype(_NP_DTYPES[code]).newbyteorder("<")
-        if len(raw) != int(np.prod(shape, dtype=np.int64)) * dt.itemsize:
-            raise ValueError(
-                f"safetensors: {name!r} has {len(raw)} bytes for shape {shape} {code}")
         return np.frombuffer(raw, dtype=dt).reshape(shape).astype(dt.newbyteorder("="))
+
+    def get_torch(self, name: str) -> torch.Tensor:
+        """One tensor as a CPU torch tensor in the file's dtype (BF16 stays
+        bf16, viewing the bytes read; F32 and F16 as get_tensor reads them)."""
+        code, shape, raw = self._read(name)
+        if code == "BF16":
+            if not raw:  # frombuffer refuses an empty buffer
+                return torch.empty(shape, dtype=torch.bfloat16)
+            return torch.frombuffer(raw, dtype=torch.bfloat16).reshape(shape)
+        dt = np.dtype(_NP_DTYPES[code]).newbyteorder("<")
+        return torch.from_numpy(
+            np.frombuffer(raw, dtype=dt).reshape(shape).astype(dt.newbyteorder("=")))
 
 
 def load_file(path: str) -> Dict[str, np.ndarray]:
@@ -92,20 +115,27 @@ def load_file(path: str) -> Dict[str, np.ndarray]:
         return {k: f.get_tensor(k) for k in f.keys()}
 
 
+def _le_bytes(a: np.ndarray, dtype) -> np.ndarray:
+    """`a` as a flat uint8 array of its little-endian bytes: a view where
+    `a` already is contiguous little-endian, so a large tensor is not copied."""
+    return np.ascontiguousarray(a).astype(dtype, copy=False).reshape(-1).view(np.uint8)
+
+
 def _encode(value: Any) -> tuple:
-    """(dtype code, shape, little-endian bytes) of one array or tensor."""
+    """(dtype code, shape, little-endian bytes as a uint8 array) of one
+    array or tensor."""
     if isinstance(value, torch.Tensor):
         t = value.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
-            return "BF16", list(t.shape), t.view(torch.int16).numpy().astype("<i2").tobytes()
+            return "BF16", list(t.shape), _le_bytes(t.view(torch.int16).numpy(), "<i2")
         value = t.numpy()
     a = np.asarray(value)
     if a.dtype.name == "bfloat16":  # an ml_dtypes array, written as its bits
-        return "BF16", list(a.shape), np.ascontiguousarray(a).view("<u2").tobytes()
+        return "BF16", list(a.shape), _le_bytes(a.view(np.uint16), "<u2")
     code = _CODES.get(a.dtype.newbyteorder("<").str)
     if code is None:
         raise ValueError(f"safetensors: cannot write numpy dtype {a.dtype}")
-    return code, list(a.shape), np.ascontiguousarray(a, dtype=a.dtype.newbyteorder("<")).tobytes()
+    return code, list(a.shape), _le_bytes(a, a.dtype.newbyteorder("<"))
 
 
 def save_file(tensors: Dict[str, Any], path: str,

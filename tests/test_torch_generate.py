@@ -254,11 +254,18 @@ def test_cli_batched_engine_generates_solo_greedy_tokens(capsys, chunk):
 @pytest.mark.parametrize("argv,item", [
     (["--engine", "speculative"], "A7"), (["--quant", "w8a8"], "A6"), ([], "A5"),
 ])
-def test_cli_refuses_what_is_not_ported(capsys, argv, item):
+def test_cli_refuses_what_is_not_ported(capsys, monkeypatch, tmp_path, argv, item):
+    """A7 and A6 are refused by name. A5 (checkpoint loading) has landed:
+    without --random-init the tool loads the preset's checkpoint, and with
+    none in an empty HF_HOME it stops with exit 2 naming where it looked,
+    never falling back to random weights."""
+    monkeypatch.setenv("HF_HOME", str(tmp_path))
     extra = [] if item == "A5" else ["--random-init"]
     with pytest.raises(SystemExit) as e:
         gen_cli.main(["--prompt-ids", "1", "--device", "cpu", *extra, *argv])
-    assert e.value.code == 2 and item in capsys.readouterr().err
+    err = capsys.readouterr().err
+    want = str(tmp_path / "hub" / "models--tiny" / "snapshots") if item == "A5" else item
+    assert e.value.code == 2 and want in err
 
 
 # -- the graphed step's contract, held on the CPU (the graphs themselves run

@@ -62,6 +62,36 @@ def test_cpu_tensors_run_the_plain_version_without_building(monkeypatch):
     assert A.flash_gqa.launches == before
 
 
+def test_concurrent_builds_compile_once(tmp_path, monkeypatch):
+    """Builders that start together (a node process while another builds)
+    compile a kernel once: the others wait for its lock and take the
+    library it left, log included. A stand-in compiler counts its runs."""
+    import threading
+
+    csrc, out = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// a kernel\n")
+    runs = tmp_path / "runs"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\necho run >> "%s"\nsleep 0.3\n'
+                    'while [ "$1" != "-o" ]; do shift; done\necho lib > "$2"\n'
+                    'echo "ptxas info: 1 kernel"\n' % runs)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(build, "BUILD_DIR", str(out))
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(nvcc))
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(build.build("k"))) for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert runs.read_text().count("run") == 1
+    assert sorted(r["built"] for r in got) == [False, False, True]
+    assert {r["path"] for r in got} == {build.library_path("k")}
+    assert all("ptxas info" in r["log"] for r in got)
+
+
 def test_plain_version_matches_naive_per_head_softmax():
     """The plain version against a loop over (batch, head, query), written
     from the masking rules alone."""

@@ -158,9 +158,132 @@ def test_rope_and_norm_match_jax():
 
 @pytest.mark.parametrize("name", ["tiny-moe", "tiny-gemma2", "tiny-llama", "tiny-gptoss"])
 def test_unported_architectures_raise(name):
+    """MoE, sandwich norms and sliding windows still raise, naming the
+    ROADMAP item that brings them; tiny-llama (llama3 RoPE) has landed and
+    initialises and runs."""
     cfg = tcfg.get_config(name)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    if name == "tiny-llama":
+        p = tq.init_params(cfg, torch.Generator().manual_seed(0))
+        logits, _, _ = tq.forward(p, cfg, torch.tensor([[1, 2, 3]]))
+        assert logits.shape == (1, 3, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+        return
+    item = {"tiny-moe": "A5c", "tiny-gemma2": "A5b", "tiny-gptoss": "A5b"}[name]
+    with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
         tq.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+# -- scaled RoPE and the Llama-3 family -----------------------------------------------
+
+ROPE_PRESETS = ["llama3.2-1b", "llama3.1-8b", "tiny-llama", "gpt-oss-20b", "tiny-gptoss"]
+ROPE_POSITIONS = 4096  # every position a node serves (MAX_LEN)
+
+
+class _AnglesSeen:
+    """The JAX module's jnp, keeping the argument of every cos it takes:
+    the angle table rope_cos_sin builds, before the yarn attention factor."""
+
+    def __init__(self):
+        self.angles = []
+
+    def cos(self, x):
+        self.angles.append(np.asarray(x))
+        return jnp.cos(x)
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+@pytest.mark.parametrize("name", ROPE_PRESETS)
+def test_scaled_rope_matches_jax(monkeypatch, name):
+    """llama3 and yarn RoPE against the reference at every served position.
+
+    inv_freq (the angles at position 1) within 1 ulp of the reference's:
+    `theta ** x` may round differently in XLA and torch. cos and sin at
+    positions 0..4095 within pos * ulp(f) + ulp(angle) (that 1-ulp step of
+    f moved by the position, then the product's rounding), times the
+    attention factor, plus 2 ulps of 1 for cos/sin themselves."""
+    cj, ct = jcfg.get_config(name), tcfg.get_config(name)
+    assert ct.rope_scaling == cj.rope_scaling != "none"
+    pos = np.arange(ROPE_POSITIONS, dtype=np.int32)[None, :]
+    jcos, jsin = (np.asarray(x) for x in jq.rope_cos_sin(jnp.asarray(pos), cj.head_dim,
+                                                        cj.rope_theta, cj))
+    tcos, tsin = (x.numpy() for x in tq.rope_cos_sin(torch.from_numpy(pos), ct.head_dim,
+                                                     ct.rope_theta, ct))
+    seen = _AnglesSeen()
+    with monkeypatch.context() as m:
+        m.setattr(jq, "jnp", seen)
+        jq.rope_cos_sin(jnp.ones((1, 1), jnp.int32), cj.head_dim, cj.rope_theta, cj)
+    j_freq = seen.angles[0][0, 0, : cj.head_dim // 2]  # the angles at position 1
+    exps = torch.arange(0, ct.head_dim, 2, dtype=torch.float32) / ct.head_dim
+    t_freq, factor = tq._scaled_inv_freq(1.0 / (ct.rope_theta ** exps), ct.head_dim,
+                                         ct.rope_theta, ct)
+    t_freq = t_freq.numpy()
+    assert (factor != 1.0) == (name in ("gpt-oss-20b", "tiny-gptoss"))
+    ulps = np.abs(t_freq.view(np.int32).astype(np.int64) - j_freq.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 1, ulps
+    f = j_freq
+    angle = pos[0, :, None].astype(np.float32) * f[None, :]
+    tol = factor * (pos[0, :, None] * np.spacing(f)[None, :] + np.spacing(angle)) + 2 * 2.0**-24
+    tol = np.concatenate([tol, tol], axis=-1)[None]
+    for got, want in ((tcos, jcos), (tsin, jsin)):
+        assert got.shape == want.shape == (1, ROPE_POSITIONS, cj.head_dim)
+        assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
+
+
+@pytest.fixture(scope="module")
+def tiny_llama():
+    cfg_j = jcfg.TINY_LLAMA
+    p = jq.init_params(cfg_j, jax.random.PRNGKey(5))
+    rng = np.random.default_rng(5)  # norms off ones, so a mis-applied weight shows
+    p["final_norm"] = jnp.asarray(1.0 + 0.1 * rng.standard_normal(p["final_norm"].shape),
+                                  jnp.float32)
+    p["layers"]["input_norm"] = jnp.asarray(
+        1.0 + 0.1 * rng.standard_normal(p["layers"]["input_norm"].shape), jnp.float32)
+    return p, convert.params_from_numpy(jax.tree.map(np.asarray, p), tcfg.TINY_LLAMA)
+
+
+def test_tiny_llama_forward_matches_jax(tiny_llama):
+    """tiny-llama (llama3 RoPE, no q/k norm, no bias) against the JAX forward,
+    f32, atol 1e-4; 160 positions, past rope_original_max_position (128),
+    so the slowed bands turn."""
+    jp, tp = tiny_llama
+    toks = _tokens(21, 2, 160, jcfg.TINY_LLAMA.vocab_size)
+    ref, _, _ = jq.forward(jp, jcfg.TINY_LLAMA, jnp.asarray(toks))
+    got, _, _ = tq.forward(tp, tcfg.TINY_LLAMA, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-4)
+
+
+def test_tiny_llama_cache_matches_cacheless(tiny_llama):
+    """KV-cached decode == the cacheless forward for the llama variant (the
+    reference's test_llama_cache_matches_cacheless), atol 2e-4 as there."""
+    _, tp = tiny_llama
+    cfg = tcfg.TINY_LLAMA
+    toks = torch.from_numpy(_tokens(4, 1, 10, cfg.vocab_size)).long()
+    full, _, _ = tq.forward(tp, cfg, toks)
+    cache = KVCache.create(cfg, cfg.num_layers, 1, 32)
+    logits, cache = tq.forward_cached(tp, cfg, toks[:, :6], None, cache, 0)
+    cache.length = 6
+    outs = [logits[:, -1]]
+    for i in range(6, 10):
+        logits, cache = tq.forward_cached(tp, cfg, toks[:, i:i + 1], None, cache, cache.length)
+        cache.length += 1
+        outs.append(logits[:, 0])
+    np.testing.assert_allclose(torch.stack(outs, dim=1).numpy(), full[:, 5:10].numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_tiny_llama_stage_split_matches_full(tiny_llama):
+    """Two sliced stages == the full layer stack (the reference's
+    test_stage_split_matches_full), at offset positions on the scaled bands."""
+    _, tp = tiny_llama
+    cfg = tcfg.TINY_LLAMA
+    toks = torch.from_numpy(_tokens(2, 2, 5, cfg.vocab_size)).long()
+    positions = 150 + torch.arange(5).expand(2, 5)
+    hidden = tq.embed(tp, toks, cfg)
+    full, _, _ = tq.forward_layers(tp["layers"], cfg, hidden, positions)
+    h, _, _ = tq.forward_layers(tq.slice_layers(tp["layers"], 0, 2), cfg, hidden, positions)
+    h, _, _ = tq.forward_layers(tq.slice_layers(tp["layers"], 2, 4), cfg, h, positions)
+    np.testing.assert_allclose(h.numpy(), full.numpy(), rtol=1e-5, atol=1e-5)
 
 
 def test_init_params_layout_matches_jax():
