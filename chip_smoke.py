@@ -16,7 +16,9 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               sweeps skipped) through the port's control plane, on the
               host's CPU: a line per fixture (PASS or FAIL, goodput or event
               count, wall ms) and the total; any FAIL fails the run. No
-              process started, no card memory used
+              process started, no card memory used; in the full run it runs
+              while the prestarted node processes start (its wall times
+              then share the host's CPU with them)
   codec       the native wire codec against the pure-Python one in this
               process, in interleaved rounds: pack and unpack of a decode
               envelope (a bf16 hidden row), a coalesced window of 8 rows and
@@ -25,7 +27,10 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               the main path's shapes (Qwen3-0.6B: bf16, Nq 16, Nkv 8, D 128)
               and feature cases, and at the Llama-3 heads (Nq 32, Nkv 8, D 64
               and D 128: the decode main case, the lanes' chunk, the route
-              boundary at 4 and 5 positions; paged's main case at D 64);
+              boundary at 4 and 5 positions; paged's main case at D 64) and
+              at Qwen3-30B-A3B's (Nq 32, Nkv 4, D 128, a group of 8: the
+              same cases, the boundary at 2 and 3 positions; paged's main
+              case); each boundary case asserts its predicted route;
               the per-row error against a stated
               tolerance, beside the readings of planted faults that it must
               catch; kernel / plain / library (or yardstick) times from CUDA
@@ -91,9 +96,11 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               both replicas serving the concurrent ones; flash_gqa routes
               exact and every decode step a capture or replay on each node;
               a stage-1 envelope posted to the seed is relayed and answered;
-              eight sessions grow to the top KV bucket and each node's idle
-              buffers stay within the pool's byte bound (/stats
-              executor.buffers beside the device memory reserved); replica B
+              eight sessions at once, four routed by their clients to each
+              replica, grow to the top KV bucket and each node's idle
+              buffers stay within the pool's byte bound, every node
+              releasing some (/stats executor.buffers beside the device
+              memory reserved); replica B
               killed with no tombstone: two new sessions complete on A,
               token-exact, with one dead hop counted, and B's record leaves
               the seed's view within the TTL; a relay-mode --stage-lanes pair,
@@ -171,7 +178,9 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               node's flash_gqa launches = 14 x (its forward passes + 2 per
               migration, the warm-up's first chunk and decode step)
   serve_quant_int8, serve_quant_int4
-              the serve traffic on two run_node --quant int8 (then int4)
+              the serve prompts of 16 and 700 tokens (ENGINE_PROMPT_LENS:
+              the 16-row prefill takes the GEMVs' tensor-core route), 32
+              greedy tokens each, on two run_node --quant int8 (then int4)
               processes: streams equal in-process quantized executors'; the
               GEMV kernels' launches exact on both nodes (7 per layer on
               every pass of at most 64 rows, plus the head on the last
@@ -294,7 +303,8 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
   generate    the whole model in this process (the serve checkpoints joined,
               bf16) through core.generate.Engine, whose decode steps and
               K-step windows replay captured CUDA graphs: on the serve
-              prompts (32 new tokens), generate at chunk 1 and at chunk 8 and
+              prompts of 16 and 700 tokens (ENGINE_PROMPT_LENS; 32 new
+              tokens), generate at chunk 1 and at chunk 8 and
               generate_scan give the same tokens, greedy and under the
               default sampling config (0.6/20/0.95) with one seed, and equal
               the eager step function's (no graph, the same kv bounds) bit
@@ -314,7 +324,8 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               (torch.profiler), graphed and eager, and the sampler's device
               time per call
   generate_quant
-              the same engine on --quant int8 weights: chunk 8 equals chunk 1,
+              the same engine on --quant int8 weights (the same two
+              prompts): chunk 8 equals chunk 1,
               greedy; w8a16 launches exact per route (7 x 28 + 1 per decode
               step, all simt); the headline regime's generate_scan
   generate_batched
@@ -386,7 +397,8 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               --weights <snapshot> --device cuda, whose stage files must equal
               an in-process split of the drawn params byte for byte; the serve
               checks on its two run_node --device cuda stages (8 + 8 layers):
-              the serve traffic, flash_gqa launches exact per node and route,
+              the serve prompts of 100 and 700 tokens, 32 greedy tokens each,
+              flash_gqa launches exact per node and route,
               every decode step a capture or a replay, the streams equal the
               in-process eager executors', teacher-forced within HIDDEN_TOL and
               LOGIT_TOL of plain attention with E2E_FAULTS caught, TTFT,
@@ -397,8 +409,36 @@ Phases, one or more lines each; any failure raises and the exit code is 1:
               Llama-3.1-8B's width (hidden 4096, 32 / 8 heads, intermediate
               14336, untied head) cut to 4 layers: its checkpoint loaded to the
               card equals the drawn params, the graphed Engine's greedy stream
-              of the 300-token prompt equals the eager one with flash_gqa
+              of the 100-token prompt equals the eager one with flash_gqa
               launches exact, and teacher-forced it holds the same gates
+  serve_moe   mixture-of-experts models, after serve_llama (no other node
+              process up): Qwen3-30B-A3B at its published width (hidden
+              2048, 32 / 4 heads x 128, 128 experts top-8 x 768, vocab
+              151936, untied head) cut to 6 of its 48 layers, drawn from a
+              seed on the card and written with Qwen3-MoE's names
+              (mlp.gate, mlp.experts.{e}.{gate,up,down}_proj), bf16, in 4
+              safetensors shards under an HF cache layout (parameters and
+              bytes printed); one MoE layer's graphed time at a decode row
+              beside its roofline bound (the router and the 8 active
+              experts) and the bytes dense dispatch reads (every expert);
+              tools/split_model --weights --num-layers 6: both stage files
+              (3 + 3 layers, each expert stack 1.2 GB, flax's chunked form)
+              equal the in-process split byte for byte; the serve checks on
+              two run_node --device cuda stages with prompts of 100 and 700
+              tokens and 16 greedy tokens each (launches exact per node and
+              route, every decode step a capture or a replay, streams equal
+              the eager executors', teacher-forced within HIDDEN_TOL and
+              LOGIT_TOL of plain attention with E2E_FAULTS caught);
+              tools/generate --num-layers 6 without --random-init gives the
+              chain's ids; in process at 3 layers: paged lane executors
+              (bs 32) serve four co-batched sessions graphed equal to eager
+              with paged and flash launches exact, teacher-forced against
+              plain attention with LANE_E2E_FAULTS caught, and --quant int8
+              and int4 Engines (GEMV launches exact per route) teacher-forced
+              against the explicitly dequantized Engine; then Mixtral-8x7B's
+              width (hidden 4096, 32 / 8 x 128, 8 experts top-2 x 14336,
+              vocab 32000) cut to 2 layers, drawn on the card: its MoE layer
+              timed, and a 300-token prompt's graphed stream equal to eager
   cli         python -m inferd_tpu_torch.tools.generate --model qwen3-0.6b
               --random-init --prompt-ids ... --max-new-tokens 16 --chunk 8 as a
               subprocess, on the card by default: exit 0, 16 ids; and (inside
@@ -428,13 +468,13 @@ Exits non-zero without a CUDA device, and outside a checkout.
 split serve, serve_quant, serve_lanes, serve_lanes_quant, serve_lanes_lora,
 serve_tenant_routes, serve_sessions, serve_standby,
 serve_swarm, serve_overload, serve_elastic, generate, generate_batched,
-serve_batch, serve_kstep, serve_fp8, anatomy, profile, serve_llama: serve_quant
+serve_batch, serve_kstep, serve_fp8, anatomy, profile, serve_llama, serve_moe: serve_quant
 runs int8 and int4, serve_lanes_lora runs serve_lanes first, serve_tenant_routes runs
 serve_lanes and serve_lanes_lora first, serve_swarm runs serve and
 serve_lanes first, serve_overload and serve_elastic run serve first, generate
 runs the generate and generate_quant phases, serve_batch runs
-generate_batched first, serve_llama writes its own checkpoint and needs no
-Qwen split) builds the kernels and runs those phases alone, with no result
+generate_batched first, serve_llama and serve_moe write their own
+checkpoints and need no Qwen split) builds the kernels and runs those phases alone, with no result
 lines.
 """
 
@@ -541,6 +581,23 @@ CASES += [dict(c, name=f"{c['name']}_{tag}", heads=heads)
                    stream=False),
               dict(name="route_rows_16", s=4, t=1024, q_start=700, kv_len=704, stream=False),
               dict(name="route_rows_20", s=5, t=1024, q_start=700, kv_len=705, stream=False))]
+# Qwen3-30B-A3B's heads (serve_moe): 32 q / 4 kv x 128, a GQA group of 8,
+# the first run of G 8 on the card. The decode step packs 8 rows per kv
+# head into the split route's tile; the route boundary: 2 positions x 8
+# heads = 16 packed rows split KV, 3 (24 rows) take the tensor cores.
+MOE_HEADS = {"d128g8": (32, 4, 128)}
+CASES += [dict(c, name=f"{c['name']}_{tag}", heads=heads)
+          for tag, heads in MOE_HEADS.items() for c in (
+              dict(name="main_decode_T1024", s=1, t=1024, q_start=731, kv_len=732,
+                   stream=False, blind=("causal_off_by_one",)),
+              dict(name="lanes_chunk_256_T1024", s=256, t=1024, q_start=[444], kv_len=[700],
+                   stream=False),
+              dict(name="route_rows_16", s=2, t=1024, q_start=700, kv_len=702, stream=False),
+              dict(name="route_rows_24", s=3, t=1024, q_start=700, kv_len=703, stream=False))]
+# the route each head shape's boundary cases must take (flash_plan's)
+ROUTE_CASES = {"route_rows_16": "split", "route_rows_18": "mma", "route_rows_20": "mma",
+               "route_rows_24": "mma"}
+OTHER_HEADS = dict(LLAMA_HEADS, **MOE_HEADS)  # beside Qwen3-0.6B's, on the kernels line
 MAIN_CASE = "main_decode_T1024"  # the serve phase's decode step: T = 1024 bucket
 LANES_CHUNK_CASE = "lanes_chunk_256_T1024"  # a lane node's prefill dispatch (tensor cores)
 
@@ -586,6 +643,9 @@ PAGED_CASES: List[Dict[str, Any]] = [
     # the main case at Llama-3.2-1B's heads (D 64, a group of 4)
     dict(name="paged_main_b8_bs32_d64g4", kv_len=[17, 60, 101, 230, 301, 480, 701, 1000],
          nb=1025, heads=LLAMA_HEADS["d64g4"]),
+    # and at Qwen3-30B-A3B's (D 128, a group of 8: the wrapper's largest)
+    dict(name="paged_main_b8_bs32_d128g8", kv_len=[17, 60, 101, 230, 301, 480, 701, 1000],
+         nb=1025, heads=MOE_HEADS["d128g8"]),
 ]
 PAGED_MAIN_CASE = "paged_main_b8_bs32"
 
@@ -698,8 +758,12 @@ LORA_TENANT_B_SD = 0.125  # B ~ N(0, (LORA_TENANT_B_SD / sqrt(r))^2), alpha = 2r
 LORA_E2E_FAULTS = ("neighbour_slot", "layer_off_by_one")
 
 
+_T0 = time.perf_counter()
+
+
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of the log: the phase, the seconds since the script started."""
+    print(f"[{phase} {time.perf_counter() - _T0:.1f}s] {msg}", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -877,6 +941,10 @@ def run_kernel_cases() -> List[Dict[str, Any]]:
         torch.cuda.synchronize()
         if moved != {r: int(r == plan.route) for r in moved}:
             raise AssertionError(f"{c['name']}: route counts moved {moved}, plan {plan.route}")
+        predicted = ROUTE_CASES.get(c["name"].rsplit("_d", 1)[0] if "heads" in c else c["name"])
+        if predicted is not None and plan.route != predicted:
+            raise AssertionError(f"{c['name']}: flash_plan routes it {plan.route}, predicted "
+                                 f"{predicted}")
         if not bool(torch.isfinite(got.float()).all()):
             raise AssertionError(f"{c['name']}: kernel output is not finite")
         if not torch.equal(got, again):
@@ -1663,14 +1731,16 @@ def start_node(parts: str, stage: int, log_dir: str, extra=(), tag: str = "") ->
 _PRESTARTED: Dict[tuple, List[Dict[str, Any]]] = {}
 
 
-def prestart_nodes(parts: str, work: str, specs, swarms=(), singles=()) -> None:
+def prestart_nodes(parts: str, work: str, specs, swarms=(), singles=(),
+                   meanwhile: Callable[[], Any] = lambda: None) -> Any:
     """Start the two stage processes of each (extra, tag) in `specs`, the
     swarms that `swarm_nodes` describes for each (parts, tag) in `swarms`,
     and one whole-model process for each (one-stage parts, extra, tag) in
-    `singles`, now, all at once, and wait until every one answers: its
+    `singles`, now, all at once, run `meanwhile` in this process (work on
+    the host that needs no node), and wait until every one answers: its
     phase then takes them fresh and idle (start_nodes, take_swarm,
     start_single) instead of waiting ~8 s for its own, and no process is
-    still starting while a phase measures."""
+    still starting while a phase measures. Returns what `meanwhile` did."""
     t0 = time.perf_counter()
     for extra, tag in specs:
         _PRESTARTED[(parts, tuple(extra), tag)] = [start_node(parts, s, work, extra, tag)
@@ -1679,6 +1749,7 @@ def prestart_nodes(parts: str, work: str, specs, swarms=(), singles=()) -> None:
         _PRESTARTED[(parts1, tuple(extra), tag)] = [start_node(parts1, 0, work, extra, tag)]
     for swarm_parts, tag in swarms:
         _PRESTARTED[("swarm", tag)] = swarm_nodes(swarm_parts, work, tag)
+    done = meanwhile()
     for nodes in _PRESTARTED.values():
         for n in nodes:
             wait_ready(n)
@@ -1686,6 +1757,7 @@ def prestart_nodes(parts: str, work: str, specs, swarms=(), singles=()) -> None:
     say("nodes", f"{count} run_node processes of {len(specs) + len(swarms) + len(singles)} node "
                  "sets started "
                  f"at once, ready in {time.perf_counter() - t0:.1f}s")
+    return done
 
 
 def start_nodes(parts: str, work: str, extra=(), tag: str = "") -> List[Dict[str, Any]]:
@@ -2257,10 +2329,13 @@ def gemv_launches(layers: int, last: bool, small_dispatches: int, dispatches: in
 
 
 def gemv_projections(cfg) -> List[tuple]:
-    """[K, N] of the seven per-layer projections, and the head's [K, N]."""
+    """[K, N] of the per-layer projections that contract through a GEMV
+    (the seven of a dense layer; an MoE layer's four attention ones: its
+    expert stacks contract in ops.quant.qeinsum), and the head's [K, N]."""
     h, q, kv = cfg.hidden_size, cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     i = cfg.intermediate_size
-    return [(h, q), (h, kv), (h, kv), (q, h), (h, i), (h, i), (i, h)], (h, cfg.vocab_size)
+    mlp = [] if cfg.is_moe else [(h, i), (h, i), (i, h)]
+    return [(h, q), (h, kv), (h, kv), (q, h)] + mlp, (h, cfg.vocab_size)
 
 
 def gemv_route_launches(cfg, quant_flag, layers: int, last: bool, small_rows: List[int],
@@ -2342,13 +2417,16 @@ def check_kernel_path(phase: str, cfg, probe, plain_probe, prompts, streams, pla
 
 
 def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None,
-              model: str = MODEL, phase: Optional[str] = None) -> Dict[str, Any]:
+              model: str = MODEL, phase: Optional[str] = None, cfg=None,
+              prompt_lens=PROMPT_LENS, new_tokens: int = NEW_TOKENS) -> Dict[str, Any]:
     """The `serve` phase, or with quant_flag its `serve_quant` run on
     --quant nodes (the GEMV kernel path then held to the plain-GEMV path,
     and `baseline`'s bf16 rates printed beside its own), or with another
-    `model` and `phase` (serve_llama) the serve checks on that model's
-    parts, without the concurrent waves, the frozen-fill fault and the
-    capture cost, which the serve phase measures once."""
+    `model` and `phase` (serve_llama, serve_moe) the serve checks on that
+    model's parts (`cfg` when its depth is cut; `prompt_lens` and
+    `new_tokens` its traffic), without the concurrent waves, the
+    frozen-fill fault and the capture cost, which the serve phase
+    measures once."""
     import numpy as np
     import torch
 
@@ -2363,7 +2441,7 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None,
 
     phase = phase or ("serve" if quant_flag is None else f"serve_quant_{quant_flag}")
     extra = [] if quant_flag is None else ["--quant", quant_flag]
-    cfg = get_config(model)
+    cfg = cfg or get_config(model)
     full = quant_flag is None and model == MODEL  # the serve phase itself
     greedy = SamplingConfig(temperature=0.0)
     nodes: List[Dict[str, Any]] = []
@@ -2384,7 +2462,7 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None,
                 raise AssertionError(f"nodes did work before the main path: {before}")
             if st["quant"] != (quant_flag or "none"):
                 raise AssertionError(f"node serves quant {st['quant']}, want {quant_flag}")
-        prompts = serve_prompts(cfg.vocab_size)
+        prompts = serve_prompts(cfg.vocab_size, prompt_lens)
         streams, timing = [], []
 
         async def drive():
@@ -2394,7 +2472,7 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None,
                     stamps: List[float] = []
                     t_req = time.perf_counter()
                     ids = await client.generate_ids(
-                        p, max_new_tokens=NEW_TOKENS,
+                        p, max_new_tokens=new_tokens,
                         on_token=lambda _tok: stamps.append(time.perf_counter()))
                     streams.append(ids)
                     timing.append((t_req, stamps))
@@ -2403,21 +2481,21 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None,
         after = stats()
         rates = []
         for i, (p, ids, (t_req, stamps)) in enumerate(zip(prompts, streams, timing)):
-            if len(ids) != NEW_TOKENS:
-                raise AssertionError(f"prompt {len(p)}: {len(ids)} tokens, want {NEW_TOKENS}")
+            if len(ids) != new_tokens:
+                raise AssertionError(f"prompt {len(p)}: {len(ids)} tokens, want {new_tokens}")
             ttft = (stamps[0] - t_req) * 1e3
             tps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
             rates.append((ttft, tps))
             beside = ""
             if baseline is not None:
-                b_ttft, b_tps = baseline["rates"][i]
+                b_ttft, b_tps = baseline["rates"][PROMPT_LENS.index(len(p))]
                 beside = f"; bf16 serve in this run: TTFT {b_ttft:.1f} ms, {b_tps:.1f} tok/s"
             say(phase, f"prompt {len(p)} tokens: TTFT {ttft:.1f} ms, decode "
                        f"{tps:.1f} tok/s over {len(stamps) - 1} steps ({card}){beside}")
 
         # every forward pass of a prompt chunk pads to its bucket; decode is 1 row
         rows = [bucket_len(len(p[c:c + 512])) for p in prompts for c in range(0, len(p), 512)]
-        decode_passes = len(prompts) * (NEW_TOKENS - 1)
+        decode_passes = len(prompts) * (new_tokens - 1)
         rows += [1] * decode_passes
         expected_passes = len(rows)
         route_launches = {"split": 0, "mma": 0}
@@ -2484,7 +2562,7 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None,
 
         async def local(executors):
             client = make_local_client(executors, greedy)
-            return [await client.generate_ids(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+            return [await client.generate_ids(p, max_new_tokens=new_tokens) for p in prompts]
 
         local_streams = asyncio.run(local(kernel_ex))
         for p, a_, b_ in zip(prompts, streams, local_streams):
@@ -2494,14 +2572,15 @@ def run_serve(card: str, parts: str, work: str, quant_flag=None, baseline=None,
                                      f"executors' stream from token {diverge}")
         say(phase, "served streams (graphed decode steps) equal the in-process eager "
                    f"executors' streams, token for token ({len(prompts)} requests x "
-                   f"{NEW_TOKENS} tokens)")
+                   f"{new_tokens} tokens)")
         if full:
             check_frozen_fill_caught(
                 phase, "one-session executors",
                 lambda: [Qwen3StageExecutor(cfg, spec, params, max_len=MAX_LEN)
                          for params, spec, _ in loaded], prompts[1])
         if quant_flag is None:
-            extra_out["step_share"] = stage_step_share(phase, card, loaded, prompts[2], cfg,
+            # the longest prompt but one (the serve phase's 300 tokens)
+            extra_out["step_share"] = stage_step_share(phase, card, loaded, prompts[-2], cfg,
                                                        capture=full)
 
         probe = [kernel_ex[0], LastStageProbe(cfg, loaded[1][1], loaded[1][0], max_len=MAX_LEN)]
@@ -3579,18 +3658,21 @@ def post_wire(port: int, path: str, body: Dict[str, Any]):
     return status, wire.unpack(raw)
 
 
-def check_planned_routes(phase: str, st: Dict[str, Any], sessions: int) -> Dict[str, Any]:
-    """The seed's planned-route counts from its /stats: a route planned and
-    followed for each of its `sessions` new sessions, none stale and no plan
+def check_planned_routes(phase: str, st: Dict[str, Any], sessions: int,
+                         client_routed: int = 0) -> Dict[str, Any]:
+    """The seed's planned-route counts from its /stats: a route followed for
+    each of its `sessions` new sessions, planned by the seed for all but the
+    `client_routed` ones whose client sent a route, none stale and no plan
     failed (both replicas live)."""
     c = st["metrics"]["counters"]
     seen = {k: int(c.get(f"route.{k}", 0)) for k in ("planned", "followed", "stale",
                                                       "plan_failed")}
     seen.update(planner=st["routes"]["planner"], recent=st["routes"]["recent"])
-    if (seen["planned"] != sessions or seen["followed"] != sessions or seen["stale"]
-            or seen["plan_failed"]):
-        raise AssertionError(f"{phase}: the seed's route counts {seen}, want {sessions} "
-                             "planned and followed, none stale or failed")
+    if (seen["planned"] != sessions - client_routed or seen["followed"] != sessions
+            or seen["stale"] or seen["plan_failed"]):
+        raise AssertionError(f"{phase}: the seed's route counts {seen}, want "
+                             f"{sessions - client_routed} planned and {sessions} followed, "
+                             "none stale or failed")
     return seen
 
 
@@ -3849,7 +3931,19 @@ def run_serve_swarm(card: str, parts: str, work: str, serve, lanes) -> Dict[str,
         grow = [rng.integers(0, cfg.vocab_size, SWARM_GROW_PROMPT).tolist()
                 for _ in range(SWARM_GROW_SESSIONS)]
         pre = stats(one)
-        run(swarm_client(one), grow, concurrent=True, new=2)
+
+        async def grow_all():
+            # all at once, half routed to each replica: each replica's pool
+            # then meets more idle buffers than its bound holds (a pick by
+            # load alone may leave a replica two sessions, which fit under it)
+            clients = [routed_swarm_client(seed["port"], {"1": node_id(r)}, greedy,
+                                           prefill_chunk=512) for r in (rep_a, rep_b)]
+            async with clients[0] as ca, clients[1] as cb:
+                return await asyncio.gather(*(
+                    (ca if i % 2 == 0 else cb).generate_ids(p, max_new_tokens=2)
+                    for i, p in enumerate(grow)))
+
+        asyncio.run(grow_all())
         post = stats(one)
         slot = kv_slot_bytes(cfg, layers)
         buckets, b = [], bucket_len(512)
@@ -3880,9 +3974,11 @@ def run_serve_swarm(card: str, parts: str, work: str, serve, lanes) -> Dict[str,
         run_routed_client(phase, card, gossip_port, prompts, serve["streams"], replica_names)
         run_cli_send_routed(card, gossip_port, prompts[0], serve["streams"][0])
         routes_seen = check_planned_routes(phase, stats([seed])[0],
-                                           2 * len(prompts) + SWARM_GROW_SESSIONS)
+                                           2 * len(prompts) + SWARM_GROW_SESSIONS,
+                                           client_routed=SWARM_GROW_SESSIONS)
         say(phase, f"before the kill the seed planned {routes_seen['planned']} routes for its "
-                   f"{2 * len(prompts) + SWARM_GROW_SESSIONS} new sessions, followed "
+                   f"{2 * len(prompts) + SWARM_GROW_SESSIONS} new sessions (the "
+                   f"{SWARM_GROW_SESSIONS} growing ones routed by their clients), followed "
                    f"{routes_seen['followed']}, stale {routes_seen['stale']}, plan failures "
                    f"{routes_seen['plan_failed']}")
 
@@ -5795,22 +5891,31 @@ def run_serve_standby(card: str, parts: str, params, work: str,
 
 # -- generate, generate_quant, serve_kstep, cli: the whole model in one process --
 
+# The serve prompts the in-process engines and the quantized and K-step
+# nodes run (a subset keeps every route: 16 tokens is the one prefill of at
+# most 64 rows, the GEMVs' tensor-core route; 700 crosses the client's
+# 512-token chunk and takes the longest decode span)
+ENGINE_PROMPT_LENS = (16, 700)
 GEN_CHUNK = 8  # fused decode steps per host read in the chunked runs (generate(chunk=8))
 GEN_SEED = 11  # the sampler's seed in the sampled runs
 # bench.py's headline regime: a 64-token prompt, generate_scan at 50 and 150
 # steps under the default SamplingConfig, differenced in interleaved pairs
 HEADLINE_PROMPT = 64
 HEADLINE_STEPS = (50, 150)
-HEADLINE_PAIRS = 3
+HEADLINE_PAIRS = 2
 KSTEP_WINDOW = 8  # serve_kstep: decode_steps per /forward
 
 
-def serve_prompts(vocab: int) -> List[List[int]]:
-    """The serve phase's prompts (PROMPT_LENS tokens each, from seed 0)."""
+def serve_prompts(vocab: int, lens=PROMPT_LENS) -> List[List[int]]:
+    """The serve phase's prompts (PROMPT_LENS tokens each, from seed 0), or
+    those of them whose lengths are in `lens` (the same tokens)."""
     import numpy as np
 
+    if set(lens) - set(PROMPT_LENS):
+        raise ValueError(f"prompt lengths {lens} are not among the serve phase's {PROMPT_LENS}")
     rng = np.random.default_rng(0)
-    return [rng.integers(0, vocab, n).tolist() for n in PROMPT_LENS]
+    drawn = [rng.integers(0, vocab, n).tolist() for n in PROMPT_LENS]
+    return [p for p in drawn if len(p) in lens]
 
 
 def _wrappers():
@@ -5872,11 +5977,12 @@ def first_divergence(a: List[int], b: List[int]) -> int:
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
 
 
-def check_flash_routes(phase: str, counts, runs: int, layers: int) -> None:
-    """One prefill chunk per run on the tensor cores, NEW_TOKENS - 1 decode
+def check_flash_routes(phase: str, counts, runs: int, layers: int,
+                       new: int = NEW_TOKENS) -> None:
+    """One prefill chunk per run on the tensor cores, `new` - 1 decode
     steps on the split-KV route, `layers` launches each, as flash_plan
     routes them: exact."""
-    want = {"split": layers * (NEW_TOKENS - 1) * runs, "mma": layers * runs}
+    want = {"split": layers * (new - 1) * runs, "mma": layers * runs}
     got = counts["flash_routes"]
     say(phase, f"flash_gqa routes {got} over {runs} generations (want {want}: {got == want})")
     if got != want or counts["launches"]["flash_gqa"] != sum(want.values()):
@@ -6081,7 +6187,7 @@ def run_generate(card: str, params, serve: Optional[Dict[str, Any]]) -> Dict[str
 
     phase = "generate"
     cfg = get_config(MODEL)
-    prompts = serve_prompts(cfg.vocab_size)
+    prompts = serve_prompts(cfg.vocab_size, ENGINE_PROMPT_LENS)
     greedy_cfg = SamplingConfig(temperature=0.0)
     engines = {"greedy": Engine(cfg, params, sampling_cfg=greedy_cfg),
                "sampled (0.6/20/0.95)": Engine(cfg, params)}
@@ -6146,7 +6252,7 @@ def run_generate(card: str, params, serve: Optional[Dict[str, Any]]) -> Dict[str
             del faulty
     say(phase, f"planted fault kv_slot_early (a window's later steps write their K/V one slot "
                f"early): chunk {GEN_CHUNK} differs from chunk 1 on prompts {caught} of "
-               f"{list(PROMPT_LENS)}")
+               f"{list(ENGINE_PROMPT_LENS)}")
     if not any(caught.values()):
         raise AssertionError("planted fault kv_slot_early passes the chunk equality")
 
@@ -6161,10 +6267,13 @@ def run_generate(card: str, params, serve: Optional[Dict[str, Any]]) -> Dict[str
     if not l_err <= LOGIT_TOL:
         raise AssertionError(f"{phase}: kernel path vs plain attention, logits {l_err}")
     del plain, got, ref
-    for p, a, s in zip(prompts, greedy, serve["streams"] if serve else ()):
-        say(phase, f"prompt {len(p)}: the engine's greedy stream shares its first "
-                   f"{first_divergence(a, s)} of {NEW_TOKENS} tokens with the serve phase's "
-                   "chain stream (printed, not gated: other buffers, other split plans)")
+    served = dict(zip(PROMPT_LENS, serve["streams"])) if serve else {}
+    for p, a in zip(prompts, greedy):
+        if len(p) in served:
+            say(phase, f"prompt {len(p)}: the engine's greedy stream shares its first "
+                       f"{first_divergence(a, served[len(p)])} of {NEW_TOKENS} tokens with the "
+                       "serve phase's chain stream (printed, not gated: other buffers, other "
+                       "split plans)")
 
     # bench.py's headline regime, and what a step and the sampler cost
     rng = np.random.default_rng(1)
@@ -6221,7 +6330,7 @@ def run_generate_quant(card: str, params) -> Dict[str, Any]:
 
     phase = "generate_quant"
     cfg = get_config(MODEL)
-    prompts = serve_prompts(cfg.vocab_size)
+    prompts = serve_prompts(cfg.vocab_size, ENGINE_PROMPT_LENS)
     qparams = quant.apply_quant_mode("int8", params, tie_word_embeddings=cfg.tie_word_embeddings)
     eng = Engine(cfg, qparams, sampling_cfg=SamplingConfig(temperature=0.0))
     reset_kernel_counts()
@@ -6868,7 +6977,7 @@ def run_serve_batch(card: str, params, work: str, gen: Dict[str, Any]) -> Dict[s
 # The anatomy phase: perf/anatomy.profile_step on the whole model at the
 # headline regime's context, bf16, --quant int8, and paged (bs PAGED_BS).
 ANATOMY_CASES = (("bf16", "none", 0), ("int8", "int8", 0), (f"paged bs {PAGED_BS}", "none", PAGED_BS))
-ANATOMY_PAIRS = 3
+ANATOMY_PAIRS = 2
 
 
 def run_anatomy(card: str, params) -> Dict[str, Any]:
@@ -7302,10 +7411,12 @@ def cpu_name() -> str:
     return f"{model or platform.processor() or platform.machine()}, {os.cpu_count()} cores"
 
 
-def run_sim() -> List[Dict[str, Any]]:
+def run_sim(beside: str = "") -> List[Dict[str, Any]]:
     """The `sim` phase: the port's fleet simulator replays the committed
     fixtures (the slow 1000-node sweeps skipped) on the host's CPU; any
-    fixture off its gates or its pinned expect (trace hash included) fails."""
+    fixture off its gates or its pinned expect (trace hash included) fails.
+    `beside` names what shares the host's CPU meanwhile (printed with the
+    wall times)."""
     import torch
 
     from inferd_tpu_torch.sim import scenario as simlib
@@ -7336,7 +7447,7 @@ def run_sim() -> List[Dict[str, Any]]:
             failed.append(name)
     total = time.perf_counter() - t_all
     say(phase, f"{len(paths)} fixtures ({slow} slow skipped), {len(paths) - len(failed)} PASS, in "
-               f"{total:.2f}s wall on the host CPU ({cpu_name()}); no card memory used: "
+               f"{total:.2f}s wall on the host CPU ({cpu_name()}{beside}); no card memory used: "
                f"{torch.cuda.memory_allocated() == mem0}")
     if not paths or failed:
         raise AssertionError(f"{phase}: fixtures failed: {failed or 'none found'}")
@@ -7353,7 +7464,8 @@ LLAMA_WIDE_LAYERS = 4
 LLAMA_SEEDS = {LLAMA_MODEL: 21, LLAMA_WIDE: 22}  # the weights' seeds (drawn on the card)
 LLAMA_REV = "5eed" * 10  # the snapshot's revision in the HF cache layout
 LLAMA_SHARDS = 2  # safetensors files per checkpoint: the loader reads a sharded one
-LLAMA_GEN_PROMPT = 2  # the serve prompt (300 tokens) the generate tool and the wide check run
+LLAMA_PROMPT_LENS = (100, 700)  # the Llama chain's traffic (the second crosses the 512 chunk)
+LLAMA_GEN_PROMPT = 0  # the prompt (100 tokens) the generate tool and the wide check run
 HF_LAYER_NAMES = {  # the port's stacked layer params -> HF's names ([out, in] when transposed)
     "input_norm": ("input_layernorm.weight", False),
     "post_norm": ("post_attention_layernorm.weight", False),
@@ -7362,89 +7474,152 @@ HF_LAYER_NAMES = {  # the port's stacked layer params -> HF's names ([out, in] w
     "gate_proj": ("mlp.gate_proj.weight", True), "up_proj": ("mlp.up_proj.weight", True),
     "down_proj": ("mlp.down_proj.weight", True),
 }
+HF_QK_NORMS = {"q_norm": ("self_attn.q_norm.weight", False),
+               "k_norm": ("self_attn.k_norm.weight", False)}
+MOE_LEAVES = ("router", "gate_proj", "up_proj", "down_proj")  # Qwen3-MoE: mlp.gate, mlp.experts.{e}
 
 
 def hf_state_dict(params, cfg) -> Dict[str, Any]:
-    """A Llama model's params as HF's checkpoint holds them: HF's names,
-    linear weights [out, in], bf16, on the host; no lm_head.weight when
-    the head is tied."""
+    """A Llama or Qwen3(-MoE) model's params as HF's checkpoint holds them:
+    HF's names, linear weights [out, in], bf16, on the host; no
+    lm_head.weight when the head is tied. An MoE layer's router is
+    `mlp.gate.weight` and its experts `mlp.experts.{e}.{gate,up,down}_proj`:
+    each layer's expert stack moves to the host once, every expert a view
+    of it."""
     import torch
 
-    if set(params["layers"]) != set(HF_LAYER_NAMES):
-        raise AssertionError(f"layer params {sorted(params['layers'])} are not a Llama's")
+    names = dict(HF_LAYER_NAMES, **(HF_QK_NORMS if cfg.qk_norm else {}))
+    want = set(names) | ({"router"} if cfg.is_moe else set())
+    if set(params["layers"]) != want:
+        raise AssertionError(f"layer params {sorted(params['layers'])} are not {sorted(want)}")
 
     def host(t, transpose=False):
-        return (t.T if transpose else t).contiguous().to(torch.bfloat16).cpu()
+        return (t.transpose(-1, -2) if transpose else t).contiguous().to(torch.bfloat16).cpu()
 
     sd = {"model.embed_tokens.weight": host(params["embed"]),
           "model.norm.weight": host(params["final_norm"])}
-    for key, (name, transpose) in HF_LAYER_NAMES.items():
+    for key, (name, transpose) in names.items():
+        if cfg.is_moe and key in MOE_LEAVES:
+            continue
         for i in range(cfg.num_layers):
             sd[f"model.layers.{i}.{name}"] = host(params["layers"][key][i], transpose)
+    for i in range(cfg.num_layers if cfg.is_moe else 0):
+        sd[f"model.layers.{i}.mlp.gate.weight"] = host(params["layers"]["router"][i], True)
+        for key in MOE_LEAVES[1:]:
+            stack = host(params["layers"][key][i], True)  # [E, out, in]
+            for e in range(cfg.num_experts):
+                sd[f"model.layers.{i}.mlp.experts.{e}.{key}.weight"] = stack[e]
     if "lm_head" in params:
         sd["lm_head.weight"] = host(params["lm_head"], True)
     return sd
 
 
-def write_hf_checkpoint(d: str, sd: Dict[str, Any], layers: int) -> int:
-    """`sd` as LLAMA_SHARDS safetensors files in `d`, split by layer as the
+def write_hf_checkpoint(d: str, sd: Dict[str, Any], layers: int,
+                        shards: int = LLAMA_SHARDS) -> int:
+    """`sd` as `shards` safetensors files in `d`, split by layer as the
     hub's shards are (the embedding with the first layers, the norm and an
     untied head with the last), through the port's writer; the bytes
     written."""
     from inferd_tpu_torch.utils.safetensors_io import save_file
 
     os.makedirs(d, exist_ok=True)
-    per = -(-layers // LLAMA_SHARDS)
+    per = -(-layers // shards)
 
     def shard(name: str) -> int:
         if name.startswith("model.layers."):
             return int(name.split(".")[2]) // per
-        return 0 if "embed_tokens" in name else LLAMA_SHARDS - 1
+        return 0 if "embed_tokens" in name else shards - 1
 
     total = 0
-    for s in range(LLAMA_SHARDS):
-        path = os.path.join(d, f"model-{s + 1:05d}-of-{LLAMA_SHARDS:05d}.safetensors")
+    for s in range(shards):
+        path = os.path.join(d, f"model-{s + 1:05d}-of-{shards:05d}.safetensors")
         save_file({k: v for k, v in sd.items() if shard(k) == s}, path)
         total += os.path.getsize(path)
     return total
 
 
-def same_bytes(a: str, b: str) -> bool:
-    if os.path.getsize(a) != os.path.getsize(b):
-        return False
-    with open(a, "rb") as fa, open(b, "rb") as fb:
-        while True:
-            x, y = fa.read(64 << 20), fb.read(64 << 20)
-            if x != y:
-                return False
-            if not x:
-                return True
-
-
-def draw_llama(phase: str, card: str, name: str, cfg, d: str):
-    """`cfg`'s params from its seed, on the card, written to `d` as an HF
-    checkpoint (the bytes and seconds printed); returns the params."""
+def draw_checkpoint(phase: str, card: str, name: str, cfg, d: str, seed: Optional[int] = None,
+               shards: int = LLAMA_SHARDS):
+    """`cfg`'s params from its seed (LLAMA_SEEDS'), on the card, written to
+    `d` as an HF checkpoint in `shards` files (the parameters, tensor bytes
+    and seconds printed); returns the params."""
     import torch
 
     from inferd_tpu_torch.models import qwen3
 
+    seed = LLAMA_SEEDS[name] if seed is None else seed
     t0 = time.perf_counter()
-    params = qwen3.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(LLAMA_SEEDS[name]),
+    params = qwen3.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
                                device=DEVICE)
     torch.cuda.synchronize()
     t_draw = time.perf_counter() - t0
     t0 = time.perf_counter()
     sd = hf_state_dict(params, cfg)
-    nbytes = write_hf_checkpoint(d, sd, cfg.num_layers)
+    nbytes = write_hf_checkpoint(d, sd, cfg.num_layers, shards)
     t_write = time.perf_counter() - t0
+    numel = sum(t.numel() for t in sd.values())
     say(phase, f"checkpoint of {name} ({cfg.num_layers} layers, hidden {cfg.hidden_size}, heads "
                f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim}, vocab {cfg.vocab_size}, "
-               f"{'tied' if cfg.tie_word_embeddings else 'untied'} head): {len(sd)} tensors, "
-               f"{nbytes} bytes bf16 in {LLAMA_SHARDS} safetensors files, drawn on the card in "
+               f"{'tied' if cfg.tie_word_embeddings else 'untied'} head"
+               + (f", {cfg.num_experts} experts top-{cfg.num_experts_per_tok} x "
+                  f"{cfg.moe_intermediate_size}" if cfg.is_moe else "")
+               + f"): {len(sd)} tensors, {numel} parameters, {2 * numel} bytes of bf16 "
+               f"tensors, {nbytes} bytes in {shards} safetensors files, drawn on the card in "
                f"{t_draw:.2f} s, moved to the host and written in {t_write:.2f} s "
                f"({nbytes / t_write / 1e9:.2f} GB/s) ({card})")
     del sd
-    return params, {"bytes": nbytes, "draw_s": t_draw, "write_s": t_write}
+    return params, {"bytes": nbytes, "tensor_bytes": 2 * numel, "params": numel,
+                    "draw_s": t_draw, "write_s": t_write}
+
+
+def start_generate_tool(model: str, prompt: List[int], new: int, home: str,
+                        layers: int = 0) -> subprocess.Popen:
+    """python -m inferd_tpu_torch.tools.generate without --random-init on
+    the HF cache at `home`, greedy, started now (a phase's chain serves
+    while it loads the whole checkpoint): finish it with tool_ids."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "inferd_tpu_torch.tools.generate", "--model", model,
+         *(["--num-layers", str(layers)] if layers else []),
+         "--prompt-ids", ",".join(map(str, prompt)), "--max-new-tokens", str(new),
+         "--temperature", "0", "--max-len", str(MAX_LEN), "--device", DEVICE],
+        cwd=REPO, env=dict(os.environ, HF_HOME=home), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def tool_ids(phase: str, tool: subprocess.Popen) -> List[int]:
+    """The ids a start_generate_tool process printed (exit 0 required)."""
+    try:
+        out, err = tool.communicate(timeout=600)
+    finally:
+        if tool.poll() is None:
+            tool.kill()
+            tool.wait()
+    if tool.returncode != 0 or "generated ids:" not in out:
+        raise AssertionError(f"{phase}: tools/generate exited {tool.returncode}: "
+                             f"{out[-2000:]} {err[-4000:]}")
+    return json.loads(out.split("generated ids:", 1)[1].strip())
+
+
+def serve_beside(phase: str, params, cfg, name: str, parts: str, tool: subprocess.Popen,
+                 serve: Callable[[], Dict[str, Any]]) -> tuple:
+    """`serve()` (a phase's chain) while, beside it, a thread holds both
+    stage files of `parts` to the in-process split of `params`
+    (check_stage_files) and the generate tool runs: (serve's result, the
+    tool's ids, the seconds until both were done)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        check = pool.submit(check_stage_files, phase, params, cfg, parts, name)
+        try:
+            out = serve()
+            ids = tool_ids(phase, tool)
+        finally:
+            if tool.poll() is None:
+                tool.kill()
+                tool.wait()
+        check.result()
+    return out, ids, time.perf_counter() - t0
 
 
 def run_serve_llama(card: str, work: str) -> Dict[str, Any]:
@@ -7456,8 +7631,7 @@ def run_serve_llama(card: str, work: str) -> Dict[str, Any]:
     from inferd_tpu_torch.config import HF_REPOS, SamplingConfig, get_config
     from inferd_tpu_torch.core.generate import Engine
     from inferd_tpu_torch.models.loader import load_params
-    from inferd_tpu_torch.parallel.stages import (Manifest, split_and_save,
-                                                  stage_checkpoint_path)
+    from inferd_tpu_torch.parallel.stages import stage_checkpoint_path
     from inferd_tpu_torch.tools import split_model
 
     phase = "serve_llama"
@@ -7468,54 +7642,34 @@ def run_serve_llama(card: str, work: str) -> Dict[str, Any]:
     repo = os.path.join(home, "hub",
                         "models--" + HF_REPOS.get(LLAMA_MODEL, LLAMA_MODEL).replace("/", "--"))
     snap = os.path.join(repo, "snapshots", LLAMA_REV)
-    params, ckpt = draw_llama(phase, card, LLAMA_MODEL, cfg, snap)
+    params, ckpt = draw_checkpoint(phase, card, LLAMA_MODEL, cfg, snap)
     os.makedirs(os.path.join(repo, "refs"))
     with open(os.path.join(repo, "refs", "main"), "w") as f:
         f.write(LLAMA_REV)
-    # the split the checkpoint must give: the same params split in this
-    # process, their layers in the name order the loader keeps
-    ref_parts = os.path.join(work, "llama_ref_parts")
-    split_and_save(dict(params, layers=dict(sorted(params["layers"].items()))), cfg,
-                   Manifest.even_split(cfg.name, 2), ref_parts)
-    del params
-    torch.cuda.empty_cache()
     parts = os.path.join(work, "llama_parts")
     t0 = time.perf_counter()
     split_model.main(["--model", LLAMA_MODEL, "--stages", "2", "--weights", snap, "--out", parts,
                       "--device", DEVICE])
     t_split = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    for s in range(2):
-        a, b = stage_checkpoint_path(parts, s), stage_checkpoint_path(ref_parts, s)
-        if not same_bytes(a, b):
-            raise AssertionError(f"{phase}: stage {s} split from the checkpoint differs from the "
-                                 "in-process split of the same params")
     say(phase, f"tools/split_model --weights <snapshot> --device {DEVICE}: loaded and split in "
-               f"{t_split:.2f} s; both stage files equal the in-process split of the drawn "
-               f"params byte for byte ({os.path.getsize(stage_checkpoint_path(parts, 0))} + "
+               f"{t_split:.2f} s ({os.path.getsize(stage_checkpoint_path(parts, 0))} + "
                f"{os.path.getsize(stage_checkpoint_path(parts, 1))} bytes)")
-    shutil.rmtree(ref_parts)
 
     free, total = torch.cuda.mem_get_info()
     say(phase, f"the card before its node processes start: {free / 2**30:.2f} GiB free of "
                f"{total / 2**30:.2f} GiB ({card})")
-    serve = run_serve(card, parts, work, model=LLAMA_MODEL, phase=phase)
-
-    # the generate tool without --random-init, from the HF cache, against
-    # an Engine over load_params of the same snapshot
-    prompt = serve_prompts(cfg.vocab_size)[LLAMA_GEN_PROMPT]
-    t0 = time.perf_counter()
-    run = subprocess.run(
-        [sys.executable, "-m", "inferd_tpu_torch.tools.generate", "--model", LLAMA_MODEL,
-         "--prompt-ids", ",".join(map(str, prompt)), "--max-new-tokens", str(NEW_TOKENS),
-         "--temperature", "0", "--max-len", str(MAX_LEN), "--device", DEVICE],
-        cwd=REPO, env=dict(os.environ, HF_HOME=home), capture_output=True, text=True,
-        timeout=600)
-    t_tool = time.perf_counter() - t0
-    if run.returncode != 0 or "generated ids:" not in run.stdout:
-        raise AssertionError(f"{phase}: tools/generate exited {run.returncode}: "
-                             f"{run.stdout[-2000:]} {run.stderr[-4000:]}")
-    tool_ids = json.loads(run.stdout.split("generated ids:", 1)[1].strip())
+    # beside the chain: the stage files held to the in-process split of the
+    # drawn params, and the generate tool without --random-init from the HF
+    # cache (its ids held to an Engine over load_params of the snapshot)
+    prompt = serve_prompts(cfg.vocab_size, LLAMA_PROMPT_LENS)[LLAMA_GEN_PROMPT]
+    tool = start_generate_tool(LLAMA_MODEL, prompt, NEW_TOKENS, home)
+    serve, got_ids, t_beside = serve_beside(
+        phase, params, cfg, LLAMA_MODEL, parts, tool,
+        lambda: run_serve(card, parts, work, model=LLAMA_MODEL, phase=phase,
+                          prompt_lens=LLAMA_PROMPT_LENS))
+    del params
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     loaded = load_params(cfg, snap, device=DEVICE)
     torch.cuda.synchronize()
@@ -7524,15 +7678,15 @@ def run_serve_llama(card: str, work: str) -> Dict[str, Any]:
     want = eng.generate(prompt, NEW_TOKENS)
     del eng, loaded
     torch.cuda.empty_cache()
-    if tool_ids != want:
+    if got_ids != want:
         raise AssertionError(f"{phase}: tools/generate's ids differ from the Engine's from token "
-                             f"{first_divergence(tool_ids, want)}")
+                             f"{first_divergence(got_ids, want)}")
     chain = serve["streams"][LLAMA_GEN_PROMPT]
-    say(phase, f"tools/generate --model {LLAMA_MODEL} (no --random-init, HF_HOME the cache) in "
-               f"{t_tool:.1f} s: exit 0, its {len(tool_ids)} ids equal an Engine over "
+    say(phase, f"tools/generate --model {LLAMA_MODEL} (no --random-init, HF_HOME the cache; "
+               f"beside the chain) exited 0: its {len(got_ids)} ids equal an Engine over "
                f"load_params of the snapshot (loaded to the card in {t_load:.2f} s, "
                f"{ckpt['bytes'] / t_load / 1e9:.2f} GB/s, warm); they share their first "
-               f"{first_divergence(tool_ids, chain)} of {NEW_TOKENS} tokens with the chain's "
+               f"{first_divergence(got_ids, chain)} of {NEW_TOKENS} tokens with the chain's "
                f"stream of the {len(prompt)}-token prompt (printed, not gated: other buffers, "
                f"other split plans) ({card})")
     wide = run_llama_wide(phase, card, work)
@@ -7543,7 +7697,7 @@ def run_serve_llama(card: str, work: str) -> Dict[str, Any]:
             counts[k][name] += v
     return dict(counts, streams=serve["streams"], rates=serve["rates"],
                 step_share=serve["step_share"], checkpoint=ckpt, split_s=t_split,
-                load_s=t_load, tool_s=t_tool, wide=wide)
+                load_s=t_load, serve_beside_s=t_beside, wide=wide)
 
 
 def run_llama_wide(phase: str, card: str, work: str) -> Dict[str, Any]:
@@ -7561,7 +7715,7 @@ def run_llama_wide(phase: str, card: str, work: str) -> Dict[str, Any]:
 
     cfg = get_config(LLAMA_WIDE).with_layers(LLAMA_WIDE_LAYERS)
     d = os.path.join(work, "llama_wide")
-    drawn, ckpt = draw_llama(phase, card, LLAMA_WIDE, cfg, d)
+    drawn, ckpt = draw_checkpoint(phase, card, LLAMA_WIDE, cfg, d)
     t0 = time.perf_counter()
     params = load_params(cfg, d, device=DEVICE)
     torch.cuda.synchronize()
@@ -7578,7 +7732,7 @@ def run_llama_wide(phase: str, card: str, work: str) -> Dict[str, Any]:
     say(phase, f"{LLAMA_WIDE} x {LLAMA_WIDE_LAYERS} layers: load_params to the card in "
                f"{t_load:.2f} s ({ckpt['bytes'] / t_load / 1e9:.2f} GB/s, warm), every "
                f"parameter equal to the drawn one ({card})")
-    prompt = serve_prompts(cfg.vocab_size)[LLAMA_GEN_PROMPT]
+    prompt = serve_prompts(cfg.vocab_size, LLAMA_PROMPT_LENS)[LLAMA_GEN_PROMPT]
     greedy = SamplingConfig(temperature=0.0)
     eng = Engine(cfg, params, max_len=MAX_LEN, sampling_cfg=greedy)
     reset_kernel_counts()
@@ -7614,6 +7768,460 @@ def run_llama_wide(phase: str, card: str, work: str) -> Dict[str, Any]:
     return dict(counts, checkpoint=ckpt, load_s=t_load, stream=stream)
 
 
+# -- serve_moe: mixture-of-experts models --------------------------------------------------
+
+MOE_MODEL = "qwen3-moe-30b-a3b"  # its published width; MOE_LAYERS of its 48 layers, 3 + 3
+MOE_LAYERS = 6
+MOE_WIDE = "mixtral-8x7b"  # its published width in process, MOE_WIDE_LAYERS of its 32 layers
+MOE_WIDE_LAYERS = 2
+MOE_SEEDS = {MOE_MODEL: 31, MOE_WIDE: 32}  # the weights' seeds (drawn on the card)
+MOE_SHARDS = 4  # safetensors files of the Qwen3-MoE checkpoint
+MOE_PROMPT_LENS = (100, 700)  # the chain's traffic: the second crosses the client's 512 chunk
+MOE_NEW_TOKENS = 16
+MOE_GEN_PROMPT = 0  # the generate tool's prompt: the 100-token one (the chain's shapes)
+MOE_INPROC_LAYERS = 3  # the paged lanes (2 + 1 layers) and the quantized engines
+MOE_LANE_PROMPT_LENS = (16, 100, 300, 700)  # the paged lanes' four sessions
+MOE_WIDE_PROMPT = 300
+
+
+def moe_layer_time(phase: str, card: str, name: str, cfg, layers) -> Dict[str, Any]:
+    """One MoE layer (models/qwen3.moe_mlp) on a decode row, captured in a
+    CUDA graph and replayed (CUDA events; its weights far exceed L2), beside
+    its bounds: perf/roofline's (the router and the top-k experts a token
+    uses) and the bytes dense dispatch reads (every expert's weights)."""
+    import torch
+
+    from inferd_tpu_torch.models import qwen3
+    from inferd_tpu_torch.perf import roofline as rl
+
+    lp = {k: v[0] for k, v in layers.items()}
+    x = torch.randn((1, 1, cfg.hidden_size), generator=torch.Generator(device=DEVICE)
+                    .manual_seed(0), device=DEVICE).to(cfg.torch_dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            qwen3.moe_mlp(lp, cfg, x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qwen3.moe_mlp(lp, cfg, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, qwen3.moe_mlp(lp, cfg, x)):
+        raise AssertionError(f"{phase}: {name}'s graphed MoE layer differs from the eager one")
+    ms = time_ms(graph.replay)
+    eager_ms = time_ms(lambda: qwen3.moe_mlp(lp, cfg, x), iters=10)
+    active = rl.decode_step_cost(cfg.with_layers(1)).mlp_weight_bytes
+    e, h, i = cfg.num_experts, cfg.hidden_size, cfg.moe_intermediate_size
+    dense = (3 * e * h * i + h * e) * torch.finfo(cfg.torch_dtype).bits // 8
+    bound_ms, dense_ms = active / HBM_BYTES_PER_S * 1e3, dense / HBM_BYTES_PER_S * 1e3
+    say(phase, f"{name}: one MoE layer at a decode row (dense dispatch: {e} experts of "
+               f"{h} x {i}, top-{cfg.num_experts_per_tok}), graphed {ms:.4f} ms (eager "
+               f"{eager_ms:.4f} ms); roofline bound (the router and the "
+               f"{cfg.num_experts_per_tok} active experts, {active} bytes) {bound_ms:.4f} ms, "
+               f"{bound_ms / ms:.1%} of the measured; every expert's weights ({dense} bytes, "
+               f"what dense dispatch reads) {dense_ms:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} "
+               f"TB/s ({card})")
+    del graph, out
+    return {"ms": ms, "eager_ms": eager_ms, "bound_ms": bound_ms, "active_bytes": active,
+            "dense_bytes": dense, "dense_read_ms": dense_ms}
+
+
+def check_stage_files(phase: str, params, cfg, parts: str, name: str) -> None:
+    """Both stage files of `parts` hold, byte for byte, what the port's
+    split of `params` writes (stages.stage_checkpoint_bytes, built here in
+    memory); the chunked leaves (flax's form past MAX_CHUNK_SIZE) counted."""
+    from inferd_tpu_torch.parallel import flax_format
+    from inferd_tpu_torch.parallel.stages import (Manifest, extract_stage_params,
+                                                  stage_checkpoint_path, stage_checkpoint_pieces)
+
+    ordered = dict(params, layers=dict(sorted(params["layers"].items())))
+    manifest = Manifest.even_split(name, 2, num_layers=cfg.num_layers)
+    for spec in manifest.stage_specs():
+        stage = extract_stage_params(ordered, cfg, spec)
+        want = stage_checkpoint_pieces(stage, spec, name)
+        size = sum(memoryview(b).nbytes for b in want)
+        path = stage_checkpoint_path(parts, spec.stage)
+        same = os.path.getsize(path) == size
+        with open(path, "rb") as f:
+            for piece in want:
+                if not same:
+                    break
+                mv = memoryview(piece).cast("B")
+                for at in range(0, len(mv), 64 << 20):
+                    part = mv[at:at + (64 << 20)]
+                    if f.read(len(part)) != part:
+                        same = False
+                        break
+        chunked = [k for k, v in stage["layers"].items()
+                   if v.numel() * v.element_size() > flax_format.MAX_CHUNK_SIZE]
+        say(phase, f"stage {spec.stage} (layers {spec.start_layer}-{spec.end_layer}): "
+                   f"{size} bytes, equal to the in-process split byte for byte: {same}; "
+                   f"leaves past {flax_format.MAX_CHUNK_SIZE} bytes, written chunked: {chunked}")
+        if not same:
+            raise AssertionError(f"{phase}: stage {spec.stage} split from the checkpoint differs "
+                                 "from the in-process split of the same params")
+        if cfg.is_moe and not {"gate_proj", "up_proj", "down_proj"} <= set(chunked):
+            raise AssertionError(f"{phase}: stage {spec.stage}'s expert stacks are not chunked")
+        del want, stage
+
+
+def lane_streams(executors, prompts, new: int) -> List[List[int]]:
+    """Greedy streams through lane executors: each prompt's 512-token
+    chunks one session at a time, then every session's decode steps
+    co-batched, one process_batch per stage per step."""
+    import numpy as np
+
+    sids = [f"lanes-{i}" for i in range(len(prompts))]
+    toks = []
+    for sid, p in zip(sids, prompts):
+        for c in range(0, len(p), 512):
+            out = {"tokens": np.asarray([p[c:c + 512]], np.int32), "start_pos": c,
+                   "real_len": len(p[c:c + 512])}
+            for ex in executors:
+                out = ex.process(sid, out)
+        toks.append([int(out["logits"].float().argmax(-1)[0])])
+    for j in range(new - 1):
+        items = [(sid, {"tokens": [[t[-1]]], "start_pos": len(p) + j, "real_len": 1})
+                 for sid, p, t in zip(sids, prompts, toks)]
+        for ex in executors:
+            outs = ex.process_batch(items)
+            for o in outs:
+                if isinstance(o, Exception):
+                    raise o
+            items = [(sid, {"hidden": o.get("hidden"), "start_pos": o["start_pos"],
+                            "real_len": o["real_len"]}) for (sid, _), o in zip(items, outs)]
+        for t, o in zip(toks, outs):
+            t.append(int(o["logits"].float().argmax(-1)[0]))
+    for ex in executors:
+        for sid in sids:
+            ex.end_session(sid)
+    return toks
+
+
+def moe_paged_lanes(phase: str, card: str, cfg, loaded) -> Dict[str, Any]:
+    """The paged lane executors (bs PAGED_BS, two stages of the cut model)
+    serve four sessions co-batched, graphed, token for token equal to the
+    same executors eager; paged_decode_gqa and flash_gqa launches exact;
+    then teacher-forced, the kernel path near plain attention and the
+    planted paged faults not."""
+    from inferd_tpu_torch.ops import attention as A
+    from inferd_tpu_torch.ops.attention import paged_plan
+
+    prompts = serve_prompts(cfg.vocab_size, MOE_LANE_PROMPT_LENS)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    graphed = lane_executors(cfg, loaded, PAGED_BS, False)
+    streams = lane_streams(graphed, prompts, MOE_NEW_TOKENS)
+    wall = time.perf_counter() - t0
+    graphs = [ex.stats()["graphs"] for ex in graphed]
+    widths = [dict(ex.stats()["decode_widths"]) for ex in graphed]
+    del graphed
+    eager_streams = lane_streams(eager_lanes(cfg, loaded, PAGED_BS, False), prompts,
+                                 MOE_NEW_TOKENS)
+    counts = kernel_counts()
+    counts["paged_split"] = A.paged_decode_gqa.split_launches
+    if eager_streams != streams:
+        bad = next(i for i, (a, b) in enumerate(zip(streams, eager_streams)) if a != b)
+        raise AssertionError(f"{phase}: paged lanes, prompt {len(prompts[bad])}: graphed != eager "
+                             f"from token {first_divergence(streams[bad], eager_streams[bad])}")
+    layers = cfg.num_layers
+    steps = MOE_NEW_TOKENS - 1
+    chunks = sum(-(-len(p[c:c + 512]) // LANE_PREFILL_CHUNK) for p in prompts
+                 for c in range(0, len(p), 512))
+    splits = sum(layers * n for w, n in widths[0].items()
+                 if paged_plan(LANES, cfg.num_kv_heads, int(w), PAGED_BS,
+                               cfg.torch_dtype).splits > 1)
+    want = {"paged_decode_gqa": 2 * layers * steps, "paged_split": 2 * splits,
+            "flash_mma": 2 * layers * chunks, "flash_split": 0}
+    got = {"paged_decode_gqa": counts["launches"]["paged_decode_gqa"],
+           "paged_split": counts["paged_split"], "flash_mma": counts["flash_routes"]["mma"],
+           "flash_split": counts["flash_routes"]["split"]}
+    say(phase, f"paged lanes ({len(prompts)} sessions of {list(MOE_LANE_PROMPT_LENS)} tokens, "
+               f"{MOE_NEW_TOKENS} greedy tokens each, {steps} co-batched decode steps, "
+               f"{layers} layers as 2 + 1, bs {PAGED_BS}): graphed in {wall:.1f} s, equal to the "
+               f"eager lanes token for token; graphs per stage {graphs}; decode widths "
+               f"{widths}; launches {got} (want {want}: {got == want}) ({card})")
+    if got != want or counts["launches"]["w8a16_matmul"] or counts["launches"]["w4a16_matvec"]:
+        raise AssertionError(f"{phase}: paged lanes launched {counts}, want {want}")
+    check_teacher_forced(phase, "paged lanes", cfg, loaded, PAGED_BS, prompts, streams,
+                         faults=LANE_E2E_FAULTS)
+    return counts
+
+
+def dequantized(tree, dtype):
+    """A quantized param tree with every quantized weight widened back to
+    `dtype` (the explicitly dequantized model)."""
+    from inferd_tpu_torch.ops import quant
+
+    if isinstance(tree, dict):
+        return {k: dequantized(v, dtype) for k, v in tree.items()}
+    return tree.dequantize(dtype) if isinstance(tree, quant.QTYPES) else tree
+
+
+# The quantized MoE engines against the explicitly dequantized one, teacher-
+# forced in float32: in bf16 two roundings of the same model flip the
+# router's top-8 at its near-ties (random weights leave the 8th and 9th
+# experts' logits a few bf16 ulps apart; a flip moves the logits by a few %
+# of max |logit| with no fault), so the bf16 engines serve the main path
+# (streams, launches) and the comparison runs on the same quantized bytes
+# with f32 activations (the GEMVs' f32 route), where the two differ only by
+# float32 summation order. Planted faults: the GEMV ones of the quantized
+# serve phases and each expert contraction reading the next expert's
+# scales, every one of which must exceed the limit.
+MOE_QUANT_TOL = 1e-3  # share of max |logit|
+MOE_QUANT_FAULTS = QUANT_E2E_FAULTS + ("expert_scale_rolled",)
+
+
+@contextlib.contextmanager
+def planted_moe_quant_fault(fault: str):
+    """A GEMV fault (planted_gemv_fault), or with "expert_scale_rolled"
+    every quantized expert contraction (models/qwen3's qeinsum) run with
+    each expert's scales taken from the next expert, until the block ends."""
+    if fault != "expert_scale_rolled":
+        with planted_gemv_fault(fault):
+            yield
+        return
+    from inferd_tpu_torch.models import qwen3
+    from inferd_tpu_torch.ops import quant
+
+    real = qwen3.qeinsum
+
+    def faulty(spec, x, w):
+        if isinstance(w, quant.QTYPES):
+            w = dataclasses.replace(w, scale=w.scale.roll(1, dims=0))
+        return real(spec, x, w)
+
+    qwen3.qeinsum = faulty
+    try:
+        yield
+    finally:
+        qwen3.qeinsum = real
+
+
+def moe_quant_engines(phase: str, card: str, cfg, params) -> Dict[str, Any]:
+    """--quant int8 and int4 (as tools/generate and run_node quantize) on
+    the cut model: the bf16 Engine's graphed greedy streams of the
+    serve_moe prompts with the GEMV launches exact per route (the four
+    attention projections of every layer and the head at each decode row;
+    the expert stacks contract in qeinsum); then teacher-forced over those
+    streams in float32 (MOE_QUANT_TOL above), the quantized Engine's
+    logits against the explicitly dequantized Engine's, and the planted
+    MOE_QUANT_FAULTS outside the limit."""
+    import torch
+
+    from inferd_tpu_torch.config import SamplingConfig
+    from inferd_tpu_torch.core.generate import Engine, bucket_len
+    from inferd_tpu_torch.ops import quant
+    from inferd_tpu_torch.ops.qmatmul import MAX_KERNEL_ROWS
+
+    prompts = serve_prompts(cfg.vocab_size, MOE_PROMPT_LENS)
+    greedy = SamplingConfig(temperature=0.0)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict) else v.float())
+                for k, v in params.items()}
+    total: Dict[str, Any] = {}
+    for flag in ("int8", "int4"):
+        qp = quant.apply_quant_mode(flag, params, cfg.tie_word_embeddings)
+        eng = Engine(cfg, qp, max_len=MAX_LEN, sampling_cfg=greedy)
+        reset_kernel_counts()
+        streams = [eng.generate(p, MOE_NEW_TOKENS) for p in prompts]
+        counts = kernel_counts()
+        graphs = eng.graph_stats()
+        nbytes = quant.quantized_bytes(qp)
+        del eng, qp
+        small = [r for p in prompts for r in [bucket_len(len(p))] + [1] * (MOE_NEW_TOKENS - 1)
+                 if r <= MAX_KERNEL_ROWS]
+        name = QMM_KERNEL_OF[flag]
+        want = gemv_route_launches(cfg, flag, cfg.num_layers, True, small,
+                                   [1] * (MOE_NEW_TOKENS * len(prompts)))
+        got = counts["gemv_routes"][name]
+        other = QMM_KERNEL_OF["int4" if flag == "int8" else "int8"]
+        say(phase, f"--quant {flag} ({nbytes} parameter bytes): {len(prompts)} greedy streams of "
+                   f"{MOE_NEW_TOKENS} tokens through the graphed bf16 Engine ({graphs}); {name} "
+                   f"routes {got} (want {want}: {got == want}) ({card})")
+        check_flash_routes(phase, counts, len(prompts), cfg.num_layers, MOE_NEW_TOKENS)
+        if (got != want or counts["launches"][name] != sum(want.values())
+                or counts["launches"][other] or counts["launches"]["paged_decode_gqa"]):
+            raise AssertionError(f"{phase}: --quant {flag} launched {counts}, want {want}")
+        for k in ("launches", "flash_routes", "gemv_routes"):
+            add_counts(total, {k: counts[k]})
+
+        qp32 = quant.apply_quant_mode(flag, params32, cfg.tie_word_embeddings)
+        deq = Engine(cfg32, dequantized(qp32, torch.float32), max_len=MAX_LEN,
+                     sampling_cfg=greedy)
+        deq.graphs = None
+        ref = forced_logits(deq, prompts, streams)
+        del deq
+        eng = Engine(cfg32, qp32, max_len=MAX_LEN, sampling_cfg=greedy)
+        eng.graphs = None  # the faults are planted in Python: no graph may hold the sound step
+
+        def reading():
+            got_l = forced_logits(eng, prompts, streams)
+            return max((g - r).abs().max().item() / r.abs().max().item()
+                       for g, r in zip(got_l, ref))
+
+        readings = {"sound": reading()}
+        for f in MOE_QUANT_FAULTS:
+            with planted_moe_quant_fault(f):
+                readings[f] = reading()
+        say(phase, f"--quant {flag}, float32 activations, teacher-forced over {len(ref)} steps "
+                   f"against the explicitly dequantized Engine: logits "
+                   + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+                   + f" of max |logit| (tol {MOE_QUANT_TOL:g}: the sound path within, every "
+                   f"fault outside) ({card})")
+        if not readings["sound"] <= MOE_QUANT_TOL:
+            raise AssertionError(f"{phase}: --quant {flag} vs the dequantized engine: {readings}")
+        missed = [f for f in MOE_QUANT_FAULTS if not readings[f] > MOE_QUANT_TOL]
+        if missed:
+            raise AssertionError(f"{phase}: --quant {flag}: planted faults {missed} pass: "
+                                 f"{readings}")
+        del eng, qp32, ref
+        torch.cuda.empty_cache()
+    del params32
+    return total
+
+
+def add_counts(total: Dict[str, Any], more: Dict[str, Any]) -> Dict[str, Any]:
+    """Sum nested dicts of launch counts into `total`."""
+    for k, v in more.items():
+        if isinstance(v, dict):
+            add_counts(total.setdefault(k, {}), v)
+        else:
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def run_moe_wide(phase: str, card: str) -> Dict[str, Any]:
+    """Mixtral-8x7B's published width (8 experts top-2 of 14336, untied
+    head) cut to MOE_WIDE_LAYERS layers, drawn on the card: its MoE layer
+    timed, and the graphed Engine's greedy stream of a 300-token prompt
+    equal to the eager one with flash_gqa launches exact."""
+    import torch
+
+    from inferd_tpu_torch.config import SamplingConfig, get_config
+    from inferd_tpu_torch.core.generate import Engine
+    from inferd_tpu_torch.models import qwen3
+
+    cfg = get_config(MOE_WIDE).with_layers(MOE_WIDE_LAYERS)
+    params = qwen3.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(MOE_SEEDS[MOE_WIDE]),
+                               device=DEVICE)
+    layer = moe_layer_time(phase, card, f"{MOE_WIDE} x {MOE_WIDE_LAYERS}", cfg, params["layers"])
+    prompt = serve_prompts(cfg.vocab_size, (MOE_WIDE_PROMPT,))[0]
+    greedy = SamplingConfig(temperature=0.0)
+    eng = Engine(cfg, params, max_len=MAX_LEN, sampling_cfg=greedy)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    stream = eng.generate(prompt, MOE_NEW_TOKENS)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    check_flash_routes(phase, counts, 1, cfg.num_layers, MOE_NEW_TOKENS)
+    others = {k: v for k, v in counts["launches"].items() if k != "flash_gqa"}
+    graphs = eng.graph_stats()
+    eager = Engine(cfg, params, max_len=MAX_LEN, sampling_cfg=greedy)
+    eager.graphs = None
+    e = eager.generate(prompt, MOE_NEW_TOKENS)
+    del eng, eager, params
+    torch.cuda.empty_cache()
+    if any(others.values()):
+        raise AssertionError(f"{phase}: {MOE_WIDE} launched {others}")
+    if e != stream:
+        raise AssertionError(f"{phase}: {MOE_WIDE}'s graphed stream differs from the eager one "
+                             f"from token {first_divergence(e, stream)}")
+    say(phase, f"{MOE_WIDE} x {MOE_WIDE_LAYERS} (hidden {cfg.hidden_size}, heads "
+               f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim}, {cfg.num_experts} experts "
+               f"top-{cfg.num_experts_per_tok} x {cfg.moe_intermediate_size}, vocab "
+               f"{cfg.vocab_size}, {'tied' if cfg.tie_word_embeddings else 'untied'} head), "
+               f"drawn on the card: {MOE_NEW_TOKENS} greedy "
+               f"tokens of the {len(prompt)}-token prompt in {wall:.2f} s through the graphed "
+               f"Engine ({graphs}), equal to the eager step's stream")
+    return dict(counts, layer=layer, stream=stream)
+
+
+def run_serve_moe(card: str, work: str) -> Dict[str, Any]:
+    """The `serve_moe` phase: Qwen3-30B-A3B at its published width, 6 of
+    its 48 layers, from an HF checkpoint in Qwen3-MoE's names through
+    tools/split_model --weights --num-layers 6 (chunked stage files), two
+    run_node stages, the generate tool; in process at 3 layers the paged
+    lanes and --quant int8 / int4; Mixtral-8x7B's width at 2 layers."""
+    import torch
+
+    from inferd_tpu_torch.config import HF_REPOS, get_config
+    from inferd_tpu_torch.parallel.stages import StageSpec, extract_stage_params
+    from inferd_tpu_torch.tools import split_model
+
+    phase = "serve_moe"
+    t_phase = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    say(phase, f"the card before the phase: {free / 2**30:.2f} GiB free of "
+               f"{total / 2**30:.2f} GiB ({card})")
+    cfg = get_config(MOE_MODEL).with_layers(MOE_LAYERS)
+    home = os.path.join(work, "hf_moe")
+    repo = os.path.join(home, "hub",
+                        "models--" + HF_REPOS.get(MOE_MODEL, MOE_MODEL).replace("/", "--"))
+    snap = os.path.join(repo, "snapshots", LLAMA_REV)
+    params, ckpt = draw_checkpoint(phase, card, MOE_MODEL, cfg, snap, seed=MOE_SEEDS[MOE_MODEL],
+                              shards=MOE_SHARDS)
+    os.makedirs(os.path.join(repo, "refs"))
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(LLAMA_REV)
+    layer = moe_layer_time(phase, card, f"{MOE_MODEL} x {MOE_LAYERS}", cfg, params["layers"])
+    parts = os.path.join(work, "moe_parts")
+    t0 = time.perf_counter()
+    split_model.main(["--model", MOE_MODEL, "--num-layers", str(MOE_LAYERS), "--stages", "2",
+                      "--weights", snap, "--out", parts, "--device", DEVICE])
+    torch.cuda.synchronize()
+    t_split = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    say(phase, f"tools/split_model --weights <snapshot> --num-layers {MOE_LAYERS} --device "
+               f"{DEVICE}: loaded and split in {t_split:.2f} s ({card})")
+
+    # beside the chain: the stage files held byte for byte to the in-process
+    # split of the drawn params, and the generate tool without --random-init
+    # from the HF cache (it loads the whole checkpoint), held to the chain's ids
+    prompt = serve_prompts(cfg.vocab_size, MOE_PROMPT_LENS)[MOE_GEN_PROMPT]
+    tool = start_generate_tool(MOE_MODEL, prompt, MOE_NEW_TOKENS, home, layers=MOE_LAYERS)
+    serve, got_ids, t_beside = serve_beside(
+        phase, params, cfg, MOE_MODEL, parts, tool,
+        lambda: run_serve(card, parts, work, model=MOE_MODEL, phase=phase, cfg=cfg,
+                          prompt_lens=MOE_PROMPT_LENS, new_tokens=MOE_NEW_TOKENS))
+    # the in-process checks' model: the first MOE_INPROC_LAYERS layers, as two stages
+    small = cfg.with_layers(MOE_INPROC_LAYERS)
+    cut = dict(params, layers={k: v[:MOE_INPROC_LAYERS].clone()
+                               for k, v in params["layers"].items()})
+    del params
+    torch.cuda.empty_cache()
+    chain = serve["streams"][MOE_GEN_PROMPT]
+    say(phase, f"tools/generate --model {MOE_MODEL} --num-layers {MOE_LAYERS} (no --random-init, "
+               f"HF_HOME the cache; beside the chain) exited 0: "
+               f"{len(got_ids)} ids; equal to the chain's stream of the {len(prompt)}-token "
+               f"prompt: {got_ids == chain}")
+    if got_ids != chain:
+        raise AssertionError(f"{phase}: tools/generate's ids differ from the chain's from token "
+                             f"{first_divergence(got_ids, chain)}")
+    shutil.rmtree(home)
+
+    # in process, MOE_INPROC_LAYERS layers: the paged lanes, the quantized engines
+    specs = [StageSpec(0, 2, 0, MOE_INPROC_LAYERS - 2),
+             StageSpec(1, 2, MOE_INPROC_LAYERS - 1, MOE_INPROC_LAYERS - 1)]
+    loaded = [(extract_stage_params(cut, small, spec), spec, MOE_MODEL) for spec in specs]
+    lanes = moe_paged_lanes(phase, card, small, loaded)
+    del loaded
+    quant_counts = moe_quant_engines(phase, card, small, cut)
+    del cut
+    torch.cuda.empty_cache()
+    wide = run_moe_wide(phase, card)
+    say(phase, f"lap {time.perf_counter() - t_phase:.1f} s")
+    counts = {k: serve[k] for k in ("launches", "flash_routes", "gemv_routes")}
+    for more in (lanes, quant_counts, wide):
+        add_counts(counts, {k: more[k] for k in ("launches", "flash_routes", "gemv_routes")})
+    return dict(counts, streams=serve["streams"], rates=serve["rates"],
+                step_share=serve["step_share"], checkpoint=ckpt, split_s=t_split,
+                serve_beside_s=t_beside, layer=layer, wide_layer=wide["layer"],
+                paged_split=lanes["paged_split"])
+
+
 CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_qmm_cases,
                "lora": run_lora_cases, "codec": run_codec, "sim": run_sim}
 # --only phases that need the model's split (serve_quant runs int8 and int4;
@@ -7621,12 +8229,13 @@ CASE_PHASES = {"flash": run_kernel_cases, "paged": run_paged_cases, "qmm": run_q
 # runs serve_lanes and serve_lanes_lora first, its streams; serve_swarm runs
 # serve and serve_lanes first, the streams it is held to; serve_overload and
 # serve_elastic run serve first; serve_batch runs generate_batched first, its
-# streams; serve_llama writes and splits its own checkpoint)
+# streams; serve_llama and serve_moe write and split their own checkpoints)
 SPLIT_PHASES = ("serve", "serve_quant", "serve_lanes", "serve_lanes_quant", "serve_lanes_lora",
                 "serve_tenant_routes", "serve_sessions", "serve_standby", "serve_swarm",
                 "serve_overload", "serve_elastic",
                 "generate", "generate_batched", "serve_batch", "serve_kstep", "serve_fp8",
-                "anatomy", "profile", "serve_llama")
+                "anatomy", "profile", "serve_llama", "serve_moe")
+OWN_CHECKPOINT = {"serve_llama": run_serve_llama, "serve_moe": run_serve_moe}
 
 
 def main(argv: List[str]) -> int:
@@ -7691,13 +8300,14 @@ def main(argv: List[str]) -> int:
         for name in only:
             if name in CASE_PHASES:
                 CASE_PHASES[name]()
-        split_only = [x for x in only if x in SPLIT_PHASES and x != "serve_llama"]
-        if "serve_llama" in only:
-            work = tempfile.mkdtemp(prefix="chip_smoke_")
-            try:
-                run_serve_llama(card, work)
-            finally:
-                shutil.rmtree(work, ignore_errors=True)
+        split_only = [x for x in only if x in SPLIT_PHASES and x not in OWN_CHECKPOINT]
+        for name, run in OWN_CHECKPOINT.items():
+            if name in only:
+                work = tempfile.mkdtemp(prefix="chip_smoke_")
+                try:
+                    run(card, work)
+                finally:
+                    shutil.rmtree(work, ignore_errors=True)
         if split_only:
             work = tempfile.mkdtemp(prefix="chip_smoke_")
             try:
@@ -7707,7 +8317,7 @@ def main(argv: List[str]) -> int:
                     serve = run_serve(card, parts, work)
                 if "serve_quant" in split_only:
                     for q in ("int8", "int4"):
-                        run_serve(card, parts, work, quant_flag=q)
+                        run_serve(card, parts, work, quant_flag=q, prompt_lens=ENGINE_PROMPT_LENS)
                 lanes = None
                 if {"serve_lanes", "serve_lanes_lora", "serve_swarm",
                         "serve_tenant_routes"} & set(split_only):
@@ -7779,6 +8389,7 @@ def main(argv: List[str]) -> int:
             free, total = torch.cuda.mem_get_info()
             say("nodes", f"the card before the node processes start: {free / 2**30:.2f} GiB "
                          f"free of {total / 2**30:.2f} GiB ({card})")
+            # the simulator needs no card: it runs while the processes start
             prestart_nodes(parts, work, [
                 ([], ""), (["--quant", "int8"], ""), (["--quant", "int4"], ""),
                 (LANE_NODE_ARGS, ""), (LANE_NODE_ARGS + ["--quant", "int8"], ""),
@@ -7789,14 +8400,15 @@ def main(argv: List[str]) -> int:
                          (parts1, BATCH_PAGED_ARGS, "_batchp"),
                          (parts1, WHOLE_LANE_ARGS, "_wlanes"),
                          (parts1, tenant_batch_args(dirs), "_batcht"),
-                         (parts1, FP8_NODE_ARGS, "_fp8")])
+                         (parts1, FP8_NODE_ARGS, "_fp8")],
+                meanwhile=lambda: run_sim(", beside the node processes starting"))
             free, _ = torch.cuda.mem_get_info()
             say("nodes", f"the card with every node process started: {free / 2**30:.2f} GiB "
                          f"free ({card})")
             return parts, parts1
 
         parts, parts1 = build_all(split_and_start)
-        lap("build, split, node start")
+        lap("build, split, node start, sim")
         # the kernels are timed with the node processes idle beside them
         cases = run_kernel_cases()
         paged_cases = run_paged_cases()
@@ -7805,13 +8417,11 @@ def main(argv: List[str]) -> int:
         lap("kernel cases")
         codec_rows = run_codec()
         lap("codec")
-        run_sim()
-        lap("sim")
         whole = whole_model(parts)
         serve = run_serve(card, parts, work)
         lap("serve")
-        serve_q = {q: run_serve(card, parts, work, quant_flag=q, baseline=serve)
-                   for q in ("int8", "int4")}
+        serve_q = {q: run_serve(card, parts, work, quant_flag=q, baseline=serve,
+                                prompt_lens=ENGINE_PROMPT_LENS) for q in ("int8", "int4")}
         lap("serve_quant_int8, serve_quant_int4")
         lanes = run_serve_lanes(card, parts, work)
         lap("serve_lanes")
@@ -7854,6 +8464,8 @@ def main(argv: List[str]) -> int:
         # pair and its checks have the card to themselves
         llama = run_serve_llama(card, work)
         lap("serve_llama")
+        moe = run_serve_moe(card, work)
+        lap("serve_moe")
     finally:
         stop_prestarted()
         shutil.rmtree(work, ignore_errors=True)
@@ -7866,7 +8478,7 @@ def main(argv: List[str]) -> int:
              "generate_quant": gen_q,
              "generate_batched": gen_b,
              "serve_batch": serve_b, "serve_kstep": kstep, "serve_fp8": fp8,
-             "anatomy": anat, "profile": prof, "serve_llama": llama}
+             "anatomy": anat, "profile": prof, "serve_llama": llama, "serve_moe": moe}
 
     def by_path(name):
         return {path: r["launches"][name] for path, r in paths.items() if r["launches"][name]}
@@ -7910,7 +8522,8 @@ def main(argv: List[str]) -> int:
     lora_launches = by_path("fused_lane_delta")
     main_case = next(c for c in cases if c["case"] == MAIN_CASE)
     paged_main = next(c for c in paged_cases if c["case"] == PAGED_MAIN_CASE)
-    paged_llama = next(c for c in paged_cases if c["case"] == f"{PAGED_MAIN_CASE}_d64g4")
+    paged_heads = [c for c in paged_cases
+                   if c["case"] in {f"{PAGED_MAIN_CASE}_{t}" for t in OTHER_HEADS}]
     paged_launches = by_path("paged_decode_gqa")
     flash_routes_all = {r: sum(res["flash_routes"][r] for res in paths.values())
                         for r in ("split", "mma")}
@@ -7918,10 +8531,10 @@ def main(argv: List[str]) -> int:
     def flash_entry(route, replaces, row, shape):
         """One entry per flash_gqa kernel: its Pallas kernel, the launches of
         its route, the errors of the cases that ran on it, its main case,
-        and beside it the same case at the Llama-3 heads."""
+        and beside it the same case at the Llama-3 and Qwen3-MoE heads."""
         on_route = [c for c in cases if c["route"] == route]
-        at_llama = {c["case"]: dict(timed(c), shape=f"Nq {c['Nq']}, Nkv {c['Nkv']}, D {c['D']}")
-                    for c in cases if c["case"] in {f"{row['case']}_{t}" for t in LLAMA_HEADS}}
+        at_heads = {c["case"]: dict(timed(c), shape=f"Nq {c['Nq']}, Nkv {c['Nkv']}, D {c['D']}")
+                    for c in cases if c["case"] in {f"{row['case']}_{t}" for t in OTHER_HEADS}}
         return dict({
             "name": f"flash_gqa.{route}",
             "route": "cuda",
@@ -7933,7 +8546,7 @@ def main(argv: List[str]) -> int:
             "max_abs_err": max(c["max_abs_err"] for c in on_route),
             "max_row_err": max(c["row_err"] for c in on_route
                                if c["dtype"].startswith("bfloat16")),
-        }, **timed(row), shape=shape, **at_llama)
+        }, **timed(row), shape=shape, **at_heads)
 
     kernels = {"kernels": [
         # the one wrapper's two kernels: split-KV (with its combine) for
@@ -7959,7 +8572,8 @@ def main(argv: List[str]) -> int:
             plan=paged_main["plan"],
             shape=f"{PAGED_MAIN_CASE}: B 8, bs 32, MB 32, kv_len {paged_main['kv_len']}, "
                   "Nq 16, Nkv 8, D 128, bf16",
-            **{paged_llama["case"]: dict(timed(paged_llama), shape="Nq 32, Nkv 8, D 64")}),
+            **{c["case"]: dict(timed(c), shape=f"Nq {c['Nq']}, Nkv {c['Nkv']}, D {c['D']}")
+               for c in paged_heads}),
         # library_ms: torch's own weight-only quantized product on the same
         # weight (library_call); dequant_matmul_yardstick_ms is torch.matmul
         # against the weight dequantized beforehand, what --quant none pays

@@ -49,10 +49,15 @@ kv bound), so the stage executors capture it too; paged writes are planned
 on the device (`paged_write_device`).
 
 This slice covers the dense decoder of the Qwen3, Qwen2 and Llama-3
-families, with unscaled, llama3 or yarn RoPE. MoE layers, sandwich norms
-and sliding windows raise NotImplementedError naming the ROADMAP item that
-brings them (an adapter operand on such a config raises, as in the
-reference); tensor/expert parallelism waits for a later slice.
+families, with unscaled, llama3 or yarn RoPE, and their mixture-of-experts
+layers (Qwen3-MoE, Mixtral, GPT-OSS's expert block: `moe_mlp`). An MoE
+layer keeps the reference's dense dispatch: every token goes through every
+expert and the combine weights zero the experts the router did not pick,
+so its shapes are static and it reads no device value (a CUDA graph
+captures it). Sandwich norms and sliding windows raise NotImplementedError
+naming the ROADMAP item that brings them (an adapter operand on an MoE or
+sliding-window config raises, as in the reference); tensor/expert
+parallelism waits for a later slice.
 """
 
 from __future__ import annotations
@@ -67,7 +72,7 @@ import torch.nn.functional as F
 from inferd_tpu_torch.config import ModelConfig
 from inferd_tpu_torch.ops import attention as attention_ops
 from inferd_tpu_torch.ops import lora as lora_ops
-from inferd_tpu_torch.ops.quant import qdot
+from inferd_tpu_torch.ops.quant import qdot, qeinsum
 from inferd_tpu_torch.utils.profiling import span
 
 Params = Dict[str, Any]
@@ -78,8 +83,6 @@ ROPE_SCALINGS = ("none", "llama3", "yarn")
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for architecture features this slice of the port lacks."""
     missing = []
-    if cfg.is_moe:
-        missing.append("MoE layers (ROADMAP A5c)")
     if cfg.sandwich_norm:
         missing.append("sandwich norms (ROADMAP A5b)")
     if cfg.sliding_window:
@@ -136,9 +139,22 @@ def init_layer_params(
         p["o_bias"] = torch.zeros((n, h), dtype=dt, device=device)
     if cfg.attn_sinks:
         p["sinks"] = torch.zeros((n, cfg.num_heads), dtype=dt, device=device)
-    p["gate_proj"] = w(h, i)
-    p["up_proj"] = w(h, i)
-    p["down_proj"] = w(i, h)
+    if cfg.is_moe:
+        e, mi = cfg.num_experts, cfg.moe_intermediate_size
+        p["router"] = w(h, e)
+        p["gate_proj"] = w(e, h, mi)
+        p["up_proj"] = w(e, h, mi)
+        p["down_proj"] = w(e, mi, h)
+        if cfg.router_bias:
+            p["router_bias"] = torch.zeros((n, e), dtype=dt, device=device)
+        if cfg.moe_bias:
+            p["gate_bias"] = torch.zeros((n, e, mi), dtype=dt, device=device)
+            p["up_bias"] = torch.zeros((n, e, mi), dtype=dt, device=device)
+            p["down_bias"] = torch.zeros((n, e, h), dtype=dt, device=device)
+    else:
+        p["gate_proj"] = w(h, i)
+        p["up_proj"] = w(h, i)
+        p["down_proj"] = w(i, h)
     return p
 
 
@@ -362,6 +378,89 @@ def swiglu_mlp(p: Params, x: torch.Tensor, act=F.silu, lane_adapters=None) -> to
     return lora_ops.apply_lane_delta(qdot(h, p["down_proj"]), h, "down_proj", lane_adapters)
 
 
+def top_k_lowest_first(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries along the last axis,
+    ordered as jax.lax.top_k orders them: descending, and among equal
+    values the lower index first. torch.topk promises no order among ties,
+    and a tie at the k-th place would pick another expert; a stable
+    descending sort does keep the lower index first, and runs inside a
+    captured graph."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route_topk(cfg: ModelConfig, router_logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Router logits [T, E] f32 -> (top-k weights [T, K] f32, top-k
+    indices [T, K]), in the reference's two routing modes:
+      softmax_topk (Qwen3-MoE, Mixtral): probabilities over ALL experts,
+        top-k selected, renormalized when cfg.norm_topk_prob;
+      topk_softmax (GPT-OSS): top-k over the raw LOGITS, softmax over the
+        k values selected."""
+    k = cfg.num_experts_per_tok
+    if cfg.moe_router_mode == "topk_softmax":
+        topv, topi = top_k_lowest_first(router_logits, k)
+        topw = torch.softmax(topv, dim=-1)
+    else:
+        probs = torch.softmax(router_logits, dim=-1)
+        topw, topi = top_k_lowest_first(probs, k)
+        if cfg.norm_topk_prob:
+            topw = topw / topw.sum(dim=-1, keepdim=True)
+    return topw, topi
+
+
+def route(cfg: ModelConfig, router_logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """route_topk densified to combine weights [T, E] f32 (zero where an
+    expert was not picked), and the top-k indices."""
+    topw, topi = route_topk(cfg, router_logits)
+    comb = torch.zeros((router_logits.shape[0], cfg.num_experts), dtype=torch.float32,
+                       device=router_logits.device)
+    return comb.scatter_add_(1, topi, topw.float()), topi
+
+
+def expert_ffn(p: Params, cfg: ModelConfig, xt: torch.Tensor) -> torch.Tensor:
+    """Dense-dispatch expert feed-forward: [T, H] -> [T, E, H], every token
+    through every expert (the caller's combine weights zero the experts
+    not picked). Two flavours: plain SwiGLU (Qwen3-MoE, Mixtral) and
+    GPT-OSS's biased clamped GLU: gate clamped above at swiglu_limit, up
+    clamped to +-limit, glu = gate * sigmoid(1.702 * gate), out =
+    (up + 1) * glu. The expert stacks may be quantized (ops.quant.qeinsum)."""
+    # the reference's "th,ehi->tei" with the expert axis made a batch axis
+    # of both operands: the product then reads each expert's [H, I] where it
+    # lies (torch.einsum would copy the whole stack to contract over h)
+    xe = xt.expand(cfg.num_experts, *xt.shape)
+    gate = qeinsum("eth,ehi->tei", xe, p["gate_proj"])
+    up = qeinsum("eth,ehi->tei", xe, p["up_proj"])
+    if cfg.moe_bias:
+        gate = gate + p["gate_bias"][None]
+        up = up + p["up_bias"][None]
+    if cfg.swiglu_limit > 0:
+        lim = cfg.swiglu_limit
+        gate = torch.clamp(gate, max=lim)
+        up = torch.clamp(up, -lim, lim)
+        act_out = (up + 1.0) * (gate * torch.sigmoid(1.702 * gate))
+    else:
+        act_out = F.silu(gate) * up
+    expert_out = qeinsum("tei,eih->teh", act_out, p["down_proj"])
+    if cfg.moe_bias:
+        expert_out = expert_out + p["down_bias"][None]
+    return expert_out
+
+
+def moe_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Mixture-of-experts feed-forward [B, S, H] -> [B, S, H]: the router
+    (never quantized) in f32, its combine weights (`route`), every
+    expert's output (`expert_ffn`), summed under those weights."""
+    b, s, h = x.shape
+    xt = x.reshape(b * s, h)
+    router_logits = (xt @ p["router"]).float()  # [T, E]
+    if cfg.router_bias:
+        router_logits = router_logits + p["router_bias"].float()
+    comb, _ = route(cfg, router_logits)
+    expert_out = expert_ffn(p, cfg, xt)
+    out = torch.einsum("teh,te->th", expert_out, comb.to(expert_out.dtype))
+    return out.reshape(b, s, h)
+
+
 def _attend(
     cfg: ModelConfig,
     q: torch.Tensor,
@@ -517,7 +616,10 @@ def decoder_layer(
         attn_out = attn_out + lp["o_bias"]
     hidden = hidden + attn_out.to(hidden.dtype)
     x = rms_norm(hidden, lp["post_norm"], cfg.rms_norm_eps, p1)
-    mlp_out = swiglu_mlp(lp, x, act_fn(cfg), lane_adapters=adapters)
+    if cfg.is_moe:  # forward_layers refuses an adapter operand here
+        mlp_out = moe_mlp(lp, cfg, x)
+    else:
+        mlp_out = swiglu_mlp(lp, x, act_fn(cfg), lane_adapters=adapters)
     return hidden + mlp_out.to(hidden.dtype), k_buf, v_buf
 
 

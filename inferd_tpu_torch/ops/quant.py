@@ -25,8 +25,16 @@ launches the hand-written decode GEMV (`csrc/qmatmul.cu`) or raises; more
 rows, stacked weights and CPU tensors take the reference's plain product
 (its XLA sibling) in PyTorch. There is no other route and no fallback.
 
+`qeinsum` is the MoE experts' contraction site ("th,ehi->tei" and
+"tei,eih->teh" over [E, K, N] stacks): a plain einsum over the int8
+weight widened to x.dtype with the per-output scale after it, and for
+int4 the reference's grouped contraction (`_int4_grouped_einsum`): a
+partial sum per group of K, its scale applied, summed over the groups.
+Those products are dense-dispatch expert stacks, which no GEMV kernel
+takes; they stay plain products on every device.
+
 Not ported here (ROADMAP A6): w8a8 (the reference's `QDOT_MODE="int8"`: a
-dynamic int8 x int8 product), `qeinsum` (MoE experts) and the autotune
+dynamic int8 x int8 product) and the autotune
 registry with its "slower than bf16" warning. With no w8a8 and no
 registry, the reference's `QDOT_MODE` has nothing left to choose, so the
 port has none: `--quant int8` and `int8-kernel` quantize and route alike.
@@ -207,6 +215,63 @@ def qdot(x: torch.Tensor, w: WeightLike) -> torch.Tensor:
         y = qmatmul.w8a16_matmul(x.reshape(-1, x.shape[-1]), w.q, w.scale)
         return y.reshape(*lead, w.shape[-1])
     y = x @ w.q.to(x.dtype)
+    return (y.float() * w.scale).to(x.dtype)
+
+
+_GROUP_LETTERS = "gzyxwvu"
+
+
+def _int4_grouped_einsum(spec: str, x: torch.Tensor, w: Int4Weight):
+    """The grouped contraction of an Int4Weight under a one-contraction
+    einsum: the contraction axis split into (G, K/G) on both operands, a
+    partial sum per group on the narrow operand, each group's scale on its
+    own partial sum and the groups summed in one last einsum: the int4
+    sibling of qdot's grouped path, for the MoE expert einsums. None when
+    the spec does not have that shape (the caller then widens the weight)."""
+    try:
+        ins, out = spec.split("->")
+        xs_, ws_ = ins.split(",")
+    except ValueError:
+        return None
+    shared = [ch for ch in ws_ if ch in xs_ and ch not in out]
+    if len(shared) != 1:
+        return None
+    c = shared[0]
+    # quantize_int4 groups along the weight's -2 axis; x contracts on its last
+    if ws_.index(c) != len(ws_) - 2 or xs_.index(c) != len(xs_) - 1:
+        return None
+    # every other weight axis must reach the output: an axis summed before
+    # the scale multiply would scale a sum of partials by a sum of scales
+    if any(ch not in out for ch in ws_ if ch != c):
+        return None
+    g_letter = next(ch for ch in _GROUP_LETTERS if ch not in spec)
+    qi = w.unpacked()
+    k = qi.shape[-2]
+    groups = w.scale.shape[-2]
+    xg = x.reshape(*x.shape[:-1], groups, k // groups)
+    qg = qi.reshape(*qi.shape[:-2], groups, k // groups, qi.shape[-1]).to(x.dtype)
+    y = torch.einsum(f"{xs_.replace(c, g_letter + c)},{ws_.replace(c, g_letter + c)}"
+                     f"->{g_letter}{out}", xg, qg)
+    # the scale [..., G, N] carries the weight's other letters with the
+    # groups in place of c: scale and sum over the groups in one einsum
+    return torch.einsum(f"{g_letter}{out},{ws_.replace(c, g_letter)}->{out}",
+                        y.float(), w.scale).to(x.dtype)
+
+
+def qeinsum(spec: str, x: torch.Tensor, w: WeightLike) -> torch.Tensor:
+    """einsum over a possibly quantized weight whose scale is per output
+    (valid when every weight axis but the contraction reaches the output,
+    as in the MoE expert einsums: [t, e, i] * scale [e, i]). An
+    Int4Weight contracts under INT4_MODE, grouped where the spec allows."""
+    if isinstance(w, Int4Weight):
+        if INT4_MODE == "grouped":
+            y = _int4_grouped_einsum(spec, x, w)
+            if y is not None:
+                return y
+        return torch.einsum(spec, x, w.dequantize(x.dtype))
+    if not isinstance(w, QuantWeight):
+        return torch.einsum(spec, x, w)
+    y = torch.einsum(spec, x, w.q.to(x.dtype))
     return (y.float() * w.scale).to(x.dtype)
 
 

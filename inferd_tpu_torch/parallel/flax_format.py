@@ -11,8 +11,13 @@ msgpack, so this module speaks the subset those files use, with `struct`:
 
 For the same nested dict of arrays it writes the bytes flax writes (flax
 keeps dict insertion order and picks the smallest encodings, as here).
-flax splits leaves over 1 GiB into a chunked form; this module refuses that
-form in both directions (no Qwen3-0.6B leaf comes near it).
+
+A leaf of more than MAX_CHUNK_SIZE bytes (1 GiB: an MoE stage's expert
+stack, a large vocabulary's embedding) goes in flax's chunked form, in
+both directions: in its place a map {"__msgpack_chunked_array__": True,
+"shape": {"0": d0, ...}, "chunks": {"0": leaf, ...}}, whose chunks are
+the flattened leaf cut every MAX_CHUNK_SIZE / itemsize elements, each an
+ext-1 leaf of its own.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import torch
 from inferd_tpu_torch.models.convert import tensor_to_numpy
 
 _EXT_NDARRAY = 1
-_FLAX_MAX_CHUNK = 2**30  # flax.serialization.MAX_CHUNK_SIZE
+MAX_CHUNK_SIZE = 2**30  # flax.serialization.MAX_CHUNK_SIZE
+_CHUNKED = "__msgpack_chunked_array__"
 
 _TORCH_BY_NAME = {
     "float32": torch.float32, "float64": torch.float64, "float16": torch.float16,
@@ -105,8 +111,9 @@ def _pack_ext(code: int, data: bytes, out: List[Any]) -> None:
     out.append(data)
 
 
-def _leaf_parts(x: Any) -> Tuple[Tuple[int, ...], str, Any]:
-    """(shape, dtype name, raw bytes) of a torch or numpy array leaf."""
+def _leaf_parts(x: Any) -> Tuple[Tuple[int, ...], str, np.ndarray]:
+    """(shape, dtype name, the values flattened) of a torch or numpy array
+    leaf; a bf16 tensor's values are its 16-bit patterns."""
     if isinstance(x, torch.Tensor):
         if x.dtype not in _NAME_BY_TORCH:
             raise TypeError(f"unsupported leaf dtype {x.dtype}")
@@ -116,13 +123,35 @@ def _leaf_parts(x: Any) -> Tuple[Tuple[int, ...], str, Any]:
     else:
         a = np.asarray(x)
         name, shape = a.dtype.name, a.shape
-    a = np.ascontiguousarray(a)
-    if a.nbytes > _FLAX_MAX_CHUNK:
-        raise ValueError(
-            f"leaf of {a.nbytes} bytes: flax would write it chunked, a form "
-            "this port does not write"
-        )
-    return shape, name, memoryview(a.reshape(-1).view(np.uint8))
+    return shape, name, np.ascontiguousarray(a).reshape(-1)
+
+
+def _pack_ndarray(shape, name: str, flat: np.ndarray, out: List[Any]) -> None:
+    inner: List[Any] = []
+    _pack([list(shape), name, memoryview(flat.view(np.uint8))], inner)
+    _pack_ext(_EXT_NDARRAY, b"".join(inner), out)
+
+
+def _pack_leaf(x: Any, out: List[Any]) -> None:
+    """One array leaf: ext 1, or flax's chunked map when it holds more than
+    MAX_CHUNK_SIZE bytes."""
+    shape, name, flat = _leaf_parts(x)
+    if flat.nbytes <= MAX_CHUNK_SIZE:
+        _pack_ndarray(shape, name, flat, out)
+        return
+    size = max(1, int(MAX_CHUNK_SIZE / flat.itemsize))
+    starts = range(0, flat.size, size)
+    _pack_len(3, 0x80, 16, (0, 0xDE, 0xDF), out)
+    _pack_str(_CHUNKED, out)
+    _pack(True, out)
+    _pack_str("shape", out)
+    _pack({str(i): int(d) for i, d in enumerate(shape)}, out)
+    _pack_str("chunks", out)
+    _pack_len(len(starts), 0x80, 16, (0, 0xDE, 0xDF), out)
+    for i, j in enumerate(starts):
+        _pack_str(str(i), out)
+        chunk = flat[j:j + size]
+        _pack_ndarray((chunk.size,), name, chunk, out)
 
 
 def _pack(obj: Any, out: List[Any]) -> None:
@@ -152,19 +181,23 @@ def _pack(obj: Any, out: List[Any]) -> None:
             _pack_str(k, out)
             _pack(v, out)
     elif isinstance(obj, (torch.Tensor, np.ndarray)):
-        shape, name, raw = _leaf_parts(obj)
-        inner: List[Any] = []
-        _pack([list(shape), name, raw], inner)
-        _pack_ext(_EXT_NDARRAY, b"".join(inner), out)
+        _pack_leaf(obj, out)
     else:
         raise TypeError(f"cannot serialize {type(obj)!r}")
 
 
-def dumps(tree: Any) -> bytes:
-    """Serialize a nested dict of str / int / arrays like flax.serialization.to_bytes."""
+def pieces(tree: Any) -> List[Any]:
+    """dumps(tree) as the list of buffers it joins: the array leaves'
+    bytes where they lie (a writer or a reader can take them one by one,
+    with no copy of the whole blob)."""
     out: List[Any] = []
     _pack(tree, out)
-    return b"".join(out)
+    return out
+
+
+def dumps(tree: Any) -> bytes:
+    """Serialize a nested dict of str / int / arrays like flax.serialization.to_bytes."""
+    return b"".join(pieces(tree))
 
 
 # -- decoder ------------------------------------------------------------------
@@ -231,8 +264,10 @@ class _Reader:
         for _ in range(n):
             k = self.value()
             out[k] = self.value()
-        if "__msgpack_chunked_array__" in out:
-            raise ValueError("flax chunked array leaves (over 1 GiB) are not supported")
+        if _CHUNKED in out:  # flax's chunked leaf: the chunks joined, reshaped
+            shape = tuple(int(out["shape"][str(i)]) for i in range(len(out["shape"])))
+            chunks = [out["chunks"][str(i)] for i in range(len(out["chunks"]))]
+            return torch.cat(chunks).reshape(shape)
         return out
 
     def _ext(self, code: int, data: memoryview) -> torch.Tensor:

@@ -151,13 +151,15 @@ class Manifest:
 
     @staticmethod
     def even_split(
-        model_name: str, num_stages: int, replicas: Optional[List[int]] = None
+        model_name: str, num_stages: int, replicas: Optional[List[int]] = None,
+        num_layers: int = 0,
     ) -> "Manifest":
-        """Even layer split into num_stages; replicas[s] nodes per stage."""
-        cfg = get_config(model_name)
+        """Even layer split into num_stages; replicas[s] nodes per stage.
+        `num_layers` splits the preset's first layers only (a depth cut)."""
+        layers = num_layers or get_config(model_name).num_layers
         replicas = replicas or [1] * num_stages
-        per = cfg.num_layers // num_stages
-        extra = cfg.num_layers % num_stages
+        per = layers // num_stages
+        extra = layers % num_stages
         nodes, start = [], 0
         for s in range(num_stages):
             end = start + per + (1 if s < extra else 0) - 1
@@ -414,11 +416,7 @@ def extract_stage_params(full: Params, cfg: ModelConfig, spec: StageSpec) -> Par
     return out
 
 
-def save_stage_checkpoint(
-    path: str, stage_params: Params, spec: StageSpec, model_name: str
-) -> None:
-    """Write one stage's params + metadata in the flax msgpack format."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+def _stage_tree(stage_params: Params, spec: StageSpec, model_name: str) -> Dict[str, Any]:
     meta = {
         "model_name": model_name,
         "stage": spec.stage,
@@ -426,10 +424,24 @@ def save_stage_checkpoint(
         "start_layer": spec.start_layer,
         "end_layer": spec.end_layer,
     }
-    blob = flax_format.dumps({"meta_json": json.dumps(meta), "params": stage_params})
+    return {"meta_json": json.dumps(meta), "params": stage_params}
+
+
+def stage_checkpoint_pieces(stage_params: Params, spec: StageSpec, model_name: str) -> List[Any]:
+    """One stage's params + metadata in the flax msgpack format, as the
+    buffers save_stage_checkpoint writes one after another
+    (flax_format.pieces)."""
+    return flax_format.pieces(_stage_tree(stage_params, spec, model_name))
+
+
+def save_stage_checkpoint(
+    path: str, stage_params: Params, spec: StageSpec, model_name: str
+) -> None:
+    """Write one stage's params + metadata in the flax msgpack format."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "wb") as f:
-        f.write(blob)
+        f.writelines(stage_checkpoint_pieces(stage_params, spec, model_name))
     os.replace(tmp, path)
 
 

@@ -10,7 +10,7 @@ write), each timed alone:
                over the populated cache (the production kernel: flash_gqa
                with device spans and the step's kv bound, or, paged,
                paged_decode_gqa through a block table) + o_proj + residual
-    mlp        L layers: pre-norm + SwiGLU + residual
+    mlp        L layers: pre-norm + SwiGLU (or the MoE layer) + residual
     lm_head    final norm + unembed product (the quantized shadow if any)
     sampling   the sampler over a [B, V] row, from uniforms drawn beforehand
     kv_write   one slot of every layer's K and V written in place
@@ -265,7 +265,8 @@ def _build_suite(
         for i in range(n_layers):
             lp = {name: a[i] for name, a in layers.items()}
             x = qwen3.rms_norm(hh, lp["post_norm"], eps, p1)
-            hh = hh + qwen3.swiglu_mlp(lp, x, act).to(hh.dtype)
+            out = qwen3.moe_mlp(lp, cfg, x) if cfg.is_moe else qwen3.swiglu_mlp(lp, x, act)
+            hh = hh + out.to(hh.dtype)
         return {"h": _bounded(hh)}
 
     # ---- lm head -----------------------------------------------------------

@@ -873,9 +873,7 @@ class Node:
                             "keeps and promotes its peers' shadows but replicates none of its "
                             "own sessions (a crash restarts them at their clients)",
                             type(self.executor).__name__)
-            self._repl_thread = threading.Thread(target=self._repl_loop, daemon=True,
-                                                 name=f"repl-{self.port}")
-            self._repl_thread.start()
+            self._start_repl()
         return self
 
     def stop(self) -> None:
@@ -921,6 +919,13 @@ class Node:
         if self.chaos is not None:
             self.chaos.cancel_stalls()
         self._close_server(cut=True)  # and whatever arrived meanwhile
+
+    def _start_repl(self) -> None:
+        """Start the replication thread (start() does, with --standby-repl)."""
+        self._repl_stop.clear()
+        self._repl_thread = threading.Thread(target=self._repl_loop, daemon=True,
+                                             name=f"repl-{self.port}")
+        self._repl_thread.start()
 
     def _stop_repl(self) -> None:
         """Stop the replication thread (a ship in flight ends first)."""

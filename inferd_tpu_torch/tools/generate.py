@@ -14,11 +14,14 @@ the decoded text with `--prompt`) on stdout and the rate on stderr.
 
 Usage:
   python -m inferd_tpu_torch.tools.generate --model llama3.2-1b [--random-init] \\
-      --prompt-ids 3,7,11 --max-new-tokens 16 [--chunk 8] [--device cuda|cpu] \\
+      [--num-layers N] --prompt-ids 3,7,11 --max-new-tokens 16 [--chunk 8] [--device cuda|cpu] \\
       [--engine plain|batched [--lanes 4]] \\
       [--quant none|int8|int8-kernel|int4] [--kv-dtype model|float8_e4m3fn] \\
       [--attn auto|flash|xla] [--lora DIR] [--pin-prefix-ids 3,7 --max-pins 4] \\
       [--temperature 0.6 --top-k 20 --top-p 0.95 --min-p 0 --seed 0] [--max-len 2048]
+
+`--num-layers N` keeps the preset's first N layers, for a checkpoint cut to
+that depth at the preset's width.
 
 Not ported yet, and refused with the ROADMAP item that brings them:
 `--engine speculative` (A7) and `--quant w8a8` (A6). Without a local
@@ -51,6 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="generate", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", default="tiny")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="the preset's first N layers only (a checkpoint cut to that depth; "
+                    "default: all)")
     ap.add_argument("--random-init", action="store_true",
                     help="seeded random weights instead of the preset's local checkpoint")
     ap.add_argument("--prompt", default="", help="text prompt (needs a tokenizer)")
@@ -103,6 +109,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     from inferd_tpu_torch.models import loader, qwen3
 
     cfg = get_config(args.model)
+    if args.num_layers:
+        cfg = cfg.with_layers(args.num_layers)
     if args.kv_dtype != "model":
         cfg = dataclasses.replace(cfg, kv_dtype=args.kv_dtype)
     if args.attn != "auto":

@@ -8,9 +8,13 @@ the chosen device; splits the layer stack evenly into N stages and writes
 `stage_NNN.msgpack` files in the JAX package's format (the same bytes its
 tool writes from the same weights).
 
+`--num-layers N` keeps the preset's first N layers: a checkpoint cut to
+that depth at the preset's width (the stage files name the preset, and a
+node serves their layer ranges).
+
 Usage:
   python -m inferd_tpu_torch.tools.split_model --model llama3.2-1b --stages 2 \\
-      [--weights DIR_OR_REPO] --out parts/ [--device cuda|cpu]
+      [--weights DIR_OR_REPO] [--num-layers N] --out parts/ [--device cuda|cpu]
   python -m inferd_tpu_torch.tools.split_model --model qwen3-0.6b --stages 2 \\
       --random-init --seed 0 --out parts/
 """
@@ -39,12 +43,16 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     ap.add_argument("--random-init", action="store_true",
                     help="seeded random weights instead of a checkpoint")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="the preset's first N layers only (a depth cut; default: all)")
     ap.add_argument("--device", default="cuda", choices=DEVICE_CHOICES,
                     help="device that holds the weights while they are split (default cuda)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.model)
-    manifest = Manifest.even_split(cfg.name, args.stages)
+    if args.num_layers:
+        cfg = cfg.with_layers(args.num_layers)
+    manifest = Manifest.even_split(cfg.name, args.stages, num_layers=cfg.num_layers)
     if args.random_init:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = qwen3.init_params(cfg, gen, device=device)

@@ -8,7 +8,8 @@ optional "__metadata__" map of strings to strings; then the tensors' raw
 little-endian bytes, packed back to back.
 
 Dtypes handled: F32, F16 and BF16 (what peft adapters and dense HF
-checkpoints hold); any other raises. `get_tensor` returns a numpy array;
+checkpoints hold) and U8 (GPT-OSS's MXFP4 expert blocks and scales); any
+other raises. `get_tensor` returns a numpy array;
 BF16 has no numpy type without ml_dtypes, so it is widened to float32
 through its 16-bit pattern (`uint16 << 16`), which is exact. `get_torch`
 returns a torch tensor in the file's own dtype, a BF16 one over the file's
@@ -26,8 +27,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-_NP_DTYPES = {"F32": np.float32, "F16": np.float16}
+_NP_DTYPES = {"F32": np.float32, "F16": np.float16, "U8": np.uint8}
 _CODES = {np.dtype(v).newbyteorder("<").str: k for k, v in _NP_DTYPES.items()}
+# the package's order of dtypes in a file, widest first (its Dtype enum, reversed)
+_WRITE_RANK = {"F32": 3, "BF16": 2, "F16": 1, "U8": 0}
 # a header larger than this is not a safetensors file (the package's own cap)
 MAX_HEADER_BYTES = 100_000_000
 
@@ -140,15 +143,17 @@ def _encode(value: Any) -> tuple:
 
 def save_file(tensors: Dict[str, Any], path: str,
               metadata: Optional[Dict[str, str]] = None) -> None:
-    """Write `tensors` (name -> numpy array or torch tensor) to `path`, in
-    name order, the header padded with spaces to a multiple of 8 bytes as
-    the safetensors package pads it."""
+    """Write `tensors` (name -> numpy array or torch tensor) to `path` as
+    the safetensors package writes them: the wider dtypes first (F32,
+    BF16, F16, U8: its alignment order), by name within a dtype, the
+    header padded with spaces to a multiple of 8 bytes."""
     header: Dict[str, Any] = {}
     if metadata:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
+    encoded = {name: _encode(value) for name, value in tensors.items()}
     blobs, offset = [], 0
-    for name in sorted(tensors):
-        code, shape, data = _encode(tensors[name])
+    for name in sorted(encoded, key=lambda n: (-_WRITE_RANK[encoded[n][0]], n)):
+        code, shape, data = encoded[name]
         header[name] = {"dtype": code, "shape": shape,
                         "data_offsets": [offset, offset + len(data)]}
         blobs.append(data)

@@ -30,7 +30,7 @@ torch.set_num_threads(2)
 CPU = torch.device("cpu")
 
 
-@pytest.mark.parametrize("preset", ["tiny", "tiny-qwen2"])  # the presets the port runs
+@pytest.mark.parametrize("preset", ["tiny", "tiny-qwen2", "tiny-moe"])  # presets the port runs
 @pytest.mark.parametrize("quant", ["none", "int8", "int4"])
 def test_phase_bytes_equal_reference_build_suite(preset, quant):
     for ctx, batch in ((32, 1), (64, 2)):

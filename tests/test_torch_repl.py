@@ -516,11 +516,16 @@ def _freeze(node):
 def test_promotion_continues_token_exact_with_no_restart(parts, expected):
     nodes = _swarm(parts)
     s0, r1a, r1b = nodes
+    # the holder replicates from its first token on: its first ship then
+    # carries the whole prompt (both chunks), whenever its first tick falls
+    _freeze(r1a)
     try:
         seen, at = [], {}
 
         def on_token(tok):
             seen.append(tok)
+            if len(seen) == 1:
+                r1a._start_repl()
             if len(seen) == 3:
                 at["sid"], at["F"] = _replicated(r1a, r1b)
                 r1a.crash()

@@ -92,6 +92,48 @@ def test_port_parts_load_in_jax_bit_exact(tmp_path, dtype):
             assert np.asarray(a).tobytes() == b.tobytes()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_moe_stage_files_equal_flax(tmp_path, monkeypatch, dtype):
+    """flax's chunked leaf (every leaf over MAX_CHUNK_SIZE bytes), the
+    limit lowered in both packages to 3000 bytes so tiny-moe's expert
+    stacks, projections and embedding cross it (3000 is no multiple of a
+    leaf's size, so each last chunk is short): the port's stage files are the bytes
+    the JAX split writes from the same params, each package loads the
+    other's, and the port's loader gives back every parameter."""
+    import flax.serialization
+
+    from inferd_tpu_torch.parallel import flax_format
+
+    monkeypatch.setattr(flax.serialization, "MAX_CHUNK_SIZE", 3000)
+    monkeypatch.setattr(flax_format, "MAX_CHUNK_SIZE", 3000)
+    cfg_j = dataclasses.replace(jcfg.TINY_MOE, dtype=dtype)
+    cfg_t = dataclasses.replace(tcfg.TINY_MOE, dtype=dtype)
+    jp = jq.init_params(cfg_j, jax.random.PRNGKey(2))
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp))
+    manifest = jstages.Manifest.even_split("tiny-moe", 2)
+    jpaths = jstages.split_and_save(jp, cfg_j, manifest, str(tmp_path / "j"))
+    tpaths = tstages.split_and_save(tp, cfg_t, tstages.Manifest.even_split("tiny-moe", 2),
+                                    str(tmp_path / "t"))
+    for jpath, tpath, spec in zip(jpaths, tpaths, manifest.stage_specs()):
+        with open(jpath, "rb") as a, open(tpath, "rb") as b:
+            blob = b.read()
+            assert a.read() == blob
+        # the expert stacks, the router and the attention projections at least
+        assert blob.count(b"__msgpack_chunked_array__") >= 8
+        got, tspec, name = tstages.load_stage_checkpoint(jpath)
+        want = tstages.extract_stage_params(tp, cfg_t, tstages.StageSpec(
+            spec.stage, spec.num_stages, spec.start_layer, spec.end_layer))
+        assert name == "tiny-moe" and got.keys() == want.keys()
+        for k in want:
+            pairs = ([(got[k][n], want[k][n]) for n in want[k]] if isinstance(want[k], dict)
+                     else [(got[k], want[k])])
+            for a, b in pairs:
+                assert a.dtype == b.dtype and torch.equal(a, b), k
+        jback, _, _ = jstages.load_stage_checkpoint(tpath)
+        assert jax.tree.structure(jback) == jax.tree.structure(
+            jstages.extract_stage_params(jp, cfg_j, spec))
+
+
 def test_chain_matches_jax_prefill_decode_and_replay(jax_parts):
     jex, tex = _executors(jax_parts)
     prompt = np.random.default_rng(0).integers(0, 256, 17).tolist()
